@@ -7,27 +7,38 @@ CUDA card.
 Phases, each printing one JSON line; any failure raises and the script
 exits nonzero without the final ``ok`` line:
 
-1. device — the card's name, and its name and power limit as
+1. device  — the card's name, and its name and power limit as
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
    them (also printed raw on a line of its own);
-2. build  — every ``znicz_tpu_torch/csrc/*.cu`` compiled with nvcc for
+2. build   — every ``znicz_tpu_torch/csrc/*.cu`` compiled with nvcc for
    sm_90a from this checkout (one nvcc per source, started together);
-3. kernel — each kernel's wrapper against its plain PyTorch version on the
-   card at the main path's shapes and a few more, with the stated
-   tolerances; times of kernel, plain version and the byte/flop bound;
-4. slice  — the fused MNIST trainer at full width (784→100→10, batch 100,
+3. kernel  — each kernel's wrapper against its plain PyTorch version on the
+   card at the main paths' shapes and a few more (ragged, padded and
+   overlapping windows, max-abs, ties, an even LRN window, β ≠ 0.75), with
+   the stated tolerances; times of kernel, plain version, library call and
+   the byte/flop bound;
+4. slice   — the fused MNIST trainer at full width (784→100→10, batch 100,
    50k/10k/10k synthetic split resident on the card) for 2 epochs through
-   ``models.mnist.run``, with every kernel's launch count reset just before
-   and read just after; the counts must equal the steps the loop ran;
-5. parity — the same seed for one epoch on the CPU; epoch-0 losses agree
-   within rtol 1e-4 and error counts within 0.1% of each class's size;
-6. the ``kernels`` line, then ``{"ok": true, "device": {...}}`` last.
+   ``models.mnist.run``, every kernel's launch count reset just before and
+   read just after; each count must equal the steps the loop ran;
+5. parity  — the same seed for one MNIST epoch on the CPU; epoch-0 losses
+   agree within rtol 1e-4 and error counts within 0.1% of each class;
+6. cifar slice — the CIFAR-10 conv net at full width (BASELINE config 2,
+   batch 100, the 45k/5k/10k synthetic split at 32×32×3 resident on the
+   card) for 2 epochs through ``models.cifar.run``, with the launch counts
+   reset and read around it as in phase 4;
+7. cifar parity — the model's default split (2000/400/400) for one epoch on
+   the card and on the CPU; epoch-0 losses agree within rtol 5e-4 (the
+   reference's tolerance for conv stacks) and error counts within 1% of
+   each class (cuDNN's summation order flips near-ties);
+8. the ``kernels`` line, then ``{"ok": true, "device": {...}}`` last.
 
 It imports nothing of JAX or of the ``znicz_tpu`` package.  Without a CUDA
 device, or outside a checkout of the repository, it fails."""
 
 from __future__ import annotations
 
+import importlib
 import json
 import math
 import os
@@ -43,11 +54,49 @@ FP32_FLOPS_PER_S = 67e12
 SEED = 1234
 MNIST_SPLIT = {"n_train": 50000, "n_valid": 10000, "n_test": 10000,
                "noise": 0.35}
+#: CIFAR-10's real split; the parity run takes the model's default split
+CIFAR_SPLIT = {"n_train": 45000, "n_valid": 5000, "n_test": 10000,
+               "noise": 0.3, "size": 32}
+CIFAR_PARITY_SPLIT = {"n_train": 2000, "n_valid": 400, "n_test": 400,
+                      "noise": 0.3, "size": 32}
 EPOCHS = 2
+ITERS = 200
+
+#: name → (source, the TPU kernel it replaces, ops module, counter)
+KERNELS = {
+    "softmax_ce": ("znicz_tpu_torch/csrc/softmax_ce.cu",
+                   "znicz_tpu/ops/softmax.py:119", "softmax",
+                   "softmax_ce_launches"),
+    "pool_select": ("znicz_tpu_torch/csrc/pooling.cu",
+                    "znicz_tpu/ops/elementwise.py:324", "pooling",
+                    "pool_select_launches"),
+    "pool_scatter": ("znicz_tpu_torch/csrc/pooling.cu",
+                     "znicz_tpu/ops/elementwise.py:355", "pooling",
+                     "pool_scatter_launches"),
+    "lrn_y": ("znicz_tpu_torch/csrc/lrn.cu",
+              "znicz_tpu/ops/elementwise.py:290", "normalization",
+              "lrn_y_launches"),
+    "gd_lrn_x": ("znicz_tpu_torch/csrc/lrn.cu",
+                 "znicz_tpu/ops/elementwise.py:299", "normalization",
+                 "gd_lrn_x_launches"),
+}
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def _ops(module: str):
+    return importlib.import_module(f"znicz_tpu_torch.ops.{module}")
+
+
+def launch_counts() -> dict:
+    return {k: getattr(_ops(m), a) for k, (_, _, m, a) in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for _, _, m, a in KERNELS.values():
+        setattr(_ops(m), a, 0)
 
 
 def phase_device(torch) -> dict:
@@ -72,9 +121,13 @@ def phase_build() -> None:
     emit({"phase": "build", "seconds": time.monotonic() - t0,
           "nvcc": cuda_build.nvcc_path(),
           "libraries": {n: os.path.relpath(p) for n, p in paths.items()}})
+    missing = {src for src, _, _, _ in KERNELS.values()} - {
+        f"znicz_tpu_torch/csrc/{n}.cu" for n in paths}
+    if missing:
+        raise AssertionError(f"not built: {sorted(missing)}")
 
 
-def _time_ms(torch, fn, iters: int) -> tuple[float, float]:
+def _time_ms(torch, fn, iters: int = ITERS) -> tuple[float, float]:
     """(device ms per call from a CUDA-graph replay of ``iters`` calls,
     ms per call of an eager loop).  The graph replay shows the device work
     alone; the eager loop adds the host's launch overhead."""
@@ -101,19 +154,90 @@ def _time_ms(torch, fn, iters: int) -> tuple[float, float]:
     return device_ms, start.elapsed_time(end) / iters
 
 
-def softmax_ce_bound_ms(n: int, c: int) -> tuple[float, str]:
-    """Least time for the softmax-CE function on the card: logits and
-    labels read once, probs, err and loss written once; about 6 float
-    operations per element (sub, exp, add, div, sub, compare) against the
-    float32 peak."""
-    nbytes = n * c * 4 + n * 4 + 2 * n * c * 4 + n * 4
-    ops = 6 * n * c
+# -- bounds: bytes over the HBM rate vs float operations over the peak -------
+def _bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """The least time in ms: the larger of bytes over the HBM rate and
+    float operations over the float32 peak, and which of the two it is."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_kernel(torch) -> dict:
+def softmax_ce_bound_ms(n: int, c: int) -> tuple[float, str]:
+    """logits and labels read once, probs, err and loss written once; about
+    6 float operations per element (sub, exp, add, div, sub, compare)."""
+    return _bound(n * c * 4 + n * 4 + 2 * n * c * 4 + n * 4, 6 * n * c)
+
+
+def pool_select_bound_ms(x_numel: int, y_numel: int, taps: int):
+    """x read once, y and the int32 slots written once; an |x| and a
+    compare per tap of each output."""
+    return _bound(x_numel * 4 + 2 * y_numel * 4, 2 * taps * y_numel)
+
+
+def pool_scatter_bound_ms(x_numel: int, y_numel: int, taps: int):
+    """err and the slots read once, dx written once; a compare and an add
+    per tap of each window."""
+    return _bound(2 * y_numel * 4 + x_numel * 4, 2 * taps * y_numel)
+
+
+def lrn_y_bound_ms(numel: int, n: int):
+    """x read once, y written once; per element n squares and n−1 adds
+    for the window, a multiply-add for d, two square roots, a multiply and
+    a divide for d^−β, and a multiply for y."""
+    return _bound(2 * numel * 4, (2 * n + 6) * numel)
+
+
+def gd_lrn_x_bound_ms(numel: int, n: int):
+    """err and x read once, dx written once; per element d as in the
+    forward (2n+1), d^−β (4), q = err·x·(p/d) (3), the window sum of q
+    (n−1) and dx (4)."""
+    return _bound(3 * numel * 4, (3 * n + 11) * numel)
+
+
+# -- kernel vs plain version -------------------------------------------------
+def _close(torch, case: str, name: str, got, want, rtol, atol) -> float:
+    """Max abs error of ``got`` against ``want`` after checking shape,
+    dtype, finiteness and the tolerance (integers: exactly equal)."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{case}: {name} is {tuple(got.shape)} "
+                             f"{got.dtype}, plain {tuple(want.shape)} "
+                             f"{want.dtype}")
+    if not got.dtype.is_floating_point:
+        if not torch.equal(got, want):
+            raise AssertionError(f"{case}: {name} differs in "
+                                 f"{int((got != want).sum())} elements")
+        return 0.0
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{case}: {name} is not finite")
+    torch.testing.assert_close(got, want, atol=atol, rtol=rtol,
+                               msg=lambda m: f"{case} {name}: {m}")
+    return float((got - want).abs().max())
+
+
+def _launch_once(torch, name: str, fn):
+    """Call a wrapper once, synchronise, and check its counter moved."""
+    before = launch_counts()[name]
+    out = fn()
+    torch.cuda.synchronize()
+    if launch_counts()[name] != before + 1:
+        raise AssertionError(f"{name} launch counter did not advance")
+    return out
+
+
+def _row(torch, name, geo, err, kernel_fn, plain_fn, bound,
+         library_ms=None) -> dict:
+    k_ms, k_eager = _time_ms(torch, kernel_fn)
+    p_ms, p_eager = _time_ms(torch, plain_fn)
+    row = {"phase": "kernel", "name": name, **geo, "max_abs_err": err,
+           "kernel_ms": k_ms, "kernel_eager_ms": k_eager, "plain_ms": p_ms,
+           "plain_eager_ms": p_eager, "bound_ms": bound[0],
+           "bound_by": bound[1], "library_ms": library_ms, "iters": ITERS}
+    emit(row)
+    return row
+
+
+def phase_kernel_softmax(torch) -> list:
     from znicz_tpu_torch.ops import softmax
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(SEED)
@@ -128,84 +252,192 @@ def phase_kernel(torch) -> dict:
             labels[::3] = -1
             labels[1::3] = c
         labels = labels.to(dev)
-        before = softmax.softmax_ce_launches
-        got = softmax.softmax_ce_from_logits(logits, labels)
-        torch.cuda.synchronize()
-        if softmax.softmax_ce_launches != before + 1:
-            raise AssertionError(f"softmax_ce launch counter did not "
-                                 f"advance on {case}")
+        got = _launch_once(torch, "softmax_ce",
+                           lambda: softmax.softmax_ce_from_logits(logits,
+                                                                  labels))
         want = softmax.plain_softmax_ce_from_logits(logits, labels)
-        err = 0.0
-        for name, g, w, atol, rtol in (
-                ("probs", got[0], want[0], 1e-6, 1e-5),
-                ("loss", got[1], want[1], 1e-5, 1e-5),
-                ("err", got[2], want[2], 1e-6, 1e-5)):
-            if g.shape != w.shape or not torch.isfinite(g).all():
-                raise AssertionError(f"{case}: {name} shape/finite check")
-            torch.testing.assert_close(g, w, atol=atol, rtol=rtol,
-                                       msg=lambda m: f"{case} {name}: {m}")
-            err = max(err, float((g - w).abs().max()))
-        iters = 200
-        k_ms, k_eager = _time_ms(
-            torch, lambda: softmax.softmax_ce_from_logits(logits, labels),
-            iters)
-        p_ms, p_eager = _time_ms(
-            torch, lambda: softmax.plain_softmax_ce_from_logits(logits,
-                                                                labels),
-            iters)
-        bound_ms, bound_by = softmax_ce_bound_ms(n, c)
-        row = {"phase": "kernel", "name": "softmax_ce", "case": case,
-               "shape": [n, c], "max_abs_err": err, "kernel_ms": k_ms,
-               "kernel_eager_ms": k_eager, "plain_ms": p_ms,
-               "plain_eager_ms": p_eager, "bound_ms": bound_ms,
-               "bound_by": bound_by, "iters": iters}
-        emit(row)
-        rows.append(row)
-    return {"softmax_ce": rows}
+        err = max(_close(torch, case, "probs", got[0], want[0], 1e-5, 1e-6),
+                  _close(torch, case, "loss", got[1], want[1], 1e-5, 1e-5),
+                  _close(torch, case, "err", got[2], want[2], 1e-5, 1e-6))
+        rows.append(_row(
+            torch, "softmax_ce", {"case": case, "shape": [n, c]}, err,
+            lambda: softmax.softmax_ce_from_logits(logits, labels),
+            lambda: softmax.plain_softmax_ce_from_logits(logits, labels),
+            softmax_ce_bound_ms(n, c)))
+    return rows
 
 
-def expected_softmax_ce_launches(split: dict, batch: int, epochs: int
-                                 ) -> list[int]:
-    """Launches of the loss head per epoch of ``run_fused``: one per train
-    step (the head of the epoch, plus the previous epoch's deferred last
-    minibatch from epoch 1 on) and one per eval step (the deferred
-    minibatch's metrics, validation, test)."""
+#: case, x shape, ksize, stride, padding, max-abs, data
+POOL_CASES = [
+    ("cifar_step", (100, 32, 32, 32), 2, 2, 0, False, "normal"),
+    ("overlap_pad_ragged", (7, 13, 11, 5), 3, 2, 1, False, "normal"),
+    ("maxabs", (7, 13, 11, 5), 3, 2, 1, True, "normal"),
+    ("ties", (100, 32, 32, 32), 2, 2, 0, False, "ties"),
+    ("maxabs_ties_padded", (7, 13, 11, 5), 3, 2, 1, True, "ties"),
+]
+
+
+def phase_kernel_pooling(torch) -> dict:
+    import torch.nn.functional as F
+
+    from znicz_tpu_torch.ops import pooling
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 1)
+    rows = {"pool_select": [], "pool_scatter": []}
+    for case, shape, k, st, pad, use_abs, data in POOL_CASES:
+        if data == "ties":
+            # integers in [-2, 2]: most windows tie, and all-zero windows
+            # let a padded tap win under max-abs
+            x = torch.randint(-2, 3, shape, generator=gen).float().to(dev)
+        else:
+            x = torch.randn(shape, generator=gen).to(dev)
+        fn = pooling.maxabs_pooling if use_abs else pooling.max_pooling
+        plain = (pooling.plain_maxabs_pooling if use_abs
+                 else pooling.plain_max_pooling)
+        y, off = _launch_once(torch, "pool_select",
+                              lambda: fn(x, k, st, pad))
+        want_y, want_off = plain(x, k, st, pad)
+        err_sel = max(_close(torch, case, "offsets", off, want_off, 0, 0),
+                      _close(torch, case, "y", y, want_y, 1e-5, 1e-6))
+        e = torch.randn(tuple(y.shape), generator=gen).to(dev)
+        dx = _launch_once(torch, "pool_scatter",
+                          lambda: pooling.gd_max_pooling(e, off, shape, k,
+                                                         st, pad))
+        err_sca = _close(torch, case, "dx", dx, pooling.plain_gd_max_pooling(
+            e, off, shape, k, st, pad), 1e-5, 1e-6)
+        geo = {"case": case, "shape": list(shape), "ksize": k, "stride": st,
+               "padding": pad, "use_abs": use_abs}
+        lib_sel = lib_sca = None
+        if case == "cifar_step":
+            # yardsticks on NCHW copies, with flat plane indices (another
+            # contract than the port's window slots)
+            xn = x.permute(0, 3, 1, 2).contiguous()
+            en = e.permute(0, 3, 1, 2).contiguous()
+            _, idx = F.max_pool2d(xn, k, st, pad, return_indices=True)
+            lib_sel = _time_ms(torch, lambda: F.max_pool2d(
+                xn, k, st, pad, return_indices=True))[0]
+            lib_sca = _time_ms(torch, lambda: F.max_unpool2d(
+                en, idx, k, st, pad, output_size=xn.shape[-2:]))[0]
+        taps = k * k
+        rows["pool_select"].append(_row(
+            torch, "pool_select", geo, err_sel, lambda: fn(x, k, st, pad),
+            lambda: plain(x, k, st, pad),
+            pool_select_bound_ms(x.numel(), y.numel(), taps), lib_sel))
+        rows["pool_scatter"].append(_row(
+            torch, "pool_scatter", geo, err_sca,
+            lambda: pooling.gd_max_pooling(e, off, shape, k, st, pad),
+            lambda: pooling.plain_gd_max_pooling(e, off, shape, k, st, pad),
+            pool_scatter_bound_ms(x.numel(), y.numel(), taps), lib_sca))
+    return rows
+
+
+#: case, x shape, n, alpha, beta, k
+LRN_CASES = [
+    ("cifar_step", (100, 16, 16, 32), 5, 1e-4, 0.75, 2.0),
+    ("ragged", (7, 13, 11, 5), 5, 1e-4, 0.75, 2.0),
+    ("even_n", (7, 4, 3, 7), 4, 1e-3, 0.75, 1.0),
+    ("pow_beta", (7, 3, 4, 9), 5, 2e-3, 0.6, 2.0),
+    ("c_below_n", (7, 3, 3, 3), 5, 1e-2, 0.75, 2.0),
+    ("wide_rows", (2, 3, 5, 300), 5, 1e-4, 0.75, 2.0),
+]
+
+
+def phase_kernel_lrn(torch) -> dict:
+    import torch.nn.functional as F
+
+    from znicz_tpu_torch.ops import normalization as lrn
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 2)
+    rows = {"lrn_y": [], "gd_lrn_x": []}
+    for case, shape, n, alpha, beta, kk in LRN_CASES:
+        # scaled so that alpha·Σx² moves d well away from k
+        x = (torch.randn(shape, generator=gen) * 4).to(dev)
+        e = torch.randn(shape, generator=gen).to(dev)
+        hp = (n, alpha, beta, kk)
+        y = _launch_once(torch, "lrn_y", lambda: lrn.lrn_y(x, *hp))
+        err_f = _close(torch, case, "y", y, lrn.plain_lrn_y(x, *hp), 1e-5,
+                       1e-6)
+        dx = _launch_once(torch, "gd_lrn_x", lambda: lrn.gd_lrn_x(e, x, *hp))
+        err_b = _close(torch, case, "dx", dx, lrn.plain_gd_lrn_x(e, x, *hp),
+                       1e-5, 1e-6)
+        geo = {"case": case, "shape": list(shape), "n": n, "alpha": alpha,
+               "beta": beta, "k": kk}
+        lib = None
+        if case == "cifar_step":
+            # several kernels inside (square, pad, avg-pool, pow, div); it
+            # divides alpha by the window, hence alpha·n
+            xn = x.permute(0, 3, 1, 2)
+            lib = _time_ms(torch, lambda: F.local_response_norm(
+                xn, n, alpha * n, beta, kk))[0]
+        rows["lrn_y"].append(_row(
+            torch, "lrn_y", geo, err_f, lambda: lrn.lrn_y(x, *hp),
+            lambda: lrn.plain_lrn_y(x, *hp), lrn_y_bound_ms(x.numel(), n),
+            lib))
+        rows["gd_lrn_x"].append(_row(
+            torch, "gd_lrn_x", geo, err_b, lambda: lrn.gd_lrn_x(e, x, *hp),
+            lambda: lrn.plain_gd_lrn_x(e, x, *hp),
+            gd_lrn_x_bound_ms(x.numel(), n)))
+    return rows
+
+
+# -- main paths --------------------------------------------------------------
+def expected_steps(split: dict, batch: int, epochs: int) -> list[dict]:
+    """Steps ``run_fused`` runs in each epoch: train steps (the head of
+    the epoch, plus the previous epoch's deferred last minibatch from
+    epoch 1 on) and eval steps (the deferred minibatch's metrics,
+    validation, test)."""
     def steps(n):
         return max(1, -(-n // batch))
     n_train = split["n_train"]
     split_at = ((n_train - 1) // batch) * batch
     per = []
     for e in range(epochs):
-        train_steps = split_at // batch + (1 if e > 0 else 0)
-        eval_steps = steps(n_train - split_at)
-        for k in ("n_valid", "n_test"):
-            if split[k]:
-                eval_steps += steps(split[k])
-        per.append(train_steps + eval_steps)
+        evals = steps(n_train - split_at) + sum(
+            steps(split[k]) for k in ("n_valid", "n_test") if split[k])
+        per.append({"train": split_at // batch + (1 if e > 0 else 0),
+                    "eval": evals})
     return per
 
 
-def _mnist_run(device: str, epochs: int):
+def expected_launches(kernels, split: dict, batch: int, epochs: int
+                      ) -> dict:
+    """Launches each kernel must make on a path: the forward-side ones
+    (loss head, pool select, LRN forward) once per train and eval step,
+    the backward-side ones (pool scatter, LRN backward) once per train
+    step, and a kernel off the path none."""
+    per = expected_steps(split, batch, epochs)
+    fwd = sum(p["train"] + p["eval"] for p in per)
+    bwd = sum(p["train"] for p in per)
+    return {k: (0 if k not in kernels else
+                bwd if k in ("pool_scatter", "gd_lrn_x") else fwd)
+            for k in KERNELS}
+
+
+def _run(model: str, device: str, epochs: int, split: dict):
     from znicz_tpu_torch import prng
-    from znicz_tpu_torch.models import mnist
-    prng.seed_all(SEED)
-    return mnist.run(device=device, fused=True, epochs=epochs)
-
-
-def phase_slice(torch) -> tuple[dict, dict]:
     from znicz_tpu_torch.config import root
-    from znicz_tpu_torch.models import mnist  # noqa: F401  (root.mnist)
-    from znicz_tpu_torch.ops import softmax
-    root.mnist.synthetic.update(MNIST_SPLIT)
-    batch = int(root.mnist.get("minibatch_size"))
-    expected = expected_softmax_ce_launches(MNIST_SPLIT, batch, EPOCHS)
+    module = importlib.import_module(f"znicz_tpu_torch.models.{model}")
+    getattr(root, model).synthetic.update(split)
+    prng.seed_all(SEED)
+    return module.run(device=device, fused=True, epochs=epochs)
+
+
+def phase_slice(torch, model: str, split: dict, kernels, desc: str) -> dict:
+    """Train ``model`` for EPOCHS on the card, every launch count reset
+    just before and read just after; each count must equal the steps the
+    loop ran (zero for a kernel off the path)."""
+    from znicz_tpu_torch.config import root
+    importlib.import_module(f"znicz_tpu_torch.models.{model}")
+    batch = int(getattr(root, model).get("minibatch_size"))
+    expected = expected_launches(kernels, split, batch, EPOCHS)
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    softmax.softmax_ce_launches = 0
+    reset_launch_counts()
     t0 = time.monotonic()
-    wf = _mnist_run("cuda", EPOCHS)
+    wf = _run(model, "cuda", EPOCHS, split)
     torch.cuda.synchronize()
     wall_s = time.monotonic() - t0
-    counts = {"softmax_ce": softmax.softmax_ce_launches}
+    counts = launch_counts()
     metrics = wf.decision.epoch_metrics
     if len(metrics) != EPOCHS:
         raise AssertionError(f"expected {EPOCHS} epochs, got {metrics}")
@@ -213,40 +445,70 @@ def phase_slice(torch) -> tuple[dict, dict]:
         for k, v in m.items():
             if not math.isfinite(v):
                 raise AssertionError(f"non-finite {k} in {m}")
-    if not metrics[1]["train_loss"] < metrics[0]["train_loss"]:
-        raise AssertionError(f"train loss did not fall: {metrics}")
-    if counts["softmax_ce"] != sum(expected):
-        raise AssertionError(f"softmax_ce launches {counts['softmax_ce']} "
-                             f"!= steps run {sum(expected)} {expected}")
-    for w, b in wf.params:
-        if w.device.type != "cuda" or not torch.isfinite(w).all():
+    if not metrics[-1]["train_loss"] < metrics[0]["train_loss"]:
+        raise AssertionError(f"{model}: train loss did not fall: {metrics}")
+    if counts != expected:
+        raise AssertionError(f"{model}: launches {counts} != steps run "
+                             f"{expected}")
+    for t in (t for pair in wf.params for t in pair if t is not None):
+        if t.device.type != "cuda" or not torch.isfinite(t).all():
             raise AssertionError("params left the card or went non-finite")
-    out = {"phase": "slice", "model": "mnist 784-100-10",
-           "split": MNIST_SPLIT, "batch": batch, "epochs": EPOCHS,
-           "wall_s": wall_s, "launches": counts,
-           "expected_launches_per_epoch": expected,
-           "resident_data_bytes": wf.loader.original_data.numel() * 4,
+    data = wf.loader.original_data
+    out = {"phase": f"{model}_slice", "model": desc, "split": split,
+           "batch": batch, "epochs": EPOCHS, "wall_s": wall_s,
+           "launches": counts,
+           "expected_steps_per_epoch": expected_steps(split, batch, EPOCHS),
+           "resident_data_bytes": data.numel() * data.element_size(),
            "peak_device_bytes": torch.cuda.max_memory_allocated(),
            "epoch_metrics": metrics, "epoch_timings": wf.epoch_timings}
     emit(out)
-    return out, counts
+    return out
 
 
-def phase_parity(slice_out: dict) -> None:
-    cpu = _mnist_run("cpu", 1).decision.epoch_metrics[0]
-    gpu = slice_out["epoch_metrics"][0]
-    sizes = {"train": MNIST_SPLIT["n_train"],
-             "validation": MNIST_SPLIT["n_valid"],
-             "test": MNIST_SPLIT["n_test"]}
-    for k in ("train_loss", "validation_loss"):
-        if not math.isclose(gpu[k], cpu[k], rel_tol=1e-4, abs_tol=0.0):
-            raise AssertionError(f"{k}: card {gpu[k]} vs cpu {cpu[k]}")
+def phase_parity(model: str, split: dict, card_epoch0: dict, rtol: float,
+                 err_share: float) -> None:
+    """Epoch 0 of the same seed on the CPU against the card's: losses
+    within ``rtol``, error counts within ``err_share`` of each class."""
+    cpu = _run(model, "cpu", 1, split).decision.epoch_metrics[0]
+    sizes = {"train": split["n_train"], "validation": split["n_valid"],
+             "test": split["n_test"]}
     for name, n in sizes.items():
+        k = f"{name}_loss"
+        if not math.isclose(card_epoch0[k], cpu[k], rel_tol=rtol,
+                            abs_tol=0.0):
+            raise AssertionError(f"{model} {k}: card {card_epoch0[k]} vs "
+                                 f"cpu {cpu[k]}")
         k = f"{name}_n_err"
-        # argmax ties can flip under another summation order
-        if abs(gpu[k] - cpu[k]) > 0.001 * n:
-            raise AssertionError(f"{k}: card {gpu[k]} vs cpu {cpu[k]}")
-    emit({"phase": "parity", "card_epoch0": gpu, "cpu_epoch0": cpu})
+        if abs(card_epoch0[k] - cpu[k]) > err_share * n:
+            raise AssertionError(f"{model} {k}: card {card_epoch0[k]} vs "
+                                 f"cpu {cpu[k]}")
+    emit({"phase": f"{model}_parity", "split": split,
+          "card_epoch0": card_epoch0, "cpu_epoch0": cpu})
+
+
+def kernels_line(kern: dict, launches: dict) -> dict:
+    """One entry per kernel: its numbers at the main path's shape (the
+    first case), the launches of the main-path runs, and every case."""
+    out = []
+    for name, (source, replaces, _, _) in KERNELS.items():
+        rows = kern[name]
+        main = rows[0]
+        by_path = {path: counts[name] for path, counts in launches.items()}
+        out.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "shape": main["shape"],
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": main["kernel_ms"], "kernel_ms": main["kernel_ms"],
+            "kernel_eager_ms": main["kernel_eager_ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "by_shape": [{k: r[k] for k in ("case", "shape", "kernel_ms",
+                                            "plain_ms", "bound_ms",
+                                            "max_abs_err")}
+                         for r in rows]})
+    return {"kernels": out}
 
 
 def main() -> int:
@@ -260,24 +522,20 @@ def main() -> int:
 
     info = phase_device(torch)
     phase_build()
-    kern = phase_kernel(torch)
-    slice_out, counts = phase_slice(torch)
-    phase_parity(slice_out)
-    main_row = kern["softmax_ce"][0]
-    emit({"kernels": [{
-        "name": "softmax_ce", "route": "cuda",
-        "source": "znicz_tpu_torch/csrc/softmax_ce.cu",
-        "replaces": "znicz_tpu/ops/softmax.py:119",
-        "shape": main_row["shape"],
-        "launches": counts["softmax_ce"],
-        "max_abs_err": max(r["max_abs_err"] for r in kern["softmax_ce"]),
-        "ms": main_row["kernel_ms"], "kernel_ms": main_row["kernel_ms"],
-        "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
-        "bound_by": main_row["bound_by"], "library_ms": None,
-        "by_shape": [{k: r[k] for k in ("case", "shape", "kernel_ms",
-                                        "plain_ms", "bound_ms",
-                                        "max_abs_err")}
-                     for r in kern["softmax_ce"]]}]})
+    kern = {"softmax_ce": phase_kernel_softmax(torch),
+            **phase_kernel_pooling(torch), **phase_kernel_lrn(torch)}
+    mnist = phase_slice(torch, "mnist", MNIST_SPLIT, ("softmax_ce",),
+                        "mnist 784-100-10")
+    phase_parity("mnist", MNIST_SPLIT, mnist["epoch_metrics"][0], 1e-4,
+                 0.001)
+    cifar = phase_slice(torch, "cifar", CIFAR_SPLIT, tuple(KERNELS),
+                        "cifar conv5x5x32-maxpool2-lrn5-conv5x5x32-"
+                        "avgpool2-fc64-softmax10")
+    card = _run("cifar", "cuda", 1, CIFAR_PARITY_SPLIT)
+    phase_parity("cifar", CIFAR_PARITY_SPLIT, card.decision.epoch_metrics[0],
+                 5e-4, 0.01)
+    emit(kernels_line(kern, {"mnist": mnist["launches"],
+                             "cifar": cifar["launches"]}))
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -137,14 +137,26 @@ def test_idx_matrix_matches_reference(n, batch):
         np.testing.assert_array_equal(g, w)
 
 
-@pytest.mark.parametrize("kind", ["conv", "max_pool", "lrn", "dropout",
-                                  "deconv"])
+@pytest.mark.parametrize("kind", ["lrn_pool", "stochastic_pool",
+                                  "dropout", "deconv", "depooling"])
 def test_unported_kinds_raise_naming_the_roadmap(kind):
     layer = fused.LayerSpec(kind=kind, activation="linear",
                             include_bias=False, hypers=(0.0,) * 4,
                             hypers_bias=(0.0,) * 4)
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
         fused.ModelSpec((layer,), "mse")
+
+
+@pytest.mark.parametrize("kind", ["max_pool", "maxabs_pool", "lrn"])
+def test_narrow_storage_through_float32_kernels_raises(kind):
+    """The pool and LRN kernels take float32: a bf16 storage dtype on a
+    spec with them is refused, not run at another precision."""
+    layer = fused.LayerSpec(kind=kind, activation="linear",
+                            include_bias=False, hypers=(0.0,) * 4,
+                            hypers_bias=(0.0,) * 4)
+    fused.ModelSpec((layer,), "mse")                     # float32: fine
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
+        fused.ModelSpec((layer,), "mse", storage_dtype="bfloat16")
 
 
 @pytest.mark.parametrize("kwargs", [{"accum_steps": 2}, {"mesh": object()},

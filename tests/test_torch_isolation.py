@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from znicz_tpu_torch import backends
-from znicz_tpu_torch.models import mnist
+from znicz_tpu_torch.models import cifar, mnist
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted(str(p.relative_to(REPO))
@@ -45,17 +45,16 @@ def test_no_jax_or_reference_import(path):
     assert not bad, f"{path} imports {bad}"
 
 
-def test_fresh_process_trains_without_jax():
+def _train_in_fresh_process(model: str, split: str) -> None:
     code = (
         "import sys, torch\n"
         "torch.set_num_threads(2)\n"
         "from znicz_tpu_torch import prng\n"
         "from znicz_tpu_torch.config import root\n"
-        "from znicz_tpu_torch.models import mnist\n"
-        "root.mnist.synthetic.update({'n_train': 200, 'n_valid': 50,"
-        " 'n_test': 50})\n"
+        f"from znicz_tpu_torch.models import {model}\n"
+        f"root.{model}.synthetic.update({split})\n"
         "prng.seed_all(1234)\n"
-        "wf = mnist.run(device='cpu', epochs=1, fused=True)\n"
+        f"wf = {model}.run(device='cpu', epochs=1, fused=True)\n"
         "assert len(wf.decision.epoch_metrics) == 1\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'jaxlib', 'znicz_tpu'))\n"
@@ -65,6 +64,16 @@ def test_fresh_process_trains_without_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0 and "clean" in proc.stdout, proc.stderr
+
+
+def test_fresh_process_trains_without_jax():
+    _train_in_fresh_process(
+        "mnist", "{'n_train': 200, 'n_valid': 50, 'n_test': 50}")
+
+
+def test_fresh_process_trains_cifar_without_jax():
+    _train_in_fresh_process(
+        "cifar", "{'n_train': 80, 'n_valid': 20, 'n_test': 20, 'size': 12}")
 
 
 @pytest.mark.parametrize("backend", ["auto", "cuda", None])
@@ -81,6 +90,12 @@ def test_mnist_run_defaults_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         mnist.run(epochs=1, fused=True)
+
+
+def test_cifar_run_defaults_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        cifar.run(epochs=1, fused=True)
 
 
 def test_cpu_is_taken_only_when_asked():

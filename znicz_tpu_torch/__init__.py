@@ -9,11 +9,13 @@ Layering, as far as the port reaches today:
 
 * core: ``config``, ``prng``, ``backends``, ``normalization``;
 * ``loader/``   — resident full-batch loaders (tensors on the device);
-* ``ops/``      — activation math and the softmax + cross-entropy head,
-  whose CUDA kernel lives in ``csrc/`` and is built by ``cuda_build``;
+* ``ops/``      — activation math, the softmax + cross-entropy head, max /
+  max-abs / avg pooling, cross-channel LRN and NHWC convolutions; the
+  hand-written CUDA kernels live in ``csrc/`` and are built by
+  ``cuda_build``;
 * ``parallel/fused.py`` — the fused train step and ``FusedTrainer``;
-* ``nn/decision.py``, ``standard_workflow.py``, ``models/mnist.py`` and
-  the ``python -m znicz_tpu_torch`` CLI.
+* ``nn/decision.py``, ``standard_workflow.py``, ``models/mnist.py``,
+  ``models/cifar.py`` and the ``python -m znicz_tpu_torch`` CLI.
 
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``); without a CUDA device they raise.

@@ -2,8 +2,9 @@
 
 ``from_reference`` takes what ``znicz_tpu.parallel.fused.extract_model``
 returns, in plain form — ``dataclasses.asdict`` of each ``LayerSpec`` and
-numpy ``(w, b)`` pairs — and returns the port's ``(ModelSpec, params,
-vels)`` on a device.  ``to_numpy`` is its inverse for the parameters.
+numpy ``(w, b)`` pairs, conv weights in HWIO and ``(None, None)`` for the
+parameter-less pool and LRN rows — and returns the port's ``(ModelSpec,
+params, vels)`` on a device.  ``to_numpy`` is its inverse for the parameters.
 Nothing here imports ``znicz_tpu``: the caller hands over numpy arrays."""
 
 from __future__ import annotations
@@ -14,12 +15,20 @@ import torch
 from .parallel.fused import LayerSpec, ModelSpec
 
 
+def _config(pairs) -> tuple:
+    """Sorted ``(key, value)`` pairs with list values (as JSON gives
+    them) turned back into the reference's tuples, e.g. ``("ksize",
+    (2, 2))``."""
+    return tuple((k, tuple(v) if isinstance(v, list) else v)
+                 for k, v in pairs)
+
+
 def _layer(d: dict) -> LayerSpec:
     return LayerSpec(kind=d["kind"], activation=d["activation"],
                      include_bias=bool(d["include_bias"]),
                      hypers=tuple(d["hypers"]),
                      hypers_bias=tuple(d["hypers_bias"]),
-                     config=tuple(tuple(kv) for kv in d.get("config", ())))
+                     config=_config(d.get("config", ())))
 
 
 def _pairs(pairs, device) -> list:

@@ -34,6 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_functions: dict = {}
 _lock = threading.Lock()
 
 
@@ -132,3 +133,29 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build_all([name])[name]))
             _loaded[name] = lib
         return lib
+
+
+def kernel(library: str, name: str, argtypes: list):
+    """The C entry point ``name`` of ``csrc/<library>.cu`` with its ctypes
+    signature (the launch stream last, an int status returned), built at
+    first use.  Each pointer and the stream must be ``c_void_p``: ctypes
+    passes an untyped Python int as a 32-bit int and cuts a pointer."""
+    fn = _functions.get((library, name))
+    if fn is None:
+        fn = getattr(load(library), name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _functions[(library, name)] = fn
+    return fn
+
+
+def launch(fn, device, *args) -> None:
+    """Call a kernel's entry point on ``device``'s current stream and raise
+    if the launch was refused (its ``cudaGetLastError``); it does not
+    synchronise."""
+    import torch
+    with torch.cuda.device(device):
+        status = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if status != 0:
+        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error "
+                           f"{status}")

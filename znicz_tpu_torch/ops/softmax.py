@@ -19,7 +19,8 @@ import torch
 #: ``softmax_ce_from_logits`` adds one per launch, nowhere else).
 softmax_ce_launches = 0
 
-_fn = None
+#: x, labels, probs, loss, err, N, C, stream
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
 
 
 def plain_softmax_ce_from_logits(logits: torch.Tensor, labels: torch.Tensor
@@ -38,19 +39,6 @@ def plain_softmax_ce_from_logits(logits: torch.Tensor, labels: torch.Tensor
               == labels.reshape(-1, 1)).to(logits.dtype)
     loss = -torch.sum(logp * onehot, dim=1)
     return y, loss, y - onehot
-
-
-def _kernel():
-    """The C entry point of csrc/softmax_ce.cu, built at first use."""
-    global _fn
-    if _fn is None:
-        from .. import cuda_build
-        fn = cuda_build.load("softmax_ce").znicz_softmax_ce_f32
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
-                                               ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
 
 
 def _check(logits: torch.Tensor, labels: torch.Tensor) -> None:
@@ -99,13 +87,10 @@ def softmax_ce_from_logits(logits: torch.Tensor, labels: torch.Tensor
     probs = torch.empty_like(logits)
     err = torch.empty_like(logits)
     loss = torch.empty((n,), dtype=torch.float32, device=logits.device)
-    with torch.cuda.device(logits.device):
-        status = _kernel()(logits.data_ptr(), labels.data_ptr(),
-                           probs.data_ptr(), loss.data_ptr(),
-                           err.data_ptr(), n, c,
-                           torch.cuda.current_stream().cuda_stream)
-    if status != 0:
-        raise RuntimeError(f"softmax_ce kernel launch failed: CUDA error "
-                           f"{status}")
+    from .. import cuda_build
+    cuda_build.launch(
+        cuda_build.kernel("softmax_ce", "znicz_softmax_ce_f32", _ARGTYPES),
+        logits.device, logits.data_ptr(), labels.data_ptr(),
+        probs.data_ptr(), loss.data_ptr(), err.data_ptr(), n, c)
     softmax_ce_launches += 1
     return probs, loss, err

@@ -8,8 +8,9 @@ an epoch as a Python loop over minibatches gathered on the device from the
 resident dataset; per-step metrics stay in device tensors until the caller
 reads them, so an epoch needs one host sync.
 
-The port covers the kinds of the fc/MNIST slice: ``fc`` and standalone
-``activation`` layers.  Every other kind raises ``NotImplementedError``
+The port covers the kinds of the MNIST and CIFAR slices: ``fc``,
+standalone ``activation``, ``conv``, ``max_pool``, ``maxabs_pool``,
+``avg_pool`` and ``lrn``.  Every other kind raises ``NotImplementedError``
 naming the ROADMAP.md item that ports it."""
 
 from __future__ import annotations
@@ -19,26 +20,28 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..ops import activations, softmax as softmax_ops
+from ..ops import activations, conv as conv_ops
+from ..ops import normalization as lrn_ops
+from ..ops import pooling as pool_ops
+from ..ops import softmax as softmax_ops
 
 #: Layer kinds with trainable parameters.
 PARAM_KINDS = ("fc", "conv", "deconv")
 
 #: Kinds this port runs, and the ROADMAP.md item for each one it doesn't.
-PORTED_KINDS = ("fc", "activation")
+PORTED_KINDS = ("fc", "activation", "conv", "max_pool", "maxabs_pool",
+                "avg_pool", "lrn")
 _ROADMAP_ITEM = {
-    "conv": "queue 1 item 5 (conv stack)",
-    "max_pool": "queue 1 item 5 (conv stack)",
-    "maxabs_pool": "queue 1 item 5 (conv stack)",
-    "avg_pool": "queue 1 item 5 (conv stack)",
     "stochastic_pool": "queue 1 item 5 (conv stack)",
     "stochastic_abs_pool": "queue 1 item 5 (conv stack)",
-    "lrn": "queue 1 item 5 (conv stack)",
-    "lrn_pool": "queue 1 item 5 (conv stack)",
+    "lrn_pool": "queue 1 item 5 (conv stack, AlexNet's merged pair)",
     "dropout": "queue 1 item 5 (conv stack)",
     "deconv": "queue 1 item 6 (decoder)",
     "depooling": "queue 1 item 6 (decoder)",
 }
+#: Kinds whose kernels take float32 only: a narrower storage dtype between
+#: layers is refused rather than run at another precision.
+_F32_KERNEL_KINDS = ("max_pool", "maxabs_pool", "lrn")
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -54,8 +57,8 @@ def torch_dtype(name: str) -> torch.dtype:
 
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
-    kind: str                     # fc | activation (ported); see
-    #                               _ROADMAP_ITEM for the others
+    kind: str                     # PORTED_KINDS; see _ROADMAP_ITEM for
+    #                               the others
     activation: str               # activations.BY_NAME key; last fc layer
     include_bias: bool            # of a softmax model keeps "linear"
     hypers: tuple                 # (lr, weights_decay, l1_vs_l2, momentum)
@@ -93,6 +96,12 @@ class ModelSpec:
             raise ValueError(f"unknown loss {self.loss!r}")
         torch_dtype(self.compute_dtype)
         torch_dtype(self.storage_dtype)
+        if self.storage_dtype != "float32" and any(
+                la.kind in _F32_KERNEL_KINDS for la in self.layers):
+            raise NotImplementedError(
+                f"storage_dtype {self.storage_dtype!r} through the pool and "
+                f"LRN kernels (float32 only) is not ported yet (ROADMAP.md "
+                f"queue 1 item 5, narrow storage through the conv stack)")
         # the softmax-CE head consumes 2D logits and backward() hands the
         # last layer a pre-activation error — only well-defined for a
         # final fc layer; the MSE head accepts any output shape
@@ -116,25 +125,33 @@ class ModelSpec:
         return activations.BY_NAME[self.layers[i].activation]
 
 
+def _rnd(a: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
+    """``a`` rounded to ``cdt`` and back to float32 (a no-op for float32):
+    the reference's ``a.astype(cdt)`` operand of a float32-accumulated
+    product.  Products of bf16/f16 values are exact in float32, so the
+    float32 product of the rounded operands is the reference's result."""
+    return a.to(cdt).float()
+
+
 def _mm(a: torch.Tensor, b: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
     """float32 product of operands rounded to ``cdt`` — the reference's
-    ``jnp.dot(a.astype(cdt), b.astype(cdt), preferred_element_type=f32)``.
-    Products of bf16/f16 values are exact in float32, so upcasting the
-    rounded operands gives the same float32-accumulated result (both casts
-    are no-ops for float32 operands)."""
-    return torch.matmul(a.to(cdt).float(), b.to(cdt).float())
+    ``jnp.dot(a.astype(cdt), b.astype(cdt), preferred_element_type=f32)``."""
+    return torch.matmul(_rnd(a, cdt), _rnd(b, cdt))
 
 
 def forward(spec: ModelSpec, params, x, *, want_caches: bool):
     """(net output before the loss, caches).  For softmax loss the last
-    layer's output is the *logits*; ``caches[i]`` = (layer input, None)."""
+    layer's output is the *logits*; ``caches[i]`` = (layer input, aux),
+    aux being the pool winner offsets of a max pool and None elsewhere
+    (the LRN backward recomputes its denominator from the cached input)."""
     cdt = torch_dtype(spec.compute_dtype)
     sdt = torch_dtype(spec.storage_dtype)
     h = x
     caches = []
     n = len(spec.layers)
     for i, (layer, (w, b)) in enumerate(zip(spec.layers, params)):
-        x_in = h
+        x_in, aux = h, None
+        cfg = layer.cfg
         is_last = i == n - 1
         if layer.kind == "fc":
             pre = _mm(h.reshape(h.shape[0], -1), w, cdt)
@@ -144,6 +161,24 @@ def forward(spec: ModelSpec, params, x, *, want_caches: bool):
                 h = pre                   # logits; softmax fused with CE
             else:
                 h = spec.act(i).fwd(pre)
+        elif layer.kind == "conv":
+            pre = conv_ops.conv2d(_rnd(h, cdt), _rnd(w, cdt), cfg["stride"],
+                                  cfg["padding"])
+            if b is not None:
+                pre = pre + b
+            h = spec.act(i).fwd(pre)
+        elif layer.kind == "max_pool":
+            h, aux = pool_ops.max_pooling(h, cfg["ksize"], cfg["stride"],
+                                          cfg["padding"])
+        elif layer.kind == "maxabs_pool":
+            h, aux = pool_ops.maxabs_pooling(h, cfg["ksize"],
+                                             cfg["stride"], cfg["padding"])
+        elif layer.kind == "avg_pool":
+            h = pool_ops.avg_pooling(h, cfg["ksize"], cfg["stride"],
+                                     cfg["padding"])
+        elif layer.kind == "lrn":
+            h = lrn_ops.lrn_y(h, cfg["n"], cfg["alpha"], cfg["beta"],
+                              cfg["k"])
         elif layer.kind == "activation":
             h = spec.act(i).fwd(h)
         else:   # ModelSpec refuses unported kinds
@@ -154,7 +189,7 @@ def forward(spec: ModelSpec, params, x, *, want_caches: bool):
             # f32 so the loss head and its error are full precision
             h = h.to(sdt)
         if want_caches:
-            caches.append((x_in, None))
+            caches.append((x_in, aux))
     return h, caches
 
 
@@ -187,17 +222,41 @@ def backward(spec: ModelSpec, params, caches, out, err):
     for i in reversed(range(n)):
         layer = spec.layers[i]
         w, b = params[i]
-        x_in, _ = caches[i]
+        x_in, aux = caches[i]
         y_i = caches[i + 1][0] if i < n - 1 else out
-        if layer.kind == "fc":
+        cfg = layer.cfg
+        if layer.kind in ("fc", "conv"):
             err_pre = err if i == n - 1 else spec.act(i).bwd(
                 err.reshape(y_i.shape), y_i)
+        if layer.kind == "fc":
             x2 = x_in.reshape(x_in.shape[0], -1)
             err2 = err_pre.reshape(x2.shape[0], -1)
             gw = _mm(x2.t(), err2, cdt)
             gb = torch.sum(err2, dim=0) if b is not None else None
             err = _mm(err2, w.t(), cdt).reshape(x_in.shape)
             grads[i] = (gw, gb)
+        elif layer.kind == "conv":
+            gw = conv_ops.conv2d_grad_weights(
+                _rnd(x_in, cdt), _rnd(err_pre, cdt), w.shape, cfg["stride"],
+                cfg["padding"])
+            gb = (torch.sum(err_pre, dim=(0, 1, 2)) if b is not None
+                  else None)
+            # the first layer's input error is never read: skip its conv
+            err = None if i == 0 else conv_ops.conv2d_grad_input(
+                _rnd(err_pre, cdt), _rnd(w, cdt), x_in.shape, cfg["stride"],
+                cfg["padding"])
+            grads[i] = (gw, gb)
+        elif layer.kind in ("max_pool", "maxabs_pool"):
+            err = pool_ops.gd_max_pooling(
+                err.reshape(y_i.shape), aux, x_in.shape, cfg["ksize"],
+                cfg["stride"], cfg["padding"])
+        elif layer.kind == "avg_pool":
+            err = pool_ops.gd_avg_pooling(
+                err.reshape(y_i.shape), x_in.shape, cfg["ksize"],
+                cfg["stride"], cfg["padding"])
+        elif layer.kind == "lrn":
+            err = lrn_ops.gd_lrn_x(err.reshape(y_i.shape), x_in, cfg["n"],
+                                   cfg["alpha"], cfg["beta"], cfg["k"])
         elif layer.kind == "activation":
             err = spec.act(i).bwd(err.reshape(y_i.shape), y_i, x_in)
         else:   # ModelSpec refuses unported kinds

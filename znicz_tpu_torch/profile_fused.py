@@ -1,19 +1,23 @@
-"""Where the time of the fused MNIST step goes on the card.
+"""Where the time of a fused train/eval step goes on the card.
 
-    python -m znicz_tpu_torch.profile_fused [--steps 50] [--out DIR]
+    python -m znicz_tpu_torch.profile_fused [--model mnist|cifar]
+        [--steps 50] [--out DIR]
 
-Trains the MNIST sample at full width (784→100→10, batch 100, the
-50k/10k/10k synthetic split resident on the card) for one warm-up epoch,
-then runs ``--steps`` train steps and as many eval steps under
-``torch.profiler`` and prints one JSON line: host wall time per step
-(synchronised), device busy time per step (the kernels' summed device
-time), the device's idle share, kernel launches per step, and the kernels
-that take the most device time.  With ``--out`` the Chrome trace is
-written there.  It needs a CUDA card and fails without one."""
+Trains the sample at full width on its real split resident on the card
+(MNIST 784→100→10 on 50k/10k/10k; the CIFAR-10 conv net on 45k/5k/10k,
+32×32×3), batch 100, for one warm-up epoch, then runs ``--steps`` train
+steps and as many eval steps under ``torch.profiler`` and prints one JSON
+line: host wall time per step (synchronised), device busy time per step
+(the kernels' summed device time), the device's idle share, kernel
+launches per step, the kernels that take the most device time, and the
+port's own hand-written kernels with their share of the device time.
+With ``--out`` the Chrome traces are written there.  It needs a CUDA card
+and fails without one."""
 
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import time
 
@@ -21,9 +25,17 @@ import torch
 
 from . import prng
 from .config import root
-from .models import mnist
 
-SPLIT = {"n_train": 50000, "n_valid": 10000, "n_test": 10000, "noise": 0.35}
+#: model → (workflow class, the real split at full width)
+MODELS = {
+    "mnist": ("MnistWorkflow", {"n_train": 50000, "n_valid": 10000,
+                                "n_test": 10000, "noise": 0.35}),
+    "cifar": ("CifarWorkflow", {"n_train": 45000, "n_valid": 5000,
+                                "n_test": 10000, "noise": 0.3, "size": 32}),
+}
+#: the hand-written kernels' names in ``csrc/``
+PORT_KERNELS = ("softmax_ce_kernel", "pool_select_kernel",
+                "pool_scatter_kernel", "lrn_y_kernel", "gd_lrn_x_kernel")
 
 
 def _window(fn, steps: int) -> float:
@@ -36,15 +48,18 @@ def _window(fn, steps: int) -> float:
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", choices=sorted(MODELS), default="mnist")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--out", default=None,
-                    help="directory for the Chrome trace")
+                    help="directory for the Chrome traces")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_fused needs a CUDA card")
-    root.mnist.synthetic.update(SPLIT)
+    cls_name, split = MODELS[args.model]
+    module = importlib.import_module(f".models.{args.model}", __package__)
+    getattr(root, args.model).synthetic.update(split)
     prng.seed_all(1234)
-    wf = mnist.MnistWorkflow()
+    wf = getattr(module, cls_name)()
     wf.initialize(device="cuda")
     trainer = wf.run_fused(max_epochs=1)        # warm-up epoch
     loader = wf.loader
@@ -58,7 +73,7 @@ def main(argv=None) -> dict:
     def evaluate():
         trainer.eval_epoch(data, target, idx, batch, sync=False)
 
-    out = {"steps": args.steps, "batch": batch,
+    out = {"model": args.model, "steps": args.steps, "batch": batch,
            "device": torch.cuda.get_device_name(0)}
     for name, fn in (("train", train), ("eval", evaluate)):
         fn()                                      # warm the allocator
@@ -68,12 +83,23 @@ def main(argv=None) -> dict:
         with torch.profiler.profile(activities=acts) as prof:
             _window(fn, args.steps)
         if args.out:
-            prof.export_chrome_trace(f"{args.out}/fused_{name}.json")
+            prof.export_chrome_trace(
+                f"{args.out}/fused_{args.model}_{name}.json")
         kernels = [e for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA]
         busy_us = sum(e.self_device_time_total for e in kernels)
         launches = sum(e.count for e in kernels)
         top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+        port = {}
+        for e in kernels:
+            for k in PORT_KERNELS:
+                if k in e.key:
+                    port[k] = {"us_per_step": e.self_device_time_total
+                               / args.steps,
+                               "calls_per_step": e.count / args.steps,
+                               "share_of_busy": (e.self_device_time_total
+                                                 / busy_us if busy_us
+                                                 else None)}
         out[name] = {
             "wall_ms_per_step": wall_ms,
             "device_busy_ms_per_step": (busy_us / 1e3 / args.steps
@@ -85,7 +111,11 @@ def main(argv=None) -> dict:
                              "us_per_step": e.self_device_time_total
                              / args.steps,
                              "calls_per_step": e.count / args.steps}
-                            for e in top]}
+                            for e in top],
+            "port_kernels": port,
+            "port_kernels_share_of_busy": (
+                sum(v["us_per_step"] for v in port.values()) * args.steps
+                / busy_us if busy_us else None)}
     out["examples_per_sec_train_only"] = batch / (
         out["train"]["wall_ms_per_step"] / 1e3)
     print(json.dumps(out), flush=True)

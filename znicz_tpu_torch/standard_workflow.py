@@ -11,6 +11,7 @@ resident loader, and ``train(fused=False)`` raises."""
 
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import numpy as np
@@ -19,6 +20,7 @@ import torch
 from . import backends, prng
 from .loader.base import CLASS_NAMES, TEST, TRAIN, VALID
 from .nn.decision import DecisionGD, DecisionMSE
+from .ops.geometry import norm2, out_size
 from .parallel import fused
 from .parallel.fused import FusedTrainer, LayerSpec, ModelSpec
 
@@ -27,6 +29,14 @@ from .parallel.fused import FusedTrainer, LayerSpec, ModelSpec
 FC_TYPES = {"all2all": "linear", "all2all_tanh": "tanh",
             "all2all_relu": "relu", "all2all_str": "strict_relu",
             "all2all_sigmoid": "sigmoid", "softmax": "linear"}
+#: Conv layer type → activation (nn/conv.py).
+CONV_TYPES = {"conv": "linear", "conv_tanh": "tanh", "conv_relu": "relu",
+              "conv_str": "strict_relu", "conv_sigmoid": "sigmoid"}
+#: Pooling layer type → fused kind (nn/pooling.py).
+POOL_TYPES = {"max_pooling": "max_pool", "maxabs_pooling": "maxabs_pool",
+              "avg_pooling": "avg_pool"}
+LRN_TYPES = ("norm", "lrn")
+PORTED_TYPES = (*FC_TYPES, *CONV_TYPES, *POOL_TYPES, *LRN_TYPES)
 
 _UNIT_GRAPH = "ROADMAP.md queue 1 item 4 (core engine: the unit graph)"
 
@@ -45,6 +55,12 @@ def _fill(gen, shape: tuple[int, ...], filling: str,
     if filling == "constant":
         return np.full(shape, stddev, np.float32)
     raise ValueError(f"unknown filling {filling!r}")
+
+
+def _no_options_left(fwd: dict) -> None:
+    if fwd:
+        raise NotImplementedError(
+            f"layer options {sorted(fwd)} are not ported yet ({_UNIT_GRAPH})")
 
 
 def _gd_hypers(cfg: dict) -> tuple[tuple, tuple]:
@@ -72,7 +88,8 @@ def _gd_hypers(cfg: dict) -> tuple[tuple, tuple]:
 
 
 class StandardWorkflow:
-    """One-call assembly of a fc model trained on the fused path."""
+    """One-call assembly of a fc or conv model trained on the fused
+    path."""
 
     def __init__(self, name=None, layers=None, loader=None,
                  loss_function="softmax", decision_config=None,
@@ -114,58 +131,139 @@ class StandardWorkflow:
         self.initialized = True
 
     def _build_model(self) -> None:
+        """Spec, params and zero velocities from ``layers_config``; shapes
+        propagate per sample in NHWC, and the ``"weights"`` stream is drawn
+        in the order the reference's units draw it."""
         gen = prng.get("weights")
-        n_in = int(np.prod(self.loader.original_data.shape[1:]))
+        shape = tuple(int(s) for s in self.loader.original_data.shape[1:])
         layers, params, vels = [], [], []
         for i, spec in enumerate(self.layers_config):
             ltype = spec["type"]
-            if ltype not in FC_TYPES:
+            fwd = dict(spec.get("->", {}))
+            if ltype in FC_TYPES:
+                if ltype == "softmax" and i != len(self.layers_config) - 1:
+                    raise NotImplementedError(
+                        "a softmax layer must be the last layer")
+                kind, act, config, pair, shape = self._fc(ltype, fwd,
+                                                          shape, gen)
+            elif ltype in CONV_TYPES:
+                kind, act, config, pair, shape = self._conv(ltype, fwd,
+                                                            shape, gen)
+            elif ltype in POOL_TYPES:
+                kind, act, pair = POOL_TYPES[ltype], "linear", None
+                config, shape = self._pool(ltype, fwd, shape)
+            elif ltype in LRN_TYPES:
+                kind, act, pair = "lrn", "linear", None
+                config = self._lrn(fwd)
+            else:
                 raise NotImplementedError(
                     f"layer type {ltype!r} is not ported to znicz_tpu_torch "
-                    f"yet (ROADMAP.md queue 1 item 5 for the conv stack, "
-                    f"{_UNIT_GRAPH} for the rest); ported: "
-                    f"{sorted(FC_TYPES)}")
-            if ltype == "softmax" and i != len(self.layers_config) - 1:
-                raise NotImplementedError(
-                    "a softmax layer must be the last layer")
-            fwd = dict(spec.get("->", {}))
-            out = fwd.pop("output_sample_shape", None)
-            if out is None:
-                raise ValueError("output_sample_shape is required")
-            fwd.pop("output_samples_number", None)   # reference alias
-            neurons = int(np.prod(out))
-            include_bias = fwd.pop("include_bias", True)
-            w_fill = fwd.pop("weights_filling", "uniform")
-            w_std = fwd.pop("weights_stddev", None)
-            b_fill = fwd.pop("bias_filling", "uniform")
-            b_std = fwd.pop("bias_stddev", None)
-            if fwd:
-                raise NotImplementedError(
-                    f"layer options {sorted(fwd)} are not ported yet "
-                    f"({_UNIT_GRAPH})")
-            # Forward.create_weights: W, then (when there is a bias) a draw
-            # of the bias shape that the default uniform fill discards for
-            # zeros — the draw still advances the stream
-            w = _fill(gen, (n_in, neurons), w_fill, w_std)
-            b = None
-            if include_bias:
-                b = _fill(gen, (neurons,), b_fill,
-                          b_std if b_std is not None else 0.0)
-                if b_fill == "uniform" and b_std is None:
-                    b = np.zeros((neurons,), np.float32)
+                    f"yet (ROADMAP.md queue 1 item 5 for the rest of the "
+                    f"conv stack, {_UNIT_GRAPH} for the rest); ported: "
+                    f"{sorted(PORTED_TYPES)}")
+            _no_options_left(fwd)
             hypers, hypers_bias = _gd_hypers(dict(spec.get("<-", {})))
-            layers.append(LayerSpec(kind="fc", activation=FC_TYPES[ltype],
-                                    include_bias=include_bias,
-                                    hypers=hypers, hypers_bias=hypers_bias))
+            layers.append(LayerSpec(
+                kind=kind, activation=act,
+                include_bias=pair is not None and pair[1] is not None,
+                hypers=hypers, hypers_bias=hypers_bias, config=config))
             dev = self.device
-            params.append((torch.from_numpy(w).to(dev),
-                           None if b is None else torch.from_numpy(b).to(dev)))
-            vels.append((torch.zeros(w.shape, device=dev),
-                         None if b is None
-                         else torch.zeros(b.shape, device=dev)))
-            n_in = neurons
+            if pair is None:
+                params.append((None, None))
+                vels.append((None, None))
+            else:
+                w, b = pair
+                params.append((torch.from_numpy(w).to(dev),
+                               None if b is None
+                               else torch.from_numpy(b).to(dev)))
+                vels.append((torch.zeros(w.shape, device=dev),
+                             None if b is None
+                             else torch.zeros(b.shape, device=dev)))
         self.spec = ModelSpec(tuple(layers), self.loss_function)
         self.params, self.vels = params, vels
+
+    @staticmethod
+    def _weights(fwd: dict, w_shape, b_shape, gen, w_fill_default):
+        """Forward.create_weights: W, then (when there is a bias) a draw of
+        the bias shape that the default uniform fill discards for zeros —
+        the draw still advances the stream.  Pops the fill options."""
+        include_bias = fwd.pop("include_bias", True)
+        w_fill = fwd.pop("weights_filling", w_fill_default)
+        w_std = fwd.pop("weights_stddev", None)
+        b_fill = fwd.pop("bias_filling", "uniform")
+        b_std = fwd.pop("bias_stddev", None)
+        w = _fill(gen, w_shape, w_fill, w_std)
+        b = None
+        if include_bias:
+            b = _fill(gen, b_shape, b_fill, b_std if b_std is not None
+                      else 0.0)
+            if b_fill == "uniform" and b_std is None:
+                b = np.zeros(b_shape, np.float32)
+        return w, b
+
+    def _fc(self, ltype, fwd, shape, gen):
+        """All2All: W (n_in, neurons), uniform fill by default →
+        (kind, activation, config, (w, b), output sample shape)."""
+        out = fwd.pop("output_sample_shape", None)
+        if out is None:
+            raise ValueError("output_sample_shape is required")
+        fwd.pop("output_samples_number", None)   # reference alias
+        neurons = int(np.prod(out))
+        pair = self._weights(fwd, (int(np.prod(shape)), neurons),
+                             (neurons,), gen, "uniform")
+        return "fc", FC_TYPES[ltype], (), pair, (neurons,)
+
+    def _conv(self, ltype, fwd, shape, gen):
+        """Conv (nn/conv.py): W (ky, kx, C, n_kernels), gaussian fill by
+        default with fan-in ky·kx·C; same return as :meth:`_fc`."""
+        if len(shape) != 3:
+            raise ValueError(f"{ltype}: conv expects NHWC samples, got "
+                             f"sample shape {shape}")
+        n_kernels, kx = fwd.pop("n_kernels", None), fwd.pop("kx", None)
+        if n_kernels is None or kx is None:
+            raise ValueError("n_kernels and kx are required")
+        n_kernels, kx = int(n_kernels), int(kx)
+        ky = fwd.pop("ky", None)
+        ky = int(ky if ky is not None else kx)
+        sliding = norm2(fwd.pop("sliding", 1))
+        padding = norm2(fwd.pop("padding", 0))
+        h, w, c = shape
+        pair = self._weights(fwd, (ky, kx, c, n_kernels), (n_kernels,), gen,
+                             "gaussian")
+        return ("conv", CONV_TYPES[ltype],
+                (("padding", padding), ("stride", sliding)), pair,
+                (out_size(h, ky, sliding[0], padding[0]),
+                 out_size(w, kx, sliding[1], padding[1]), n_kernels))
+
+    @staticmethod
+    def _pool(ltype, fwd, shape):
+        """Pooling (nn/pooling.py): kx/ky window, sliding defaulting to
+        the window, padding → (config, output sample shape)."""
+        if len(shape) != 3:
+            raise ValueError(f"{ltype}: pooling expects NHWC samples, got "
+                             f"sample shape {shape}")
+        kx = fwd.pop("kx", None)
+        if kx is None:
+            raise ValueError("kx is required")
+        kx = int(kx)
+        ky = fwd.pop("ky", None)
+        ky = int(ky if ky is not None else kx)
+        ksize = (ky, kx)
+        sliding = fwd.pop("sliding", None)
+        sliding = norm2(sliding) if sliding is not None else ksize
+        padding = norm2(fwd.pop("padding", 0))
+        h, w, c = shape
+        return ((("ksize", ksize), ("padding", padding),
+                 ("stride", sliding)),
+                (out_size(h, ky, sliding[0], padding[0]),
+                 out_size(w, kx, sliding[1], padding[1]), c))
+
+    @staticmethod
+    def _lrn(fwd):
+        """LRNormalizerForward (nn/normalization.py), reference defaults."""
+        cfg = {"n": int(fwd.pop("n", 5)), "alpha": fwd.pop("alpha", 1e-4),
+               "beta": fwd.pop("beta", 0.75), "k": fwd.pop("k", 2.0)}
+        return tuple(sorted(cfg.items()))
 
     # -- training ------------------------------------------------------------
     def train(self, fused: bool = False, mesh=None, mesh_shape=None,
@@ -200,8 +298,6 @@ class StandardWorkflow:
         decision's improvement/stop logic between epochs on the host.
         Returns the FusedTrainer; its params are written back into
         ``self.params``/``self.vels``."""
-        import dataclasses
-
         from .config import root
         if not self.initialized:
             raise RuntimeError("initialize() first")
