@@ -140,14 +140,19 @@ def test_idx_matrix_matches_reference(n, batch):
 @pytest.mark.parametrize("kind", ["lrn_pool", "stochastic_pool",
                                   "dropout", "deconv", "depooling"])
 def test_unported_kinds_raise_naming_the_roadmap(kind):
+    """A kind the port does not run raises naming its ROADMAP.md item; for
+    the kinds the AlexNet slice ported (lrn_pool, dropout) the unported
+    part is their narrow-storage form, which raises the same way."""
     layer = fused.LayerSpec(kind=kind, activation="linear",
                             include_bias=False, hypers=(0.0,) * 4,
                             hypers_bias=(0.0,) * 4)
+    storage = "bfloat16" if kind in fused.PORTED_KINDS else "float32"
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        fused.ModelSpec((layer,), "mse")
+        fused.ModelSpec((layer,), "mse", storage_dtype=storage)
 
 
-@pytest.mark.parametrize("kind", ["max_pool", "maxabs_pool", "lrn"])
+@pytest.mark.parametrize("kind", ["max_pool", "maxabs_pool", "lrn",
+                                  "lrn_pool", "dropout"])
 def test_narrow_storage_through_float32_kernels_raises(kind):
     """The pool and LRN kernels take float32: a bf16 storage dtype on a
     spec with them is refused, not run at another precision."""

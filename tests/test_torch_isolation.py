@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from znicz_tpu_torch import backends
-from znicz_tpu_torch.models import cifar, mnist
+from znicz_tpu_torch.models import alexnet, cifar, mnist
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted(str(p.relative_to(REPO))
@@ -45,7 +45,7 @@ def test_no_jax_or_reference_import(path):
     assert not bad, f"{path} imports {bad}"
 
 
-def _train_in_fresh_process(model: str, split: str) -> None:
+def _train_in_fresh_process(model: str, split: str, setup: str = "") -> None:
     code = (
         "import sys, torch\n"
         "torch.set_num_threads(2)\n"
@@ -53,6 +53,7 @@ def _train_in_fresh_process(model: str, split: str) -> None:
         "from znicz_tpu_torch.config import root\n"
         f"from znicz_tpu_torch.models import {model}\n"
         f"root.{model}.synthetic.update({split})\n"
+        f"{setup}"
         "prng.seed_all(1234)\n"
         f"wf = {model}.run(device='cpu', epochs=1, fused=True)\n"
         "assert len(wf.decision.epoch_metrics) == 1\n"
@@ -76,6 +77,14 @@ def test_fresh_process_trains_cifar_without_jax():
         "cifar", "{'n_train': 80, 'n_valid': 20, 'n_test': 20, 'size': 12}")
 
 
+def test_fresh_process_trains_alexnet_without_jax():
+    _train_in_fresh_process(
+        "alexnet", "{'n_train': 32, 'n_valid': 16, 'n_test': 16}",
+        "root.alexnet.update({'size': 67, 'n_classes': 5, "
+        "'minibatch_size': 16, 'layers': alexnet.make_layers("
+        "5, widths=(8, 12, 8, 8, 8, 24, 16))})\n")
+
+
 @pytest.mark.parametrize("backend", ["auto", "cuda", None])
 def test_cuda_default_raises_without_a_card(backend, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -96,6 +105,12 @@ def test_cifar_run_defaults_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         cifar.run(epochs=1, fused=True)
+
+
+def test_alexnet_run_defaults_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        alexnet.run(epochs=1, fused=True)
 
 
 def test_cpu_is_taken_only_when_asked():

@@ -35,55 +35,16 @@
 // (fastdiv.cuh), and the tile limits C to 6144 channels (48 KB of shared
 // memory).
 //
-// Every window sum is taken in ascending channel order starting from the
-// first window slot, a clipped slot adding 0.0f exactly as the reference's
-// zero-padded shifted slices do.  k + alpha*s, the sums and the products
-// are written with __fadd_rn/__fmul_rn/__fdiv_rn so nvcc cannot contract
-// them into FMAs (numpy and XLA round each step); sqrtf/powf are the
-// accurate versions (no --use_fast_math).
+// The math (window sums, d^-beta, rounding) is csrc/lrn_math.cuh, shared
+// with the fused LRN->max-pool kernels of lrn_pool.cu.
 
 #include <cuda_runtime.h>
 
-#include "fastdiv.cuh"
+#include "lrn_math.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-
-struct LrnParams {
-  FastDiv C;        // the channel count, for the index's channel
-  int n;
-  int half_lo;      // (n - 1) / 2
-  float alpha;      // float(alpha), as the reference rounds a python float
-  float k;
-  float neg_beta;   // float(-beta), the pow exponent
-  float two_ab;     // float(2 * alpha * beta), folded in double first
-  int beta_075;     // beta == 0.75: d^-beta as 1/(sqrt(d) * sqrt(sqrt(d)))
-};
-
-__device__ __forceinline__ float dpow_nbeta(float d, const LrnParams& p) {
-  if (p.beta_075) {
-    const float r = __fsqrt_rn(d);
-    return __fdiv_rn(1.0f, __fmul_rn(r, __fsqrt_rn(r)));
-  }
-  return powf(d, p.neg_beta);
-}
-
-// d_c = k + alpha * (window sum of x^2 around channel c of row xr)
-__device__ __forceinline__ float denom(const float* __restrict__ xr, int c,
-                                      const LrnParams& p) {
-  float s = 0.0f;
-  for (int m = 0; m < p.n; ++m) {
-    const int j = c + m - p.half_lo;
-    float v = 0.0f;
-    if (j >= 0 && j < static_cast<int>(p.C.d)) {
-      const float xj = xr[j];
-      v = __fmul_rn(xj, xj);
-    }
-    s = (m == 0) ? v : __fadd_rn(s, v);
-  }
-  return __fadd_rn(p.k, __fmul_rn(p.alpha, s));
-}
 
 __global__ void lrn_y_kernel(const float* __restrict__ x,
                              float* __restrict__ y, int total, LrnParams p) {
@@ -91,7 +52,7 @@ __global__ void lrn_y_kernel(const float* __restrict__ x,
   if (e >= total) return;
   const int c = e - p.C.div(e) * p.C.d;
   const float* xr = x + (e - c);
-  y[e] = __fmul_rn(xr[c], dpow_nbeta(denom(xr, c, p), p));
+  y[e] = lrn_y_at(xr, c, p);
 }
 
 // One block per `rows_per_block` rows of C channels; shared memory holds
@@ -110,37 +71,17 @@ __global__ void gd_lrn_x_kernel(const float* __restrict__ err,
   const float* eb = err + row0 * C;
   for (int t = threadIdx.x; t < n_el; t += blockDim.x) {
     const int c = t - p.C.div(t) * C;
-    const float d = denom(xb + (t - c), c, p);
-    const float pc = dpow_nbeta(d, p);
-    q_s[t] = __fmul_rn(__fmul_rn(eb[t], xb[t]), __fdiv_rn(pc, d));
+    const float d = lrn_denom(xb + (t - c), c, p);
+    const float pc = lrn_dpow_nbeta(d, p);
+    q_s[t] = lrn_q(eb[t], xb[t], d, pc);
     p_s[t] = pc;
   }
   __syncthreads();
   for (int t = threadIdx.x; t < n_el; t += blockDim.x) {
     const int c = t - p.C.div(t) * C;
-    const float* qr = q_s + (t - c);
-    float ws = 0.0f;   // window sum of q, clipped slots adding 0.0f
-    for (int m = 0; m < p.n; ++m) {
-      const int j = c + m - p.half_lo;
-      const float q = (j >= 0 && j < C) ? qr[j] : 0.0f;
-      ws = (m == 0) ? q : __fadd_rn(ws, q);
-    }
-    dx[row0 * C + t] = __fsub_rn(__fmul_rn(eb[t], p_s[t]),
-                                 __fmul_rn(__fmul_rn(p.two_ab, xb[t]), ws));
+    const float ws = lrn_q_window(q_s + (t - c), c, p);
+    dx[row0 * C + t] = lrn_dx(__fmul_rn(eb[t], p_s[t]), xb[t], ws, p);
   }
-}
-
-LrnParams make_params(int C, int n, double alpha, double beta, double k) {
-  LrnParams p;
-  p.C = make_fastdiv(C);
-  p.n = n;
-  p.half_lo = (n - 1) / 2;
-  p.alpha = static_cast<float>(alpha);
-  p.k = static_cast<float>(k);
-  p.neg_beta = static_cast<float>(-beta);
-  p.two_ab = static_cast<float>(2.0 * alpha * beta);
-  p.beta_075 = beta == 0.75;
-  return p;
 }
 
 int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
@@ -157,7 +98,7 @@ extern "C" int znicz_lrn_y_f32(const float* x, float* y, int rows, int C,
   if (total <= 0) return 0;
   lrn_y_kernel<<<blocks_for(total), kThreads, 0,
                  static_cast<cudaStream_t>(stream)>>>(
-      x, y, total, make_params(C, n, alpha, beta, k));
+      x, y, total, make_lrn_params(C, n, alpha, beta, k));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -171,6 +112,6 @@ extern "C" int znicz_gd_lrn_x_f32(const float* err, const float* x,
   const size_t smem = 2 * sizeof(float) * rows_per_block * C;
   gd_lrn_x_kernel<<<blocks, kThreads, smem,
                     static_cast<cudaStream_t>(stream)>>>(
-      err, x, dx, rows, rows_per_block, make_params(C, n, alpha, beta, k));
+      err, x, dx, rows, rows_per_block, make_lrn_params(C, n, alpha, beta, k));
   return static_cast<int>(cudaGetLastError());
 }

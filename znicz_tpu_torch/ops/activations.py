@@ -178,3 +178,19 @@ BY_NAME: dict[str, type[Activation]] = {
                 Mul, TanhLog)
 }
 BY_NAME["linear"] = Activation
+
+#: Ids of the activations whose derivative needs only the output y, as the
+#: fused LRN→max-pool backward kernel (``csrc/lrn_pool.cu``) takes them when
+#: it folds in the preceding conv's derivative.  ``linear`` folds nothing,
+#: and the input-needing activations cannot be folded.
+FOLD_IDS = {"strict_relu": 1, "tanh": 2, "sigmoid": 3, "relu": 4, "mul": 5}
+
+
+def fold_id(name: str | None) -> int:
+    """The kernel's id of a foldable activation; 0 for none (``None``)."""
+    if name is None:
+        return 0
+    if name not in FOLD_IDS:
+        raise ValueError(f"activation {name!r} cannot be folded into a "
+                         f"fused kernel; foldable: {sorted(FOLD_IDS)}")
+    return FOLD_IDS[name]

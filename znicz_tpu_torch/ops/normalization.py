@@ -49,12 +49,19 @@ def _window_sum(a, n: int):
     return acc
 
 
+def _sqrt_rn(a):
+    """Correctly rounded float32 square root: torch's CPU ``sqrt`` may be
+    off by an ulp, the square root taken in float64 and rounded once is
+    not (as numpy's, XLA's and the card's ``__fsqrt_rn``)."""
+    return torch.sqrt(a.double()).to(a.dtype)
+
+
 def _dpow_nbeta(d, beta):
     """d^(−β), with β = 0.75 as 1/(√d·√√d) (correctly rounded IEEE ops,
     the same in every tier); other β with pow."""
     if beta == 0.75:
-        r = torch.sqrt(d)
-        return 1.0 / (r * torch.sqrt(r))
+        r = _sqrt_rn(d)
+        return 1.0 / (r * _sqrt_rn(r))
     return d ** (-beta)
 
 

@@ -8,10 +8,16 @@ an epoch as a Python loop over minibatches gathered on the device from the
 resident dataset; per-step metrics stay in device tensors until the caller
 reads them, so an epoch needs one host sync.
 
-The port covers the kinds of the MNIST and CIFAR slices: ``fc``,
+The port covers the kinds of the MNIST, CIFAR and AlexNet slices: ``fc``,
 standalone ``activation``, ``conv``, ``max_pool``, ``maxabs_pool``,
-``avg_pool`` and ``lrn``.  Every other kind raises ``NotImplementedError``
-naming the ROADMAP.md item that ports it."""
+``avg_pool``, ``lrn``, the merged LRN→max-pool pair ``lrn_pool`` and
+``dropout``.  Every other kind raises ``NotImplementedError`` naming the
+ROADMAP.md item that ports it.
+
+Dropout draws from the counter RNG keyed by (stream seed, unit id, epoch,
+counter), the counter being the loader's sample offset after the step;
+the key is folded on the host and handed to the kernel, so the masks equal
+the reference's bit for bit and cost no device sync."""
 
 from __future__ import annotations
 
@@ -20,9 +26,11 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..ops import activations, conv as conv_ops
+from ..ops import activations, conv as conv_ops, dropout as drop_ops
+from ..ops import lrn_pool as lrn_pool_ops
 from ..ops import normalization as lrn_ops
 from ..ops import pooling as pool_ops
+from ..ops import rngbits
 from ..ops import softmax as softmax_ops
 
 #: Layer kinds with trainable parameters.
@@ -30,18 +38,17 @@ PARAM_KINDS = ("fc", "conv", "deconv")
 
 #: Kinds this port runs, and the ROADMAP.md item for each one it doesn't.
 PORTED_KINDS = ("fc", "activation", "conv", "max_pool", "maxabs_pool",
-                "avg_pool", "lrn")
+                "avg_pool", "lrn", "lrn_pool", "dropout")
 _ROADMAP_ITEM = {
     "stochastic_pool": "queue 1 item 5 (conv stack)",
     "stochastic_abs_pool": "queue 1 item 5 (conv stack)",
-    "lrn_pool": "queue 1 item 5 (conv stack, AlexNet's merged pair)",
-    "dropout": "queue 1 item 5 (conv stack)",
     "deconv": "queue 1 item 6 (decoder)",
     "depooling": "queue 1 item 6 (decoder)",
 }
 #: Kinds whose kernels take float32 only: a narrower storage dtype between
 #: layers is refused rather than run at another precision.
-_F32_KERNEL_KINDS = ("max_pool", "maxabs_pool", "lrn")
+_F32_KERNEL_KINDS = ("max_pool", "maxabs_pool", "lrn", "lrn_pool",
+                     "dropout")
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -79,8 +86,8 @@ class ModelSpec:
     #: dtype activations are stored in between layers (and so in the
     #: backward caches); the last layer's output stays float32
     storage_dtype: str = "float32"
-    #: per-spec-row index into the workflow's layers (write-back map);
-    #: () means identity
+    #: per-spec-row index into the workflow's layers (write-back map): the
+    #: lrn_pool merge makes spec rows fewer than layers; () means identity
     unit_index: tuple = ()
 
     def __post_init__(self):
@@ -112,6 +119,8 @@ class ModelSpec:
                 f"{self.layers[-1].kind!r})")
         for layer in self.layers:
             act = activations.BY_NAME[layer.activation]
+            if layer.kind == "lrn_pool":
+                activations.fold_id(layer.cfg.get("fold_act"))
             if act.needs_input and layer.kind in PARAM_KINDS:
                 # fc caches only the layer *input*, not the pre-activation
                 # tensor these derivatives need
@@ -139,11 +148,81 @@ def _mm(a: torch.Tensor, b: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
     return torch.matmul(_rnd(a, cdt), _rnd(b, cdt))
 
 
-def forward(spec: ModelSpec, params, x, *, want_caches: bool):
+def _merge_lrn_pool(layers, params, vels):
+    """Collapse each (lrn, max_pool|maxabs_pool) pair whose pool is
+    ``lrn_pool.fusable`` into one ``lrn_pool`` row (the reference's
+    ``_merge_lrn_pool`` under its ``fused1`` routing), and fold the
+    preceding conv's y-only activation derivative into the pair's backward
+    (``fold_act`` on the pair, ``act_folded`` on the conv).  ``tie``
+    indices are remapped.  Returns (layers, params, vels, unit_index), the
+    last mapping each row to its original layer (the write-back map).
+
+    The reference's default ``fused2`` routing also makes the two convs
+    emit column-parity halves (``split_out``/``emit_split``), a layout
+    device for Mosaic's lack of strided loads; the port's kernels read x
+    unsplit, so it never sets those."""
+    identity = tuple(range(len(layers)))
+    out_l, out_p, out_v, src, idx_map = [], [], [], [], {}
+    i = 0
+    while i < len(layers):
+        la = layers[i]
+        pool = layers[i + 1] if i + 1 < len(layers) else None
+        if (la.kind == "lrn" and pool is not None
+                and pool.kind in ("max_pool", "maxabs_pool")
+                and lrn_pool_ops.fusable(pool.cfg["ksize"],
+                                         pool.cfg["stride"],
+                                         pool.cfg["padding"])):
+            cfg = dict(la.config)
+            cfg.update(pool.config)
+            cfg["use_abs"] = pool.kind == "maxabs_pool"
+            prev = out_l[-1] if out_l else None
+            if (prev is not None and prev.kind in ("conv", "deconv")
+                    and prev.activation != "linear"
+                    and not activations.BY_NAME[prev.activation]
+                    .needs_input):
+                cfg["fold_act"] = prev.activation
+                out_l[-1] = dataclasses.replace(prev, config=tuple(sorted(
+                    dict(prev.config, act_folded=True).items())))
+            idx_map[i] = idx_map[i + 1] = len(out_l)
+            out_l.append(LayerSpec(
+                kind="lrn_pool", activation="linear", include_bias=False,
+                hypers=la.hypers, hypers_bias=la.hypers_bias,
+                config=tuple(sorted(cfg.items()))))
+            out_p.append((None, None))
+            out_v.append((None, None))
+            src.append(i)                 # paramless: index is nominal
+            i += 2
+        else:
+            idx_map[i] = len(out_l)
+            out_l.append(la)
+            out_p.append(params[i])
+            out_v.append(vels[i])
+            src.append(i)
+            i += 1
+    if len(out_l) == len(layers):
+        return layers, params, vels, identity
+    remapped = []
+    for la in out_l:
+        if "tie" in la.cfg:
+            cfg = dict(la.cfg, tie=idx_map[la.cfg["tie"]])
+            la = dataclasses.replace(la, config=tuple(sorted(cfg.items())))
+        remapped.append(la)
+    return remapped, out_p, out_v, tuple(src)
+
+
+def dropout_key(cfg: dict, epoch: int, ctr: int) -> int:
+    """The u32 key of a dropout layer's mask at (epoch, counter)."""
+    return rngbits.fold(cfg["seed"], cfg["unit_id"], epoch, ctr)
+
+
+def forward(spec: ModelSpec, params, x, *, want_caches: bool,
+            train: bool = False, epoch: int = 0, ctr: int = 0):
     """(net output before the loss, caches).  For softmax loss the last
     layer's output is the *logits*; ``caches[i]`` = (layer input, aux),
-    aux being the pool winner offsets of a max pool and None elsewhere
-    (the LRN backward recomputes its denominator from the cached input)."""
+    aux being the pool winner offsets of a max pool or merged LRN→pool and
+    None elsewhere (the LRN backward recomputes its denominator from the
+    cached input; dropout regenerates its mask).  ``epoch``/``ctr`` key
+    the dropout masks when ``train``; eval is dropout-free."""
     cdt = torch_dtype(spec.compute_dtype)
     sdt = torch_dtype(spec.storage_dtype)
     h = x
@@ -179,6 +258,14 @@ def forward(spec: ModelSpec, params, x, *, want_caches: bool):
         elif layer.kind == "lrn":
             h = lrn_ops.lrn_y(h, cfg["n"], cfg["alpha"], cfg["beta"],
                               cfg["k"])
+        elif layer.kind == "lrn_pool":
+            h, aux = lrn_pool_ops.lrn_maxpool(
+                h, cfg["n"], cfg["alpha"], cfg["beta"], cfg["k"],
+                cfg["ksize"], cfg["stride"], cfg["padding"], cfg["use_abs"])
+        elif layer.kind == "dropout":
+            if train:
+                h = drop_ops.dropout(h, dropout_key(cfg, epoch, ctr),
+                                     cfg["ratio"])
         elif layer.kind == "activation":
             h = spec.act(i).fwd(h)
         else:   # ModelSpec refuses unported kinds
@@ -213,9 +300,11 @@ def _loss_and_err(spec: ModelSpec, out, target, mask):
                                         device=out.device)
 
 
-def backward(spec: ModelSpec, params, caches, out, err):
+def backward(spec: ModelSpec, params, caches, out, err, epoch: int = 0,
+             ctr: int = 0):
     """Hand-written gradient chain (same math as the GD* units).  ``err``
-    on entry: w.r.t. the last layer's pre-activation."""
+    on entry: w.r.t. the last layer's pre-activation.  ``epoch``/``ctr``
+    regenerate the training forward's dropout masks."""
     cdt = torch_dtype(spec.compute_dtype)
     grads = [None] * len(spec.layers)
     n = len(spec.layers)
@@ -226,8 +315,10 @@ def backward(spec: ModelSpec, params, caches, out, err):
         y_i = caches[i + 1][0] if i < n - 1 else out
         cfg = layer.cfg
         if layer.kind in ("fc", "conv"):
-            err_pre = err if i == n - 1 else spec.act(i).bwd(
-                err.reshape(y_i.shape), y_i)
+            # act_folded: the merged lrn_pool above applied this
+            # derivative in its kernel already
+            err_pre = err if i == n - 1 or cfg.get("act_folded") else \
+                spec.act(i).bwd(err.reshape(y_i.shape), y_i)
         if layer.kind == "fc":
             x2 = x_in.reshape(x_in.shape[0], -1)
             err2 = err_pre.reshape(x2.shape[0], -1)
@@ -257,6 +348,14 @@ def backward(spec: ModelSpec, params, caches, out, err):
         elif layer.kind == "lrn":
             err = lrn_ops.gd_lrn_x(err.reshape(y_i.shape), x_in, cfg["n"],
                                    cfg["alpha"], cfg["beta"], cfg["k"])
+        elif layer.kind == "lrn_pool":
+            err = lrn_pool_ops.gd_lrn_maxpool(
+                err.reshape(y_i.shape), aux, x_in, cfg["n"], cfg["alpha"],
+                cfg["beta"], cfg["k"], cfg["ksize"], cfg["stride"],
+                cfg["padding"], cfg.get("fold_act"))
+        elif layer.kind == "dropout":
+            err = drop_ops.dropout(err.reshape(x_in.shape).contiguous(),
+                                   dropout_key(cfg, epoch, ctr), cfg["ratio"])
         elif layer.kind == "activation":
             err = spec.act(i).bwd(err.reshape(y_i.shape), y_i, x_in)
         else:   # ModelSpec refuses unported kinds
@@ -295,23 +394,27 @@ def _ones(x):
     return torch.ones((x.shape[0],), dtype=torch.float32, device=x.device)
 
 
-def grad_minibatch(spec: ModelSpec, params, x, target, mask=None):
+def grad_minibatch(spec: ModelSpec, params, x, target, mask=None,
+                   epoch: int = 0, ctr: int = 0):
     """(grads, metrics) of one minibatch — train_minibatch without the
     update."""
     if mask is None:
         mask = _ones(x)
-    out, caches = forward(spec, params, x, want_caches=True)
+    out, caches = forward(spec, params, x, want_caches=True, train=True,
+                          epoch=epoch, ctr=ctr)
     loss, err, n_err = _loss_and_err(spec, out, target, mask)
     last = len(spec.layers) - 1
     if spec.loss == "mse" and spec.layers[last].kind in PARAM_KINDS:
         # backward() expects pre-activation err at a param layer
         err = spec.act(last).bwd(err, out)
-    grads = backward(spec, params, caches, out, err)
+    grads = backward(spec, params, caches, out, err, epoch=epoch, ctr=ctr)
     return grads, {"loss": loss, "n_err": n_err}
 
 
-def train_minibatch(spec: ModelSpec, params, vels, x, target, mask=None):
-    grads, metrics = grad_minibatch(spec, params, x, target, mask)
+def train_minibatch(spec: ModelSpec, params, vels, x, target, mask=None,
+                    epoch: int = 0, ctr: int = 0):
+    grads, metrics = grad_minibatch(spec, params, x, target, mask,
+                                    epoch=epoch, ctr=ctr)
     params, vels = apply_updates(spec, params, vels, grads)
     return params, vels, metrics
 
@@ -377,6 +480,9 @@ class FusedTrainer:
                     for pair in pairs]
         self.params = put(params)
         self.vels = put(vels)
+        #: the next epoch number train_epoch keys dropout with when the
+        #: caller passes none, so repeated calls never reuse masks
+        self._auto_epoch = 0
 
     @staticmethod
     def _idx_matrix(indices: np.ndarray, batch: int, ctr_base: int = 0
@@ -384,9 +490,10 @@ class FusedTrainer:
         """(steps, batch) int32 indices + 0/1 mask + per-step counter.
         The final short batch wraps around to a full one; the mask zeroes
         the padded tail so metrics and gradients count each sample once.
-        The counter is the loader's sample offset after each step; it keys
-        the reference's stochastic layers (dropout, stochastic pooling),
-        which arrive with ROADMAP.md queue 1 item 5."""
+        The counter is the loader's sample offset after each step
+        (``ctr_base`` = samples already consumed this epoch by earlier
+        calls); it keys the dropout masks as the unit graph's loader
+        offset does."""
         n = len(indices)
         steps = max(1, -(-n // batch))
         padded = np.resize(indices, steps * batch)
@@ -397,25 +504,34 @@ class FusedTrainer:
         return (padded.reshape(steps, batch).astype(np.int32),
                 mask.reshape(steps, batch), ctrs)
 
-    def _plan(self, indices, batch):
-        idx, mask, _ = self._idx_matrix(np.asarray(indices), batch)
+    def _plan(self, indices, batch, ctr_base: int = 0):
+        """(device indices, device mask, host per-step counters)."""
+        idx, mask, ctrs = self._idx_matrix(np.asarray(indices), batch,
+                                           ctr_base)
         return (torch.from_numpy(idx).to(self.device, torch.int64),
-                torch.from_numpy(mask).to(self.device))
+                torch.from_numpy(mask).to(self.device), ctrs)
 
     @torch.no_grad()
     def train_epoch(self, data, target, indices, batch: int,
-                    sync: bool = True) -> dict:
+                    sync: bool = True, epoch: int | None = None,
+                    ctr_base: int = 0) -> dict:
         """Train over ``indices`` in minibatches of ``batch``.  Returns
         per-step ``{"loss", "n_err"}``: numpy with ``sync``, else device
-        tensors (no host sync)."""
-        idx, mask = self._plan(indices, batch)
+        tensors (no host sync).  ``epoch`` keys the dropout masks (by
+        default one more than the last call's); ``ctr_base`` is the count
+        of this epoch's samples consumed before ``indices``."""
+        if epoch is None:
+            epoch = self._auto_epoch
+        self._auto_epoch = epoch + 1
+        idx, mask, ctrs = self._plan(indices, batch, ctr_base)
         params, vels = self.params, self.vels
         losses, n_errs = [], []
         for s in range(idx.shape[0]):
             x = data.index_select(0, idx[s])
             t = target.index_select(0, idx[s])
             params, vels, m = train_minibatch(self.spec, params, vels, x, t,
-                                              mask[s])
+                                              mask[s], epoch=int(epoch),
+                                              ctr=int(ctrs[s]))
             losses.append(m["loss"])
             n_errs.append(m["n_err"])
         self.params, self.vels = params, vels
@@ -425,7 +541,7 @@ class FusedTrainer:
     @torch.no_grad()
     def eval_epoch(self, data, target, indices, batch: int,
                    sync: bool = True) -> dict:
-        idx, mask = self._plan(indices, batch)
+        idx, mask, _ = self._plan(indices, batch)
         losses, n_errs = [], []
         for s in range(idx.shape[0]):
             m = eval_minibatch(self.spec, self.params,
@@ -437,7 +553,13 @@ class FusedTrainer:
         return to_host(ms)[0] if sync else ms
 
     def write_back(self) -> None:
-        """Install the trained params and velocities into the workflow."""
-        if self.workflow is not None:
-            self.workflow.params = list(self.params)
-            self.workflow.vels = list(self.vels)
+        """Install the trained params and velocities into the workflow's
+        per-layer lists, each spec row at ``spec.unit_index`` (the merge
+        makes rows fewer than layers, so a positional copy would land
+        weights on the wrong layers)."""
+        if self.workflow is None:
+            return
+        umap = self.spec.unit_index or tuple(range(len(self.params)))
+        for row, u in enumerate(umap):
+            self.workflow.params[u] = self.params[row]
+            self.workflow.vels[u] = self.vels[row]

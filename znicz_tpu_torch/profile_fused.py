@@ -1,12 +1,14 @@
 """Where the time of a fused train/eval step goes on the card.
 
-    python -m znicz_tpu_torch.profile_fused [--model mnist|cifar]
+    python -m znicz_tpu_torch.profile_fused [--model mnist|cifar|alexnet]
         [--steps 50] [--out DIR]
 
-Trains the sample at full width on its real split resident on the card
-(MNIST 784→100→10 on 50k/10k/10k; the CIFAR-10 conv net on 45k/5k/10k,
-32×32×3), batch 100, for one warm-up epoch, then runs ``--steps`` train
-steps and as many eval steps under ``torch.profiler`` and prints one JSON
+Trains the sample at full width on its split resident on the card (MNIST
+784→100→10 on 50k/10k/10k and the CIFAR-10 conv net on 45k/5k/10k at
+32×32×3, batch 100; AlexNet at 227×227×3 on the reference's 512/128/128
+synthetic split, batch 128) for one warm-up epoch, then runs ``--steps``
+train steps and as many eval steps (the train set's shuffle, repeated as
+often as the steps need) under ``torch.profiler`` and prints one JSON
 line: host wall time per step (synchronised), device busy time per step
 (the kernels' summed device time), the device's idle share, kernel
 launches per step, the kernels that take the most device time, and the
@@ -21,6 +23,7 @@ import importlib
 import json
 import time
 
+import numpy as np
 import torch
 
 from . import prng
@@ -32,10 +35,15 @@ MODELS = {
                                 "n_test": 10000, "noise": 0.35}),
     "cifar": ("CifarWorkflow", {"n_train": 45000, "n_valid": 5000,
                                 "n_test": 10000, "noise": 0.3, "size": 32}),
+    "alexnet": ("AlexNetWorkflow", {"n_train": 512, "n_valid": 128,
+                                    "n_test": 128, "noise": 0.4}),
 }
-#: the hand-written kernels' names in ``csrc/``
+#: the hand-written kernels' names in ``csrc/`` (a name that contains
+#: another is listed first, so each kernel is counted once)
 PORT_KERNELS = ("softmax_ce_kernel", "pool_select_kernel",
-                "pool_scatter_kernel", "lrn_y_kernel", "gd_lrn_x_kernel")
+                "pool_scatter_kernel", "gd_lrn_maxpool_kernel",
+                "lrn_maxpool_kernel", "lrn_y_kernel", "gd_lrn_x_kernel",
+                "dropout_kernel")
 
 
 def _window(fn, steps: int) -> float:
@@ -64,7 +72,7 @@ def main(argv=None) -> dict:
     trainer = wf.run_fused(max_epochs=1)        # warm-up epoch
     loader = wf.loader
     batch = loader.max_minibatch_size
-    idx = loader.train_permutation(1)[:args.steps * batch]
+    idx = np.resize(loader.train_permutation(1), args.steps * batch)
     data, target = loader.original_data, loader.original_labels
 
     def train():
@@ -92,14 +100,14 @@ def main(argv=None) -> dict:
         top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
         port = {}
         for e in kernels:
-            for k in PORT_KERNELS:
-                if k in e.key:
-                    port[k] = {"us_per_step": e.self_device_time_total
-                               / args.steps,
-                               "calls_per_step": e.count / args.steps,
-                               "share_of_busy": (e.self_device_time_total
-                                                 / busy_us if busy_us
-                                                 else None)}
+            k = next((k for k in PORT_KERNELS if k in e.key), None)
+            if k is not None:
+                port[k] = {"us_per_step": e.self_device_time_total
+                           / args.steps,
+                           "calls_per_step": e.count / args.steps,
+                           "share_of_busy": (e.self_device_time_total
+                                             / busy_us if busy_us
+                                             else None)}
         out[name] = {
             "wall_ms_per_step": wall_ms,
             "device_busy_ms_per_step": (busy_us / 1e3 / args.steps

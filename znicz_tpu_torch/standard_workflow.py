@@ -4,7 +4,10 @@
 A ``layers=[{"type": ..., "->": {...}, "<-": {...}}, ...]`` config becomes
 a ``ModelSpec`` plus ``(w, b)`` parameters and zero velocities, filled from
 the ``"weights"`` stream exactly as the reference's units fill them, so the
-same seed gives the same initial weights in both packages.  There is no
+same seed gives the same initial weights in both packages.  ``params`` and
+``vels`` keep one pair per configured layer; the spec merges each LRN with
+the max pool after it (``fused._merge_lrn_pool``), and its ``unit_index``
+maps the spec's rows back to the layers.  There is no
 unit graph yet (ROADMAP.md queue 1 item 4): ``train(fused=True)`` runs
 ``run_fused``, the port of the reference's ``_run_fused_body`` for a
 resident loader, and ``train(fused=False)`` raises."""
@@ -13,6 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -36,7 +40,7 @@ CONV_TYPES = {"conv": "linear", "conv_tanh": "tanh", "conv_relu": "relu",
 POOL_TYPES = {"max_pooling": "max_pool", "maxabs_pooling": "maxabs_pool",
               "avg_pooling": "avg_pool"}
 LRN_TYPES = ("norm", "lrn")
-PORTED_TYPES = (*FC_TYPES, *CONV_TYPES, *POOL_TYPES, *LRN_TYPES)
+PORTED_TYPES = (*FC_TYPES, *CONV_TYPES, *POOL_TYPES, *LRN_TYPES, "dropout")
 
 _UNIT_GRAPH = "ROADMAP.md queue 1 item 4 (core engine: the unit graph)"
 
@@ -155,6 +159,9 @@ class StandardWorkflow:
             elif ltype in LRN_TYPES:
                 kind, act, pair = "lrn", "linear", None
                 config = self._lrn(fwd)
+            elif ltype == "dropout":
+                kind, act, pair = "dropout", "linear", None
+                config = self._dropout(i, fwd)
             else:
                 raise NotImplementedError(
                     f"layer type {ltype!r} is not ported to znicz_tpu_torch "
@@ -179,7 +186,10 @@ class StandardWorkflow:
                 vels.append((torch.zeros(w.shape, device=dev),
                              None if b is None
                              else torch.zeros(b.shape, device=dev)))
-        self.spec = ModelSpec(tuple(layers), self.loss_function)
+        layers, _, _, unit_index = fused._merge_lrn_pool(layers, params,
+                                                         vels)
+        self.spec = ModelSpec(tuple(layers), self.loss_function,
+                              unit_index=unit_index)
         self.params, self.vels = params, vels
 
     @staticmethod
@@ -265,6 +275,20 @@ class StandardWorkflow:
                "beta": fwd.pop("beta", 0.75), "k": fwd.pop("k", 2.0)}
         return tuple(sorted(cfg.items()))
 
+    @staticmethod
+    def _dropout(i: int, fwd):
+        """DropoutForward (nn/dropout.py): the ratio, the ``"dropout"``
+        stream's seed and the crc32 of the unit name the reference gives
+        layer i, which key the counter-RNG masks."""
+        ratio = float(fwd.pop("dropout_ratio", 0.5))
+        return (("ratio", ratio), ("seed", prng.get("dropout").stream_seed),
+                ("unit_id", zlib.crc32(f"fwd{i}_dropout".encode())))
+
+    def spec_rows(self, pairs: list) -> list:
+        """``pairs`` (one per layer) picked for the spec's rows."""
+        return [pairs[u] for u in (self.spec.unit_index
+                                   or range(len(self.spec.layers)))]
+
     # -- training ------------------------------------------------------------
     def train(self, fused: bool = False, mesh=None, mesh_shape=None,
               max_epochs: int | None = None,
@@ -310,8 +334,10 @@ class StandardWorkflow:
             spec = dataclasses.replace(spec, compute_dtype=compute_dtype)
         if storage_dtype is not None:
             spec = dataclasses.replace(spec, storage_dtype=storage_dtype)
-        trainer = FusedTrainer(workflow=self, spec=spec, params=self.params,
-                               vels=self.vels, device=self.device)
+        trainer = FusedTrainer(workflow=self, spec=spec,
+                               params=self.spec_rows(self.params),
+                               vels=self.spec_rows(self.vels),
+                               device=self.device)
         loader, decision = self.loader, self.decision
         data = loader.original_data
         target = (loader.original_targets if self.loss_function == "mse"
@@ -331,8 +357,10 @@ class StandardWorkflow:
         # sets ``complete`` the GD units are gate-skipped, so the LAST train
         # minibatch of the final epoch never updates weights.  The fused
         # loop reproduces this by deferring each epoch's last minibatch
-        # update until it knows training continues.
-        pending = None
+        # update until it knows training continues; the deferred step keeps
+        # its epoch and counter base, so its dropout masks are the ones the
+        # unit graph would have drawn.
+        pending = None   # (tail indices, epoch, counter base)
         for epoch in range(loader.epoch_number, epochs):
             t_epoch0 = time.monotonic()
             loader.epoch_number = epoch
@@ -343,20 +371,22 @@ class StandardWorkflow:
             n_train = len(cls_idx[TRAIN])
             steps_per_epoch = max(1, -(-n_train // batch))
             if pending is not None:
-                trainer.train_epoch(data, target, pending, batch, sync=False)
+                trainer.train_epoch(data, target, pending[0], batch,
+                                    sync=False, epoch=pending[1],
+                                    ctr_base=pending[2])
             split = ((n_train - 1) // batch) * batch
             head, tail = perm[:split], perm[split:]
             # everything below stays on the device until the one readback
             runs = {}
             if len(head):
                 runs["head"] = trainer.train_epoch(data, target, head, batch,
-                                                   sync=False)
+                                                   sync=False, epoch=epoch)
             # the tail minibatch's metrics come from a forward pass over the
             # post-head weights — the weights the unit graph's evaluator saw
             # before the (skipped-or-deferred) update
             runs["tail"] = trainer.eval_epoch(data, target, tail, batch,
                                               sync=False)
-            pending = tail
+            pending = (tail, epoch, split)
             for k in (VALID, TEST):
                 if len(cls_idx[k]):
                     runs[k] = trainer.eval_epoch(data, target, cls_idx[k],
