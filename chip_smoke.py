@@ -42,7 +42,25 @@ exits nonzero without the final ``ok`` line:
 9. alexnet parity — the shrunk AlexNet of tests/test_lrn_pool.py (67×67,
    widths 8-12-8-8-8-24-16, 7 classes, batch 32, dropout kept) on the
    default split for one epoch on the card and on the CPU, held as in 7;
-10. the ``kernels`` line, then ``{"ok": true, "device": {...}}`` last.
+10. mnist_units slice — the MNIST MLP of phase 4 on the unit graph
+   (``models.mnist.run(fused=False)``: one minibatch a tick through the
+   loader, All2AllTanh, All2AllSoftmax, the host evaluator, Decision and
+   the GD chain) for 2 epochs, launch counts reset and read around it;
+   each count must equal the ticks run times the path's launches per
+   tick (``UNIT_PATHS``), and it prints wall, per-epoch timings and peak
+   device bytes;
+11. mnist_units parity — epoch 0 of the same seed on the CPU unit graph,
+   held as in 5;
+12. the ``kernels`` line, then ``{"ok": true, "device": {...}}`` last.
+
+The kernel phase holds, besides the fused paths' kernels, the unit graph's
+three: the tiled matmul at the five products of the MNIST unit graph
+(operands passed as transposed views where the graph does), a ragged case
+and AlexNet fc6's (128, 9216)·(9216, 4096), within rtol 1e-5 / atol
+1e-5·√K; the SGD update bit for bit at the MNIST weights and biases, with
+decay and l1_vs_l2 = 0.5, and at (9216, 4096); the row softmax + argmax at
+(100, 10), (128, 1000) and tied logits, probabilities within rtol 1e-6 and
+the argmax exact.
 
 It imports nothing of JAX or of the ``znicz_tpu`` package.  Without a CUDA
 device, or outside a checkout of the repository, it fails."""
@@ -106,6 +124,13 @@ KERNELS = {
     "dropout": ("znicz_tpu_torch/csrc/dropout.cu",
                 "znicz_tpu/ops/elementwise.py:181", "dropout",
                 "dropout_launches"),
+    "matmul": ("znicz_tpu_torch/csrc/matmul.cu",
+               "znicz_tpu/ops/matmul.py:82", "matmul", "matmul_launches"),
+    "sgd_update": ("znicz_tpu_torch/csrc/update.cu",
+                   "znicz_tpu/ops/update.py:61", "update",
+                   "sgd_update_launches"),
+    "softmax": ("znicz_tpu_torch/csrc/softmax.cu",
+                "znicz_tpu/ops/softmax.py:83", "softmax", "softmax_launches"),
 }
 
 #: each path's kernels: launches per (train step, eval step)
@@ -116,6 +141,15 @@ PATHS = {
     "alexnet": {"softmax_ce": (1, 1), "pool_select": (1, 1),
                 "pool_scatter": (1, 0), "lrn_maxpool": (2, 2),
                 "gd_lrn_maxpool": (2, 0), "dropout": (4, 0)},
+}
+#: the unit graph's kernels: launches per (tick, tick whose GD chain runs);
+#: MNIST's two forwards take a matmul each and its softmax layer the row
+#: softmax; GDSoftmax takes two (the weight gradient and err_input),
+#: GDTanh one (no err_input for the first layer), and four updates (W and
+#: b of two layers)
+UNIT_PATHS = {
+    "mnist_units": {"matmul": (2, 3), "sgd_update": (0, 4),
+                    "softmax": (1, 0)},
 }
 
 
@@ -578,6 +612,140 @@ def phase_kernel_dropout(torch) -> list:
     return rows
 
 
+def matmul_bound_ms(m: int, n: int, k: int):
+    """A, B read once and C written once; 2·M·N·K float operations."""
+    return _bound((m * k + k * n + m * n) * 4, 2 * m * n * k)
+
+
+#: case, A shape, B shape, A passed as a transposed view, B likewise: the
+#: five products of the MNIST unit graph first (fwd1 is the main path's
+#: first), a ragged case, AlexNet fc6
+MATMUL_CASES = [
+    ("fwd1", (100, 784), (784, 100), False, False),
+    ("fwd2", (100, 100), (100, 10), False, False),
+    ("gdsoftmax_gw", (100, 100), (100, 10), True, False),
+    ("gdsoftmax_err_in", (100, 10), (10, 100), False, True),
+    ("gdtanh_gw", (784, 100), (100, 100), True, False),
+    ("ragged", (37, 129), (129, 3), False, False),
+    ("alexnet_fc6", (128, 9216), (9216, 4096), False, False),
+]
+
+
+def phase_kernel_matmul(torch) -> list:
+    """The tiled SGEMM against ``torch.matmul`` in float32 (TF32 off):
+    rtol 1e-5 / atol 1e-5·√K, sums taken in another order.  A transposed
+    operand is made in the other layout and handed over as ``.T``, as the
+    GD units hand over xᵀ and Wᵀ.  B is filled as the fc layers' weights
+    are (uniform ±1/√K)."""
+    from znicz_tpu_torch.ops import matmul
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 5)
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: the plain matmul would round")
+    rows = []
+    for case, sa, sb, ta, tb in MATMUL_CASES:
+        a = torch.randn(sa[::-1] if ta else sa, generator=gen).to(dev)
+        b = ((torch.rand(sb[::-1] if tb else sb, generator=gen) * 2 - 1)
+             / math.sqrt(sb[0])).to(dev)
+        a, b = (a.T if ta else a), (b.T if tb else b)
+        m, k = a.shape
+        n = b.shape[1]
+        got = _launch_once(torch, "matmul", lambda: matmul.matmul(a, b))
+        err = _close(torch, case, "c", got, matmul.plain_matmul(a, b), 1e-5,
+                     1e-5 * math.sqrt(k))
+        big = case == "alexnet_fc6"
+        iters = BIG_ITERS if big else ITERS
+        lib = _time_ms(torch, lambda: torch.matmul(a, b), iters)[0]
+        rows.append(_row(
+            torch, "matmul", {"case": case, "shape": [m, n, k],
+                              "a_transposed": ta, "b_transposed": tb}, err,
+            lambda: matmul.matmul(a, b), lambda: matmul.plain_matmul(a, b),
+            matmul_bound_ms(m, n, k), lib, iters))
+    return rows
+
+
+def sgd_update_bound_ms(numel: int):
+    """w, g and v read once, w′ and v′ written once; about 10 float
+    operations an element (sign, three products and an add for reg, two
+    products, an add and a subtract for v′, an add for w′)."""
+    return _bound(5 * numel * 4, 10 * numel)
+
+
+#: case, shape, hypers (lr, weights_decay, l1_vs_l2, momentum)
+UPDATE_CASES = [
+    ("mnist_w1", (784, 100), (0.03, 0.0, 0.0, 0.9)),
+    ("mnist_b1", (100,), (0.03, 0.0, 0.0, 0.9)),
+    ("mnist_w2", (100, 10), (0.03, 0.0, 0.0, 0.9)),
+    ("mnist_b2", (10,), (0.03, 0.0, 0.0, 0.9)),
+    ("decay_half_l1", (784, 100), (0.01, 5e-4, 0.5, 0.9)),
+    ("alexnet_fc6", (9216, 4096), (0.01, 5e-4, 0.0, 0.9)),
+]
+
+
+def phase_kernel_update(torch) -> list:
+    """The fused update bit for bit against the plain version (both round
+    once per operation, no fused multiply-add); a quarter of w is zero so
+    sign(0) = 0 is exercised.  No single PyTorch call computes it."""
+    from znicz_tpu_torch.ops import update
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 6)
+    rows = []
+    for case, shape, hypers in UPDATE_CASES:
+        w = torch.randn(shape, generator=gen)
+        w[torch.rand(shape, generator=gen) < 0.25] = 0.0
+        w = w.to(dev)
+        g = (torch.randn(shape, generator=gen) * 0.1).to(dev)
+        v = (torch.randn(shape, generator=gen) * 0.01).to(dev)
+        got = _launch_once(torch, "sgd_update",
+                           lambda: update.sgd_update(w, g, v, hypers))
+        want = update.plain_sgd_update(w, g, v, hypers)
+        err = max(_close(torch, case, "w", got[0], want[0], 0, 0),
+                  _close(torch, case, "v", got[1], want[1], 0, 0))
+        big = case == "alexnet_fc6"
+        rows.append(_row(
+            torch, "sgd_update", {"case": case, "shape": list(shape),
+                                  "hypers": list(hypers)}, err,
+            lambda: update.sgd_update(w, g, v, hypers),
+            lambda: update.plain_sgd_update(w, g, v, hypers),
+            sgd_update_bound_ms(w.numel()), None,
+            BIG_ITERS if big else ITERS))
+    return rows
+
+
+def row_softmax_bound_ms(n: int, c: int):
+    """x read once, y and the int32 argmax written once; about 5 float
+    operations an element (max, subtract, exp, add, divide)."""
+    return _bound(2 * n * c * 4 + n * 4, 5 * n * c)
+
+
+def phase_kernel_row_softmax(torch) -> list:
+    """The row softmax + argmax against the plain version: probabilities
+    within rtol 1e-6, the argmax exact (ties to the first index).  The
+    yardstick is two PyTorch calls, ``torch.softmax`` and
+    ``torch.argmax``."""
+    from znicz_tpu_torch.ops import softmax
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 7)
+    rows = []
+    for case, n, c in (("mnist_units_step", 100, 10),
+                       ("alexnet_width", 128, 1000), ("ties", 100, 10)):
+        x = torch.randn((n, c), generator=gen) * 3
+        if case == "ties":     # small integers: most rows tie at the max
+            x = torch.randint(-2, 3, (n, c), generator=gen).float()
+        x = x.to(dev)
+        y, idx = _launch_once(torch, "softmax", lambda: softmax.softmax(x))
+        want_y, want_idx = softmax.plain_softmax(x)
+        err = max(_close(torch, case, "idx", idx, want_idx, 0, 0),
+                  _close(torch, case, "y", y, want_y, 1e-6, 0))
+        lib = _time_ms(torch, lambda: (torch.softmax(x, 1),
+                                       torch.argmax(x, 1)))[0]
+        rows.append(_row(
+            torch, "softmax", {"case": case, "shape": [n, c]}, err,
+            lambda: softmax.softmax(x), lambda: softmax.plain_softmax(x),
+            row_softmax_bound_ms(n, c), lib))
+    return rows
+
+
 # -- main paths --------------------------------------------------------------
 def expected_steps(split: dict, batch: int, epochs: int) -> list[dict]:
     """Steps ``run_fused`` runs in each epoch: train steps (the head of
@@ -597,11 +765,29 @@ def expected_steps(split: dict, batch: int, epochs: int) -> list[dict]:
     return per
 
 
+def expected_ticks(split: dict, batch: int, epochs: int) -> dict:
+    """Ticks the unit graph runs: every minibatch of every class in each
+    epoch, and the ticks whose GD chain runs — every train minibatch but
+    the last one of the final epoch, whose tick sets ``complete``."""
+    def steps(n):
+        return -(-n // batch)
+    train = steps(split["n_train"])
+    per_epoch = train + sum(steps(split[k]) for k in ("n_valid", "n_test"))
+    return {"ticks": epochs * per_epoch, "gd_ticks": epochs * train - 1,
+            "ticks_per_epoch": per_epoch}
+
+
 def expected_launches(path: str, split: dict, batch: int, epochs: int
                       ) -> dict:
     """Launches each kernel must make on a path: its launches per train
-    step and per eval step (``PATHS``) times the steps run, and none for a
-    kernel off the path."""
+    step and per eval step (``PATHS``) times the steps run — or, on a unit
+    graph, per tick and per GD tick (``UNIT_PATHS``) times the ticks run —
+    and none for a kernel off the path."""
+    if path in UNIT_PATHS:
+        t = expected_ticks(split, batch, epochs)
+        mult = UNIT_PATHS[path]
+        return {k: (mult[k][0] * t["ticks"] + mult[k][1] * t["gd_ticks"]
+                    if k in mult else 0) for k in KERNELS}
     per = expected_steps(split, batch, epochs)
     train = sum(p["train"] for p in per)
     evals = sum(p["eval"] for p in per)
@@ -611,7 +797,7 @@ def expected_launches(path: str, split: dict, batch: int, epochs: int
 
 
 def _run(model: str, device: str, epochs: int, split: dict,
-         config: dict | None = None):
+         config: dict | None = None, fused: bool = True):
     from znicz_tpu_torch import prng
     from znicz_tpu_torch.config import root
     module = importlib.import_module(f"znicz_tpu_torch.models.{model}")
@@ -620,7 +806,7 @@ def _run(model: str, device: str, epochs: int, split: dict,
     if config:
         tree.update(config)
     prng.seed_all(SEED)
-    return module.run(device=device, fused=True, epochs=epochs)
+    return module.run(device=device, fused=fused, epochs=epochs)
 
 
 #: the fused AlexNet's rows and their output shapes at batch 128
@@ -658,20 +844,24 @@ def alexnet_geometry(torch, wf) -> dict:
 
 
 def phase_slice(torch, model: str, split: dict, desc: str,
-                extra=None) -> dict:
+                extra=None, path: str | None = None) -> dict:
     """Train ``model`` for EPOCHS on the card, every launch count reset
     just before and read just after; each count must equal the steps the
     loop ran times the path's launches per step (zero for a kernel off
-    the path).  ``extra(torch, wf)`` adds checks and fields after."""
+    the path).  ``path`` (default: the model's fused path) may name a
+    unit graph (``UNIT_PATHS``), trained through ``run(fused=False)``.
+    ``extra(torch, wf)`` adds checks and fields after."""
     from znicz_tpu_torch.config import root
     importlib.import_module(f"znicz_tpu_torch.models.{model}")
+    path = path or model
+    fused = path not in UNIT_PATHS
     batch = int(getattr(root, model).get("minibatch_size"))
-    expected = expected_launches(model, split, batch, EPOCHS)
+    expected = expected_launches(path, split, batch, EPOCHS)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     t0 = time.monotonic()
-    wf = _run(model, "cuda", EPOCHS, split)
+    wf = _run(model, "cuda", EPOCHS, split, fused=fused)
     torch.cuda.synchronize()
     wall_s = time.monotonic() - t0
     counts = launch_counts()
@@ -685,19 +875,25 @@ def phase_slice(torch, model: str, split: dict, desc: str,
     if not metrics[-1]["train_loss"] < metrics[0]["train_loss"]:
         raise AssertionError(f"{model}: train loss did not fall: {metrics}")
     if counts != expected:
-        raise AssertionError(f"{model}: launches {counts} != steps run "
+        raise AssertionError(f"{path}: launches {counts} != steps run "
                              f"{expected}")
-    for t in (t for pair in wf.params for t in pair if t is not None):
+    params = wf.params if fused else [
+        (f.weights.devmem, f.bias.devmem) for f in wf.forwards]
+    for t in (t for pair in params for t in pair if t is not None):
         if t.device.type != "cuda" or not torch.isfinite(t).all():
             raise AssertionError("params left the card or went non-finite")
     data = wf.loader.original_data
-    out = {"phase": f"{model}_slice", "model": desc, "split": split,
+    out = {"phase": f"{path}_slice", "model": desc, "split": split,
            "batch": batch, "epochs": EPOCHS, "wall_s": wall_s,
            "launches": counts,
-           "expected_steps_per_epoch": expected_steps(split, batch, EPOCHS),
+           "expected_steps_per_epoch": (
+               expected_steps(split, batch, EPOCHS) if fused
+               else expected_ticks(split, batch, EPOCHS)),
            "resident_data_bytes": data.numel() * data.element_size(),
            "peak_device_bytes": torch.cuda.max_memory_allocated(),
            "epoch_metrics": metrics, "epoch_timings": wf.epoch_timings}
+    if not fused:
+        out["time_table"] = wf.time_table()
     if extra is not None:
         out.update(extra(torch, wf))
     emit(out)
@@ -707,10 +903,12 @@ def phase_slice(torch, model: str, split: dict, desc: str,
 
 
 def phase_parity(model: str, split: dict, card_epoch0: dict, rtol: float,
-                 err_share: float, config: dict | None = None) -> None:
+                 err_share: float, config: dict | None = None,
+                 fused: bool = True) -> None:
     """Epoch 0 of the same seed on the CPU against the card's: losses
     within ``rtol``, error counts within ``err_share`` of each class."""
-    cpu = _run(model, "cpu", 1, split, config).decision.epoch_metrics[0]
+    cpu = _run(model, "cpu", 1, split, config,
+               fused).decision.epoch_metrics[0]
     sizes = {"train": split["n_train"], "validation": split["n_valid"],
              "test": split["n_test"]}
     for name, n in sizes.items():
@@ -723,8 +921,8 @@ def phase_parity(model: str, split: dict, card_epoch0: dict, rtol: float,
         if abs(card_epoch0[k] - cpu[k]) > err_share * n:
             raise AssertionError(f"{model} {k}: card {card_epoch0[k]} vs "
                                  f"cpu {cpu[k]}")
-    emit({"phase": f"{model}_parity", "split": split,
-          "card_epoch0": card_epoch0, "cpu_epoch0": cpu})
+    emit({"phase": f"{model}{'' if fused else '_units'}_parity",
+          "split": split, "card_epoch0": card_epoch0, "cpu_epoch0": cpu})
 
 
 def kernels_line(kern: dict, launches: dict) -> dict:
@@ -766,7 +964,10 @@ def main() -> int:
     kern = {"softmax_ce": phase_kernel_softmax(torch),
             **phase_kernel_pooling(torch), **phase_kernel_lrn(torch),
             **phase_kernel_lrn_pool(torch),
-            "dropout": phase_kernel_dropout(torch)}
+            "dropout": phase_kernel_dropout(torch),
+            "matmul": phase_kernel_matmul(torch),
+            "sgd_update": phase_kernel_update(torch),
+            "softmax": phase_kernel_row_softmax(torch)}
     mnist = phase_slice(torch, "mnist", MNIST_SPLIT, "mnist 784-100-10")
     phase_parity("mnist", MNIST_SPLIT, mnist["epoch_metrics"][0], 1e-4,
                  0.001)
@@ -787,9 +988,14 @@ def main() -> int:
     card = _run("alexnet", "cuda", 1, ALEXNET_SPLIT, shrunk)
     phase_parity("alexnet", ALEXNET_SPLIT, card.decision.epoch_metrics[0],
                  5e-4, 0.01, shrunk)
+    units = phase_slice(torch, "mnist", MNIST_SPLIT,
+                        "mnist 784-100-10 unit graph", path="mnist_units")
+    phase_parity("mnist", MNIST_SPLIT, units["epoch_metrics"][0], 1e-4,
+                 0.001, fused=False)
     emit(kernels_line(kern, {"mnist": mnist["launches"],
                              "cifar": cifar["launches"],
-                             "alexnet": alexnet["launches"]}))
+                             "alexnet": alexnet["launches"],
+                             "mnist_units": units["launches"]}))
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],
                                  "count": torch.cuda.device_count()}})
     return 0

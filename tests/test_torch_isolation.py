@@ -45,7 +45,8 @@ def test_no_jax_or_reference_import(path):
     assert not bad, f"{path} imports {bad}"
 
 
-def _train_in_fresh_process(model: str, split: str, setup: str = "") -> None:
+def _train_in_fresh_process(model: str, split: str, setup: str = "",
+                            fused: bool = True) -> None:
     code = (
         "import sys, torch\n"
         "torch.set_num_threads(2)\n"
@@ -55,7 +56,7 @@ def _train_in_fresh_process(model: str, split: str, setup: str = "") -> None:
         f"root.{model}.synthetic.update({split})\n"
         f"{setup}"
         "prng.seed_all(1234)\n"
-        f"wf = {model}.run(device='cpu', epochs=1, fused=True)\n"
+        f"wf = {model}.run(device='cpu', epochs=1, fused={fused})\n"
         "assert len(wf.decision.epoch_metrics) == 1\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'jaxlib', 'znicz_tpu'))\n"
@@ -70,6 +71,12 @@ def _train_in_fresh_process(model: str, split: str, setup: str = "") -> None:
 def test_fresh_process_trains_without_jax():
     _train_in_fresh_process(
         "mnist", "{'n_train': 200, 'n_valid': 50, 'n_test': 50}")
+
+
+def test_fresh_process_trains_the_unit_graph_without_jax():
+    _train_in_fresh_process(
+        "mnist", "{'n_train': 200, 'n_valid': 50, 'n_test': 50}",
+        fused=False)
 
 
 def test_fresh_process_trains_cifar_without_jax():
@@ -95,10 +102,18 @@ def test_cuda_default_raises_without_a_card(backend, monkeypatch):
             backends.Device.create(backend)
 
 
-def test_mnist_run_defaults_to_the_card(monkeypatch):
+@pytest.mark.parametrize("fused", [True, False])
+def test_mnist_run_defaults_to_the_card(monkeypatch, fused):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match='device="cpu"'):
-        mnist.run(epochs=1, fused=True)
+        mnist.run(epochs=1, fused=fused)
+
+
+def test_workflow_initialize_defaults_to_the_card(monkeypatch):
+    from znicz_tpu_torch.workflow import Workflow
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        Workflow(name="w").initialize()
 
 
 def test_cifar_run_defaults_to_the_card(monkeypatch):
@@ -116,3 +131,4 @@ def test_alexnet_run_defaults_to_the_card(monkeypatch):
 def test_cpu_is_taken_only_when_asked():
     assert backends.Device.create("cpu").torch_device == torch.device("cpu")
     assert backends.resolve("cpu") == torch.device("cpu")
+    assert not backends.get("numpy").is_torch

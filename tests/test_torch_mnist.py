@@ -123,9 +123,16 @@ def test_fused_run_matches_reference(sizes, noise):
         assert metrics[-1]["validation_n_err"] > 0
 
 
-def test_train_without_fused_raises_naming_the_unit_graph(sizes):
-    with pytest.raises(NotImplementedError, match="unit-graph"):
-        mnist.run(device="cpu", epochs=1, fused=False)
+def test_train_without_fused_trains_on_the_unit_graph(sizes):
+    """``fused=False`` (the default) is the unit-graph tick loop: it
+    trains, each GD unit skipping only the final train minibatch."""
+    prng.seed_all(1234)
+    wf = mnist.run(device="cpu", epochs=2, fused=False)
+    metrics = wf.decision.epoch_metrics
+    assert [m["epoch"] for m in metrics] == [0, 1]
+    assert metrics[1]["train_loss"] < metrics[0]["train_loss"]
+    steps = -(-SMALL["n_train"] // root.mnist.minibatch_size)
+    assert [g.run_count for g in wf.gds] == [2 * steps - 1] * 2
 
 
 def _cli(*args):
@@ -147,10 +154,62 @@ def test_cli_trains_one_epoch_on_the_cpu():
     assert len(lines) == 1 and "validation_loss" in lines[0], proc.stdout
 
 
-def test_cli_without_fused_raises():
-    proc = _cli("--epochs", "1", "--device", "cpu")
+def test_cli_without_fused_trains_on_the_unit_graph():
+    proc = _cli("--epochs", "1", "--device", "cpu",
+                "--set", "mnist.synthetic.n_train=300",
+                "--set", "mnist.synthetic.n_valid=100",
+                "--set", "mnist.synthetic.n_test=100")
+    assert proc.returncode == 0, proc.stderr
+    lines = [ln for ln in proc.stdout.splitlines() if "'epoch': 0" in ln]
+    assert len(lines) == 1 and "validation_loss" in lines[0], proc.stdout
+
+
+def test_cli_numpy_device_trains_on_the_unit_graph():
+    proc = _cli("--epochs", "1", "--device", "numpy",
+                "--set", "mnist.synthetic.n_train=200",
+                "--set", "mnist.synthetic.n_valid=100",
+                "--set", "mnist.synthetic.n_test=100")
+    assert proc.returncode == 0, proc.stderr
+    assert "'epoch': 0" in proc.stdout, proc.stdout
+
+
+@pytest.mark.parametrize("model", ["cifar", "alexnet"])
+def test_cli_without_fused_raises_for_conv_models(model):
+    """The conv samples have no units yet: the tick loop raises, naming
+    the nn/ conv units it waits for."""
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
+    sets = {"cifar": ["cifar.synthetic.n_train=20", "cifar.synthetic.size=8",
+                      "cifar.synthetic.n_valid=10",
+                      "cifar.synthetic.n_test=10"],
+            "alexnet": ["alexnet.synthetic.n_train=4", "alexnet.size=67",
+                        "alexnet.n_classes=5", "alexnet.synthetic.n_valid=2",
+                        "alexnet.synthetic.n_test=2"]}[model]
+    args = [a for s in sets for a in ("--set", s)]
+    proc = subprocess.run(
+        [sys.executable, "-m", "znicz_tpu_torch",
+         f"znicz_tpu_torch.models.{model}", "--epochs", "1", "--device",
+         "cpu", *args], cwd=REPO, env=env, capture_output=True, text=True,
+        timeout=120)
     assert proc.returncode != 0
-    assert "ROADMAP.md queue 1 item 4" in proc.stderr
+    assert "NotImplementedError" in proc.stderr
+    assert "ROADMAP.md queue 1 item 5" in proc.stderr, proc.stderr
+
+
+@pytest.mark.parametrize("model", ["cifar", "alexnet"])
+def test_run_without_fused_raises_for_conv_models(model):
+    from znicz_tpu_torch.models import alexnet, cifar
+    saved = getattr(root, model).to_dict()
+    getattr(root, model).synthetic.update(
+        {"n_train": 4, "n_valid": 2, "n_test": 2, "size": 8}
+        if model == "cifar" else {"n_train": 4, "n_valid": 2, "n_test": 2})
+    if model == "alexnet":
+        root.alexnet.update({"size": 67, "n_classes": 5})
+    try:
+        module = {"cifar": cifar, "alexnet": alexnet}[model]
+        with pytest.raises(NotImplementedError, match="conv"):
+            module.run(device="cpu", epochs=1, fused=False)
+    finally:
+        getattr(root, model).update(saved)
 
 
 def _mse_workflows(autoencoder: bool):

@@ -129,3 +129,110 @@ def test_cuda_kernel_matches_plain_version(shape):
     for name, g, w in zip(("probs", "loss", "err"), got, want):
         atol = 1e-5 if name == "loss" else 1e-6
         torch.testing.assert_close(g, w, rtol=1e-5, atol=atol)
+
+
+# -- row softmax + argmax (All2AllSoftmax's head, pallas_softmax) -------------
+ROW_SHAPES = [(100, 10), (128, 1000), (13, 7)]
+
+
+def _rows(shape, ties: bool):
+    """Seeded logits; with ``ties`` each row's maximum repeats at a later
+    column, and a few rows are constant, so argmax must keep the first."""
+    n, c = shape
+    rng = np.random.default_rng(n * 1000 + c + 1)
+    x = (rng.standard_normal((n, c)) * 3).astype(np.float32)
+    if ties:
+        x = np.round(x).astype(np.float32)
+        first = x.argmax(axis=1)
+        later = np.minimum(first + 1 + np.arange(n) % 3, c - 1)
+        x[np.arange(n), later] = x[np.arange(n), first]
+        x[::5] = 1.5
+    return x
+
+
+def _row_port(x):
+    y, idx = softmax.softmax(torch.from_numpy(x))
+    assert idx.dtype == torch.int32
+    return y.numpy(), idx.numpy()
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("shape", ROW_SHAPES)
+def test_row_softmax_matches_pallas_kernel_interpret(shape, ties,
+                                                     monkeypatch):
+    monkeypatch.setattr(tuning, "_INTERPRET", True)
+    x = _rows(shape, ties)
+    wy, widx = ref_softmax.pallas_softmax(jnp.asarray(x))
+    y, idx = _row_port(x)
+    np.testing.assert_allclose(y, np.asarray(wy), rtol=1e-6, atol=0)
+    np.testing.assert_array_equal(idx, np.asarray(widx))
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("shape", ROW_SHAPES)
+def test_row_softmax_matches_xla_tier(shape, ties):
+    x = _rows(shape, ties)
+    wy, widx = ref_softmax.xla_softmax(jnp.asarray(x))
+    y, idx = _row_port(x)
+    np.testing.assert_allclose(y, np.asarray(wy), rtol=1e-6, atol=0)
+    np.testing.assert_array_equal(idx, np.asarray(widx))
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("shape", ROW_SHAPES)
+def test_row_softmax_matches_numpy_golden(shape, ties):
+    x = _rows(shape, ties)
+    wy, widx = ref_softmax.np_softmax(x)
+    y, idx = _row_port(x)
+    np.testing.assert_allclose(y, wy, rtol=1e-6, atol=0)
+    np.testing.assert_array_equal(idx, widx)
+    oy, oidx = softmax.np_softmax(x)
+    np.testing.assert_array_equal(oy, wy)
+    np.testing.assert_array_equal(oidx, widx)
+
+
+def test_numpy_ce_golden_is_the_reference():
+    x = _rows((50, 10), False)
+    probs, _ = ref_softmax.np_softmax(x)
+    labels = np.random.default_rng(3).integers(0, 10, 50)
+    for ours, ref in zip(softmax.np_softmax_ce(probs, labels),
+                         ref_softmax.np_softmax_ce(probs, labels)):
+        np.testing.assert_array_equal(ours, ref)
+
+
+def test_row_softmax_cpu_wrapper_is_the_plain_version():
+    x = torch.from_numpy(_rows((100, 10), True))
+    before = softmax.softmax_launches
+    for g, w in zip(softmax.softmax(x), softmax.plain_softmax(x)):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    assert softmax.softmax_launches == before   # no kernel on the CPU
+
+
+@pytest.mark.parametrize("bad", ["float64", "non_contiguous", "1d", "empty"])
+def test_row_softmax_refuses_inputs_the_kernel_does_not_take(bad):
+    x = torch.randn(6, 5)
+    if bad == "float64":
+        x = x.double()
+    elif bad == "non_contiguous":
+        x = torch.randn(5, 6).t()
+    elif bad == "1d":
+        x = x.reshape(-1)
+    elif bad == "empty":
+        x = x[:0]
+    with pytest.raises((TypeError, ValueError)):
+        softmax.softmax(x)
+
+
+@pytest.mark.skipif("not torch.cuda.is_available()",
+                    reason="the CUDA kernel runs only on a card")
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("shape", ROW_SHAPES)
+def test_cuda_row_softmax_matches_plain_version(shape, ties):
+    x = torch.from_numpy(_rows(shape, ties)).cuda()
+    before = softmax.softmax_launches
+    y, idx = softmax.softmax(x)
+    torch.cuda.synchronize()
+    assert softmax.softmax_launches == before + 1
+    wy, widx = softmax.plain_softmax(x)
+    torch.testing.assert_close(y, wy, rtol=1e-6, atol=0)
+    assert torch.equal(idx, widx)

@@ -7,15 +7,21 @@ never ``jax`` and never ``znicz_tpu`` (whose ``__init__`` pulls in jax).
 
 Layering, as far as the port reaches today:
 
-* core: ``config``, ``prng``, ``backends``, ``normalization``;
-* ``loader/``   — resident full-batch loaders (tensors on the device);
-* ``ops/``      — activation math, the softmax + cross-entropy head, max /
-  max-abs / avg pooling, cross-channel LRN and NHWC convolutions; the
-  hand-written CUDA kernels live in ``csrc/`` and are built by
-  ``cuda_build``;
+* core: ``config``, ``prng``, ``backends``, ``normalization``, and the
+  unit-graph engine ``mutable``, ``logger``, ``memory`` (``Vector``),
+  ``units``, ``workflow``, ``accelerated_units``;
+* ``loader/``   — resident full-batch loaders (tensors on the device),
+  units of the graph;
+* ``ops/``      — activation math, the matmul, the SGD update, the row
+  softmax and the softmax + cross-entropy head, max / max-abs / avg
+  pooling, cross-channel LRN and NHWC convolutions; the hand-written
+  CUDA kernels live in ``csrc/`` and are built by ``cuda_build``;
+* ``nn/``       — the fc forward and gradient units, the softmax
+  evaluator, the decision;
 * ``parallel/fused.py`` — the fused train step and ``FusedTrainer``;
-* ``nn/decision.py``, ``standard_workflow.py``, ``models/mnist.py``,
-  ``models/cifar.py`` and the ``python -m znicz_tpu_torch`` CLI.
+* ``standard_workflow.py`` (the unit graph and the fused loop),
+  ``models/mnist.py``, ``models/cifar.py``, ``models/alexnet.py`` and the
+  ``python -m znicz_tpu_torch`` CLI.
 
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``); without a CUDA device they raise.

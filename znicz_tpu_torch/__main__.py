@@ -1,18 +1,19 @@
-"""CLI: ``python -m znicz_tpu_torch <workflow> [<config.py>] --fused
+"""CLI: ``python -m znicz_tpu_torch <workflow> [<config.py>] [--fused]
 [options]`` (port of the training form of ``znicz_tpu/__main__.py`` and
 ``launcher.py``).
 
 Examples::
 
-    python -m znicz_tpu_torch znicz_tpu_torch.models.mnist --fused
+    python -m znicz_tpu_torch znicz_tpu_torch.models.mnist
     python -m znicz_tpu_torch znicz_tpu_torch.models.mnist --fused \\
         --epochs 2 --device cpu --set mnist.minibatch_size=50
 
 Order, as in the reference launcher: the config file first (its values
 beat the module's ``setdefaults``), then the module import, then ``--set``
-overrides last, then ``prng.seed_all``.  Only the fused path is ported;
-without ``--fused`` the command raises.  Each finished epoch's metrics
-print on one line."""
+overrides last, then ``prng.seed_all``.  Without ``--fused`` the sample
+trains on the unit graph (the reference's default); the conv samples
+(cifar, alexnet) have no units yet and raise there.  Each finished
+epoch's metrics print on one line."""
 
 from __future__ import annotations
 
@@ -37,12 +38,13 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("config", nargs="?", default=None,
                    help="config file (python executed against `root`)")
     p.add_argument("--device", default="auto",
-                   choices=("auto", "cuda", "cpu"),
-                   help="auto = cuda; without a CUDA device it raises")
+                   choices=("auto", "cuda", "cpu", "numpy"),
+                   help="auto = cuda; without a CUDA device it raises; "
+                        "numpy = the golden unit graph on the host")
     p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--fused", action="store_true",
-                   help="train via the fused whole-step path (the only "
-                        "path ported so far)")
+                   help="train via the fused whole-step path instead of "
+                        "the unit-graph tick loop")
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--set", dest="overrides", action="append", default=[],
                    metavar="PATH=VALUE",
@@ -65,10 +67,6 @@ def load_workflow_module(spec: str):
 
 def main(argv=None) -> int:
     args = make_parser().parse_args(sys.argv[1:] if argv is None else argv)
-    if not args.fused:
-        raise NotImplementedError(
-            "the unit-graph tick loop is not ported yet (ROADMAP.md queue 1 "
-            "item 4, core engine); pass --fused")
     if args.config:
         runpy.run_path(args.config, init_globals={"root": root})
     module = load_workflow_module(args.workflow)
@@ -79,7 +77,7 @@ def main(argv=None) -> int:
         raise AttributeError(f"workflow module {args.workflow!r} defines no "
                              "run() entry point")
     params = inspect.signature(module.run).parameters
-    kwargs = {"device": args.device, "fused": True}
+    kwargs = {"device": args.device, "fused": args.fused}
     if args.epochs is not None:
         kwargs["epochs"] = args.epochs
     wf = module.run(**{k: v for k, v in kwargs.items() if k in params})

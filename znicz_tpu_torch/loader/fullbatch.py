@@ -2,14 +2,20 @@
 ``znicz_tpu/loader/fullbatch.py``).
 
 ``initialize`` normalizes the host data and moves it to the loader's
-device once; the fused trainer gathers each minibatch there with
-``index_select``, so no host↔device traffic happens per step."""
+device once as ``original_data`` / ``original_labels`` tensors.  The fused
+trainer gathers each minibatch there itself; the unit graph's
+``fill_minibatch`` gathers the rows of one minibatch there with
+``index_select`` into ``minibatch_data`` / ``minibatch_labels``, padding a
+short last minibatch to the full size with its last row (consumers mask by
+``minibatch_size``).  On the numpy device the same gather is a numpy fancy
+index on the host."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..memory import numpy_dtype
 from ..normalization import create_normalizer
 from .base import Loader
 
@@ -19,27 +25,35 @@ class FullBatchLoader(Loader):
 
     Subclasses set ``original_data`` (N, …) and ``original_labels`` (N,)
     as numpy arrays or tensors, plus ``class_lengths``, in
-    ``load_data``; after ``initialize`` both are tensors on the device."""
+    ``load_data``; after ``initialize`` both are tensors on the device
+    (the CPU for the numpy device)."""
 
-    def __init__(self, name=None, normalization_type="none",
+    def __init__(self, workflow=None, name=None, normalization_type="none",
                  normalization_parameters=None, **kwargs):
-        super().__init__(name, **kwargs)
+        super().__init__(workflow, name, **kwargs)
         self.original_data: torch.Tensor | None = None
         self.original_labels: torch.Tensor | None = None
         self.normalization_type = normalization_type
         self.normalization_parameters = normalization_parameters or {}
         self.normalizer = None
 
-    def initialize(self, device: torch.device) -> None:
-        super().initialize(device)
+    def initialize(self, device=None, **kwargs) -> None:
+        super().initialize(device, **kwargs)
         self.original_data = self._normalize(
             self._to_device(self.original_data))
         self.original_labels = self._to_device(self.original_labels)
+        # fixed-shape minibatch buffers, so downstream units size themselves
+        self.minibatch_data.mem = np.zeros(
+            (self.max_minibatch_size, *self.original_data.shape[1:]),
+            numpy_dtype(self.original_data.dtype))
+        self.minibatch_labels.mem = np.zeros(
+            (self.max_minibatch_size,),
+            numpy_dtype(self.original_labels.dtype))
 
     def _to_device(self, a) -> torch.Tensor:
         if isinstance(a, np.ndarray):
             a = torch.from_numpy(np.ascontiguousarray(a))
-        return a.to(self.device)
+        return a.to(self.device.torch_device)
 
     def _normalize(self, data: torch.Tensor) -> torch.Tensor:
         """Fit the normalizer on the whole resident dataset once (kept on
@@ -50,16 +64,33 @@ class FullBatchLoader(Loader):
             self.normalizer.fit(data)
         return self.normalizer.apply(data)
 
+    def _gather(self, vec, source: torch.Tensor, indices: np.ndarray
+                ) -> None:
+        """``vec`` ← rows ``indices`` of ``source``, the short tail padded
+        with the last row (``edge``, as the reference pads)."""
+        size = len(indices)
+        full = np.concatenate([indices, np.full(
+            self.max_minibatch_size - size, indices[-1], indices.dtype)])
+        if self.device.is_torch:
+            idx = torch.from_numpy(full).to(source.device)
+            vec.devmem = source.index_select(0, idx)
+        else:
+            vec.mem = source.numpy()[full]
+
+    def fill_minibatch(self, indices: np.ndarray, klass: int) -> None:
+        self._gather(self.minibatch_data, self.original_data, indices)
+        self._gather(self.minibatch_labels, self.original_labels, indices)
+
 
 class FullBatchLoaderMSE(FullBatchLoader):
     """Adds a regression target tensor (reference LoaderMSE contract)."""
 
-    def __init__(self, name=None, **kwargs):
-        super().__init__(name, **kwargs)
+    def __init__(self, workflow=None, name=None, **kwargs):
+        super().__init__(workflow, name, **kwargs)
         self.original_targets: torch.Tensor | None = None
 
-    def initialize(self, device: torch.device) -> None:
-        super().initialize(device)
+    def initialize(self, device=None, **kwargs) -> None:
+        super().initialize(device, **kwargs)
         if self.original_targets is None:
             # autoencoder-style: the target is the (normalized) input
             self.original_targets = self.original_data

@@ -1,1 +1,2 @@
-"""Runnable samples (port of ``znicz_tpu/models``): MNIST so far."""
+"""Runnable samples (port of ``znicz_tpu/models``): MNIST, CIFAR-10 and
+AlexNet."""

@@ -97,7 +97,7 @@ class ImagenetSyntheticLoader(FullBatchLoader):
     def __init__(self, name=None, size=227, n_classes=1000,
                  synthetic_sizes=None, **kwargs):
         kwargs.setdefault("normalization_type", "linear")
-        super().__init__(name or "imagenet_loader", **kwargs)
+        super().__init__(name=name or "imagenet_loader", **kwargs)
         self.size = int(size)
         self.n_classes = int(n_classes)
         self.synthetic_sizes = synthetic_sizes
@@ -154,7 +154,8 @@ def run(device=None, epochs: int | None = None, fused: bool = True,
         **kwargs) -> AlexNetWorkflow:
     """Build, initialize and train on ``device`` (default: the CUDA card,
     raising without one; pass ``device="cpu"`` for the host).  Only the
-    fused path is ported; ``fused=False`` raises.  Returns the finished
+    fused path is ported; ``fused=False`` raises, naming the conv units it
+    waits for (ROADMAP.md queue 1 item 5).  Returns the finished
     workflow."""
     wf = AlexNetWorkflow(**kwargs)
     if epochs is not None:

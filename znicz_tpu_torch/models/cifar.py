@@ -62,7 +62,7 @@ class CifarLoader(FullBatchLoader):
 
     def __init__(self, name=None, synthetic_sizes=None, **kwargs):
         kwargs.setdefault("normalization_type", "linear")
-        super().__init__(name or "cifar_loader", **kwargs)
+        super().__init__(name=name or "cifar_loader", **kwargs)
         self.synthetic_sizes = synthetic_sizes
 
     def load_data(self) -> None:
@@ -136,7 +136,8 @@ def run(device=None, epochs: int | None = None, fused: bool = False,
     """Build, initialize and train on ``device`` (default: the CUDA card,
     raising without one; pass ``device="cpu"`` for the host).  Only the
     fused path (``fused=True``, the CLI's ``--fused``) is ported; the
-    unit-graph loop raises.  Returns the finished workflow."""
+    unit-graph loop raises, naming the conv units it waits for (ROADMAP.md
+    queue 1 item 5).  Returns the finished workflow."""
     wf = CifarWorkflow(**kwargs)
     if epochs is not None:
         wf.decision.max_epochs = epochs

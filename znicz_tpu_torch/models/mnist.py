@@ -7,8 +7,9 @@ Real MNIST IDX files are used when present (``root.common.mnist_dir`` or
 generated from the ``"mnist_synthetic"`` stream — bit-identical to the JAX
 package's for the same seed.
 
-Run:  ``python -m znicz_tpu_torch znicz_tpu_torch.models.mnist --fused
-[--epochs N] [--device cuda|cpu]``
+Run:  ``python -m znicz_tpu_torch znicz_tpu_torch.models.mnist [--fused]
+[--epochs N] [--device cuda|cpu|numpy]`` — without ``--fused`` it trains on
+the unit graph (the reference's default), with it on the fused path.
 """
 
 from __future__ import annotations
@@ -63,7 +64,7 @@ class MnistLoader(FullBatchLoader):
 
     def __init__(self, name=None, synthetic_sizes=None, **kwargs):
         kwargs.setdefault("normalization_type", "linear")
-        super().__init__(name or "mnist_loader", **kwargs)
+        super().__init__(name=name or "mnist_loader", **kwargs)
         self.synthetic_sizes = synthetic_sizes
 
     def load_data(self) -> None:
@@ -106,7 +107,7 @@ class MnistLoader(FullBatchLoader):
 
 
 class MnistWorkflow(StandardWorkflow):
-    """BASELINE config 1: All2AllTanh → All2AllSoftmax, trained fused."""
+    """BASELINE config 1: All2AllTanh → All2AllSoftmax + GD chain."""
 
     def __init__(self, name="MnistWorkflow", layers=None,
                  decision_config=None, snapshotter_config=None,
@@ -131,9 +132,10 @@ class MnistWorkflow(StandardWorkflow):
 def run(device=None, epochs: int | None = None, fused: bool = False,
         **kwargs) -> MnistWorkflow:
     """Build, initialize and train on ``device`` (default: the CUDA card,
-    raising without one; pass ``device="cpu"`` for the host).  Only the
-    fused path (``fused=True``, the CLI's ``--fused``) is ported; the
-    unit-graph loop raises.  Returns the finished workflow."""
+    raising without one; pass ``device="cpu"`` for the host, ``"numpy"``
+    for the golden unit graph).  ``fused=False`` trains on the unit-graph
+    tick loop, ``fused=True`` (the CLI's ``--fused``) on the fused path.
+    Returns the finished workflow."""
     wf = MnistWorkflow(**kwargs)
     if epochs is not None:
         wf.decision.max_epochs = epochs
@@ -147,12 +149,15 @@ def main(argv: list[str] | None = None) -> None:
 
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--device", default="auto",
-                        choices=("auto", "cuda", "cpu"))
+                        choices=("auto", "cuda", "cpu", "numpy"))
     parser.add_argument("--epochs", type=int, default=None)
+    parser.add_argument("--fused", action="store_true")
     args = parser.parse_args(argv)
-    wf = run(device=args.device, epochs=args.epochs, fused=True)
+    wf = run(device=args.device, epochs=args.epochs, fused=args.fused)
     for m in wf.decision.epoch_metrics:
         print(m)
+    if not args.fused:
+        print("time table:", wf.time_table()[:6])
 
 
 if __name__ == "__main__":

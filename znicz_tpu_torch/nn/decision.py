@@ -1,37 +1,108 @@
-"""Decision: stop/improvement state across epochs (port of
-``znicz_tpu/nn/decision.py``, host side only).
+"""Decision units: stop/improvement logic across epochs (port of
+``znicz_tpu/nn/decision.py``).
 
-The fused loop computes each epoch's metrics dict and hands it here:
-``better_than_best`` tracks the best validation (else train) result,
-``_fails`` counts epochs without improvement, and ``complete`` is set when
-training ends.  The per-minibatch ``run`` of the reference's unit belongs
-to the unit graph (ROADMAP.md queue 1 item 4)."""
+On the unit graph Decision runs after the evaluator on every tick:
+``on_minibatch`` accumulates the evaluator's per-minibatch numbers by
+class, and at the epoch's last minibatch ``on_epoch_end`` turns them into
+the epoch's metrics dict, ``better_than_best`` tracks the best validation
+(else train) result, and ``complete`` is set after ``max_epochs`` or
+``fail_iterations`` epochs without improvement.  ``complete`` opens the
+end point's gate and skips the GD chain; ``improved`` and
+``snapshot_suggested`` are the snapshotter's triggers.  The fused loop
+computes each epoch's metrics itself and uses ``better_than_best``,
+``improved``, ``_fails`` and ``complete`` between epochs on the host."""
 
 from __future__ import annotations
 
 import numpy as np
 
+from ..loader.base import CLASS_NAMES, TEST, TRAIN, VALID
+from ..mutable import Bool
+from ..units import Unit
 
-class DecisionBase:
-    def __init__(self, max_epochs=None, fail_iterations=100):
+
+class DecisionBase(Unit):
+    def __init__(self, workflow=None, name=None, max_epochs=None,
+                 fail_iterations=100, **kwargs):
+        super().__init__(workflow, name, **kwargs)
         self.max_epochs = max_epochs
         self.fail_iterations = fail_iterations
-        self.complete = False
-        self.improved = False
+        self.complete = Bool(False)
+        self.improved = Bool(False)
+        self.snapshot_suggested = Bool(False)
         self.epoch_metrics: list[dict] = []   # one dict per finished epoch
         self._fails = 0
+
+    def link_loader(self, loader) -> None:
+        self.loader = loader
+
+    def link_evaluator(self, evaluator) -> None:
+        self.evaluator = evaluator
+
+    # -- per-minibatch hook ------------------------------------------------------
+    def on_minibatch(self, klass: int) -> None:
+        raise NotImplementedError
+
+    def on_epoch_end(self) -> dict:
+        raise NotImplementedError
 
     def better_than_best(self, metrics: dict) -> bool:
         raise NotImplementedError
 
+    def run(self) -> None:
+        klass = self.loader.minibatch_class
+        self.on_minibatch(klass)
+        if bool(self.loader.last_minibatch):
+            metrics = self.on_epoch_end()
+            metrics["epoch"] = self.loader.epoch_number
+            self.epoch_metrics.append(metrics)
+            self.improved.set(self.better_than_best(metrics))
+            if bool(self.improved):
+                self._fails = 0
+                self.snapshot_suggested.set(True)
+            else:
+                self._fails += 1
+            done = ((self.max_epochs is not None
+                     and self.loader.epoch_number + 1 >= self.max_epochs)
+                    or self._fails >= self.fail_iterations)
+            if done:
+                self.complete.set(True)
+
 
 class DecisionGD(DecisionBase):
-    """Classification: improvement = lower validation error count (train
-    error count if there is no validation set)."""
+    """Classification decision: accumulates evaluator ``n_err``/loss per
+    class; improvement = lower validation error count (train err if no
+    validation set)."""
 
-    def __init__(self, **kwargs):
-        super().__init__(**kwargs)
+    def __init__(self, workflow=None, name=None, **kwargs):
+        super().__init__(workflow, name, **kwargs)
+        self.epoch_n_err = [0, 0, 0]
+        self.epoch_samples = [0, 0, 0]
+        self.epoch_loss = [0.0, 0.0, 0.0]
         self.best_n_err = np.inf
+        self.minibatch_count = [0, 0, 0]
+
+    def on_minibatch(self, klass: int) -> None:
+        ev = self.evaluator
+        self.epoch_n_err[klass] += ev.n_err
+        self.epoch_samples[klass] += self.loader.minibatch_size
+        self.epoch_loss[klass] += ev.mean_loss
+        self.minibatch_count[klass] += 1
+
+    def on_epoch_end(self) -> dict:
+        metrics = {}
+        for k in (TEST, VALID, TRAIN):
+            if self.epoch_samples[k]:
+                metrics[f"{CLASS_NAMES[k]}_n_err"] = self.epoch_n_err[k]
+                metrics[f"{CLASS_NAMES[k]}_err_pct"] = (
+                    100.0 * self.epoch_n_err[k] / self.epoch_samples[k])
+                metrics[f"{CLASS_NAMES[k]}_loss"] = (
+                    self.epoch_loss[k] / self.minibatch_count[k])
+        self.epoch_n_err = [0, 0, 0]
+        self.epoch_samples = [0, 0, 0]
+        self.epoch_loss = [0.0, 0.0, 0.0]
+        self.minibatch_count = [0, 0, 0]
+        return metrics
 
     def better_than_best(self, metrics: dict) -> bool:
         key = ("validation_n_err" if "validation_n_err" in metrics
@@ -44,10 +115,12 @@ class DecisionGD(DecisionBase):
 
 
 class DecisionMSE(DecisionBase):
-    """Regression: improvement = lower validation (or train) MSE."""
+    """Regression decision: improvement = lower validation (or train) MSE.
+    Its per-minibatch side waits for ``EvaluatorMSE`` (the decoder
+    slice); the fused loop uses ``better_than_best``."""
 
-    def __init__(self, **kwargs):
-        super().__init__(**kwargs)
+    def __init__(self, workflow=None, name=None, **kwargs):
+        super().__init__(workflow, name, **kwargs)
         self.best_mse = np.inf
 
     def better_than_best(self, metrics: dict) -> bool:

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 TANH_A = 1.7159
@@ -178,6 +179,21 @@ BY_NAME: dict[str, type[Activation]] = {
                 Mul, TanhLog)
 }
 BY_NAME["linear"] = Activation
+
+#: The numpy golden (fwd(x), bwd(err_y, y)) of the activations the fc
+#: units take, as the reference's ``fwd(x, np)``/``bwd(err_y, y, x, np)``;
+#: the unit graph's numpy device runs them.
+NUMPY = {
+    "linear": (lambda x: x, lambda err_y, y: err_y),
+    "tanh": (lambda x: TANH_A * np.tanh(TANH_B * x),
+             lambda err_y, y: err_y * (_TANH_D1 - _TANH_D2 * y * y)),
+    "relu": (lambda x: np.maximum(x, 0.0) + np.log1p(np.exp(-np.abs(x))),
+             lambda err_y, y: err_y * (1.0 - np.exp(-y))),
+    "strict_relu": (lambda x: np.maximum(x, 0.0),
+                    lambda err_y, y: err_y * (y > 0)),
+    "sigmoid": (lambda x: 1.0 / (1.0 + np.exp(-x)),
+                lambda err_y, y: err_y * y * (1.0 - y)),
+}
 
 #: Ids of the activations whose derivative needs only the output y, as the
 #: fused LRN→max-pool backward kernel (``csrc/lrn_pool.cu``) takes them when

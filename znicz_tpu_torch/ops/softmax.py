@@ -1,19 +1,32 @@
-"""Fused softmax + cross-entropy + error head (port of
-``znicz_tpu/ops/softmax.py``).
+"""Row softmax + argmax, and the fused softmax + cross-entropy + error
+head (port of ``znicz_tpu/ops/softmax.py``).
 
 ``softmax_ce_from_logits`` is the loss head of the fused train step.  On a
 CUDA tensor it launches the hand-written kernel in
 ``csrc/softmax_ce.cu`` (the port of ``pallas_softmax_ce_from_logits``);
 on a CPU tensor it runs ``plain_softmax_ce_from_logits``, the torch
 transcription of the reference's XLA tier, which is also what the kernel
-is held against on the card.  A CUDA tensor never falls back to the plain
-version: the kernel launches or the call raises."""
+is held against on the card.
+
+``softmax`` is the unit graph's ``All2AllSoftmax`` head: probabilities and
+the argmax of each row, through ``csrc/softmax.cu`` on CUDA tensors (the
+port of ``pallas_softmax``) and ``plain_softmax`` on CPU tensors.  The
+numpy goldens ``np_softmax``/``np_softmax_ce`` serve the unit graph's
+numpy device and its host-side evaluator.
+
+A CUDA tensor never falls back to a plain version: the kernel launches or
+the call raises."""
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
+
+#: Launches of the row softmax kernel in this process (the CUDA branch of
+#: ``softmax`` adds one per launch, nowhere else).
+softmax_launches = 0
 
 #: Launches of the softmax-CE kernel in this process (the CUDA branch of
 #: ``softmax_ce_from_logits`` adds one per launch, nowhere else).
@@ -21,6 +34,77 @@ softmax_ce_launches = 0
 
 #: x, labels, probs, loss, err, N, C, stream
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+#: x, y, idx, N, C, stream
+_SOFTMAX_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+                     + [ctypes.c_void_p])
+
+
+# -- numpy goldens -------------------------------------------------------------
+def np_softmax(x: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(row softmax, argmax) — the reference's ``np_softmax``."""
+    m = x.max(axis=1, keepdims=True)
+    e = np.exp(x - m)
+    y = e / e.sum(axis=1, keepdims=True)
+    return y, x.argmax(axis=1)
+
+
+def np_softmax_ce(probs: np.ndarray, labels: np.ndarray
+                  ) -> tuple[np.ndarray, np.ndarray]:
+    """(per-row CE loss, error signal y − onehot) from softmax outputs —
+    the reference's ``np_softmax_ce``, with which its evaluator scores
+    All2AllSoftmax's probabilities."""
+    n, c = probs.shape
+    onehot = np.zeros_like(probs)
+    onehot[np.arange(n), labels] = 1.0
+    loss = -np.log(np.maximum(probs[np.arange(n), labels], 1e-30))
+    return loss, probs - onehot
+
+
+# -- row softmax + argmax --------------------------------------------------------
+def plain_softmax(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(probabilities, int32 argmax) step by step as the reference's
+    ``_softmax_kernel``: m = max x, e = exp(x − m), y = e / Σe, and the
+    first index of the maximum of x."""
+    m = torch.amax(x, dim=1, keepdim=True)
+    e = torch.exp(x - m)
+    y = e / torch.sum(e, dim=1, keepdim=True)
+    return y, torch.argmax(x, dim=1).to(torch.int32)
+
+
+def _check_rows(who: str, x: torch.Tensor) -> None:
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{who}: unsupported device {x.device}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"{who}: input must be float32, got {x.dtype}")
+    if x.dim() != 2 or x.shape[0] == 0 or x.shape[1] == 0:
+        raise ValueError(f"{who}: input must be a non-empty (N, C) matrix, "
+                         f"got {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{who}: input must be contiguous")
+    if max(x.shape) >= 2 ** 31:
+        raise ValueError(f"{who}: shape exceeds int32")
+
+
+def softmax(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(probabilities, int32 argmax) of (N, C) contiguous float32 rows: the
+    CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
+    global softmax_launches
+    _check_rows("softmax", x)
+    if x.device.type == "cpu":
+        return plain_softmax(x)
+    n, c = x.shape
+    y = torch.empty_like(x)
+    idx = torch.empty((n,), dtype=torch.int32, device=x.device)
+    from .. import cuda_build
+    cuda_build.launch(
+        cuda_build.kernel("softmax", "znicz_row_softmax_f32",
+                          _SOFTMAX_ARGTYPES),
+        x.device, x.data_ptr(), y.data_ptr(), idx.data_ptr(), n, c)
+    softmax_launches += 1
+    return y, idx
+
+
+# -- fused softmax + cross-entropy -------------------------------------------------
 
 
 def plain_softmax_ce_from_logits(logits: torch.Tensor, labels: torch.Tensor
@@ -44,22 +128,8 @@ def plain_softmax_ce_from_logits(logits: torch.Tensor, labels: torch.Tensor
 def _check(logits: torch.Tensor, labels: torch.Tensor) -> None:
     """Refuse what the kernel does not take; the CPU branch is held to the
     same contract so both devices accept the same inputs."""
-    if logits.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"softmax_ce_from_logits: unsupported device "
-                         f"{logits.device}")
-    if logits.dtype != torch.float32:
-        raise TypeError(f"softmax_ce_from_logits: logits must be float32, "
-                        f"got {logits.dtype}")
-    if logits.dim() != 2 or logits.shape[0] == 0 or logits.shape[1] == 0:
-        raise ValueError(f"softmax_ce_from_logits: logits must be a "
-                         f"non-empty (N, C) matrix, got "
-                         f"{tuple(logits.shape)}")
-    if not logits.is_contiguous():
-        raise ValueError("softmax_ce_from_logits: logits must be "
-                         "contiguous")
-    n, c = logits.shape
-    if n >= 2 ** 31 or c >= 2 ** 31:
-        raise ValueError("softmax_ce_from_logits: shape exceeds int32")
+    _check_rows("softmax_ce_from_logits", logits)
+    n = logits.shape[0]
     if tuple(labels.shape) != (n,):
         raise ValueError(f"softmax_ce_from_logits: labels must be ({n},), "
                          f"got {tuple(labels.shape)}")

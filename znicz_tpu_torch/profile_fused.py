@@ -1,7 +1,8 @@
-"""Where the time of a fused train/eval step goes on the card.
+"""Where the time of a fused train/eval step, or of a unit-graph tick,
+goes on the card.
 
-    python -m znicz_tpu_torch.profile_fused [--model mnist|cifar|alexnet]
-        [--steps 50] [--out DIR]
+    python -m znicz_tpu_torch.profile_fused
+        [--model mnist|cifar|alexnet|mnist_units] [--steps 50] [--out DIR]
 
 Trains the sample at full width on its split resident on the card (MNIST
 784→100→10 on 50k/10k/10k and the CIFAR-10 conv net on 45k/5k/10k at
@@ -13,8 +14,12 @@ line: host wall time per step (synchronised), device busy time per step
 (the kernels' summed device time), the device's idle share, kernel
 launches per step, the kernels that take the most device time, and the
 port's own hand-written kernels with their share of the device time.
-With ``--out`` the Chrome traces are written there.  It needs a CUDA card
-and fails without one."""
+``--model mnist_units`` profiles the MNIST unit graph instead
+(``Workflow.run``, one minibatch a tick, at the same full width and
+split): after the epoch's test and validation ticks as warm-up, ``--steps``
+train ticks, then (past the rest of the epoch) as many test and
+validation ticks of the next epoch; a "step" in its line is a tick.  With ``--out`` the Chrome
+traces are written there.  It needs a CUDA card and fails without one."""
 
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ import torch
 
 from . import prng
 from .config import root
+from .loader.base import TRAIN
 
 #: model → (workflow class, the real split at full width)
 MODELS = {
@@ -38,12 +44,15 @@ MODELS = {
     "alexnet": ("AlexNetWorkflow", {"n_train": 512, "n_valid": 128,
                                     "n_test": 128, "noise": 0.4}),
 }
+#: the unit graph's MNIST at the same width and split
+UNIT_MODELS = {"mnist_units": ("mnist", "MnistWorkflow")}
 #: the hand-written kernels' names in ``csrc/`` (a name that contains
 #: another is listed first, so each kernel is counted once)
-PORT_KERNELS = ("softmax_ce_kernel", "pool_select_kernel",
-                "pool_scatter_kernel", "gd_lrn_maxpool_kernel",
-                "lrn_maxpool_kernel", "lrn_y_kernel", "gd_lrn_x_kernel",
-                "dropout_kernel")
+PORT_KERNELS = ("softmax_ce_kernel", "row_softmax_kernel",
+                "pool_select_kernel", "pool_scatter_kernel",
+                "gd_lrn_maxpool_kernel", "lrn_maxpool_kernel",
+                "lrn_y_kernel", "gd_lrn_x_kernel", "dropout_kernel",
+                "matmul_kernel", "sgd_update_kernel")
 
 
 def _window(fn, steps: int) -> float:
@@ -54,15 +63,9 @@ def _window(fn, steps: int) -> float:
     return (time.perf_counter() - t0) / steps * 1e3
 
 
-def main(argv=None) -> dict:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", choices=sorted(MODELS), default="mnist")
-    ap.add_argument("--steps", type=int, default=50)
-    ap.add_argument("--out", default=None,
-                    help="directory for the Chrome traces")
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise RuntimeError("profile_fused needs a CUDA card")
+def _fused_steps(args):
+    """(batch, train, evaluate): ``--steps`` fused train/eval steps each,
+    after a warm-up epoch."""
     cls_name, split = MODELS[args.model]
     module = importlib.import_module(f".models.{args.model}", __package__)
     getattr(root, args.model).synthetic.update(split)
@@ -80,7 +83,56 @@ def main(argv=None) -> dict:
 
     def evaluate():
         trainer.eval_epoch(data, target, idx, batch, sync=False)
+    return batch, train, evaluate
 
+
+def _unit_ticks(args):
+    """(batch, train, evaluate) on the unit graph: each call runs the
+    next ``--steps`` ticks of the tick loop — train ticks (GD chain on),
+    or evaluation ticks (test and validation, GD skipped) — after
+    running on to the next minibatch of that kind."""
+    model, cls_name = UNIT_MODELS[args.model]
+    module = importlib.import_module(f".models.{model}", __package__)
+    getattr(root, model).synthetic.update(MODELS[model][1])
+    prng.seed_all(1234)
+    wf = getattr(module, cls_name)()
+    wf.decision.max_epochs = 1 << 30             # never completes here
+    wf.initialize(device="cuda")
+    ld = wf.loader
+    batch = ld.max_minibatch_size
+    per_class = [-(-n // batch) for n in ld.class_lengths]
+    if 3 * args.steps > min(per_class[0] + per_class[1], per_class[2]):
+        raise ValueError(f"--steps {args.steps}: three windows of each "
+                         f"kind must fit in an epoch's {per_class} "
+                         f"minibatches")
+
+    def to_next(train: bool):
+        while not (ld._pos < len(ld._order)
+                   and (ld._order[ld._pos][0] == TRAIN) == train):
+            wf.run(max_ticks=1)
+
+    def train():
+        to_next(True)
+        wf.run(max_ticks=args.steps)
+
+    def evaluate():
+        to_next(False)
+        wf.run(max_ticks=args.steps)
+    return batch, train, evaluate
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", choices=sorted(MODELS) + sorted(UNIT_MODELS),
+                    default="mnist")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--out", default=None,
+                    help="directory for the Chrome traces")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_fused needs a CUDA card")
+    batch, train, evaluate = (_unit_ticks if args.model in UNIT_MODELS
+                              else _fused_steps)(args)
     out = {"model": args.model, "steps": args.steps, "batch": batch,
            "device": torch.cuda.get_device_name(0)}
     for name, fn in (("train", train), ("eval", evaluate)):

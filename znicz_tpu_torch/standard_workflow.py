@@ -1,16 +1,34 @@
-"""StandardWorkflow: declarative model assembly and the fused training loop
-(port of ``znicz_tpu/standard_workflow.py``).
+"""StandardWorkflow: declarative model assembly, the unit graph and the
+fused training loop (port of ``znicz_tpu/standard_workflow.py``).
 
-A ``layers=[{"type": ..., "->": {...}, "<-": {...}}, ...]`` config becomes
-a ``ModelSpec`` plus ``(w, b)`` parameters and zero velocities, filled from
-the ``"weights"`` stream exactly as the reference's units fill them, so the
-same seed gives the same initial weights in both packages.  ``params`` and
+A ``layers=[{"type": ..., "->": {...}, "<-": {...}}, ...]`` config expands,
+through the ``link_loader / link_forwards / link_evaluator /
+link_decision / link_gds`` family, to the reference's control graph::
+
+    start → loader → fwd₁ → … → fwdₙ → evaluator → decision
+    decision → gdₙ → … → gd₁ ─(loop back-edge)→ loader
+    decision → end_point [gate: ~complete]
+
+The GD units gate-skip on non-train minibatches and once training is
+complete; ``train(fused=False)`` runs this tick loop (``Workflow.run``),
+one minibatch a tick, each unit's ``torch_run`` on the card (or
+``numpy_run`` on the numpy device).  The forward units own the weight
+Vectors and the GD units the velocities.
+
+The same config is also a ``ModelSpec`` plus ``(w, b)`` parameters and
+velocities for ``train(fused=True)`` → ``run_fused``, the port of the
+reference's ``_run_fused_body`` for a resident loader.  ``params`` and
 ``vels`` keep one pair per configured layer; the spec merges each LRN with
 the max pool after it (``fused._merge_lrn_pool``), and its ``unit_index``
-maps the spec's rows back to the layers.  There is no
-unit graph yet (ROADMAP.md queue 1 item 4): ``train(fused=True)`` runs
-``run_fused``, the port of the reference's ``_run_fused_body`` for a
-resident loader, and ``train(fused=False)`` raises."""
+maps the spec's rows back to the layers.  Where the unit graph exists,
+``run_fused`` reads the units' weights and velocities and writes them
+back afterwards, as the reference's ``extract_model``/``write_back`` do;
+elsewhere the ``"weights"`` stream is drawn in the order the reference's
+units draw it, so the same seed gives the same initial weights in both
+packages.  The unit graph covers the fc and softmax layers with a softmax
+loss; a spec with a conv, pool, LRN or dropout layer trains on the fused
+path only (ROADMAP.md queue 1 item 5), as does an MSE loss (its
+evaluator units wait for the decoder slice)."""
 
 from __future__ import annotations
 
@@ -21,9 +39,13 @@ import zlib
 import numpy as np
 import torch
 
-from . import backends, prng
+from . import prng
+from .accelerated_units import AcceleratedWorkflow
 from .loader.base import CLASS_NAMES, TEST, TRAIN, VALID
+from .mutable import DerivedBool
+from .nn import all2all, gd, nn_units
 from .nn.decision import DecisionGD, DecisionMSE
+from .nn.evaluator import EvaluatorSoftmax
 from .ops.geometry import norm2, out_size
 from .parallel import fused
 from .parallel.fused import FusedTrainer, LayerSpec, ModelSpec
@@ -43,22 +65,26 @@ LRN_TYPES = ("norm", "lrn")
 PORTED_TYPES = (*FC_TYPES, *CONV_TYPES, *POOL_TYPES, *LRN_TYPES, "dropout")
 
 _UNIT_GRAPH = "ROADMAP.md queue 1 item 4 (core engine: the unit graph)"
+_CONV_UNITS = "ROADMAP.md queue 1 item 5 (the nn/ conv, pooling, " \
+    "normalization and dropout units)"
 
 
-def _fill(gen, shape: tuple[int, ...], filling: str,
-          stddev: float | None) -> np.ndarray:
-    """The reference's ``Forward._fill`` (nn/nn_units.py): uniform ±stddev
-    (default 1/sqrt(fan_in)), gaussian or constant, from ``gen``."""
-    fan_in = int(np.prod(shape[:-1])) if len(shape) > 1 else shape[0]
-    stddev = stddev if stddev is not None else 1.0 / max(
-        np.sqrt(fan_in), 1.0)
-    if filling == "uniform":
-        return gen.uniform(-stddev, stddev, shape)
-    if filling == "gaussian":
-        return gen.normal(0.0, stddev, shape)
-    if filling == "constant":
-        return np.full(shape, stddev, np.float32)
-    raise ValueError(f"unknown filling {filling!r}")
+def _build_registries():
+    """Layer type → Forward / GradientDescent unit class, from the
+    classes' ``MAPPING``."""
+    from .nn.nn_units import Forward, GradientDescentBase
+    fwd_map, gd_map = {}, {}
+    for mod in (all2all, gd):
+        for obj in vars(mod).values():
+            if isinstance(obj, type) and issubclass(obj, Forward):
+                fwd_map.update(dict.fromkeys(obj.MAPPING, obj))
+            if isinstance(obj, type) \
+                    and issubclass(obj, GradientDescentBase):
+                gd_map.update(dict.fromkeys(obj.MAPPING, obj))
+    return fwd_map, gd_map
+
+
+FWD_MAP, GD_MAP = _build_registries()
 
 
 def _no_options_left(fwd: dict) -> None:
@@ -91,13 +117,15 @@ def _gd_hypers(cfg: dict) -> tuple[tuple, tuple]:
     return hypers, hypers_bias
 
 
-class StandardWorkflow:
-    """One-call assembly of a fc or conv model trained on the fused
-    path."""
+class StandardWorkflow(AcceleratedWorkflow):
+    """One-call assembly of a model: its unit graph (fc/softmax models)
+    and its fused-path spec."""
 
     def __init__(self, name=None, layers=None, loader=None,
                  loss_function="softmax", decision_config=None,
-                 snapshotter_config=None, lr_adjuster_config=None):
+                 snapshotter_config=None, lr_adjuster_config=None,
+                 workflow=None):
+        super().__init__(workflow, name or type(self).__name__)
         if snapshotter_config is not None:
             raise NotImplementedError(
                 "snapshots are not ported yet (" + _UNIT_GRAPH + ")")
@@ -107,40 +135,132 @@ class StandardWorkflow:
                 + _UNIT_GRAPH + ")")
         if loss_function not in ("softmax", "mse"):
             raise ValueError(loss_function)
-        self.name = name or type(self).__name__
         self.layers_config = list(layers or [])
         self.loss_function = loss_function
-        self.loader = loader
-        decision_config = (decision_config.to_dict()
-                           if hasattr(decision_config, "to_dict")
-                           else dict(decision_config or {}))
-        cls = DecisionGD if loss_function == "softmax" else DecisionMSE
-        self.decision = cls(**decision_config)
-        self.device: torch.device | None = None
+        self.forwards: list = []
+        self.gds: list = []
+        #: why ``train(fused=False)`` cannot run this model (None: it can)
+        self.unit_graph_missing: str | None = None
         self.spec: ModelSpec | None = None
         self.params: list = []
         self.vels: list = []
-        #: per-epoch throughput of run_fused: train_examples_per_sec and
-        #: train_step_time_ms (kept out of the metrics dicts so those stay
-        #: comparable with the reference)
+        #: per-epoch throughput of either loop (kept out of the metrics
+        #: dicts so those stay comparable with the reference)
         self.epoch_timings: list[dict] = []
-        self.initialized = False
+        if loader is not None:
+            decision_config = (decision_config.to_dict()
+                               if hasattr(decision_config, "to_dict")
+                               else dict(decision_config or {}))
+            self.create_workflow(loader, decision_config)
 
-    def initialize(self, device=None) -> None:
-        """Load the data onto ``device`` (default: CUDA, raising without
-        it) and build spec, params and velocities."""
-        self.device = backends.resolve(device)
-        self.loader.initialize(self.device)
+    # -- link_* family (reference API) -------------------------------------------
+    def create_workflow(self, loader, decision_config: dict) -> None:
+        """Link the unit graph, or (for a model it does not cover yet) the
+        loader and a free-standing decision for the fused loop."""
+        self.link_loader(loader)
+        self.unit_graph_missing = self._unit_graph_gap()
+        if self.unit_graph_missing is not None:
+            cls = DecisionGD if self.loss_function == "softmax" \
+                else DecisionMSE
+            self.decision = cls(self, name="decision", **decision_config)
+            return
+        self.link_forwards()
+        self.link_evaluator()
+        self.link_decision(**decision_config)
+        self.link_gds()
+
+    def _unit_graph_gap(self) -> str | None:
+        if self.loss_function != "softmax":
+            return ("the unit graph of an MSE model (EvaluatorMSE and the "
+                    "DecisionMSE unit) is not ported yet (ROADMAP.md "
+                    "queue 1 item 4, remaining); pass fused=True")
+        for spec in self.layers_config:
+            if spec["type"] not in FWD_MAP:
+                return (f"layer type {spec['type']!r} has no unit yet ("
+                        f"{_CONV_UNITS}); train it with fused=True")
+        if not self.layers_config:
+            return "the model has no layers"
+        return None
+
+    def link_loader(self, loader) -> None:
+        self.loader = loader
+        self.add_unit(loader)
+        loader.link_from(self.start_point)
+
+    def link_forwards(self) -> None:
+        prev = self.loader
+        for i, spec in enumerate(self.layers_config):
+            ltype = spec["type"]
+            unit = FWD_MAP[ltype](self, name=f"fwd{i}_{ltype}",
+                                  **dict(spec.get("->", {})))
+            if prev is self.loader:
+                unit.link_attrs(self.loader, ("input", "minibatch_data"))
+            else:
+                unit.link_attrs(prev, ("input", "output"))
+            unit.link_from(prev)
+            self.forwards.append(unit)
+            prev = unit
+
+    def link_evaluator(self) -> None:
+        last = self.forwards[-1]
+        ev = EvaluatorSoftmax(self, name="evaluator")
+        ev.link_attrs(last, "output", "max_idx")
+        ev.link_attrs(self.loader, ("labels", "minibatch_labels"))
+        ev.link_loader(self.loader)
+        ev.link_from(last)
+        self.evaluator = ev
+
+    def link_decision(self, **config) -> None:
+        self.decision = DecisionGD(self, name="decision", **config)
+        self.decision.link_loader(self.loader)
+        self.decision.link_evaluator(self.evaluator)
+        self.decision.link_from(self.evaluator)
+        self.end_point.link_from(self.decision)
+        self.end_point.gate_block = ~self.decision.complete
+
+    def link_gds(self) -> None:
+        """Mirrored gradient chain, last layer first; the last one closes
+        the minibatch loop back to the loader."""
+        prev = self.decision
+        loader, decision = self.loader, self.decision
+        # skip backprop on valid/test minibatches and once training is
+        # complete (so the final weights equal the last snapshot)
+        train_only = DerivedBool(
+            lambda: loader.minibatch_class != TRAIN
+            or bool(decision.complete), ())
+        for i in reversed(range(len(self.forwards))):
+            spec = self.layers_config[i]
+            unit = GD_MAP[spec["type"]](
+                self, name=f"gd{i}_{spec['type']}", need_err_input=(i > 0),
+                **dict(spec.get("<-", {})))
+            unit.setup_from_forward(self.forwards[i])
+            if prev is self.decision:
+                unit.link_attrs(self.evaluator, "err_output")
+            else:
+                unit.link_attrs(prev, ("err_output", "err_input"))
+            unit.link_from(prev)
+            unit.gate_skip = train_only
+            self.gds.insert(0, unit)
+            prev = unit
+        self.loader.link_from(self.gds[0])
+
+    # -- lifecycle ---------------------------------------------------------------
+    def initialize(self, device=None, **kwargs) -> None:
+        """Bind the units to ``device`` (default: CUDA, raising without
+        it; ``"cpu"``, or ``"numpy"`` for the golden unit graph), which
+        loads the data and fills the weights, then build the fused path's
+        spec, params and velocities."""
+        super().initialize(device, **kwargs)
         self._build_model()
-        self.initialized = True
 
     def _build_model(self) -> None:
-        """Spec, params and zero velocities from ``layers_config``; shapes
-        propagate per sample in NHWC, and the ``"weights"`` stream is drawn
-        in the order the reference's units draw it."""
+        """Spec, params and velocities from ``layers_config``; shapes
+        propagate per sample in NHWC.  Layers with a unit take its
+        weights; the others draw from the ``"weights"`` stream in the
+        order the reference's units draw it."""
         gen = prng.get("weights")
         shape = tuple(int(s) for s in self.loader.original_data.shape[1:])
-        layers, params, vels = [], [], []
+        layers, params = [], []
         for i, spec in enumerate(self.layers_config):
             ltype = spec["type"]
             fwd = dict(spec.get("->", {}))
@@ -148,7 +268,7 @@ class StandardWorkflow:
                 if ltype == "softmax" and i != len(self.layers_config) - 1:
                     raise NotImplementedError(
                         "a softmax layer must be the last layer")
-                kind, act, config, pair, shape = self._fc(ltype, fwd,
+                kind, act, config, pair, shape = self._fc(i, ltype, fwd,
                                                           shape, gen)
             elif ltype in CONV_TYPES:
                 kind, act, config, pair, shape = self._conv(ltype, fwd,
@@ -174,53 +294,68 @@ class StandardWorkflow:
                 kind=kind, activation=act,
                 include_bias=pair is not None and pair[1] is not None,
                 hypers=hypers, hypers_bias=hypers_bias, config=config))
-            dev = self.device
-            if pair is None:
-                params.append((None, None))
-                vels.append((None, None))
-            else:
-                w, b = pair
-                params.append((torch.from_numpy(w).to(dev),
-                               None if b is None
-                               else torch.from_numpy(b).to(dev)))
-                vels.append((torch.zeros(w.shape, device=dev),
-                             None if b is None
-                             else torch.zeros(b.shape, device=dev)))
-        layers, _, _, unit_index = fused._merge_lrn_pool(layers, params,
-                                                         vels)
+            params.append(pair)
+        dev = self.device.torch_device
+
+        def put(a):   # a copy: a unit's host weights must not alias it
+            return None if a is None else torch.tensor(
+                np.asarray(a, np.float32), device=dev)
+        self.params = [(None, None) if p is None else (put(p[0]), put(p[1]))
+                       for p in params]
+        self.vels = [tuple(None if t is None else torch.zeros_like(t)
+                           for t in p) for p in self.params]
+        layers, _, _, unit_index = fused._merge_lrn_pool(layers, self.params,
+                                                         self.vels)
         self.spec = ModelSpec(tuple(layers), self.loss_function,
                               unit_index=unit_index)
-        self.params, self.vels = params, vels
+
+    def _params_from_units(self) -> None:
+        """params/vels ← the unit graph's weight and velocity Vectors."""
+        def get(vec):
+            return vec.devmem if vec else None
+        for i, (f, g) in enumerate(zip(self.forwards, self.gds)):
+            self.params[i] = (get(f.weights), get(f.bias)
+                              if f.include_bias else None)
+            self.vels[i] = (get(g.velocity_weights), get(g.velocity_bias)
+                            if f.include_bias else None)
+
+    def _params_to_units(self) -> None:
+        """The unit graph's Vectors ← params/vels (after the fused loop)."""
+        for i, (f, g) in enumerate(zip(self.forwards, self.gds)):
+            (w, b), (vw, vb) = self.params[i], self.vels[i]
+            f.weights.devmem, g.velocity_weights.devmem = w, vw
+            if f.include_bias:
+                f.bias.devmem, g.velocity_bias.devmem = b, vb
 
     @staticmethod
-    def _weights(fwd: dict, w_shape, b_shape, gen, w_fill_default):
-        """Forward.create_weights: W, then (when there is a bias) a draw of
-        the bias shape that the default uniform fill discards for zeros —
-        the draw still advances the stream.  Pops the fill options."""
-        include_bias = fwd.pop("include_bias", True)
-        w_fill = fwd.pop("weights_filling", w_fill_default)
-        w_std = fwd.pop("weights_stddev", None)
-        b_fill = fwd.pop("bias_filling", "uniform")
-        b_std = fwd.pop("bias_stddev", None)
-        w = _fill(gen, w_shape, w_fill, w_std)
-        b = None
-        if include_bias:
-            b = _fill(gen, b_shape, b_fill, b_std if b_std is not None
-                      else 0.0)
-            if b_fill == "uniform" and b_std is None:
-                b = np.zeros(b_shape, np.float32)
-        return w, b
+    def _weights(fwd: dict, w_shape, b_shape, gen, w_fill_default,
+                 unit=None):
+        """Pops the fill options; (W, b or None) from ``unit`` when the
+        layer has one (it filled them), else drawn by
+        ``nn_units.create_weights``."""
+        opts = {"include_bias": fwd.pop("include_bias", True),
+                "weights_filling": fwd.pop("weights_filling",
+                                           w_fill_default),
+                "weights_stddev": fwd.pop("weights_stddev", None),
+                "bias_filling": fwd.pop("bias_filling", "uniform"),
+                "bias_stddev": fwd.pop("bias_stddev", None)}
+        if unit is not None:
+            return (unit.weights.mem,
+                    unit.bias.mem if unit.include_bias else None)
+        return nn_units.create_weights(gen, w_shape, b_shape, **opts)
 
-    def _fc(self, ltype, fwd, shape, gen):
-        """All2All: W (n_in, neurons), uniform fill by default →
-        (kind, activation, config, (w, b), output sample shape)."""
+    def _fc(self, i, ltype, fwd, shape, gen):
+        """All2All: W (n_in, neurons), uniform fill by default (the unit's
+        weights on the unit graph) → (kind, activation, config, (w, b),
+        output sample shape)."""
         out = fwd.pop("output_sample_shape", None)
         if out is None:
             raise ValueError("output_sample_shape is required")
         fwd.pop("output_samples_number", None)   # reference alias
         neurons = int(np.prod(out))
         pair = self._weights(fwd, (int(np.prod(shape)), neurons),
-                             (neurons,), gen, "uniform")
+                             (neurons,), gen, "uniform",
+                             self.forwards[i] if self.forwards else None)
         return "fc", FC_TYPES[ltype], (), pair, (neurons,)
 
     def _conv(self, ltype, fwd, shape, gen):
@@ -294,19 +429,25 @@ class StandardWorkflow:
               max_epochs: int | None = None,
               compute_dtype: str | None = None,
               storage_dtype: str | None = None):
-        """``fused=True`` runs :meth:`run_fused`; the unit-graph tick loop
-        (``fused=False``) is not ported yet and raises.  The dtypes default
-        from ``root.common.compute_dtype``/``storage_dtype``."""
+        """``fused=False`` runs the unit-graph tick loop (:meth:`run`,
+        one minibatch a tick); ``fused=True`` runs :meth:`run_fused`.  The
+        dtypes of the fused path default from
+        ``root.common.compute_dtype``/``storage_dtype``; the tick loop
+        computes in float32, as the reference's does."""
         from .config import root
-        if not fused:
-            raise NotImplementedError(
-                "the unit-graph tick loop (train(fused=False)) is not "
-                f"ported yet ({_UNIT_GRAPH}); pass fused=True")
         if mesh is not None or mesh_shape is not None \
                 or root.common.get("mesh_shape") is not None:
             raise NotImplementedError(
                 "mesh-sharded training is not ported yet (ROADMAP.md "
                 "queue 1 item 9, parallelism)")
+        if not fused:
+            if self.unit_graph_missing is not None:
+                raise NotImplementedError(
+                    "train(fused=False): " + self.unit_graph_missing)
+            if max_epochs is not None:
+                self.decision.max_epochs = max_epochs
+            self.run()
+            return None
         if compute_dtype is None:
             compute_dtype = root.common.get("compute_dtype")
         if storage_dtype is None:
@@ -325,6 +466,10 @@ class StandardWorkflow:
         from .config import root
         if not self.initialized:
             raise RuntimeError("initialize() first")
+        if not self.device.is_torch:
+            raise ValueError("the fused path trains on a torch device "
+                             "(cuda or cpu); the numpy device runs the unit "
+                             "graph (train(fused=False))")
         if int(root.common.get("accum_steps") or 1) != 1:
             raise NotImplementedError(
                 "gradient accumulation is not ported yet (ROADMAP.md "
@@ -334,10 +479,12 @@ class StandardWorkflow:
             spec = dataclasses.replace(spec, compute_dtype=compute_dtype)
         if storage_dtype is not None:
             spec = dataclasses.replace(spec, storage_dtype=storage_dtype)
+        if self.forwards:
+            self._params_from_units()
         trainer = FusedTrainer(workflow=self, spec=spec,
                                params=self.spec_rows(self.params),
                                vels=self.spec_rows(self.vels),
-                               device=self.device)
+                               device=self.device.torch_device)
         loader, decision = self.loader, self.decision
         data = loader.original_data
         target = (loader.original_targets if self.loss_function == "mse"
@@ -423,10 +570,32 @@ class StandardWorkflow:
                     "train_examples_per_sec": n_train / epoch_s,
                     "train_step_time_ms": epoch_s / steps_per_epoch * 1e3})
             improved = decision.better_than_best(metrics)
-            decision.improved = improved
+            decision.improved.set(improved)
             decision._fails = 0 if improved else decision._fails + 1
             if decision._fails >= decision.fail_iterations:
                 break
-        decision.complete = True
+        decision.complete.set(True)
         trainer.write_back()
+        if self.forwards:
+            self._params_to_units()
         return trainer
+
+    # -- the unit graph's loop ---------------------------------------------------
+    def run(self, max_ticks: int | None = None) -> None:
+        """The tick loop (:meth:`Workflow.run`), recording each epoch's
+        wall time in ``epoch_timings``."""
+        self._epoch_t0 = time.monotonic()
+        super().run(max_ticks)
+
+    def run_tick(self):
+        fired = super().run_tick()
+        if self.loader in fired and bool(self.loader.epoch_ended):
+            now = time.monotonic()
+            wall, self._epoch_t0 = now - self._epoch_t0, now
+            ticks = len(self.loader._order)
+            self.epoch_timings.append({
+                "epoch": self.loader.epoch_number, "wall_s": wall,
+                "ticks": ticks, "tick_ms": wall / ticks * 1e3,
+                "train_examples_per_sec":
+                    self.loader.class_lengths[TRAIN] / wall})
+        return fired
