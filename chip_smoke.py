@@ -51,7 +51,17 @@ exits nonzero without the final ``ok`` line:
    device bytes;
 11. mnist_units parity — epoch 0 of the same seed on the CPU unit graph,
    held as in 5;
-12. the ``kernels`` line, then ``{"ok": true, "device": {...}}`` last.
+12. cifar_units slice — the CIFAR-10 conv net of phase 6 on the unit graph
+   (conv, pooling and LRN units, the cached-denominator LRN kernels) for
+   2 epochs at 45k/5k/10k, held as in 10; its parity on the model's
+   default split, held as in 7;
+13. autoencoder slice — the MNIST conv autoencoder (BASELINE config 4:
+   conv 5×5×16 → max-pool 2 → depooling → deconv 16→1, MSE, batch 100)
+   on the fused path for 2 epochs at the MNIST phase's 50k/10k/10k, held
+   as in 4 with the MSE falling; autoencoder_units, the same on the unit
+   graph, held as in 10; each with its parity on the model's default split
+   (epoch-0 MSE within rtol 5e-4 of the CPU's);
+14. the ``kernels`` line, then ``{"ok": true, "device": {...}}`` last.
 
 The kernel phase holds, besides the fused paths' kernels, the unit graph's
 three: the tiled matmul at the five products of the MNIST unit graph
@@ -60,7 +70,11 @@ and AlexNet fc6's (128, 9216)·(9216, 4096), within rtol 1e-5 / atol
 1e-5·√K; the SGD update bit for bit at the MNIST weights and biases, with
 decay and l1_vs_l2 = 0.5, and at (9216, 4096); the row softmax + argmax at
 (100, 10), (128, 1000) and tied logits, probabilities within rtol 1e-6 and
-the argmax exact.
+the argmax exact.  And the decoder slice's three: the LRN forward that
+caches its denominator and the backward that reads it, bit for bit at
+CIFAR's (100,16,16,32), an even window and β ≠ 0.75; the depooling
+gather at the autoencoder's (100,28,28,16) k2 s2 and an overlapping
+padded window, equal as values (−0.0 = +0.0).
 
 It imports nothing of JAX or of the ``znicz_tpu`` package.  Without a CUDA
 device, or outside a checkout of the repository, it fails."""
@@ -88,6 +102,11 @@ CIFAR_SPLIT = {"n_train": 45000, "n_valid": 5000, "n_test": 10000,
                "noise": 0.3, "size": 32}
 CIFAR_PARITY_SPLIT = {"n_train": 2000, "n_valid": 400, "n_test": 400,
                       "noise": 0.3, "size": 32}
+#: the autoencoder's default split, for its parity runs
+AE_PARITY_SPLIT = {"n_train": 2000, "n_valid": 400, "n_test": 400,
+                   "noise": 0.35}
+#: model → its config tree, where the two names differ
+TREES = {"autoencoder": "mnist_ae"}
 ALEXNET_SPLIT = {"n_train": 512, "n_valid": 128, "n_test": 128,
                  "noise": 0.4}
 #: the shrunk AlexNet of tests/test_lrn_pool.py:245-250, for the parity run
@@ -131,6 +150,15 @@ KERNELS = {
                    "sgd_update_launches"),
     "softmax": ("znicz_tpu_torch/csrc/softmax.cu",
                 "znicz_tpu/ops/softmax.py:83", "softmax", "softmax_launches"),
+    "lrn": ("znicz_tpu_torch/csrc/lrn.cu",
+            "znicz_tpu/ops/elementwise.py:254", "normalization",
+            "lrn_launches"),
+    "gd_lrn": ("znicz_tpu_torch/csrc/lrn.cu",
+               "znicz_tpu/ops/elementwise.py:283", "normalization",
+               "gd_lrn_launches"),
+    "pool_gather": ("znicz_tpu_torch/csrc/pooling.cu",
+                    "znicz_tpu/ops/elementwise.py:392", "pooling",
+                    "pool_gather_launches"),
 }
 
 #: each path's kernels: launches per (train step, eval step)
@@ -141,15 +169,26 @@ PATHS = {
     "alexnet": {"softmax_ce": (1, 1), "pool_select": (1, 1),
                 "pool_scatter": (1, 0), "lrn_maxpool": (2, 2),
                 "gd_lrn_maxpool": (2, 0), "dropout": (4, 0)},
+    # depooling forward is the scatter; its backward the gather
+    "autoencoder": {"pool_select": (1, 1), "pool_scatter": (2, 1),
+                    "pool_gather": (1, 0)},
 }
 #: the unit graph's kernels: launches per (tick, tick whose GD chain runs);
 #: MNIST's two forwards take a matmul each and its softmax layer the row
 #: softmax; GDSoftmax takes two (the weight gradient and err_input),
 #: GDTanh one (no err_input for the first layer), and four updates (W and
 #: b of two layers)
+#: CIFAR's conv GD units run cuDNN and one sgd_update each for W and b
+#: (the first conv computes no err_input), its fc units as MNIST's;
+#: the autoencoder's depooling scatters forward and gathers backward
 UNIT_PATHS = {
     "mnist_units": {"matmul": (2, 3), "sgd_update": (0, 4),
                     "softmax": (1, 0)},
+    "cifar_units": {"pool_select": (1, 0), "lrn": (1, 0), "matmul": (2, 4),
+                    "softmax": (1, 0), "pool_scatter": (0, 1),
+                    "gd_lrn": (0, 1), "sgd_update": (0, 8)},
+    "autoencoder_units": {"pool_select": (1, 0), "pool_scatter": (1, 1),
+                          "pool_gather": (0, 1), "sgd_update": (0, 3)},
 }
 
 
@@ -746,6 +785,123 @@ def phase_kernel_row_softmax(torch) -> list:
     return rows
 
 
+def lrn_bound_ms(numel: int, n: int):
+    """x read once, y and d written once; per element the window sum and
+    d (2n), d^−β (4) and y (1)."""
+    return _bound(3 * numel * 4, (2 * n + 6) * numel)
+
+
+def gd_lrn_bound_ms(numel: int, n: int):
+    """err, x and d read once, dx written once; per element d^−β (4),
+    q = err·x·(p/d) (3), the window sum of q (n−1) and dx (4)."""
+    return _bound(4 * numel * 4, (n + 10) * numel)
+
+
+#: case, x shape, n, alpha, beta, k
+LRN_DENOM_CASES = [
+    ("cifar_step", (100, 16, 16, 32), 5, 1e-4, 0.75, 2.0),
+    ("even_n", (7, 4, 3, 7), 4, 1e-3, 0.75, 1.0),
+    ("pow_beta", (7, 3, 4, 9), 5, 2e-3, 0.6, 2.0),
+    ("c_below_n", (7, 3, 3, 3), 5, 1e-2, 0.75, 2.0),
+]
+
+
+def phase_kernel_lrn_denom(torch) -> dict:
+    """The unit graph's LRN pair bit for bit against the plain versions:
+    the forward's y and d, and the backward from that d.  y must also
+    equal ``lrn_y``'s (one shared rounding, csrc/lrn_math.cuh)."""
+    import torch.nn.functional as F
+
+    from znicz_tpu_torch.ops import normalization as lrn
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 8)
+    rows = {"lrn": [], "gd_lrn": []}
+    for case, shape, n, alpha, beta, kk in LRN_DENOM_CASES:
+        x = (torch.randn(shape, generator=gen) * 4).to(dev)
+        e = torch.randn(shape, generator=gen).to(dev)
+        hp = (n, alpha, beta, kk)
+        y, d = _launch_once(torch, "lrn", lambda: lrn.lrn(x, *hp))
+        want_y, want_d = lrn.plain_lrn(x, *hp)
+        err_f = max(_close(torch, case, "y", y, want_y, 0, 0),
+                    _close(torch, case, "d", d, want_d, 0, 0),
+                    _close(torch, case, "y vs lrn_y", y,
+                           lrn.lrn_y(x, *hp), 0, 0))
+        dx = _launch_once(torch, "gd_lrn", lambda: lrn.gd_lrn(e, x, d, *hp))
+        err_b = _close(torch, case, "dx", dx,
+                       lrn.plain_gd_lrn(e, x, d, *hp), 0, 0)
+        geo = {"case": case, "shape": list(shape), "n": n, "alpha": alpha,
+               "beta": beta, "k": kk}
+        lib = None
+        if case == "cifar_step":
+            # y only (no d), several kernels inside; α·n as for lrn_y
+            xn = x.permute(0, 3, 1, 2)
+            lib = _time_ms(torch, lambda: F.local_response_norm(
+                xn, n, alpha * n, beta, kk))[0]
+        rows["lrn"].append(_row(
+            torch, "lrn", geo, err_f, lambda: lrn.lrn(x, *hp),
+            lambda: lrn.plain_lrn(x, *hp), lrn_bound_ms(x.numel(), n), lib))
+        rows["gd_lrn"].append(_row(
+            torch, "gd_lrn", geo, err_b, lambda: lrn.gd_lrn(e, x, d, *hp),
+            lambda: lrn.plain_gd_lrn(e, x, d, *hp),
+            gd_lrn_bound_ms(x.numel(), n)))
+    return rows
+
+
+def pool_gather_bound_ms(x_numel: int, y_numel: int):
+    """err read once (counted whole), the slots read once, the output
+    written once; no arithmetic beyond the index."""
+    return _bound(x_numel * 4 + 2 * y_numel * 4, 0)
+
+
+#: case, err shape (the depooling output), ksize, stride, padding, data
+GATHER_CASES = [
+    ("autoencoder_step", (100, 28, 28, 16), 2, 2, 0, "normal"),
+    ("overlap_pad_ragged", (7, 13, 11, 5), 3, 2, 1, "normal"),
+    ("ties", (100, 28, 28, 16), 2, 2, 0, "ties"),
+]
+
+
+def phase_kernel_pool_gather(torch) -> list:
+    """The depooling backward against the plain version, equal as values
+    (the reference's sum over taps adds zeros, so a −0.0 may come back as
+    +0.0; inputs are finite).  The winner slots come from the max pool of
+    a random x; with "ties" most windows tie and keep the first tap."""
+    import torch.nn.functional as F
+
+    from znicz_tpu_torch.ops import pooling
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 9)
+    rows = []
+    for case, shape, k, st, pad, data in GATHER_CASES:
+        if data == "ties":
+            x = torch.randint(-2, 3, shape, generator=gen).float().to(dev)
+        else:
+            x = torch.randn(shape, generator=gen).to(dev)
+        off = pooling.plain_max_pooling(x, k, st, pad)[1]
+        e = torch.randn(shape, generator=gen).to(dev)
+        got = _launch_once(torch, "pool_gather",
+                           lambda: pooling.gd_depooling(e, off, k, st, pad))
+        err = _close(torch, case, "out", got,
+                     pooling.plain_gd_depooling(e, off, k, st, pad), 0, 0)
+        lib = None
+        if case == "autoencoder_step":
+            # one torch.gather on NCHW copies with flat plane indices
+            # (another contract than the port's window slots)
+            xn = x.permute(0, 3, 1, 2).contiguous()
+            en = e.permute(0, 3, 1, 2).contiguous().flatten(2)
+            idx = F.max_pool2d(xn, k, st, pad,
+                               return_indices=True)[1].flatten(2)
+            lib = _time_ms(torch, lambda: torch.gather(en, 2, idx))[0]
+        rows.append(_row(
+            torch, "pool_gather", {"case": case, "shape": list(shape),
+                                   "ksize": k, "stride": st,
+                                   "padding": pad}, err,
+            lambda: pooling.gd_depooling(e, off, k, st, pad),
+            lambda: pooling.plain_gd_depooling(e, off, k, st, pad),
+            pool_gather_bound_ms(e.numel(), off.numel()), lib))
+    return rows
+
+
 # -- main paths --------------------------------------------------------------
 def expected_steps(split: dict, batch: int, epochs: int) -> list[dict]:
     """Steps ``run_fused`` runs in each epoch: train steps (the head of
@@ -801,7 +957,7 @@ def _run(model: str, device: str, epochs: int, split: dict,
     from znicz_tpu_torch import prng
     from znicz_tpu_torch.config import root
     module = importlib.import_module(f"znicz_tpu_torch.models.{model}")
-    tree = getattr(root, model)
+    tree = getattr(root, TREES.get(model, model))
     tree.synthetic.update(split)
     if config:
         tree.update(config)
@@ -855,7 +1011,7 @@ def phase_slice(torch, model: str, split: dict, desc: str,
     importlib.import_module(f"znicz_tpu_torch.models.{model}")
     path = path or model
     fused = path not in UNIT_PATHS
-    batch = int(getattr(root, model).get("minibatch_size"))
+    batch = int(getattr(root, TREES.get(model, model)).get("minibatch_size"))
     expected = expected_launches(path, split, batch, EPOCHS)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -872,8 +1028,10 @@ def phase_slice(torch, model: str, split: dict, desc: str,
         for k, v in m.items():
             if not math.isfinite(v):
                 raise AssertionError(f"non-finite {k} in {m}")
-    if not metrics[-1]["train_loss"] < metrics[0]["train_loss"]:
-        raise AssertionError(f"{model}: train loss did not fall: {metrics}")
+    # an MSE unit graph reports *_mse only
+    loss = "train_loss" if "train_loss" in metrics[0] else "train_mse"
+    if not metrics[-1][loss] < metrics[0][loss]:
+        raise AssertionError(f"{model}: {loss} did not fall: {metrics}")
     if counts != expected:
         raise AssertionError(f"{path}: launches {counts} != steps run "
                              f"{expected}")
@@ -905,22 +1063,26 @@ def phase_slice(torch, model: str, split: dict, desc: str,
 def phase_parity(model: str, split: dict, card_epoch0: dict, rtol: float,
                  err_share: float, config: dict | None = None,
                  fused: bool = True) -> None:
-    """Epoch 0 of the same seed on the CPU against the card's: losses
-    within ``rtol``, error counts within ``err_share`` of each class."""
+    """Epoch 0 of the same seed on the CPU against the card's: the same
+    metrics, losses and MSEs within ``rtol``, error counts within
+    ``err_share`` of each class."""
     cpu = _run(model, "cpu", 1, split, config,
                fused).decision.epoch_metrics[0]
+    if sorted(cpu) != sorted(card_epoch0):
+        raise AssertionError(f"{model}: card metrics {sorted(card_epoch0)} "
+                             f"vs cpu {sorted(cpu)}")
     sizes = {"train": split["n_train"], "validation": split["n_valid"],
              "test": split["n_test"]}
-    for name, n in sizes.items():
-        k = f"{name}_loss"
-        if not math.isclose(card_epoch0[k], cpu[k], rel_tol=rtol,
-                            abs_tol=0.0):
-            raise AssertionError(f"{model} {k}: card {card_epoch0[k]} vs "
-                                 f"cpu {cpu[k]}")
-        k = f"{name}_n_err"
-        if abs(card_epoch0[k] - cpu[k]) > err_share * n:
-            raise AssertionError(f"{model} {k}: card {card_epoch0[k]} vs "
-                                 f"cpu {cpu[k]}")
+    for k, v in card_epoch0.items():
+        name = k.split("_")[0]
+        if k.endswith(("_loss", "_mse")):
+            if not math.isclose(v, cpu[k], rel_tol=rtol, abs_tol=0.0):
+                raise AssertionError(f"{model} {k}: card {v} vs cpu "
+                                     f"{cpu[k]}")
+        elif k.endswith("_n_err"):
+            if abs(v - cpu[k]) > err_share * sizes[name]:
+                raise AssertionError(f"{model} {k}: card {v} vs cpu "
+                                     f"{cpu[k]}")
     emit({"phase": f"{model}{'' if fused else '_units'}_parity",
           "split": split, "card_epoch0": card_epoch0, "cpu_epoch0": cpu})
 
@@ -967,7 +1129,9 @@ def main() -> int:
             "dropout": phase_kernel_dropout(torch),
             "matmul": phase_kernel_matmul(torch),
             "sgd_update": phase_kernel_update(torch),
-            "softmax": phase_kernel_row_softmax(torch)}
+            "softmax": phase_kernel_row_softmax(torch),
+            **phase_kernel_lrn_denom(torch),
+            "pool_gather": phase_kernel_pool_gather(torch)}
     mnist = phase_slice(torch, "mnist", MNIST_SPLIT, "mnist 784-100-10")
     phase_parity("mnist", MNIST_SPLIT, mnist["epoch_metrics"][0], 1e-4,
                  0.001)
@@ -992,10 +1156,27 @@ def main() -> int:
                         "mnist 784-100-10 unit graph", path="mnist_units")
     phase_parity("mnist", MNIST_SPLIT, units["epoch_metrics"][0], 1e-4,
                  0.001, fused=False)
+    cifar_units = phase_slice(torch, "cifar", CIFAR_SPLIT,
+                              "cifar conv net unit graph",
+                              path="cifar_units")
+    card = _run("cifar", "cuda", 1, CIFAR_PARITY_SPLIT, fused=False)
+    phase_parity("cifar", CIFAR_PARITY_SPLIT, card.decision.epoch_metrics[0],
+                 5e-4, 0.01, fused=False)
+    ae_desc = "mnist autoencoder conv5x5x16-maxpool2-depool-deconv5x5x16>1"
+    ae = phase_slice(torch, "autoencoder", MNIST_SPLIT, ae_desc)
+    ae_units = phase_slice(torch, "autoencoder", MNIST_SPLIT,
+                           ae_desc + " unit graph", path="autoencoder_units")
+    for fused in (True, False):
+        card = _run("autoencoder", "cuda", 1, AE_PARITY_SPLIT, fused=fused)
+        phase_parity("autoencoder", AE_PARITY_SPLIT,
+                     card.decision.epoch_metrics[0], 5e-4, 0.0, fused=fused)
     emit(kernels_line(kern, {"mnist": mnist["launches"],
                              "cifar": cifar["launches"],
                              "alexnet": alexnet["launches"],
-                             "mnist_units": units["launches"]}))
+                             "mnist_units": units["launches"],
+                             "cifar_units": cifar_units["launches"],
+                             "autoencoder": ae["launches"],
+                             "autoencoder_units": ae_units["launches"]}))
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],
                                  "count": torch.cuda.device_count()}})
     return 0

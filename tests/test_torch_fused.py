@@ -140,15 +140,29 @@ def test_idx_matrix_matches_reference(n, batch):
 @pytest.mark.parametrize("kind", ["lrn_pool", "stochastic_pool",
                                   "dropout", "deconv", "depooling"])
 def test_unported_kinds_raise_naming_the_roadmap(kind):
-    """A kind the port does not run raises naming its ROADMAP.md item; for
-    the kinds the AlexNet slice ported (lrn_pool, dropout) the unported
-    part is their narrow-storage form, which raises the same way."""
-    layer = fused.LayerSpec(kind=kind, activation="linear",
-                            include_bias=False, hypers=(0.0,) * 4,
-                            hypers_bias=(0.0,) * 4)
-    storage = "bfloat16" if kind in fused.PORTED_KINDS else "float32"
+    """A kind the port does not run raises naming its ROADMAP.md item.
+    For the kinds later slices ported the unported part raises the same
+    way: the narrow-storage form of lrn_pool, dropout and depooling (their
+    kernels take float32), and for deconv a tie the fused path refuses,
+    as the reference's does (a tied deconv with a bias)."""
+    def row(k, include_bias=False, **cfg):
+        return fused.LayerSpec(kind=k, activation="linear",
+                               include_bias=include_bias,
+                               hypers=(0.0,) * 4, hypers_bias=(0.0,) * 4,
+                               config=tuple(sorted(cfg.items())))
+    pool = dict(ksize=(2, 2), stride=(2, 2), padding=(0, 0))
+    conv = dict(stride=(1, 1), padding=(0, 0))
+    layers, storage = {
+        "lrn_pool": ((row("lrn_pool"),), "bfloat16"),
+        "stochastic_pool": ((row("stochastic_pool"),), "float32"),
+        "dropout": ((row("dropout"),), "bfloat16"),
+        "deconv": ((row("conv", True, **conv),
+                    row("deconv", True, tie=0, **conv)), "float32"),
+        "depooling": ((row("max_pool", **pool),
+                       row("depooling", tie=0, **pool)), "bfloat16"),
+    }[kind]
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        fused.ModelSpec((layer,), "mse", storage_dtype=storage)
+        fused.ModelSpec(layers, "mse", storage_dtype=storage)
 
 
 @pytest.mark.parametrize("kind", ["max_pool", "maxabs_pool", "lrn",

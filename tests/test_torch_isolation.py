@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from znicz_tpu_torch import backends
-from znicz_tpu_torch.models import alexnet, cifar, mnist
+from znicz_tpu_torch.models import alexnet, autoencoder, cifar, mnist
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted(str(p.relative_to(REPO))
@@ -46,14 +46,15 @@ def test_no_jax_or_reference_import(path):
 
 
 def _train_in_fresh_process(model: str, split: str, setup: str = "",
-                            fused: bool = True) -> None:
+                            fused: bool = True, tree: str | None = None
+                            ) -> None:
     code = (
         "import sys, torch\n"
         "torch.set_num_threads(2)\n"
         "from znicz_tpu_torch import prng\n"
         "from znicz_tpu_torch.config import root\n"
         f"from znicz_tpu_torch.models import {model}\n"
-        f"root.{model}.synthetic.update({split})\n"
+        f"root.{tree or model}.synthetic.update({split})\n"
         f"{setup}"
         "prng.seed_all(1234)\n"
         f"wf = {model}.run(device='cpu', epochs=1, fused={fused})\n"
@@ -82,6 +83,19 @@ def test_fresh_process_trains_the_unit_graph_without_jax():
 def test_fresh_process_trains_cifar_without_jax():
     _train_in_fresh_process(
         "cifar", "{'n_train': 80, 'n_valid': 20, 'n_test': 20, 'size': 12}")
+
+
+def test_fresh_process_trains_the_cifar_unit_graph_without_jax():
+    _train_in_fresh_process(
+        "cifar", "{'n_train': 80, 'n_valid': 20, 'n_test': 20, 'size': 12}",
+        fused=False)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_fresh_process_trains_the_autoencoder_without_jax(fused):
+    _train_in_fresh_process(
+        "autoencoder", "{'n_train': 100, 'n_valid': 20, 'n_test': 20}",
+        fused=fused, tree="mnist_ae")
 
 
 def test_fresh_process_trains_alexnet_without_jax():
@@ -120,6 +134,13 @@ def test_cifar_run_defaults_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         cifar.run(epochs=1, fused=True)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_autoencoder_run_defaults_to_the_card(monkeypatch, fused):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        autoencoder.run(epochs=1, fused=fused)
 
 
 def test_alexnet_run_defaults_to_the_card(monkeypatch):

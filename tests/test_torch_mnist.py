@@ -173,10 +173,18 @@ def test_cli_numpy_device_trains_on_the_unit_graph():
     assert "'epoch': 0" in proc.stdout, proc.stdout
 
 
+def _with_stochastic_pool(layers):
+    """CIFAR's layers with its max pool made a stochastic pool, a layer
+    type that still has no unit and no fused kind."""
+    return [dict(la, type="stochastic_pooling")
+            if la["type"] == "max_pooling" else la for la in layers]
+
+
 @pytest.mark.parametrize("model", ["cifar", "alexnet"])
-def test_cli_without_fused_raises_for_conv_models(model):
-    """The conv samples have no units yet: the tick loop raises, naming
-    the nn/ conv units it waits for."""
+def test_cli_without_fused_raises_for_conv_models(model, tmp_path):
+    """A conv sample with a layer that has no unit yet — AlexNet's
+    dropout, or CIFAR with a stochastic pool — raises in the tick loop,
+    naming the conv-stack units it waits for."""
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
     sets = {"cifar": ["cifar.synthetic.n_train=20", "cifar.synthetic.size=8",
                       "cifar.synthetic.n_valid=10",
@@ -185,11 +193,20 @@ def test_cli_without_fused_raises_for_conv_models(model):
                         "alexnet.n_classes=5", "alexnet.synthetic.n_valid=2",
                         "alexnet.synthetic.n_test=2"]}[model]
     args = [a for s in sets for a in ("--set", s)]
+    if model == "cifar":
+        config = tmp_path / "stochastic_pool.py"
+        config.write_text(
+            "from znicz_tpu_torch.models import cifar  # its defaults\n"
+            "root.cifar.update({'layers': [\n"
+            "    dict(la, type='stochastic_pooling')\n"
+            "    if la['type'] == 'max_pooling' else la\n"
+            "    for la in root.cifar.layers]})\n")
+        args.insert(0, str(config))
     proc = subprocess.run(
         [sys.executable, "-m", "znicz_tpu_torch",
-         f"znicz_tpu_torch.models.{model}", "--epochs", "1", "--device",
-         "cpu", *args], cwd=REPO, env=env, capture_output=True, text=True,
-        timeout=120)
+         f"znicz_tpu_torch.models.{model}", *args, "--epochs", "1",
+         "--device", "cpu"], cwd=REPO, env=env, capture_output=True,
+        text=True, timeout=120)
     assert proc.returncode != 0
     assert "NotImplementedError" in proc.stderr
     assert "ROADMAP.md queue 1 item 5" in proc.stderr, proc.stderr
@@ -204,6 +221,9 @@ def test_run_without_fused_raises_for_conv_models(model):
         if model == "cifar" else {"n_train": 4, "n_valid": 2, "n_test": 2})
     if model == "alexnet":
         root.alexnet.update({"size": 67, "n_classes": 5})
+    else:
+        root.cifar.update({"layers": _with_stochastic_pool(
+            root.cifar.layers)})
     try:
         module = {"cifar": cifar, "alexnet": alexnet}[model]
         with pytest.raises(NotImplementedError, match="conv"):

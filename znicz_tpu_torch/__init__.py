@@ -14,14 +14,16 @@ Layering, as far as the port reaches today:
   units of the graph;
 * ``ops/``      — activation math, the matmul, the SGD update, the row
   softmax and the softmax + cross-entropy head, max / max-abs / avg
-  pooling, cross-channel LRN and NHWC convolutions; the hand-written
-  CUDA kernels live in ``csrc/`` and are built by ``cuda_build``;
-* ``nn/``       — the fc forward and gradient units, the softmax
-  evaluator, the decision;
+  pooling and depooling, cross-channel LRN, NHWC convolutions and
+  deconvolutions; the hand-written CUDA kernels live in ``csrc/`` and
+  are built by ``cuda_build``;
+* ``nn/``       — the forward and gradient units of the fc, conv,
+  pooling, LRN, depooling and deconv layers, the softmax and MSE
+  evaluators, the decisions;
 * ``parallel/fused.py`` — the fused train step and ``FusedTrainer``;
 * ``standard_workflow.py`` (the unit graph and the fused loop),
-  ``models/mnist.py``, ``models/cifar.py``, ``models/alexnet.py`` and the
-  ``python -m znicz_tpu_torch`` CLI.
+  ``models/mnist.py``, ``models/cifar.py``, ``models/alexnet.py``,
+  ``models/autoencoder.py`` and the ``python -m znicz_tpu_torch`` CLI.
 
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``); without a CUDA device they raise.

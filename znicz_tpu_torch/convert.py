@@ -2,9 +2,13 @@
 
 ``from_reference`` takes what ``znicz_tpu.parallel.fused.extract_model``
 returns, in plain form — ``dataclasses.asdict`` of each ``LayerSpec`` and
-numpy ``(w, b)`` pairs, conv weights in HWIO and ``(None, None)`` for the
-parameter-less pool, LRN and dropout rows, plus the spec's ``unit_index``
-— and returns the port's ``(ModelSpec, params, vels)`` on a device.
+numpy ``(w, b)`` pairs, conv and deconv weights in HWIO and ``(None,
+None)`` for the parameter-less pool, LRN, dropout and depooling rows, plus
+the spec's ``unit_index`` — and returns the port's ``(ModelSpec, params,
+vels)`` on a device.  A depooling row's ``tie`` (its max pool's row) and a
+tied deconv's (its encoder conv's row, whose W it shares: its params are
+``(None, None)``, its velocity its own) come across in the config as
+they are.
 ``to_numpy`` is its inverse for the parameters.  Nothing here imports
 ``znicz_tpu``: the caller hands over numpy arrays.
 

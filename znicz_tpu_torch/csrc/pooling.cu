@@ -1,5 +1,6 @@
-// Max / max-abs pooling forward (winner select) and its backward (offset
-// scatter) over NHWC float32 tensors, for the fused train step.
+// Max / max-abs pooling forward (winner select), its backward (offset
+// scatter, also the depooling forward) and the depooling backward (offset
+// gather) over NHWC float32 tensors.
 //
 // pool_select_kernel replaces the TPU kernel znicz_tpu/ops/elementwise.py
 // pallas_pool_select (_pool_select_kernel).  The reference first stacks
@@ -33,6 +34,22 @@
 // reference never exist, and neighbouring windows' reads of x (or of err
 // and offsets) hit L1/L2.
 //
+// pool_gather_kernel replaces znicz_tpu/ops/elementwise.py
+// pallas_pool_gather (_pool_gather_kernel) together with the XLA tap stack
+// before it (znicz_tpu/ops/pooling.py gd_depooling): the adjoint of the
+// scatter, out[b,oh,ow,c] = err[b, oh*sh-ph+t/kw, ow*sw-pw+t%kw, c] for the
+// recorded slot t = offsets[b,oh,ow,c], and 0 where that tap falls in the
+// padding (or t is outside [0, kh*kw)).  The reference stacks all kh*kw
+// strided taps of err in XLA, a (T, rows, C) copy that was a device of
+// Mosaic's tiling, and sums taps[t]*(offsets == t) over t in Pallas; here
+// one thread per output element reads its slot and the one tap it names.
+// The reference's sum adds only zeros besides that tap, so the two agree
+// as values (a -0.0 may come back as +0.0) for finite err.
+// Bound on an H100: bytes.  At the autoencoder's step, err (100,28,28,16)
+// and slots (100,14,14,16) -> (100,14,14,16): 5.0 MB of err (counted
+// whole, though one tap of each window is read), 1.3 MB of slots read and
+// 1.3 MB written, ~2.25 us at 3.35 TB/s; no arithmetic beyond the index.
+//
 // The adds use __fadd_rn/__fmul_rn so nvcc cannot contract them into FMAs.
 
 #include <cuda_runtime.h>
@@ -49,7 +66,7 @@ constexpr int kThreads = 256;
 // through FastDiv (fastdiv.cuh): a multiply, an add and a shift.
 
 struct Geometry {
-  FastDiv C, W, H, OW, OH, sh, sw;   // the divisors
+  FastDiv C, W, H, OW, OH, sh, sw, kwd;   // the divisors (kwd: kw)
   int kh, kw, ph, pw;
 };
 
@@ -132,18 +149,44 @@ __global__ void pool_scatter_kernel(const float* __restrict__ err,
   dx[e] = acc;
 }
 
+// One thread per pooled element (b, oh, ow, c), C fastest.
+__global__ void pool_gather_kernel(const float* __restrict__ err,
+                                   const int* __restrict__ offsets,
+                                   float* __restrict__ out, int total,
+                                   Geometry g) {
+  const int o = blockIdx.x * blockDim.x + threadIdx.x;
+  if (o >= total) return;
+  const int H = g.H.d, W = g.W.d, C = g.C.d;
+  int r = g.C.div(o);
+  const int c = o - r * C;
+  int q = g.OW.div(r);
+  const int ow = r - q * g.OW.d;
+  const int b = g.OH.div(q);
+  const int oh = q - b * g.OH.d;
+  const int t = offsets[o];
+  float v = 0.0f;
+  if (t >= 0 && t < g.kh * g.kw) {
+    const int i = g.kwd.div(t);
+    const int ih = oh * static_cast<int>(g.sh.d) - g.ph + i;
+    const int iw = ow * static_cast<int>(g.sw.d) - g.pw + (t - i * g.kw);
+    if (ih >= 0 && ih < H && iw >= 0 && iw < W)
+      v = err[((b * H + ih) * W + iw) * C + c];
+  }
+  out[o] = v;
+}
+
 int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
 Geometry make_geometry(int H, int W, int C, int OH, int OW, int kh, int kw,
                        int sh, int sw, int ph, int pw) {
   return Geometry{make_fastdiv(C),  make_fastdiv(W),  make_fastdiv(H),
                   make_fastdiv(OW), make_fastdiv(OH), make_fastdiv(sh),
-                  make_fastdiv(sw), kh, kw, ph, pw};
+                  make_fastdiv(sw), make_fastdiv(kw), kh, kw, ph, pw};
 }
 
 }  // namespace
 
-// Both entry points launch on `stream`, do not synchronise, and return the
+// All entry points launch on `stream`, do not synchronise, and return the
 // launch status (cudaGetLastError) as an int, 0 on success.
 
 extern "C" int znicz_pool_select_f32(const float* x, float* y, int* offsets,
@@ -170,6 +213,19 @@ extern "C" int znicz_pool_scatter_f32(const float* err, const int* offsets,
   pool_scatter_kernel<<<blocks_for(total), kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       err, offsets, dx, total,
+      make_geometry(H, W, C, OH, OW, kh, kw, sh, sw, ph, pw));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int znicz_pool_gather_f32(const float* err, const int* offsets,
+                                     float* out, int B, int H, int W, int C,
+                                     int OH, int OW, int kh, int kw, int sh,
+                                     int sw, int ph, int pw, void* stream) {
+  const int total = B * OH * OW * C;
+  if (total <= 0) return 0;
+  pool_gather_kernel<<<blocks_for(total), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      err, offsets, out, total,
       make_geometry(H, W, C, OH, OW, kh, kw, sh, sw, ph, pw));
   return static_cast<int>(cudaGetLastError());
 }

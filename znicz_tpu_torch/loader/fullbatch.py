@@ -5,17 +5,18 @@
 device once as ``original_data`` / ``original_labels`` tensors.  The fused
 trainer gathers each minibatch there itself; the unit graph's
 ``fill_minibatch`` gathers the rows of one minibatch there with
-``index_select`` into ``minibatch_data`` / ``minibatch_labels``, padding a
-short last minibatch to the full size with its last row (consumers mask by
-``minibatch_size``).  On the numpy device the same gather is a numpy fancy
-index on the host."""
+``index_select`` into ``minibatch_data`` / ``minibatch_labels`` (and
+``minibatch_targets`` for an MSE loader), padding a short last minibatch
+to the full size with its last row (consumers mask by
+``minibatch_size``).  On the numpy device the same gather is a numpy
+fancy index on the host."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..memory import numpy_dtype
+from ..memory import Vector, numpy_dtype
 from ..normalization import create_normalizer
 from .base import Loader
 
@@ -83,11 +84,15 @@ class FullBatchLoader(Loader):
 
 
 class FullBatchLoaderMSE(FullBatchLoader):
-    """Adds a regression target tensor (reference LoaderMSE contract)."""
+    """Adds a regression target tensor and its ``minibatch_targets``
+    (reference LoaderMSE contract), gathered like ``minibatch_data``."""
 
     def __init__(self, workflow=None, name=None, **kwargs):
-        super().__init__(workflow, name, **kwargs)
+        # by keyword: a sample loader mixed in after this class (the
+        # autoencoder's MnistLoader) takes other positional parameters
+        super().__init__(workflow=workflow, name=name, **kwargs)
         self.original_targets: torch.Tensor | None = None
+        self.minibatch_targets = Vector()
 
     def initialize(self, device=None, **kwargs) -> None:
         super().initialize(device, **kwargs)
@@ -96,3 +101,11 @@ class FullBatchLoaderMSE(FullBatchLoader):
             self.original_targets = self.original_data
         else:
             self.original_targets = self._to_device(self.original_targets)
+        self.minibatch_targets.mem = np.zeros(
+            (self.max_minibatch_size, *self.original_targets.shape[1:]),
+            numpy_dtype(self.original_targets.dtype))
+        self.minibatch_targets.initialize(self.device)
+
+    def fill_minibatch(self, indices: np.ndarray, klass: int) -> None:
+        super().fill_minibatch(indices, klass)
+        self._gather(self.minibatch_targets, self.original_targets, indices)

@@ -154,8 +154,8 @@ def run(device=None, epochs: int | None = None, fused: bool = True,
         **kwargs) -> AlexNetWorkflow:
     """Build, initialize and train on ``device`` (default: the CUDA card,
     raising without one; pass ``device="cpu"`` for the host).  Only the
-    fused path is ported; ``fused=False`` raises, naming the conv units it
-    waits for (ROADMAP.md queue 1 item 5).  Returns the finished
+    fused path is ported; ``fused=False`` raises, naming the dropout unit
+    it waits for (ROADMAP.md queue 1 item 5).  Returns the finished
     workflow."""
     wf = AlexNetWorkflow(**kwargs)
     if epochs is not None:

@@ -9,8 +9,9 @@ a deterministic synthetic stand-in (class prototypes plus noise) is drawn
 from the ``"cifar_synthetic"`` stream, bit-identical to the JAX package's
 for the same seed.
 
-Run:  ``python -m znicz_tpu_torch znicz_tpu_torch.models.cifar --fused
-[--epochs N] [--device cuda|cpu]``
+Run:  ``python -m znicz_tpu_torch znicz_tpu_torch.models.cifar [--fused]
+[--epochs N] [--device cuda|cpu|numpy]`` — without ``--fused`` it trains
+on the unit graph (the reference's default), with it on the fused path.
 """
 
 from __future__ import annotations
@@ -109,7 +110,7 @@ class CifarLoader(FullBatchLoader):
 
 
 class CifarWorkflow(StandardWorkflow):
-    """BASELINE config 2: Conv+Pool+LRN+FC, trained fused."""
+    """BASELINE config 2: Conv+Pool+LRN+FC."""
 
     def __init__(self, name="CifarWorkflow", layers=None,
                  decision_config=None, snapshotter_config=None,
@@ -134,10 +135,10 @@ class CifarWorkflow(StandardWorkflow):
 def run(device=None, epochs: int | None = None, fused: bool = False,
         **kwargs) -> CifarWorkflow:
     """Build, initialize and train on ``device`` (default: the CUDA card,
-    raising without one; pass ``device="cpu"`` for the host).  Only the
-    fused path (``fused=True``, the CLI's ``--fused``) is ported; the
-    unit-graph loop raises, naming the conv units it waits for (ROADMAP.md
-    queue 1 item 5).  Returns the finished workflow."""
+    raising without one; pass ``device="cpu"`` for the host, ``"numpy"``
+    for the golden unit graph).  ``fused=False`` trains on the unit-graph
+    tick loop, ``fused=True`` (the CLI's ``--fused``) on the fused path.
+    Returns the finished workflow."""
     wf = CifarWorkflow(**kwargs)
     if epochs is not None:
         wf.decision.max_epochs = epochs
@@ -151,10 +152,11 @@ def main(argv: list[str] | None = None) -> None:
 
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--device", default="auto",
-                        choices=("auto", "cuda", "cpu"))
+                        choices=("auto", "cuda", "cpu", "numpy"))
     parser.add_argument("--epochs", type=int, default=None)
+    parser.add_argument("--fused", action="store_true")
     args = parser.parse_args(argv)
-    wf = run(device=args.device, epochs=args.epochs, fused=True)
+    wf = run(device=args.device, epochs=args.epochs, fused=args.fused)
     for m in wf.decision.epoch_metrics:
         print(m)
 

@@ -115,13 +115,29 @@ class DecisionGD(DecisionBase):
 
 
 class DecisionMSE(DecisionBase):
-    """Regression decision: improvement = lower validation (or train) MSE.
-    Its per-minibatch side waits for ``EvaluatorMSE`` (the decoder
-    slice); the fused loop uses ``better_than_best``."""
+    """Regression decision: accumulates the evaluator's ``mse`` per class
+    into ``*_mse`` metrics; improvement = lower validation (or train)
+    MSE."""
 
     def __init__(self, workflow=None, name=None, **kwargs):
         super().__init__(workflow, name, **kwargs)
+        self.epoch_mse = [0.0, 0.0, 0.0]
+        self.minibatch_count = [0, 0, 0]
         self.best_mse = np.inf
+
+    def on_minibatch(self, klass: int) -> None:
+        self.epoch_mse[klass] += self.evaluator.mse
+        self.minibatch_count[klass] += 1
+
+    def on_epoch_end(self) -> dict:
+        metrics = {}
+        for k in (TEST, VALID, TRAIN):
+            if self.minibatch_count[k]:
+                metrics[f"{CLASS_NAMES[k]}_mse"] = (
+                    self.epoch_mse[k] / self.minibatch_count[k])
+        self.epoch_mse = [0.0, 0.0, 0.0]
+        self.minibatch_count = [0, 0, 0]
+        return metrics
 
     def better_than_best(self, metrics: dict) -> bool:
         key = "validation_mse" if "validation_mse" in metrics \

@@ -1,5 +1,5 @@
-"""Evaluator: loss + error statistics at the end of the forward chain
-(port of ``EvaluatorSoftmax`` in ``znicz_tpu/nn/evaluator.py``).
+"""Evaluators: loss + error statistics at the end of the forward chain
+(port of ``znicz_tpu/nn/evaluator.py``).
 
 ``EvaluatorSoftmax`` scores All2AllSoftmax's probabilities: the
 cross-entropy from the probabilities (``−log(max(p, 1e-30))``, not the
@@ -7,11 +7,14 @@ fused path's log-softmax), the minibatch's error count, a per-epoch
 confusion matrix and ``err_output = (y − onehot)/batch`` with the padded
 rows of a short minibatch zeroed, which the last GD unit consumes.
 
-Its metrics are host scalars that Decision reads on every tick, so it
-runs on the host on every device, as the reference's ``xla_run`` does: it
-maps ``output``/``max_idx``/``labels`` down and its ``err_output`` is
-uploaded when the GD unit reads it.  ``EvaluatorMSE`` waits for the
-decoder slice (ROADMAP.md queue 1 item 6)."""
+``EvaluatorMSE`` scores a regression output against ``target``:
+``err_output = (y − target)/batch`` (padded rows zeroed) and the
+minibatch's mean squared error.
+
+Their metrics are host scalars that Decision reads on every tick, so they
+run on the host on every device, as the reference's ``xla_run`` does:
+they map ``output`` and the labels or targets down and ``err_output`` is
+uploaded when the GD unit reads it."""
 
 from __future__ import annotations
 
@@ -80,3 +83,30 @@ class EvaluatorSoftmax(EvaluatorBase):
                 self.confusion_matrix.mem[...] = 0
                 self._confusion_epoch = epoch
             np.add.at(self.confusion_matrix.mem, (labels[:bs], pred), 1)
+
+
+class EvaluatorMSE(EvaluatorBase):
+    """Mean-squared-error evaluator: ``err_output`` = (y − target)/batch
+    (padded rows zeroed), ``mse`` the minibatch's mean over samples of
+    the mean over features of (y − target)²."""
+
+    def __init__(self, workflow=None, name=None, **kwargs):
+        super().__init__(workflow, name, **kwargs)
+        self.mse = 0.0
+        self.n_err = 0   # uniform Decision interface: the rows scored
+
+    def initialize(self, device=None, **kwargs) -> None:
+        super().initialize(device, **kwargs)
+        self.init_vectors(self.err_output)
+
+    def numpy_run(self) -> None:
+        bs = self.batch_size
+        y = self.output.mem.reshape(len(self.output.mem), -1)
+        t = self.target.mem.reshape(y.shape)
+        diff = y[:bs] - t[:bs]
+        err = np.zeros(y.shape, np.float32)
+        err[:bs] = diff / bs
+        self.err_output.mem = err.reshape(self.output.shape)
+        self.mse = float((diff ** 2).mean(axis=1).mean())
+        self.mean_loss = self.mse
+        self.n_err = int(bs)

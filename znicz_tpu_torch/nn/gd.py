@@ -15,7 +15,7 @@ the activation derivative and the bias sum stay plain torch.
 
 from __future__ import annotations
 
-from ..ops import activations, matmul, update
+from ..ops import activations, matmul
 from .nn_units import GradientDescentBase
 
 
@@ -25,14 +25,6 @@ class GradientDescent(GradientDescentBase):
     MAPPING = ("all2all",)
     ACTIVATION = activations.Activation
 
-    def _hypers(self):
-        return (self.learning_rate, self.weights_decay, self.l1_vs_l2,
-                self.gradient_moment)
-
-    def _hypers_bias(self):
-        return (self.learning_rate_bias, self.weights_decay_bias,
-                self.l1_vs_l2_bias, self.gradient_moment_bias)
-
     def numpy_run(self) -> None:
         y = self.output.mem
         y2 = y.reshape(len(y), -1)
@@ -41,32 +33,13 @@ class GradientDescent(GradientDescentBase):
         x = self.input.mem.reshape(len(self.input.mem), -1)
         gw = matmul.np_matmul(x.T, err_y)
         gb = err_y.sum(axis=0) if self.include_bias else None
-        if self.accumulate_gradient and self.gradient_weights:
-            gw = gw + self.gradient_weights.mem
-            if gb is not None:
-                gb = gb + self.gradient_bias.mem
-        self.gradient_weights.mem = gw
-        if gb is not None:
-            self.gradient_bias.mem = gb
         if self.need_err_input:
             self.err_input.mem = matmul.np_matmul(
                 err_y, self.weights.mem.T).reshape(self.input.shape)
-        if self.apply_gradient:
-            w, vw = update.np_sgd_update(self.weights.mem, gw,
-                                         self.velocity_weights.mem,
-                                         *self._hypers())
-            self.weights.mem = w
-            self.velocity_weights.mem = vw
-            if self.include_bias:
-                b, vb = update.np_sgd_update(self.bias.mem, gb,
-                                             self.velocity_bias.mem,
-                                             *self._hypers_bias())
-                self.bias.mem = b
-                self.velocity_bias.mem = vb
+        self._apply_numpy(gw, gb)
 
     def torch_run(self) -> None:
         x = self.input.devmem
-        w = self.weights.devmem
         x2 = x.reshape(x.shape[0], -1)
         y2 = self.output.devmem.reshape(x.shape[0], -1)
         err_y = self.ACTIVATION.bwd(
@@ -74,27 +47,10 @@ class GradientDescent(GradientDescentBase):
             x2 if self.ACTIVATION.needs_input else None)
         gw = matmul.matmul(x2.T, err_y)
         gb = err_y.sum(dim=0) if self.include_bias else None
-        if self.accumulate_gradient and self.gradient_weights:
-            gw = gw + self.gradient_weights.devmem
-            if gb is not None:
-                gb = gb + self.gradient_bias.devmem
-        self.gradient_weights.devmem = gw
-        if gb is not None:
-            self.gradient_bias.devmem = gb
         if self.need_err_input:
-            self.err_input.devmem = matmul.matmul(err_y, w.T).reshape(
-                x.shape)
-        if self.apply_gradient:
-            w, vw = update.sgd_update(w, gw, self.velocity_weights.devmem,
-                                      self._hypers())
-            self.weights.devmem = w
-            self.velocity_weights.devmem = vw
-            if self.include_bias:
-                b, vb = update.sgd_update(self.bias.devmem, gb,
-                                          self.velocity_bias.devmem,
-                                          self._hypers_bias())
-                self.bias.devmem = b
-                self.velocity_bias.devmem = vb
+            self.err_input.devmem = matmul.matmul(
+                err_y, self.weights.devmem.T).reshape(x.shape)
+        self._apply_torch(gw, gb)
 
 
 class GDTanh(GradientDescent):

@@ -23,7 +23,7 @@ import numpy as np
 from .. import prng
 from ..accelerated_units import AcceleratedUnit
 from ..memory import Vector
-from ..ops import activations
+from ..ops import activations, update
 
 
 def fill(gen, shape: tuple[int, ...], filling: str,
@@ -152,3 +152,56 @@ class GradientDescentBase(AcceleratedUnit):
         self.init_vectors(self.err_input, self.gradient_weights,
                           self.gradient_bias, self.velocity_weights,
                           self.velocity_bias)
+
+    def _hypers(self):
+        return (self.learning_rate, self.weights_decay, self.l1_vs_l2,
+                self.gradient_moment)
+
+    def _hypers_bias(self):
+        return (self.learning_rate_bias, self.weights_decay_bias,
+                self.l1_vs_l2_bias, self.gradient_moment_bias)
+
+    def _apply_numpy(self, gw, gb) -> None:
+        """Store (and with ``accumulate_gradient`` add to) the gradients,
+        then the numpy momentum-SGD update of W and b (the golden path of
+        every parameter-bearing GD unit)."""
+        if self.accumulate_gradient and self.gradient_weights:
+            gw = gw + self.gradient_weights.mem
+            if gb is not None:
+                gb = gb + self.gradient_bias.mem
+        self.gradient_weights.mem = gw
+        if gb is not None:
+            self.gradient_bias.mem = gb
+        if not self.apply_gradient:
+            return
+        w, vw = update.np_sgd_update(self.weights.mem, gw,
+                                     self.velocity_weights.mem,
+                                     *self._hypers())
+        self.weights.mem, self.velocity_weights.mem = w, vw
+        if self.include_bias:
+            b, vb = update.np_sgd_update(self.bias.mem, gb,
+                                         self.velocity_bias.mem,
+                                         *self._hypers_bias())
+            self.bias.mem, self.velocity_bias.mem = b, vb
+
+    def _apply_torch(self, gw, gb) -> None:
+        """:meth:`_apply_numpy` on the unit's tensors, the update through
+        ``ops.update.sgd_update`` (the fused update kernel on the card)."""
+        if self.accumulate_gradient and self.gradient_weights:
+            gw = gw + self.gradient_weights.devmem
+            if gb is not None:
+                gb = gb + self.gradient_bias.devmem
+        self.gradient_weights.devmem = gw
+        if gb is not None:
+            self.gradient_bias.devmem = gb
+        if not self.apply_gradient:
+            return
+        w, vw = update.sgd_update(self.weights.devmem, gw,
+                                  self.velocity_weights.devmem,
+                                  self._hypers())
+        self.weights.devmem, self.velocity_weights.devmem = w, vw
+        if self.include_bias:
+            b, vb = update.sgd_update(self.bias.devmem, gb,
+                                      self.velocity_bias.devmem,
+                                      self._hypers_bias())
+            self.bias.devmem, self.velocity_bias.devmem = b, vb

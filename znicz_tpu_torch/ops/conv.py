@@ -9,16 +9,19 @@ weights HWIO at every public function; inside, x is a zero-copy NCHW view
 with channels_last strides and W an OIHW view, which is the layout cuDNN
 takes without a transpose.  Operands are computed in float32 whatever
 their dtype (the reference's ``preferred_element_type=float32``); TF32
-stays off (``znicz_tpu_torch/__init__.py``).  The Pallas implicit-GEMM
-tiers, the parity-split and the space-to-depth forms are not ported yet
-(ROADMAP.md queue 2 and queue 1 item 5)."""
+stays off (``znicz_tpu_torch/__init__.py``).  The ``np_*`` functions are
+the reference's numpy goldens (explicit im2col/col2im), which the numpy
+device runs.  The Pallas implicit-GEMM tiers, the parity-split and the
+space-to-depth forms are not ported yet (ROADMAP.md queue 2 and queue 1
+item 5)."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .geometry import norm2
+from .geometry import norm2, out_size
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -64,3 +67,53 @@ def conv2d_grad_weights(x, err, w_shape, stride=1, padding=0):
     dw = _backward(err, x.float(), w, stride, padding,
                    (False, True, False))[1]
     return dw.permute(2, 3, 1, 0).contiguous()
+
+
+# -- numpy goldens (the numpy device) ---------------------------------------
+def np_im2col(x: np.ndarray, ksize, stride, padding) -> np.ndarray:
+    """(B, OH, OW, KH·KW·C) patches of NHWC ``x``, zero padded."""
+    b, h, w, c = x.shape
+    (kh, kw), (sh, sw), (ph, pw) = ksize, stride, padding
+    xp = np.pad(x, ((0, 0), (ph, ph), (pw, pw), (0, 0)))
+    oh, ow = out_size(h, kh, sh, ph), out_size(w, kw, sw, pw)
+    st = xp.strides
+    cols = np.lib.stride_tricks.as_strided(
+        xp, (b, oh, ow, kh, kw, c),
+        (st[0], st[1] * sh, st[2] * sw, st[1], st[2], st[3]))
+    return np.ascontiguousarray(cols).reshape(b, oh, ow, kh * kw * c)
+
+
+def np_conv2d(x: np.ndarray, w: np.ndarray, stride=1, padding=0
+              ) -> np.ndarray:
+    """x (B,H,W,C), w (KH,KW,C,OC) → (B,OH,OW,OC)."""
+    kh, kw, c, oc = w.shape
+    cols = np_im2col(x, (kh, kw), norm2(stride), norm2(padding))
+    b, oh, ow, _ = cols.shape
+    return (cols.reshape(-1, kh * kw * c) @ w.reshape(-1, oc)).reshape(
+        b, oh, ow, oc)
+
+
+def np_conv2d_grad_weights(x: np.ndarray, err: np.ndarray, w_shape,
+                           stride=1, padding=0) -> np.ndarray:
+    """dW = im2col(x)ᵀ · err."""
+    kh, kw, c, oc = w_shape
+    cols = np_im2col(x, (kh, kw), norm2(stride), norm2(padding))
+    return (cols.reshape(-1, kh * kw * c).T @ err.reshape(-1, oc)).reshape(
+        w_shape)
+
+
+def np_conv2d_grad_input(err: np.ndarray, w: np.ndarray, x_shape,
+                         stride=1, padding=0) -> np.ndarray:
+    """col2im of err · Wᵀ onto the zero-padded input, then cropped."""
+    kh, kw, c, oc = w.shape
+    (sh, sw), (ph, pw) = norm2(stride), norm2(padding)
+    b, h, w_in, _ = x_shape
+    _, oh, ow, _ = err.shape
+    cols = (err.reshape(-1, oc) @ w.reshape(-1, oc).T).reshape(
+        b, oh, ow, kh, kw, c)
+    dx = np.zeros((b, h + 2 * ph, w_in + 2 * pw, c), np.float32)
+    for i in range(kh):
+        for j in range(kw):
+            dx[:, i:i + oh * sh:sh, j:j + ow * sw:sw, :] += cols[:, :, :, i,
+                                                                 j, :]
+    return dx[:, ph:ph + h, pw:pw + w_in, :]

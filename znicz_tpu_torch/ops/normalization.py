@@ -14,16 +14,18 @@ reference's formula, not the true adjoint.  β = 0.75 is computed as
 1/(√d·√√d), other β with ``pow``.
 
 ``lrn_y`` and ``gd_lrn_x`` are the fused path's forms (the denominator is
-recomputed in the backward, never cached).  On a CUDA tensor they launch
-the hand-written kernels of ``csrc/lrn.cu``; on a CPU tensor they run the
-plain versions, transcriptions of the reference's XLA tier.  The
-cached-denominator forms (``lrn``/``gd_lrn``) are the unit path's and are
-not ported yet (ROADMAP.md queue 2)."""
+recomputed in the backward, never cached); ``lrn`` → (y, d) and
+``gd_lrn(err, x, d)`` are the unit graph's (``LRNormalizerForward`` caches
+d for ``LRNormalizerBackward``).  On a CUDA tensor all four launch the
+hand-written kernels of ``csrc/lrn.cu``; on a CPU tensor they run the
+plain versions, transcriptions of the reference's XLA tier.  ``np_lrn``
+and ``np_gd_lrn`` are the numpy goldens the numpy device runs."""
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -34,6 +36,9 @@ DEFAULTS = dict(n=5, alpha=1e-4, beta=0.75, k=2.0)
 #: wrappers add one per launch, nowhere else).
 lrn_y_launches = 0
 gd_lrn_x_launches = 0
+lrn_launches = 0
+gd_lrn_launches = 0
+
 
 def _window_sum(a, n: int):
     """Sum over a centered channel window of size n (last axis), clipped:
@@ -89,6 +94,47 @@ def plain_gd_lrn_x(err, x, n=5, alpha=1e-4, beta=0.75, k=2.0):
     return _bwd(err, x, d, n, alpha, beta)
 
 
+def plain_lrn(x, n=5, alpha=1e-4, beta=0.75, k=2.0):
+    """LRN forward → (y, d): the reference's ``xla_lrn``."""
+    return _fwd(x, n, alpha, beta, k)
+
+
+def plain_gd_lrn(err, x, d, n=5, alpha=1e-4, beta=0.75, k=2.0):
+    """LRN backward from the forward's cached d: the reference's
+    ``xla_gd_lrn`` (``k`` is unused, as there)."""
+    return _bwd(err, x, d, n, alpha, beta)
+
+
+# -- numpy goldens (the numpy device) ---------------------------------------
+def _np_window_sum(a: np.ndarray, n: int) -> np.ndarray:
+    c = a.shape[-1]
+    ap = np.pad(a, [(0, 0)] * (a.ndim - 1) + [((n - 1) // 2, n // 2)])
+    acc = ap[..., 0:c]
+    for i in range(1, n):
+        acc = acc + ap[..., i:i + c]
+    return acc
+
+
+def _np_dpow_nbeta(d: np.ndarray, beta) -> np.ndarray:
+    if beta == 0.75:
+        r = np.sqrt(d)
+        return 1.0 / (r * np.sqrt(r))
+    return d ** (-beta)
+
+
+def np_lrn(x, n=5, alpha=1e-4, beta=0.75, k=2.0):
+    """→ (y, d): the reference's ``np_lrn``."""
+    d = k + alpha * _np_window_sum(x * x, n)
+    return x * _np_dpow_nbeta(d, beta), d
+
+
+def np_gd_lrn(err, x, d, n=5, alpha=1e-4, beta=0.75, k=2.0):
+    """The reference's ``np_gd_lrn``."""
+    p = _np_dpow_nbeta(d, beta)
+    q = err * x * (p / d)
+    return err * p - 2.0 * alpha * beta * x * _np_window_sum(q, n)
+
+
 # -- kernels ----------------------------------------------------------------
 _ARGTYPES = {
     # x, y, rows, C, n, alpha, beta, k, stream
@@ -96,6 +142,12 @@ _ARGTYPES = {
     + [ctypes.c_double] * 3 + [ctypes.c_void_p],
     # err, x, dx, rows, C, n, alpha, beta, k, stream
     "znicz_gd_lrn_x_f32": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+    + [ctypes.c_double] * 3 + [ctypes.c_void_p],
+    # x, y, d, rows, C, n, alpha, beta, k, stream
+    "znicz_lrn_f32": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+    + [ctypes.c_double] * 3 + [ctypes.c_void_p],
+    # err, x, d, dx, rows, C, n, alpha, beta, k, stream
+    "znicz_gd_lrn_f32": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
     + [ctypes.c_double] * 3 + [ctypes.c_void_p],
 }
 #: The backward kernel keeps a tile of whole rows in 48 KB of shared memory.
@@ -166,4 +218,36 @@ def gd_lrn_x(err, x, n=5, alpha=1e-4, beta=0.75, k=2.0):
             dx.data_ptr(), x.numel() // c, c, int(n), float(alpha),
             float(beta), float(k))
     gd_lrn_x_launches += 1
+    return dx
+
+
+def lrn(x, n=5, alpha=1e-4, beta=0.75, k=2.0):
+    """LRN forward → (y, d), d = k + α·(window sum of x²) cached for
+    :func:`gd_lrn`, over the last axis of a contiguous float32 tensor."""
+    global lrn_launches
+    _check("lrn", n, x)
+    if x.device.type == "cpu":
+        return plain_lrn(x, n, alpha, beta, k)
+    c = x.shape[-1]
+    y = torch.empty_like(x)
+    d = torch.empty_like(x)
+    _launch("znicz_lrn_f32", x.device, x.data_ptr(), y.data_ptr(),
+            d.data_ptr(), x.numel() // c, c, int(n), float(alpha),
+            float(beta), float(k))
+    lrn_launches += 1
+    return y, d
+
+
+def gd_lrn(err, x, d, n=5, alpha=1e-4, beta=0.75, k=2.0):
+    """LRN backward from the forward's cached denominator ``d``."""
+    global gd_lrn_launches
+    _check("gd_lrn", n, err, x, d)
+    if x.device.type == "cpu":
+        return plain_gd_lrn(err, x, d, n, alpha, beta, k)
+    c = x.shape[-1]
+    dx = torch.empty_like(x)
+    _launch("znicz_gd_lrn_f32", x.device, err.data_ptr(), x.data_ptr(),
+            d.data_ptr(), dx.data_ptr(), x.numel() // c, c, int(n),
+            float(alpha), float(beta), float(k))
+    gd_lrn_launches += 1
     return dx

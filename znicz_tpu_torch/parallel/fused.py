@@ -8,11 +8,13 @@ an epoch as a Python loop over minibatches gathered on the device from the
 resident dataset; per-step metrics stay in device tensors until the caller
 reads them, so an epoch needs one host sync.
 
-The port covers the kinds of the MNIST, CIFAR and AlexNet slices: ``fc``,
-standalone ``activation``, ``conv``, ``max_pool``, ``maxabs_pool``,
-``avg_pool``, ``lrn``, the merged LRN→max-pool pair ``lrn_pool`` and
-``dropout``.  Every other kind raises ``NotImplementedError`` naming the
-ROADMAP.md item that ports it.
+The port covers the kinds of the MNIST, CIFAR, AlexNet and autoencoder
+slices: ``fc``, standalone ``activation``, ``conv``, ``max_pool``,
+``maxabs_pool``, ``avg_pool``, ``lrn``, the merged LRN→max-pool pair
+``lrn_pool``, ``dropout``, ``depooling`` (tied by ``tie`` to the max pool
+whose winner slots it scatters through) and ``deconv`` (tied or not to an
+encoder conv's weights).  Every other kind raises ``NotImplementedError``
+naming the ROADMAP.md item that ports it.
 
 Dropout draws from the counter RNG keyed by (stream seed, unit id, epoch,
 counter), the counter being the loader's sample offset after the step;
@@ -26,7 +28,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..ops import activations, conv as conv_ops, dropout as drop_ops
+from ..ops import activations, conv as conv_ops, deconv as deconv_ops
+from ..ops import dropout as drop_ops
 from ..ops import lrn_pool as lrn_pool_ops
 from ..ops import normalization as lrn_ops
 from ..ops import pooling as pool_ops
@@ -38,17 +41,18 @@ PARAM_KINDS = ("fc", "conv", "deconv")
 
 #: Kinds this port runs, and the ROADMAP.md item for each one it doesn't.
 PORTED_KINDS = ("fc", "activation", "conv", "max_pool", "maxabs_pool",
-                "avg_pool", "lrn", "lrn_pool", "dropout")
+                "avg_pool", "lrn", "lrn_pool", "dropout", "deconv",
+                "depooling")
 _ROADMAP_ITEM = {
     "stochastic_pool": "queue 1 item 5 (conv stack)",
     "stochastic_abs_pool": "queue 1 item 5 (conv stack)",
-    "deconv": "queue 1 item 6 (decoder)",
-    "depooling": "queue 1 item 6 (decoder)",
 }
 #: Kinds whose kernels take float32 only: a narrower storage dtype between
 #: layers is refused rather than run at another precision.
 _F32_KERNEL_KINDS = ("max_pool", "maxabs_pool", "lrn", "lrn_pool",
-                     "dropout")
+                     "dropout", "depooling")
+#: Kinds a depooling layer may tie to (they record winner slots).
+_OFFSET_KINDS = ("max_pool", "maxabs_pool", "lrn_pool")
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -117,6 +121,8 @@ class ModelSpec:
             raise NotImplementedError(
                 f"the fused softmax path requires a final fc layer (got "
                 f"{self.layers[-1].kind!r})")
+        for i, layer in enumerate(self.layers):
+            _check_tie(self.layers, i)
         for layer in self.layers:
             act = activations.BY_NAME[layer.activation]
             if layer.kind == "lrn_pool":
@@ -132,6 +138,34 @@ class ModelSpec:
 
     def act(self, i: int):
         return activations.BY_NAME[self.layers[i].activation]
+
+
+def _check_tie(layers, i: int) -> None:
+    """A depooling row must tie to an earlier pool that records winner
+    slots.  A tied deconv must tie to an earlier conv and, as in the
+    reference's ``extract_model``, carry no bias and have no trainable
+    layer below the tied conv: the unit graph propagates err below it
+    through the weights the deconv's update already changed, which a
+    step computing every gradient from the pre-update weights cannot
+    reproduce (the unit graph runs those nets)."""
+    layer = layers[i]
+    tie = layer.cfg.get("tie")
+    if layer.kind == "depooling":
+        if tie is None or not 0 <= tie < i \
+                or layers[tie].kind not in _OFFSET_KINDS:
+            raise ValueError(f"depooling row {i} must tie to an earlier "
+                             f"{'/'.join(_OFFSET_KINDS)} row, got tie={tie}")
+    elif layer.kind == "deconv" and tie is not None:
+        if not 0 <= tie < i or layers[tie].kind != "conv":
+            raise ValueError(f"deconv row {i} must tie to an earlier conv "
+                             f"row, got tie={tie}")
+        if layer.include_bias or any(la.kind in PARAM_KINDS
+                                     for la in layers[:tie]):
+            raise NotImplementedError(
+                f"deconv row {i} tied to conv row {tie} with a bias or a "
+                f"trainable layer below the conv: the fused path refuses "
+                f"it, as the reference's does (ROADMAP.md queue 1 item 6); "
+                f"train it on the unit graph (fused=False)")
 
 
 def _rnd(a: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
@@ -227,9 +261,13 @@ def forward(spec: ModelSpec, params, x, *, want_caches: bool,
     sdt = torch_dtype(spec.storage_dtype)
     h = x
     caches = []
+    # every row's winner slots and input shape, which a depooling row tied
+    # to it reads
+    auxes, in_shapes = [], []
     n = len(spec.layers)
     for i, (layer, (w, b)) in enumerate(zip(spec.layers, params)):
         x_in, aux = h, None
+        in_shapes.append(tuple(h.shape))
         cfg = layer.cfg
         is_last = i == n - 1
         if layer.kind == "fc":
@@ -246,6 +284,18 @@ def forward(spec: ModelSpec, params, x, *, want_caches: bool,
             if b is not None:
                 pre = pre + b
             h = spec.act(i).fwd(pre)
+        elif layer.kind == "deconv":
+            wt = w if w is not None else params[cfg["tie"]][0]
+            pre = deconv_ops.deconv2d(_rnd(h, cdt), _rnd(wt, cdt),
+                                      cfg["stride"], cfg["padding"])
+            if b is not None:
+                pre = pre + b
+            h = spec.act(i).fwd(pre)
+        elif layer.kind == "depooling":
+            aux = auxes[cfg["tie"]]
+            h = pool_ops.depooling(h, aux, in_shapes[cfg["tie"]],
+                                   cfg["ksize"], cfg["stride"],
+                                   cfg["padding"])
         elif layer.kind == "max_pool":
             h, aux = pool_ops.max_pooling(h, cfg["ksize"], cfg["stride"],
                                           cfg["padding"])
@@ -275,6 +325,7 @@ def forward(spec: ModelSpec, params, x, *, want_caches: bool,
             # backward cache) live in sdt; the last layer's output stays
             # f32 so the loss head and its error are full precision
             h = h.to(sdt)
+        auxes.append(aux)
         if want_caches:
             caches.append((x_in, aux))
     return h, caches
@@ -314,7 +365,7 @@ def backward(spec: ModelSpec, params, caches, out, err, epoch: int = 0,
         x_in, aux = caches[i]
         y_i = caches[i + 1][0] if i < n - 1 else out
         cfg = layer.cfg
-        if layer.kind in ("fc", "conv"):
+        if layer.kind in PARAM_KINDS:
             # act_folded: the merged lrn_pool above applied this
             # derivative in its kernel already
             err_pre = err if i == n - 1 or cfg.get("act_folded") else \
@@ -337,6 +388,22 @@ def backward(spec: ModelSpec, params, caches, out, err, epoch: int = 0,
                 _rnd(err_pre, cdt), _rnd(w, cdt), x_in.shape, cfg["stride"],
                 cfg["padding"])
             grads[i] = (gw, gb)
+        elif layer.kind == "deconv":
+            # a tied deconv's gradient is shaped like the encoder's W
+            wt = w if w is not None else params[cfg["tie"]][0]
+            gw = deconv_ops.deconv2d_grad_weights(
+                _rnd(err_pre, cdt), _rnd(x_in, cdt), tuple(wt.shape),
+                cfg["stride"], cfg["padding"])
+            gb = (torch.sum(err_pre, dim=(0, 1, 2)) if b is not None
+                  else None)
+            err = None if i == 0 else deconv_ops.deconv2d_grad_input(
+                _rnd(err_pre, cdt), _rnd(wt, cdt), cfg["stride"],
+                cfg["padding"])
+            grads[i] = (gw, gb)
+        elif layer.kind == "depooling":
+            err = pool_ops.gd_depooling(err.reshape(y_i.shape), aux,
+                                        cfg["ksize"], cfg["stride"],
+                                        cfg["padding"])
         elif layer.kind in ("max_pool", "maxabs_pool"):
             err = pool_ops.gd_max_pooling(
                 err.reshape(y_i.shape), aux, x_in.shape, cfg["ksize"],
@@ -366,28 +433,34 @@ def backward(spec: ModelSpec, params, caches, out, err, epoch: int = 0,
 def apply_updates(spec: ModelSpec, params, vels, grads):
     """Momentum SGD with decay, layers in REVERSE order (the GD chain's
     execution order): reg = wd·((1−l1)·w + ½·l1·sign w),
-    v′ = mom·v − lr·(g + reg), w′ = w + v′.  Returns new lists.  The
-    reference's per-step ``lr_scale`` arrives with the LR adjusters
-    (ROADMAP.md queue 1 item 4)."""
-    new_p = [tuple(p) for p in params]
-    new_v = [tuple(v) for v in vels]
+    v′ = mom·v − lr·(g + reg), w′ = w + v′.  A tied deconv updates the
+    encoder conv's W (``params[tie]``) with its own velocity, before the
+    conv's own update reads W for its decay term, as the unit graph's two
+    GD units do.  Returns new lists.  The reference's per-step
+    ``lr_scale`` arrives with the LR adjusters (ROADMAP.md queue 1 item
+    4)."""
+    cur_w = [p[0] for p in params]
+    cur_b = [p[1] for p in params]
+    new_v = [list(v) for v in vels]
     for i in reversed(range(len(spec.layers))):
         layer, grad = spec.layers[i], grads[i]
         if grad is None:
             continue
-        (w, b), (vw, vb), (gw, gb) = params[i], vels[i], grad
+        tgt = layer.cfg.get("tie", i) if layer.kind == "deconv" else i
+        w, b = cur_w[tgt], cur_b[i]
+        (vw, vb), (gw, gb) = vels[i], grad
         lr, wd, l1, mom = layer.hypers
         reg = wd * ((1.0 - l1) * w + 0.5 * l1 * torch.sign(w))
         vw2 = mom * vw - lr * (gw + reg)
-        w2, b2, vb2 = w + vw2, b, vb
+        cur_w[tgt] = w + vw2
+        new_v[i][0] = vw2
         if b is not None:
             lrb, wdb, l1b, momb = layer.hypers_bias
             regb = wdb * ((1.0 - l1b) * b + 0.5 * l1b * torch.sign(b))
             vb2 = momb * vb - lrb * (gb + regb)
-            b2 = b + vb2
-        new_p[i] = (w2, b2)
-        new_v[i] = (vw2, vb2)
-    return new_p, new_v
+            cur_b[i] = b + vb2
+            new_v[i][1] = vb2
+    return (list(zip(cur_w, cur_b)), [tuple(v) for v in new_v])
 
 
 def _ones(x):

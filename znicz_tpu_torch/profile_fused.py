@@ -2,24 +2,27 @@
 goes on the card.
 
     python -m znicz_tpu_torch.profile_fused
-        [--model mnist|cifar|alexnet|mnist_units] [--steps 50] [--out DIR]
+        [--model mnist|cifar|alexnet|autoencoder|mnist_units|cifar_units|
+                 autoencoder_units] [--steps 50] [--out DIR]
 
 Trains the sample at full width on its split resident on the card (MNIST
-784→100→10 on 50k/10k/10k and the CIFAR-10 conv net on 45k/5k/10k at
-32×32×3, batch 100; AlexNet at 227×227×3 on the reference's 512/128/128
-synthetic split, batch 128) for one warm-up epoch, then runs ``--steps``
+784→100→10 and the MNIST conv autoencoder on 50k/10k/10k, the CIFAR-10
+conv net on 45k/5k/10k at 32×32×3, batch 100; AlexNet at 227×227×3 on
+the reference's 512/128/128 synthetic split, batch 128) for one warm-up
+epoch on its fused path, then runs ``--steps``
 train steps and as many eval steps (the train set's shuffle, repeated as
 often as the steps need) under ``torch.profiler`` and prints one JSON
 line: host wall time per step (synchronised), device busy time per step
 (the kernels' summed device time), the device's idle share, kernel
 launches per step, the kernels that take the most device time, and the
 port's own hand-written kernels with their share of the device time.
-``--model mnist_units`` profiles the MNIST unit graph instead
+``--model <sample>_units`` profiles the sample's unit graph instead
 (``Workflow.run``, one minibatch a tick, at the same full width and
-split): after the epoch's test and validation ticks as warm-up, ``--steps``
-train ticks, then (past the rest of the epoch) as many test and
-validation ticks of the next epoch; a "step" in its line is a tick.  With ``--out`` the Chrome
-traces are written there.  It needs a CUDA card and fails without one."""
+split): after the epoch's test and validation ticks as warm-up,
+``--steps`` train ticks, then (past the rest of the epoch) as many test
+and validation ticks of the next epoch; a "step" in its line is a tick.
+With ``--out`` the Chrome traces are written there.  It needs a CUDA card
+and fails without one."""
 
 from __future__ import annotations
 
@@ -35,24 +38,30 @@ from . import prng
 from .config import root
 from .loader.base import TRAIN
 
-#: model → (workflow class, the real split at full width)
+_MNIST_SPLIT = {"n_train": 50000, "n_valid": 10000, "n_test": 10000,
+                "noise": 0.35}
+#: model → (workflow class, its config tree, the real split at full width)
 MODELS = {
-    "mnist": ("MnistWorkflow", {"n_train": 50000, "n_valid": 10000,
-                                "n_test": 10000, "noise": 0.35}),
-    "cifar": ("CifarWorkflow", {"n_train": 45000, "n_valid": 5000,
-                                "n_test": 10000, "noise": 0.3, "size": 32}),
-    "alexnet": ("AlexNetWorkflow", {"n_train": 512, "n_valid": 128,
-                                    "n_test": 128, "noise": 0.4}),
+    "mnist": ("MnistWorkflow", "mnist", _MNIST_SPLIT),
+    "cifar": ("CifarWorkflow", "cifar",
+              {"n_train": 45000, "n_valid": 5000, "n_test": 10000,
+               "noise": 0.3, "size": 32}),
+    "alexnet": ("AlexNetWorkflow", "alexnet",
+                {"n_train": 512, "n_valid": 128, "n_test": 128,
+                 "noise": 0.4}),
+    "autoencoder": ("MnistAEWorkflow", "mnist_ae", _MNIST_SPLIT),
 }
-#: the unit graph's MNIST at the same width and split
-UNIT_MODELS = {"mnist_units": ("mnist", "MnistWorkflow")}
+#: the unit graphs, at the same widths and splits
+UNIT_MODELS = {"mnist_units": "mnist", "cifar_units": "cifar",
+               "autoencoder_units": "autoencoder"}
 #: the hand-written kernels' names in ``csrc/`` (a name that contains
 #: another is listed first, so each kernel is counted once)
 PORT_KERNELS = ("softmax_ce_kernel", "row_softmax_kernel",
                 "pool_select_kernel", "pool_scatter_kernel",
-                "gd_lrn_maxpool_kernel", "lrn_maxpool_kernel",
-                "lrn_y_kernel", "gd_lrn_x_kernel", "dropout_kernel",
-                "matmul_kernel", "sgd_update_kernel")
+                "pool_gather_kernel", "gd_lrn_maxpool_kernel",
+                "lrn_maxpool_kernel", "lrn_y_kernel", "gd_lrn_kernel",
+                "lrn_kernel", "dropout_kernel", "matmul_kernel",
+                "sgd_update_kernel")
 
 
 def _window(fn, steps: int) -> float:
@@ -63,20 +72,27 @@ def _window(fn, steps: int) -> float:
     return (time.perf_counter() - t0) / steps * 1e3
 
 
+def _workflow(model: str):
+    """The sample's workflow at its full-width split, seeded."""
+    cls_name, tree, split = MODELS[model]
+    module = importlib.import_module(f".models.{model}", __package__)
+    getattr(root, tree).synthetic.update(split)
+    prng.seed_all(1234)
+    return getattr(module, cls_name)()
+
+
 def _fused_steps(args):
     """(batch, train, evaluate): ``--steps`` fused train/eval steps each,
     after a warm-up epoch."""
-    cls_name, split = MODELS[args.model]
-    module = importlib.import_module(f".models.{args.model}", __package__)
-    getattr(root, args.model).synthetic.update(split)
-    prng.seed_all(1234)
-    wf = getattr(module, cls_name)()
+    wf = _workflow(args.model)
     wf.initialize(device="cuda")
     trainer = wf.run_fused(max_epochs=1)        # warm-up epoch
     loader = wf.loader
     batch = loader.max_minibatch_size
     idx = np.resize(loader.train_permutation(1), args.steps * batch)
-    data, target = loader.original_data, loader.original_labels
+    data = loader.original_data
+    target = (loader.original_targets if wf.loss_function == "mse"
+              else loader.original_labels)
 
     def train():
         trainer.train_epoch(data, target, idx, batch, sync=False)
@@ -91,11 +107,7 @@ def _unit_ticks(args):
     next ``--steps`` ticks of the tick loop — train ticks (GD chain on),
     or evaluation ticks (test and validation, GD skipped) — after
     running on to the next minibatch of that kind."""
-    model, cls_name = UNIT_MODELS[args.model]
-    module = importlib.import_module(f".models.{model}", __package__)
-    getattr(root, model).synthetic.update(MODELS[model][1])
-    prng.seed_all(1234)
-    wf = getattr(module, cls_name)()
+    wf = _workflow(UNIT_MODELS[args.model])
     wf.decision.max_epochs = 1 << 30             # never completes here
     wf.initialize(device="cuda")
     ld = wf.loader

@@ -25,10 +25,13 @@ maps the spec's rows back to the layers.  Where the unit graph exists,
 back afterwards, as the reference's ``extract_model``/``write_back`` do;
 elsewhere the ``"weights"`` stream is drawn in the order the reference's
 units draw it, so the same seed gives the same initial weights in both
-packages.  The unit graph covers the fc and softmax layers with a softmax
-loss; a spec with a conv, pool, LRN or dropout layer trains on the fused
-path only (ROADMAP.md queue 1 item 5), as does an MSE loss (its
-evaluator units wait for the decoder slice)."""
+packages.  The unit graph covers the fc, conv, pooling, LRN, depooling
+and deconv layers with a softmax or an MSE loss; a spec with a dropout
+or stochastic pooling layer trains on the fused path only (ROADMAP.md
+queue 1 item 5).  ``"tie"`` in a layer's ``"->"`` options names the
+earlier layer a decoder unit ties to: a depooling layer to the max pool
+whose winner slots it reads, a deconv to the conv whose weights it
+shares."""
 
 from __future__ import annotations
 
@@ -43,9 +46,11 @@ from . import prng
 from .accelerated_units import AcceleratedWorkflow
 from .loader.base import CLASS_NAMES, TEST, TRAIN, VALID
 from .mutable import DerivedBool
-from .nn import all2all, gd, nn_units
+from .nn import (all2all, conv, deconv, depooling, gd, gd_conv, gd_deconv,
+                 gd_pooling, nn_units, normalization, pooling)
 from .nn.decision import DecisionGD, DecisionMSE
-from .nn.evaluator import EvaluatorSoftmax
+from .nn.evaluator import EvaluatorMSE, EvaluatorSoftmax
+from .ops.deconv import deconv_out_size
 from .ops.geometry import norm2, out_size
 from .parallel import fused
 from .parallel.fused import FusedTrainer, LayerSpec, ModelSpec
@@ -58,15 +63,19 @@ FC_TYPES = {"all2all": "linear", "all2all_tanh": "tanh",
 #: Conv layer type → activation (nn/conv.py).
 CONV_TYPES = {"conv": "linear", "conv_tanh": "tanh", "conv_relu": "relu",
               "conv_str": "strict_relu", "conv_sigmoid": "sigmoid"}
+#: Deconv layer type → activation (nn/deconv.py).
+DECONV_TYPES = {"deconv": "linear", "deconv_tanh": "tanh",
+                "deconv_sigmoid": "sigmoid"}
 #: Pooling layer type → fused kind (nn/pooling.py).
 POOL_TYPES = {"max_pooling": "max_pool", "maxabs_pooling": "maxabs_pool",
               "avg_pooling": "avg_pool"}
 LRN_TYPES = ("norm", "lrn")
-PORTED_TYPES = (*FC_TYPES, *CONV_TYPES, *POOL_TYPES, *LRN_TYPES, "dropout")
+PORTED_TYPES = (*FC_TYPES, *CONV_TYPES, *POOL_TYPES, *LRN_TYPES, "dropout",
+                "depooling", *DECONV_TYPES)
 
 _UNIT_GRAPH = "ROADMAP.md queue 1 item 4 (core engine: the unit graph)"
-_CONV_UNITS = "ROADMAP.md queue 1 item 5 (the nn/ conv, pooling, " \
-    "normalization and dropout units)"
+_CONV_UNITS = "ROADMAP.md queue 1 item 5 (the nn/ dropout, stochastic " \
+    "pooling, activation and cutter units of the conv stack)"
 
 
 def _build_registries():
@@ -74,7 +83,8 @@ def _build_registries():
     classes' ``MAPPING``."""
     from .nn.nn_units import Forward, GradientDescentBase
     fwd_map, gd_map = {}, {}
-    for mod in (all2all, gd):
+    for mod in (all2all, gd, conv, gd_conv, pooling, gd_pooling,
+                normalization, depooling, deconv, gd_deconv):
         for obj in vars(mod).values():
             if isinstance(obj, type) and issubclass(obj, Forward):
                 fwd_map.update(dict.fromkeys(obj.MAPPING, obj))
@@ -118,8 +128,8 @@ def _gd_hypers(cfg: dict) -> tuple[tuple, tuple]:
 
 
 class StandardWorkflow(AcceleratedWorkflow):
-    """One-call assembly of a model: its unit graph (fc/softmax models)
-    and its fused-path spec."""
+    """One-call assembly of a model: its unit graph and its fused-path
+    spec."""
 
     def __init__(self, name=None, layers=None, loader=None,
                  loss_function="softmax", decision_config=None,
@@ -141,6 +151,8 @@ class StandardWorkflow(AcceleratedWorkflow):
         self.gds: list = []
         #: why ``train(fused=False)`` cannot run this model (None: it can)
         self.unit_graph_missing: str | None = None
+        #: why ``train(fused=True)`` cannot (``spec`` is then None)
+        self.fused_missing: str | None = None
         self.spec: ModelSpec | None = None
         self.params: list = []
         self.vels: list = []
@@ -170,10 +182,6 @@ class StandardWorkflow(AcceleratedWorkflow):
         self.link_gds()
 
     def _unit_graph_gap(self) -> str | None:
-        if self.loss_function != "softmax":
-            return ("the unit graph of an MSE model (EvaluatorMSE and the "
-                    "DecisionMSE unit) is not ported yet (ROADMAP.md "
-                    "queue 1 item 4, remaining); pass fused=True")
         for spec in self.layers_config:
             if spec["type"] not in FWD_MAP:
                 return (f"layer type {spec['type']!r} has no unit yet ("
@@ -191,8 +199,13 @@ class StandardWorkflow(AcceleratedWorkflow):
         prev = self.loader
         for i, spec in enumerate(self.layers_config):
             ltype = spec["type"]
-            unit = FWD_MAP[ltype](self, name=f"fwd{i}_{ltype}",
-                                  **dict(spec.get("->", {})))
+            kwargs = dict(spec.get("->", {}))
+            tie = kwargs.pop("tie", None)
+            unit = FWD_MAP[ltype](self, name=f"fwd{i}_{ltype}", **kwargs)
+            if tie is not None:
+                # the same Vector objects as the tied unit's (link_attrs):
+                # a copy would silently untie them
+                unit.tie(self.forwards[tie])
             if prev is self.loader:
                 unit.link_attrs(self.loader, ("input", "minibatch_data"))
             else:
@@ -203,15 +216,21 @@ class StandardWorkflow(AcceleratedWorkflow):
 
     def link_evaluator(self) -> None:
         last = self.forwards[-1]
-        ev = EvaluatorSoftmax(self, name="evaluator")
-        ev.link_attrs(last, "output", "max_idx")
-        ev.link_attrs(self.loader, ("labels", "minibatch_labels"))
+        if self.loss_function == "softmax":
+            ev = EvaluatorSoftmax(self, name="evaluator")
+            ev.link_attrs(last, "output", "max_idx")
+            ev.link_attrs(self.loader, ("labels", "minibatch_labels"))
+        else:
+            ev = EvaluatorMSE(self, name="evaluator")
+            ev.link_attrs(last, "output")
+            ev.link_attrs(self.loader, ("target", "minibatch_targets"))
         ev.link_loader(self.loader)
         ev.link_from(last)
         self.evaluator = ev
 
     def link_decision(self, **config) -> None:
-        self.decision = DecisionGD(self, name="decision", **config)
+        cls = DecisionGD if self.loss_function == "softmax" else DecisionMSE
+        self.decision = cls(self, name="decision", **config)
         self.decision.link_loader(self.loader)
         self.decision.link_evaluator(self.evaluator)
         self.decision.link_from(self.evaluator)
@@ -259,23 +278,32 @@ class StandardWorkflow(AcceleratedWorkflow):
         weights; the others draw from the ``"weights"`` stream in the
         order the reference's units draw it."""
         gen = prng.get("weights")
-        shape = tuple(int(s) for s in self.loader.original_data.shape[1:])
+        # shapes[i]: the input sample shape of layer i
+        shapes = [tuple(int(s) for s in self.loader.original_data.shape[1:])]
         layers, params = [], []
         for i, spec in enumerate(self.layers_config):
             ltype = spec["type"]
             fwd = dict(spec.get("->", {}))
+            unit = self.forwards[i] if self.forwards else None
+            shape = shapes[-1]
             if ltype in FC_TYPES:
                 if ltype == "softmax" and i != len(self.layers_config) - 1:
                     raise NotImplementedError(
                         "a softmax layer must be the last layer")
-                kind, act, config, pair, shape = self._fc(i, ltype, fwd,
-                                                          shape, gen)
+                kind, act, config, pair, shape = self._fc(ltype, fwd, shape,
+                                                          gen, unit)
             elif ltype in CONV_TYPES:
                 kind, act, config, pair, shape = self._conv(ltype, fwd,
-                                                            shape, gen)
+                                                            shape, gen, unit)
+            elif ltype in DECONV_TYPES:
+                kind, act, config, pair, shape = self._deconv(
+                    ltype, fwd, shapes, layers, params, gen, unit)
             elif ltype in POOL_TYPES:
                 kind, act, pair = POOL_TYPES[ltype], "linear", None
                 config, shape = self._pool(ltype, fwd, shape)
+            elif ltype == "depooling":
+                kind, act, pair = "depooling", "linear", None
+                config, shape = self._depooling(i, fwd, shapes, layers)
             elif ltype in LRN_TYPES:
                 kind, act, pair = "lrn", "linear", None
                 config = self._lrn(fwd)
@@ -295,6 +323,7 @@ class StandardWorkflow(AcceleratedWorkflow):
                 include_bias=pair is not None and pair[1] is not None,
                 hypers=hypers, hypers_bias=hypers_bias, config=config))
             params.append(pair)
+            shapes.append(shape)
         dev = self.device.torch_device
 
         def put(a):   # a copy: a unit's host weights must not alias it
@@ -304,36 +333,53 @@ class StandardWorkflow(AcceleratedWorkflow):
                        for p in params]
         self.vels = [tuple(None if t is None else torch.zeros_like(t)
                            for t in p) for p in self.params]
+        for i, la in enumerate(layers):
+            if la.kind == "deconv" and "tie" in la.cfg:
+                # its own velocity, shaped like the shared encoder W
+                self.vels[i] = (torch.zeros_like(
+                    self.params[la.cfg["tie"]][0]), self.vels[i][1])
         layers, _, _, unit_index = fused._merge_lrn_pool(layers, self.params,
                                                          self.vels)
-        self.spec = ModelSpec(tuple(layers), self.loss_function,
-                              unit_index=unit_index)
+        try:
+            self.spec = ModelSpec(tuple(layers), self.loss_function,
+                                  unit_index=unit_index)
+        except NotImplementedError as e:
+            if self.unit_graph_missing is not None:
+                raise
+            # the unit graph runs what the fused path refuses (a tied
+            # deconv above a trainable layer): refuse only run_fused
+            self.spec, self.fused_missing = None, str(e)
 
     def _params_from_units(self) -> None:
-        """params/vels ← the unit graph's weight and velocity Vectors."""
-        def get(vec):
-            return vec.devmem if vec else None
+        """params/vels ← the unit graph's weight and velocity Vectors.  A
+        tied deconv's row holds no W (the conv's row has it), only its
+        own velocity."""
         for i, (f, g) in enumerate(zip(self.forwards, self.gds)):
-            self.params[i] = (get(f.weights), get(f.bias)
-                              if f.include_bias else None)
-            self.vels[i] = (get(g.velocity_weights), get(g.velocity_bias)
-                            if f.include_bias else None)
+            own_w = bool(f.weights) and getattr(f, "conv_unit", None) is None
+            self.params[i] = (f.weights.devmem if own_w else None,
+                              f.bias.devmem if f.include_bias else None)
+            self.vels[i] = (
+                g.velocity_weights.devmem if g.velocity_weights else None,
+                g.velocity_bias.devmem if f.include_bias else None)
 
     def _params_to_units(self) -> None:
         """The unit graph's Vectors ← params/vels (after the fused loop)."""
         for i, (f, g) in enumerate(zip(self.forwards, self.gds)):
             (w, b), (vw, vb) = self.params[i], self.vels[i]
-            f.weights.devmem, g.velocity_weights.devmem = w, vw
+            if w is not None:
+                f.weights.devmem = w
+            if vw is not None:
+                g.velocity_weights.devmem = vw
             if f.include_bias:
                 f.bias.devmem, g.velocity_bias.devmem = b, vb
 
     @staticmethod
     def _weights(fwd: dict, w_shape, b_shape, gen, w_fill_default,
-                 unit=None):
+                 unit=None, bias_default=True):
         """Pops the fill options; (W, b or None) from ``unit`` when the
         layer has one (it filled them), else drawn by
         ``nn_units.create_weights``."""
-        opts = {"include_bias": fwd.pop("include_bias", True),
+        opts = {"include_bias": fwd.pop("include_bias", bias_default),
                 "weights_filling": fwd.pop("weights_filling",
                                            w_fill_default),
                 "weights_stddev": fwd.pop("weights_stddev", None),
@@ -344,7 +390,7 @@ class StandardWorkflow(AcceleratedWorkflow):
                     unit.bias.mem if unit.include_bias else None)
         return nn_units.create_weights(gen, w_shape, b_shape, **opts)
 
-    def _fc(self, i, ltype, fwd, shape, gen):
+    def _fc(self, ltype, fwd, shape, gen, unit):
         """All2All: W (n_in, neurons), uniform fill by default (the unit's
         weights on the unit graph) → (kind, activation, config, (w, b),
         output sample shape)."""
@@ -354,54 +400,124 @@ class StandardWorkflow(AcceleratedWorkflow):
         fwd.pop("output_samples_number", None)   # reference alias
         neurons = int(np.prod(out))
         pair = self._weights(fwd, (int(np.prod(shape)), neurons),
-                             (neurons,), gen, "uniform",
-                             self.forwards[i] if self.forwards else None)
+                             (neurons,), gen, "uniform", unit)
         return "fc", FC_TYPES[ltype], (), pair, (neurons,)
 
-    def _conv(self, ltype, fwd, shape, gen):
-        """Conv (nn/conv.py): W (ky, kx, C, n_kernels), gaussian fill by
-        default with fan-in ky·kx·C; same return as :meth:`_fc`."""
-        if len(shape) != 3:
-            raise ValueError(f"{ltype}: conv expects NHWC samples, got "
-                             f"sample shape {shape}")
-        n_kernels, kx = fwd.pop("n_kernels", None), fwd.pop("kx", None)
-        if n_kernels is None or kx is None:
-            raise ValueError("n_kernels and kx are required")
-        n_kernels, kx = int(n_kernels), int(kx)
-        ky = fwd.pop("ky", None)
-        ky = int(ky if ky is not None else kx)
-        sliding = norm2(fwd.pop("sliding", 1))
-        padding = norm2(fwd.pop("padding", 0))
-        h, w, c = shape
-        pair = self._weights(fwd, (ky, kx, c, n_kernels), (n_kernels,), gen,
-                             "gaussian")
-        return ("conv", CONV_TYPES[ltype],
-                (("padding", padding), ("stride", sliding)), pair,
-                (out_size(h, ky, sliding[0], padding[0]),
-                 out_size(w, kx, sliding[1], padding[1]), n_kernels))
-
     @staticmethod
-    def _pool(ltype, fwd, shape):
-        """Pooling (nn/pooling.py): kx/ky window, sliding defaulting to
-        the window, padding → (config, output sample shape)."""
-        if len(shape) != 3:
-            raise ValueError(f"{ltype}: pooling expects NHWC samples, got "
-                             f"sample shape {shape}")
+    def _window(fwd, sliding_default):
+        """Pops kx/ky, sliding and padding → (ky, kx), sliding, padding."""
         kx = fwd.pop("kx", None)
         if kx is None:
             raise ValueError("kx is required")
         kx = int(kx)
         ky = fwd.pop("ky", None)
         ky = int(ky if ky is not None else kx)
-        ksize = (ky, kx)
         sliding = fwd.pop("sliding", None)
-        sliding = norm2(sliding) if sliding is not None else ksize
-        padding = norm2(fwd.pop("padding", 0))
+        sliding = norm2(sliding if sliding is not None
+                        else sliding_default or (ky, kx))
+        return (ky, kx), sliding, norm2(fwd.pop("padding", 0))
+
+    def _conv(self, ltype, fwd, shape, gen, unit):
+        """Conv (nn/conv.py): W (ky, kx, C, n_kernels), gaussian fill by
+        default with fan-in ky·kx·C; same return as :meth:`_fc`."""
+        if len(shape) != 3:
+            raise ValueError(f"{ltype}: conv expects NHWC samples, got "
+                             f"sample shape {shape}")
+        n_kernels = fwd.pop("n_kernels", None)
+        if n_kernels is None:
+            raise ValueError("n_kernels and kx are required")
+        n_kernels = int(n_kernels)
+        (ky, kx), sliding, padding = self._window(fwd, 1)
+        h, w, c = shape
+        pair = self._weights(fwd, (ky, kx, c, n_kernels), (n_kernels,), gen,
+                             "gaussian", unit)
+        return ("conv", CONV_TYPES[ltype],
+                (("padding", padding), ("stride", sliding)), pair,
+                (out_size(h, ky, sliding[0], padding[0]),
+                 out_size(w, kx, sliding[1], padding[1]), n_kernels))
+
+    def _deconv(self, ltype, fwd, shapes, layers, params, gen, unit):
+        """Deconv (nn/deconv.py): W (ky, kx, n_channels, n_kernels) in the
+        paired conv's layout.  Tied (``"tie"``: an earlier conv layer) it
+        takes the conv's geometry and has no W of its own; untied it is
+        gaussian-filled with stddev 1/√(ky·kx·n_kernels).  Bias off by
+        default.  Same return as :meth:`_fc`."""
+        shape = shapes[-1]
+        if len(shape) != 3:
+            raise ValueError(f"{ltype}: deconv expects NHWC samples, got "
+                             f"sample shape {shape}")
+        tie = fwd.pop("tie", None)
+        n_channels = fwd.pop("n_channels", None)
+        config = {}
+        if tie is not None:
+            if not 0 <= tie < len(layers) or layers[tie].kind != "conv":
+                raise ValueError(f"{ltype}: tie={tie} must name an earlier "
+                                 f"conv layer")
+            # the tied conv's geometry wins, as Deconv.tie sets it
+            for k in ("n_kernels", "kx", "ky", "sliding", "padding"):
+                fwd.pop(k, None)
+            ky, kx, c, n_kernels = params[tie][0].shape
+            if n_channels is None:
+                n_channels = c
+            sliding, padding = layers[tie].cfg["stride"],                 layers[tie].cfg["padding"]
+            include_bias = fwd.pop("include_bias", False)
+            for k in ("weights_filling", "weights_stddev"):
+                fwd.pop(k, None)
+            bias_opts = {"bias_filling": fwd.pop("bias_filling", "uniform"),
+                         "bias_stddev": fwd.pop("bias_stddev", None)}
+            b = None
+            if include_bias:
+                b = (unit.bias.mem if unit is not None else
+                     nn_units.fill_bias(gen, (int(n_channels),),
+                                        **bias_opts))
+            pair = (None, b)
+            config["tie"] = tie
+        else:
+            n_kernels = fwd.pop("n_kernels", None)
+            if n_kernels is None or n_channels is None:
+                raise ValueError("n_kernels, kx and n_channels are required "
+                                 "for an untied deconv")
+            n_kernels = int(n_kernels)
+            (ky, kx), sliding, padding = self._window(fwd, 1)
+            if fwd.get("weights_stddev") is None:
+                fwd["weights_stddev"] = 1.0 / np.sqrt(ky * kx * n_kernels)
+            pair = self._weights(fwd, (ky, kx, int(n_channels), n_kernels),
+                                 (int(n_channels),), gen, "gaussian", unit,
+                                 bias_default=False)
+        if shape[2] != n_kernels:
+            raise ValueError(f"{ltype}: input has {shape[2]} channels, "
+                             f"n_kernels={n_kernels}")
+        h, w, _ = shape
+        config.update(padding=padding, stride=sliding)
+        return ("deconv", DECONV_TYPES[ltype], tuple(sorted(config.items())),
+                pair, (deconv_out_size(h, ky, sliding[0], padding[0]),
+                       deconv_out_size(w, kx, sliding[1], padding[1]),
+                       int(n_channels)))
+
+    @staticmethod
+    def _depooling(i, fwd, shapes, layers):
+        """Depooling (nn/depooling.py) tied to an earlier max pool: its
+        window and the pool's input shape → (config, output shape)."""
+        tie = fwd.pop("tie", None)
+        if tie is None or not 0 <= tie < i \
+                or layers[tie].kind not in ("max_pool", "maxabs_pool"):
+            raise ValueError(f"depooling: tie={tie} must name an earlier "
+                             f"max or max-abs pooling layer")
+        return (tuple(sorted(dict(layers[tie].cfg, tie=tie).items())),
+                shapes[tie])
+
+    def _pool(self, ltype, fwd, shape):
+        """Pooling (nn/pooling.py): kx/ky window, sliding defaulting to
+        the window, padding → (config, output sample shape)."""
+        if len(shape) != 3:
+            raise ValueError(f"{ltype}: pooling expects NHWC samples, got "
+                             f"sample shape {shape}")
+        ksize, sliding, padding = self._window(fwd, None)
         h, w, c = shape
         return ((("ksize", ksize), ("padding", padding),
                  ("stride", sliding)),
-                (out_size(h, ky, sliding[0], padding[0]),
-                 out_size(w, kx, sliding[1], padding[1]), c))
+                (out_size(h, ksize[0], sliding[0], padding[0]),
+                 out_size(w, ksize[1], sliding[1], padding[1]), c))
 
     @staticmethod
     def _lrn(fwd):
@@ -470,6 +586,8 @@ class StandardWorkflow(AcceleratedWorkflow):
             raise ValueError("the fused path trains on a torch device "
                              "(cuda or cpu); the numpy device runs the unit "
                              "graph (train(fused=False))")
+        if self.spec is None:
+            raise NotImplementedError(self.fused_missing)
         if int(root.common.get("accum_steps") or 1) != 1:
             raise NotImplementedError(
                 "gradient accumulation is not ported yet (ROADMAP.md "
