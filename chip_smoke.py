@@ -61,7 +61,35 @@ exits nonzero without the final ``ok`` line:
    as in 4 with the MSE falling; autoencoder_units, the same on the unit
    graph, held as in 10; each with its parity on the model's default split
    (epoch-0 MSE within rtol 5e-4 of the CPU's);
-14. the ``kernels`` line, then ``{"ok": true, "device": {...}}`` last.
+14. som slice — the Kohonen SOM (BASELINE config 5: an 8×8 sheet over
+   2000 2-D points in 5 clusters, batch 100) at its own size on the unit
+   graph (``run()``) and on the fused path (``run_fused``) to the ε stop
+   or 30 epochs, launch counts reset and read around each:
+   ``distance_argmin`` once a fused step and never on the unit graph; the
+   quantization error falls; it prints the epochs run, examples/s per
+   epoch and the fused path's host syncs per epoch; then the fused path
+   against the loop after 4 epochs and the card against the CPU after 3,
+   weights within rtol 5e-4 / atol 1e-5;
+15. mnist_act_units slice — the MNIST MLP of phase 10 with its tanh as a
+   standalone ``activation_tanh`` layer, on the unit graph for 2 epochs
+   (the activation kernels once a tick forward and once a GD tick
+   backward), its epoch 0 against the CPU as in 5 and against phase 10's
+   losses (the same function from the same weight draws) within rtol
+   1e-4; the same spec on the fused path launches no activation kernel;
+16. alexnet_units slice — AlexNet at full width (as phase 8) on the unit
+   graph for 1 epoch (dropout units on the counter-RNG kernel, LRN and
+   pool units apart), its launch counts held as in 10, with its units'
+   output shapes and parameter count; its epoch 0 against phase 8's
+   (the fused path) within rtol ALEXNET_CROSS_RTOL, error counts within
+   1%: the fused path scores an epoch's last train minibatch without
+   dropout and evaluates validation and test after the train head, as
+   the reference's does, so at chance level over 1000 classes this
+   bounds the two paths' drift and is no proof of the unit graph; the
+   shrunk AlexNet of phase 9 on the unit graph against the
+   CPU, held as in 7 and its weights and biases within rtol 1e-4 / atol
+   1e-6 (tests/test_torch_dropout_units.py holds the CPU unit graph to
+   the reference's for two epochs);
+17. the ``kernels`` line, then ``{"ok": true, "device": {...}}`` last.
 
 The kernel phase holds, besides the fused paths' kernels, the unit graph's
 three: the tiled matmul at the five products of the MNIST unit graph
@@ -74,7 +102,18 @@ the argmax exact.  And the decoder slice's three: the LRN forward that
 caches its denominator and the backward that reads it, bit for bit at
 CIFAR's (100,16,16,32), an even window and β ≠ 0.75; the depooling
 gather at the autoencoder's (100,28,28,16) k2 s2 and an overlapping
-padded window, equal as values (−0.0 = +0.0).
+padded window, equal as values (−0.0 = +0.0).  And this slice's three:
+the SOM's distance→argmin at the sample's (100, 64, 2), the reference
+test's (13, 150, 37), a 32×32 sheet on MNIST-width inputs (256, 1024, 784)
+and a ties case (dmin within rtol 1e-5 / atol 1e-5 of the distances'
+scale, winners exact but where the plain version's two candidates lie
+within that gap, each such flip counted; ties to the lowest neuron); the
+activation forward and backward for each of the nine activations at the
+unit graph's (100, 100), three at (128, 55, 55, 96) and sincos with an
+odd last axis (exact for linear, mul and strict_relu, within 2 ulp for
+the others, each case's ulps printed; bound by bytes: the forward reads
+x and writes y, the backward reads err_y and one of y or x and writes
+err_x).
 
 It imports nothing of JAX or of the ``znicz_tpu`` package.  Without a CUDA
 device, or outside a checkout of the repository, it fails."""
@@ -159,6 +198,15 @@ KERNELS = {
     "pool_gather": ("znicz_tpu_torch/csrc/pooling.cu",
                     "znicz_tpu/ops/elementwise.py:392", "pooling",
                     "pool_gather_launches"),
+    "distance_argmin": ("znicz_tpu_torch/csrc/kohonen.cu",
+                        "znicz_tpu/ops/kohonen.py:145", "kohonen",
+                        "distance_argmin_launches"),
+    "act_fwd": ("znicz_tpu_torch/csrc/activation.cu",
+                "znicz_tpu/ops/elementwise.py:87", "activations",
+                "act_fwd_launches"),
+    "act_bwd": ("znicz_tpu_torch/csrc/activation.cu",
+                "znicz_tpu/ops/elementwise.py:115", "activations",
+                "act_bwd_launches"),
 }
 
 #: each path's kernels: launches per (train step, eval step)
@@ -172,24 +220,50 @@ PATHS = {
     # depooling forward is the scatter; its backward the gather
     "autoencoder": {"pool_select": (1, 1), "pool_scatter": (2, 1),
                     "pool_gather": (1, 0)},
+    # the standalone tanh layer is plain torch inside the fused step
+    "mnist_act": {"softmax_ce": (1, 1)},
 }
-#: the unit graph's kernels: launches per (tick, tick whose GD chain runs);
+#: the unit graph's kernels: launches per (tick, train tick, tick whose GD
+#: chain runs — every train tick but the last one's);
 #: MNIST's two forwards take a matmul each and its softmax layer the row
 #: softmax; GDSoftmax takes two (the weight gradient and err_input),
 #: GDTanh one (no err_input for the first layer), and four updates (W and
-#: b of two layers)
+#: b of two layers); with its tanh as a standalone layer the activation
+#: kernels run once a tick forward and once a GD tick backward
 #: CIFAR's conv GD units run cuDNN and one sgd_update each for W and b
 #: (the first conv computes no err_input), its fc units as MNIST's;
-#: the autoencoder's depooling scatters forward and gathers backward
+#: the autoencoder's depooling scatters forward and gathers backward;
+#: AlexNet's two LRN and three max-pool units run apart, its three fc
+#: layers take three matmuls a tick and six a GD tick, its eight weighted
+#: layers 16 updates, and each dropout unit masks on the train ticks
+#: forward and on the GD ticks backward
 UNIT_PATHS = {
-    "mnist_units": {"matmul": (2, 3), "sgd_update": (0, 4),
-                    "softmax": (1, 0)},
-    "cifar_units": {"pool_select": (1, 0), "lrn": (1, 0), "matmul": (2, 4),
-                    "softmax": (1, 0), "pool_scatter": (0, 1),
-                    "gd_lrn": (0, 1), "sgd_update": (0, 8)},
-    "autoencoder_units": {"pool_select": (1, 0), "pool_scatter": (1, 1),
-                          "pool_gather": (0, 1), "sgd_update": (0, 3)},
+    "mnist_units": {"matmul": (2, 0, 3), "sgd_update": (0, 0, 4),
+                    "softmax": (1, 0, 0)},
+    "cifar_units": {"pool_select": (1, 0, 0), "lrn": (1, 0, 0),
+                    "matmul": (2, 0, 4), "softmax": (1, 0, 0),
+                    "pool_scatter": (0, 0, 1), "gd_lrn": (0, 0, 1),
+                    "sgd_update": (0, 0, 8)},
+    "autoencoder_units": {"pool_select": (1, 0, 0),
+                          "pool_scatter": (1, 0, 1),
+                          "pool_gather": (0, 0, 1), "sgd_update": (0, 0, 3)},
+    "mnist_act_units": {"matmul": (2, 0, 3), "sgd_update": (0, 0, 4),
+                        "softmax": (1, 0, 0), "act_fwd": (1, 0, 0),
+                        "act_bwd": (0, 0, 1)},
+    "alexnet_units": {"lrn": (2, 0, 0), "pool_select": (3, 0, 0),
+                      "matmul": (3, 0, 6), "softmax": (1, 0, 0),
+                      "dropout": (0, 2, 2), "pool_scatter": (0, 0, 3),
+                      "gd_lrn": (0, 0, 2), "sgd_update": (0, 0, 16)},
 }
+#: the MNIST MLP with its tanh as a standalone layer (same weight draws as
+#: the All2AllTanh sample: the activation layer draws nothing)
+MNIST_ACT_LAYERS = [
+    {"type": "all2all", "->": {"output_sample_shape": 100},
+     "<-": {"learning_rate": 0.03, "gradient_moment": 0.9}},
+    {"type": "activation_tanh"},
+    {"type": "softmax", "->": {"output_sample_shape": 10},
+     "<-": {"learning_rate": 0.03, "gradient_moment": 0.9}},
+]
 
 
 def emit(obj) -> None:
@@ -902,6 +976,182 @@ def phase_kernel_pool_gather(torch) -> list:
     return rows
 
 
+def distance_argmin_bound_ms(b: int, n: int, f: int):
+    """x and w read once, the winners and dmin written once; 2·B·N·F float
+    operations for the cross terms (the squares are lower order)."""
+    return _bound((b * f + n * f) * 4 + b * 8, 2 * b * n * f)
+
+
+#: case, B, N, F, data: the SOM sample's step (BASELINE config 5), the
+#: reference test's ragged two-tile case, a 32×32 sheet on MNIST-width
+#: inputs (eight row tiles, each walking 32 neuron tiles), and ties: rows
+#: j < k equal and nearest
+DIST_CASES = [
+    ("som_step", 100, 64, 2, "normal"),
+    ("ragged_two_tiles", 13, 150, 37, "normal"),
+    ("mnist_sheet", 256, 1024, 784, "normal"),
+    ("ties", 256, 1024, 784, "ties"),
+]
+#: a winner may differ from the plain version's only where the plain
+#: version's distances to both lie within this share of the distances'
+#: scale (max ‖x‖² + max ‖w‖²): the two sum the cross term in other orders
+DIST_RTOL = 1e-5
+
+
+def phase_kernel_distance_argmin(torch) -> list:
+    """The winner search against the plain version (``distances``, its
+    first-index argmin and row minimum; cuBLAS sums the cross term in
+    another order): dmin within rtol 1e-5 / atol DIST_RTOL·scale, winners
+    exact but where the plain version's two candidates lie within that
+    gap (each such flip counted); ties: the lowest neuron exactly.  The
+    yardstick is two PyTorch calls, ``torch.cdist`` and ``argmin``
+    (Euclidean distances with a square root: not the same expression)."""
+    from znicz_tpu_torch.ops import kohonen as som_ops
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 10)
+    rows = []
+    for case, b, n, f, data in DIST_CASES:
+        x = torch.randn((b, f), generator=gen)
+        w = torch.randn((n, f), generator=gen)
+        if data == "ties":
+            w *= 4.0                      # the rest far away
+            for j in range(b):            # sample j: rows j, j + n/2
+                w[j] = w[j + n // 2] = x[j] + 0.01
+        x, w = x.to(dev), w.to(dev)
+        win, dmin = _launch_once(torch, "distance_argmin",
+                                 lambda: som_ops.distance_argmin(x, w))
+        want_win, want_dmin = som_ops.plain_distance_argmin(x, w)
+        d = som_ops.distances(x, w)
+        scale = float((x * x).sum(1).max() + (w * w).sum(1).max())
+        gap = DIST_RTOL * scale
+        err = _close(torch, case, "dmin", dmin, want_dmin, 1e-5, gap)
+        flips = (win != want_win).nonzero().flatten().tolist()
+        for r in flips:
+            diff = abs(float(d[r, win[r].long()] - d[r, want_win[r].long()]))
+            if diff > gap:
+                raise AssertionError(f"{case}: row {r} winner "
+                                     f"{int(win[r])} vs plain "
+                                     f"{int(want_win[r])}, distances "
+                                     f"{diff} apart (gap {gap})")
+        if data == "ties" and win.cpu().tolist()[:b] != list(range(b)):
+            raise AssertionError(f"{case}: ties did not go to the lowest "
+                                 f"neuron: {win.cpu().tolist()[:8]}")
+        lib = _time_ms(torch, lambda: torch.cdist(x, w).argmin(1))[0]
+        row = _row(torch, "distance_argmin",
+                   {"case": case, "shape": [b, n, f], "flips": len(flips),
+                    "gap_allowed": gap}, err,
+                   lambda: som_ops.distance_argmin(x, w),
+                   lambda: som_ops.plain_distance_argmin(x, w),
+                   distance_argmin_bound_ms(b, n, f), lib)
+        rows.append(row)
+    return rows
+
+
+#: float operations an element (a transcendental counted as one), forward
+#: and backward, for the bound's operations side
+ACT_OPS = {"linear": (0, 0), "strict_relu": (1, 2), "tanh": (3, 4),
+           "sigmoid": (4, 3), "relu": (6, 4), "mul": (1, 1), "log": (5, 4),
+           "sincos": (1, 2), "tanhlog": (8, 7)}
+#: activations whose kernels must equal the plain versions exactly (as
+#: values, −0.0 = +0.0); the others within ACT_ULPS units in the last
+#: place (CUDA's expf/logf/log1pf/tanhf/sinf/cosf against whatever
+#: PyTorch's CUDA kernels call)
+ACT_EXACT = ("linear", "mul", "strict_relu")
+ACT_ULPS = 2
+#: name, shape: the mnist_act_units path's (100, 100) first (tanh is its
+#: layer), every name there, then shapes where the bytes dominate, and
+#: sincos with an odd last axis
+ACT_CASES = ([("tanh", (100, 100))]
+             + [(n, (100, 100)) for n in ("linear", "strict_relu", "sigmoid",
+                                          "relu", "mul", "log", "sincos",
+                                          "tanhlog")]
+             + [(n, (128, 55, 55, 96)) for n in ("tanh", "strict_relu",
+                                                 "sigmoid")]
+             + [("sincos", (7, 13, 37))])
+
+
+def _ulps(torch, a, b) -> int:
+    """The largest distance of two float32 tensors in units in the last
+    place (−0.0 = +0.0)."""
+    def ordered(t):
+        i = t.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+def _act_library(torch, name: str, x, e, y):
+    """(forward, backward) single PyTorch calls computing the same
+    function, or None with the reason."""
+    import torch.nn.functional as F
+    fwd = {"strict_relu": lambda: torch.relu(x),
+           "sigmoid": lambda: torch.sigmoid(x),
+           "relu": lambda: F.softplus(x),
+           "log": lambda: torch.asinh(x)}.get(name)
+    bwd = {"sigmoid": lambda: torch.ops.aten.sigmoid_backward(e, y),
+           "strict_relu": lambda: torch.ops.aten.threshold_backward(
+               e, y, 0.0)}.get(name)
+    return fwd, bwd
+
+
+def phase_kernel_act(torch) -> dict:
+    """The standalone activation kernels against the plain versions (the
+    BY_NAME classes on the card): exact for ACT_EXACT, within ACT_ULPS
+    elsewhere (each case's ulps printed).  The yardstick is the one
+    PyTorch call where there is one (torch.relu, torch.sigmoid,
+    F.softplus, torch.asinh; aten's sigmoid_backward and
+    threshold_backward), else null with the reason."""
+    from znicz_tpu_torch.ops import activations
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 11)
+    rows = {"act_fwd": [], "act_bwd": []}
+    for name, shape in ACT_CASES:
+        # spanning TanhLog's switch at |x| = 2.25
+        x = (torch.randn(shape, generator=gen) * 2).to(dev)
+        e = torch.randn(shape, generator=gen).to(dev)
+        xin = x if activations.BY_NAME[name].needs_input else None
+        y = _launch_once(torch, "act_fwd",
+                         lambda: activations.act_fwd(name, x))
+        want_y = activations.plain_act_fwd(name, x)
+        dx = _launch_once(torch, "act_bwd",
+                          lambda: activations.act_bwd(name, e, y, xin))
+        want_dx = activations.plain_act_bwd(name, e, y, xin)
+        limit = 0 if name in ACT_EXACT else ACT_ULPS
+        ulps = {}
+        for what, got, want in (("y", y, want_y), ("dx", dx, want_dx)):
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"{name} {shape}: {what} not finite")
+            ulps[what] = _ulps(torch, got, want)
+            if ulps[what] > limit:
+                raise AssertionError(f"{name} {shape}: {what} {ulps[what]} "
+                                     f"ulp from the plain version (limit "
+                                     f"{limit})")
+        big = len(shape) == 4
+        iters = BIG_ITERS if big else ITERS
+        n = x.numel()
+        lib_f, lib_b = _act_library(torch, name, x, e, y)
+        geo = {"case": f"{name}_{'x'.join(map(str, shape))}",
+               "activation": name, "shape": list(shape),
+               "tolerance_ulps": limit}
+        for kname, fn, plain, lib, nbytes, ops, what in (
+                ("act_fwd", lambda: activations.act_fwd(name, x),
+                 lambda: activations.plain_act_fwd(name, x), lib_f,
+                 2 * n * 4, ACT_OPS[name][0] * n, "y"),
+                ("act_bwd", lambda: activations.act_bwd(name, e, y, xin),
+                 lambda: activations.plain_act_bwd(name, e, y, xin), lib_b,
+                 3 * n * 4, ACT_OPS[name][1] * n,
+                 "dx")):
+            lib_ms = None if lib is None else _time_ms(torch, lib, iters)[0]
+            row = _row(torch, kname, {
+                **geo, "ulps": ulps[what],
+                "library_note": None if lib is not None else
+                "no single PyTorch call computes this Veles formula"},
+                float((dict(y=y, dx=dx)[what]
+                       - dict(y=want_y, dx=want_dx)[what]).abs().max()),
+                fn, plain, _bound(nbytes, ops), lib_ms, iters)
+            rows[kname].append(row)
+    return rows
+
+
 # -- main paths --------------------------------------------------------------
 def expected_steps(split: dict, batch: int, epochs: int) -> list[dict]:
     """Steps ``run_fused`` runs in each epoch: train steps (the head of
@@ -929,21 +1179,22 @@ def expected_ticks(split: dict, batch: int, epochs: int) -> dict:
         return -(-n // batch)
     train = steps(split["n_train"])
     per_epoch = train + sum(steps(split[k]) for k in ("n_valid", "n_test"))
-    return {"ticks": epochs * per_epoch, "gd_ticks": epochs * train - 1,
-            "ticks_per_epoch": per_epoch}
+    return {"ticks": epochs * per_epoch, "train_ticks": epochs * train,
+            "gd_ticks": epochs * train - 1, "ticks_per_epoch": per_epoch}
 
 
 def expected_launches(path: str, split: dict, batch: int, epochs: int
                       ) -> dict:
     """Launches each kernel must make on a path: its launches per train
     step and per eval step (``PATHS``) times the steps run — or, on a unit
-    graph, per tick and per GD tick (``UNIT_PATHS``) times the ticks run —
-    and none for a kernel off the path."""
+    graph, per tick, per train tick and per GD tick (``UNIT_PATHS``) times
+    the ticks run — and none for a kernel off the path."""
     if path in UNIT_PATHS:
         t = expected_ticks(split, batch, epochs)
         mult = UNIT_PATHS[path]
-        return {k: (mult[k][0] * t["ticks"] + mult[k][1] * t["gd_ticks"]
-                    if k in mult else 0) for k in KERNELS}
+        return {k: (mult[k][0] * t["ticks"] + mult[k][1] * t["train_ticks"]
+                    + mult[k][2] * t["gd_ticks"] if k in mult else 0)
+                for k in KERNELS}
     per = expected_steps(split, batch, epochs)
     train = sum(p["train"] for p in per)
     evals = sum(p["eval"] for p in per)
@@ -954,15 +1205,20 @@ def expected_launches(path: str, split: dict, batch: int, epochs: int
 
 def _run(model: str, device: str, epochs: int, split: dict,
          config: dict | None = None, fused: bool = True):
+    """``model``'s ``run`` from SEED on ``split``, with ``config`` over its
+    tree for this run only."""
     from znicz_tpu_torch import prng
     from znicz_tpu_torch.config import root
     module = importlib.import_module(f"znicz_tpu_torch.models.{model}")
     tree = getattr(root, TREES.get(model, model))
     tree.synthetic.update(split)
-    if config:
-        tree.update(config)
+    saved = {k: tree.get(k) for k in config or {}}
+    tree.update(config or {})
     prng.seed_all(SEED)
-    return module.run(device=device, fused=fused, epochs=epochs)
+    try:
+        return module.run(device=device, fused=fused, epochs=epochs)
+    finally:
+        tree.update(saved)
 
 
 #: the fused AlexNet's rows and their output shapes at batch 128
@@ -1000,37 +1256,40 @@ def alexnet_geometry(torch, wf) -> dict:
 
 
 def phase_slice(torch, model: str, split: dict, desc: str,
-                extra=None, path: str | None = None) -> dict:
-    """Train ``model`` for EPOCHS on the card, every launch count reset
-    just before and read just after; each count must equal the steps the
-    loop ran times the path's launches per step (zero for a kernel off
-    the path).  ``path`` (default: the model's fused path) may name a
-    unit graph (``UNIT_PATHS``), trained through ``run(fused=False)``.
-    ``extra(torch, wf)`` adds checks and fields after."""
+                extra=None, path: str | None = None,
+                config: dict | None = None, epochs: int = EPOCHS) -> dict:
+    """Train ``model`` for ``epochs`` on the card, every launch count
+    reset just before and read just after; each count must equal the
+    steps the loop ran times the path's launches per step (zero for a
+    kernel off the path), and over two epochs or more the train loss must
+    fall.  ``path`` (default: the model's fused path) may name a unit
+    graph (``UNIT_PATHS``), trained through ``run(fused=False)``;
+    ``config`` goes over the model's tree for the run.  ``extra(torch,
+    wf)`` adds checks and fields after."""
     from znicz_tpu_torch.config import root
     importlib.import_module(f"znicz_tpu_torch.models.{model}")
     path = path or model
     fused = path not in UNIT_PATHS
     batch = int(getattr(root, TREES.get(model, model)).get("minibatch_size"))
-    expected = expected_launches(path, split, batch, EPOCHS)
+    expected = expected_launches(path, split, batch, epochs)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     t0 = time.monotonic()
-    wf = _run(model, "cuda", EPOCHS, split, fused=fused)
+    wf = _run(model, "cuda", epochs, split, config, fused=fused)
     torch.cuda.synchronize()
     wall_s = time.monotonic() - t0
     counts = launch_counts()
     metrics = wf.decision.epoch_metrics
-    if len(metrics) != EPOCHS:
-        raise AssertionError(f"expected {EPOCHS} epochs, got {metrics}")
+    if len(metrics) != epochs:
+        raise AssertionError(f"expected {epochs} epochs, got {metrics}")
     for m in metrics:
         for k, v in m.items():
             if not math.isfinite(v):
                 raise AssertionError(f"non-finite {k} in {m}")
     # an MSE unit graph reports *_mse only
     loss = "train_loss" if "train_loss" in metrics[0] else "train_mse"
-    if not metrics[-1][loss] < metrics[0][loss]:
+    if epochs > 1 and not metrics[-1][loss] < metrics[0][loss]:
         raise AssertionError(f"{model}: {loss} did not fall: {metrics}")
     if counts != expected:
         raise AssertionError(f"{path}: launches {counts} != steps run "
@@ -1042,11 +1301,11 @@ def phase_slice(torch, model: str, split: dict, desc: str,
             raise AssertionError("params left the card or went non-finite")
     data = wf.loader.original_data
     out = {"phase": f"{path}_slice", "model": desc, "split": split,
-           "batch": batch, "epochs": EPOCHS, "wall_s": wall_s,
+           "batch": batch, "epochs": epochs, "wall_s": wall_s,
            "launches": counts,
            "expected_steps_per_epoch": (
-               expected_steps(split, batch, EPOCHS) if fused
-               else expected_ticks(split, batch, EPOCHS)),
+               expected_steps(split, batch, epochs) if fused
+               else expected_ticks(split, batch, epochs)),
            "resident_data_bytes": data.numel() * data.element_size(),
            "peak_device_bytes": torch.cuda.max_memory_allocated(),
            "epoch_metrics": metrics, "epoch_timings": wf.epoch_timings}
@@ -1062,12 +1321,16 @@ def phase_slice(torch, model: str, split: dict, desc: str,
 
 def phase_parity(model: str, split: dict, card_epoch0: dict, rtol: float,
                  err_share: float, config: dict | None = None,
-                 fused: bool = True) -> None:
+                 fused: bool = True, phase: str | None = None,
+                 card_wf=None) -> None:
     """Epoch 0 of the same seed on the CPU against the card's: the same
     metrics, losses and MSEs within ``rtol``, error counts within
-    ``err_share`` of each class."""
-    cpu = _run(model, "cpu", 1, split, config,
-               fused).decision.epoch_metrics[0]
+    ``err_share`` of each class.  With ``card_wf`` (a unit graph's
+    workflow) its units' weights and biases are held to the CPU's within
+    rtol 1e-4 / atol 1e-6 as well.  ``phase`` names the printed line
+    (default: the model and its path)."""
+    cpu_wf = _run(model, "cpu", 1, split, config, fused)
+    cpu = cpu_wf.decision.epoch_metrics[0]
     if sorted(cpu) != sorted(card_epoch0):
         raise AssertionError(f"{model}: card metrics {sorted(card_epoch0)} "
                              f"vs cpu {sorted(cpu)}")
@@ -1083,8 +1346,158 @@ def phase_parity(model: str, split: dict, card_epoch0: dict, rtol: float,
             if abs(v - cpu[k]) > err_share * sizes[name]:
                 raise AssertionError(f"{model} {k}: card {v} vs cpu "
                                      f"{cpu[k]}")
-    emit({"phase": f"{model}{'' if fused else '_units'}_parity",
-          "split": split, "card_epoch0": card_epoch0, "cpu_epoch0": cpu})
+    line = {"phase": phase or f"{model}{'' if fused else '_units'}_parity",
+            "split": split, "card_epoch0": card_epoch0, "cpu_epoch0": cpu}
+    if card_wf is not None:
+        line["params_max_abs_err"] = _params_close(model, card_wf, cpu_wf)
+    emit(line)
+
+
+def _params_close(model: str, card_wf, cpu_wf) -> float:
+    """The largest gap between two unit graphs' weights and biases, each
+    within rtol 1e-4 / atol 1e-6 (tests/test_torch_dropout_units.py's
+    tolerance against the reference)."""
+    import numpy as np
+    worst = 0.0
+    pairs = [(v, c) for f, cf in zip(card_wf.forwards, cpu_wf.forwards)
+             for v, c in ((f.weights, cf.weights), (f.bias, cf.bias)) if v]
+    if not pairs:
+        raise AssertionError(f"{model}: no parameters to compare")
+    for v, c in pairs:
+        got, want = np.asarray(v.mem), np.asarray(c.mem)
+        if not np.allclose(got, want, rtol=1e-4, atol=1e-6):
+            raise AssertionError(f"{model}: card parameters differ from the "
+                                 f"cpu's by {np.abs(got - want).max()}")
+        worst = max(worst, float(np.abs(got - want).max()))
+    return worst
+
+
+#: BASELINE config 5's own size (models/kohonen.py defaults): 2000 points
+#: in 5 clusters, an 8×8 sheet, batch 100, 30 epochs or the ε stop
+SOM_SPLIT = {"n_train": 2000, "n_clusters": 5, "noise": 0.08}
+#: tests/test_kohonen.py's tolerance for the fused epochs against the loop
+SOM_RTOL, SOM_ATOL = 5e-4, 1e-5
+
+
+def _som(device: str, epochs: int | None, fused: bool):
+    """A seeded KohonenWorkflow on ``device``, initialized, and its
+    quantization error before training."""
+    from znicz_tpu_torch import prng
+    from znicz_tpu_torch.config import root
+    from znicz_tpu_torch.models import kohonen
+    root.kohonen.synthetic.update(SOM_SPLIT)
+    prng.seed_all(SEED)
+    wf = kohonen.KohonenWorkflow()
+    if epochs is not None:
+        wf.decision.max_epochs = epochs
+    wf.initialize(device=device)
+    return wf, wf.quantization_error()
+
+
+def _som_weights_close(what: str, got, want) -> float:
+    import numpy as np
+    np.testing.assert_allclose(got, want, rtol=SOM_RTOL, atol=SOM_ATOL,
+                               err_msg=what)
+    return float(np.abs(got - want).max())
+
+
+def phase_som(torch) -> dict:
+    """BASELINE config 5 on the card at its own size, on the unit graph
+    and on the fused path, launch counts reset and read around each: the
+    fused path launches ``distance_argmin`` once a step, the unit graph
+    (which computes the full distance matrix) never; the quantization
+    error falls from its initial value.  Then the fused path against the
+    loop after 4 epochs, and the card against the CPU after 3 epochs on
+    each path, within rtol 5e-4 / atol 1e-5 (n_train % batch == 0, so both
+    paths see the same minibatches)."""
+    import numpy as np
+    out = {}
+    for path, fused in (("som_units", False), ("som", True)):
+        wf, qe0 = _som("cuda", None, fused)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.monotonic()
+        tr = wf.run_fused() if fused else wf.run()
+        torch.cuda.synchronize()
+        wall_s = time.monotonic() - t0
+        counts = launch_counts()
+        epochs = len(wf.decision.epoch_metrics)
+        steps = epochs * (SOM_SPLIT["n_train"]
+                          // wf.loader.max_minibatch_size)
+        expected = {k: 0 for k in KERNELS}
+        if fused:
+            expected["distance_argmin"] = steps
+        if counts != expected:
+            raise AssertionError(f"{path}: launches {counts} != {expected}")
+        qe = wf.quantization_error()
+        w = wf.forward.weights.mem
+        if not (np.isfinite(w).all() and qe < qe0):
+            raise AssertionError(f"{path}: quantization error {qe0} -> {qe}")
+        out[path] = {
+            "phase": f"{path}_slice",
+            "model": "kohonen som 8x8 on 2-D clusters"
+                     + ("" if fused else " unit graph"),
+            "split": SOM_SPLIT, "batch": wf.loader.max_minibatch_size,
+            "epochs_run": epochs, "wall_s": wall_s, "launches": counts,
+            "quantization_error": [qe0, qe],
+            "weights_diff": [m["weights_diff"]
+                             for m in wf.decision.epoch_metrics],
+            "epoch_timings": wf.epoch_timings,
+            "host_syncs_per_epoch": (tr.host_syncs / epochs if fused
+                                     else "one a tick (the trainer reads "
+                                          "mean |dw| each tick)")}
+        emit(out[path])
+    loop, _ = _som("cuda", 4, False)
+    loop.run()
+    fused_wf, _ = _som("cuda", 4, True)
+    fused_wf.run_fused()
+    err = {"fused_vs_loop": _som_weights_close(
+        "fused vs loop", fused_wf.forward.weights.mem,
+        loop.forward.weights.mem)}
+    for fused in (False, True):
+        runs = []
+        for dev in ("cuda", "cpu"):
+            wf, _ = _som(dev, 3, fused)
+            wf.run_fused() if fused else wf.run()
+            runs.append(wf.forward.weights.mem)
+        err[f"card_vs_cpu_{'fused' if fused else 'units'}"] = \
+            _som_weights_close(f"card vs cpu fused={fused}", *runs)
+    emit({"phase": "som_parity", "epochs": {"fused_vs_loop": 4,
+                                            "card_vs_cpu": 3},
+          "rtol": SOM_RTOL, "atol": SOM_ATOL, "max_abs_err": err})
+    return out
+
+
+def alexnet_units_geometry(torch, wf) -> dict:
+    """The full-width unit graph's per-unit output shapes and parameter
+    count (the units' own weights)."""
+    n_params = sum(v.mem.size for f in wf.forwards for v in (
+        f.weights, f.bias) if v)
+    if not 60_000_000 < n_params < 63_000_000:
+        raise AssertionError(f"alexnet units hold {n_params} parameters")
+    return {"n_params": n_params,
+            "unit_output_shapes": [[type(f).__name__, list(f.output.shape)]
+                                   for f in wf.forwards]}
+
+
+#: the full-width unit graph's epoch-0 losses against the fused path's
+#: (two chip runs read 3.6e-6 and 3.7e-6 at most, PERF.md)
+ALEXNET_CROSS_RTOL = 1e-5
+
+
+def cross_path_close(what: str, got: dict, want: dict, split: dict,
+                     rtol: float, err_share: float) -> None:
+    """Epoch-0 metrics of two paths of one model: losses within ``rtol``,
+    error counts within ``err_share`` of each class."""
+    sizes = {"train": split["n_train"], "validation": split["n_valid"],
+             "test": split["n_test"]}
+    for name, n in sizes.items():
+        a, b = got[f"{name}_loss"], want[f"{name}_loss"]
+        if not math.isclose(a, b, rel_tol=rtol, abs_tol=0.0):
+            raise AssertionError(f"{what} {name}_loss {a} vs {b}")
+        if abs(got[f"{name}_n_err"] - want[f"{name}_n_err"]) \
+                > err_share * n:
+            raise AssertionError(f"{what} {name}_n_err {got} vs {want}")
 
 
 def kernels_line(kern: dict, launches: dict) -> dict:
@@ -1131,7 +1544,9 @@ def main() -> int:
             "sgd_update": phase_kernel_update(torch),
             "softmax": phase_kernel_row_softmax(torch),
             **phase_kernel_lrn_denom(torch),
-            "pool_gather": phase_kernel_pool_gather(torch)}
+            "pool_gather": phase_kernel_pool_gather(torch),
+            "distance_argmin": phase_kernel_distance_argmin(torch),
+            **phase_kernel_act(torch)}
     mnist = phase_slice(torch, "mnist", MNIST_SPLIT, "mnist 784-100-10")
     phase_parity("mnist", MNIST_SPLIT, mnist["epoch_metrics"][0], 1e-4,
                  0.001)
@@ -1170,13 +1585,45 @@ def main() -> int:
         card = _run("autoencoder", "cuda", 1, AE_PARITY_SPLIT, fused=fused)
         phase_parity("autoencoder", AE_PARITY_SPLIT,
                      card.decision.epoch_metrics[0], 5e-4, 0.0, fused=fused)
+    som = phase_som(torch)
+    act_cfg = {"layers": MNIST_ACT_LAYERS}
+    act_units = phase_slice(torch, "mnist", MNIST_SPLIT,
+                            "mnist 784-100-activation_tanh-10 unit graph",
+                            path="mnist_act_units", config=act_cfg)
+    phase_parity("mnist", MNIST_SPLIT, act_units["epoch_metrics"][0], 1e-4,
+                 0.001, act_cfg, fused=False, phase="mnist_act_units_parity")
+    # the same function from the same weight draws as the All2AllTanh run
+    cross_path_close("mnist_act_units", act_units["epoch_metrics"][0],
+                     units["epoch_metrics"][0], MNIST_SPLIT, 1e-4, 0.001)
+    act_fused = phase_slice(torch, "mnist", MNIST_SPLIT,
+                            "mnist 784-100-activation_tanh-10 fused",
+                            path="mnist_act", config=act_cfg)
+    alexnet_units = phase_slice(torch, "alexnet", ALEXNET_SPLIT,
+                                "alexnet full width unit graph",
+                                alexnet_units_geometry, path="alexnet_units",
+                                epochs=1)
+    # one epoch: at chance level over 1000 classes the loss does not
+    # resolve a fall; the unit graph's epoch 0 is held near the fused
+    # path's instead (the same dropout keys but other evaluation points,
+    # as in the reference: a drift bound, not a proof of the unit graph)
+    cross_path_close("alexnet_units", alexnet_units["epoch_metrics"][0],
+                     alexnet["epoch_metrics"][0], ALEXNET_SPLIT,
+                     ALEXNET_CROSS_RTOL, 0.01)
+    card = _run("alexnet", "cuda", 1, ALEXNET_SPLIT, shrunk, fused=False)
+    phase_parity("alexnet", ALEXNET_SPLIT, card.decision.epoch_metrics[0],
+                 5e-4, 0.01, shrunk, fused=False, card_wf=card)
     emit(kernels_line(kern, {"mnist": mnist["launches"],
                              "cifar": cifar["launches"],
                              "alexnet": alexnet["launches"],
                              "mnist_units": units["launches"],
                              "cifar_units": cifar_units["launches"],
                              "autoencoder": ae["launches"],
-                             "autoencoder_units": ae_units["launches"]}))
+                             "autoencoder_units": ae_units["launches"],
+                             "som": som["som"]["launches"],
+                             "som_units": som["som_units"]["launches"],
+                             "mnist_act_units": act_units["launches"],
+                             "mnist_act": act_fused["launches"],
+                             "alexnet_units": alexnet_units["launches"]}))
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],
                                  "count": torch.cuda.device_count()}})
     return 0

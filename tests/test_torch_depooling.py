@@ -25,6 +25,14 @@ from znicz_tpu.ops import pooling as ref_pool
 from znicz_tpu.ops import tuning
 from znicz_tpu_torch.ops import pooling
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _torch_threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
 # name: (x shape, ksize, stride, padding, data)
 CASES = {
     "k2s2": ((3, 8, 6, 5), 2, 2, 0, "normal"),

@@ -9,11 +9,13 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 from znicz_tpu_torch import backends
-from znicz_tpu_torch.models import alexnet, autoencoder, cifar, mnist
+from znicz_tpu_torch.models import (alexnet, autoencoder, cifar, kohonen,
+                                    mnist)
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted(str(p.relative_to(REPO))
@@ -106,6 +108,19 @@ def test_fresh_process_trains_alexnet_without_jax():
         "5, widths=(8, 12, 8, 8, 8, 24, 16))})\n")
 
 
+def test_fresh_process_trains_the_alexnet_unit_graph_without_jax():
+    _train_in_fresh_process(
+        "alexnet", "{'n_train': 32, 'n_valid': 16, 'n_test': 16}",
+        "root.alexnet.update({'size': 67, 'n_classes': 5, "
+        "'minibatch_size': 16, 'layers': alexnet.make_layers("
+        "5, widths=(8, 12, 8, 8, 8, 24, 16))})\n", fused=False)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_fresh_process_trains_the_som_without_jax(fused):
+    _train_in_fresh_process("kohonen", "{'n_train': 200}", fused=fused)
+
+
 @pytest.mark.parametrize("backend", ["auto", "cuda", None])
 def test_cuda_default_raises_without_a_card(backend, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -147,6 +162,20 @@ def test_alexnet_run_defaults_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         alexnet.run(epochs=1, fused=True)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_kohonen_run_defaults_to_the_card(monkeypatch, fused):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        kohonen.run(epochs=1, fused=fused)
+
+
+def test_fused_som_trainer_defaults_to_the_card(monkeypatch):
+    from znicz_tpu_torch.parallel.som import FusedSOMTrainer
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        FusedSOMTrainer(np.zeros((4, 2), np.float32), (2, 2))
 
 
 def test_cpu_is_taken_only_when_asked():

@@ -174,7 +174,7 @@ def test_cli_numpy_device_trains_on_the_unit_graph():
 
 
 def _with_stochastic_pool(layers):
-    """CIFAR's layers with its max pool made a stochastic pool, a layer
+    """A sample's layers with its max pools made stochastic pools, a layer
     type that still has no unit and no fused kind."""
     return [dict(la, type="stochastic_pooling")
             if la["type"] == "max_pooling" else la for la in layers]
@@ -182,9 +182,10 @@ def _with_stochastic_pool(layers):
 
 @pytest.mark.parametrize("model", ["cifar", "alexnet"])
 def test_cli_without_fused_raises_for_conv_models(model, tmp_path):
-    """A conv sample with a layer that has no unit yet — AlexNet's
-    dropout, or CIFAR with a stochastic pool — raises in the tick loop,
-    naming the conv-stack units it waits for."""
+    """A conv sample with a layer that has no unit yet — CIFAR or AlexNet
+    with stochastic pools — raises in the tick loop, naming the
+    conv-stack units it waits for.  (AlexNet's dropout has its unit:
+    tests/test_torch_dropout_units.py trains its unit graph.)"""
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
     sets = {"cifar": ["cifar.synthetic.n_train=20", "cifar.synthetic.size=8",
                       "cifar.synthetic.n_valid=10",
@@ -193,15 +194,16 @@ def test_cli_without_fused_raises_for_conv_models(model, tmp_path):
                         "alexnet.n_classes=5", "alexnet.synthetic.n_valid=2",
                         "alexnet.synthetic.n_test=2"]}[model]
     args = [a for s in sets for a in ("--set", s)]
-    if model == "cifar":
-        config = tmp_path / "stochastic_pool.py"
-        config.write_text(
-            "from znicz_tpu_torch.models import cifar  # its defaults\n"
-            "root.cifar.update({'layers': [\n"
-            "    dict(la, type='stochastic_pooling')\n"
-            "    if la['type'] == 'max_pooling' else la\n"
-            "    for la in root.cifar.layers]})\n")
-        args.insert(0, str(config))
+    layers = {"cifar": "root.cifar.layers",
+              "alexnet": "alexnet.make_layers(5)"}[model]
+    config = tmp_path / "stochastic_pool.py"
+    config.write_text(
+        f"from znicz_tpu_torch.models import {model}  # its defaults\n"
+        f"root.{model}.update({{'layers': [\n"
+        "    dict(la, type='stochastic_pooling')\n"
+        "    if la['type'] == 'max_pooling' else la\n"
+        f"    for la in {layers}]}})\n")
+    args.insert(0, str(config))
     proc = subprocess.run(
         [sys.executable, "-m", "znicz_tpu_torch",
          f"znicz_tpu_torch.models.{model}", *args, "--epochs", "1",
@@ -220,7 +222,9 @@ def test_run_without_fused_raises_for_conv_models(model):
         {"n_train": 4, "n_valid": 2, "n_test": 2, "size": 8}
         if model == "cifar" else {"n_train": 4, "n_valid": 2, "n_test": 2})
     if model == "alexnet":
-        root.alexnet.update({"size": 67, "n_classes": 5})
+        root.alexnet.update({"size": 67, "n_classes": 5,
+                             "layers": _with_stochastic_pool(
+                                 alexnet.make_layers(5))})
     else:
         root.cifar.update({"layers": _with_stochastic_pool(
             root.cifar.layers)})

@@ -19,6 +19,14 @@ from znicz_tpu_torch.units import Container, TrivialUnit, Unit
 from znicz_tpu_torch.workflow import Workflow
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _torch_threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
 # -- Bool ----------------------------------------------------------------------
 @pytest.mark.parametrize("pkg", ["port", "reference"])
 def test_bool_assign_through_and_live_invert(pkg):

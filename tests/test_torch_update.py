@@ -26,6 +26,14 @@ from znicz_tpu.ops import tuning
 from znicz_tpu.ops import update as ref_update
 from znicz_tpu_torch.ops import update
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _torch_threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
 #: name → (shape, hypers (lr, weights_decay, l1_vs_l2, momentum))
 CASES = {
     "mnist_w1": ((784, 100), (0.03, 0.0, 0.0, 0.9)),

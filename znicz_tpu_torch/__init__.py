@@ -12,18 +12,22 @@ Layering, as far as the port reaches today:
   ``units``, ``workflow``, ``accelerated_units``;
 * ``loader/``   — resident full-batch loaders (tensors on the device),
   units of the graph;
-* ``ops/``      — activation math, the matmul, the SGD update, the row
-  softmax and the softmax + cross-entropy head, max / max-abs / avg
-  pooling and depooling, cross-channel LRN, NHWC convolutions and
-  deconvolutions; the hand-written CUDA kernels live in ``csrc/`` and
-  are built by ``cuda_build``;
+* ``ops/``      — activation math and its elementwise kernels, the
+  matmul, the SGD update, the row softmax and the softmax + cross-entropy
+  head, max / max-abs / avg pooling and depooling, cross-channel LRN,
+  dropout, NHWC convolutions and deconvolutions, the SOM's distances and
+  winner search; the hand-written CUDA kernels live in ``csrc/`` and are
+  built by ``cuda_build``;
 * ``nn/``       — the forward and gradient units of the fc, conv,
-  pooling, LRN, depooling and deconv layers, the softmax and MSE
-  evaluators, the decisions;
+  pooling, LRN, dropout, standalone activation, depooling and deconv
+  layers, the softmax and MSE evaluators, the decisions, the Kohonen
+  units;
 * ``parallel/fused.py`` — the fused train step and ``FusedTrainer``;
+  ``parallel/som.py`` — the fused SOM trainer;
 * ``standard_workflow.py`` (the unit graph and the fused loop),
   ``models/mnist.py``, ``models/cifar.py``, ``models/alexnet.py``,
-  ``models/autoencoder.py`` and the ``python -m znicz_tpu_torch`` CLI.
+  ``models/autoencoder.py``, ``models/kohonen.py`` and the
+  ``python -m znicz_tpu_torch`` CLI.
 
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``); without a CUDA device they raise.

@@ -11,9 +11,8 @@ Examples::
 Order, as in the reference launcher: the config file first (its values
 beat the module's ``setdefaults``), then the module import, then ``--set``
 overrides last, then ``prng.seed_all``.  Without ``--fused`` the sample
-trains on the unit graph (the reference's default); AlexNet's dropout has
-no unit yet, so it raises there.  Each finished epoch's metrics print on
-one line."""
+trains on the unit graph (the reference's default).  Each finished
+epoch's metrics print on one line."""
 
 from __future__ import annotations
 

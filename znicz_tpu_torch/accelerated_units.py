@@ -9,10 +9,15 @@
   ops with hand-written kernels (``ops.matmul``, ``ops.update``,
   ``ops.softmax``) launch them.
 
-The reference's ``jit`` cache has no counterpart: PyTorch runs eagerly."""
+The reference's ``jit`` cache has no counterpart: PyTorch runs eagerly.
+``AcceleratedWorkflow`` records each epoch's wall time of the tick loop in
+``epoch_timings``."""
 
 from __future__ import annotations
 
+import time
+
+from .loader.base import TRAIN
 from .memory import Vector
 from .units import Unit
 from .workflow import Workflow
@@ -64,3 +69,31 @@ class AcceleratedUnit(Unit):
 class AcceleratedWorkflow(Workflow):
     """Workflow whose units share one accelerated device (reference
     parity; the device is bound in initialize)."""
+
+    def __init__(self, workflow=None, name=None, **kwargs):
+        super().__init__(workflow, name, **kwargs)
+        #: per-epoch throughput of the tick loop (a fused loop appends its
+        #: own); kept out of the metrics dicts so those stay comparable
+        #: with the reference
+        self.epoch_timings: list[dict] = []
+
+    def run(self, max_ticks: int | None = None) -> None:
+        """The tick loop (:meth:`Workflow.run`), recording each epoch's
+        wall time in ``epoch_timings``."""
+        self._epoch_t0 = time.monotonic()
+        super().run(max_ticks)
+
+    def run_tick(self):
+        fired = super().run_tick()
+        loader = getattr(self, "loader", None)
+        if loader is not None and loader in fired \
+                and bool(loader.epoch_ended):
+            now = time.monotonic()
+            wall, self._epoch_t0 = now - self._epoch_t0, now
+            ticks = len(loader._order)
+            self.epoch_timings.append({
+                "epoch": loader.epoch_number, "wall_s": wall,
+                "ticks": ticks, "tick_ms": wall / ticks * 1e3,
+                "train_examples_per_sec":
+                    loader.class_lengths[TRAIN] / wall})
+        return fired

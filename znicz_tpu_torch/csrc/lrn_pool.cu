@@ -25,7 +25,9 @@
 // (p/d) and err_y * p go to the tile.  Pass 2, per element: the window sum
 // of q from the tile gives the LRN backward dx, and the preceding layer's
 // activation derivative, evaluated at its output y = x, is folded in
-// (strict ReLU, scaled tanh, sigmoid, smooth ReLU or mul; 0 folds none).
+// (strict ReLU, scaled tanh, sigmoid, smooth ReLU or mul; 0 folds none),
+// by act_math.cuh's fold_act, which the standalone activation backward
+// (activation.cu) shares.
 //
 // The Pallas kernels read x as column-parity halves, because Mosaic has no
 // strided loads; these read x unsplit.
@@ -42,11 +44,13 @@
 // bands sized to fit 48 KB of shared memory.  Index arithmetic is
 // 32-bit (the wrappers refuse 2^31 elements or more) through FastDiv
 // (fastdiv.cuh).  The rounding is lrn_math.cuh's, shared with lrn.cu; the
-// folded derivatives are __fmul_rn/__fsub_rn as the reference's elementwise
-// ops round, and expf (smooth ReLU) is within 2 ulp of the host's exp.
+// folded derivatives are act_math.cuh's: __fmul_rn/__fsub_rn as the
+// reference's elementwise ops round, and expf (smooth ReLU) within 2 ulp
+// of the host's exp.
 
 #include <cuda_runtime.h>
 
+#include "act_math.cuh"
 #include "fastdiv.cuh"
 #include "lrn_math.cuh"
 
@@ -54,10 +58,6 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kBackwardElements = 1024;   // a backward block's elements
-
-// activation ids, as znicz_tpu_torch/ops/activations.py FOLD_IDS numbers them
-enum FoldAct { kNone = 0, kStrictRelu = 1, kTanh = 2, kSigmoid = 3,
-               kRelu = 4, kMul = 5 };
 
 struct Geometry {
   FastDiv C, W, H, OW, OH, sh, sw;   // the divisors
@@ -157,29 +157,6 @@ __device__ __forceinline__ float gather_err(const float* __restrict__ err,
   return acc;
 }
 
-// the derivative of the preceding activation at its output y, applied to e
-__device__ __forceinline__ float fold_act(float e, float y, int act) {
-  switch (act) {
-    case kStrictRelu:
-      return __fmul_rn(e, y > 0.0f ? 1.0f : 0.0f);
-    case kTanh: {
-      // 1.7159 * 0.6666 and 0.6666 / 1.7159, rounded to float as the host
-      // rounds the python constants
-      const float d1 = static_cast<float>(1.7159 * 0.6666);
-      const float d2 = static_cast<float>(0.6666 / 1.7159);
-      return __fmul_rn(e, __fsub_rn(d1, __fmul_rn(__fmul_rn(d2, y), y)));
-    }
-    case kSigmoid:
-      return __fmul_rn(__fmul_rn(e, y), __fsub_rn(1.0f, y));
-    case kRelu:
-      return __fmul_rn(e, __fsub_rn(1.0f, expf(-y)));
-    case kMul:
-      return __fmul_rn(e, 1.0f);
-    default:
-      return e;
-  }
-}
-
 // One block per `rows_per_block` pixel rows of C channels (about 1024
 // elements, so each thread takes several); shared memory holds q and
 // err_y * p for each element of those rows.
@@ -215,7 +192,8 @@ __global__ void gd_lrn_maxpool_kernel(const float* __restrict__ err,
     const int c = t - g.C.div(t) * C;
     const float ws = lrn_q_window(q_s + (t - c), c, p);
     const float xv = xb[t];
-    dx[row0 * C + t] = fold_act(lrn_dx(ep_s[t], xv, ws, p), xv, act);
+    dx[row0 * C + t] =
+        act_math::fold_act(lrn_dx(ep_s[t], xv, ws, p), xv, act);
   }
 }
 

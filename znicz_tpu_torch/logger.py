@@ -1,11 +1,13 @@
-"""The ``Logger`` mixin every unit inherits (port of the mixin in
-``znicz_tpu/logger.py``): a named ``logging.Logger`` per instance with
-``debug``/``info``/``warning``/``error``.  The structured metrics sink
-(``MetricsWriter``) waits for ROADMAP.md queue 1 item 10."""
+"""The ``Logger`` mixin every unit inherits and the structured metrics sink
+(port of ``znicz_tpu/logger.py``): a named ``logging.Logger`` per instance
+with ``debug``/``info``/``warning``/``error``, and ``MetricsWriter``, an
+append-only JSONL stream of metric records."""
 
 from __future__ import annotations
 
+import json
 import logging
+import time
 
 
 class Logger:
@@ -27,3 +29,27 @@ class Logger:
 
     def error(self, msg, *args):
         self.logger.error(msg, *args)
+
+
+class MetricsWriter:
+    """Append-only JSONL metrics stream: every record stays in
+    ``records``, and is appended to ``path`` (flushed per record) when one
+    is given; without a path no file is made."""
+
+    def __init__(self, path: str | None = None):
+        self.path = path
+        self._fh = open(path, "a") if path else None
+        self.records: list[dict] = []
+
+    def write(self, **fields) -> dict:
+        rec = {"ts": time.time(), **fields}
+        self.records.append(rec)
+        if self._fh is not None:
+            self._fh.write(json.dumps(rec, default=float) + "\n")
+            self._fh.flush()
+        return rec
+
+    def close(self) -> None:
+        if self._fh is not None:
+            self._fh.close()
+            self._fh = None

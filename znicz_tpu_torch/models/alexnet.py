@@ -7,7 +7,9 @@ conv 3×3·384 → conv 3×3·256 → max-pool 3/2 → dropout → fc 4096 → d
 → fc 4096 → softmax 1000, strict-ReLU activations, momentum SGD with
 weight decay, batch 128; about 62.4 M parameters.  The fused step merges
 each LRN with the pool after it and folds the conv's ReLU derivative into
-the pair's backward (``parallel/fused.py`` ``_merge_lrn_pool``).
+the pair's backward (``parallel/fused.py`` ``_merge_lrn_pool``); the unit
+graph runs one unit a layer, its LRN and pool units apart and its dropout
+units on the counter-RNG kernel.
 
 ImageNet is not in the repository: a seeded synthetic stand-in with the
 real tensor geometry (per-class 8×8 prototypes upsampled, plus noise) is
@@ -17,7 +19,7 @@ package's for the same seed.  Shapes and class count shrink through
 reference (``data_dir``) is not ported yet.
 
 Run:  ``python -m znicz_tpu_torch znicz_tpu_torch.models.alexnet --fused
-[--epochs N] [--device cuda|cpu]``
+[--epochs N] [--device cuda|cpu]`` (without ``--fused``: the unit graph)
 """
 
 from __future__ import annotations
@@ -153,10 +155,10 @@ class AlexNetWorkflow(StandardWorkflow):
 def run(device=None, epochs: int | None = None, fused: bool = True,
         **kwargs) -> AlexNetWorkflow:
     """Build, initialize and train on ``device`` (default: the CUDA card,
-    raising without one; pass ``device="cpu"`` for the host).  Only the
-    fused path is ported; ``fused=False`` raises, naming the dropout unit
-    it waits for (ROADMAP.md queue 1 item 5).  Returns the finished
-    workflow."""
+    raising without one; pass ``device="cpu"`` for the host, ``"numpy"``
+    for the golden unit graph).  ``fused=True`` (the default, as the
+    reference's) trains on the fused path, ``fused=False`` on the unit
+    graph.  Returns the finished workflow."""
     wf = AlexNetWorkflow(**kwargs)
     if epochs is not None:
         wf.decision.max_epochs = epochs
@@ -170,10 +172,14 @@ def main(argv: list[str] | None = None) -> None:
 
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--device", default="auto",
-                        choices=("auto", "cuda", "cpu"))
+                        choices=("auto", "cuda", "cpu", "numpy"))
     parser.add_argument("--epochs", type=int, default=None)
+    parser.add_argument("--unit-graph", action="store_true",
+                        help="the per-unit tick loop instead of the fused "
+                             "step")
     args = parser.parse_args(argv)
-    wf = run(device=args.device, epochs=args.epochs, fused=True)
+    wf = run(device=args.device, epochs=args.epochs,
+             fused=not args.unit_graph)
     for m in wf.decision.epoch_metrics:
         print(m)
 

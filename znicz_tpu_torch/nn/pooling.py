@@ -6,7 +6,7 @@ winner's dense window slot ``t = i·kw + j`` per output element, which
 nothing.  ``torch_run`` selects through ``ops.pooling`` (the pool-select
 kernel on the card); average pooling stays plain PyTorch, as XLA runs it
 in the reference.  Stochastic pooling is not ported yet (ROADMAP.md queue
-1 item 5): its layer types have no unit here."""
+1 item 5a): its layer types have no unit here."""
 
 from __future__ import annotations
 

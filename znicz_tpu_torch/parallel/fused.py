@@ -44,8 +44,8 @@ PORTED_KINDS = ("fc", "activation", "conv", "max_pool", "maxabs_pool",
                 "avg_pool", "lrn", "lrn_pool", "dropout", "deconv",
                 "depooling")
 _ROADMAP_ITEM = {
-    "stochastic_pool": "queue 1 item 5 (conv stack)",
-    "stochastic_abs_pool": "queue 1 item 5 (conv stack)",
+    "stochastic_pool": "queue 1 item 5a (stochastic pooling)",
+    "stochastic_abs_pool": "queue 1 item 5a (stochastic pooling)",
 }
 #: Kinds whose kernels take float32 only: a narrower storage dtype between
 #: layers is refused rather than run at another precision.

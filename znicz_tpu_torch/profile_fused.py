@@ -3,7 +3,7 @@ goes on the card.
 
     python -m znicz_tpu_torch.profile_fused
         [--model mnist|cifar|alexnet|autoencoder|mnist_units|cifar_units|
-                 autoencoder_units] [--steps 50] [--out DIR]
+                 autoencoder_units|som] [--steps 50] [--out DIR]
 
 Trains the sample at full width on its split resident on the card (MNIST
 784→100→10 and the MNIST conv autoencoder on 50k/10k/10k, the CIFAR-10
@@ -21,6 +21,9 @@ port's own hand-written kernels with their share of the device time.
 split): after the epoch's test and validation ticks as warm-up,
 ``--steps`` train ticks, then (past the rest of the epoch) as many test
 and validation ticks of the next epoch; a "step" in its line is a tick.
+``--model som`` profiles the fused SOM (BASELINE config 5 at its own
+size: 2000 points, an 8×8 sheet, batch 100): train steps only, after a
+warm-up epoch.
 With ``--out`` the Chrome traces are written there.  It needs a CUDA card
 and fails without one."""
 
@@ -61,7 +64,8 @@ PORT_KERNELS = ("softmax_ce_kernel", "row_softmax_kernel",
                 "pool_gather_kernel", "gd_lrn_maxpool_kernel",
                 "lrn_maxpool_kernel", "lrn_y_kernel", "gd_lrn_kernel",
                 "lrn_kernel", "dropout_kernel", "matmul_kernel",
-                "sgd_update_kernel")
+                "sgd_update_kernel", "dist_argmin_kernel", "act_fwd_kernel",
+                "act_bwd_kernel")
 
 
 def _window(fn, steps: int) -> float:
@@ -133,21 +137,43 @@ def _unit_ticks(args):
     return batch, train, evaluate
 
 
+def _som_steps(args):
+    """(batch, train, None): ``--steps`` fused SOM steps (BASELINE config
+    5 at its own size) after a warm-up epoch; the SOM has no evaluation
+    step."""
+    from .models import kohonen
+    prng.seed_all(1234)
+    wf = kohonen.KohonenWorkflow()
+    wf.initialize(device="cuda")
+    trainer = wf.run_fused(max_epochs=1)        # warm-up epoch
+    loader = wf.loader
+    batch = loader.max_minibatch_size
+    idx = np.resize(loader.train_permutation(1), args.steps * batch)
+    lr, sigma = wf.trainer.schedules()
+
+    def train():
+        trainer.train_epoch(loader.original_data, idx, batch, lr, sigma)
+    return batch, train, None
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", choices=sorted(MODELS) + sorted(UNIT_MODELS),
-                    default="mnist")
+    ap.add_argument("--model", choices=sorted(MODELS) + sorted(UNIT_MODELS)
+                    + ["som"], default="mnist")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--out", default=None,
                     help="directory for the Chrome traces")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_fused needs a CUDA card")
-    batch, train, evaluate = (_unit_ticks if args.model in UNIT_MODELS
-                              else _fused_steps)(args)
+    batch, train, evaluate = (
+        _som_steps if args.model == "som" else _unit_ticks
+        if args.model in UNIT_MODELS else _fused_steps)(args)
     out = {"model": args.model, "steps": args.steps, "batch": batch,
            "device": torch.cuda.get_device_name(0)}
     for name, fn in (("train", train), ("eval", evaluate)):
+        if fn is None:
+            continue
         fn()                                      # warm the allocator
         wall_ms = _window(fn, args.steps)         # unprofiled
         acts = [torch.profiler.ProfilerActivity.CPU,

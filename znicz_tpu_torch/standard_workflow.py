@@ -25,10 +25,13 @@ maps the spec's rows back to the layers.  Where the unit graph exists,
 back afterwards, as the reference's ``extract_model``/``write_back`` do;
 elsewhere the ``"weights"`` stream is drawn in the order the reference's
 units draw it, so the same seed gives the same initial weights in both
-packages.  The unit graph covers the fc, conv, pooling, LRN, depooling
-and deconv layers with a softmax or an MSE loss; a spec with a dropout
-or stochastic pooling layer trains on the fused path only (ROADMAP.md
-queue 1 item 5).  ``"tie"`` in a layer's ``"->"`` options names the
+packages.  Both paths cover the fc, conv, pooling, LRN, dropout,
+standalone activation (``activation_<name>``), depooling and deconv
+layers with a softmax or an MSE loss; stochastic pooling and the cutter
+layers raise on both (ROADMAP.md queue 1 item 5a).  The fused step keeps
+the standalone activations as plain torch math, as the reference's does;
+the unit graph's activation units launch the elementwise kernels.
+``"tie"`` in a layer's ``"->"`` options names the
 earlier layer a decoder unit ties to: a depooling layer to the max pool
 whose winner slots it reads, a deconv to the conv whose weights it
 shares."""
@@ -46,8 +49,9 @@ from . import prng
 from .accelerated_units import AcceleratedWorkflow
 from .loader.base import CLASS_NAMES, TEST, TRAIN, VALID
 from .mutable import DerivedBool
-from .nn import (all2all, conv, deconv, depooling, gd, gd_conv, gd_deconv,
-                 gd_pooling, nn_units, normalization, pooling)
+from .nn import (activation, all2all, conv, deconv, depooling, dropout, gd,
+                 gd_conv, gd_deconv, gd_pooling, nn_units, normalization,
+                 pooling)
 from .nn.decision import DecisionGD, DecisionMSE
 from .nn.evaluator import EvaluatorMSE, EvaluatorSoftmax
 from .ops.deconv import deconv_out_size
@@ -70,12 +74,10 @@ DECONV_TYPES = {"deconv": "linear", "deconv_tanh": "tanh",
 POOL_TYPES = {"max_pooling": "max_pool", "maxabs_pooling": "maxabs_pool",
               "avg_pooling": "avg_pool"}
 LRN_TYPES = ("norm", "lrn")
-PORTED_TYPES = (*FC_TYPES, *CONV_TYPES, *POOL_TYPES, *LRN_TYPES, "dropout",
-                "depooling", *DECONV_TYPES)
 
 _UNIT_GRAPH = "ROADMAP.md queue 1 item 4 (core engine: the unit graph)"
-_CONV_UNITS = "ROADMAP.md queue 1 item 5 (the nn/ dropout, stochastic " \
-    "pooling, activation and cutter units of the conv stack)"
+_CONV_UNITS = "ROADMAP.md queue 1 item 5a (stochastic pooling and the " \
+    "cutter, channel_merger and sum_merger units)"
 
 
 def _build_registries():
@@ -84,7 +86,8 @@ def _build_registries():
     from .nn.nn_units import Forward, GradientDescentBase
     fwd_map, gd_map = {}, {}
     for mod in (all2all, gd, conv, gd_conv, pooling, gd_pooling,
-                normalization, depooling, deconv, gd_deconv):
+                normalization, depooling, deconv, gd_deconv, dropout,
+                activation):
         for obj in vars(mod).values():
             if isinstance(obj, type) and issubclass(obj, Forward):
                 fwd_map.update(dict.fromkeys(obj.MAPPING, obj))
@@ -95,6 +98,13 @@ def _build_registries():
 
 
 FWD_MAP, GD_MAP = _build_registries()
+#: Standalone activation layer type (``activation_<name>``,
+#: nn/activation.py) → activation; the fused path runs them as its
+#: ``activation`` kind.
+ACTIVATION_TYPES = {t: cls.ACTIVATION.name for t, cls in FWD_MAP.items()
+                    if issubclass(cls, activation.ActivationForward)}
+PORTED_TYPES = (*FC_TYPES, *CONV_TYPES, *POOL_TYPES, *LRN_TYPES, "dropout",
+                "depooling", *DECONV_TYPES, *ACTIVATION_TYPES)
 
 
 def _no_options_left(fwd: dict) -> None:
@@ -156,9 +166,6 @@ class StandardWorkflow(AcceleratedWorkflow):
         self.spec: ModelSpec | None = None
         self.params: list = []
         self.vels: list = []
-        #: per-epoch throughput of either loop (kept out of the metrics
-        #: dicts so those stay comparable with the reference)
-        self.epoch_timings: list[dict] = []
         if loader is not None:
             decision_config = (decision_config.to_dict()
                                if hasattr(decision_config, "to_dict")
@@ -185,7 +192,7 @@ class StandardWorkflow(AcceleratedWorkflow):
         for spec in self.layers_config:
             if spec["type"] not in FWD_MAP:
                 return (f"layer type {spec['type']!r} has no unit yet ("
-                        f"{_CONV_UNITS}); train it with fused=True")
+                        f"{_CONV_UNITS})")
         if not self.layers_config:
             return "the model has no layers"
         return None
@@ -310,11 +317,14 @@ class StandardWorkflow(AcceleratedWorkflow):
             elif ltype == "dropout":
                 kind, act, pair = "dropout", "linear", None
                 config = self._dropout(i, fwd)
+            elif ltype in ACTIVATION_TYPES:
+                kind, act, pair = "activation", ACTIVATION_TYPES[ltype], None
+                config = ()
             else:
                 raise NotImplementedError(
                     f"layer type {ltype!r} is not ported to znicz_tpu_torch "
-                    f"yet (ROADMAP.md queue 1 item 5 for the rest of the "
-                    f"conv stack, {_UNIT_GRAPH} for the rest); ported: "
+                    f"yet ({_CONV_UNITS} for the rest of the conv stack, "
+                    f"{_UNIT_GRAPH} for the rest); ported: "
                     f"{sorted(PORTED_TYPES)}")
             _no_options_left(fwd)
             hypers, hypers_bias = _gd_hypers(dict(spec.get("<-", {})))
@@ -697,23 +707,3 @@ class StandardWorkflow(AcceleratedWorkflow):
         if self.forwards:
             self._params_to_units()
         return trainer
-
-    # -- the unit graph's loop ---------------------------------------------------
-    def run(self, max_ticks: int | None = None) -> None:
-        """The tick loop (:meth:`Workflow.run`), recording each epoch's
-        wall time in ``epoch_timings``."""
-        self._epoch_t0 = time.monotonic()
-        super().run(max_ticks)
-
-    def run_tick(self):
-        fired = super().run_tick()
-        if self.loader in fired and bool(self.loader.epoch_ended):
-            now = time.monotonic()
-            wall, self._epoch_t0 = now - self._epoch_t0, now
-            ticks = len(self.loader._order)
-            self.epoch_timings.append({
-                "epoch": self.loader.epoch_number, "wall_s": wall,
-                "ticks": ticks, "tick_ms": wall / ticks * 1e3,
-                "train_examples_per_sec":
-                    self.loader.class_lengths[TRAIN] / wall})
-        return fired
