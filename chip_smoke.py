@@ -89,7 +89,21 @@ exits nonzero without the final ``ok`` line:
    CPU, held as in 7 and its weights and biases within rtol 1e-4 / atol
    1e-6 (tests/test_torch_dropout_units.py holds the CPU unit graph to
    the reference's for two epochs);
-17. the ``kernels`` line, then ``{"ok": true, "device": {...}}`` last.
+17. the implicit-GEMM conv tier (``ZNICZ_TPU_CONV=pallas``, set for the
+   phase and restored after it; the phases before it run the default
+   tier): ``cifar_gemm`` (phase 6's net and split, 2 epochs),
+   ``cifar_units_gemm`` (its unit graph, 1 epoch), ``autoencoder_gemm``
+   (phase 13's, fused, 2 epochs) and ``alexnet_gemm`` (phase 8's, 1
+   epoch), each held as its default-tier twin with the tier's kernels
+   added to its launches (``conv_fwd``, ``conv_dgrad``, ``conv_wgrad``
+   per step or tick, ``PATHS``/``UNIT_PATHS``); one profiled train step
+   of CIFAR and of AlexNet holds the tier's three kernels and no library
+   conv kernel; epoch 0 of each model's default split on the tier
+   against the default tier's card run and against the tier's plain
+   versions on the CPU (losses within rtol 5e-4, error counts within 1%
+   of each class), and AlexNet's full-width epoch 0 against phase 8's,
+   its step time printed beside phase 8's;
+18. the ``kernels`` line, then ``{"ok": true, "device": {...}}`` last.
 
 The kernel phase holds, besides the fused paths' kernels, the unit graph's
 three: the tiled matmul at the five products of the MNIST unit graph
@@ -115,11 +129,23 @@ the others, each case's ulps printed; bound by bytes: the forward reads
 x and writes y, the backward reads err_y and one of y or x and writes
 err_x).
 
+And the conv tier's four: ``matmul_at_b`` at the patch matrices of
+CIFAR's conv1 and AlexNet's conv2 weight gradients and at
+tests/test_ops.py's shapes; ``conv_fwd``, ``conv_dgrad`` and ``conv_wgrad``
+at CIFAR's two convs, the autoencoder's (whose geometry its deconv
+shares), AlexNet's conv1, conv2 and conv4, a ragged stride-2 case and a
+stride-2 padding-1 case (``CONV_GEMM_CASES``); each within rtol 1e-5 /
+atol 1e-5·√R times the operands' largest product (R the reduction length)
+of its plain version, the split products bit-equal across two calls; the
+yardstick ``torch.matmul(a.T, b)``, ``F.conv2d`` and
+``aten.convolution_backward`` with TF32 off.
+
 It imports nothing of JAX or of the ``znicz_tpu`` package.  Without a CUDA
 device, or outside a checkout of the repository, it fails."""
 
 from __future__ import annotations
 
+import contextlib
 import importlib
 import json
 import math
@@ -207,6 +233,23 @@ KERNELS = {
     "act_bwd": ("znicz_tpu_torch/csrc/activation.cu",
                 "znicz_tpu/ops/elementwise.py:115", "activations",
                 "act_bwd_launches"),
+    "matmul_at_b": ("znicz_tpu_torch/csrc/matmul_at_b.cu",
+                    "znicz_tpu/ops/matmul.py:145", "matmul",
+                    "matmul_at_b_launches"),
+    "conv_fwd": ("znicz_tpu_torch/csrc/conv_gemm.cu",
+                 "znicz_tpu/ops/conv.py:319", "conv", "conv_fwd_launches"),
+    "conv_dgrad": ("znicz_tpu_torch/csrc/conv_gemm.cu",
+                   "znicz_tpu/ops/conv.py:336", "conv", "conv_dgrad_launches"),
+    "conv_wgrad": ("znicz_tpu_torch/csrc/conv_gemm.cu",
+                   "znicz_tpu/ops/conv.py:362", "conv", "conv_wgrad_launches"),
+}
+#: why a kernel no path launches has no launches (the kernels line says so)
+OFF_PATH = {
+    "matmul_at_b": "no path calls aT.b on its own: the reference calls "
+                   "pallas_matmul_at_b only from pallas_conv2d_grad_weights, "
+                   "whose port conv_wgrad runs this kernel's tile loop "
+                   "(csrc/gemm_tile.cuh at_b_block) with the patch gathered "
+                   "in its loader",
 }
 
 #: each path's kernels: launches per (train step, eval step)
@@ -255,6 +298,23 @@ UNIT_PATHS = {
                       "dropout": (0, 2, 2), "pool_scatter": (0, 0, 3),
                       "gd_lrn": (0, 0, 2), "sgd_update": (0, 0, 16)},
 }
+#: the implicit-GEMM conv tier (ZNICZ_TPU_CONV=pallas) adds its kernels to
+#: a path's own: each conv's forward on every step, its input gradient on
+#: a train step but for the first layer's (never read), its weight
+#: gradient on every train step; the autoencoder's deconv runs conv_dgrad
+#: forward and conv_fwd and conv_wgrad backward
+PATHS.update({
+    "cifar_gemm": {**PATHS["cifar"], "conv_fwd": (2, 2), "conv_dgrad": (1, 0),
+                   "conv_wgrad": (2, 0)},
+    "autoencoder_gemm": {**PATHS["autoencoder"], "conv_fwd": (2, 1),
+                         "conv_dgrad": (1, 1), "conv_wgrad": (2, 0)},
+    "alexnet_gemm": {**PATHS["alexnet"], "conv_fwd": (5, 5),
+                     "conv_dgrad": (4, 0), "conv_wgrad": (5, 0)},
+})
+UNIT_PATHS["cifar_units_gemm"] = {**UNIT_PATHS["cifar_units"],
+                                  "conv_fwd": (2, 0, 0),
+                                  "conv_dgrad": (0, 0, 1),
+                                  "conv_wgrad": (0, 0, 2)}
 #: the MNIST MLP with its tanh as a standalone layer (same weight draws as
 #: the All2AllTanh sample: the activation layer draws nothing)
 MNIST_ACT_LAYERS = [
@@ -1152,6 +1212,160 @@ def phase_kernel_act(torch) -> dict:
     return rows
 
 
+def conv_gemm_bound_ms(in_numels, out_numel: int, macs: int):
+    """The two operands read once, the result written once; 2 float
+    operations a multiply-add (the forward's count for all three: the
+    input gradient and the weight gradient do the same multiply-adds)."""
+    return _bound((sum(in_numels) + out_numel) * 4, 2 * macs)
+
+
+#: case, x (B,H,W,C), w (KH,KW,C,OC), stride, padding, the kernels timed
+#: (f, d, w: forward, input and weight gradient): the paths' convs first
+#: (CIFAR's conv2 is every kernel's main-path row), the autoencoder's
+#: conv, whose geometry its tied deconv shares (the deconv's forward is
+#: conv_dgrad at N = C = 1), AlexNet's conv1 (no input gradient: it is the
+#: first layer), then a ragged case whose last row and column no window
+#: reaches and a stride-2 padding-1 case with a rectangular window
+CONV_GEMM_CASES = [
+    ("cifar_conv2", (100, 16, 16, 32), (5, 5, 32, 32), 1, 2, "fdw"),
+    ("cifar_conv1", (100, 32, 32, 3), (5, 5, 3, 32), 1, 2, "fdw"),
+    ("autoencoder", (100, 28, 28, 1), (5, 5, 1, 16), 1, 2, "fdw"),
+    ("alexnet_conv1", (128, 227, 227, 3), (11, 11, 3, 96), 4, 0, "fw"),
+    ("alexnet_conv2", (128, 27, 27, 96), (5, 5, 96, 256), 1, 2, "fdw"),
+    ("alexnet_conv4", (128, 13, 13, 384), (3, 3, 384, 384), 1, 1, "fdw"),
+    ("ragged", (3, 10, 10, 5), (3, 3, 5, 7), 2, 0, "fdw"),
+    ("stride2_pad1", (8, 17, 15, 6), (3, 5, 6, 10), 2, 1, "fdw"),
+]
+#: the tier's tolerance: rtol 1e-5, atol 1e-5·√R·(the operands' largest
+#: product), R the reduction length (the matmul rule, sums in another order)
+GEMM_RTOL = 1e-5
+
+
+def _gemm_atol(a, b, r: int) -> float:
+    return GEMM_RTOL * math.sqrt(r) * float(a.abs().max() * b.abs().max())
+
+
+def phase_kernel_conv_gemm(torch) -> dict:
+    """The implicit-GEMM kernels against their plain versions (patches by
+    unfold, the products on cuBLAS, TF32 off) within GEMM_RTOL and
+    ``_gemm_atol``, the split weight gradient bit-equal to itself on a
+    second call.  The yardstick is the one PyTorch call on the default
+    tier's layouts: ``F.conv2d``, and ``aten.convolution_backward`` with
+    the input or the weight mask; its own gap to the plain version is
+    printed beside it (``library_max_abs_err``)."""
+    import torch.nn.functional as F
+
+    from znicz_tpu_torch.ops import conv
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 12)
+    if (torch.backends.cudnn.allow_tf32
+            or torch.backends.cuda.matmul.allow_tf32):
+        raise AssertionError("TF32 is on: the yardsticks would round")
+    rows = {"conv_fwd": [], "conv_dgrad": [], "conv_wgrad": []}
+    for case, xs, ws, st, pd, which in CONV_GEMM_CASES:
+        kh, kw, c, oc = ws
+        x = torch.randn(xs, generator=gen).to(dev)
+        w = (torch.randn(ws, generator=gen) / math.sqrt(kh * kw * c)).to(dev)
+        y = conv.plain_conv2d_gemm(x, w, st, pd)
+        e = torch.randn(tuple(y.shape), generator=gen).to(dev)
+        b, oh, ow, _ = y.shape
+        macs = b * oh * ow * kh * kw * c * oc
+        xn, wn, en = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), \
+            e.permute(0, 3, 1, 2)
+        big = case.startswith("alexnet")
+        iters = BIG_ITERS if big else ITERS
+        geo = {"case": case, "shape": [list(xs), list(ws)], "stride": st,
+               "padding": pd, "gflop": 2 * macs / 1e9}
+        for kname, letter, fn, plain, lib, inputs, out_numel, r, scale in (
+                ("conv_fwd", "f",
+                 lambda: conv.conv2d_gemm(x, w, st, pd),
+                 lambda: conv.plain_conv2d_gemm(x, w, st, pd),
+                 lambda: F.conv2d(xn, wn, stride=st, padding=pd)
+                 .permute(0, 2, 3, 1), (x, w), y.numel(), kh * kw * c,
+                 (x, w)),
+                ("conv_dgrad", "d",
+                 lambda: conv.conv2d_grad_input_gemm(e, w, xs, st, pd),
+                 lambda: conv.plain_conv2d_grad_input_gemm(e, w, xs, st, pd),
+                 lambda: torch.ops.aten.convolution_backward(
+                     en, xn, wn, None, [st, st], [pd, pd], [1, 1], False,
+                     [0, 0], 1, (True, False, False))[0].permute(0, 2, 3, 1),
+                 (e, w), x.numel(), kh * kw * oc, (e, w)),
+                ("conv_wgrad", "w",
+                 lambda: conv.conv2d_grad_weights_gemm(x, e, ws, st, pd),
+                 lambda: conv.plain_conv2d_grad_weights_gemm(x, e, ws, st,
+                                                             pd),
+                 lambda: torch.ops.aten.convolution_backward(
+                     en, xn, wn, None, [st, st], [pd, pd], [1, 1], False,
+                     [0, 0], 1, (False, True, False))[1].permute(2, 3, 1, 0),
+                 (x, e), w.numel(), b * oh * ow, (x, e))):
+            if letter not in which:
+                continue
+            got = _launch_once(torch, kname, fn)
+            want = plain()
+            atol = _gemm_atol(*scale, r)
+            err = _close(torch, case, kname, got, want, GEMM_RTOL, atol)
+            if kname == "conv_wgrad" and not torch.equal(fn(), got):
+                raise AssertionError(f"{case}: conv_wgrad differs between "
+                                     f"two calls")
+            lib_err = float((lib() - want).abs().max())
+            lib_ms = _time_ms(torch, lib, iters)[0]
+            rows[kname].append(_row(
+                torch, kname, {**geo, "reduction": r, "atol": atol,
+                               "library_max_abs_err": lib_err}, err, fn,
+                plain, conv_gemm_bound_ms([t.numel() for t in inputs],
+                                          out_numel, macs), lib_ms, iters))
+            del got, want
+        del x, w, y, e
+        torch.cuda.empty_cache()
+    return rows
+
+
+#: case, M, K, N of aT.b: the patch matrices of CIFAR's conv1 and AlexNet's
+#: conv2 weight gradients (the products the reference's tier runs there),
+#: then tests/test_ops.py:40's shapes
+AT_B_CASES = [
+    ("cifar_conv1_patches", 102400, 75, 32),
+    ("alexnet_conv2_patches", 93312, 2400, 256),
+    ("ref_test_700", 700, 72, 16),
+    ("ref_test_2000", 2000, 130, 260),
+]
+
+
+def phase_kernel_at_b(torch) -> list:
+    """``matmul_at_b`` against ``a.T @ b`` (cuBLAS, TF32 off) within
+    GEMM_RTOL and ``_gemm_atol`` over R = M, bit-equal to itself on a
+    second call (the splits sum in a fixed order); the yardstick is
+    ``torch.matmul(a.T, b)``."""
+    from znicz_tpu_torch.ops import matmul
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 13)
+    rows = []
+    for case, m, k, n in AT_B_CASES:
+        a = torch.randn((m, k), generator=gen).to(dev)
+        b = torch.randn((m, n), generator=gen).to(dev)
+        got = _launch_once(torch, "matmul_at_b",
+                           lambda: matmul.matmul_at_b(a, b))
+        atol = _gemm_atol(a, b, m)
+        err = _close(torch, case, "c", got, matmul.plain_matmul_at_b(a, b),
+                     GEMM_RTOL, atol)
+        if not torch.equal(matmul.matmul_at_b(a, b), got):
+            raise AssertionError(f"{case}: matmul_at_b differs between two "
+                                 f"calls")
+        iters = BIG_ITERS if m * k > 10 ** 8 else ITERS
+        lib = _time_ms(torch, lambda: torch.matmul(a.T, b), iters)[0]
+        splits, chunk = matmul.split_plan(m, k, n)
+        rows.append(_row(
+            torch, "matmul_at_b", {"case": case, "shape": [m, k, n],
+                                   "splits": splits, "chunk": chunk,
+                                   "atol": atol}, err,
+            lambda: matmul.matmul_at_b(a, b),
+            lambda: matmul.plain_matmul_at_b(a, b),
+            matmul_bound_ms(m, n, k), lib, iters))
+        del a, b, got
+        torch.cuda.empty_cache()
+    return rows
+
+
 # -- main paths --------------------------------------------------------------
 def expected_steps(split: dict, batch: int, epochs: int) -> list[dict]:
     """Steps ``run_fused`` runs in each epoch: train steps (the head of
@@ -1500,6 +1714,150 @@ def cross_path_close(what: str, got: dict, want: dict, split: dict,
             raise AssertionError(f"{what} {name}_n_err {got} vs {want}")
 
 
+@contextlib.contextmanager
+def conv_tier(value: str):
+    """``ZNICZ_TPU_CONV=value`` for the phases inside, restored after them
+    (an exception passes through)."""
+    saved = os.environ.get("ZNICZ_TPU_CONV")
+    os.environ["ZNICZ_TPU_CONV"] = value
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("ZNICZ_TPU_CONV", None)
+        else:
+            os.environ["ZNICZ_TPU_CONV"] = saved
+
+
+#: marks of a library convolution kernel's name (cuDNN's implicit GEMMs,
+#: Winograd and FFT kernels, CUTLASS's fprop/dgrad/wgrad kernels); the
+#: tier's own kernels are taken out first
+LIBRARY_CONV_MARKS = ("conv", "cudnn", "fprop", "dgrad", "wgrad",
+                      "winograd", "fft")
+GEMM_CONV_KERNELS = ("conv_fwd_kernel", "conv_dgrad_kernel",
+                     "conv_wgrad_kernel")
+
+
+def split_conv_kernels(kernels: dict) -> tuple[dict, list]:
+    """({the tier's conv kernels: device µs}, [library conv kernel names])
+    of a step's device kernels; raises unless the tier's three ran and no
+    library conv did."""
+    ours = {k: v for k, v in kernels.items()
+            if any(g in k for g in GEMM_CONV_KERNELS)}
+    library = [k for k in kernels if k not in ours and any(
+        mark in k.lower() for mark in LIBRARY_CONV_MARKS)]
+    if library or not all(any(g in k for k in ours)
+                          for g in GEMM_CONV_KERNELS):
+        raise AssertionError(f"profiled step: library conv kernels "
+                             f"{library}, the tier's {sorted(ours)}")
+    return ours, library
+
+
+def profiled_step(torch, wf) -> dict:
+    """One fused train step of the counted run's model (a trainer on copies
+    of its weights, the step warmed up once) under ``torch.profiler``: the
+    device kernels it ran must hold the tier's three conv kernels and no
+    kernel whose name marks a library convolution."""
+    from znicz_tpu_torch.parallel import fused
+
+    def copies(rows):
+        return [tuple(None if t is None else t.clone() for t in pair)
+                for pair in rows]
+    tr = fused.FusedTrainer(spec=wf.spec, params=copies(
+        wf.spec_rows(wf.params)), vels=copies(wf.spec_rows(wf.vels)),
+        device=wf.device.torch_device)
+    ld = wf.loader
+    batch = ld.max_minibatch_size
+    idx = ld.train_permutation(0)[:batch]
+    target = (ld.original_targets if wf.loss_function == "mse"
+              else ld.original_labels)
+    tr.train_epoch(ld.original_data, target, idx, batch)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        tr.train_epoch(ld.original_data, target, idx, batch)
+        torch.cuda.synchronize()
+    kernels = {e.key: e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA}
+    ours, library = split_conv_kernels(kernels)
+    busy = sum(kernels.values())
+    return {"profiled_step": {
+        "kernels": len(kernels), "device_busy_us": busy,
+        "gemm_conv_us": {g: sum(v for k, v in ours.items() if g in k)
+                         for g in GEMM_CONV_KERNELS},
+        "gemm_conv_share_of_busy": sum(ours.values()) / busy if busy
+        else None, "library_conv_kernels": library}}
+
+
+def gemm_parity(model: str, split: dict, cudnn_epoch0: dict,
+                phase: str, config: dict | None = None,
+                fused: bool = True) -> None:
+    """Epoch 0 of the model's default split on the implicit-GEMM tier (the
+    caller sets it): on the card against the default tier's card run
+    (``cudnn_epoch0``), and against the tier's plain versions on the CPU
+    (``phase_parity``); losses within rtol 5e-4, error counts within 1% of
+    each class."""
+    before = launch_counts()["conv_fwd"]
+    card = _run(model, "cuda", 1, split, config, fused).decision \
+        .epoch_metrics[0]
+    if launch_counts()["conv_fwd"] == before:
+        raise AssertionError(f"{phase}: the card run took no GEMM kernel")
+    cross_path_close(f"{phase} (card, gemm vs cudnn)", card, cudnn_epoch0,
+                     split, 5e-4, 0.01)
+    emit({"phase": f"{phase}_vs_cudnn", "split": split, "gemm_epoch0": card,
+          "cudnn_epoch0": cudnn_epoch0})
+    phase_parity(model, split, card, 5e-4, 0.01, config, fused, phase=phase)
+
+
+def phase_gemm_tier(torch, cudnn: dict, alexnet_fused: dict,
+                    shrunk: dict) -> dict:
+    """The slice's four paths on the implicit-GEMM conv tier
+    (``ZNICZ_TPU_CONV=pallas``, restored after), each held as the default
+    tier's paths are, plus its tier's launch multiplicities (``PATHS``,
+    ``UNIT_PATHS``); a profiled train step of CIFAR and of AlexNet shows no
+    library conv kernel; parity on each model's default split against the
+    default tier's card run and the tier's CPU run, and AlexNet's
+    full-width epoch 0 against the default tier's (phase 8)."""
+    out = {}
+    with conv_tier("pallas"):
+        out["cifar_gemm"] = phase_slice(
+            torch, "cifar", CIFAR_SPLIT, "cifar conv net, implicit-GEMM conv "
+            "tier", lambda t, wf: profiled_step(t, wf), path="cifar_gemm")
+        gemm_parity("cifar", CIFAR_PARITY_SPLIT, cudnn["cifar"],
+                    "cifar_gemm_parity")
+        out["cifar_units_gemm"] = phase_slice(
+            torch, "cifar", CIFAR_SPLIT, "cifar conv net unit graph, "
+            "implicit-GEMM conv tier", path="cifar_units_gemm", epochs=1)
+        gemm_parity("cifar", CIFAR_PARITY_SPLIT, cudnn["cifar_units"],
+                    "cifar_units_gemm_parity", fused=False)
+        out["autoencoder_gemm"] = phase_slice(
+            torch, "autoencoder", MNIST_SPLIT, "mnist autoencoder, "
+            "implicit-GEMM conv tier", path="autoencoder_gemm")
+        gemm_parity("autoencoder", AE_PARITY_SPLIT, cudnn["autoencoder"],
+                    "autoencoder_gemm_parity")
+        out["alexnet_gemm"] = phase_slice(
+            torch, "alexnet", ALEXNET_SPLIT, "alexnet full width, "
+            "implicit-GEMM conv tier", lambda t, wf: profiled_step(t, wf),
+            path="alexnet_gemm", epochs=1)
+        cross_path_close("alexnet_gemm vs alexnet (cudnn)",
+                         out["alexnet_gemm"]["epoch_metrics"][0],
+                         alexnet_fused["epoch_metrics"][0], ALEXNET_SPLIT,
+                         5e-4, 0.01)
+        emit({"phase": "alexnet_gemm_vs_cudnn",
+              "gemm_epoch0": out["alexnet_gemm"]["epoch_metrics"][0],
+              "cudnn_epoch0": alexnet_fused["epoch_metrics"][0],
+              "gemm_train_step_ms": [
+                  e["train_step_time_ms"]
+                  for e in out["alexnet_gemm"]["epoch_timings"]],
+              "cudnn_train_step_ms": [
+                  e["train_step_time_ms"]
+                  for e in alexnet_fused["epoch_timings"]]})
+        gemm_parity("alexnet", ALEXNET_SPLIT, cudnn["alexnet"],
+                    "alexnet_gemm_parity", shrunk)
+    return out
+
+
 def kernels_line(kern: dict, launches: dict) -> dict:
     """One entry per kernel: its numbers at the main path's shape (the
     first case), the launches of the main-path runs, and every case."""
@@ -1518,6 +1876,7 @@ def kernels_line(kern: dict, launches: dict) -> dict:
             "kernel_eager_ms": main["kernel_eager_ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            **({"off_path": OFF_PATH[name]} if name in OFF_PATH else {}),
             "by_shape": [{k: r[k] for k in ("case", "shape", "kernel_ms",
                                             "plain_ms", "bound_ms",
                                             "max_abs_err")}
@@ -1533,6 +1892,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import znicz_tpu_torch  # noqa: F401  (fails outside a checkout)
+    # the paths before phase 17 run the default conv tier
+    os.environ.pop("ZNICZ_TPU_CONV", None)
 
     info = phase_device(torch)
     phase_build()
@@ -1546,16 +1907,20 @@ def main() -> int:
             **phase_kernel_lrn_denom(torch),
             "pool_gather": phase_kernel_pool_gather(torch),
             "distance_argmin": phase_kernel_distance_argmin(torch),
-            **phase_kernel_act(torch)}
+            **phase_kernel_act(torch),
+            "matmul_at_b": phase_kernel_at_b(torch),
+            **phase_kernel_conv_gemm(torch)}
+    #: each conv model's epoch 0 on its default split on the default tier
+    cudnn = {}
     mnist = phase_slice(torch, "mnist", MNIST_SPLIT, "mnist 784-100-10")
     phase_parity("mnist", MNIST_SPLIT, mnist["epoch_metrics"][0], 1e-4,
                  0.001)
     cifar = phase_slice(torch, "cifar", CIFAR_SPLIT,
                         "cifar conv5x5x32-maxpool2-lrn5-conv5x5x32-"
                         "avgpool2-fc64-softmax10")
-    card = _run("cifar", "cuda", 1, CIFAR_PARITY_SPLIT)
-    phase_parity("cifar", CIFAR_PARITY_SPLIT, card.decision.epoch_metrics[0],
-                 5e-4, 0.01)
+    cudnn["cifar"] = _run("cifar", "cuda", 1, CIFAR_PARITY_SPLIT).decision \
+        .epoch_metrics[0]
+    phase_parity("cifar", CIFAR_PARITY_SPLIT, cudnn["cifar"], 5e-4, 0.01)
     alexnet = phase_slice(torch, "alexnet", ALEXNET_SPLIT,
                           "alexnet 227x227x3 conv11/4x96-lrnpool-conv5x256-"
                           "lrnpool-conv3x384-conv3x384-conv3x256-maxpool3/2-"
@@ -1564,9 +1929,10 @@ def main() -> int:
     from znicz_tpu_torch.models import alexnet as alexnet_model
     shrunk = dict(ALEXNET_SHRUNK, layers=alexnet_model.make_layers(
         ALEXNET_SHRUNK["n_classes"], widths=ALEXNET_SHRUNK_WIDTHS))
-    card = _run("alexnet", "cuda", 1, ALEXNET_SPLIT, shrunk)
-    phase_parity("alexnet", ALEXNET_SPLIT, card.decision.epoch_metrics[0],
-                 5e-4, 0.01, shrunk)
+    cudnn["alexnet"] = _run("alexnet", "cuda", 1, ALEXNET_SPLIT, shrunk) \
+        .decision.epoch_metrics[0]
+    phase_parity("alexnet", ALEXNET_SPLIT, cudnn["alexnet"], 5e-4, 0.01,
+                 shrunk)
     units = phase_slice(torch, "mnist", MNIST_SPLIT,
                         "mnist 784-100-10 unit graph", path="mnist_units")
     phase_parity("mnist", MNIST_SPLIT, units["epoch_metrics"][0], 1e-4,
@@ -1574,9 +1940,10 @@ def main() -> int:
     cifar_units = phase_slice(torch, "cifar", CIFAR_SPLIT,
                               "cifar conv net unit graph",
                               path="cifar_units")
-    card = _run("cifar", "cuda", 1, CIFAR_PARITY_SPLIT, fused=False)
-    phase_parity("cifar", CIFAR_PARITY_SPLIT, card.decision.epoch_metrics[0],
-                 5e-4, 0.01, fused=False)
+    cudnn["cifar_units"] = _run("cifar", "cuda", 1, CIFAR_PARITY_SPLIT,
+                                fused=False).decision.epoch_metrics[0]
+    phase_parity("cifar", CIFAR_PARITY_SPLIT, cudnn["cifar_units"], 5e-4,
+                 0.01, fused=False)
     ae_desc = "mnist autoencoder conv5x5x16-maxpool2-depool-deconv5x5x16>1"
     ae = phase_slice(torch, "autoencoder", MNIST_SPLIT, ae_desc)
     ae_units = phase_slice(torch, "autoencoder", MNIST_SPLIT,
@@ -1585,6 +1952,8 @@ def main() -> int:
         card = _run("autoencoder", "cuda", 1, AE_PARITY_SPLIT, fused=fused)
         phase_parity("autoencoder", AE_PARITY_SPLIT,
                      card.decision.epoch_metrics[0], 5e-4, 0.0, fused=fused)
+        if fused:
+            cudnn["autoencoder"] = card.decision.epoch_metrics[0]
     som = phase_som(torch)
     act_cfg = {"layers": MNIST_ACT_LAYERS}
     act_units = phase_slice(torch, "mnist", MNIST_SPLIT,
@@ -1612,6 +1981,8 @@ def main() -> int:
     card = _run("alexnet", "cuda", 1, ALEXNET_SPLIT, shrunk, fused=False)
     phase_parity("alexnet", ALEXNET_SPLIT, card.decision.epoch_metrics[0],
                  5e-4, 0.01, shrunk, fused=False, card_wf=card)
+    del card
+    gemm = phase_gemm_tier(torch, cudnn, alexnet, shrunk)
     emit(kernels_line(kern, {"mnist": mnist["launches"],
                              "cifar": cifar["launches"],
                              "alexnet": alexnet["launches"],
@@ -1623,7 +1994,9 @@ def main() -> int:
                              "som_units": som["som_units"]["launches"],
                              "mnist_act_units": act_units["launches"],
                              "mnist_act": act_fused["launches"],
-                             "alexnet_units": alexnet_units["launches"]}))
+                             "alexnet_units": alexnet_units["launches"],
+                             **{path: line["launches"]
+                                for path, line in gemm.items()}}))
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -7,8 +7,10 @@ classes, batch 32) with its strict-ReLU convs and both dropout layers:
   LRN→pool pairs with the folded ReLU derivative, dropout's seed and unit
   ids, the write-back map) equal ``extract_model``'s under ``fused1``;
 - one fused train epoch on carried-across weights matches the reference's
-  ``FusedTrainer``: under ``fused1`` with its XLA tier and with its Pallas
-  kernels in interpret mode within rtol 1e-5, and under the default
+  ``FusedTrainer``: under ``fused1`` with its XLA tier, with its Pallas
+  kernels in interpret mode, and with both packages on the implicit-GEMM
+  conv tier (``ZNICZ_TPU_CONV=pallas``, the reference's tier functions
+  seen to run), within rtol 1e-5, and under the default
   ``fused2`` (parity-split convs) within tests/test_lrn_pool.py:289-296's
   tolerances (loss rtol 1e-5 / atol 1e-6, weights rtol 2e-4 / atol 2e-5);
   error counts exactly;
@@ -46,6 +48,7 @@ from znicz_tpu_torch.config import root
 from znicz_tpu_torch.models import alexnet
 from znicz_tpu_torch.ops import conv
 from znicz_tpu_torch.parallel import fused
+from test_torch_conv_gemm import assert_both_took_the_tier, pallas_conv_tier
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = {"n_train": 64, "n_valid": 32, "n_test": 32, "noise": 0.4}
@@ -129,9 +132,12 @@ def _epoch_against_reference(ref, routing, tier, monkeypatch):
     n0, n1, n2 = ld.class_lengths
     idx = np.random.default_rng(7).permutation(np.arange(n0 + n1,
                                                          n0 + n1 + n2))
+    calls = None
     if tier == "pallas_interpret":
         monkeypatch.setattr(tuning, "_INTERPRET", True)
         assert tuning.use_pallas()
+    elif tier == "pallas_conv":
+        calls = pallas_conv_tier(monkeypatch)
     copy = lambda t: jax.tree_util.tree_map(np.array, t)  # noqa: E731
     tr = ref_fused.FusedTrainer(spec=spec, params=copy(params),
                                 vels=copy(vels))
@@ -144,10 +150,12 @@ def _epoch_against_reference(ref, routing, tier, monkeypatch):
                               device="cpu")
     got = port.train_epoch(torch.from_numpy(data), torch.from_numpy(labels),
                            idx, ld.max_minibatch_size, epoch=3)
+    if calls is not None:
+        assert_both_took_the_tier(calls)
     return spec, want, got, tr.params, port.params
 
 
-@pytest.mark.parametrize("tier", ["xla", "pallas_interpret"])
+@pytest.mark.parametrize("tier", ["xla", "pallas_interpret", "pallas_conv"])
 def test_fused1_epoch_matches_reference_trainer(tier, monkeypatch):
     ref, _ = _both()
     spec, want, got, wparams, gparams = _epoch_against_reference(

@@ -11,7 +11,11 @@ input) against the JAX package's ``MnistAEWorkflow`` on the CPU, at
   JAX fused run's;
 * one fused epoch on carried weights (``convert.from_reference``) against
   ``znicz_tpu.parallel.FusedTrainer``: per-step losses within rtol 5e-4,
-  params within atol 1e-5 — also for a deconv tied to the encoder conv;
+  params within atol 1e-5 — also for a deconv tied to the encoder conv,
+  and with both packages on the implicit-GEMM conv tier
+  (``ZNICZ_TPU_CONV=pallas``, the reference's tier functions seen to run:
+  its deconv forward is the conv input gradient, its input gradient the
+  conv forward);
 * the port's fused epoch against its own unit graph over the same
   minibatches, weights within rtol 5e-4 / atol 1e-5, as
   tests/test_deconv_units.py holds the reference's.
@@ -36,6 +40,7 @@ from znicz_tpu_torch import convert, prng
 from znicz_tpu_torch.config import root
 from znicz_tpu_torch.models import autoencoder
 from znicz_tpu_torch.parallel import fused
+from test_torch_conv_gemm import assert_both_took_the_tier, pallas_conv_tier
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SPLIT = {"n_train": 300, "n_valid": 60, "n_test": 60, "noise": 0.35}
@@ -148,6 +153,18 @@ TIED = [
 
 @pytest.mark.parametrize("layers", [None, TIED], ids=["config4", "tied"])
 def test_fused_epoch_matches_reference_trainer(small, layers):
+    _fused_epoch_against_reference(layers)
+
+
+@pytest.mark.parametrize("layers", [None, TIED], ids=["config4", "tied"])
+def test_fused_epoch_matches_reference_trainer_pallas_conv(small, layers,
+                                                           monkeypatch):
+    calls = pallas_conv_tier(monkeypatch)
+    _fused_epoch_against_reference(layers)
+    assert_both_took_the_tier(calls)
+
+
+def _fused_epoch_against_reference(layers):
     """extract_model's spec and weights carried across: one train epoch
     and one eval epoch over the same indices in both trainers."""
     ref_wf, wf = _pair(layers=layers)

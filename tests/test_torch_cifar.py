@@ -5,10 +5,11 @@ tests/test_fused_conv.py (16×16×3 samples, 200/80/80, batch 40).
 - the synthetic data and the initial weights are bit-identical, and the
   model spec equals ``extract_model``'s;
 - one fused train epoch on carried-across weights matches the reference's
-  ``FusedTrainer``, with its XLA tier and with its Pallas kernels in
-  interpret mode: weights at rtol 5e-4 / atol 1e-5 (the reference's own
-  tolerance for conv stacks, tests/test_fused_conv.py), error counts
-  exactly;
+  ``FusedTrainer``, with its XLA tier, with its Pallas kernels in
+  interpret mode, and with both packages on the implicit-GEMM conv tier
+  (``ZNICZ_TPU_CONV=pallas``, the reference's tier functions seen to run):
+  weights at rtol 5e-4 / atol 1e-5 (the reference's own tolerance for
+  conv stacks, tests/test_fused_conv.py), error counts exactly;
 - ``cifar.run(device="cpu", epochs=2)`` gives the reference
   ``run_fused``'s metrics: losses at rtol 5e-4, error counts exactly;
 - a second layer config (strided conv, max-abs pooling with padding, a
@@ -37,6 +38,7 @@ from znicz_tpu_torch import convert, prng
 from znicz_tpu_torch.config import root
 from znicz_tpu_torch.models import cifar
 from znicz_tpu_torch.parallel import fused
+from test_torch_conv_gemm import assert_both_took_the_tier, pallas_conv_tier
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = {"n_train": 200, "n_valid": 80, "n_test": 80, "noise": 0.3,
@@ -132,9 +134,12 @@ def _epoch_against_reference(ref, monkeypatch, tier, json_spec=False):
     n0, n1, n2 = ld.class_lengths
     idx = np.random.default_rng(7).permutation(np.arange(n0 + n1,
                                                          n0 + n1 + n2))
+    calls = None
     if tier == "pallas_interpret":
         monkeypatch.setattr(tuning, "_INTERPRET", True)
         assert tuning.use_pallas()
+    elif tier == "pallas_conv":
+        calls = pallas_conv_tier(monkeypatch)
     copy = lambda t: jax.tree_util.tree_map(np.array, t)  # noqa: E731
     tr = ref_fused.FusedTrainer(spec=spec, params=copy(params),
                                 vels=copy(vels))
@@ -150,6 +155,8 @@ def _epoch_against_reference(ref, monkeypatch, tier, json_spec=False):
                               device="cpu")
     got = port.train_epoch(torch.from_numpy(data), torch.from_numpy(labels),
                            idx, ld.max_minibatch_size)
+    if calls is not None:
+        assert_both_took_the_tier(calls)
     np.testing.assert_array_equal(got["n_err"], np.asarray(want["n_err"]))
     np.testing.assert_allclose(got["loss"], np.asarray(want["loss"]),
                                rtol=5e-4)
@@ -164,7 +171,7 @@ def _epoch_against_reference(ref, monkeypatch, tier, json_spec=False):
     return pspec
 
 
-@pytest.mark.parametrize("tier", ["xla", "pallas_interpret"])
+@pytest.mark.parametrize("tier", ["xla", "pallas_interpret", "pallas_conv"])
 def test_fused_epoch_matches_reference_trainer(tier, monkeypatch):
     ref, _ = _both()
     _epoch_against_reference(ref, monkeypatch, tier)

@@ -7,7 +7,9 @@ package's unit graph on the CPU, at 300/100/100 on 16×16×3 samples:
 * the same topology and initial weights, bit for bit;
 * ``run(epochs=2)``: per-epoch losses within rtol 5e-4 (the reference's
   tolerance for conv stacks) and error counts exact, with the reference
-  on its XLA tier and on interpret-mode Pallas (its LRN and pool kernels);
+  on its XLA tier, on interpret-mode Pallas (its LRN and pool kernels),
+  and with both packages on the implicit-GEMM conv tier
+  (``ZNICZ_TPU_CONV=pallas``, the reference's tier functions seen to run);
 * the port's numpy device against its torch CPU device, and its unit
   graph against its own fused trainer over one epoch (rtol 5e-4 / atol
   1e-5); ``run_fused`` reads and writes back the units' weights."""
@@ -29,6 +31,7 @@ from znicz_tpu_torch import prng
 from znicz_tpu_torch.config import root
 from znicz_tpu_torch.models import cifar
 from znicz_tpu_torch.parallel.fused import FusedTrainer
+from test_torch_conv_gemm import assert_both_took_the_tier, pallas_conv_tier
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SPLIT = {"n_train": 300, "n_valid": 100, "n_test": 100, "noise": 0.3,
@@ -89,17 +92,22 @@ def test_topology_and_initial_weights_are_the_reference(split):
             np.testing.assert_array_equal(w.numpy(), f.weights.mem)
 
 
-@pytest.mark.parametrize("tier", ["xla", "pallas_interpret"])
+@pytest.mark.parametrize("tier", ["xla", "pallas_interpret", "pallas_conv"])
 def test_two_epochs_match_reference_unit_graph(split, monkeypatch, tier):
+    calls = None
     if tier == "pallas_interpret":
         monkeypatch.setattr(tuning, "_INTERPRET", True)
         assert tuning.use_pallas()
+    elif tier == "pallas_conv":
+        calls = pallas_conv_tier(monkeypatch)
     ref_prng.seed_all(1234)
     want = ref_cifar.run(device=Device.create("xla"), epochs=2,
                          fused=False).decision.epoch_metrics
     prng.seed_all(1234)
     wf = cifar.run(device="cpu", epochs=2)
     got = wf.decision.epoch_metrics
+    if calls is not None:
+        assert_both_took_the_tier(calls)
     _assert_metrics(got, want)
     assert got[-1]["train_loss"] < got[0]["train_loss"]
     counts = {name: n for name, n, _ in wf.time_table()}

@@ -5,8 +5,9 @@ NHWC input with HWIO weights ``(ky, kx, C, n_kernels)``, gaussian-filled
 by default with fan-in ky·kx·C from the ``"weights"`` stream, in the
 reference's draw order (W, then the bias).  ``padding`` is symmetric, an
 int or ``(pad_h, pad_w)``.  ``torch_run`` convolves through
-``ops.conv.conv2d`` (cuDNN on the card, TF32 off), as the reference leaves
-its convs to XLA; ``numpy_run`` is the im2col golden."""
+``ops.conv.conv2d``: cuDNN on the card (TF32 off) as the reference leaves
+its convs to XLA, or under ``ZNICZ_TPU_CONV=pallas`` the implicit-GEMM
+kernels as its Pallas tier; ``numpy_run`` is the im2col golden."""
 
 from __future__ import annotations
 

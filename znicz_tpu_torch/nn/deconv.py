@@ -7,8 +7,9 @@ links the encoder conv's weight Vector itself (both GD units then update
 the same tensor) and its geometry.  An untied deconv is gaussian-filled
 with the true forward fan-in, ``1/√(ky·kx·n_kernels)``, as the reference
 sets it.  ``include_bias`` defaults to False (the reference's decoder is
-linear).  ``torch_run`` goes through ``ops.deconv`` (cuDNN on the card);
-``numpy_run`` is the col2im golden.  ``compute_padding`` is the
+linear).  ``torch_run`` goes through ``ops.deconv`` (the conv's tier:
+cuDNN on the card, or the implicit-GEMM kernels under
+``ZNICZ_TPU_CONV=pallas``); ``numpy_run`` is the col2im golden.  ``compute_padding`` is the
 reference's geometry helper."""
 
 from __future__ import annotations

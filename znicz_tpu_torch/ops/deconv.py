@@ -15,13 +15,19 @@ deconv tied to an encoder conv shares its weight tensor with no
 transpose.  The output extent is the least one with no remainder,
 ``H = stride·(OH − 1) + K − 2·pad``.
 
-The reference leaves these to XLA outside any Pallas kernel by default,
-so the port leaves them to ``ops/conv.py``: cuDNN on the card, TF32 off.
-The ``np_*`` functions are the numpy goldens the numpy device runs.  The
-Pallas tier (``pallas_deconv2d*``) waits with the conv tiers (ROADMAP.md
-queue 2)."""
+Each op goes through ``ops/conv.py``, so it takes the conv's tier: cuDNN
+on the card by default (TF32 off), as the reference's XLA default; with
+``ZNICZ_TPU_CONV=pallas`` the implicit-GEMM kernels, as the reference's
+``pallas_deconv2d*``: the forward runs ``conv_dgrad``, the input gradient
+``conv_fwd`` and the weight gradient ``conv_wgrad`` (their plain versions
+on CPU tensors).  No deconv kernel of its own is needed.  Dtypes follow
+the reference's tiers: the forward returns ``out_dtype`` or x's dtype,
+both gradients float32.  The ``np_*`` functions are the numpy goldens
+the numpy device runs."""
 
 from __future__ import annotations
+
+import torch
 
 from . import conv as conv_ops
 from .geometry import norm2
@@ -45,15 +51,17 @@ def deconv_out_shape(x_shape, w_shape, stride=1, padding=0
             deconv_out_size(ow, kw, sw, pw), cout)
 
 
-def deconv2d(x, w, stride=1, padding=0):
-    """x (B,OH,OW,C_in), w (KH,KW,C_out,C_in) → (B,H,W,C_out) float32."""
+def deconv2d(x, w, stride=1, padding=0, out_dtype=None):
+    """x (B,OH,OW,C_in), w (KH,KW,C_out,C_in) → (B,H,W,C_out) in
+    ``out_dtype`` or x's dtype."""
     out_shape = deconv_out_shape(x.shape, w.shape, stride, padding)
-    return conv_ops.conv2d_grad_input(x, w, out_shape, stride, padding)
+    y = conv_ops.conv2d_grad_input(x, w, out_shape, stride, padding)
+    return y.to(out_dtype or x.dtype)
 
 
 def deconv2d_grad_input(err, w, stride=1, padding=0):
-    """err (B,H,W,C_out) → (B,OH,OW,C_in): the conv forward."""
-    return conv_ops.conv2d(err, w, stride, padding, out_dtype=err.dtype)
+    """err (B,H,W,C_out) → (B,OH,OW,C_in) float32: the conv forward."""
+    return conv_ops.conv2d(err, w, stride, padding, out_dtype=torch.float32)
 
 
 def deconv2d_grad_weights(err, x, w_shape, stride=1, padding=0):

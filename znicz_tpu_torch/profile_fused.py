@@ -24,8 +24,10 @@ and validation ticks of the next epoch; a "step" in its line is a tick.
 ``--model som`` profiles the fused SOM (BASELINE config 5 at its own
 size: 2000 points, an 8×8 sheet, batch 100): train steps only, after a
 warm-up epoch.
-With ``--out`` the Chrome traces are written there.  It needs a CUDA card
-and fails without one."""
+With ``--out`` the Chrome traces are written there.  The conv family runs
+on the tier ``ZNICZ_TPU_CONV`` selects, as everywhere in the port
+(``ZNICZ_TPU_CONV=pallas``: the implicit-GEMM kernels).  It needs a CUDA
+card and fails without one."""
 
 from __future__ import annotations
 
@@ -65,7 +67,8 @@ PORT_KERNELS = ("softmax_ce_kernel", "row_softmax_kernel",
                 "lrn_maxpool_kernel", "lrn_y_kernel", "gd_lrn_kernel",
                 "lrn_kernel", "dropout_kernel", "matmul_kernel",
                 "sgd_update_kernel", "dist_argmin_kernel", "act_fwd_kernel",
-                "act_bwd_kernel")
+                "act_bwd_kernel", "matmul_at_b_kernel", "conv_fwd_kernel",
+                "conv_dgrad_kernel", "conv_wgrad_kernel", "split_sum_kernel")
 
 
 def _window(fn, steps: int) -> float:
