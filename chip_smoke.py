@@ -131,14 +131,17 @@ err_x).
 
 And the conv tier's four: ``matmul_at_b`` at the patch matrices of
 CIFAR's conv1 and AlexNet's conv2 weight gradients and at
-tests/test_ops.py's shapes; ``conv_fwd``, ``conv_dgrad`` and ``conv_wgrad``
-at CIFAR's two convs, the autoencoder's (whose geometry its deconv
-shares), AlexNet's conv1, conv2 and conv4, a ragged stride-2 case and a
-stride-2 padding-1 case (``CONV_GEMM_CASES``); each within rtol 1e-5 /
-atol 1e-5·√R times the operands' largest product (R the reduction length)
-of its plain version, the split products bit-equal across two calls; the
+tests/test_ops.py's shapes; ``conv_fwd``, ``conv_dgrad`` (both on the
+tensor cores in the 3xTF32 split) and ``conv_wgrad`` at CIFAR's two
+convs, the autoencoder's (whose geometry its deconv shares), AlexNet's
+five, a ragged stride-2 case and a stride-2 padding-1 case
+(``CONV_GEMM_CASES``); each within rtol 1e-5 / atol 1e-5·√R times the
+operands' largest product (R the reduction length) of its plain version,
+its gap's ratio to that atol printed, bit-equal across two calls; the
 yardstick ``torch.matmul(a.T, b)``, ``F.conv2d`` and
-``aten.convolution_backward`` with TF32 off.
+``aten.convolution_backward`` with TF32 off; each conv row with the FFMA
+bound (2·MACs at 67 TFLOP/s) and the tensor-core bound (6·MACs at 495
+TFLOP/s: three TF32 products a multiply-add).
 
 It imports nothing of JAX or of the ``znicz_tpu`` package.  Without a CUDA
 device, or outside a checkout of the repository, it fails."""
@@ -155,9 +158,10 @@ import sys
 import time
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s outside
-#: the tensor cores.
+#: the tensor cores, dense TF32 FLOP/s on them.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+TF32_FLOPS_PER_S = 495e12
 
 SEED = 1234
 MNIST_SPLIT = {"n_train": 50000, "n_valid": 10000, "n_test": 10000,
@@ -1213,26 +1217,39 @@ def phase_kernel_act(torch) -> dict:
 
 
 def conv_gemm_bound_ms(in_numels, out_numel: int, macs: int):
-    """The two operands read once, the result written once; 2 float
-    operations a multiply-add (the forward's count for all three: the
-    input gradient and the weight gradient do the same multiply-adds)."""
+    """The FFMA bound: the two operands read once, the result written
+    once; 2 float operations a multiply-add at the float32 peak (the
+    forward's count for all three: the input gradient and the weight
+    gradient do the same multiply-adds)."""
     return _bound((sum(in_numels) + out_numel) * 4, 2 * macs)
+
+
+def conv_tc_bound_ms(in_numels, out_numel: int, macs: int):
+    """The tensor-core bound of the 3xTF32 kernels (``conv_fwd``,
+    ``conv_dgrad``): the same bytes, and three TF32 products a
+    multiply-add (6 operations) at the TF32 peak."""
+    t_bytes = (sum(in_numels) + out_numel) * 4 / HBM_BYTES_PER_S * 1e3
+    t_ops = 6 * macs / TF32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 #: case, x (B,H,W,C), w (KH,KW,C,OC), stride, padding, the kernels timed
 #: (f, d, w: forward, input and weight gradient): the paths' convs first
 #: (CIFAR's conv2 is every kernel's main-path row), the autoencoder's
 #: conv, whose geometry its tied deconv shares (the deconv's forward is
-#: conv_dgrad at N = C = 1), AlexNet's conv1 (no input gradient: it is the
-#: first layer), then a ragged case whose last row and column no window
-#: reaches and a stride-2 padding-1 case with a rectangular window
+#: conv_dgrad at N = C = 1), AlexNet's five convs (conv1 has no input
+#: gradient: it is the first layer), then a ragged case whose last row and
+#: column no window reaches and a stride-2 padding-1 case with a
+#: rectangular window
 CONV_GEMM_CASES = [
     ("cifar_conv2", (100, 16, 16, 32), (5, 5, 32, 32), 1, 2, "fdw"),
     ("cifar_conv1", (100, 32, 32, 3), (5, 5, 3, 32), 1, 2, "fdw"),
     ("autoencoder", (100, 28, 28, 1), (5, 5, 1, 16), 1, 2, "fdw"),
     ("alexnet_conv1", (128, 227, 227, 3), (11, 11, 3, 96), 4, 0, "fw"),
     ("alexnet_conv2", (128, 27, 27, 96), (5, 5, 96, 256), 1, 2, "fdw"),
+    ("alexnet_conv3", (128, 13, 13, 256), (3, 3, 256, 384), 1, 1, "fdw"),
     ("alexnet_conv4", (128, 13, 13, 384), (3, 3, 384, 384), 1, 1, "fdw"),
+    ("alexnet_conv5", (128, 13, 13, 384), (3, 3, 384, 256), 1, 1, "fdw"),
     ("ragged", (3, 10, 10, 5), (3, 3, 5, 7), 2, 0, "fdw"),
     ("stride2_pad1", (8, 17, 15, 6), (3, 5, 6, 10), 2, 1, "fdw"),
 ]
@@ -1248,11 +1265,14 @@ def _gemm_atol(a, b, r: int) -> float:
 def phase_kernel_conv_gemm(torch) -> dict:
     """The implicit-GEMM kernels against their plain versions (patches by
     unfold, the products on cuBLAS, TF32 off) within GEMM_RTOL and
-    ``_gemm_atol``, the split weight gradient bit-equal to itself on a
-    second call.  The yardstick is the one PyTorch call on the default
-    tier's layouts: ``F.conv2d``, and ``aten.convolution_backward`` with
-    the input or the weight mask; its own gap to the plain version is
-    printed beside it (``library_max_abs_err``)."""
+    ``_gemm_atol``, each bit-equal to itself on a second call.  The
+    yardstick is the one PyTorch call on the default tier's layouts:
+    ``F.conv2d``, and ``aten.convolution_backward`` with the input or the
+    weight mask; its own gap to the plain version is printed beside it
+    (``library_max_abs_err``).  Each row has both bounds: the FFMA one
+    (``ffma_bound_ms``) and the tensor cores' (``tc_bound_ms``);
+    ``bound_ms`` is the one of the kernel's own arithmetic (3xTF32 for
+    ``conv_fwd``/``conv_dgrad``, FFMA for ``conv_wgrad``)."""
     import torch.nn.functional as F
 
     from znicz_tpu_torch.ops import conv
@@ -1304,16 +1324,21 @@ def phase_kernel_conv_gemm(torch) -> dict:
             want = plain()
             atol = _gemm_atol(*scale, r)
             err = _close(torch, case, kname, got, want, GEMM_RTOL, atol)
-            if kname == "conv_wgrad" and not torch.equal(fn(), got):
-                raise AssertionError(f"{case}: conv_wgrad differs between "
-                                     f"two calls")
+            if not torch.equal(fn(), got):
+                raise AssertionError(f"{case}: {kname} differs between two "
+                                     f"calls")
             lib_err = float((lib() - want).abs().max())
             lib_ms = _time_ms(torch, lib, iters)[0]
+            numels = [t.numel() for t in inputs]
+            ffma = conv_gemm_bound_ms(numels, out_numel, macs)
+            tc = conv_tc_bound_ms(numels, out_numel, macs)
             rows[kname].append(_row(
                 torch, kname, {**geo, "reduction": r, "atol": atol,
-                               "library_max_abs_err": lib_err}, err, fn,
-                plain, conv_gemm_bound_ms([t.numel() for t in inputs],
-                                          out_numel, macs), lib_ms, iters))
+                               "atol_ratio": err / atol,
+                               "library_max_abs_err": lib_err,
+                               "ffma_bound_ms": ffma[0],
+                               "tc_bound_ms": tc[0]}, err, fn, plain,
+                ffma if kname == "conv_wgrad" else tc, lib_ms, iters))
             del got, want
         del x, w, y, e
         torch.cuda.empty_cache()
@@ -1876,6 +1901,8 @@ def kernels_line(kern: dict, launches: dict) -> dict:
             "kernel_eager_ms": main["kernel_eager_ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            **{k: main[k] for k in ("ffma_bound_ms", "tc_bound_ms")
+               if k in main},
             **({"off_path": OFF_PATH[name]} if name in OFF_PATH else {}),
             "by_shape": [{k: r[k] for k in ("case", "shape", "kernel_ms",
                                             "plain_ms", "bound_ms",

@@ -18,7 +18,9 @@
   call; the deconv dtypes follow the reference's Pallas tier;
 - the wrappers refuse what the kernels do not take, and on the CPU run the
   plain versions without counting a launch;
-- on a card only (skipped here): each kernel against its plain version.
+- on a card only (skipped here): each kernel against its plain version at
+  ``CUDA_CASES`` (the cases above and the tensor-core kernels' edges), and
+  bit-equal on a second call.
 
 ``pallas_conv_tier`` is the slice tests' switch: it routes both packages
 to the tier and counts the reference's tier functions, which run while a
@@ -55,6 +57,16 @@ CASES = {
     # odd C and OC; the last row and column of x no window reaches
     "unreached_row": ((3, 10, 10, 5), (3, 3, 5, 7), 2, 0),
     "k11_s4_c3": ((2, 27, 27, 3), (11, 11, 3, 8), 4, 0),
+}
+#: the card-only cases add the tensor-core kernels' edges: C = 3 at stride
+#: 4 with N = 96 (AlexNet's conv1 in small), an input gradient at N = 96
+#: and a forward at N = 256 (two tiles of 128), none with M a multiple of
+#: the 128-row tile
+CUDA_CASES = {
+    **CASES,
+    "c3_s4_n96": ((2, 35, 35, 3), (11, 11, 3, 96), 4, 0),
+    "dgrad_n96": ((2, 13, 13, 96), (5, 5, 96, 32), 1, 2),
+    "fwd_n256_m297": ((3, 9, 11, 16), (3, 3, 16, 256), 1, 1),
 }
 FNS = ["conv2d", "conv2d_grad_input", "conv2d_grad_weights", "deconv2d",
        "deconv2d_grad_input", "deconv2d_grad_weights"]
@@ -109,9 +121,9 @@ def assert_both_took_the_tier(calls: collections.Counter) -> None:
                                   "pallas_matmul_at_b") + PLAIN_GEMM), calls
 
 
-def _inputs(case):
+def _inputs(case, cases=CASES):
     """x, w and the conv's output error err, seeded by the case."""
-    x_shape, w_shape, stride, padding = CASES[case]
+    x_shape, w_shape, stride, padding = cases[case]
     rng = np.random.default_rng(sum(x_shape) * 31 + sum(w_shape))
     x = rng.standard_normal(x_shape).astype(np.float32)
     w = rng.standard_normal(w_shape).astype(np.float32)
@@ -384,10 +396,10 @@ def test_split_plan_covers_the_depth_and_fills_the_card(depth, rows, cols):
 
 @pytest.mark.skipif("not torch.cuda.is_available()",
                     reason="the CUDA kernels run only on a card")
-@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("case", sorted(CUDA_CASES))
 def test_cuda_kernels_match_plain_versions(case):
     x, w, err, stride, padding = (torch.from_numpy(a).cuda() if isinstance(
-        a, np.ndarray) else a for a in _inputs(case))
+        a, np.ndarray) else a for a in _inputs(case, CUDA_CASES))
     kh, kw, c, oc = w.shape
     b, oh, ow, _ = err.shape
     for fn, plain, args, r, counter in (
@@ -406,7 +418,8 @@ def test_cuda_kernels_match_plain_versions(case):
         assert getattr(conv, counter) == before + 1
         torch.testing.assert_close(got, plain(*args), rtol=RTOL,
                                    atol=RTOL * math.sqrt(r))
-        # the split weight gradient is summed in a fixed order
+        # each output element is summed in a fixed order (the split weight
+        # gradient's slices too): a rerun is bit-equal
         torch.testing.assert_close(fn(*args), got, rtol=0, atol=0)
 
 

@@ -10,8 +10,10 @@ implicit-GEMM tier, anything else the default tier.
   takes without a transpose.
 * Implicit-GEMM tier (the reference's Pallas tier, ``pallas_conv2d*``):
   on CUDA tensors the hand-written kernels of ``csrc/conv_gemm.cu``
-  (``conv_fwd``, ``conv_dgrad``, ``conv_wgrad``), which gather patches
-  while they load a tile, so the patch matrix never exists; on CPU
+  (``conv_fwd`` and ``conv_dgrad`` on the tensor cores in the 3xTF32
+  split, which keeps float32 accuracy, ``conv_wgrad`` in float32 FFMA),
+  which gather patches while they load a tile, so the patch matrix never
+  exists; on CPU
   tensors their plain versions (``plain_conv2d*_gemm``), which transcribe
   the reference's tier: patches by pad + unfold, err's interior dilation
   by strided assignment into zeros, the products as ``torch.matmul``.
@@ -20,8 +22,10 @@ implicit-GEMM tier, anything else the default tier.
 
 Activations stay NHWC and weights HWIO at every public function.
 Operands are computed in float32 whatever their dtype (the reference's
-``preferred_element_type=float32``); TF32 stays off
-(``znicz_tpu_torch/__init__.py``).  The ``np_*`` functions are the
+``preferred_element_type=float32``); TF32 stays off for PyTorch's own
+calls (``znicz_tpu_torch/__init__.py``).  ``tf32_rn`` and
+``matmul_3xtf32`` model the tensor-core kernels' arithmetic for the
+tests; no path calls them.  The ``np_*`` functions are the
 reference's numpy goldens (explicit im2col/col2im), which the numpy
 device runs.  The parity-split and space-to-depth forms are not ported
 yet (ROADMAP.md queue 1 item 5b)."""
@@ -30,6 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -45,15 +50,60 @@ conv_dgrad_launches = 0
 conv_wgrad_launches = 0
 
 #: x (or err), w, out, then B, H, W, C, KH, KW, OC, OH, OW, sh, sw, ph,
-#: pw, stream; the weight gradient adds its workspace after out and
-#: (splits, chunk) before the stream
-_CONV_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 13
+#: pw, the tensor-core tile choice (``TcConfig``: bn, vec_a, vec_b,
+#: unit_stride) and the stream
+_CONV_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 17
                   + [ctypes.c_void_p])
+#: the weight gradient: x, err, dw, its workspace, the 13 ints of the
+#: shape, (splits, chunk) and the stream
 _WGRAD_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 15
                    + [ctypes.c_void_p])
 _INT32 = 2 ** 31
+#: the weight gradient's C tile (csrc/gemm_tile.cuh), both axes
 _TILE = 64
 _MAX_GRID_Y = 65535
+#: C tile widths of the tensor-core forward and input gradient
+#: (csrc/gemm_tc.cuh), widest first; 8 is the narrowest MMA's
+TC_WIDTHS = (128, 96, 32, 16, 8)
+_MMA_N = 8
+
+
+class TcConfig(NamedTuple):
+    """The tensor-core kernels' launch choice: the C tile's width, the
+    floats a copy of A and of B moves (4 or 1) and 1 where the input
+    gradient's stride is 1 (its taps then need no exactness test)."""
+    bn: int
+    vec_a: int
+    vec_b: int
+    unit_stride: int
+
+
+def _tc_width(n: int) -> int:
+    """The widest of ``TC_WIDTHS`` whose tiles over N columns idle less
+    than a quarter of their columns beyond N rounded up to the narrowest
+    MMA's 8 (so 8 at N = 1)."""
+    padded = -(-n // _MMA_N) * _MMA_N
+    for bn in TC_WIDTHS:
+        cols = -(-n // bn) * bn
+        if 4 * (cols - padded) < cols:    # always true at 8
+            return bn
+
+
+def _tc_config(kind: str, n: int, gathered: int, stride=1,
+               aligned: bool = True) -> TcConfig:
+    """The tile choice of ``conv_fwd`` (``kind="fwd"``: N = OC, gathered
+    axis C) or ``conv_dgrad`` (``"dgrad"``: N = C, gathered axis OC): the
+    width ``_tc_width(n)``; a copy moves 16 bytes (4 floats) where the
+    axis it runs along is a multiple of 4 and the operands are 16-byte
+    ``aligned``: A and the input gradient's w along the gathered axis, the
+    forward's w along N."""
+    bn = _tc_width(n)
+    vec_a = 4 if aligned and gathered % 4 == 0 else 1
+    if kind == "fwd":
+        return TcConfig(bn, vec_a, 4 if aligned and n % 4 == 0 else 1, 0)
+    if kind == "dgrad":
+        return TcConfig(bn, vec_a, vec_a, int(norm2(stride) == (1, 1)))
+    raise ValueError(f"_tc_config: kind {kind!r} is not 'fwd' or 'dgrad'")
 
 
 def gemm_tier() -> bool:
@@ -173,13 +223,36 @@ def plain_conv2d_grad_weights_gemm(x, err, w_shape, stride=1, padding=0):
     return dw.reshape(c, kh, kw, oc).permute(1, 2, 0, 3).contiguous()
 
 
+# -- the tensor-core kernels' arithmetic, emulated (tests only) ------------
+def tf32_rn(v: torch.Tensor) -> torch.Tensor:
+    """float32 ``v`` rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: to
+    the nearest value with 10 mantissa bits, ties away from zero (half the
+    weight of the 13 dropped bits added to the magnitude's bit pattern,
+    then those bits cleared); infinities and NaNs pass through."""
+    bits = v.contiguous().view(torch.int32)
+    rounded = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return torch.where(torch.isfinite(v), rounded, v)
+
+
+def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (M, R) · b (R, N) in float32 as ``conv_fwd``/``conv_dgrad``
+    multiply (``csrc/gemm_tc.cuh`` ``split_tf32``): each operand split as
+    big = tf32_rn(v), small = tf32_rn(v − big), and the three products
+    small·big + big·small + big·big summed in float32; small·small is
+    dropped."""
+    a_big, b_big = tf32_rn(a), tf32_rn(b)
+    a_small, b_small = tf32_rn(a - a_big), tf32_rn(b - b_big)
+    return a_small @ b_big + a_big @ b_small + a_big @ b_big
+
+
 # -- the implicit-GEMM tier: wrappers ---------------------------------------
 def _gemm_geometry(name: str, x_shape, w_shape, stride, padding,
-                   err_shape=None) -> tuple:
+                   err_shape=None, kind: str = "wgrad") -> tuple:
     """(B, H, W, C, KH, KW, OC, OH, OW, sh, sw, ph, pw) of a conv, checked:
     matching channels, a non-empty window that fits, ``err_shape`` (if
     given) equal to the conv's output, and x, w and the output within the
-    kernels' int32 indices and grid."""
+    kernels' int32 indices and within the grid of ``kind``'s kernel
+    ("fwd", "dgrad" or "wgrad"), whose y axis runs over N's tiles."""
     if len(x_shape) != 4 or len(w_shape) != 4:
         raise ValueError(f"{name}: x {tuple(x_shape)} and w "
                          f"{tuple(w_shape)} must be NHWC and HWIO")
@@ -200,9 +273,11 @@ def _gemm_geometry(name: str, x_shape, w_shape, stride, padding,
                          f"output {(b, oh, ow, oc)}")
     if max(b * h * wd * c, kh * kw * c * oc, b * oh * ow * oc) >= _INT32:
         raise ValueError(f"{name}: a tensor exceeds int32 indexing")
-    if -(-max(c, oc) // _TILE) > _MAX_GRID_Y:
-        raise ValueError(f"{name}: {max(c, oc)} channels exceed the "
-                         f"kernels' grid")
+    n = c if kind == "dgrad" else oc
+    tile = _TILE if kind == "wgrad" else _tc_width(n)
+    if -(-n // tile) > _MAX_GRID_Y:
+        raise ValueError(f"{name}: {n} channels exceed the kernel's grid "
+                         f"({_MAX_GRID_Y} tiles of {tile})")
     return b, h, wd, c, kh, kw, oc, oh, ow, sh, sw, ph, pw
 
 
@@ -221,13 +296,18 @@ def _check_gemm(name: str, *tensors: torch.Tensor) -> None:
         raise ValueError(f"{name}: operands must be contiguous NHWC/HWIO")
 
 
-def _launch_conv(entry: str, a, b, out, geo) -> None:
-    """One of the forward and input-gradient kernels: ``out`` (its rows,
-    N = its channels) from operands ``a`` and ``b``."""
+def _launch_conv(entry: str, kind: str, a, b, out, geo) -> None:
+    """One of the tensor-core kernels (``kind`` "fwd" or "dgrad"):
+    ``out`` (its rows, N = its channels) from operands ``a`` and ``b``,
+    with the tile choice of ``_tc_config``."""
     from .. import cuda_build
+    c, oc, stride = geo[3], geo[6], geo[9:11]
+    n, gathered = (oc, c) if kind == "fwd" else (c, oc)
+    cfg = _tc_config(kind, n, gathered, stride,
+                     all(t.data_ptr() % 16 == 0 for t in (a, b)))
     cuda_build.launch(cuda_build.kernel("conv_gemm", entry, _CONV_ARGTYPES),
                       out.device, a.data_ptr(), b.data_ptr(),
-                      out.data_ptr(), *geo)
+                      out.data_ptr(), *geo, *cfg)
 
 
 def conv2d_gemm(x, w, stride=1, padding=0):
@@ -235,7 +315,8 @@ def conv2d_gemm(x, w, stride=1, padding=0):
     float32 x (B,H,W,C) and w (KH,KW,C,OC); the ``conv_fwd`` kernel for
     CUDA tensors, ``plain_conv2d_gemm`` for CPU tensors."""
     global conv_fwd_launches
-    geo = _gemm_geometry("conv2d_gemm", x.shape, w.shape, stride, padding)
+    geo = _gemm_geometry("conv2d_gemm", x.shape, w.shape, stride, padding,
+                         kind="fwd")
     _check_gemm("conv2d_gemm", x, w)
     if x.device.type == "cpu":
         return plain_conv2d_gemm(x, w, stride, padding)
@@ -243,7 +324,7 @@ def conv2d_gemm(x, w, stride=1, padding=0):
     y = torch.empty((b, oh, ow, oc), dtype=torch.float32, device=x.device)
     if y.numel() == 0:
         return y
-    _launch_conv("znicz_conv_fwd_f32", x, w, y, geo)
+    _launch_conv("znicz_conv_fwd_f32", "fwd", x, w, y, geo)
     conv_fwd_launches += 1
     return y
 
@@ -255,14 +336,14 @@ def conv2d_grad_input_gemm(err, w, x_shape, stride=1, padding=0):
     ``plain_conv2d_grad_input_gemm`` for CPU tensors."""
     global conv_dgrad_launches
     geo = _gemm_geometry("conv2d_grad_input_gemm", x_shape, w.shape, stride,
-                         padding, err.shape)
+                         padding, err.shape, kind="dgrad")
     _check_gemm("conv2d_grad_input_gemm", err, w)
     if err.device.type == "cpu":
         return plain_conv2d_grad_input_gemm(err, w, x_shape, stride, padding)
     dx = torch.empty(tuple(geo[:4]), dtype=torch.float32, device=err.device)
     if dx.numel() == 0:
         return dx
-    _launch_conv("znicz_conv_dgrad_f32", err, w, dx, geo)
+    _launch_conv("znicz_conv_dgrad_f32", "dgrad", err, w, dx, geo)
     conv_dgrad_launches += 1
     return dx
 

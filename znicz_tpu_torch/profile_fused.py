@@ -192,15 +192,16 @@ def main(argv=None) -> dict:
         launches = sum(e.count for e in kernels)
         top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
         port = {}
-        for e in kernels:
+        for e in kernels:       # a template's instances add up
             k = next((k for k in PORT_KERNELS if k in e.key), None)
             if k is not None:
-                port[k] = {"us_per_step": e.self_device_time_total
-                           / args.steps,
-                           "calls_per_step": e.count / args.steps,
-                           "share_of_busy": (e.self_device_time_total
-                                             / busy_us if busy_us
-                                             else None)}
+                p = port.setdefault(k, {"us_per_step": 0.0,
+                                        "calls_per_step": 0.0})
+                p["us_per_step"] += e.self_device_time_total / args.steps
+                p["calls_per_step"] += e.count / args.steps
+        for p in port.values():
+            p["share_of_busy"] = (p["us_per_step"] * args.steps / busy_us
+                                  if busy_us else None)
         out[name] = {
             "wall_ms_per_step": wall_ms,
             "device_busy_ms_per_step": (busy_us / 1e3 / args.steps
