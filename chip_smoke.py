@@ -106,11 +106,15 @@ exits nonzero without the final ``ok`` line:
 18. the ``kernels`` line, then ``{"ok": true, "device": {...}}`` last.
 
 The kernel phase holds, besides the fused paths' kernels, the unit graph's
-three: the tiled matmul at the five products of the MNIST unit graph
-(operands passed as transposed views where the graph does), a ragged case
-and AlexNet fc6's (128, 9216)·(9216, 4096), within rtol 1e-5 / atol
-1e-5·√K; the SGD update bit for bit at the MNIST weights and biases, with
-decay and l1_vs_l2 = 0.5, and at (9216, 4096); the row softmax + argmax at
+three: the tensor-core matmul (3xTF32) at the five products of the MNIST
+unit graph (operands passed as transposed views where the graph does), a
+ragged case and AlexNet fc6's three, (128, 9216)·(9216, 4096), xᵀ·err_y
+and err_y·Wᵀ (each operand's every layout at a big shape), within rtol
+1e-5 / atol 1e-5·√K and bit-equal across two calls, each row with its
+launch choice, both bounds, and at fwd1 and fc6 the kernel's time at
+other split counts of its depth (``splits_ms``); the SGD update bit for
+bit at the MNIST weights and biases, with decay and l1_vs_l2 = 0.5, and
+at (9216, 4096); the row softmax + argmax at
 (100, 10), (128, 1000) and tied logits, probabilities within rtol 1e-6 and
 the argmax exact.  And the decoder slice's three: the LRN forward that
 caches its denominator and the backward that reads it, bit for bit at
@@ -129,19 +133,21 @@ the others, each case's ulps printed; bound by bytes: the forward reads
 x and writes y, the backward reads err_y and one of y or x and writes
 err_x).
 
-And the conv tier's four: ``matmul_at_b`` at the patch matrices of
-CIFAR's conv1 and AlexNet's conv2 weight gradients and at
-tests/test_ops.py's shapes; ``conv_fwd``, ``conv_dgrad`` (both on the
-tensor cores in the 3xTF32 split) and ``conv_wgrad`` at CIFAR's two
-convs, the autoencoder's (whose geometry its deconv shares), AlexNet's
-five, a ragged stride-2 case and a stride-2 padding-1 case
+And the conv tier's four: ``matmul_at_b`` (FFMA) at the patch matrices
+of CIFAR's conv1 and AlexNet's conv2 weight gradients and at
+tests/test_ops.py's shapes; ``conv_fwd``, ``conv_dgrad`` and
+``conv_wgrad`` (all three on the tensor cores in the 3xTF32 split) at
+CIFAR's two convs, the autoencoder's (whose geometry its deconv shares),
+AlexNet's five, a ragged stride-2 case and a stride-2 padding-1 case
 (``CONV_GEMM_CASES``); each within rtol 1e-5 / atol 1e-5·√R times the
 operands' largest product (R the reduction length) of its plain version,
 its gap's ratio to that atol printed, bit-equal across two calls; the
 yardstick ``torch.matmul(a.T, b)``, ``F.conv2d`` and
 ``aten.convolution_backward`` with TF32 off; each conv row with the FFMA
 bound (2·MACs at 67 TFLOP/s) and the tensor-core bound (6·MACs at 495
-TFLOP/s: three TF32 products a multiply-add).
+TFLOP/s: three TF32 products a multiply-add), and the weight gradient's
+rows with their split of the pixels, at CIFAR conv2 and AlexNet conv2
+and conv4 also its time at other split counts (``splits_ms``).
 
 It imports nothing of JAX or of the ``znicz_tpu`` package.  Without a CUDA
 device, or outside a checkout of the repository, it fails."""
@@ -247,13 +253,22 @@ KERNELS = {
     "conv_wgrad": ("znicz_tpu_torch/csrc/conv_gemm.cu",
                    "znicz_tpu/ops/conv.py:362", "conv", "conv_wgrad_launches"),
 }
+#: the tile loop each product kernel runs on (the kernels line names it
+#: beside the kernel's source)
+LOOPS = {
+    "matmul": "znicz_tpu_torch/csrc/gemm_tc.cuh",
+    "matmul_at_b": "znicz_tpu_torch/csrc/gemm_tile.cuh",
+    "conv_fwd": "znicz_tpu_torch/csrc/gemm_tc.cuh",
+    "conv_dgrad": "znicz_tpu_torch/csrc/gemm_tc.cuh",
+    "conv_wgrad": "znicz_tpu_torch/csrc/gemm_tc.cuh",
+}
 #: why a kernel no path launches has no launches (the kernels line says so)
 OFF_PATH = {
     "matmul_at_b": "no path calls aT.b on its own: the reference calls "
                    "pallas_matmul_at_b only from pallas_conv2d_grad_weights, "
-                   "whose port conv_wgrad runs this kernel's tile loop "
-                   "(csrc/gemm_tile.cuh at_b_block) with the patch gathered "
-                   "in its loader",
+                   "whose port conv_wgrad computes the same product on the "
+                   "tensor-core loop (csrc/gemm_tc.cuh) with the patch "
+                   "gathered in its loader",
 }
 
 #: each path's kernels: launches per (train step, eval step)
@@ -790,13 +805,40 @@ def phase_kernel_dropout(torch) -> list:
 
 
 def matmul_bound_ms(m: int, n: int, k: int):
-    """A, B read once and C written once; 2·M·N·K float operations."""
+    """The FFMA bound: A, B read once and C written once; 2·M·N·K float
+    operations at the float32 peak."""
     return _bound((m * k + k * n + m * n) * 4, 2 * m * n * k)
+
+
+def tc_bound_ms(in_numels, out_numel: int, macs: int):
+    """The tensor-core bound of the 3xTF32 kernels (``matmul``,
+    ``conv_fwd``, ``conv_dgrad``, ``conv_wgrad``): the operands read once,
+    the result written once, and three TF32 products a multiply-add (6
+    operations) at the TF32 peak."""
+    t_bytes = (sum(in_numels) + out_numel) * 4 / HBM_BYTES_PER_S * 1e3
+    t_ops = 6 * macs / TF32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def split_sweep(torch, launch, depth: int, counts, iters: int) -> dict:
+    """{splits: device ms} of one split-depth product at other split
+    counts than its plan's: for each wanted count the chunk is the depth
+    over it rounded up to whole 32-deep stages, and the splits are those
+    the chunk gives.  ``launch(splits, chunk)`` runs the kernel without
+    counting a launch."""
+    out = {}
+    for want in counts:
+        chunk = -(-max(-(-depth // want), 1) // 32) * 32
+        splits = -(-depth // chunk)
+        out[str(splits)] = _time_ms(torch, lambda: launch(splits, chunk),
+                                    iters)[0]
+    return out
 
 
 #: case, A shape, B shape, A passed as a transposed view, B likewise: the
 #: five products of the MNIST unit graph first (fwd1 is the main path's
-#: first), a ragged case, AlexNet fc6
+#: first), a ragged case, AlexNet fc6's forward x·W, weight gradient
+#: xᵀ·err_y (A M-major) and input error err_y·Wᵀ (B K-major)
 MATMUL_CASES = [
     ("fwd1", (100, 784), (784, 100), False, False),
     ("fwd2", (100, 100), (100, 10), False, False),
@@ -805,15 +847,22 @@ MATMUL_CASES = [
     ("gdtanh_gw", (784, 100), (100, 100), True, False),
     ("ragged", (37, 129), (129, 3), False, False),
     ("alexnet_fc6", (128, 9216), (9216, 4096), False, False),
+    ("alexnet_fc6_gw", (9216, 128), (128, 4096), True, False),
+    ("alexnet_fc6_err_in", (128, 4096), (4096, 9216), False, True),
 ]
+#: the split counts timed beside the plan's (``splits_ms``)
+MATMUL_SPLIT_SWEEP = {"fwd1": (1, 4, 7, 13, 25),
+                      "alexnet_fc6": (1, 4, 8, 9, 16, 24)}
 
 
 def phase_kernel_matmul(torch) -> list:
-    """The tiled SGEMM against ``torch.matmul`` in float32 (TF32 off):
-    rtol 1e-5 / atol 1e-5·√K, sums taken in another order.  A transposed
-    operand is made in the other layout and handed over as ``.T``, as the
-    GD units hand over xᵀ and Wᵀ.  B is filled as the fc layers' weights
-    are (uniform ±1/√K)."""
+    """The tensor-core matmul against ``torch.matmul`` in float32 (TF32
+    off): rtol 1e-5 / atol 1e-5·√K, sums taken in another order, and
+    bit-equal to itself on a second call.  A transposed operand is made in
+    the other layout and handed over as ``.T``, as the GD units hand over
+    xᵀ and Wᵀ.  B is filled as the fc layers' weights are (uniform
+    ±1/√K).  ``bound_ms`` is the kernel's own arithmetic's, 3xTF32 on the
+    tensor cores; the FFMA bound stands beside it."""
     from znicz_tpu_torch.ops import matmul
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(SEED + 5)
@@ -828,16 +877,32 @@ def phase_kernel_matmul(torch) -> list:
         m, k = a.shape
         n = b.shape[1]
         got = _launch_once(torch, "matmul", lambda: matmul.matmul(a, b))
+        atol = 1e-5 * math.sqrt(k)
         err = _close(torch, case, "c", got, matmul.plain_matmul(a, b), 1e-5,
-                     1e-5 * math.sqrt(k))
-        big = case == "alexnet_fc6"
-        iters = BIG_ITERS if big else ITERS
+                     atol)
+        if not torch.equal(matmul.matmul(a, b), got):
+            raise AssertionError(f"{case}: matmul differs between two calls")
+        plan = matmul.matmul_plan(a.shape, a.stride(), b.shape, b.stride(),
+                                  a.data_ptr() % 16 == 0,
+                                  b.data_ptr() % 16 == 0)
+        iters = BIG_ITERS if m * n * k > 10 ** 9 else ITERS
         lib = _time_ms(torch, lambda: torch.matmul(a, b), iters)[0]
+        ffma = matmul_bound_ms(m, n, k)
+        tc = tc_bound_ms((m * k, k * n), m * n, m * n * k)
+        geo = {"case": case, "shape": [m, n, k], "a_transposed": ta,
+               "b_transposed": tb, "plan": plan._asdict(),
+               "splits": plan.splits, "atol": atol, "atol_ratio": err / atol,
+               "ffma_bound_ms": ffma[0], "tc_bound_ms": tc[0]}
+        if case in MATMUL_SPLIT_SWEEP:
+            geo["splits_ms"] = split_sweep(
+                torch, lambda s, ch: matmul.launch_matmul(
+                    a, b, plan._replace(splits=s, chunk=ch)), k,
+                MATMUL_SPLIT_SWEEP[case], iters)
         rows.append(_row(
-            torch, "matmul", {"case": case, "shape": [m, n, k],
-                              "a_transposed": ta, "b_transposed": tb}, err,
-            lambda: matmul.matmul(a, b), lambda: matmul.plain_matmul(a, b),
-            matmul_bound_ms(m, n, k), lib, iters))
+            torch, "matmul", geo, err, lambda: matmul.matmul(a, b),
+            lambda: matmul.plain_matmul(a, b), tc, lib, iters))
+        del a, b, got
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -1224,15 +1289,6 @@ def conv_gemm_bound_ms(in_numels, out_numel: int, macs: int):
     return _bound((sum(in_numels) + out_numel) * 4, 2 * macs)
 
 
-def conv_tc_bound_ms(in_numels, out_numel: int, macs: int):
-    """The tensor-core bound of the 3xTF32 kernels (``conv_fwd``,
-    ``conv_dgrad``): the same bytes, and three TF32 products a
-    multiply-add (6 operations) at the TF32 peak."""
-    t_bytes = (sum(in_numels) + out_numel) * 4 / HBM_BYTES_PER_S * 1e3
-    t_ops = 6 * macs / TF32_FLOPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 #: case, x (B,H,W,C), w (KH,KW,C,OC), stride, padding, the kernels timed
 #: (f, d, w: forward, input and weight gradient): the paths' convs first
 #: (CIFAR's conv2 is every kernel's main-path row), the autoencoder's
@@ -1256,6 +1312,11 @@ CONV_GEMM_CASES = [
 #: the tier's tolerance: rtol 1e-5, atol 1e-5·√R·(the operands' largest
 #: product), R the reduction length (the matmul rule, sums in another order)
 GEMM_RTOL = 1e-5
+#: the weight gradient's split counts timed beside its plan's
+#: (``splits_ms``)
+WGRAD_SPLIT_SWEEP = {"cifar_conv2": (7, 37, 38, 74),
+                     "alexnet_conv2": (1, 7, 14, 27, 41),
+                     "alexnet_conv4": (1, 3, 4, 6, 13, 26)}
 
 
 def _gemm_atol(a, b, r: int) -> float:
@@ -1270,9 +1331,11 @@ def phase_kernel_conv_gemm(torch) -> dict:
     ``F.conv2d``, and ``aten.convolution_backward`` with the input or the
     weight mask; its own gap to the plain version is printed beside it
     (``library_max_abs_err``).  Each row has both bounds: the FFMA one
-    (``ffma_bound_ms``) and the tensor cores' (``tc_bound_ms``);
-    ``bound_ms`` is the one of the kernel's own arithmetic (3xTF32 for
-    ``conv_fwd``/``conv_dgrad``, FFMA for ``conv_wgrad``)."""
+    (``ffma_bound_ms``) and the tensor cores' (``tc_bound_ms``), which is
+    ``bound_ms``: all three kernels multiply in 3xTF32.  A weight
+    gradient row has its launch choice (``plan``: tile width, copy widths,
+    the split of the pixels), and at ``WGRAD_SPLIT_SWEEP``'s cases its
+    time at other split counts."""
     import torch.nn.functional as F
 
     from znicz_tpu_torch.ops import conv
@@ -1331,18 +1394,40 @@ def phase_kernel_conv_gemm(torch) -> dict:
             lib_ms = _time_ms(torch, lib, iters)[0]
             numels = [t.numel() for t in inputs]
             ffma = conv_gemm_bound_ms(numels, out_numel, macs)
-            tc = conv_tc_bound_ms(numels, out_numel, macs)
+            tc = tc_bound_ms(numels, out_numel, macs)
+            extra = {}
+            if kname == "conv_wgrad":
+                extra = _wgrad_plan_row(torch, conv, case, x, e, ws, st, pd,
+                                        iters)
             rows[kname].append(_row(
                 torch, kname, {**geo, "reduction": r, "atol": atol,
                                "atol_ratio": err / atol,
                                "library_max_abs_err": lib_err,
                                "ffma_bound_ms": ffma[0],
-                               "tc_bound_ms": tc[0]}, err, fn, plain,
-                ffma if kname == "conv_wgrad" else tc, lib_ms, iters))
+                               "tc_bound_ms": tc[0], **extra}, err, fn,
+                plain, tc, lib_ms, iters))
             del got, want
         del x, w, y, e
         torch.cuda.empty_cache()
     return rows
+
+
+def _wgrad_plan_row(torch, conv, case, x, e, ws, st, pd, iters) -> dict:
+    """The weight gradient's launch choice at a case, and at
+    ``WGRAD_SPLIT_SWEEP``'s cases its time at other split counts."""
+    geo = conv._gemm_geometry(case, x.shape, ws, st, pd, e.shape)
+    kh, kw, c, oc = ws
+    pixels = geo[0] * geo[7] * geo[8]
+    plan = conv.wgrad_plan(c, oc, kh * kw * c, pixels,
+                           x.data_ptr() % 16 == 0 and e.data_ptr() % 16 == 0)
+    out = {"plan": plan._asdict(), "splits": plan.splits}
+    if case in WGRAD_SPLIT_SWEEP:
+        dw = torch.empty(ws, device=x.device)
+        out["splits_ms"] = split_sweep(
+            torch, lambda s, ch: conv.launch_wgrad(
+                x, e, dw, geo, plan._replace(splits=s, chunk=ch)), pixels,
+            WGRAD_SPLIT_SWEEP[case], iters)
+    return out
 
 
 #: case, M, K, N of aT.b: the patch matrices of CIFAR's conv1 and AlexNet's
@@ -1893,6 +1978,7 @@ def kernels_line(kern: dict, launches: dict) -> dict:
         by_path = {path: counts[name] for path, counts in launches.items()}
         out.append({
             "name": name, "route": "cuda", "source": source,
+            **({"loop": LOOPS[name]} if name in LOOPS else {}),
             "replaces": replaces, "shape": main["shape"],
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,

@@ -61,12 +61,16 @@ CASES = {
 #: the card-only cases add the tensor-core kernels' edges: C = 3 at stride
 #: 4 with N = 96 (AlexNet's conv1 in small), an input gradient at N = 96
 #: and a forward at N = 256 (two tiles of 128), none with M a multiple of
-#: the 128-row tile
+#: the 128-row tile; and the weight gradient's: its M-major patch operand
+#: at a full 128-row tile (K = 2·2·32) over 46 splits of the pixels, and
+#: C = 3 (4-byte copies) over 182 splits
 CUDA_CASES = {
     **CASES,
     "c3_s4_n96": ((2, 35, 35, 3), (11, 11, 3, 96), 4, 0),
     "dgrad_n96": ((2, 13, 13, 96), (5, 5, 96, 32), 1, 2),
     "fwd_n256_m297": ((3, 9, 11, 16), (3, 3, 16, 256), 1, 1),
+    "wgrad_k128_split": ((8, 20, 20, 32), (2, 2, 32, 40), 1, 0),
+    "wgrad_c3_split": ((16, 33, 33, 3), (5, 5, 3, 8), 1, 2),
 }
 FNS = ["conv2d", "conv2d_grad_input", "conv2d_grad_weights", "deconv2d",
        "deconv2d_grad_input", "deconv2d_grad_weights"]
@@ -421,6 +425,9 @@ def test_cuda_kernels_match_plain_versions(case):
         # each output element is summed in a fixed order (the split weight
         # gradient's slices too): a rerun is bit-equal
         torch.testing.assert_close(fn(*args), got, rtol=0, atol=0)
+    if case.startswith("wgrad_"):
+        plan = conv.wgrad_plan(c, oc, kh * kw * c, b * oh * ow)
+        assert plan.splits > 1
 
 
 @pytest.mark.skipif("not torch.cuda.is_available()",

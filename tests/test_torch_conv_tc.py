@@ -1,5 +1,6 @@
-"""The tensor-core forward and input gradient of the port's implicit-GEMM
-conv tier (``csrc/gemm_tc.cuh``, ``csrc/conv_gemm.cu``), on the CPU.
+"""The tensor-core kernels of the port's implicit-GEMM conv tier
+(``csrc/gemm_tc.cuh``, ``csrc/conv_gemm.cu``) and of its matmul
+(``csrc/matmul.cu``), on the CPU.
 
 - the arithmetic: ``ops/conv.py`` ``tf32_rn`` against hand-computed bit
   patterns of ``cvt.rna.tf32.f32`` (ties away from zero, negatives,
@@ -13,8 +14,17 @@ conv tier (``csrc/gemm_tc.cuh``, ``csrc/conv_gemm.cu``), on the CPU.
   less than a quarter of its columns beyond N rounded up to the
   narrowest MMA's 8, a 16-byte copy only along an axis that is a multiple
   of 4 and on aligned operands, the stride-1 form only at stride 1;
-- ``_gemm_geometry`` refuses a shape past the grid at the new tile
-  width, and the weight gradient keeps its own 64-wide tile.
+- the weight gradient's launch choice ``wgrad_plan`` at the same shapes:
+  the tile width from OC, 16-byte copies along C and OC only where they
+  are multiples of 4, and a split of the output pixels that covers them
+  in chunks of whole stages, reaching the card's target block count;
+- the split product emulated (``matmul_3xtf32`` on each chunk, the
+  chunks added in ascending order, as ``split_sum_kernel`` adds them)
+  against a float64 product within the tier's tolerance, at the real
+  chunk lengths of AlexNet's conv2 and conv4 and CIFAR's conv2 weight
+  gradients and at the depths of ``chip_smoke.py``'s ``MATMUL_CASES``;
+- ``_gemm_geometry`` refuses a shape past the grid at the tile width, the
+  weight gradient's too.
 
 The kernels themselves run on a card only
 (``tests/test_torch_conv_gemm.py`` ``test_cuda_kernels_match_plain_versions``
@@ -28,7 +38,9 @@ import numpy as np
 import pytest
 import torch
 
-from znicz_tpu_torch.ops import conv
+from znicz_tpu_torch.ops import conv, matmul
+
+import test_torch_matmul
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 _spec = importlib.util.spec_from_file_location("chip_smoke",
@@ -187,7 +199,82 @@ def test_gemm_geometry_refuses_past_the_grid_at_the_tile_width(kind):
     conv._gemm_geometry("ok", *shapes(limit), 1, 0, kind=kind)
     with pytest.raises(ValueError, match="grid"):
         conv._gemm_geometry("past", *shapes(limit + 8), 1, 0, kind=kind)
-    # the weight gradient's tile stays 64 wide: its grid ends sooner
+    # the weight gradient runs on the same loop, its N = OC in tiles of
+    # the same width
+    conv._gemm_geometry("wgrad", (1, 2, 2, 4), (1, 1, 4, limit), 1, 0,
+                        kind="wgrad")
     with pytest.raises(ValueError, match="grid"):
-        conv._gemm_geometry("wgrad", (1, 2, 2, 4), (1, 1, 4, limit), 1, 0,
-                            kind="wgrad")
+        conv._gemm_geometry("wgrad", (1, 2, 2, 4), (1, 1, 4, limit + 8), 1,
+                            0, kind="wgrad")
+
+
+@pytest.mark.parametrize("name", sorted(SHAPES))
+def test_wgrad_plan_at_every_path_and_smoke_shape(name):
+    x_shape, w_shape, stride, padding, _ = SHAPES[name]
+    kh, kw, c, oc = w_shape
+    geo = conv._gemm_geometry(name, x_shape, w_shape, stride, padding,
+                              kind="wgrad")
+    pixels, k_total = geo[0] * geo[7] * geo[8], kh * kw * c
+    plan = conv.wgrad_plan(c, oc, k_total, pixels)
+    assert plan.bn == matmul._tc_width(oc)
+    assert _idle_beyond_mma(oc, plan.bn) < 0.25
+    assert plan.vec_a == (4 if c % 4 == 0 else 1)
+    assert plan.vec_b == (4 if oc % 4 == 0 else 1)
+    assert conv.wgrad_plan(c, oc, k_total, pixels,
+                           aligned=False)[1:3] == (1, 1)
+    # the split covers the pixels in chunks of whole stages, none empty,
+    # in the fewest waves of the card's resident blocks
+    assert plan.chunk % matmul.TC_STEP == 0
+    assert (plan.splits - 1) * plan.chunk < pixels <= plan.splits * plan.chunk
+    test_torch_matmul.assert_split_of_least_waves(
+        plan.splits, plan.chunk, pixels, k_total, oc, plan.bn)
+
+
+def _wgrad_depth(case: str) -> tuple[int, int, int]:
+    """(pixels, its split plan's splits, chunk) of a path conv's weight
+    gradient."""
+    x_shape, w_shape, stride, padding, _ = PATH_CONVS[case]
+    kh, kw, c, oc = w_shape
+    geo = conv._gemm_geometry(case, x_shape, w_shape, stride, padding)
+    pixels = geo[0] * geo[7] * geo[8]
+    plan = conv.wgrad_plan(c, oc, kh * kw * c, pixels)
+    return pixels, plan.splits, plan.chunk
+
+
+def _matmul_depth(case: str) -> tuple[int, int, int]:
+    """(K, splits, chunk) of a ``chip_smoke.py`` matmul case."""
+    _, sa, sb, ta, tb = next(r for r in chip_smoke.MATMUL_CASES
+                             if r[0] == case)
+    plan = matmul.matmul_plan(sa, (1, sa[0]) if ta else (sa[1], 1), sb,
+                              (1, sb[0]) if tb else (sb[1], 1))
+    return sa[1], plan.splits, plan.chunk
+
+
+#: the split depths the kernels run: AlexNet conv2's weight gradient over
+#: 93,312 pixels in chunks of 3,456, conv4's in 1,664, CIFAR conv2's in
+#: 704, and the matmul cases' K
+SPLIT_DEPTHS = {
+    **{f"wgrad_{c}": ("wgrad", c) for c in ("alexnet_conv2", "alexnet_conv4",
+                                            "cifar_conv2")},
+    **{f"matmul_{c[0]}": ("matmul", c[0]) for c in chip_smoke.MATMUL_CASES},
+}
+
+
+@pytest.mark.parametrize("name", sorted(SPLIT_DEPTHS))
+def test_split_3xtf32_product_within_the_tier_tolerance(name):
+    kind, case = SPLIT_DEPTHS[name]
+    depth, splits, chunk = (_wgrad_depth if kind == "wgrad"
+                            else _matmul_depth)(case)
+    if kind == "wgrad":
+        assert splits > 1 and chunk >= 704
+    m, n = 16, 8
+    a, b = _operands(m, depth, n)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    got = torch.zeros((m, n))
+    for z in range(splits):             # split_sum_kernel's order
+        lo, hi = z * chunk, min(depth, (z + 1) * chunk)
+        assert lo < hi
+        got = got + conv.matmul_3xtf32(ta[:, lo:hi], tb[lo:hi])
+    want = a.astype(np.float64) @ b.astype(np.float64)
+    atol = 1e-5 * math.sqrt(depth) * float(np.abs(a).max() * np.abs(b).max())
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=atol)

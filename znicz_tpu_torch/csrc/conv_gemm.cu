@@ -34,28 +34,34 @@
 //            h + ph - kh and w + pw - kw themselves: that form has no
 //            division and no exactness test.
 //   wgrad    dw(K = KH.KW.C, N = OC) = sum over m < B.OH.OW of
-//            P[m, k] . err[m, n]: at_b_block with P gathered as in the
-//            forward, split over m (gemm_tile.cuh), summed in a fixed order.
+//            P[m, k] . err[m, n]: C's rows are the patch index k, its
+//            depth the output pixel m, split across gridDim.z and summed
+//            in a fixed order (gemm_tc.cuh split_block).
 //
-// The forward and the input gradient run on csrc/gemm_tc.cuh: a 128-row C
-// tile of width BN (8, 16, 32, 96 or 128, picked by the wrapper from N so
-// that a tile idles at most a quarter of its columns beyond the 8 of the
-// narrowest MMA), eight warps of mma.sync m16n8k8 TF32 products in the
-// 3xTF32 split (float32 accuracy: the tier's tolerance holds unchanged),
-// and a ring of three shared-memory stages 32 deep filled by cp.async, so
-// the gathers of two steps are in flight while one step's products run.
-// A copy moves 16 bytes where the gathered axis (C for the forward, OC for
-// the input gradient and w's K-major rows) is a multiple of 4 and the
-// operand 16-byte aligned, else 4; a padding tap is a copy of 0 bytes,
-// which fills zeros.  The weight gradient stays on gemm_tile.cuh's SIMT
-// loop (float32 FFMA).
+// All three run on csrc/gemm_tc.cuh: a 128-row C tile of width BN (8, 16,
+// 32, 96 or 128, picked by the wrapper from N so that a tile idles at most
+// a quarter of its columns beyond the 8 of the narrowest MMA), eight warps
+// of mma.sync m16n8k8 TF32 products in the 3xTF32 split (float32
+// accuracy: the tier's tolerance holds unchanged), and a ring of three
+// shared-memory stages 32 deep filled by cp.async, so the gathers of two
+// steps are in flight while one step's products run.  A copy moves 16
+// bytes where the axis it runs along (C for the forward's and the weight
+// gradient's patches, OC for the input gradient's err and w and for the
+// dense err and w) is a multiple of 4 and the operand 16-byte aligned,
+// else 4; a padding tap is a copy of 0 bytes, which fills zeros.  The
+// weight gradient keeps its patch operand M-major in shared memory (k
+// innermost, as c is in x) and err N-major, as they lie in device memory.
+// Its output is small and its depth long (CIFAR conv2: 7 tiles over
+// 25,600 pixels), so the wrapper splits the depth until the card is full.
 //
 // Index math: a block's 128 output rows are decomposed into (b, oh, ow)
 // once, into shared memory; a thread's depth index k into (kh, kw, c) once
-// a stage (a thread keeps one k, or one group of 4, across its rows), with
-// csrc/fastdiv.cuh, since a runtime division costs some twenty
-// instructions.  Indices are int32: the wrappers refuse tensors of 2^31
-// elements or more.
+// a stage (a thread keeps one k, or one group of 4, across its rows).  In
+// the weight gradient a thread keeps its k (or group of 4) for the whole
+// block, decomposed once, and each stage's 32 pixels are decomposed once,
+// into a table in shared memory.  Divisions go through csrc/fastdiv.cuh,
+// since a runtime division costs some twenty instructions.  Indices are
+// int32: the wrappers refuse tensors of 2^31 elements or more.
 //
 // Bound on an H100: operations at every conv of the paths.  In float32
 // FFMA 2.M.N.K over 67 TFLOP/s (AlexNet conv2 forward 114.7 GFLOP, 1.71
@@ -66,15 +72,14 @@
 // znicz_tpu_torch.conv_tc_probe, variant one_product), and the three take
 // 2.6 times as long, so the rate of mma.sync bounds these kernels, not
 // their gathers.  wgmma, which needs both operands K-major in
-// swizzled shared memory, with TMA's im2col mode for the gather, is the
-// later design.  At N = 1 (the autoencoder's deconv forward) an 8-wide
-// tile still idles 7/8 of its columns.
-
-#include <type_traits>
+// swizzled shared memory (the weight gradient's M-major patches too), with
+// TMA's im2col mode for the gather, is the later design.  At N = 1 (the
+// autoencoder's deconv forward) an 8-wide tile still idles 7/8 of its
+// columns, and at the autoencoder's weight gradient (K = 25 rows) a
+// 128-row tile 80% of its rows.
 
 #include "fastdiv.cuh"
 #include "gemm_tc.cuh"
-#include "gemm_tile.cuh"
 
 namespace {
 
@@ -171,33 +176,6 @@ struct ErrTaps {
   }
 };
 
-// B of the forward: w as the dense (K, N = OC) matrix, kept N-major in
-// shared memory as it lies in device memory; neighbouring threads copy
-// neighbouring columns.
-template <class T, int kVec>
-struct DenseRows {
-  const float* w;
-  int N, K, n0;
-
-  __device__ __forceinline__ void load(float* s, int t0) const {
-    constexpr int kGroups = T::kBN / kVec;   // per depth row
-    constexpr int kCopies = tc::kBK * kGroups;
-#pragma unroll
-    for (int l = 0; l < (kCopies + tc::kThreads - 1) / tc::kThreads; ++l) {
-      const int idx = static_cast<int>(threadIdx.x) + l * tc::kThreads;
-      if (kCopies % tc::kThreads == 0 || idx < kCopies) {
-        const int kk = idx / kGroups;
-        const int nn = idx % kGroups * kVec;
-        const int k = t0 + kk;
-        const int n = n0 + nn;
-        const bool ok = k < K && n < N;
-        tc::cp_async<kVec>(s + kk * T::kBStrideN + nn, ok ? w + k * N + n : w,
-                           ok);
-      }
-    }
-  }
-};
-
 // B of the input gradient: W'[(kh, kw, oc), c] = w[kh, kw, c, oc], the IO
 // swap as strides, kept K-major in shared memory (oc is w's innermost
 // axis, so a copy of 4 takes four neighbouring oc where OC is a multiple
@@ -229,35 +207,63 @@ struct TapWeights {
   }
 };
 
-// A of the weight gradient (C's rows are k = (kh, kw, c), the depth is the
-// output pixel m): P[m, k]; index fastest, so a thread keeps one k for the
-// whole block, decomposed once, and decomposes each m it loads.
-struct PatchCols {
+// A of the weight gradient, A(k, m) = P[m, k]: C's rows are k = (kh, kw,
+// c), the depth the output pixel m.  Kept M-major in shared memory (k
+// innermost, as c is in x): a thread keeps a group of kVec neighbouring k
+// (kVec = 4: four c of one tap, C a multiple of 4) for the whole block,
+// decomposed once by the kernel, and copies it at kBK / (kThreads /
+// (kBM / kVec)) pixels of a stage.  Each stage's kBK pixels are
+// decomposed into (b, oh, ow) once, by the first kBK threads, into a
+// table in shared memory (base = b.H.W.C, h0 = oh.sh - ph, w0 = ow.sw -
+// pw; two tables, for neighbouring stages), which load() then waits on
+// with a barrier: every thread of the block calls it.  Two tables suffice:
+// the writes of stage t + 2 come after the barrier of stage t + 1, which
+// every thread reaches only after its reads of stage t.
+template <int kVec>
+struct PixelTaps {
   const float* x;
-  int H, W, C, OW, OHW, M, sh, sw;
+  int (*base)[tc::kBK];
+  int (*h0)[tc::kBK];
+  int (*w0)[tc::kBK];
+  int H, W, C, OW, OHW, M, sh, sw, ph, pw;
   FastDiv by_ohw, by_ow;
-  int ih0, iw0, c;   // this thread's k: kh - ph, kw - pw, c
+  int kh, kw, c;   // this thread's (first) k
   bool k_ok;
 
-  __device__ __forceinline__ void load(Tile& s, int, int t0) const {
-    const int ii = index_fast_ii();
-#pragma unroll
-    for (int l = 0; l < kLoads; ++l) {
-      const int kk = index_fast_kk(l);
-      const int m = t0 + kk;
-      float v = 0.0f;
-      if (k_ok && m < M) {
+  __device__ __forceinline__ void load(float* s, int t0) const {
+    constexpr int kGroups = tc::kBM / kVec;
+    constexpr int kPixelsAPass = tc::kThreads / kGroups;
+    const int slot = (t0 / tc::kBK) & 1;
+    if (threadIdx.x < tc::kBK) {
+      const int m = t0 + static_cast<int>(threadIdx.x);
+      int bb = 0, hh = kFar, ww = kFar;
+      if (m < M) {
         const int b = by_ohw.div(m);
         const int r = m - b * OHW;
         const int oh = by_ow.div(r);
         const int ow = r - oh * OW;
-        const int ih = oh * sh + ih0;
-        const int iw = ow * sw + iw0;
-        if (static_cast<unsigned>(ih) < static_cast<unsigned>(H) &&
-            static_cast<unsigned>(iw) < static_cast<unsigned>(W))
-          v = x[((b * H + ih) * W + iw) * C + c];
+        bb = b * H * W * C;
+        hh = oh * sh - ph;
+        ww = ow * sw - pw;
       }
-      s[kk][ii] = v;
+      base[slot][threadIdx.x] = bb;
+      h0[slot][threadIdx.x] = hh;
+      w0[slot][threadIdx.x] = ww;
+    }
+    __syncthreads();
+    const int ii = static_cast<int>(threadIdx.x) % kGroups * kVec;
+#pragma unroll
+    for (int l = 0; l < tc::kBK / kPixelsAPass; ++l) {
+      const int kk =
+          static_cast<int>(threadIdx.x) / kGroups + l * kPixelsAPass;
+      const int ih = h0[slot][kk] + kh;
+      const int iw = w0[slot][kk] + kw;
+      const bool ok = k_ok &&
+                      static_cast<unsigned>(ih) < static_cast<unsigned>(H) &&
+                      static_cast<unsigned>(iw) < static_cast<unsigned>(W);
+      tc::cp_async<kVec>(s + kk * tc::kAStrideM + ii,
+                         ok ? x + base[slot][kk] + (ih * W + iw) * C + c : x,
+                         ok);
     }
   }
 };
@@ -292,10 +298,12 @@ conv_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
   __syncthreads();
   float acc[T::kMT][T::kNT][4] = {};
+  // B: w as the dense (K, N = OC) matrix, N-major as it lies in memory
   tc::mainloop<T>(PatchRows<kVecA>{x, base, h0, w0, g.H, g.W, g.C, g.KW,
                                    k_total, by_c, by_kw},
-                  DenseRows<T, kVecB>{w, g.OC, k_total, n0}, smem, k_total,
-                  acc);
+                  tc::Dense<BN, T::kBStrideN, false, kVecB, int>{
+                      w, 1, g.OC, g.OC, k_total, n0},
+                  smem, 0, k_total, acc);
   tc::store_tile<T>(acc, y, m_total, g.OC, m0, n0);
 }
 
@@ -334,29 +342,37 @@ conv_dgrad_kernel(const float* __restrict__ err, const float* __restrict__ w,
                                        g.KW, k_total, g.sh, g.sw, by_oc,
                                        by_kw, by_sh, by_sw},
                   TapWeights<T, kVec>{w, g.C, g.OC, k_total, n0, by_oc}, smem,
-                  k_total, acc);
+                  0, k_total, acc);
   tc::store_tile<T>(acc, dx, m_total, g.C, m0, n0);
 }
 
-__global__ void __launch_bounds__(kThreads)
+template <int BN, int kVecA, int kVecB>
+__global__ void __launch_bounds__(tc::kThreads,
+                                  tc::Tile<BN, false, true>::kMinBlocks)
 conv_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ err,
                   float* __restrict__ dw, float* __restrict__ ws, ConvShape g,
                   FastDiv by_c, FastDiv by_kw, FastDiv by_ohw, FastDiv by_ow,
                   int chunk) {
-  __shared__ __align__(16) Tile as;
-  __shared__ __align__(16) Tile bs;
+  using T = tc::Tile<BN, false, true>;
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int base[2][tc::kBK], h0[2][tc::kBK], w0[2][tc::kBK];
   const int m_total = g.B * g.OH * g.OW;
   const int k_total = g.KH * g.KW * g.C;
-  const int k = blockIdx.x * kBM + index_fast_ii();
+  const int m0 = blockIdx.x * tc::kBM;   // C's rows: the patch index k
+  const int n0 = blockIdx.y * BN;
+  const int k = m0 + static_cast<int>(threadIdx.x) % (tc::kBM / kVecA) * kVecA;
   const int q = by_c.div(k);
   const int c = k - q * g.C;
   const int kh = by_kw.div(q);
   const int kw = q - kh * g.KW;
-  const PatchCols la{x, g.H, g.W, g.C, g.OW, g.OH * g.OW, m_total, g.sh,
-                     g.sw, by_ohw, by_ow, kh - g.ph, kw - g.pw, c,
-                     k < k_total};
-  at_b_block(la, DepthMajor{err, g.OC, m_total, g.OC}, as, bs, dw, ws,
-             k_total, g.OC, m_total, chunk);
+  const PixelTaps<kVecA> la{x, base, h0, w0, g.H, g.W, g.C, g.OW,
+                            g.OH * g.OW, m_total, g.sh, g.sw, g.ph, g.pw,
+                            by_ohw, by_ow, kh, kw, c, k < k_total};
+  // B: err as the dense (B.OH.OW, OC) matrix, N-major
+  const tc::Dense<BN, T::kBStrideN, false, kVecB, int> lb{
+      err, 1, g.OC, g.OC, m_total, n0};
+  tc::split_block<T>(la, lb, smem, m_total, chunk, dw, ws, k_total, g.OC, m0,
+                     n0);
 }
 
 ConvShape make_shape(int B, int H, int W, int C, int KH, int KW, int OC,
@@ -364,51 +380,8 @@ ConvShape make_shape(int B, int H, int W, int C, int KH, int KW, int OC,
   return ConvShape{B, H, W, C, KH, KW, OC, OH, OW, sh, sw, ph, pw};
 }
 
-template <int V>
-using Int = std::integral_constant<int, V>;
-
-// f(Int<BN>{}) for the tile widths the kernels are built for.
-template <class F>
-int with_bn(int bn, F&& f) {
-  switch (bn) {
-    case 8: return f(Int<8>{});
-    case 16: return f(Int<16>{});
-    case 32: return f(Int<32>{});
-    case 96: return f(Int<96>{});
-    case 128: return f(Int<128>{});
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-// f(Int<4>{}) or f(Int<1>{}): a copy width of 4 or 1 floats.
-template <class F>
-int with_vec(int vec, F&& f) {
-  if (vec == 4) return f(Int<4>{});
-  if (vec == 1) return f(Int<1>{});
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// f(Int<1>{}) or f(Int<0>{}): a flag.
-template <class F>
-int with_flag(int flag, F&& f) {
-  if (flag == 1) return f(Int<1>{});
-  if (flag == 0) return f(Int<0>{});
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
 bool aligned16(const void* p) {
   return reinterpret_cast<unsigned long long>(p) % 16 == 0;
-}
-
-// Allows `kernel` its dynamic shared memory and launches it.
-template <class... P, class... A>
-int launch_tc(void (*kernel)(P...), int smem, dim3 grid, cudaStream_t st,
-              A... args) {
-  const cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<grid, tc::kThreads, smem, st>>>(args...);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -419,13 +392,14 @@ int launch_tc(void (*kernel)(P...), int smem, dim3 grid, cudaStream_t st,
 // answer empty shapes without a launch).  Each launches on `stream`, does
 // not synchronise, and returns cudaGetLastError() as an int.
 //
-// The forward and the input gradient also take the wrapper's tile choice
-// (ops/conv.py _tc_config): the C tile's width bn (8, 16, 32, 96 or 128),
-// the floats a copy of A and of B moves (vec_a, vec_b: 4 or 1; 4 needs the
-// gathered axis a multiple of 4 and the operand 16-byte aligned) and
-// unit_stride (1: the input gradient's stride is 1 and its taps need no
-// exactness test; the forward takes 0).  They return cudaErrorInvalidValue
-// for a choice the shape does not allow.
+// They also take the wrapper's tile choice (ops/conv.py _tc_config,
+// wgrad_plan): the C tile's width bn (8, 16, 32, 96 or 128) and the
+// floats a copy of A and of B moves (vec_a, vec_b: 4 or 1; 4 needs the
+// axis the copy runs along a multiple of 4 and the operand 16-byte
+// aligned); the forward and the input gradient unit_stride (1: the input
+// gradient's stride is 1 and its taps need no exactness test; the forward
+// takes 0), the weight gradient its split of the depth.  They return
+// cudaErrorInvalidValue for a choice the shape does not allow.
 
 // y (B, OH, OW, OC) = conv(x, w).
 extern "C" int znicz_conv_fwd_f32(const float* x, const float* w, float* y,
@@ -440,13 +414,13 @@ extern "C" int znicz_conv_fwd_f32(const float* x, const float* w, float* y,
                                  pw);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int m_total = B * OH * OW;
-  return with_bn(bn, [&](auto n) {
-    return with_vec(vec_a, [&](auto va) {
-      return with_vec(vec_b, [&](auto vb) {
+  return tc::with_width(bn, [&](auto n) {
+    return tc::with_vec(vec_a, [&](auto va) {
+      return tc::with_vec(vec_b, [&](auto vb) {
         constexpr int kBN = decltype(n)::value;
         const dim3 grid((m_total + tc::kBM - 1) / tc::kBM,
                         (OC + kBN - 1) / kBN);
-        return launch_tc(
+        return tc::launch(
             conv_fwd_kernel<kBN, decltype(va)::value, decltype(vb)::value>,
             tc::Tile<kBN, false>::kSmemBytes, grid, st, x, w, y, g,
             make_fastdiv(C), make_fastdiv(KW), make_fastdiv(OH * OW),
@@ -473,13 +447,13 @@ extern "C" int znicz_conv_dgrad_f32(const float* err, const float* w,
                                  pw);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int m_total = B * H * W;
-  return with_bn(bn, [&](auto n) {
-    return with_vec(vec_a, [&](auto v) {
-      return with_flag(unit_stride, [&](auto unit) {
+  return tc::with_width(bn, [&](auto n) {
+    return tc::with_vec(vec_a, [&](auto v) {
+      return tc::with_flag(unit_stride, [&](auto unit) {
         constexpr int kBN = decltype(n)::value;
         const dim3 grid((m_total + tc::kBM - 1) / tc::kBM,
                         (C + kBN - 1) / kBN);
-        return launch_tc(
+        return tc::launch(
             conv_dgrad_kernel<kBN, decltype(v)::value,
                               decltype(unit)::value == 1>,
             tc::Tile<kBN, true>::kSmemBytes, grid, st, err, w, dx, g,
@@ -491,22 +465,43 @@ extern "C" int znicz_conv_dgrad_f32(const float* err, const float* w,
 }
 
 // dw (KH, KW, C, OC) = the weight gradient of conv(x, w) from err (B, OH,
-// OW, OC): `splits` chunks of `chunk` output pixels (a multiple of 16)
-// cover B.OH.OW; with splits > 1, ws holds splits.KH.KW.C.OC floats.
+// OW, OC): vec_a is the copy width along x's C, vec_b along err's OC;
+// `splits` chunks of `chunk` output pixels (a multiple of 32, none empty)
+// cover B.OH.OW, and with splits > 1 ws holds splits.KH.KW.C.OC floats.
+// The split sum runs after the product, on the same stream.
 extern "C" int znicz_conv_wgrad_f32(const float* x, const float* err,
                                     float* dw, float* ws, int B, int H, int W,
                                     int C, int KH, int KW, int OC, int OH,
                                     int OW, int sh, int sw, int ph, int pw,
-                                    int splits, int chunk, void* stream) {
+                                    int bn, int vec_a, int vec_b, int splits,
+                                    int chunk, void* stream) {
+  const int m_total = B * OH * OW;
+  const bool bad_split =
+      splits < 1 || splits > 65535 || chunk <= 0 || chunk % tc::kBK != 0 ||
+      static_cast<long long>(splits) * chunk < m_total ||
+      (splits > 1 && (static_cast<long long>(splits - 1) * chunk >= m_total ||
+                      ws == nullptr));
+  if ((vec_a == 4 && (C % 4 != 0 || !aligned16(x))) ||
+      (vec_b == 4 && (OC % 4 != 0 || !aligned16(err))) || bad_split)
+    return static_cast<int>(cudaErrorInvalidValue);
   const ConvShape g = make_shape(B, H, W, C, KH, KW, OC, OH, OW, sh, sw, ph,
                                  pw);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int k_total = KH * KW * C;
-  const dim3 grid((k_total + kBM - 1) / kBM, (OC + kBN - 1) / kBN, splits);
-  conv_wgrad_kernel<<<grid, kThreads, 0, st>>>(
-      x, err, dw, ws, g, make_fastdiv(C), make_fastdiv(KW),
-      make_fastdiv(OH * OW), make_fastdiv(OW), chunk);
-  const int status = static_cast<int>(cudaGetLastError());
+  const int status = tc::with_width(bn, [&](auto n) {
+    return tc::with_vec(vec_a, [&](auto va) {
+      return tc::with_vec(vec_b, [&](auto vb) {
+        constexpr int kBN = decltype(n)::value;
+        const dim3 grid((k_total + tc::kBM - 1) / tc::kBM,
+                        (OC + kBN - 1) / kBN, splits);
+        return tc::launch(
+            conv_wgrad_kernel<kBN, decltype(va)::value, decltype(vb)::value>,
+            tc::Tile<kBN, false, true>::kSmemBytes, grid, st, x, err, dw, ws,
+            g, make_fastdiv(C), make_fastdiv(KW), make_fastdiv(OH * OW),
+            make_fastdiv(OW), chunk);
+      });
+    });
+  });
   if (status != 0) return status;
   return launch_split_sum(ws, dw, k_total * OC, splits, st);
 }

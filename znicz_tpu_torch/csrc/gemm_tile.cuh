@@ -1,14 +1,12 @@
-// The tile loop of the port's float32 products, with the operands' loaders
-// as template parameters.
+// The SIMT tile loop of matmul_at_b (csrc/matmul_at_b.cu), with the
+// operands' loaders as template parameters.  (The port's other products,
+// the convs and the unit graph's matmul, run on the tensor-core loop of
+// csrc/gemm_tc.cuh.)
 //
 // A block computes a 64x64 tile of C = A.B: 256 threads, each accumulating
 // a 4x4 register micro-tile, the reduction stepped 16 at a time through
-// shared memory (the design of csrc/matmul.cu, whose matmul_kernel stays as
-// it is).  What differs between the products that use this loop is only
-// where an operand element comes from, so a loader does that part: a
-// dense matrix (DepthMajor below), or a patch of an NHWC image gathered on
-// the fly (csrc/conv_gemm.cu), which makes a convolution a GEMM whose patch
-// matrix never exists in device memory.
+// shared memory.  A loader says where an operand element comes from: a
+// dense matrix (DepthMajor below).
 //
 // Words used here: a tile has kBM rows of C, kBN columns, and a depth (the
 // reduction index t).  A loader's load(s, i0, t0) fills
@@ -25,8 +23,8 @@
 // is huge, so a grid of C's tiles alone would leave most SMs idle.  The
 // depth is split into chunks across gridDim.z; each split writes its
 // partial tile to its own slice of a float32 workspace, and
-// split_sum_kernel adds the slices in ascending order.  No atomics: the
-// card repeats a result bit for bit.
+// split_sum_kernel (csrc/split_sum.cuh) adds the slices in ascending
+// order.  No atomics: the card repeats a result bit for bit.
 //
 // Arithmetic: float32 operands, FFMA into float32 accumulators; no TF32,
 // no tensor cores (the reference pins float32 products; its bf16 operand
@@ -35,6 +33,8 @@
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include "split_sum.cuh"
 
 namespace {
 
@@ -159,30 +159,6 @@ __device__ __forceinline__ void at_b_block(const LoadA& la, const LoadB& lb,
                    ? out
                    : ws + static_cast<long long>(blockIdx.z) * rows * cols;
   store_tile(acc, dst, rows, cols, r0, c0);
-}
-
-// out[i] = ws[0][i] + ws[1][i] + ... in ascending split order.
-__global__ void split_sum_kernel(const float* __restrict__ ws,
-                                 float* __restrict__ out, int n, int splits) {
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += gridDim.x * blockDim.x) {
-    float s = ws[i];
-    for (int z = 1; z < splits; ++z)
-      s += ws[static_cast<long long>(z) * n + i];
-    out[i] = s;
-  }
-}
-
-// Launches split_sum_kernel over n elements when there is more than one
-// split; returns cudaGetLastError() as an int.
-inline int launch_split_sum(const float* ws, float* out, int n, int splits,
-                            cudaStream_t stream) {
-  if (splits > 1) {
-    const int wanted = (n + 255) / 256;
-    const int blocks = wanted < 4096 ? wanted : 4096;
-    split_sum_kernel<<<blocks, 256, 0, stream>>>(ws, out, n, splits);
-  }
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace

@@ -1,125 +1,138 @@
-// Tiled float32 matrix product C = A·B for the unit graph's fc units.
+// Float32 matrix product C = A.B for the unit graph's fc units, on the
+// tensor-core tile loop of csrc/gemm_tc.cuh.
 //
 // Replaces the TPU kernel znicz_tpu/ops/matmul.py pallas_matmul
 // (_matmul_kernel): a block-tiled product with a float32 accumulator over a
-// K-innermost grid.  Used by All2All's forward (x·W) and GradientDescent's
-// weight gradient (xᵀ·err_y) and input error (err_y·Wᵀ).
-//
-// Precision: full float32 operands and a float32 accumulator, as the
-// reference's CPU tier runs it.  The reference casts operands to bf16 on a
-// TPU (_mxu_cast); this kernel does not, and uses no TF32 or bf16, so no
-// tensor cores: it is a SIMT SGEMM.  A wgmma version with bf16 or TF32
-// inputs changes the numbers and needs its own stated tolerance.
+// K-innermost grid.  Used by All2All's forward (x.W) and GradientDescent's
+// weight gradient (xT.err_y) and input error (err_y.WT).
 //
 // Operands are strided views: A is read at a[m*sam + k*sak] and B at
-// b[k*sbk + n*sbn], so xᵀ and Wᵀ reach the kernel as views of the row-major
+// b[k*sbk + n*sbn], so xT and WT reach the kernel as views of the row-major
 // tensors and no transposed copy is made.  C is written contiguous
 // row-major.  Ragged M, N and K are masked at the tile edge (zeros are
-// loaded outside the matrix), never padded in device memory.
+// copied in outside the matrix), never padded in device memory.
 //
-// Bound on an H100: operations at large shapes (2·M·N·K flops over the
-// 67 TFLOP/s float32 peak; (128, 9216)·(9216, 4096) needs 0.144 ms), the
-// launch at MNIST's (100 × 784 × 100 is 15.7 Mflop, 0.23 µs of work).  The
-// design: a 64×64 tile of C a block, 256 threads each accumulating a 4×4
-// register micro-tile, K stepped 16 at a time through shared memory, so
-// each operand element loaded from device memory feeds 64 fused
-// multiply-adds.  The tile loaders read along whichever of an operand's
-// two strides is 1, so both a row-major operand and a transposed view load
-// with neighbouring threads on neighbouring addresses; the shared tiles are
-// padded by 4 floats to spread the transposing stores over banks, and read
-// back as float4.  No double buffering or split-K yet: at (128, 9216,
-// 4096) the grid is 128 blocks on 132 SMs.
+// The design: gemm_tc.cuh's block, a 128-row C tile of width BN (128, 96,
+// 32, 16 or 8, from N), eight warps of mma.sync m16n8k8 TF32 products, a
+// ring of three cp.async stages 32 deep.  Each operand is kept in shared
+// memory in the layout it has in device memory, so that neighbouring
+// threads copy neighbouring addresses: A K-major where k is its
+// stride-1 axis (x, err_y), M-major where m is (the view xT); B N-major
+// where n is (W, err_y), K-major where k is (the view WT).  A copy moves
+// 16 bytes where that axis has stride 1 and an extent that is a multiple
+// of 4, the other stride is a multiple of 4 and the base is 16-byte
+// aligned, else 4; a view where neither stride is 1 takes the 4-byte
+// copies.  The depth is split across gridDim.z where the tiles alone leave
+// the card idle (MNIST's (100, 784).(784, 100) is one tile over 24.5
+// stages); the splits' tiles go to a workspace that split_sum_kernel adds
+// in ascending order.  The wrapper (ops/matmul.py matmul_plan) picks the
+// layouts, copy widths, BN and the split, and allocates the workspace.
+//
+// Arithmetic: the 3xTF32 split of gemm_tc.cuh (each operand as a big and a
+// small TF32 part, three products a multiply-add, a fresh partial every 8
+// of the depth added to a float32 accumulator with an IEEE add): float32
+// accuracy within the tests' tolerance (rtol 1e-5, atol 1e-5.sqrt(K)).
+// The reference casts operands to bf16 on a TPU (_mxu_cast); this kernel
+// does not.  TF32 stays off for PyTorch's own products
+// (znicz_tpu_torch/__init__.py): this kernel's TF32 parts are its own.
+//
+// Bound on an H100: operations at large shapes.  In float32 FFMA 2.M.N.K
+// over 67 TFLOP/s ((128, 9216).(9216, 4096), AlexNet's fc6, 0.144 ms); on
+// the tensor cores three TF32 products a multiply-add, 6.M.N.K over 495
+// TFLOP/s (0.0586 ms); mma.sync reaches a part of that rate
+// (csrc/conv_gemm.cu's header).  At MNIST's shapes the launch and the
+// latency of one block's steps bound it (100 x 784 x 100 is 15.7 Mflop).
 
-#include <cuda_runtime.h>
+#include "gemm_tc.cuh"
 
 namespace {
 
-constexpr int kBM = 64;
-constexpr int kBN = 64;
-constexpr int kBK = 16;
-constexpr int kTM = 4;
-constexpr int kTN = 4;
-constexpr int kThreads = (kBM / kTM) * (kBN / kTN);   // 256
-constexpr int kPad = 4;   // keeps rows 16-byte aligned for the float4 reads
-
-__global__ void __launch_bounds__(kThreads)
+template <int BN, bool kAMMajor, bool kBKMajor, int kVecA, int kVecB>
+__global__ void __launch_bounds__(tc::kThreads,
+                                  tc::Tile<BN, kBKMajor, kAMMajor>::kMinBlocks)
 matmul_kernel(const float* __restrict__ a, const float* __restrict__ b,
-              float* __restrict__ c, int m, int n, int k, long long sam,
-              long long sak, long long sbk, long long sbn) {
-  __shared__ __align__(16) float as[kBK][kBM + kPad];   // as[kk][mm]
-  __shared__ __align__(16) float bs[kBK][kBN + kPad];   // bs[kk][nn]
-  const int tid = threadIdx.x;
-  const int tx = tid % (kBN / kTN);   // column group of the micro-tile
-  const int ty = tid / (kBN / kTN);   // row group
-  const int row0 = blockIdx.y * kBM;
-  const int col0 = blockIdx.x * kBN;
-  const bool a_k_fast = (sak == 1);   // row-major A: walk k first
-  const bool b_n_fast = (sbn == 1);   // row-major B: walk n first
+              float* __restrict__ c, float* __restrict__ ws, int m, int n,
+              int k, long long sam, long long sak, long long sbk,
+              long long sbn, int chunk) {
+  using T = tc::Tile<BN, kBKMajor, kAMMajor>;
+  extern __shared__ __align__(16) float smem[];
+  const int m0 = blockIdx.x * tc::kBM;
+  const int n0 = blockIdx.y * BN;
+  const tc::Dense<tc::kBM, kAMMajor ? tc::kAStrideM : tc::kRowStride,
+                  !kAMMajor, kVecA, long long>
+      la{a, sam, sak, m, k, m0};
+  const tc::Dense<BN, kBKMajor ? tc::kRowStride : T::kBStrideN, kBKMajor,
+                  kVecB, long long>
+      lb{b, sbn, sbk, n, k, n0};
+  tc::split_block<T>(la, lb, smem, k, chunk, c, ws, m, n, m0, n0);
+}
 
-  float acc[kTM][kTN];
-#pragma unroll
-  for (int i = 0; i < kTM; ++i)
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.0f;
+bool aligned16(const void* p) {
+  return reinterpret_cast<unsigned long long>(p) % 16 == 0;
+}
 
-  for (int k0 = 0; k0 < k; k0 += kBK) {
-#pragma unroll
-    for (int r = 0; r < (kBM * kBK) / kThreads; ++r) {
-      const int i = tid + r * kThreads;
-      const int mm = a_k_fast ? i / kBK : i % kBM;
-      const int kk = a_k_fast ? i % kBK : i / kBM;
-      const int gm = row0 + mm;
-      const int gk = k0 + kk;
-      as[kk][mm] = (gm < m && gk < k) ? a[gm * sam + gk * sak] : 0.0f;
-    }
-#pragma unroll
-    for (int r = 0; r < (kBK * kBN) / kThreads; ++r) {
-      const int i = tid + r * kThreads;
-      const int nn = b_n_fast ? i % kBN : i / kBK;
-      const int kk = b_n_fast ? i / kBN : i % kBK;
-      const int gk = k0 + kk;
-      const int gn = col0 + nn;
-      bs[kk][nn] = (gk < k && gn < n) ? b[gk * sbk + gn * sbn] : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      const float4 av = *reinterpret_cast<const float4*>(&as[kk][ty * kTM]);
-      const float4 bv = *reinterpret_cast<const float4*>(&bs[kk][tx * kTN]);
-      const float ar[kTM] = {av.x, av.y, av.z, av.w};
-      const float br[kTN] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < kTM; ++i)
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int gm = row0 + ty * kTM + i;
-    if (gm >= m) continue;
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const int gn = col0 + tx * kTN + j;
-      if (gn < n) c[static_cast<long long>(gm) * n + gn] = acc[i][j];
-    }
-  }
+// Whether 16-byte copies may run along an operand's stride-1 axis: stride
+// 1 there and an extent that is a multiple of 4, the other stride a
+// multiple of 4, the base 16-byte aligned.
+bool copies_of_4(const float* p, long long inner_stride, int inner_extent,
+                 long long outer_stride) {
+  return inner_stride == 1 && inner_extent % 4 == 0 &&
+         outer_stride % 4 == 0 && aligned16(p);
 }
 
 }  // namespace
 
-// C (m, n) contiguous = A·B with A, B given by base pointer and element
+// C (m, n) contiguous = A.B with A, B given by base pointer and element
 // strides.  m, n > 0 (the wrapper returns an empty product without a
-// launch); k may be 0 (C = 0).  Launches on `stream`, does not synchronise;
-// returns cudaGetLastError() as an int, 0 on success.
+// launch); k may be 0 (C = 0).  The wrapper's choice (ops/matmul.py
+// MatmulPlan): bn (8, 16, 32, 96 or 128); a_mmajor (1: A kept M-major, its
+// m stride 1), b_kmajor (1: B kept K-major, its k stride 1); vec_a, vec_b
+// (4: 16-byte copies, allowed as copies_of_4 says; 1: 4-byte copies);
+// `splits` chunks of `chunk` (a multiple of 32, none empty) cover k, and
+// with splits > 1 ws holds splits.m.n floats.  Launches on `stream` (the
+// split sum after the product), does not synchronise; returns
+// cudaGetLastError() as an int, cudaErrorInvalidValue for a choice the
+// shape or alignment does not allow.
 extern "C" int znicz_matmul_f32(const float* a, const float* b, float* c,
-                                int m, int n, int k, long long sam,
-                                long long sak, long long sbk, long long sbn,
-                                void* stream) {
-  const dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
-  matmul_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      a, b, c, m, n, k, sam, sak, sbk, sbn);
-  return static_cast<int>(cudaGetLastError());
+                                float* ws, int m, int n, int k,
+                                long long sam, long long sak, long long sbk,
+                                long long sbn, int bn, int a_mmajor,
+                                int b_kmajor, int vec_a, int vec_b,
+                                int splits, int chunk, void* stream) {
+  const bool bad_a = vec_a == 4 && !(a_mmajor ? copies_of_4(a, sam, m, sak)
+                                              : copies_of_4(a, sak, k, sam));
+  const bool bad_b = vec_b == 4 && !(b_kmajor ? copies_of_4(b, sbk, k, sbn)
+                                              : copies_of_4(b, sbn, n, sbk));
+  const bool bad_split =
+      splits < 1 || splits > 65535 || chunk <= 0 || chunk % tc::kBK != 0 ||
+      static_cast<long long>(splits) * chunk < k ||
+      (splits > 1 && (static_cast<long long>(splits - 1) * chunk >= k ||
+                      ws == nullptr));
+  if (bad_a || bad_b || bad_split)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int status = tc::with_width(bn, [&](auto w) {
+    return tc::with_flag(a_mmajor, [&](auto am) {
+      return tc::with_flag(b_kmajor, [&](auto bk) {
+        return tc::with_vec(vec_a, [&](auto va) {
+          return tc::with_vec(vec_b, [&](auto vb) {
+            constexpr int kBN = decltype(w)::value;
+            constexpr bool kAM = decltype(am)::value == 1;
+            constexpr bool kBK = decltype(bk)::value == 1;
+            const dim3 grid((m + tc::kBM - 1) / tc::kBM,
+                            (n + kBN - 1) / kBN, splits);
+            if (grid.y > 65535)
+              return static_cast<int>(cudaErrorInvalidValue);
+            return tc::launch(
+                matmul_kernel<kBN, kAM, kBK, decltype(va)::value,
+                              decltype(vb)::value>,
+                tc::Tile<kBN, kBK, kAM>::kSmemBytes, grid, st, a, b, c, ws,
+                m, n, k, sam, sak, sbk, sbn, chunk);
+          });
+        });
+      });
+    });
+  });
+  if (status != 0) return status;
+  return launch_split_sum(ws, c, m * n, splits, st);
 }

@@ -10,13 +10,14 @@ implicit-GEMM tier, anything else the default tier.
   takes without a transpose.
 * Implicit-GEMM tier (the reference's Pallas tier, ``pallas_conv2d*``):
   on CUDA tensors the hand-written kernels of ``csrc/conv_gemm.cu``
-  (``conv_fwd`` and ``conv_dgrad`` on the tensor cores in the 3xTF32
-  split, which keeps float32 accuracy, ``conv_wgrad`` in float32 FFMA),
-  which gather patches while they load a tile, so the patch matrix never
-  exists; on CPU
-  tensors their plain versions (``plain_conv2d*_gemm``), which transcribe
-  the reference's tier: patches by pad + unfold, err's interior dilation
-  by strided assignment into zeros, the products as ``torch.matmul``.
+  (``conv_fwd``, ``conv_dgrad`` and ``conv_wgrad``, on the tensor cores
+  in the 3xTF32 split, which keeps float32 accuracy; the weight gradient
+  splits its depth and sums the splits in a fixed order), which gather
+  patches while they load a tile, so the patch matrix never exists; on
+  CPU tensors their plain versions (``plain_conv2d*_gemm``), which
+  transcribe the reference's tier: patches by pad + unfold, err's interior
+  dilation by strided assignment into zeros, the products as
+  ``torch.matmul``.
   A CUDA tensor never reaches cuDNN on this tier, and a kernel that does
   not build or launch raises.
 
@@ -41,7 +42,8 @@ import torch
 import torch.nn.functional as F
 
 from .geometry import norm2, out_size
-from .matmul import launch_split, plain_matmul_at_b
+from .matmul import (TC_WIDTHS, _tc_width, launch_split, plain_matmul_at_b,
+                     tc_split_plan)
 
 #: Launches of the implicit-GEMM kernels in this process; the CUDA branch
 #: of each wrapper adds one per launch, nowhere else.
@@ -55,17 +57,12 @@ conv_wgrad_launches = 0
 _CONV_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 17
                   + [ctypes.c_void_p])
 #: the weight gradient: x, err, dw, its workspace, the 13 ints of the
-#: shape, (splits, chunk) and the stream
-_WGRAD_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 15
+#: shape, its tile choice (``WgradPlan``: bn, vec_a, vec_b, splits, chunk)
+#: and the stream
+_WGRAD_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 18
                    + [ctypes.c_void_p])
 _INT32 = 2 ** 31
-#: the weight gradient's C tile (csrc/gemm_tile.cuh), both axes
-_TILE = 64
 _MAX_GRID_Y = 65535
-#: C tile widths of the tensor-core forward and input gradient
-#: (csrc/gemm_tc.cuh), widest first; 8 is the narrowest MMA's
-TC_WIDTHS = (128, 96, 32, 16, 8)
-_MMA_N = 8
 
 
 class TcConfig(NamedTuple):
@@ -76,17 +73,6 @@ class TcConfig(NamedTuple):
     vec_a: int
     vec_b: int
     unit_stride: int
-
-
-def _tc_width(n: int) -> int:
-    """The widest of ``TC_WIDTHS`` whose tiles over N columns idle less
-    than a quarter of their columns beyond N rounded up to the narrowest
-    MMA's 8 (so 8 at N = 1)."""
-    padded = -(-n // _MMA_N) * _MMA_N
-    for bn in TC_WIDTHS:
-        cols = -(-n // bn) * bn
-        if 4 * (cols - padded) < cols:    # always true at 8
-            return bn
 
 
 def _tc_config(kind: str, n: int, gathered: int, stride=1,
@@ -104,6 +90,30 @@ def _tc_config(kind: str, n: int, gathered: int, stride=1,
     if kind == "dgrad":
         return TcConfig(bn, vec_a, vec_a, int(norm2(stride) == (1, 1)))
     raise ValueError(f"_tc_config: kind {kind!r} is not 'fwd' or 'dgrad'")
+
+
+class WgradPlan(NamedTuple):
+    """``conv_wgrad``'s launch choice: the C tile's width (N = OC), the
+    floats a copy moves along x's C and along err's OC (4 or 1), and the
+    split of the depth, the B·OH·OW output pixels (splits, chunk)."""
+    bn: int
+    vec_a: int
+    vec_b: int
+    splits: int
+    chunk: int
+
+
+def wgrad_plan(c: int, oc: int, k_total: int, pixels: int,
+               aligned: bool = True) -> WgradPlan:
+    """The weight gradient's launch for x with C channels, OC outputs, the
+    patch length ``k_total`` (KH·KW·C, C's rows) and ``pixels`` (the
+    depth): width ``_tc_width(oc)``, 16-byte copies along an axis that is
+    a multiple of 4 on ``aligned`` operands, and the depth split
+    ``tc_split_plan``."""
+    bn = _tc_width(oc)
+    return WgradPlan(bn, 4 if aligned and c % 4 == 0 else 1,
+                     4 if aligned and oc % 4 == 0 else 1,
+                     *tc_split_plan(pixels, k_total, oc, bn))
 
 
 def gemm_tier() -> bool:
@@ -252,7 +262,8 @@ def _gemm_geometry(name: str, x_shape, w_shape, stride, padding,
     matching channels, a non-empty window that fits, ``err_shape`` (if
     given) equal to the conv's output, and x, w and the output within the
     kernels' int32 indices and within the grid of ``kind``'s kernel
-    ("fwd", "dgrad" or "wgrad"), whose y axis runs over N's tiles."""
+    ("fwd", "dgrad" or "wgrad"), whose y axis runs over N's tiles of
+    width ``_tc_width(N)``."""
     if len(x_shape) != 4 or len(w_shape) != 4:
         raise ValueError(f"{name}: x {tuple(x_shape)} and w "
                          f"{tuple(w_shape)} must be NHWC and HWIO")
@@ -274,7 +285,7 @@ def _gemm_geometry(name: str, x_shape, w_shape, stride, padding,
     if max(b * h * wd * c, kh * kw * c * oc, b * oh * ow * oc) >= _INT32:
         raise ValueError(f"{name}: a tensor exceeds int32 indexing")
     n = c if kind == "dgrad" else oc
-    tile = _TILE if kind == "wgrad" else _tc_width(n)
+    tile = _tc_width(n)
     if -(-n // tile) > _MAX_GRID_Y:
         raise ValueError(f"{name}: {n} channels exceed the kernel's grid "
                          f"({_MAX_GRID_Y} tiles of {tile})")
@@ -366,10 +377,22 @@ def conv2d_grad_weights_gemm(x, err, w_shape, stride=1, padding=0):
         return dw
     if err.numel() == 0:
         return dw.zero_()
-    launch_split("conv_gemm", "znicz_conv_wgrad_f32", _WGRAD_ARGTYPES, x,
-                 err, dw, kh * kw * c, oc, b * oh * ow, geo)
+    launch_wgrad(x, err, dw, geo, wgrad_plan(
+        c, oc, kh * kw * c, b * oh * ow,
+        x.data_ptr() % 16 == 0 and err.data_ptr() % 16 == 0))
     conv_wgrad_launches += 1
     return dw
+
+
+def launch_wgrad(x, err, dw, geo, plan: WgradPlan) -> None:
+    """``conv_wgrad`` into ``dw`` by ``plan`` (the workspace allocated here
+    when it splits the depth), without counting a launch: the CUDA branch
+    of ``conv2d_grad_weights_gemm``, and what a measurement that sets its
+    own plan calls."""
+    b, c, kh, kw, oc, oh, ow = (geo[i] for i in (0, 3, 4, 5, 6, 7, 8))
+    launch_split("conv_gemm", "znicz_conv_wgrad_f32", _WGRAD_ARGTYPES, x,
+                 err, dw, kh * kw * c, oc, b * oh * ow, (*geo, *plan[:3]),
+                 plan[3:])
 
 
 # -- numpy goldens (the numpy device) ---------------------------------------

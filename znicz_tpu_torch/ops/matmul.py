@@ -3,29 +3,34 @@
 
 ``matmul(a, b)`` is the product ``All2All`` and ``GradientDescent`` call
 (``x·W``, ``xᵀ·err_y``, ``err_y·Wᵀ``).  On CUDA tensors it launches the
-hand-written tiled SGEMM in ``csrc/matmul.cu`` (the port of
-``pallas_matmul``), which reads each operand through its strides, so a
-transposed view costs no copy; on CPU tensors it runs
-``plain_matmul``.
+hand-written tensor-core kernel in ``csrc/matmul.cu`` (the port of
+``pallas_matmul``, on the tile loop ``csrc/gemm_tc.cuh``), which reads
+each operand through its strides, so a transposed view costs no copy;
+``matmul_plan`` picks its launch (each operand's layout in shared memory,
+the copy widths, the tile width, the split of the depth).  On CPU tensors
+it runs ``plain_matmul``.
 
 ``matmul_at_b(a, b)`` is ``aᵀ·b`` of row-major ``a (M, K)`` and
 ``b (M, N)`` over their shared rows, the weight-gradient shape (M huge,
 the output small): on CUDA tensors the split-M kernel of
-``csrc/matmul_at_b.cu`` (the port of ``pallas_matmul_at_b``), which
-never makes ``aᵀ`` and sums its splits in a fixed order; on CPU tensors
-``plain_matmul_at_b``.  The implicit-GEMM conv tier's weight gradient
-(``ops/conv.py``) runs the same kernel template with its patch operand
-gathered from the image.
+``csrc/matmul_at_b.cu`` (the port of ``pallas_matmul_at_b``, on the SIMT
+loop ``csrc/gemm_tile.cuh``), which never makes ``aᵀ`` and sums its
+splits in a fixed order; on CPU tensors ``plain_matmul_at_b``.
 
-All compute in full float32: the reference's bf16 operand cast is a
-TPU-only device (``_mxu_cast``), and TF32 is off
+Both keep float32 accuracy: ``matmul``'s kernel multiplies in the
+3×TF32 split (three TF32 products a multiply-add, within the same
+tolerance as float32 sums in another order), ``matmul_at_b``'s in FFMA;
+the reference's bf16 operand cast is a TPU-only device (``_mxu_cast``),
+and TF32 stays off for PyTorch's own products
 (``znicz_tpu_torch/__init__.py``).  The fused step's fc products stay
 ``torch.matmul``, as the JAX fused step leaves them to XLA.  A CUDA
-tensor never falls back to the plain version."""
+tensor never falls back to the plain version or to a library product."""
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -37,24 +42,38 @@ matmul_launches = 0
 #: one), added by the CUDA branch of ``matmul_at_b`` only.
 matmul_at_b_launches = 0
 
-#: a, b, c, M, N, K, A strides (m, k), B strides (k, n), stream
-_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-             + [ctypes.c_longlong] * 4 + [ctypes.c_void_p])
+#: a, b, c, workspace, M, N, K, A strides (m, k), B strides (k, n), the
+#: launch choice (``MatmulPlan``: bn, a_mmajor, b_kmajor, vec_a, vec_b,
+#: splits, chunk) and the stream
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+             + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 7
+             + [ctypes.c_void_p])
 
 #: a, b, out, workspace, M, K, N, splits, chunk, stream
 _AT_B_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                   + [ctypes.c_void_p])
 
-#: the kernels' tile of C (blocks along M are matmul's grid y dimension)
+#: matmul_at_b's SIMT tile of C (csrc/gemm_tile.cuh), both axes
 _BM = 64
 _MAX_GRID_Y = 65535
-#: the split products' depth step (rows of the reduction a shared-memory
-#: step takes), the blocks they aim for (two on each of an H100's 132 SMs)
-#: and the least rows a split takes
+#: matmul_at_b's depth step (rows of the reduction a shared-memory step
+#: takes), the blocks its split aims for (two on each of an H100's 132
+#: SMs) and the least rows a split takes
 _STEP = 16
 _TARGET_BLOCKS = 264
 _MIN_CHUNK = 256
 _INT32 = 2 ** 31
+#: the tensor-core loop (csrc/gemm_tc.cuh): rows of its C tile, the depth
+#: of a stage, and its tile widths, widest first (8 is the narrowest MMA's)
+TC_ROWS = 128
+TC_STEP = 32
+TC_WIDTHS = (128, 96, 32, 16, 8)
+_MMA_N = 8
+#: its blocks resident at once on an H100 (two on each of 132 SMs), and a
+#: block's fixed cost in stages (the two stages its prologue loads before
+#: the first product, and its store)
+TC_SLOTS = 264
+TC_BLOCK_STAGES = 2
 
 
 def np_matmul(x: np.ndarray, w: np.ndarray) -> np.ndarray:
@@ -85,8 +104,8 @@ def _check(a: torch.Tensor, b: torch.Tensor) -> None:
     n = b.shape[1]
     if max(m, n, k) >= 2 ** 31 or m * n >= 2 ** 31:
         raise ValueError("matmul: shape exceeds int32")
-    if -(-m // _BM) > _MAX_GRID_Y:
-        raise ValueError(f"matmul: {m} rows exceed the kernel's grid")
+    if _ceil(n, _tc_width(n)) > _MAX_GRID_Y:
+        raise ValueError(f"matmul: {n} columns exceed the kernel's grid")
     if min(a.stride() + b.stride()) < 0:
         raise ValueError("matmul: negative strides are not taken")
 
@@ -95,12 +114,23 @@ def _ceil(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def _tc_width(n: int) -> int:
+    """The widest of ``TC_WIDTHS`` whose tiles over N columns idle less
+    than a quarter of their columns beyond N rounded up to the narrowest
+    MMA's 8 (so 8 at N = 1)."""
+    padded = -(-n // _MMA_N) * _MMA_N
+    for bn in TC_WIDTHS:
+        cols = -(-n // bn) * bn
+        if 4 * (cols - padded) < cols:    # always true at 8
+            return bn
+
+
 def split_plan(depth: int, rows: int, cols: int) -> tuple[int, int]:
-    """(splits, chunk) for a product of a (rows, cols) output summed over
-    ``depth`` > 0: split the depth until the grid has at least
-    ``_TARGET_BLOCKS`` blocks, or into chunks of ``_MIN_CHUNK`` rows if
-    that comes first; each chunk a multiple of the kernel's 16-row step,
-    none empty."""
+    """(splits, chunk) for ``matmul_at_b``'s 64×64 SIMT tiles of a (rows,
+    cols) output summed over ``depth`` > 0: split the depth until the grid
+    has at least ``_TARGET_BLOCKS`` blocks, or into chunks of
+    ``_MIN_CHUNK`` rows if that comes first; each chunk a multiple of the
+    kernel's 16-row step, none empty."""
     tiles = _ceil(rows, _BM) * _ceil(cols, _BM)
     splits = min(_ceil(_TARGET_BLOCKS, tiles), depth // _MIN_CHUNK)
     if splits <= 1:
@@ -109,14 +139,41 @@ def split_plan(depth: int, rows: int, cols: int) -> tuple[int, int]:
     return _ceil(depth, chunk), chunk
 
 
+@functools.lru_cache(maxsize=4096)
+def tc_split_plan(depth: int, rows: int, cols: int, bn: int
+                  ) -> tuple[int, int]:
+    """(splits, chunk) of the tensor-core loop's depth for a (rows, cols)
+    output in TC_ROWS × ``bn`` tiles.  No split where the tiles alone fill
+    the card's ``TC_SLOTS``; else the split count whose grid takes the
+    least time in stages of one resident block, its waves of
+    ``TC_SLOTS`` blocks times a block's chunk plus ``TC_BLOCK_STAGES``,
+    the fewest splits among equals.  Each chunk is whole stages of
+    TC_STEP, none empty (one stage at depth 0).  Measured on an H100
+    (``chip_smoke.py`` ``splits_ms``), the time follows the waves: a grid
+    a little past a wave loses what one a little short of it keeps."""
+    tiles = _ceil(rows, TC_ROWS) * _ceil(cols, bn)
+    stages = max(_ceil(depth, TC_STEP), 1)
+
+    def cost(splits: int) -> tuple[int, int]:
+        chunk = _ceil(stages, splits)
+        return (_ceil(tiles * _ceil(stages, chunk), TC_SLOTS)
+                * (chunk + TC_BLOCK_STAGES), splits)
+    splits = (1 if tiles >= TC_SLOTS
+              else min(range(1, stages + 1), key=cost))
+    chunk = _ceil(stages, splits)
+    return _ceil(stages, chunk), chunk * TC_STEP
+
+
 def launch_split(library: str, entry: str, argtypes: list, a, b, out,
-                 rows: int, cols: int, depth: int, dims: tuple) -> None:
-    """Launch a split-depth product (``csrc/gemm_tile.cuh`` ``at_b_block``)
-    of operands ``a`` and ``b`` into ``out``, a (rows, cols) matrix summed
-    over ``depth``: ``entry(a, b, out, workspace, *dims, splits, chunk,
-    stream)``, with the workspace (splits, rows, cols) allocated here when
-    the depth is split."""
-    splits, chunk = split_plan(depth, rows, cols)
+                 rows: int, cols: int, depth: int, dims: tuple,
+                 plan: tuple[int, int] | None = None) -> None:
+    """Launch a split-depth product of operands ``a`` and ``b`` into
+    ``out``, a (rows, cols) matrix summed over ``depth``: ``entry(a, b,
+    out, workspace, *dims, splits, chunk, stream)``, with (splits, chunk)
+    from ``plan`` (default: ``split_plan``, ``matmul_at_b``'s) and the
+    workspace (splits, rows, cols) allocated here when the depth is
+    split."""
+    splits, chunk = plan or split_plan(depth, rows, cols)
     if splits * rows * cols >= _INT32:
         raise ValueError(f"{entry}: the split workspace exceeds int32")
     ws = (torch.empty((splits, rows, cols), dtype=torch.float32,
@@ -178,6 +235,65 @@ def matmul_at_b(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
+class MatmulPlan(NamedTuple):
+    """``matmul``'s launch choice: the C tile's width; 1 where A is kept
+    M-major in shared memory (its m stride is 1: a transposed view), 1
+    where B is kept K-major (its k stride is 1); the floats a copy of A
+    and of B moves (4 or 1); the split of the depth (splits, chunk)."""
+    bn: int
+    a_mmajor: int
+    b_kmajor: int
+    vec_a: int
+    vec_b: int
+    splits: int
+    chunk: int
+
+
+def _copy_width(inner_stride: int, inner_extent: int, outer_stride: int,
+                aligned: bool) -> int:
+    """4 floats a copy along an operand's inner axis where it has stride 1
+    and an extent that is a multiple of 4, its other stride is a multiple
+    of 4 and its base is 16-byte aligned; else 1."""
+    return 4 if (inner_stride == 1 and inner_extent % 4 == 0
+                 and outer_stride % 4 == 0 and aligned) else 1
+
+
+def matmul_plan(a_shape, a_stride, b_shape, b_stride, a_aligned: bool = True,
+                b_aligned: bool = True) -> MatmulPlan:
+    """The launch of ``matmul`` for A (M, K) and B (K, N) with these
+    strides (in elements) and bases 16-byte aligned or not: A M-major where
+    its m stride is 1 and its k stride is not, else K-major; B K-major
+    where its k stride is 1 and its n stride is not, else N-major; copy
+    widths along each one's inner axis (``_copy_width``); the width
+    ``_tc_width(N)``; the depth split ``tc_split_plan``."""
+    (m, k), n = a_shape, b_shape[1]
+    sam, sak = a_stride
+    sbk, sbn = b_stride
+    a_mmajor = int(sam == 1 and sak != 1)
+    b_kmajor = int(sbk == 1 and sbn != 1)
+    vec_a = (_copy_width(sam, m, sak, a_aligned) if a_mmajor
+             else _copy_width(sak, k, sam, a_aligned))
+    vec_b = (_copy_width(sbk, k, sbn, b_aligned) if b_kmajor
+             else _copy_width(sbn, n, sbk, b_aligned))
+    bn = _tc_width(n)
+    return MatmulPlan(bn, a_mmajor, b_kmajor, vec_a, vec_b,
+                      *tc_split_plan(k, m, n, bn))
+
+
+def launch_matmul(a: torch.Tensor, b: torch.Tensor,
+                  plan: MatmulPlan) -> torch.Tensor:
+    """C = a·b on the card by ``plan`` (the workspace allocated here when
+    it splits the depth), without counting a launch: ``matmul``'s CUDA
+    branch, and what a measurement that sets its own plan calls."""
+    m, k = a.shape
+    n = b.shape[1]
+    c = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    launch_split("matmul", "znicz_matmul_f32", _ARGTYPES, a, b, c, m, n, k,
+                 (m, n, k, *a.stride(), *b.stride(), *plan[:5]),
+                 plan[5:])
+    return c
+
+
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(M, N) float32 product of (M, K) and (K, N) float32 matrices, which
     may be strided views (a transpose included): the CUDA kernel for CUDA
@@ -186,15 +302,11 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     _check(a, b)
     if a.device.type == "cpu":
         return plain_matmul(a, b)
-    m, k = a.shape
-    n = b.shape[1]
-    c = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    m, n = a.shape[0], b.shape[1]
     if m == 0 or n == 0:
-        return c
-    from .. import cuda_build
-    cuda_build.launch(
-        cuda_build.kernel("matmul", "znicz_matmul_f32", _ARGTYPES),
-        a.device, a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k,
-        *a.stride(), *b.stride())
+        return torch.empty((m, n), dtype=torch.float32, device=a.device)
+    c = launch_matmul(a, b, matmul_plan(
+        a.shape, a.stride(), b.shape, b.stride(), a.data_ptr() % 16 == 0,
+        b.data_ptr() % 16 == 0))
     matmul_launches += 1
     return c
