@@ -14,7 +14,8 @@ exits nonzero without the final ``ok`` line:
    sm_90a from this checkout (one nvcc per source, started together);
 3. kernel  — each kernel's wrapper against its plain PyTorch version on the
    card at the main paths' shapes and a few more (ragged, padded and
-   overlapping windows, max-abs, ties, an even LRN window, β ≠ 0.75; for
+   overlapping windows, max-abs, ties, the pool scatter bit for bit at
+   each channel width it takes, an even LRN window, β ≠ 0.75; for
    the fused LRN→max-pool pair the geometries of tests/test_lrn_pool.py
    and each folded activation; dropout at two ratios and a counter near
    2³²), with the stated tolerances; times of kernel, plain version,
@@ -133,10 +134,12 @@ the others, each case's ulps printed; bound by bytes: the forward reads
 x and writes y, the backward reads err_y and one of y or x and writes
 err_x).
 
-And the conv tier's four: ``matmul_at_b`` (FFMA) at the patch matrices
-of CIFAR's conv1 and AlexNet's conv2 weight gradients and at
-tests/test_ops.py's shapes; ``conv_fwd``, ``conv_dgrad`` and
-``conv_wgrad`` (all three on the tensor cores in the 3xTF32 split) at
+And the conv tier's four: ``matmul_at_b`` (the tensor-core matmul on the
+view aᵀ, 3xTF32) at the patch matrices of CIFAR's conv1 and AlexNet's
+conv2 weight gradients and at tests/test_ops.py's shapes, each row with
+its launch choice and at CIFAR conv1 its time at other split counts of
+the depth, the split sum included (``splits_ms``); ``conv_fwd``,
+``conv_dgrad`` and ``conv_wgrad`` (all three on the tensor cores) at
 CIFAR's two convs, the autoencoder's (whose geometry its deconv shares),
 AlexNet's five, a ragged stride-2 case and a stride-2 padding-1 case
 (``CONV_GEMM_CASES``); each within rtol 1e-5 / atol 1e-5·√R times the
@@ -243,7 +246,7 @@ KERNELS = {
     "act_bwd": ("znicz_tpu_torch/csrc/activation.cu",
                 "znicz_tpu/ops/elementwise.py:115", "activations",
                 "act_bwd_launches"),
-    "matmul_at_b": ("znicz_tpu_torch/csrc/matmul_at_b.cu",
+    "matmul_at_b": ("znicz_tpu_torch/csrc/matmul.cu",
                     "znicz_tpu/ops/matmul.py:145", "matmul",
                     "matmul_at_b_launches"),
     "conv_fwd": ("znicz_tpu_torch/csrc/conv_gemm.cu",
@@ -257,7 +260,7 @@ KERNELS = {
 #: beside the kernel's source)
 LOOPS = {
     "matmul": "znicz_tpu_torch/csrc/gemm_tc.cuh",
-    "matmul_at_b": "znicz_tpu_torch/csrc/gemm_tile.cuh",
+    "matmul_at_b": "znicz_tpu_torch/csrc/gemm_tc.cuh",
     "conv_fwd": "znicz_tpu_torch/csrc/gemm_tc.cuh",
     "conv_dgrad": "znicz_tpu_torch/csrc/gemm_tc.cuh",
     "conv_wgrad": "znicz_tpu_torch/csrc/gemm_tc.cuh",
@@ -530,18 +533,71 @@ def phase_kernel_softmax(torch) -> list:
     return rows
 
 
-#: case, x shape, ksize, stride, padding, max-abs, data
+#: case, x shape, ksize, stride, padding, max-abs, data: CIFAR's pool
+#: first (every pooling kernel's main-path row), ragged padded windows that
+#: overlap at C = 5 (the scatter's scalar form) and at C = 8 (its vectors),
+#: max-abs, ties, AlexNet's pool5 (overlapping) and the autoencoder's pool,
+#: whose scatter is also its depooling forward
 POOL_CASES = [
     ("cifar_step", (100, 32, 32, 32), 2, 2, 0, False, "normal"),
     ("overlap_pad_ragged", (7, 13, 11, 5), 3, 2, 1, False, "normal"),
+    ("overlap_pad_c8", (7, 13, 11, 8), 3, 2, 1, False, "normal"),
     ("maxabs", (7, 13, 11, 5), 3, 2, 1, True, "normal"),
     ("ties", (100, 32, 32, 32), 2, 2, 0, False, "ties"),
     ("maxabs_ties_padded", (7, 13, 11, 5), 3, 2, 1, True, "ties"),
     ("alexnet_pool5", (128, 13, 13, 256), 3, 2, 0, False, "normal"),
+    ("autoencoder_step", (100, 28, 28, 16), 2, 2, 0, False, "normal"),
 ]
+#: the cases timed against the library's pooling
+POOL_LIBRARY_CASES = ("cifar_step", "alexnet_pool5", "autoencoder_step")
+#: the scatter's widths (channels a thread) timed beside its choice
+#: (``vec_ms``), at every case whose C they divide
+SCATTER_WIDTHS = (1, 4)
+
+
+def _bit_equal(torch, case: str, name: str, got, want) -> float:
+    """0.0 after checking that ``got`` has ``want``'s shape, dtype and
+    bits (a −0.0 for a +0.0 differs)."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{case}: {name} is {tuple(got.shape)} "
+                             f"{got.dtype}, plain {tuple(want.shape)} "
+                             f"{want.dtype}")
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        raise AssertionError(f"{case}: {name} differs from its plain "
+                             f"version in {int((got != want).sum())} "
+                             f"values, max abs "
+                             f"{float((got - want).abs().max())}")
+    return 0.0
+
+
+def _pool_library(torch, F, x, e, k, st, pad):
+    """(ms of ``F.max_pool2d(return_indices=True)``, ms of the one call
+    that computes the scatter) on NCHW copies, with flat plane indices
+    (another contract than the port's window slots): ``F.max_unpool2d``
+    where the windows do not overlap, else the max-pool backward, which
+    sums them."""
+    xn = x.permute(0, 3, 1, 2).contiguous()
+    en = e.permute(0, 3, 1, 2).contiguous()
+    _, idx = F.max_pool2d(xn, k, st, pad, return_indices=True)
+    sel = _time_ms(torch, lambda: F.max_pool2d(xn, k, st, pad,
+                                               return_indices=True))[0]
+    if k <= st:
+        sca = _time_ms(torch, lambda: F.max_unpool2d(
+            en, idx, k, st, pad, output_size=xn.shape[-2:]))[0]
+    else:
+        sca = _time_ms(torch, lambda: torch.ops.aten
+                       .max_pool2d_with_indices_backward(
+                           en, xn, [k, k], [st, st], [pad, pad], [1, 1],
+                           False, idx))[0]
+    return sel, sca
 
 
 def phase_kernel_pooling(torch) -> dict:
+    """Pool select and scatter against their plain versions: the slots
+    exact, y within rtol 1e-5 / atol 1e-6, dx bit for bit (the scatter adds
+    in the plain version's order) and bit-equal on a second call and at
+    every width of ``SCATTER_WIDTHS`` that C allows, each width timed
+    (``vec_ms``)."""
     import torch.nn.functional as F
 
     from znicz_tpu_torch.ops import pooling
@@ -564,32 +620,38 @@ def phase_kernel_pooling(torch) -> dict:
         err_sel = max(_close(torch, case, "offsets", off, want_off, 0, 0),
                       _close(torch, case, "y", y, want_y, 1e-5, 1e-6))
         e = torch.randn(tuple(y.shape), generator=gen).to(dev)
-        dx = _launch_once(torch, "pool_scatter",
-                          lambda: pooling.gd_max_pooling(e, off, shape, k,
-                                                         st, pad))
-        err_sca = _close(torch, case, "dx", dx, pooling.plain_gd_max_pooling(
-            e, off, shape, k, st, pad), 1e-5, 1e-6)
+        window = pooling._geometry(case, shape, k, st, pad)
+
+        def scatter(vec=None):
+            """dx by the wrapper, or at a width without counting it."""
+            if vec is None:
+                return pooling.gd_max_pooling(e, off, shape, k, st, pad)
+            return pooling.launch_pool_scatter(e, off, shape, window, vec)
+        dx = _launch_once(torch, "pool_scatter", scatter)
+        want_dx = pooling.plain_gd_max_pooling(e, off, shape, k, st, pad)
+        err_sca = _bit_equal(torch, case, "dx", dx, want_dx)
+        _bit_equal(torch, case, "dx (second call)", scatter(), dx)
+        vec_ms = {}
+        for vec in SCATTER_WIDTHS:
+            if shape[3] % vec == 0:
+                _bit_equal(torch, case, f"dx at width {vec}", scatter(vec),
+                           want_dx)
+                vec_ms[str(vec)] = _time_ms(torch,
+                                            lambda: scatter(vec))[0]
         geo = {"case": case, "shape": list(shape), "ksize": k, "stride": st,
                "padding": pad, "use_abs": use_abs}
         lib_sel = lib_sca = None
-        if case == "cifar_step":
-            # yardsticks on NCHW copies, with flat plane indices (another
-            # contract than the port's window slots)
-            xn = x.permute(0, 3, 1, 2).contiguous()
-            en = e.permute(0, 3, 1, 2).contiguous()
-            _, idx = F.max_pool2d(xn, k, st, pad, return_indices=True)
-            lib_sel = _time_ms(torch, lambda: F.max_pool2d(
-                xn, k, st, pad, return_indices=True))[0]
-            lib_sca = _time_ms(torch, lambda: F.max_unpool2d(
-                en, idx, k, st, pad, output_size=xn.shape[-2:]))[0]
+        if case in POOL_LIBRARY_CASES:
+            lib_sel, lib_sca = _pool_library(torch, F, x, e, k, st, pad)
         taps = k * k
         rows["pool_select"].append(_row(
             torch, "pool_select", geo, err_sel, lambda: fn(x, k, st, pad),
             lambda: plain(x, k, st, pad),
             pool_select_bound_ms(x.numel(), y.numel(), taps), lib_sel))
         rows["pool_scatter"].append(_row(
-            torch, "pool_scatter", geo, err_sca,
-            lambda: pooling.gd_max_pooling(e, off, shape, k, st, pad),
+            torch, "pool_scatter",
+            {**geo, "vec": pooling.scatter_width(shape[3], e, off),
+             "vec_ms": vec_ms}, err_sca, scatter,
             lambda: pooling.plain_gd_max_pooling(e, off, shape, k, st, pad),
             pool_scatter_bound_ms(x.numel(), y.numel(), taps), lib_sca))
     return rows
@@ -812,9 +874,9 @@ def matmul_bound_ms(m: int, n: int, k: int):
 
 def tc_bound_ms(in_numels, out_numel: int, macs: int):
     """The tensor-core bound of the 3xTF32 kernels (``matmul``,
-    ``conv_fwd``, ``conv_dgrad``, ``conv_wgrad``): the operands read once,
-    the result written once, and three TF32 products a multiply-add (6
-    operations) at the TF32 peak."""
+    ``matmul_at_b``, ``conv_fwd``, ``conv_dgrad``, ``conv_wgrad``): the
+    operands read once, the result written once, and three TF32 products
+    a multiply-add (6 operations) at the TF32 peak."""
     t_bytes = (sum(in_numels) + out_numel) * 4 / HBM_BYTES_PER_S * 1e3
     t_ops = 6 * macs / TF32_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -1441,11 +1503,36 @@ AT_B_CASES = [
 ]
 
 
+#: the split counts timed beside the plan's (``splits_ms``)
+AT_B_SPLIT_SWEEP = {"cifar_conv1_patches": (16, 32, 64, 128, 247, 400)}
+
+
+def kernel_us(torch, fn, calls: int = 20) -> dict:
+    """{kernel: device µs a call} of ``calls`` calls of ``fn`` under
+    ``torch.profiler``, after one call to warm up: the product and its
+    split sum apart."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key.replace("(anonymous namespace)::", "").split("(")[0]:
+            e.self_device_time_total / calls for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
 def phase_kernel_at_b(torch) -> list:
     """``matmul_at_b`` against ``a.T @ b`` (cuBLAS, TF32 off) within
     GEMM_RTOL and ``_gemm_atol`` over R = M, bit-equal to itself on a
     second call (the splits sum in a fixed order); the yardstick is
-    ``torch.matmul(a.T, b)``."""
+    ``torch.matmul(a.T, b)``.  Each row has its launch choice
+    (``at_b_plan``), both bounds (``bound_ms`` the tensor cores' 3xTF32
+    one), and at ``AT_B_SPLIT_SWEEP``'s cases its time at other split
+    counts, the split sum included, and the profiled device time of the
+    product and of the sum (``kernel_us``)."""
     from znicz_tpu_torch.ops import matmul
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(SEED + 13)
@@ -1463,14 +1550,25 @@ def phase_kernel_at_b(torch) -> list:
                                  f"calls")
         iters = BIG_ITERS if m * k > 10 ** 8 else ITERS
         lib = _time_ms(torch, lambda: torch.matmul(a.T, b), iters)[0]
-        splits, chunk = matmul.split_plan(m, k, n)
+        plan = matmul.at_b_plan(m, k, n, a.data_ptr() % 16 == 0
+                                and b.data_ptr() % 16 == 0)
+        tc = tc_bound_ms((m * k, m * n), k * n, m * k * n)
+        geo = {"case": case, "shape": [m, k, n], "plan": plan._asdict(),
+               "splits": plan.splits, "chunk": plan.chunk, "atol": atol,
+               "atol_ratio": err / atol,
+               "ffma_bound_ms": matmul_bound_ms(k, n, m)[0],
+               "tc_bound_ms": tc[0]}
+        if case in AT_B_SPLIT_SWEEP:
+            geo["splits_ms"] = split_sweep(
+                torch, lambda s, ch: matmul.launch_matmul(
+                    a.T, b, plan._replace(splits=s, chunk=ch)), m,
+                AT_B_SPLIT_SWEEP[case], iters)
+            geo["kernel_us"] = kernel_us(
+                torch, lambda: matmul.launch_matmul(a.T, b, plan))
         rows.append(_row(
-            torch, "matmul_at_b", {"case": case, "shape": [m, k, n],
-                                   "splits": splits, "chunk": chunk,
-                                   "atol": atol}, err,
+            torch, "matmul_at_b", geo, err,
             lambda: matmul.matmul_at_b(a, b),
-            lambda: matmul.plain_matmul_at_b(a, b),
-            matmul_bound_ms(m, n, k), lib, iters))
+            lambda: matmul.plain_matmul_at_b(a, b), tc, lib, iters))
         del a, b, got
         torch.cuda.empty_cache()
     return rows

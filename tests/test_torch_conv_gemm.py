@@ -11,7 +11,11 @@
   geometry whose last row no window reaches, and an 11×11 stride-4 window
   on C = 3 (AlexNet's conv1);
 - ``matmul_at_b`` at tests/test_ops.py's aᵀ·b shapes against
-  ``pallas_matmul_at_b`` in interpret mode and against ``a.T @ b``;
+  ``pallas_matmul_at_b`` in interpret mode and against ``a.T @ b``; its
+  launch choice ``at_b_plan`` at the weight gradients' patch matrices:
+  the tensor-core matmul of the view aᵀ (M-major) and b (N-major), 16-byte
+  copies only along rows that are multiples of 4, the depth M split in
+  whole stages with the fewest waves;
 - routing: with the tier on, the dispatchers reach the plain GEMM versions
   and never ``F.conv2d`` or ``convolution_backward``; with it off they
   reach PyTorch's convolution as before; the environment is read on every
@@ -42,6 +46,8 @@ from znicz_tpu.ops import deconv as ref_deconv
 from znicz_tpu.ops import matmul as ref_matmul
 from znicz_tpu.ops import tuning
 from znicz_tpu_torch.ops import conv, deconv, matmul
+
+import test_torch_matmul
 
 #: name → (x shape, w shape, stride, padding) of a conv
 CASES = {
@@ -389,13 +395,22 @@ def test_cpu_wrappers_are_the_plain_versions():
 @pytest.mark.parametrize("depth,rows,cols", [
     (102400, 75, 32), (78400, 25, 16), (93312, 2400, 256),
     (387200, 363, 96), (700, 72, 16), (9, 5, 3), (1, 1, 1)])
-def test_split_plan_covers_the_depth_and_fills_the_card(depth, rows, cols):
-    splits, chunk = matmul.split_plan(depth, rows, cols)
-    assert chunk % 16 == 0 and (splits - 1) * chunk < depth <= splits * chunk
-    # enough blocks for the card, or splits as short as they may be
-    tiles = -(-rows // 64) * -(-cols // 64)
-    assert tiles * splits >= 264 or splits >= depth // 256
-    assert splits == 1 or chunk >= 256
+def test_at_b_plan_is_the_matmul_of_the_transposed_view(depth, rows, cols):
+    # aᵀ·b of a (depth, rows) and b (depth, cols): the matmul of A = aᵀ
+    # (rows, depth), M-major, and B = b (depth, cols), N-major
+    plan = matmul.at_b_plan(depth, rows, cols)
+    # a single column of a has both strides 1 and is read K-major
+    assert plan.a_mmajor == int(rows > 1) and plan.b_kmajor == 0
+    # 16-byte copies along A's rows (K) and B's rows (N) only where they
+    # are multiples of 4, and never on unaligned bases
+    assert plan.vec_a == (4 if rows % 4 == 0 else 1)
+    assert plan.vec_b == (4 if cols % 4 == 0 else 1)
+    unaligned = matmul.at_b_plan(depth, rows, cols, False)
+    assert (unaligned.vec_a, unaligned.vec_b) == (1, 1)
+    assert plan.bn == matmul._tc_width(cols)
+    test_torch_matmul._plan_covers_the_depth(plan, depth)
+    test_torch_matmul.assert_split_of_least_waves(
+        plan.splits, plan.chunk, depth, rows, cols, plan.bn)
 
 
 @pytest.mark.skipif("not torch.cuda.is_available()",
@@ -432,13 +447,30 @@ def test_cuda_kernels_match_plain_versions(case):
 
 @pytest.mark.skipif("not torch.cuda.is_available()",
                     reason="the CUDA kernel runs only on a card")
-@pytest.mark.parametrize("shape", AT_B_SHAPES + [(102400, 75, 32)])
+@pytest.mark.parametrize(
+    "shape", AT_B_SHAPES + [(102400, 75, 32), (0, 5, 4)])
 def test_cuda_matmul_at_b_matches_plain_version(shape):
     a, b = (torch.from_numpy(t).cuda() for t in _at_b_operands(shape))
-    before = matmul.matmul_at_b_launches
+    before = matmul.matmul_at_b_launches, matmul.matmul_launches
     got = matmul.matmul_at_b(a, b)
     torch.cuda.synchronize()
-    assert matmul.matmul_at_b_launches == before + 1
+    # the matmul kernel's launch counts as aᵀ·b's alone
+    assert (matmul.matmul_at_b_launches,
+            matmul.matmul_launches) == (before[0] + 1, before[1])
     torch.testing.assert_close(got, matmul.plain_matmul_at_b(a, b),
                                rtol=RTOL, atol=RTOL * math.sqrt(shape[0]))
     torch.testing.assert_close(matmul.matmul_at_b(a, b), got, rtol=0, atol=0)
+
+
+@pytest.mark.skipif("not torch.cuda.is_available()",
+                    reason="the CUDA kernel runs only on a card")
+def test_cuda_matmul_at_b_takes_any_stride_of_an_axis_of_extent_1():
+    # (1, 8) and (1, 4) transposed columns: contiguous, their row stride 1,
+    # and K = 8, N = 4 take 16-byte copies
+    gen = torch.Generator().manual_seed(7)
+    a = torch.randn((8, 1), generator=gen).cuda().T
+    b = torch.randn((4, 1), generator=gen).cuda().T
+    assert a.is_contiguous() and a.stride() == (1, 1)
+    torch.testing.assert_close(matmul.matmul_at_b(a, b),
+                               matmul.plain_matmul_at_b(a, b), rtol=RTOL,
+                               atol=RTOL)

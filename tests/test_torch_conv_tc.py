@@ -22,7 +22,8 @@
   chunks added in ascending order, as ``split_sum_kernel`` adds them)
   against a float64 product within the tier's tolerance, at the real
   chunk lengths of AlexNet's conv2 and conv4 and CIFAR's conv2 weight
-  gradients and at the depths of ``chip_smoke.py``'s ``MATMUL_CASES``;
+  gradients, at the depths of ``chip_smoke.py``'s ``MATMUL_CASES`` and at
+  the depths and chunks of its ``AT_B_CASES`` (``matmul_at_b``);
 - ``_gemm_geometry`` refuses a shape past the grid at the tile width, the
   weight gradient's too.
 
@@ -250,21 +251,31 @@ def _matmul_depth(case: str) -> tuple[int, int, int]:
     return sa[1], plan.splits, plan.chunk
 
 
+def _at_b_depth(case: str) -> tuple[int, int, int]:
+    """(M, splits, chunk) of a ``chip_smoke.py`` aᵀ·b case."""
+    _, m, k, n = next(r for r in chip_smoke.AT_B_CASES if r[0] == case)
+    plan = matmul.at_b_plan(m, k, n)
+    return m, plan.splits, plan.chunk
+
+
 #: the split depths the kernels run: AlexNet conv2's weight gradient over
 #: 93,312 pixels in chunks of 3,456, conv4's in 1,664, CIFAR conv2's in
-#: 704, and the matmul cases' K
+#: 704, the matmul cases' K, and the aᵀ·b cases' M (CIFAR conv1's patches
+#: in 247 chunks of 416)
 SPLIT_DEPTHS = {
     **{f"wgrad_{c}": ("wgrad", c) for c in ("alexnet_conv2", "alexnet_conv4",
                                             "cifar_conv2")},
     **{f"matmul_{c[0]}": ("matmul", c[0]) for c in chip_smoke.MATMUL_CASES},
+    **{f"at_b_{c[0]}": ("at_b", c[0]) for c in chip_smoke.AT_B_CASES},
 }
+_DEPTHS = {"wgrad": _wgrad_depth, "matmul": _matmul_depth,
+           "at_b": _at_b_depth}
 
 
 @pytest.mark.parametrize("name", sorted(SPLIT_DEPTHS))
 def test_split_3xtf32_product_within_the_tier_tolerance(name):
     kind, case = SPLIT_DEPTHS[name]
-    depth, splits, chunk = (_wgrad_depth if kind == "wgrad"
-                            else _matmul_depth)(case)
+    depth, splits, chunk = _DEPTHS[kind](case)
     if kind == "wgrad":
         assert splits > 1 and chunk >= 704
     m, n = 16, 8

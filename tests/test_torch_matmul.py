@@ -141,6 +141,19 @@ def test_empty_inner_dimension_gives_zeros():
     torch.testing.assert_close(out, torch.zeros(3, 4), rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("fn,sa,sb", [
+    ("matmul", (0, 5), (5, 4)), ("matmul", (3, 5), (5, 0)),
+    ("matmul_at_b", (0, 5), (0, 4)), ("matmul_at_b", (6, 0), (6, 4)),
+    ("matmul_at_b", (6, 5), (6, 0))])
+def test_empty_products_pass_the_wrappers_checks(fn, sa, sb):
+    # the checks take an empty side (no columns: the narrowest tile)
+    assert matmul._tc_width(0) == 8
+    a, b = torch.ones(sa), torch.ones(sb)
+    want = a @ b if fn == "matmul" else a.T @ b
+    torch.testing.assert_close(getattr(matmul, fn)(a, b), want, rtol=0,
+                               atol=0)
+
+
 @pytest.mark.parametrize("bad", ["float64", "1d", "mismatch", "mixed_dtype"])
 def test_wrapper_refuses_inputs_the_kernel_does_not_take(bad):
     a, b = torch.randn(4, 5), torch.randn(5, 3)

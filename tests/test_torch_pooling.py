@@ -3,8 +3,10 @@ package on the same numpy inputs: the Pallas kernels in interpret mode,
 the XLA tier and the numpy golden.  Max/max-abs values and winner offsets
 must be exactly equal, ties, padding, overlapping windows and ragged edges
 included; the max-pool backward is held at atol 1e-6 (it is exact in
-practice), average pooling at rtol/atol 1e-6.  Card-only cases hold each
-kernel against its plain version and skip on a host without a card."""
+practice), average pooling at rtol/atol 1e-6; the scatter kernel's
+channel width (``scatter_width``) follows C and the bases' alignment.
+Card-only cases hold each kernel against its plain version (the scatter
+bit for bit) and skip on a host without a card."""
 
 import numpy as np
 import pytest
@@ -176,14 +178,42 @@ def test_wrappers_refuse_inputs_the_kernels_do_not_take(bad):
             pooling.gd_max_pooling(err[:, :2], off[:, :2], x.shape, 2)
 
 
+@pytest.mark.parametrize("case,c,shift,width", [
+    ("c8_aligned", 8, (0, 0), 4), ("c16_aligned", 16, (0, 0), 4),
+    ("c5", 5, (0, 0), 1), ("c6", 6, (0, 0), 1),
+    ("err_unaligned", 8, (1, 0), 1), ("offsets_unaligned", 8, (0, 2), 1)])
+def test_scatter_width(case, c, shift, width):
+    # 16-byte vectors of 4 channels only where C is a multiple of 4 and
+    # err's and the slots' bases are 16-byte aligned (a contiguous view at
+    # an odd element is not)
+    shape = (2, 3, 3, c)
+    n = 2 * 3 * 3 * c
+    err = torch.zeros(n + 4)[shift[0]:shift[0] + n].view(shape)
+    off = torch.zeros(n + 4, dtype=torch.int32)[shift[1]:shift[1] + n] \
+        .view(shape)
+    assert err.is_contiguous() and off.is_contiguous()
+    assert pooling.scatter_width(c, err, off) == width
+    # the CPU branch takes any of them: the plain version
+    dx = pooling.gd_max_pooling(err, off, (2, 6, 6, c), 2)
+    assert dx.shape == (2, 6, 6, c) and not dx.any()
+
+
 # -- on the card -------------------------------------------------------------
+#: the paths' pools and windows that overlap with padding, at C = 5 (the
+#: scatter's scalar form) and C = 8 (its 16-byte vectors)
 CARD_CASES = {
     "cifar_step": ((100, 32, 32, 32), 2, 2, 0, False, "normal"),
     "overlap_pad_ragged": ((7, 13, 11, 5), 3, 2, 1, False, "normal"),
+    "overlap_pad_c8": ((7, 13, 11, 8), 3, 2, 1, False, "normal"),
     "maxabs": ((7, 13, 11, 5), 3, 2, 1, True, "normal"),
     "ties": ((100, 32, 32, 32), 2, 2, 0, False, "ties"),
     "maxabs_ties_padded": ((7, 13, 11, 5), 3, 2, 1, True, "ties"),
+    "autoencoder_step": ((100, 28, 28, 16), 2, 2, 0, False, "normal"),
 }
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int32)
 
 
 @pytest.mark.skipif("not torch.cuda.is_available()",
@@ -207,6 +237,10 @@ def test_cuda_kernels_match_plain_versions(case):
     dx = pooling.gd_max_pooling(err, off, shape, ksize, stride, padding)
     torch.cuda.synchronize()
     assert pooling.pool_scatter_launches == before + 1
-    torch.testing.assert_close(
-        dx, pooling.plain_gd_max_pooling(err, off, shape, ksize, stride,
-                                         padding), rtol=1e-5, atol=1e-6)
+    # the kernel adds in the plain version's order: the same bits, and the
+    # same again on a second call
+    want = pooling.plain_gd_max_pooling(err, off, shape, ksize, stride,
+                                        padding)
+    assert torch.equal(_bits(dx), _bits(want))
+    again = pooling.gd_max_pooling(err, off, shape, ksize, stride, padding)
+    assert torch.equal(_bits(again), _bits(dx))

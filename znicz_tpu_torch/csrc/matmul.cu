@@ -1,10 +1,16 @@
-// Float32 matrix product C = A.B for the unit graph's fc units, on the
-// tensor-core tile loop of csrc/gemm_tc.cuh.
+// Float32 matrix product C = A.B for the unit graph's fc units and the
+// conv tier's aT.b, on the tensor-core tile loop of csrc/gemm_tc.cuh.
 //
-// Replaces the TPU kernel znicz_tpu/ops/matmul.py pallas_matmul
+// Replaces the TPU kernels znicz_tpu/ops/matmul.py pallas_matmul
 // (_matmul_kernel): a block-tiled product with a float32 accumulator over a
-// K-innermost grid.  Used by All2All's forward (x.W) and GradientDescent's
-// weight gradient (xT.err_y) and input error (err_y.WT).
+// K-innermost grid, used by All2All's forward (x.W) and GradientDescent's
+// weight gradient (xT.err_y) and input error (err_y.WT); and
+// pallas_matmul_at_b, aT.b of row-major a (M, K) and
+// b (M, N) with a (K, N) accumulator kept in VMEM while the M rows stream
+// through the sequential grid axis.  Here aT.b is this product of the view
+// aT (M-major) and b (N-major) with its depth M split across gridDim.z
+// (ops/matmul.py matmul_at_b): at CIFAR conv1's patch matrix,
+// (102400, 75)T.(102400, 32), one 128 x 32 tile over 247 splits.
 //
 // Operands are strided views: A is read at a[m*sam + k*sak] and B at
 // b[k*sbk + n*sbn], so xT and WT reach the kernel as views of the row-major

@@ -17,14 +17,14 @@
 // pool_scatter_kernel replaces znicz_tpu/ops/elementwise.py
 // pallas_pool_scatter (_pool_scatter_kernel) together with the XLA strided
 // placement that follows it (znicz_tpu/ops/pooling.py _pallas_gd_max_pool).
-// It is written as a gather: one thread per dx element (b, ih, iw, c)
-// visits the windows (oh, ow) that contain it, computed directly from the
-// geometry, in ascending order of its tap t = (ih+ph-oh*sh)*kw +
-// (iw+pw-ow*sw), and adds err[b,oh,ow,c]*(offsets == t), starting from
-// 0.0f.  That is the reference's summation order (zeros, then one strided
-// add per tap), so the result is bit-identical, deterministic even for
-// overlapping windows (stride < ksize), needs no atomics and no memset:
-// every dx element is written once.
+// It is written as a gather: each dx element (b, ih, iw, c) visits the
+// windows (oh, ow) that contain it, computed directly from the geometry, in
+// ascending order of its tap t = (ih+ph-oh*sh)*kw + (iw+pw-ow*sw), and adds
+// err[b,oh,ow,c]*(offsets == t), starting from 0.0f.  That is the
+// reference's summation order (zeros, then one strided add per tap), so the
+// result is bit-identical, deterministic even for overlapping windows
+// (stride < ksize), needs no atomics and no memset: every dx element is
+// written once.
 //
 // Bound on an H100: bytes.  At the CIFAR step, (100,32,32,32) -> k2 s2 ->
 // (100,16,16,32), select reads 13.1 MB and writes 3.3 MB of values and
@@ -32,7 +32,19 @@
 // ~5.9 us at 3.35 TB/s, against ~1 compare per tap.  The design moves only
 // those bytes: the tap stack and the per-tap contribution stack of the
 // reference never exist, and neighbouring windows' reads of x (or of err
-// and offsets) hit L1/L2.
+// and offsets) hit L1/L2.  With one thread a dx element the scatter was
+// bound by instructions, not bytes: the index decode and the two window
+// ranges (some 40 integer instructions, a dozen of them FastDiv steps)
+// bought one 4-byte store (18.6 us at CIFAR, 3.2x the bound; 40.1 us at
+// AlexNet's pool5, 4.25x).  So a thread owns V consecutive channels of one
+// pixel: it decodes the pixel and its window ranges once, reads each
+// window's V err and V slots as 16-byte vectors, and stores V floats.
+// Each lane's arithmetic is the scalar form's, so both widths give the
+// same bits.  V = 4 needs C a multiple of 4 and err, offsets and dx
+// 16-byte aligned; the wrapper (ops/pooling.py scatter_width) takes it
+// where it may, else V = 1.  Measured on an H100 (chip_smoke.py, vec_ms):
+// 4 channels a thread take CIFAR to 6.6 us (1.12x the bound) and pool5 to
+// 14.4 us (1.53x).
 //
 // pool_gather_kernel replaces znicz_tpu/ops/elementwise.py
 // pallas_pool_gather (_pool_gather_kernel) together with the XLA tap stack
@@ -54,6 +66,8 @@
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include <type_traits>
 
 #include "fastdiv.cuh"
 
@@ -117,16 +131,37 @@ __device__ __forceinline__ void window_range(int p, int k, const FastDiv& s,
   *hi = min(n - 1, s.div(p));
 }
 
+// V consecutive values at p (V = 1, or 4 with p 16-byte aligned: one
+// 16-byte load).
+template <int V, typename T>
+__device__ __forceinline__ void load_lanes(const T* __restrict__ p,
+                                           T (&v)[V]) {
+  if constexpr (V == 1) {
+    v[0] = p[0];
+  } else {
+    using T4 = std::conditional_t<std::is_same_v<T, float>, float4, int4>;
+    const T4 q = *reinterpret_cast<const T4*>(p);
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  }
+}
+
+// One thread per V consecutive channels of a dx pixel; g.C divides by the
+// groups a pixel has, C / V.
+template <int V>
 __global__ void pool_scatter_kernel(const float* __restrict__ err,
                                     const int* __restrict__ offsets,
                                     float* __restrict__ dx, int total,
                                     Geometry g) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= total) return;
-  const int C = g.C.d, OH = g.OH.d, OW = g.OW.d, sh = g.sh.d, sw = g.sw.d;
+  const int OH = g.OH.d, OW = g.OW.d, sh = g.sh.d, sw = g.sw.d;
   const int kw = g.kw, ph = g.ph, pw = g.pw;
+  const int C = g.C.d * V;
   int r = g.C.div(e);
-  const int c = e - r * C;
+  const int c = (e - r * g.C.d) * V;
   int q = g.W.div(r);
   const int iw = r - q * g.W.d;
   const int b = g.H.div(q);
@@ -135,18 +170,32 @@ __global__ void pool_scatter_kernel(const float* __restrict__ err,
   window_range(ih + ph, g.kh, g.sh, OH, &oh_lo, &oh_hi);
   window_range(iw + pw, kw, g.sw, OW, &ow_lo, &ow_hi);
   const int ob = b * OH * OW * C + c;
-  float acc = 0.0f;
+  float acc[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) acc[v] = 0.0f;
   for (int oh = oh_hi; oh >= oh_lo; --oh) {
-    const int ti = (ih + ph - oh * sh) * kw;
+    const int ti = (ih + ph - oh * sh) * kw + iw + pw;
     for (int ow = ow_hi; ow >= ow_lo; --ow) {
       const int o = ob + (oh * OW + ow) * C;
-      const float g = err[o];
+      const int t = ti - ow * sw;
+      float gv[V];
+      int slot[V];
+      load_lanes<V>(err + o, gv);
+      load_lanes<V>(offsets + o, slot);
       // err * (offsets == t), as the reference multiplies: err*1 or err*0
-      acc = __fadd_rn(acc, offsets[o] == ti + iw + pw - ow * sw
-                               ? g : __fmul_rn(g, 0.0f));
+#pragma unroll
+      for (int v = 0; v < V; ++v)
+        acc[v] = __fadd_rn(acc[v],
+                           slot[v] == t ? gv[v] : __fmul_rn(gv[v], 0.0f));
     }
   }
-  dx[e] = acc;
+  float* out = dx + static_cast<long long>(e) * V;
+  if constexpr (V == 1) {
+    out[0] = acc[0];
+  } else {
+    *reinterpret_cast<float4*>(out) =
+        make_float4(acc[0], acc[1], acc[2], acc[3]);
+  }
 }
 
 // One thread per pooled element (b, oh, ow, c), C fastest.
@@ -177,6 +226,10 @@ __global__ void pool_gather_kernel(const float* __restrict__ err,
 
 int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
+bool aligned16(const void* p) {
+  return reinterpret_cast<unsigned long long>(p) % 16 == 0;
+}
+
 Geometry make_geometry(int H, int W, int C, int OH, int OW, int kh, int kw,
                        int sh, int sw, int ph, int pw) {
   return Geometry{make_fastdiv(C),  make_fastdiv(W),  make_fastdiv(H),
@@ -204,16 +257,28 @@ extern "C" int znicz_pool_select_f32(const float* x, float* y, int* offsets,
   return static_cast<int>(cudaGetLastError());
 }
 
+// vec: the channels a thread owns, 1 or 4; 4 needs C a multiple of 4 and
+// err, offsets and dx 16-byte aligned (cudaErrorInvalidValue otherwise).
 extern "C" int znicz_pool_scatter_f32(const float* err, const int* offsets,
                                       float* dx, int B, int H, int W, int C,
                                       int OH, int OW, int kh, int kw, int sh,
-                                      int sw, int ph, int pw, void* stream) {
-  const int total = B * H * W * C;
+                                      int sw, int ph, int pw, int vec,
+                                      void* stream) {
+  if (!(vec == 1 || vec == 4) ||
+      (vec == 4 && (C % 4 != 0 || !aligned16(err) || !aligned16(offsets) ||
+                    !aligned16(dx))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int total = B * H * W * (C / vec);
   if (total <= 0) return 0;
-  pool_scatter_kernel<<<blocks_for(total), kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      err, offsets, dx, total,
-      make_geometry(H, W, C, OH, OW, kh, kw, sh, sw, ph, pw));
+  const Geometry g = make_geometry(H, W, C / vec, OH, OW, kh, kw, sh, sw, ph,
+                                   pw);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (vec == 4)
+    pool_scatter_kernel<4><<<blocks_for(total), kThreads, 0, st>>>(
+        err, offsets, dx, total, g);
+  else
+    pool_scatter_kernel<1><<<blocks_for(total), kThreads, 0, st>>>(
+        err, offsets, dx, total, g);
   return static_cast<int>(cudaGetLastError());
 }
 

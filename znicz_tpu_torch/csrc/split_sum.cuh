@@ -1,5 +1,5 @@
 // The second pass of a product whose depth is split across gridDim.z
-// (csrc/gemm_tile.cuh at_b_block, csrc/gemm_tc.cuh split_block): each
+// (csrc/gemm_tc.cuh split_block): each
 // split wrote its partial C to its own slice of a float32 workspace
 // (splits, rows, cols), and split_sum_kernel adds the slices in ascending
 // split order.  No atomics: the card repeats a result bit for bit.

@@ -391,8 +391,7 @@ def launch_wgrad(x, err, dw, geo, plan: WgradPlan) -> None:
     own plan calls."""
     b, c, kh, kw, oc, oh, ow = (geo[i] for i in (0, 3, 4, 5, 6, 7, 8))
     launch_split("conv_gemm", "znicz_conv_wgrad_f32", _WGRAD_ARGTYPES, x,
-                 err, dw, kh * kw * c, oc, b * oh * ow, (*geo, *plan[:3]),
-                 plan[3:])
+                 err, dw, kh * kw * c, oc, (*geo, *plan[:3]), plan[3:])
 
 
 # -- numpy goldens (the numpy device) ---------------------------------------

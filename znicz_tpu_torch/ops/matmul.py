@@ -12,18 +12,18 @@ it runs ``plain_matmul``.
 
 ``matmul_at_b(a, b)`` is ``aᵀ·b`` of row-major ``a (M, K)`` and
 ``b (M, N)`` over their shared rows, the weight-gradient shape (M huge,
-the output small): on CUDA tensors the split-M kernel of
-``csrc/matmul_at_b.cu`` (the port of ``pallas_matmul_at_b``, on the SIMT
-loop ``csrc/gemm_tile.cuh``), which never makes ``aᵀ`` and sums its
-splits in a fixed order; on CPU tensors ``plain_matmul_at_b``.
+the output small): on CUDA tensors the same tensor-core kernel (the port
+of ``pallas_matmul_at_b``) on the views ``a.T`` (M-major: its m stride is
+1) and ``b`` (N-major), so ``aᵀ`` is never made, with the depth M split
+across the card and the splits summed in a fixed order
+(``at_b_plan``); on CPU tensors ``plain_matmul_at_b``.
 
-Both keep float32 accuracy: ``matmul``'s kernel multiplies in the
-3×TF32 split (three TF32 products a multiply-add, within the same
-tolerance as float32 sums in another order), ``matmul_at_b``'s in FFMA;
-the reference's bf16 operand cast is a TPU-only device (``_mxu_cast``),
-and TF32 stays off for PyTorch's own products
-(``znicz_tpu_torch/__init__.py``).  The fused step's fc products stay
-``torch.matmul``, as the JAX fused step leaves them to XLA.  A CUDA
+Both keep float32 accuracy: the kernel multiplies in the 3×TF32 split
+(three TF32 products a multiply-add, within the same tolerance as
+float32 sums in another order); the reference's bf16 operand cast is a
+TPU-only device (``_mxu_cast``), and TF32 stays off for PyTorch's own
+products (``znicz_tpu_torch/__init__.py``).  The fused step's fc products
+stay ``torch.matmul``, as the JAX fused step leaves them to XLA.  A CUDA
 tensor never falls back to the plain version or to a library product."""
 
 from __future__ import annotations
@@ -38,8 +38,8 @@ import torch
 #: Launches of the matmul kernel in this process (the CUDA branch of
 #: ``matmul`` adds one per launch, nowhere else).
 matmul_launches = 0
-#: Launches of the aᵀ·b kernel (its split products and their sum count as
-#: one), added by the CUDA branch of ``matmul_at_b`` only.
+#: Launches of the matmul kernel for aᵀ·b (its split products and their
+#: sum count as one), added by the CUDA branch of ``matmul_at_b`` only.
 matmul_at_b_launches = 0
 
 #: a, b, c, workspace, M, N, K, A strides (m, k), B strides (k, n), the
@@ -49,19 +49,7 @@ _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
              + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 7
              + [ctypes.c_void_p])
 
-#: a, b, out, workspace, M, K, N, splits, chunk, stream
-_AT_B_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                  + [ctypes.c_void_p])
-
-#: matmul_at_b's SIMT tile of C (csrc/gemm_tile.cuh), both axes
-_BM = 64
 _MAX_GRID_Y = 65535
-#: matmul_at_b's depth step (rows of the reduction a shared-memory step
-#: takes), the blocks its split aims for (two on each of an H100's 132
-#: SMs) and the least rows a split takes
-_STEP = 16
-_TARGET_BLOCKS = 264
-_MIN_CHUNK = 256
 _INT32 = 2 ** 31
 #: the tensor-core loop (csrc/gemm_tc.cuh): rows of its C tile, the depth
 #: of a stage, and its tile widths, widest first (8 is the narrowest MMA's)
@@ -117,26 +105,13 @@ def _ceil(a: int, b: int) -> int:
 def _tc_width(n: int) -> int:
     """The widest of ``TC_WIDTHS`` whose tiles over N columns idle less
     than a quarter of their columns beyond N rounded up to the narrowest
-    MMA's 8 (so 8 at N = 1)."""
+    MMA's 8 (so 8 at N ≤ 1)."""
+    n = max(n, 1)
     padded = -(-n // _MMA_N) * _MMA_N
     for bn in TC_WIDTHS:
         cols = -(-n // bn) * bn
         if 4 * (cols - padded) < cols:    # always true at 8
             return bn
-
-
-def split_plan(depth: int, rows: int, cols: int) -> tuple[int, int]:
-    """(splits, chunk) for ``matmul_at_b``'s 64×64 SIMT tiles of a (rows,
-    cols) output summed over ``depth`` > 0: split the depth until the grid
-    has at least ``_TARGET_BLOCKS`` blocks, or into chunks of
-    ``_MIN_CHUNK`` rows if that comes first; each chunk a multiple of the
-    kernel's 16-row step, none empty."""
-    tiles = _ceil(rows, _BM) * _ceil(cols, _BM)
-    splits = min(_ceil(_TARGET_BLOCKS, tiles), depth // _MIN_CHUNK)
-    if splits <= 1:
-        return 1, _ceil(depth, _STEP) * _STEP
-    chunk = depth // splits // _STEP * _STEP      # rounded down: ≥ splits
-    return _ceil(depth, chunk), chunk
 
 
 @functools.lru_cache(maxsize=4096)
@@ -165,15 +140,14 @@ def tc_split_plan(depth: int, rows: int, cols: int, bn: int
 
 
 def launch_split(library: str, entry: str, argtypes: list, a, b, out,
-                 rows: int, cols: int, depth: int, dims: tuple,
-                 plan: tuple[int, int] | None = None) -> None:
+                 rows: int, cols: int, dims: tuple,
+                 plan: tuple[int, int]) -> None:
     """Launch a split-depth product of operands ``a`` and ``b`` into
-    ``out``, a (rows, cols) matrix summed over ``depth``: ``entry(a, b,
-    out, workspace, *dims, splits, chunk, stream)``, with (splits, chunk)
-    from ``plan`` (default: ``split_plan``, ``matmul_at_b``'s) and the
+    ``out``, a (rows, cols) matrix: ``entry(a, b, out, workspace, *dims,
+    splits, chunk, stream)``, with (splits, chunk) from ``plan`` and the
     workspace (splits, rows, cols) allocated here when the depth is
     split."""
-    splits, chunk = plan or split_plan(depth, rows, cols)
+    splits, chunk = plan
     if splits * rows * cols >= _INT32:
         raise ValueError(f"{entry}: the split workspace exceeds int32")
     ws = (torch.empty((splits, rows, cols), dtype=torch.float32,
@@ -209,30 +183,9 @@ def _check_at_b(a: torch.Tensor, b: torch.Tensor) -> None:
     k, n = a.shape[1], b.shape[1]
     if max(a.numel(), b.numel(), k * n) >= _INT32:
         raise ValueError("matmul_at_b: shape exceeds int32")
-    if _ceil(n, _BM) > _MAX_GRID_Y:
+    if _ceil(n, _tc_width(n)) > _MAX_GRID_Y:
         raise ValueError(f"matmul_at_b: {n} columns exceed the kernel's "
                          f"grid")
-
-
-def matmul_at_b(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(K, N) float32 ``aᵀ·b`` of row-major (M, K) and (M, N) float32
-    matrices, without a transposed copy of ``a``: the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors."""
-    global matmul_at_b_launches
-    _check_at_b(a, b)
-    if a.device.type == "cpu":
-        return plain_matmul_at_b(a, b)
-    m, k = a.shape
-    n = b.shape[1]
-    out = torch.empty((k, n), dtype=torch.float32, device=a.device)
-    if k == 0 or n == 0:
-        return out
-    if m == 0:
-        return out.zero_()
-    launch_split("matmul_at_b", "znicz_matmul_at_b_f32", _AT_B_ARGTYPES, a,
-                 b, out, k, n, m, (m, k, n))
-    matmul_at_b_launches += 1
-    return out
 
 
 class MatmulPlan(NamedTuple):
@@ -288,9 +241,38 @@ def launch_matmul(a: torch.Tensor, b: torch.Tensor,
     m, k = a.shape
     n = b.shape[1]
     c = torch.empty((m, n), dtype=torch.float32, device=a.device)
-    launch_split("matmul", "znicz_matmul_f32", _ARGTYPES, a, b, c, m, n, k,
-                 (m, n, k, *a.stride(), *b.stride(), *plan[:5]),
-                 plan[5:])
+    launch_split("matmul", "znicz_matmul_f32", _ARGTYPES, a, b, c, m, n,
+                 (m, n, k, *a.stride(), *b.stride(), *plan[:5]), plan[5:])
+    return c
+
+
+def at_b_plan(m: int, k: int, n: int, aligned: bool = True) -> MatmulPlan:
+    """The launch of ``matmul_at_b`` for row-major a (M, K) and b (M, N),
+    their bases 16-byte aligned or not: ``matmul_plan`` of A = aᵀ, the
+    (K, M) view with strides (1, K), and B = b with strides (N, 1), so the
+    depth is M."""
+    return matmul_plan((k, m), (1, k), (m, n), (n, 1), aligned, aligned)
+
+
+def matmul_at_b(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(K, N) float32 ``aᵀ·b`` of row-major (M, K) and (M, N) float32
+    matrices, without a transposed copy of ``a``: the CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors."""
+    global matmul_at_b_launches
+    _check_at_b(a, b)
+    if a.device.type == "cpu":
+        return plain_matmul_at_b(a, b)
+    m, k = a.shape
+    n = b.shape[1]
+    if k == 0 or n == 0:
+        return torch.empty((k, n), dtype=torch.float32, device=a.device)
+    # the strides the plan takes: a contiguous tensor's stride is free along
+    # an axis of extent 0 or 1 (an empty array from numpy has (0, 0)), and
+    # the kernel would refuse a 16-byte copy along one that is not 4k
+    c = launch_matmul(a.as_strided((k, m), (1, k)),
+                      b.as_strided((m, n), (n, 1)), at_b_plan(
+        m, k, n, a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0))
+    matmul_at_b_launches += 1
     return c
 
 

@@ -247,8 +247,9 @@ _ARGTYPES = {
     # x, y, offsets, B, H, W, C, kh, kw, sh, sw, ph, pw, use_abs, stream
     "znicz_pool_select_f32": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11
     + [ctypes.c_void_p],
-    # err, offsets, dx, B, H, W, C, OH, OW, kh, kw, sh, sw, ph, pw, stream
-    "znicz_pool_scatter_f32": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 12
+    # err, offsets, dx, B, H, W, C, OH, OW, kh, kw, sh, sw, ph, pw, vec,
+    # stream
+    "znicz_pool_scatter_f32": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 13
     + [ctypes.c_void_p],
     # err, offsets, out, B, H, W, C, OH, OW, kh, kw, sh, sw, ph, pw, stream
     "znicz_pool_gather_f32": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 12
@@ -328,28 +329,51 @@ def maxabs_pooling(x, ksize, stride=None, padding=0):
     return _select("maxabs_pooling", x, ksize, stride, padding, True)
 
 
+def scatter_width(c: int, *tensors: torch.Tensor) -> int:
+    """The channels a thread of the scatter kernel owns: 4 (16-byte
+    vectors) where C is a multiple of 4 and every tensor's base is 16-byte
+    aligned, else 1."""
+    if c % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors):
+        return 4
+    return 1
+
+
+def launch_pool_scatter(err, offsets, x_shape, window, vec: int):
+    """dx by the scatter kernel with ``vec`` channels a thread, ``window``
+    the ((kh, kw), (sh, sw), (ph, pw), (OH, OW)) of ``_geometry``, without
+    counting a launch: ``gd_max_pooling``'s CUDA branch, and what a
+    measurement that sets its own width calls."""
+    (kh, kw), (sh, sw), (ph, pw), (oh, ow) = window
+    b, h, w, c = x_shape
+    dx = torch.empty(x_shape, dtype=torch.float32, device=err.device)
+    _launch("znicz_pool_scatter_f32", err.device, err.data_ptr(),
+            offsets.data_ptr(), dx.data_ptr(), b, h, w, c, oh, ow, kh, kw,
+            sh, sw, ph, pw, vec)
+    return dx
+
+
 def gd_max_pooling(err, offsets, x_shape, ksize, stride=None, padding=0):
     """dx of max pooling: each window's err added at its winner slot.  On
     the card one kernel gathers, for every dx element, the windows that
-    contain it in the reference's order; no atomics, no memset."""
+    contain it in the reference's order, several channels a thread where
+    they lie in 16-byte vectors (``scatter_width``); no atomics, no
+    memset."""
     global pool_scatter_launches
     who = "gd_max_pooling"
     _check(who, "err", err, torch.float32)
     x_shape = tuple(int(s) for s in x_shape)
-    (kh, kw), (sh, sw), (ph, pw), (oh, ow) = _geometry(
-        who, x_shape, ksize, stride, padding)
+    window = _geometry(who, x_shape, ksize, stride, padding)
     b, h, w, c = x_shape
+    oh, ow = window[3]
     if tuple(err.shape) != (b, oh, ow, c):
         raise ValueError(f"{who}: err must be {(b, oh, ow, c)}, got "
                          f"{tuple(err.shape)}")
     _check(who, "offsets", offsets, torch.int32, err.device, err.shape)
     if err.device.type == "cpu":
-        return plain_gd_max_pooling(err, offsets, x_shape, (kh, kw),
-                                    (sh, sw), (ph, pw))
-    dx = torch.empty(x_shape, dtype=torch.float32, device=err.device)
-    _launch("znicz_pool_scatter_f32", err.device, err.data_ptr(),
-            offsets.data_ptr(), dx.data_ptr(), b, h, w, c, oh, ow, kh, kw,
-            sh, sw, ph, pw)
+        return plain_gd_max_pooling(err, offsets, x_shape, *window[:3])
+    # dx is a fresh allocation: the caching allocator aligns it
+    dx = launch_pool_scatter(err, offsets, x_shape, window,
+                             scatter_width(c, err, offsets))
     pool_scatter_launches += 1
     return dx
 
