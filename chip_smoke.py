@@ -16,10 +16,11 @@ exits nonzero without the final ``ok`` line:
    card at the main paths' shapes and a few more (ragged, padded and
    overlapping windows, max-abs, ties, the pool scatter bit for bit at
    each channel width it takes, an even LRN window, β ≠ 0.75; for
-   the fused LRN→max-pool pair the geometries of tests/test_lrn_pool.py
-   and each folded activation; dropout at two ratios and a counter near
-   2³²), with the stated tolerances; times of kernel, plain version,
-   library call and the byte/flop bound;
+   the fused LRN→max-pool pair the geometries of tests/test_lrn_pool.py,
+   each folded activation, the scalar form (C % 4 ≠ 0), a window wider
+   than the channels, ragged strips and column tiles; dropout at two
+   ratios and a counter near 2³²), with the stated tolerances; times of
+   kernel, plain version, library call and the byte/flop bound;
 4. slice   — the fused MNIST trainer at full width (784→100→10, batch 100,
    50k/10k/10k synthetic split resident on the card) for 2 epochs through
    ``models.mnist.run``, every kernel's launch count reset just before and
@@ -748,6 +749,17 @@ LRN_POOL_CASES = [
     ("fold_tanh", (16, 27, 27, 32), 3, 2, False, "tanh", "tanh"),
     ("fold_sigmoid", (16, 27, 27, 32), 3, 2, False, "sigmoid", "sigmoid"),
     ("fold_relu", (16, 27, 27, 32), 3, 2, False, "relu", "softplus"),
+    # the paths of the plan (ops/lrn_pool.py lrn_pool_plan) beyond the
+    # AlexNet pairs': the scalar form (C % 4 != 0), C < n, strips of rows
+    # and tiles of columns that do not divide the rows, rows no window
+    # holds (sh > kh)
+    ("c6_scalar", (2, 9, 9, 6), 3, 2, False, None, "normal"),
+    ("c5_rect_scalar", (3, 11, 7, 5), (2, 3), 2, False, None, "normal"),
+    ("c3_below_n", (2, 9, 9, 3), 3, 2, False, None, "normal"),
+    ("ragged_strips", (20, 55, 55, 96), 3, 2, False, "strict_relu",
+     "relu"),
+    ("col_tiles", (2, 7, 151, 96), 3, 2, False, None, "normal"),
+    ("skipped_rows", (2, 11, 10, 4), 2, (3, 2), False, None, "normal"),
 ]
 
 
@@ -791,11 +803,13 @@ def phase_kernel_lrn_pool(torch) -> dict:
         err_b = _close(torch, case, "dx", dx, lrn_pool.plain_gd_lrn_maxpool(
             e, off, x, *hp, k, st, 0, fold), *tol)
         geo = {"case": case, "shape": list(shape), "ksize": k, "stride": st,
-               "use_abs": use_abs, "fold_act": fold}
-        big = case.startswith("alexnet")
-        iters = BIG_ITERS if big else ITERS
+               "use_abs": use_abs, "fold_act": fold,
+               "plan": lrn_pool._plan(x, k, st, hp[0], False)._asdict(),
+               "plan_backward": lrn_pool._plan(x, k, st, hp[0],
+                                               True)._asdict()}
+        iters = BIG_ITERS if math.prod(shape) > 2 ** 22 else ITERS
         lib = None
-        if big:
+        if case.startswith("alexnet"):
             # two PyTorch calls on an NCHW copy: LRN (it divides alpha by
             # the window, hence alpha·n), then max pool with flat plane
             # indices (another contract than the port's window slots)

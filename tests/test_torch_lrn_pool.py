@@ -29,7 +29,7 @@ import jax.numpy as jnp
 from znicz_tpu.ops import lrn_pool as ref_lp
 from znicz_tpu.ops import tuning
 from znicz_tpu.parallel import fused as ref_fused
-from znicz_tpu_torch import prng
+from znicz_tpu_torch import cuda_build, lrn_pool_probe, prng
 from znicz_tpu_torch.ops import activations, lrn_pool
 from znicz_tpu_torch.parallel import fused
 
@@ -222,8 +222,8 @@ def test_wrappers_refuse_inputs_the_kernels_do_not_take(bad):
         elif bad == "too_many_channels":
             wide = torch.zeros((1, 3, 3, 6145))
             lrn_pool.lrn_maxpool(wide, *HP, 3, 2)
-        else:
-            lrn_pool.lrn_maxpool(torch.zeros((1, 3, 606, 1)), *HP, 3, 2)
+        else:   # one column of 4096 channels: past the shared-memory tile
+            lrn_pool.lrn_maxpool(torch.zeros((1, 3, 3, 4096)), *HP, 3, 2)
 
 
 def test_gate_equals_reference():
@@ -306,9 +306,117 @@ def test_merge_folds_only_y_activations():
                    for la in out)
 
 
+# -- the launch plan ----------------------------------------------------------
+ALEXNET_PAIRS = [(128, 55, 55, 96, (3, 3), (2, 2)),
+                 (128, 27, 27, 256, (3, 3), (2, 2))]
+#: the paths the kernels' design adds: the scalar form (C % 4 != 0), a
+#: window wider than the channels, strips and column tiles that do not
+#: divide the rows, rows that no window holds (sh > kh)
+NEW_GEOMS = [
+    (2, 9, 9, 6, (3, 3), (2, 2)),
+    (3, 11, 7, 5, (2, 3), (2, 2)),
+    (2, 9, 9, 3, (3, 3), (2, 2)),
+    (20, 55, 55, 96, (3, 3), (2, 2)),
+    (2, 7, 151, 96, (3, 3), (2, 2)),
+    (2, 11, 10, 4, (2, 2), (3, 2)),
+]
+PLAN_GEOMS = GEOMS + ALEXNET_PAIRS + NEW_GEOMS
+PLAN_IDS = [f"{b}x{h}x{w}x{c}_k{k[0]}{k[1]}_s{s[0]}{s[1]}"
+            for b, h, w, c, k, s in PLAN_GEOMS]
+
+
+def _owners(plan, shape, ksize, stride, backward):
+    """How many blocks of ``plan`` own each (image, row, column) of the
+    pooled output (forward) or of x (backward), decoding blockIdx.x as
+    the kernels do: ((b * strips + strip) * col_tiles + tile)."""
+    b, h, w, _ = shape
+    (kh, kw), (sh, sw) = ksize, stride
+    rows, cols = ((h, w) if backward
+                  else ((h - kh) // sh + 1, (w - kw) // sw + 1))
+    owners = np.zeros((b, rows, cols), np.int64)
+    for blk in range(b * plan.strips * plan.col_tiles):
+        q, tile = divmod(blk, plan.col_tiles)
+        img, strip = divmod(q, plan.strips)
+        r0, c0 = strip * plan.rows, tile * plan.cols
+        owners[img, r0:min(rows, r0 + plan.rows),
+               c0:min(cols, c0 + plan.cols)] += 1
+    return owners
+
+
+@pytest.mark.parametrize("backward", [False, True],
+                         ids=["forward", "backward"])
+@pytest.mark.parametrize("geom", PLAN_GEOMS, ids=PLAN_IDS)
+def test_plan_covers_every_row_once_within_the_tile(geom, backward):
+    b, h, w, c, ks, st = geom
+    plan = lrn_pool.lrn_pool_plan((b, h, w, c), ks, st, HP[0], backward)
+    assert plan.cols > 0                           # the wrappers take it
+    assert (_owners(plan, (b, h, w, c), ks, st, backward) == 1).all()
+    assert plan.smem <= lrn_pool.MAX_TILE_BYTES
+    assert plan.vec == (4 if c % 4 == 0 else 1) and c % plan.vec == 0
+    assert plan.threads % 32 == 0 and plan.threads <= lrn_pool.MAX_THREADS
+    assert plan.n == min(HP[0], 2 * c + 1)
+    assert plan.halo >= (plan.n - 1) - (plan.n - 1) // 2
+    assert plan.halo % plan.vec == 0
+
+
+@pytest.mark.parametrize("backward", [False, True],
+                         ids=["forward", "backward"])
+def test_plan_alexnet_pairs_take_whole_rows(backward):
+    """One image a block, its whole rows, 16-byte vectors: 128 blocks for
+    the H100's 132 multiprocessors."""
+    for b, h, w, c, ks, st in ALEXNET_PAIRS:
+        plan = lrn_pool.lrn_pool_plan((b, h, w, c), ks, st, 5, backward)
+        assert (plan.vec, plan.strips, plan.col_tiles) == (4, 1, 1)
+        assert plan.rows == (h if backward else (h - 3) // 2 + 1)
+
+
+def test_plan_takes_the_scalar_form_for_unaligned_bases():
+    plan = lrn_pool.lrn_pool_plan((2, 9, 9, 8), 3, 2, 5, aligned=False)
+    assert (plan.vec, plan.halo) == (1, 2)
+
+
+@pytest.mark.parametrize("c,n", [(1, 5), (2, 9), (3, 9), (3, 20), (8, 20)])
+def test_plan_window_clip_changes_no_bit(c, n):
+    """The kernels run the window min(n, 2C + 1): past it every slot
+    beyond a channel's edge is another 0.0f added to a sum that already
+    added one.  The plain versions at n and at the clipped n agree bit
+    for bit, forward and backward."""
+    plan = lrn_pool.lrn_pool_plan((2, 9, 9, c), 3, 2, n)
+    assert plan.n == min(n, 2 * c + 1)
+    x = torch.from_numpy(_inputs((2, 9, 9, c), scale=4.0))
+    hp, hp_clip = (n, *HP[1:]), (plan.n, *HP[1:])
+    y, off = lrn_pool.plain_lrn_maxpool(x, *hp, 3, 2)
+    y_clip, off_clip = lrn_pool.plain_lrn_maxpool(x, *hp_clip, 3, 2)
+    assert torch.equal(off, off_clip)
+    assert torch.equal(y.view(torch.int32), y_clip.view(torch.int32))
+    e = torch.from_numpy(_inputs(tuple(y.shape), 1, scale=0.1))
+    dx = lrn_pool.plain_gd_lrn_maxpool(e, off, x, *hp, 3, 2)
+    dx_clip = lrn_pool.plain_gd_lrn_maxpool(e, off, x, *hp_clip, 3, 2)
+    assert torch.equal(dx.view(torch.int32), dx_clip.view(torch.int32))
+
+
+@pytest.mark.parametrize("variant", sorted(lrn_pool_probe.VARIANTS))
+def test_probe_variants_edit_text_the_kernel_holds(variant):
+    """``python -m znicz_tpu_torch.lrn_pool_probe`` builds each variant by
+    a text edit of csrc/lrn_pool.cu: every text it edits is there."""
+    src = (cuda_build.CSRC_DIR / "lrn_pool.cu").read_text()
+    for old, _ in lrn_pool_probe.VARIANTS[variant][1]:
+        assert old in src
+
+
+@pytest.mark.parametrize("backward", [False, True],
+                         ids=["forward", "backward"])
+def test_probe_plans_fit_and_hold_the_shipped_plan(backward):
+    for b, h, w, c, ks, st in ALEXNET_PAIRS:
+        plans = lrn_pool_probe.plans((b, h, w, c), backward)
+        assert all(p.smem <= lrn_pool.MAX_TILE_BYTES
+                   and p.threads <= lrn_pool.MAX_THREADS for p in plans)
+        assert lrn_pool.lrn_pool_plan((b, h, w, c), ks, st, HP[0],
+                                      backward) in plans
+
+
 # -- on the card -------------------------------------------------------------
-CARD_GEOMS = GEOMS + [(128, 55, 55, 96, (3, 3), (2, 2)),
-                      (128, 27, 27, 256, (3, 3), (2, 2))]
+CARD_GEOMS = GEOMS + ALEXNET_PAIRS + NEW_GEOMS
 
 
 @pytest.mark.skipif("not torch.cuda.is_available()",

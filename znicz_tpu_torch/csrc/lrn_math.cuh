@@ -10,12 +10,14 @@
 //   q_j  = err_j * x_j * (p_j / d_j)
 //
 // d^-beta is 1/(sqrt(d)*sqrt(sqrt(d))) for beta = 0.75 (every shipped
-// config; correctly rounded ops, so bit-equal to the reference's tiers) and
-// powf(d, -beta) otherwise.  Every window sum is taken in ascending channel
-// order starting from the first window slot, a clipped slot adding 0.0f
-// exactly as the reference's zero-padded shifted slices do; k + alpha*s,
-// the sums and the products are __fadd_rn/__fmul_rn/__fdiv_rn so nvcc
-// cannot contract them into FMAs (numpy and XLA round each step).
+// config; correctly rounded ops, so bit-equal to the reference's tiers:
+// __frcp_rn is the correctly rounded 1/v, as __fdiv_rn(1.0f, v), in fewer
+// instructions) and powf(d, -beta) otherwise.  Every window sum is taken
+// in ascending channel order starting from the first window slot, a
+// clipped slot adding 0.0f exactly as the reference's zero-padded shifted
+// slices do; k + alpha*s, the sums and the products are
+// __fadd_rn/__fmul_rn/__fdiv_rn so nvcc cannot contract them into FMAs
+// (numpy and XLA round each step).
 
 #pragma once
 
@@ -37,9 +39,14 @@ struct LrnParams {
 __device__ __forceinline__ float lrn_dpow_nbeta(float d, const LrnParams& p) {
   if (p.beta_075) {
     const float r = __fsqrt_rn(d);
-    return __fdiv_rn(1.0f, __fmul_rn(r, __fsqrt_rn(r)));
+    return __frcp_rn(__fmul_rn(r, __fsqrt_rn(r)));
   }
   return powf(d, p.neg_beta);
+}
+
+// d = k + alpha * s, s the window sum of x^2
+__device__ __forceinline__ float lrn_d(float s, const LrnParams& p) {
+  return __fadd_rn(p.k, __fmul_rn(p.alpha, s));
 }
 
 // d_c = k + alpha * (window sum of x^2 around channel c of row xr)
@@ -55,7 +62,7 @@ __device__ __forceinline__ float lrn_denom(const float* __restrict__ xr,
     }
     s = (m == 0) ? v : __fadd_rn(s, v);
   }
-  return __fadd_rn(p.k, __fmul_rn(p.alpha, s));
+  return lrn_d(s, p);
 }
 
 // y_c = x_c * d_c^-beta for channel c of row xr

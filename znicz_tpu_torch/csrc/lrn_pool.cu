@@ -4,51 +4,70 @@
 // reach device memory.
 //
 // lrn_maxpool_kernel replaces the TPU kernel znicz_tpu/ops/lrn_pool.py
-// pallas_lrn_maxpool_split (_lrn_pool_fwd_kernel).  A block takes one
-// image, a band of R output rows and a chunk of 32 channels.  Pass 1
-// computes the LRN output (lrn_math.cuh) of every input element the band's
-// windows cover, once, into a shared-memory tile ((R-1)*sh + kh rows, all
-// W columns, 32 channels).  Pass 2, per pooled element: the window taps
-// t = i*kw + j are read from the tile in flat row-major order and a tap
-// replaces the running winner only when its score (|y| for max-abs) is
-// strictly greater, so ties go to the first tap.  It writes the winner's
-// signed value and its int32 slot t: bit-equal to LRN then max pooling
-// composed, as the reference's.
-//
-// gd_lrn_maxpool_kernel replaces znicz_tpu/ops/lrn_pool.py
-// pallas_gd_lrn_maxpool_split (_lrn_pool_bwd_kernel).  A block takes whole
-// pixel rows of C channels (about 1024 elements) and works in two
-// passes through shared memory.  Pass 1, per element: err_y is gathered
-// from the windows that contain it, in ascending tap order from 0.0f,
-// adding err * (offset == t) (pooling.cu's pool_scatter_kernel and the
-// reference's order); then d is recomputed from x, and q = err_y * x *
-// (p/d) and err_y * p go to the tile.  Pass 2, per element: the window sum
-// of q from the tile gives the LRN backward dx, and the preceding layer's
-// activation derivative, evaluated at its output y = x, is folded in
-// (strict ReLU, scaled tanh, sigmoid, smooth ReLU or mul; 0 folds none),
-// by act_math.cuh's fold_act, which the standalone activation backward
-// (activation.cu) shares.
-//
-// The Pallas kernels read x as column-parity halves, because Mosaic has no
-// strided loads; these read x unsplit.
+// pallas_lrn_maxpool_split (_lrn_pool_fwd_kernel), gd_lrn_maxpool_kernel
+// replaces pallas_gd_lrn_maxpool_split (_lrn_pool_bwd_kernel).  The Pallas
+// kernels read x as column-parity halves, because Mosaic has no strided
+// loads; these read x unsplit.
 //
 // Bound on an H100: bytes.  AlexNet pair 1, (128,55,55,96) -> (128,27,27,96):
 // the forward reads 148.7 MB and writes 2 x 35.8 MB (~66 us at 3.35 TB/s);
 // the backward reads 35.8 MB of err, 35.8 MB of offsets and 148.7 MB of x
-// and writes 148.7 MB (~110 us).  Pair 2, (128,27,27,256) -> (128,13,13,256):
-// ~42 us and ~70 us.  The forward recomputes the LRN at each of a pooled
-// element's kh*kw taps, about (kh*kw)/(sh*sw) = 2.25 times per element of
-// x for 3/2 windows, and the LRN's correctly rounded square roots and
-// divide make it instruction-bound; the tile computes it (R*sh + kh - sh) /
-// (R*sh) times per element instead (1.25 at pair 1, 1.08 at pair 2), the
-// bands sized to fit 48 KB of shared memory.  Index arithmetic is
-// 32-bit (the wrappers refuse 2^31 elements or more) through FastDiv
-// (fastdiv.cuh).  The rounding is lrn_math.cuh's, shared with lrn.cu; the
-// folded derivatives are act_math.cuh's: __fmul_rn/__fsub_rn as the
-// reference's elementwise ops round, and expf (smooth ReLU) within 2 ulp
-// of the host's exp.
+// and writes 148.7 MB (~110 us).  Pair 2, (128,27,27,256) ->
+// (128,13,13,256): ~42 us and ~70 us.  Each element also costs a chain of
+// correctly rounded operations: two square roots and a reciprocal for
+// d^-0.75, backward also a divide p/d.  nvcc emits each as its own branch
+// region (a fast path and a call for the rest), so a thread's four
+// channels do not interleave and the chains' latency is hidden only by
+// other warps; at the plan's one block an SM that, and the barriers
+// between a row's passes, keep the kernels near half their byte bound.
+//
+// The plan (ops/lrn_pool.py lrn_pool_plan) gives each block one image, a
+// strip of rows and a tile of columns (at AlexNet's shapes the whole image:
+// 128 blocks, one an SM); the block walks down its strip one row at a
+// time, the loop taking the place of the TPU's sequential grid.  A thread
+// takes V = 4 consecutive channels of a pixel as one 16-byte vector (V = 1,
+// the scalar form, where C % 4 != 0 or a base is not 16-byte aligned), so
+// a pixel is decoded once per vector and x, y, err, offsets and dx move
+// as 16-byte loads and stores.
+//
+// - x is read once.  Each x row the block needs is copied by cp.async into
+//   a shared tile, two rows ahead of the one in use, so the copies overlap
+//   the arithmetic.  The tile keeps `halo` zeros on each side of a pixel's
+//   channels, so the LRN window reads its +-(n-1)/2 neighbours without a
+//   bounds test; a zero stands for the reference's clipped slot, which
+//   adds 0.0f (and past the first, adds nothing: the plan clips n to
+//   2C + 1).
+// - Forward, each LRN output is computed once: a row's LRN output goes to a
+//   ring of kh + 1 rows in shared memory, so the kh - sh rows that two
+//   windows share are kept, not recomputed, and the pass that computes a
+//   row also pools the output row whose window the previous row completed
+//   (one barrier a row).  Pooling reads the taps t = i*kw + j in flat
+//   row-major order; a tap replaces the running winner only when its
+//   score (|y| for max-abs) is strictly greater, so ties go to the first
+//   tap.  It writes the winner's value and its int32 slot t: bit-equal to
+//   LRN then max pooling composed, as the reference's.
+// - Backward, err and offsets are read once: the pooled rows that the x
+//   rows in use and in flight need are copied into a ring as the walk
+//   reaches them.  For each element err_y is gathered from the ring in
+//   ascending tap order (descending oh, then descending ow) from 0.0f,
+//   adding err * (offset == t), as pooling.cu's scatter and the reference
+//   add; then d is recomputed from the x tile, and q = err_y * x * (p/d)
+//   goes to a zero-haloed q row in shared memory and err_y * p to another.
+//   After a barrier, the window sum of q gives the LRN backward dx, and the
+//   preceding layer's activation derivative, evaluated at its output
+//   y = x, is folded in (strict ReLU, scaled tanh, sigmoid, smooth ReLU or
+//   mul; 0 folds none) by act_math.cuh's fold_act, which the standalone
+//   activation backward (activation.cu) shares.
+//
+// Rounding: lrn_math.cuh's, shared with lrn.cu (every window sum in
+// ascending slot order from slot 0 with __fadd_rn, never a sliding sum);
+// the folded derivatives are act_math.cuh's, expf (smooth ReLU) within 2
+// ulp of the host's exp.  Index arithmetic is 32-bit (the wrappers refuse
+// 2^31 elements or more) through FastDiv (fastdiv.cuh).
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "act_math.cuh"
 #include "fastdiv.cuh"
@@ -56,144 +75,405 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBackwardElements = 1024;   // a backward block's elements
+constexpr int kMaxThreads = 1024;
+constexpr int kAhead = 2;            // x rows in flight past the one in use
+constexpr int kSlots = kAhead + 1;   // x tile rows
 
 struct Geometry {
   FastDiv C, W, H, OW, OH, sh, sw;   // the divisors
   int kh, kw;
 };
 
-constexpr int kChunk = 32;            // channels a forward block takes
-constexpr int kChunkShift = 5;
-constexpr int kTileBytes = 48 * 1024;  // the forward tile's budget
-
-// The forward's blocks: (image, band of `rows` output rows, channel
-// chunk), the block index decomposed through the two inner counts.
-struct Bands {
-  FastDiv n_bands, n_chunks;
-  int rows;
+// A block's share: blockIdx.x = (b * strips + strip) * col_tiles + tile,
+// the strip `rows` rows and the tile `cols` columns (output rows and
+// columns forward, input ones backward); `vecs` divides by C / V.
+struct Tiling {
+  FastDiv strips, col_tiles, vecs;
+  int rows, cols, halo;
 };
 
-__global__ void lrn_maxpool_kernel(const float* __restrict__ x,
-                                   float* __restrict__ y,
-                                   int* __restrict__ offsets, Geometry g,
-                                   Bands bands, LrnParams p, int use_abs) {
-  extern __shared__ float ytile[];
-  const int H = g.H.d, W = g.W.d, C = g.C.d, OH = g.OH.d, OW = g.OW.d;
-  const int sh = g.sh.d, sw = g.sw.d, kw = g.kw;
-  const int q = bands.n_chunks.div(blockIdx.x);
-  const int chunk = blockIdx.x - q * bands.n_chunks.d;
-  const int b = bands.n_bands.div(q);
-  const int oh0 = (q - b * bands.n_bands.d) * bands.rows;
-  const int n_rows = min(bands.rows, OH - oh0);
-  const int ih0 = oh0 * sh;
-  const int in_rows = (n_rows - 1) * sh + g.kh;
-  const int c0 = chunk * kChunk;
-  const int n_c = min(kChunk, C - c0);
-  // pass 1: ytile[(r * W + w) * kChunk + cc] = LRN at (ih0 + r, w, c0 + cc)
-  const float* xb = x + (b * H + ih0) * W * C;
-  const int n_in = in_rows * W * kChunk;
-  for (int t = threadIdx.x; t < n_in; t += blockDim.x) {
-    const int cc = t & (kChunk - 1);
-    if (cc < n_c) {
-      ytile[t] = lrn_y_at(xb + (t >> kChunkShift) * C, c0 + cc, p);
+// dst (shared) = sizeof(T) * V bytes at src (global), in flight until
+// cp_async_wait; 16-byte copies skip L1.
+template <int V, typename T>
+__device__ __forceinline__ void cp_async(T* dst, const T* src) {
+  static_assert(sizeof(T) * V == 16 || sizeof(T) * V == 4, "16 or 4 bytes");
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (sizeof(T) * V == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                 "l"(src) : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+                 "l"(src) : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until the groups committed before the last kAhead - 1 are in.
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kAhead - 1) : "memory");
+}
+
+// Copy `pixels` pixels of C channels, contiguous at src, into a tile
+// whose pixel j starts at dst + j * stride, V channels a copy.
+template <int V, typename T>
+__device__ __forceinline__ void copy_pixels(T* dst, const T* src, int pixels,
+                                            int stride, const FastDiv& vecs) {
+  const int n = pixels * vecs.d;
+  for (int t = threadIdx.x; t < n; t += blockDim.x) {
+    const int j = vecs.div(t);
+    cp_async<V>(dst + j * stride + (t - j * vecs.d) * V, src + t * V);
+  }
+}
+
+template <typename T>
+using Vec4 = std::conditional_t<std::is_same<T, int>::value, int4, float4>;
+
+template <int V, typename T>
+__device__ __forceinline__ void load_vec(const T* p, T (&v)[V]) {
+  if constexpr (V == 4) {
+    const Vec4<T> q = *reinterpret_cast<const Vec4<T>*>(p);
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  } else {
+    v[0] = *p;
+  }
+}
+
+template <int V, typename T>
+__device__ __forceinline__ void store_vec(T* p, const T (&v)[V]) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<Vec4<T>*>(p) = Vec4<T>{v[0], v[1], v[2], v[3]};
+  } else {
+    *p = v[0];
+  }
+}
+
+// s[i] = the LRN window sum around channel i of the tile row r (r[j] is
+// the vector's channel j, the tile's zero halo the clipped slots): slots
+// r[i + m - lo], m = 0 .. n-1, added in ascending m from slot 0 with
+// __fadd_rn; kSquare sums squares (the denominator's), else values (q).
+// kN > 0 fixes n at compile time (V = 4: the window as aligned 16-byte
+// loads); kN = 0 reads it from p.
+template <int V, int kN, bool kSquare>
+__device__ __forceinline__ void window_sums(const float* r,
+                                            const LrnParams& p,
+                                            float (&s)[V]) {
+  if constexpr (kN > 0 && V == 4) {
+    constexpr int lo = (kN - 1) / 2;
+    constexpr int below = (lo + 3) / 4;   // float4s left of the vector
+    constexpr int nq = below + (V + kN - 1 - lo + 3) / 4;
+    constexpr int base = 4 * below - lo;  // w[base + j] = r[j - lo]
+    float w[4 * nq];
+#pragma unroll
+    for (int q = 0; q < nq; ++q) {
+      const float4 v = reinterpret_cast<const float4*>(r)[q - below];
+      w[4 * q] = v.x;
+      w[4 * q + 1] = v.y;
+      w[4 * q + 2] = v.z;
+      w[4 * q + 3] = v.w;
+    }
+#pragma unroll
+    for (int j = base; j < base + V + kN - 1; ++j) {
+      if (kSquare) w[j] = __fmul_rn(w[j], w[j]);
+    }
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      float acc = w[base + i];
+#pragma unroll
+      for (int m = 1; m < kN; ++m) acc = __fadd_rn(acc, w[base + i + m]);
+      s[i] = acc;
+    }
+  } else {
+    const int n = kN > 0 ? kN : p.n;
+    const float* b = r - (n - 1) / 2;
+    float a[V];   // slot m of channel i, shifted down a slot each step
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      a[i] = kSquare ? __fmul_rn(b[i], b[i]) : b[i];
+      s[i] = a[i];
+    }
+    for (int m = 1; m < n; ++m) {
+#pragma unroll
+      for (int i = 0; i + 1 < V; ++i) a[i] = a[i + 1];
+      const float v = b[V - 1 + m];
+      a[V - 1] = kSquare ? __fmul_rn(v, v) : v;
+#pragma unroll
+      for (int i = 0; i < V; ++i) s[i] = __fadd_rn(s[i], a[i]);
     }
   }
-  __syncthreads();
-  // pass 2: one pooled element (oh0 + r, ow, c0 + cc) per iteration
-  const int n_out = n_rows * OW * kChunk;
-  for (int t = threadIdx.x; t < n_out; t += blockDim.x) {
-    const int cc = t & (kChunk - 1);
-    if (cc >= n_c) continue;
-    const int rw = t >> kChunkShift;
-    const int r = g.OW.div(rw);
-    const int ow = rw - r * OW;
-    const float* tap0 = ytile + ((r * sh) * W + ow * sw) * kChunk + cc;
-    float best = 0.0f, best_val = 0.0f;
-    int best_t = 0;
-    for (int i = 0, tp = 0; i < g.kh; ++i) {
-      for (int j = 0; j < kw; ++j, ++tp) {
-        const float v = tap0[(i * W + j) * kChunk];
-        const float s = use_abs ? fabsf(v) : v;
-        if (tp == 0 || s > best) {
-          best = s;
-          best_val = v;
-          best_t = tp;
+}
+
+// Set the halo floats each side of every pixel of `tiles` consecutive
+// tiles of `pixels` pixels of P = C + 2 * halo floats to 0.
+__device__ __forceinline__ void zero_halos(float* tile, int tiles,
+                                           int pixels, int C, int halo) {
+  const int n = tiles * pixels * 2 * halo;
+  for (int t = threadIdx.x; t < n; t += blockDim.x) {
+    const int j = t / (2 * halo), h = t - j * 2 * halo;
+    tile[j * (C + 2 * halo) + (h < halo ? h : C + h)] = 0.0f;
+  }
+}
+
+template <int V, int kN>
+__global__ void __launch_bounds__(kMaxThreads)
+    lrn_maxpool_kernel(const float* __restrict__ x, float* __restrict__ y,
+                       int* __restrict__ offsets, Geometry g, Tiling tl,
+                       LrnParams p, int use_abs) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int H = g.H.d, W = g.W.d, C = g.C.d, OH = g.OH.d, OW = g.OW.d;
+  const int kh = g.kh, kw = g.kw, sh = g.sh.d, sw = g.sw.d;
+  const int halo = tl.halo, P = C + 2 * halo;
+  const int q = tl.col_tiles.div(blockIdx.x);
+  const int tile = blockIdx.x - q * tl.col_tiles.d;
+  const int b = tl.strips.div(q);
+  const int r0 = (q - b * tl.strips.d) * tl.rows;
+  const int r1 = min(OH, r0 + tl.rows);
+  const int ow0 = tile * tl.cols, n_ow = min(OW - ow0, tl.cols);
+  const int wi_max = (tl.cols - 1) * sw + kw;   // the tile's layout
+  const int wi = (n_ow - 1) * sw + kw;          // its input columns
+  const int x_slot = wi_max * P;                // floats a tile row
+  const int ring_rows = kh + 1;                 // LRN output rows kept
+  float* ring = smem + kSlots * x_slot;         // of wi_max x C each
+  zero_halos(smem, kSlots, wi_max, C, halo);
+
+  const float* xb = x + ((b * H) * W + ow0 * sw) * C;
+  const int last = (r1 - 1) * sh + kh - 1;      // the strip's last x row
+  // the next row after `row` that some window holds (rows that no window
+  // holds, where sh > kh, are skipped)
+  auto next_row = [&](int row) {
+    const int top = g.sh.div(row + 1) * sh;
+    return row + 1 - top < kh ? row + 1 : top + sh;
+  };
+  // the row in use and the kAhead rows after it in flight, in tile slots
+  // taken in turn: one commit group a row (empty past the strip), so
+  // cp_async_wait finds the row in use in
+  int ih = r0 * sh, ahead = ih;
+  for (int a = 0; a < kAhead; ++a) {
+    if (a > 0) ahead = next_row(ahead);
+    if (ahead <= last) {
+      copy_pixels<V>(smem + a * x_slot + halo, xb + ahead * W * C, wi, P,
+                     tl.vecs);
+    }
+    cp_async_commit();
+  }
+  // pool output row r from its kh ring rows, the first at ring row `first`
+  auto pool = [&](int r, int first) {
+    const int nv = n_ow * tl.vecs.d;
+    for (int t = threadIdx.x; t < nv; t += blockDim.x) {
+      const int jo = tl.vecs.div(t);
+      const int c = (t - jo * tl.vecs.d) * V;
+      float best[V], val[V];
+      int slot_of[V];
+      int ring_row = first, tp = 0;
+      for (int i = 0; i < kh; ++i) {
+        const float* row = ring + ring_row * wi_max * C + jo * sw * C + c;
+        for (int j = 0; j < kw; ++j, ++tp) {
+          float v[V];
+          load_vec<V>(row + j * C, v);
+#pragma unroll
+          for (int l = 0; l < V; ++l) {
+            const float sc = use_abs ? fabsf(v[l]) : v[l];
+            if (tp == 0 || sc > best[l]) {
+              best[l] = sc;
+              val[l] = v[l];
+              slot_of[l] = tp;
+            }
+          }
         }
+        ring_row = ring_row + 1 == ring_rows ? 0 : ring_row + 1;
+      }
+      const int o = ((b * OH + r) * OW + ow0 + jo) * C + c;
+      store_vec<V>(y + o, val);
+      store_vec<V>(offsets + o, slot_of);
+    }
+  };
+  // slot: the x tile row of row ih; at: its ring row; pending: the output
+  // row whose window is complete but not yet pooled (-1: none)
+  int pending = -1, pending_at = 0;
+  for (int slot = 0, at = 0, r = r0;;) {
+    cp_async_wait();
+    __syncthreads();   // row ih is in; no thread reads the slot the next
+                       // copy takes, nor the ring row that ih replaces
+    ahead = next_row(ahead);
+    if (ahead <= last) {
+      const int to = slot + kAhead < kSlots ? slot + kAhead
+                                            : slot + kAhead - kSlots;
+      copy_pixels<V>(smem + to * x_slot + halo, xb + ahead * W * C, wi, P,
+                     tl.vecs);
+    }
+    cp_async_commit();
+    // LRN of row ih into ring row `at`, and in the same pass the window
+    // that the previous row completed (its kh ring rows precede `at`)
+    {
+      const float* xr = smem + slot * x_slot + halo;
+      float* yr = ring + at * wi_max * C;
+      const int nv = wi * tl.vecs.d;
+      for (int t = threadIdx.x; t < nv; t += blockDim.x) {
+        const int j = tl.vecs.div(t);
+        const float* xv = xr + j * P + (t - j * tl.vecs.d) * V;
+        float s[V], xa[V], ya[V];
+        window_sums<V, kN, true>(xv, p, s);
+        load_vec<V>(xv, xa);
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          ya[i] = __fmul_rn(xa[i], lrn_dpow_nbeta(lrn_d(s[i], p), p));
+        }
+        store_vec<V>(yr + t * V, ya);
       }
     }
-    const int o = ((b * OH + oh0 + r) * OW + ow) * C + c0 + cc;
-    y[o] = best_val;
-    offsets[o] = best_t;
-  }
-}
-
-// err_y at input position (ih, iw) of image b, channel c: the windows
-// holding row ih are oh in [lo, hi] with tap row ih - oh*sh in [0, kh);
-// ascending t = i*kw + j means descending oh, then descending ow.
-__device__ __forceinline__ float gather_err(const float* __restrict__ err,
-                                            const int* __restrict__ offsets,
-                                            int b, int ih, int iw, int c,
-                                            const Geometry& g) {
-  const int C = g.C.d, OH = g.OH.d, OW = g.OW.d, sh = g.sh.d, sw = g.sw.d;
-  const int first_h = ih - g.kh + 1, first_w = iw - g.kw + 1;
-  const int oh_lo = first_h <= 0 ? 0 : g.sh.div(first_h + sh - 1);
-  const int oh_hi = min(OH - 1, g.sh.div(ih));
-  const int ow_lo = first_w <= 0 ? 0 : g.sw.div(first_w + sw - 1);
-  const int ow_hi = min(OW - 1, g.sw.div(iw));
-  const int ob = b * OH * OW * C + c;
-  float acc = 0.0f;
-  for (int oh = oh_hi; oh >= oh_lo; --oh) {
-    const int ti = (ih - oh * sh) * g.kw;
-    for (int ow = ow_hi; ow >= ow_lo; --ow) {
-      const int o = ob + (oh * OW + ow) * C;
-      const float e = err[o];
-      // err * (offsets == t), as the reference multiplies: err*1 or err*0
-      acc = __fadd_rn(acc, offsets[o] == ti + iw - ow * sw
-                               ? e : __fmul_rn(e, 0.0f));
+    if (pending >= 0) pool(pending, pending_at);
+    pending = -1;
+    if (ih == r * sh + kh - 1) {   // output row r's window is complete
+      pending = r++;
+      pending_at = at >= kh - 1 ? at - (kh - 1) : at - (kh - 1) + ring_rows;
     }
-  }
-  return acc;
-}
-
-// One block per `rows_per_block` pixel rows of C channels (about 1024
-// elements, so each thread takes several); shared memory holds q and
-// err_y * p for each element of those rows.
-__global__ void gd_lrn_maxpool_kernel(const float* __restrict__ err,
-                                      const int* __restrict__ offsets,
-                                      const float* __restrict__ x,
-                                      float* __restrict__ dx, int rows,
-                                      int rows_per_block, Geometry g,
-                                      LrnParams p, int act) {
-  extern __shared__ float tile[];
-  const int C = g.C.d;
-  float* q_s = tile;
-  float* ep_s = tile + rows_per_block * C;
-  const int row0 = blockIdx.x * rows_per_block;
-  const int n_el = min(rows_per_block, rows - row0) * C;
-  const float* xb = x + row0 * C;
-  for (int t = threadIdx.x; t < n_el; t += blockDim.x) {
-    const int r = g.C.div(t);
-    const int c = t - r * C;
-    const int pix = row0 + r;
-    const int q = g.W.div(pix);
-    const int iw = pix - q * g.W.d;
-    const int b = g.H.div(q);
-    const int ih = q - b * g.H.d;
-    const float e = gather_err(err, offsets, b, ih, iw, c, g);
-    const float d = lrn_denom(xb + (t - c), c, p);
-    const float pc = lrn_dpow_nbeta(d, p);
-    q_s[t] = lrn_q(e, xb[t], d, pc);
-    ep_s[t] = __fmul_rn(e, pc);
+    if (ih == last) break;
+    ih = next_row(ih);
+    slot = slot + 1 == kSlots ? 0 : slot + 1;
+    at = at + 1 == ring_rows ? 0 : at + 1;
   }
   __syncthreads();
-  for (int t = threadIdx.x; t < n_el; t += blockDim.x) {
-    const int c = t - g.C.div(t) * C;
-    const float ws = lrn_q_window(q_s + (t - c), c, p);
-    const float xv = xb[t];
-    dx[row0 * C + t] =
-        act_math::fold_act(lrn_dx(ep_s[t], xv, ws, p), xv, act);
+  pool(pending, pending_at);
+}
+
+template <int V, int kN>
+__global__ void __launch_bounds__(kMaxThreads)
+    gd_lrn_maxpool_kernel(const float* __restrict__ err,
+                          const int* __restrict__ offsets,
+                          const float* __restrict__ x,
+                          float* __restrict__ dx, Geometry g, Tiling tl,
+                          LrnParams p, int act) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int H = g.H.d, W = g.W.d, C = g.C.d, OH = g.OH.d, OW = g.OW.d;
+  const int kh = g.kh, kw = g.kw, sh = g.sh.d, sw = g.sw.d;
+  const int halo = tl.halo, P = C + 2 * halo;
+  const int q = tl.col_tiles.div(blockIdx.x);
+  const int tile = blockIdx.x - q * tl.col_tiles.d;
+  const int b = tl.strips.div(q);
+  const int h0 = (q - b * tl.strips.d) * tl.rows;
+  const int h1 = min(H, h0 + tl.rows);
+  const int w0 = tile * tl.cols, n_w = min(W - w0, tl.cols);
+  // the pooled columns whose windows reach the tile: [oc0, oc0 + n_oc)
+  const int first_w = w0 - kw + 1;
+  const int oc0 = first_w <= 0 ? 0 : g.sw.div(first_w + sw - 1);
+  const int n_oc = min(OW - 1, g.sw.div(w0 + n_w - 1)) - oc0 + 1;
+  const int ecols = min(OW, (tl.cols + kw - 2) / sw + 1);   // layout
+  // the pooled rows that rows ih .. ih + kAhead need at once
+  const int ring_rows = (kh - 1 + kAhead) / sh + 1;
+  const int x_slot = tl.cols * P;
+  float* qs = smem + kSlots * x_slot;
+  float* eps = qs + tl.cols * P;
+  float* ering = eps + tl.cols * C;
+  int* oring = reinterpret_cast<int*>(ering + ring_rows * ecols * C);
+  zero_halos(smem, kSlots + 1, tl.cols, C, halo);
+
+  // pooled rows whose windows hold input row ih: [oh_lo(ih), oh_hi(ih)]
+  auto oh_lo = [&](int ih) {
+    const int first = ih - kh + 1;
+    return first <= 0 ? 0 : g.sh.div(first + sh - 1);
+  };
+  auto oh_hi = [&](int ih) { return min(OH - 1, g.sh.div(ih)); };
+  const float* xb = x + ((b * H) * W + w0) * C;
+  const int eb = (b * OH * OW + oc0) * C;
+  int loaded = -1;   // pooled rows up to this one are in the ring
+  // x row ih into tile slot `slot` and the pooled rows it needs into the
+  // ring, as one commit group (empty past the strip)
+  auto copy_rows = [&](int ih, int slot) {
+    if (ih >= h1) {
+      cp_async_commit();
+      return;
+    }
+    copy_pixels<V>(smem + slot * x_slot + halo, xb + ih * W * C, n_w, P,
+                   tl.vecs);
+    const int hi = oh_hi(ih);
+    for (int oh = max(loaded + 1, oh_lo(ih)); oh <= hi; ++oh) {
+      const int ring_row = oh % ring_rows;
+      copy_pixels<V>(ering + ring_row * ecols * C, err + eb + oh * OW * C,
+                     n_oc, C, tl.vecs);
+      copy_pixels<V>(oring + ring_row * ecols * C,
+                     offsets + eb + oh * OW * C, n_oc, C, tl.vecs);
+    }
+    loaded = max(loaded, hi);
+    cp_async_commit();
+  };
+  for (int a = 0; a < kAhead; ++a) copy_rows(h0 + a, a);
+  for (int ih = h0, slot = 0; ih < h1; ++ih) {
+    cp_async_wait();
+    __syncthreads();   // row ih and its pooled rows are in; q, eps free
+    copy_rows(ih + kAhead, slot + kAhead < kSlots ? slot + kAhead
+                                                  : slot + kAhead - kSlots);
+    const float* xr = smem + slot * x_slot + halo;
+    const int lo = oh_lo(ih), hi = oh_hi(ih);
+    const int ring_hi = hi % ring_rows;
+    const int nv = n_w * tl.vecs.d;
+    for (int t = threadIdx.x; t < nv; t += blockDim.x) {
+      const int j = tl.vecs.div(t);
+      const int c = (t - j * tl.vecs.d) * V;
+      const int iw = w0 + j;
+      const int fw = iw - kw + 1;
+      const int ow_lo = fw <= 0 ? 0 : g.sw.div(fw + sw - 1);
+      const int ow_hi = min(OW - 1, g.sw.div(iw));
+      float e[V];
+#pragma unroll
+      for (int l = 0; l < V; ++l) e[l] = 0.0f;
+      int ring_row = ring_hi;
+      for (int oh = hi; oh >= lo; --oh) {
+        const int ti = (ih - oh * sh) * kw + iw;   // tap = ti - ow * sw
+        const int ro = ring_row * ecols * C - oc0 * C + c;
+        for (int ow = ow_hi; ow >= ow_lo; --ow) {
+          float ev[V];
+          int ov[V];
+          load_vec<V>(ering + ro + ow * C, ev);
+          load_vec<V>(oring + ro + ow * C, ov);
+          const int tap = ti - ow * sw;
+          // err * (offsets == t), as the reference multiplies: err*1 or
+          // err*0
+#pragma unroll
+          for (int l = 0; l < V; ++l) {
+            e[l] = __fadd_rn(e[l], ov[l] == tap ? ev[l]
+                                                : __fmul_rn(ev[l], 0.0f));
+          }
+        }
+        ring_row = ring_row == 0 ? ring_rows - 1 : ring_row - 1;
+      }
+      const float* xv = xr + j * P + c;
+      float s[V], xa[V], qa[V], ep[V];
+      window_sums<V, kN, true>(xv, p, s);
+      load_vec<V>(xv, xa);
+#pragma unroll
+      for (int l = 0; l < V; ++l) {
+        const float d = lrn_d(s[l], p);
+        const float pc = lrn_dpow_nbeta(d, p);
+        qa[l] = lrn_q(e[l], xa[l], d, pc);
+        ep[l] = __fmul_rn(e[l], pc);
+      }
+      store_vec<V>(qs + halo + j * P + c, qa);
+      store_vec<V>(eps + t * V, ep);
+    }
+    __syncthreads();   // the q row is in
+    float* dxr = dx + ((b * H + ih) * W + w0) * C;
+    for (int t = threadIdx.x; t < nv; t += blockDim.x) {
+      const int j = tl.vecs.div(t);
+      const int c = (t - j * tl.vecs.d) * V;
+      float ws[V], xa[V], ep[V], out[V];
+      window_sums<V, kN, false>(qs + halo + j * P + c, p, ws);
+      load_vec<V>(xr + j * P + c, xa);
+      load_vec<V>(eps + t * V, ep);
+#pragma unroll
+      for (int l = 0; l < V; ++l) {
+        out[l] = act_math::fold_act(lrn_dx(ep[l], xa[l], ws[l], p), xa[l],
+                                    act);
+      }
+      store_vec<V>(dxr + t * V, out);
+    }
+    slot = slot + 1 == kSlots ? 0 : slot + 1;
   }
 }
 
@@ -204,60 +484,79 @@ Geometry make_geometry(int H, int W, int C, int OH, int OW, int kh, int kw,
                   make_fastdiv(sw), kh, kw};
 }
 
-}  // namespace
+using ForwardKernel = void (*)(const float*, float*, int*, Geometry, Tiling,
+                               LrnParams, int);
+using BackwardKernel = void (*)(const float*, const int*, const float*,
+                                float*, Geometry, Tiling, LrnParams, int);
 
-// Both entry points launch on `stream`, do not synchronise, and return the
-// launch status (cudaGetLastError) as an int, 0 on success.
+// The kernel instance of a plan: V = 4 or 1, n = 5 fixed at compile time
+// (AlexNet's and every shipped config's) or read at run time.
+ForwardKernel forward_kernel(int vec, int n) {
+  if (vec == 4) {
+    return n == 5 ? lrn_maxpool_kernel<4, 5> : lrn_maxpool_kernel<4, 0>;
+  }
+  return lrn_maxpool_kernel<1, 0>;
+}
 
-extern "C" int znicz_lrn_maxpool_f32(const float* x, float* y, int* offsets,
-                                     int B, int H, int W, int C, int kh,
-                                     int kw, int sh, int sw, int n,
-                                     double alpha, double beta, double k,
-                                     int use_abs, void* stream) {
-  const int OH = (H - kh) / sh + 1;
-  const int OW = (W - kw) / sw + 1;
-  if (B <= 0 || OH <= 0 || OW <= 0 || C <= 0) return 0;
-  // the most output rows whose input rows fit the tile budget; one band
-  // row past it takes the shared memory that it needs (the wrapper refuses
-  // what exceeds the card's 227 KB)
-  const size_t row_bytes = sizeof(float) * kChunk * W;
-  int rows = 1;
-  while (rows < OH && (rows * sh + kh) * row_bytes <= kTileBytes) ++rows;
-  const size_t smem = ((rows - 1) * sh + kh) * row_bytes;
-  if (smem > kTileBytes) {
+BackwardKernel backward_kernel(int vec, int n) {
+  if (vec == 4) {
+    return n == 5 ? gd_lrn_maxpool_kernel<4, 5>
+                  : gd_lrn_maxpool_kernel<4, 0>;
+  }
+  return gd_lrn_maxpool_kernel<1, 0>;
+}
+
+// kernel<<<blocks, threads, smem, stream>>>(args...), the kernel's dynamic
+// shared-memory limit raised first where smem passes the default 48 KB.
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, int blocks, int threads, int smem, void* stream,
+           Args... args) {
+  if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        lrn_maxpool_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const int n_bands = (OH + rows - 1) / rows;
-  const int n_chunks = (C + kChunk - 1) / kChunk;
-  const Bands bands{make_fastdiv(n_bands), make_fastdiv(n_chunks), rows};
-  lrn_maxpool_kernel<<<B * n_bands * n_chunks, kThreads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      x, y, offsets, make_geometry(H, W, C, OH, OW, kh, kw, sh, sw), bands,
-      make_lrn_params(C, n, alpha, beta, k), use_abs);
+  kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      args...);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int znicz_gd_lrn_maxpool_f32(const float* err, const int* offsets,
-                                        const float* x, float* dx, int B,
-                                        int H, int W, int C, int kh, int kw,
-                                        int sh, int sw, int n, double alpha,
-                                        double beta, double k, int act,
-                                        void* stream) {
+}  // namespace
+
+// Both entry points take the plan of ops/lrn_pool.py lrn_pool_plan (vec,
+// n clipped to 2C + 1, halo, rows, strips, cols, col_tiles, threads,
+// smem), launch on `stream`, do not synchronise, and return the launch
+// status (cudaGetLastError) as an int, 0 on success.
+
+extern "C" int znicz_lrn_maxpool_f32(
+    const float* x, float* y, int* offsets, int B, int H, int W, int C,
+    int kh, int kw, int sh, int sw, double alpha, double beta, double k,
+    int use_abs, int vec, int n, int halo, int rows, int strips, int cols,
+    int col_tiles, int threads, int smem, void* stream) {
   const int OH = (H - kh) / sh + 1;
   const int OW = (W - kw) / sw + 1;
-  const int rows = B * H * W;
-  if (rows <= 0 || C <= 0) return 0;
-  const int rows_per_block = C >= kBackwardElements ? 1
-                                                    : kBackwardElements / C;
-  const int blocks = (rows + rows_per_block - 1) / rows_per_block;
-  const size_t smem = 2 * sizeof(float) * rows_per_block * C;
-  gd_lrn_maxpool_kernel<<<blocks, kThreads, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-      err, offsets, x, dx, rows, rows_per_block,
-      make_geometry(H, W, C, OH, OW, kh, kw, sh, sw),
-      make_lrn_params(C, n, alpha, beta, k), act);
-  return static_cast<int>(cudaGetLastError());
+  if (B <= 0 || OH <= 0 || OW <= 0 || C <= 0) return 0;
+  const Tiling tl{make_fastdiv(strips), make_fastdiv(col_tiles),
+                  make_fastdiv(C / vec), rows, cols, halo};
+  return launch(forward_kernel(vec, n), B * strips * col_tiles, threads,
+                smem, stream, x, y, offsets,
+                make_geometry(H, W, C, OH, OW, kh, kw, sh, sw), tl,
+                make_lrn_params(C, n, alpha, beta, k), use_abs);
+}
+
+extern "C" int znicz_gd_lrn_maxpool_f32(
+    const float* err, const int* offsets, const float* x, float* dx, int B,
+    int H, int W, int C, int kh, int kw, int sh, int sw, double alpha,
+    double beta, double k, int act, int vec, int n, int halo, int rows,
+    int strips, int cols, int col_tiles, int threads, int smem,
+    void* stream) {
+  const int OH = (H - kh) / sh + 1;
+  const int OW = (W - kw) / sw + 1;
+  if (B <= 0 || H <= 0 || W <= 0 || C <= 0) return 0;
+  const Tiling tl{make_fastdiv(strips), make_fastdiv(col_tiles),
+                  make_fastdiv(C / vec), rows, cols, halo};
+  return launch(backward_kernel(vec, n), B * strips * col_tiles, threads,
+                smem, stream, err, offsets, x, dx,
+                make_geometry(H, W, C, OH, OW, kh, kw, sh, sw), tl,
+                make_lrn_params(C, n, alpha, beta, k), act);
 }

@@ -15,11 +15,15 @@ backward.  On a CUDA tensor ``lrn_maxpool``/``gd_lrn_maxpool`` launch the
 hand-written kernels of ``csrc/lrn_pool.cu``, which take x unsplit (the
 reference's column-parity split ``split_cols`` exists because Mosaic has
 no strided loads); on a CPU tensor they run the plain versions.  A CUDA
-tensor never falls back."""
+tensor never falls back.  The kernels' launch (vector width, strips of
+rows, tiles of columns, threads, shared bytes) is ``lrn_pool_plan``'s, in
+Python so that the CPU tests hold it; the wrappers refuse, on either
+device, a geometry whose one-column tile does not fit a block."""
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -64,22 +68,139 @@ def plain_gd_lrn_maxpool(errp, offsets, x, n, alpha, beta, k, ksize, stride,
 
 
 # -- kernels ----------------------------------------------------------------
+_PLAN = [ctypes.c_int] * 9        # the fields of LrnPoolPlan, in order
 _ARGTYPES = {
-    # x, y, offsets, B, H, W, C, kh, kw, sh, sw, n, alpha, beta, k,
-    # use_abs, stream
-    "znicz_lrn_maxpool_f32": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
-    + [ctypes.c_double] * 3 + [ctypes.c_int, ctypes.c_void_p],
-    # err, offsets, x, dx, B, H, W, C, kh, kw, sh, sw, n, alpha, beta, k,
-    # act, stream
-    "znicz_gd_lrn_maxpool_f32": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
-    + [ctypes.c_double] * 3 + [ctypes.c_int, ctypes.c_void_p],
+    # x, y, offsets, B, H, W, C, kh, kw, sh, sw, alpha, beta, k, use_abs,
+    # the plan, stream
+    "znicz_lrn_maxpool_f32": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
+    + [ctypes.c_double] * 3 + [ctypes.c_int] + _PLAN + [ctypes.c_void_p],
+    # err, offsets, x, dx, B, H, W, C, kh, kw, sh, sw, alpha, beta, k, act,
+    # the plan, stream
+    "znicz_gd_lrn_maxpool_f32": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+    + [ctypes.c_double] * 3 + [ctypes.c_int] + _PLAN + [ctypes.c_void_p],
 }
 
 
-#: The forward kernel tiles whole input rows of 32 channels in shared
-#: memory, at most the 227 KB a block of an H100 may have.
-TILE_ROW_BYTES_PER_COLUMN = 32 * 4
+#: The most shared memory a block of an H100 may have (227 KB).
 MAX_TILE_BYTES = 232448
+#: A block's threads at most; a thread takes ceil(vectors / this) vectors
+#: of a tile row.
+MAX_THREADS = 1024
+#: The H100's streaming multiprocessors, the plan's default.
+H100_SMS = 132
+#: x rows a block has in flight past the one it computes (csrc/lrn_pool.cu
+#: kAhead): the tile holds this many more.
+ROWS_AHEAD = 2
+
+
+class LrnPoolPlan(NamedTuple):
+    """The launch of one kernel of the pair (``lrn_pool_plan``).  A block
+    takes one image, a strip of ``rows`` rows (output rows forward, input
+    rows backward) and a tile of ``cols`` columns of the same kind, and
+    walks down the strip one row at a time; the grid is B · strips ·
+    col_tiles blocks of ``threads`` threads with ``smem`` bytes of dynamic
+    shared memory.  A thread takes ``vec`` consecutive channels of a pixel
+    (4: 16-byte copies and vectors; 1 where C % 4 != 0 or a base is not
+    16-byte aligned).  ``n`` is the LRN window min(n, 2C + 1): past that
+    every slot beyond a channel's edge is another 0.0f, which adds nothing
+    to a sum that already added one.  ``halo`` zero floats each side of a
+    pixel's C channels in the x (and backward q) tiles stand for the
+    window's clipped slots."""
+    vec: int
+    n: int
+    halo: int
+    rows: int
+    strips: int
+    cols: int
+    col_tiles: int
+    threads: int
+    smem: int
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _smem_bytes(backward: bool, cols: int, c: int, halo: int, kh: int,
+                kw: int, sh: int, sw: int, ow: int) -> int:
+    """The tile of a block whose strip is ``cols`` columns wide, as the
+    kernels lay it out (floats, 4 bytes each; P = C + 2·halo):
+
+    forward: the x row in use and ``ROWS_AHEAD`` in flight, each
+    wi = (cols-1)·sw + kw pixels of P, and a ring of kh + 1 LRN output
+    rows of wi pixels of C (a window is pooled while the next row is
+    computed);
+    backward: those x rows and the q row (each cols pixels of P), the
+    err·p row (cols pixels of C), and a ring of the pooled rows of err and
+    of offsets that ``ROWS_AHEAD`` + 1 consecutive x rows need,
+    (kh - 1 + ROWS_AHEAD) // sh + 1, each as wide as the windows over the
+    tile's columns reach: min(OW, (cols + kw - 2) // sw + 1)."""
+    p = c + 2 * halo
+    x_rows = ROWS_AHEAD + 1
+    if not backward:
+        wi = (cols - 1) * sw + kw
+        return 4 * (x_rows * wi * p + (kh + 1) * wi * c)
+    ecols = min(ow, (cols + kw - 2) // sw + 1)
+    ring = (kh - 1 + ROWS_AHEAD) // sh + 1
+    return 4 * ((x_rows + 1) * cols * p + cols * c + 2 * ring * ecols * c)
+
+
+def lrn_pool_plan(shape, ksize, stride, n: int, backward: bool = False,
+                  aligned: bool = True, n_sm: int = H100_SMS) -> LrnPoolPlan:
+    """The launch of ``lrn_maxpool`` (or, ``backward``, of
+    ``gd_lrn_maxpool``) for NHWC ``shape`` and a padding-0 window, bases
+    16-byte aligned or not, on a card of ``n_sm`` multiprocessors.
+
+    Columns: the whole row where its tile fits ``MAX_TILE_BYTES``, else
+    the widest tile that does (``cols`` 0 where not even one column
+    fits: the wrappers refuse that).  Threads: the fewest vectors a
+    thread per pass over a tile row within ``MAX_THREADS`` (forward, a
+    pass computes an LRN row and pools an output row).  Strips: about
+    ``n_sm`` blocks in all (one block an SM holds, the tile being
+    large), each strip at least one row.  Of 123 plans timed at
+    AlexNet's pairs on an H100 (1-3 column tiles, threads, 1-3 strips)
+    none beat this one (PERF.md)."""
+    b, h, w, c = (int(v) for v in shape)
+    (kh, kw), (sh, sw) = norm2(ksize), norm2(stride)
+    oh, ow = (h - kh) // sh + 1, (w - kw) // sw + 1
+    vec = 4 if c % 4 == 0 and aligned else 1
+    n = min(int(n), 2 * c + 1)
+    lo = (n - 1) // 2
+    halo = _ceil(max(lo, n - 1 - lo), vec) * vec
+    rows_total, cols = (h, w) if backward else (oh, ow)
+    geo = (c, halo, kh, kw, sh, sw, ow)
+    if _smem_bytes(backward, cols, *geo) > MAX_TILE_BYTES:
+        fits, over = 0, cols     # the tile grows with its columns
+        while over - fits > 1:
+            mid = (fits + over) // 2
+            if _smem_bytes(backward, mid, *geo) <= MAX_TILE_BYTES:
+                fits = mid
+            else:
+                over = mid
+        cols = fits
+    if cols == 0:
+        return LrnPoolPlan(vec, n, halo, rows_total, 1, 0, 0, 0,
+                           _smem_bytes(backward, 1, *geo))
+    col_tiles = _ceil(w if backward else ow, cols)
+    # a pass: the backward's x row; the forward's LRN row and pooled row
+    pixels = cols if backward else (cols - 1) * sw + kw + cols
+    vectors = pixels * c // vec
+    per = _ceil(vectors, MAX_THREADS)
+    threads = _ceil(_ceil(vectors, per), 32) * 32
+    strips = min(rows_total, max(1, round(n_sm / (b * col_tiles))))
+    rows = _ceil(rows_total, strips)
+    return LrnPoolPlan(vec, n, halo, rows, _ceil(rows_total, rows), cols,
+                       col_tiles, threads,
+                       _smem_bytes(backward, cols, *geo))
+
+
+def _plan(x, ksize, stride, n, backward: bool, *tensors) -> LrnPoolPlan:
+    """The plan for a CUDA launch over these tensors (all of them 16-byte
+    aligned or the scalar form) on x's card."""
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, *tensors))
+    return lrn_pool_plan(
+        x.shape, ksize, stride, n, backward, aligned,
+        torch.cuda.get_device_properties(x.device).multi_processor_count)
 
 
 def _launch(name: str, device, *args) -> None:
@@ -102,10 +223,12 @@ def _geometry(who, x, n, ksize, stride, padding):
     if x.shape[-1] > lrn_ops.MAX_CHANNELS:
         raise ValueError(f"{who}: {x.shape[-1]} channels; the kernels take "
                          f"at most {lrn_ops.MAX_CHANNELS}")
-    if kh * x.shape[2] * TILE_ROW_BYTES_PER_COLUMN > MAX_TILE_BYTES:
-        raise ValueError(f"{who}: a {kh}-row window over {x.shape[2]} "
-                         f"columns does not fit the forward kernel's "
-                         f"shared-memory tile")
+    for backward in (False, True):
+        if lrn_pool_plan(x.shape, (kh, kw), (sh, sw), n,
+                         backward).cols == 0:
+            raise ValueError(f"{who}: one column of {x.shape[-1]} channels "
+                             f"under a {kh}x{kw} window does not fit the "
+                             f"kernels' shared-memory tile")
     return (kh, kw), (sh, sw), (oh, ow)
 
 
@@ -124,9 +247,10 @@ def lrn_maxpool(x, n, alpha, beta, k, ksize, stride, padding=0,
     b, h, w, c = x.shape
     y = torch.empty((b, oh, ow, c), dtype=torch.float32, device=x.device)
     off = torch.empty((b, oh, ow, c), dtype=torch.int32, device=x.device)
+    plan = _plan(x, (kh, kw), (sh, sw), n, False, y, off)
     _launch("znicz_lrn_maxpool_f32", x.device, x.data_ptr(), y.data_ptr(),
-            off.data_ptr(), b, h, w, c, kh, kw, sh, sw, int(n), float(alpha),
-            float(beta), float(k), int(use_abs))
+            off.data_ptr(), b, h, w, c, kh, kw, sh, sw, float(alpha),
+            float(beta), float(k), int(use_abs), *plan)
     lrn_maxpool_launches += 1
     return y, off
 
@@ -150,8 +274,9 @@ def gd_lrn_maxpool(errp, offsets, x, n, alpha, beta, k, ksize, stride,
         return plain_gd_lrn_maxpool(errp, offsets, x, n, alpha, beta, k,
                                     (kh, kw), (sh, sw), 0, fold_act)
     dx = torch.empty_like(x)
+    plan = _plan(x, (kh, kw), (sh, sw), n, True, errp, offsets, dx)
     _launch("znicz_gd_lrn_maxpool_f32", x.device, errp.data_ptr(),
             offsets.data_ptr(), x.data_ptr(), dx.data_ptr(), b, h, w, c, kh,
-            kw, sh, sw, int(n), float(alpha), float(beta), float(k), act)
+            kw, sh, sw, float(alpha), float(beta), float(k), act, *plan)
     gd_lrn_maxpool_launches += 1
     return dx

@@ -112,7 +112,7 @@ class ModelSpec:
             raise NotImplementedError(
                 f"storage_dtype {self.storage_dtype!r} through the pool and "
                 f"LRN kernels (float32 only) is not ported yet (ROADMAP.md "
-                f"queue 1 item 5, narrow storage through the conv stack)")
+                f"queue 1 item 5b, narrow storage through the conv stack)")
         # the softmax-CE head consumes 2D logits and backward() hands the
         # last layer a pre-activation error — only well-defined for a
         # final fc layer; the MSE head accepts any output shape
@@ -163,9 +163,9 @@ def _check_tie(layers, i: int) -> None:
                                      for la in layers[:tie]):
             raise NotImplementedError(
                 f"deconv row {i} tied to conv row {tie} with a bias or a "
-                f"trainable layer below the conv: the fused path refuses "
-                f"it, as the reference's does (ROADMAP.md queue 1 item 6); "
-                f"train it on the unit graph (fused=False)")
+                f"trainable layer below the conv: the reference's fused "
+                f"path refuses it too (znicz_tpu/parallel/fused.py), so "
+                f"this one does; train it on the unit graph (fused=False)")
 
 
 def _rnd(a: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
