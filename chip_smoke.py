@@ -20,7 +20,14 @@ exits nonzero without the final ``ok`` line:
    each folded activation, the scalar form (C % 4 ≠ 0), a window wider
    than the channels, ragged strips and column tiles; dropout at two
    ratios and a counter near 2³²), with the stated tolerances; times of
-   kernel, plain version, library call and the byte/flop bound;
+   kernel, plain version, library call and the byte/flop bound; then the
+   fused train step's update (``fused_update``): 20 steps each of MNIST,
+   CIFAR on both conv tiers, the autoencoder and AlexNet at full width,
+   each step's gradients updated through the kernel and through the plain
+   update, params and velocities bit-equal after every step, one
+   ``sgd_update`` launch a step; and config 4 with its deconv tied to the
+   conv's W, two launches a step (the conv's update reads the W the
+   deconv's wrote);
 4. slice   — the fused MNIST trainer at full width (784→100→10, batch 100,
    50k/10k/10k synthetic split resident on the card) for 2 epochs through
    ``models.mnist.run``, every kernel's launch count reset just before and
@@ -114,9 +121,12 @@ ragged case and AlexNet fc6's three, (128, 9216)·(9216, 4096), xᵀ·err_y
 and err_y·Wᵀ (each operand's every layout at a big shape), within rtol
 1e-5 / atol 1e-5·√K and bit-equal across two calls, each row with its
 launch choice, both bounds, and at fwd1 and fc6 the kernel's time at
-other split counts of its depth (``splits_ms``); the SGD update bit for
-bit at the MNIST weights and biases, with decay and l1_vs_l2 = 0.5, and
-at (9216, 4096); the row softmax + argmax at
+other split counts of its depth (``splits_ms``); the SGD update (one
+launch a list of tensors) bit for bit on the fused step's tables —
+MNIST's four tensors in one launch, AlexNet's 16 (62,378,344 elements) in
+one, the autoencoder's tied pair as two — and, one tensor a call, at the
+MNIST weights and biases, with decay and l1_vs_l2 = 0.5, at (9216, 4096)
+and on an unaligned entry (the scalar path); the row softmax + argmax at
 (100, 10), (128, 1000) and tied logits, probabilities within rtol 1e-6 and
 the argmax exact.  And the decoder slice's three: the LRN forward that
 caches its denominator and the backward that reads it, bit for bit at
@@ -275,51 +285,55 @@ OFF_PATH = {
                    "gathered in its loader",
 }
 
-#: each path's kernels: launches per (train step, eval step)
+#: each path's kernels: launches per (train step, eval step); every W and
+#: b of a train step in one sgd_update launch (config 4's deconv holds its
+#: own W; a tied one would take a second, ``FUSED_UPDATE_PATHS``)
 PATHS = {
-    "mnist": {"softmax_ce": (1, 1)},
+    "mnist": {"softmax_ce": (1, 1), "sgd_update": (1, 0)},
     "cifar": {"softmax_ce": (1, 1), "pool_select": (1, 1),
-              "pool_scatter": (1, 0), "lrn_y": (1, 1), "gd_lrn_x": (1, 0)},
+              "pool_scatter": (1, 0), "lrn_y": (1, 1), "gd_lrn_x": (1, 0),
+              "sgd_update": (1, 0)},
     "alexnet": {"softmax_ce": (1, 1), "pool_select": (1, 1),
                 "pool_scatter": (1, 0), "lrn_maxpool": (2, 2),
-                "gd_lrn_maxpool": (2, 0), "dropout": (4, 0)},
+                "gd_lrn_maxpool": (2, 0), "dropout": (4, 0),
+                "sgd_update": (1, 0)},
     # depooling forward is the scatter; its backward the gather
     "autoencoder": {"pool_select": (1, 1), "pool_scatter": (2, 1),
-                    "pool_gather": (1, 0)},
+                    "pool_gather": (1, 0), "sgd_update": (1, 0)},
     # the standalone tanh layer is plain torch inside the fused step
-    "mnist_act": {"softmax_ce": (1, 1)},
+    "mnist_act": {"softmax_ce": (1, 1), "sgd_update": (1, 0)},
 }
 #: the unit graph's kernels: launches per (tick, train tick, tick whose GD
 #: chain runs — every train tick but the last one's);
 #: MNIST's two forwards take a matmul each and its softmax layer the row
 #: softmax; GDSoftmax takes two (the weight gradient and err_input),
-#: GDTanh one (no err_input for the first layer), and four updates (W and
-#: b of two layers); with its tanh as a standalone layer the activation
-#: kernels run once a tick forward and once a GD tick backward
-#: CIFAR's conv GD units run cuDNN and one sgd_update each for W and b
+#: GDTanh one (no err_input for the first layer), and two updates (W and
+#: b of a layer in one launch); with its tanh as a standalone layer the
+#: activation kernels run once a tick forward and once a GD tick backward
+#: CIFAR's conv GD units run cuDNN and one sgd_update for W and b
 #: (the first conv computes no err_input), its fc units as MNIST's;
 #: the autoencoder's depooling scatters forward and gathers backward;
 #: AlexNet's two LRN and three max-pool units run apart, its three fc
 #: layers take three matmuls a tick and six a GD tick, its eight weighted
-#: layers 16 updates, and each dropout unit masks on the train ticks
+#: layers 8 updates, and each dropout unit masks on the train ticks
 #: forward and on the GD ticks backward
 UNIT_PATHS = {
-    "mnist_units": {"matmul": (2, 0, 3), "sgd_update": (0, 0, 4),
+    "mnist_units": {"matmul": (2, 0, 3), "sgd_update": (0, 0, 2),
                     "softmax": (1, 0, 0)},
     "cifar_units": {"pool_select": (1, 0, 0), "lrn": (1, 0, 0),
                     "matmul": (2, 0, 4), "softmax": (1, 0, 0),
                     "pool_scatter": (0, 0, 1), "gd_lrn": (0, 0, 1),
-                    "sgd_update": (0, 0, 8)},
+                    "sgd_update": (0, 0, 4)},
     "autoencoder_units": {"pool_select": (1, 0, 0),
                           "pool_scatter": (1, 0, 1),
-                          "pool_gather": (0, 0, 1), "sgd_update": (0, 0, 3)},
-    "mnist_act_units": {"matmul": (2, 0, 3), "sgd_update": (0, 0, 4),
+                          "pool_gather": (0, 0, 1), "sgd_update": (0, 0, 2)},
+    "mnist_act_units": {"matmul": (2, 0, 3), "sgd_update": (0, 0, 2),
                         "softmax": (1, 0, 0), "act_fwd": (1, 0, 0),
                         "act_bwd": (0, 0, 1)},
     "alexnet_units": {"lrn": (2, 0, 0), "pool_select": (3, 0, 0),
                       "matmul": (3, 0, 6), "softmax": (1, 0, 0),
                       "dropout": (0, 2, 2), "pool_scatter": (0, 0, 3),
-                      "gd_lrn": (0, 0, 2), "sgd_update": (0, 0, 16)},
+                      "gd_lrn": (0, 0, 2), "sgd_update": (0, 0, 8)},
 }
 #: the implicit-GEMM conv tier (ZNICZ_TPU_CONV=pallas) adds its kernels to
 #: a path's own: each conv's forward on every step, its input gradient on
@@ -482,13 +496,16 @@ def _close(torch, case: str, name: str, got, want, rtol, atol) -> float:
     return float((got - want).abs().max())
 
 
-def _launch_once(torch, name: str, fn):
-    """Call a wrapper once, synchronise, and check its counter moved."""
+def _launch_once(torch, name: str, fn, launches: int = 1):
+    """Call a wrapper once, synchronise, and check its counter moved by
+    ``launches``."""
     before = launch_counts()[name]
     out = fn()
     torch.cuda.synchronize()
-    if launch_counts()[name] != before + 1:
-        raise AssertionError(f"{name} launch counter did not advance")
+    if launch_counts()[name] != before + launches:
+        raise AssertionError(f"{name} launch counter moved by "
+                             f"{launch_counts()[name] - before}, not "
+                             f"{launches}")
     return out
 
 
@@ -989,7 +1006,8 @@ def sgd_update_bound_ms(numel: int):
     return _bound(5 * numel * 4, 10 * numel)
 
 
-#: case, shape, hypers (lr, weights_decay, l1_vs_l2, momentum)
+#: case, shape, hypers (lr, weights_decay, l1_vs_l2, momentum): one tensor
+#: with the unit graph's constants
 UPDATE_CASES = [
     ("mnist_w1", (784, 100), (0.03, 0.0, 0.0, 0.9)),
     ("mnist_b1", (100,), (0.03, 0.0, 0.0, 0.9)),
@@ -998,36 +1016,220 @@ UPDATE_CASES = [
     ("decay_half_l1", (784, 100), (0.01, 5e-4, 0.5, 0.9)),
     ("alexnet_fc6", (9216, 4096), (0.01, 5e-4, 0.0, 0.9)),
 ]
+#: the autoencoder's tied pair as two calls of (shape, hypers) entries,
+#: with the fused step's constants: the tied deconv's update of the
+#: encoder conv's W, then the conv's own W (``"tie"``: the first call's
+#: w′) and b.  MNIST's and AlexNet's tables (one call each, the fused
+#: step's reverse layer order) are ``update_probe.CASES``'.
+AE_TIED_PAIR = [[((5, 5, 1, 16), (0.0002, 5e-4, 0.5, 0.9))],
+                [("tie", (0.0002, 5e-4, 0.5, 0.9)),
+                 ((16,), (0.0002, 0.0, 0.0, 0.9))]]
+#: the unaligned case: one entry whose w, g and v start one element into
+#: their storage (the scalar path), MNIST's first weight
+UPDATE_UNALIGNED = ("unaligned", (784, 100), (0.01, 5e-4, 0.5, 0.9))
+
+
+def _update_tensors(torch, shape, gen, offset: int = 0):
+    """(w, g, v) on the card with a quarter of w zero (sign 0), each
+    ``offset`` elements into its storage."""
+    dev = torch.device("cuda")
+    n = math.prod(shape)
+
+    def put(t):
+        return torch.cat([torch.zeros(offset), t.reshape(-1)]).to(dev)[
+            offset:].view(shape)
+    w = torch.randn(shape, generator=gen)
+    w[torch.rand(shape, generator=gen) < 0.25] = 0.0
+    g = torch.randn(n, generator=gen) * 0.1
+    v = torch.randn(n, generator=gen) * 0.01
+    return put(w), put(g), put(v)
+
+
+def _update_calls(update, calls, many):
+    """The outputs of ``calls`` (lists of entries) through ``many``, a tie
+    entry reading the previous call's first w′."""
+    outs = []
+    for entries in calls:
+        entries = [(outs[-1][0][0], *e[1:]) if e[0] is None else e
+                   for e in entries]
+        outs.append(many(entries))
+    return [o for out in outs for o in out]
 
 
 def phase_kernel_update(torch) -> list:
     """The fused update bit for bit against the plain version (both round
     once per operation, no fused multiply-add); a quarter of w is zero so
-    sign(0) = 0 is exercised.  No single PyTorch call computes it."""
+    sign(0) = 0 is exercised.  One tensor a call with the unit graph's
+    constants (``UPDATE_CASES``); whole tables with the fused step's:
+    MNIST's four tensors and AlexNet's 16 in one launch each, the
+    autoencoder's tied pair as two launches; one unaligned entry.  No
+    single PyTorch call computes it."""
     from znicz_tpu_torch.ops import update
-    dev = torch.device("cuda")
+    from znicz_tpu_torch.update_probe import CASES
     gen = torch.Generator().manual_seed(SEED + 6)
     rows = []
-    for case, shape, hypers in UPDATE_CASES:
-        w = torch.randn(shape, generator=gen)
-        w[torch.rand(shape, generator=gen) < 0.25] = 0.0
-        w = w.to(dev)
-        g = (torch.randn(shape, generator=gen) * 0.1).to(dev)
-        v = (torch.randn(shape, generator=gen) * 0.01).to(dev)
-        got = _launch_once(torch, "sgd_update",
-                           lambda: update.sgd_update(w, g, v, hypers))
-        want = update.plain_sgd_update(w, g, v, hypers)
-        err = max(_close(torch, case, "w", got[0], want[0], 0, 0),
-                  _close(torch, case, "v", got[1], want[1], 0, 0))
-        big = case == "alexnet_fc6"
+    tables = {"mnist_table": [CASES["mnist_table"]],
+              "alexnet_table": [CASES["alexnet_table"]],
+              "autoencoder_tied_pair": AE_TIED_PAIR}
+
+    def row(case, geo, calls, numel, big):
+        launches = len(calls)
+        got = _launch_once(torch, "sgd_update", lambda: _update_calls(
+            update, calls, update.sgd_update_many), launches)
+        want = _update_calls(update, calls, update.plain_sgd_update_many)
+        err = max(_bit_equal(torch, case, f"{k} {n}", a, b)
+                  for k, (got_k, want_k) in enumerate(zip(got, want))
+                  for n, a, b in zip(("w", "v"), got_k, want_k))
         rows.append(_row(
-            torch, "sgd_update", {"case": case, "shape": list(shape),
-                                  "hypers": list(hypers)}, err,
-            lambda: update.sgd_update(w, g, v, hypers),
-            lambda: update.plain_sgd_update(w, g, v, hypers),
-            sgd_update_bound_ms(w.numel()), None,
-            BIG_ITERS if big else ITERS))
+            torch, "sgd_update", {"case": case, **geo, "numel": numel,
+                                  "launches_per_call": launches}, err,
+            lambda: _update_calls(update, calls, update.sgd_update_many),
+            lambda: _update_calls(update, calls,
+                                  update.plain_sgd_update_many),
+            sgd_update_bound_ms(numel), None, BIG_ITERS if big else ITERS))
+
+    for case, table in tables.items():
+        calls, shapes = [], []
+        for spec in table:
+            entries = []
+            for shape, hypers in spec:
+                if shape == "tie":
+                    shape = shapes[0]
+                    _, g, v = _update_tensors(torch, shape, gen)
+                    entries.append((None, g, v,
+                                    update.fused_constants(hypers)))
+                else:
+                    entries.append((*_update_tensors(torch, shape, gen),
+                                    update.fused_constants(hypers)))
+                shapes.append(shape)
+            calls.append(entries)
+        row(case, {"shape": [list(s) for s in shapes],
+                   "hypers": [list(h) for spec in table for _, h in spec]},
+            calls, sum(math.prod(s) for s in shapes),
+            case == "alexnet_table")
+        del calls
+    for case, shape, hypers in UPDATE_CASES + [UPDATE_UNALIGNED]:
+        offset = 1 if case == "unaligned" else 0
+        calls = [[(*_update_tensors(torch, shape, gen, offset),
+                   update.unit_constants(hypers))]]
+        row(case, {"shape": list(shape), "hypers": list(hypers)}, calls,
+            math.prod(shape), case == "alexnet_fc6")
+    torch.cuda.empty_cache()
     return rows
+
+
+#: the conv autoencoder of config 4 with its deconv tied to the encoder
+#: conv's W (its own velocity, no bias) and weight decay, so that the
+#: conv's update reads the W the deconv's update wrote
+AE_TIED_LAYERS = [
+    {"type": "conv", "->": {"n_kernels": 16, "kx": 5, "ky": 5, "padding": 2},
+     "<-": {"learning_rate": 0.0002, "gradient_moment": 0.9,
+            "weights_decay": 1e-3}},
+    {"type": "max_pooling", "->": {"kx": 2, "ky": 2}},
+    {"type": "depooling", "->": {"tie": 1}},
+    {"type": "deconv", "->": {"tie": 0},
+     "<-": {"learning_rate": 0.0002, "gradient_moment": 0.9,
+            "weights_decay": 1e-3}},
+]
+#: the fused train steps held against the plain update: path → (model,
+#: split, conv tier, config over the model's tree, sgd_update launches a
+#: step); full widths, a split big enough for the steps.  Config 4's
+#: deconv holds its own W (one launch a step); its tied form takes two
+FUSED_UPDATE_STEPS = 20
+FUSED_UPDATE_PATHS = {
+    "mnist": ("mnist", dict(MNIST_SPLIT, n_train=2000, n_valid=100,
+                            n_test=100), None, None, 1),
+    "cifar": ("cifar", CIFAR_PARITY_SPLIT, None, None, 1),
+    "cifar_gemm": ("cifar", CIFAR_PARITY_SPLIT, "pallas", None, 1),
+    "autoencoder": ("autoencoder", AE_PARITY_SPLIT, None, None, 1),
+    "autoencoder_tied": ("autoencoder", AE_PARITY_SPLIT, None,
+                         {"layers": AE_TIED_LAYERS}, 2),
+    "alexnet": ("alexnet", ALEXNET_SPLIT, None, None, 1),
+}
+
+
+def _fused_update_steps(torch, path: str) -> dict:
+    """``FUSED_UPDATE_STEPS`` train steps of ``path``'s model on the card,
+    each step's gradients (``grad_minibatch``) updated twice: through
+    ``apply_updates`` (the kernel) and through it with the plain update
+    (``plain_sgd_update_many``).  Params and velocities must agree bit for
+    bit after every step (so the two runs are the same steps), and the
+    kernel must launch the path's count a step.  Then the update of the
+    last step's gradients timed both ways."""
+    import numpy as np
+    from znicz_tpu_torch import prng
+    from znicz_tpu_torch.config import root
+    from znicz_tpu_torch.ops import update
+    from znicz_tpu_torch.parallel import fused
+    from znicz_tpu_torch.profile_fused import MODELS
+    model, split, _, config, per_step = FUSED_UPDATE_PATHS[path]
+    module = importlib.import_module(f"znicz_tpu_torch.models.{model}")
+    tree = getattr(root, TREES.get(model, model))
+    tree.synthetic.update(split)
+    saved = {k: tree.get(k) for k in config or {}}
+    tree.update(config or {})
+    prng.seed_all(SEED)
+    try:
+        wf = getattr(module, MODELS[model][0])()
+        wf.initialize(device="cuda")
+    finally:
+        tree.update(saved)
+    spec = wf.spec
+    params, vels = wf.spec_rows(wf.params), wf.spec_rows(wf.vels)
+    ld = wf.loader
+    batch = ld.max_minibatch_size
+    idx = torch.from_numpy(np.resize(ld.train_permutation(0),
+                                     FUSED_UPDATE_STEPS * batch)).cuda()
+    data = ld.original_data
+    target = (ld.original_targets if wf.loss_function == "mse"
+              else ld.original_labels)
+    n_params = sum(t.numel() for pair in params for t in pair
+                   if t is not None)
+    with torch.no_grad():
+        for s in range(FUSED_UPDATE_STEPS):
+            ix = idx[s * batch:(s + 1) * batch]
+            grads, _ = fused.grad_minibatch(
+                spec, params, data.index_select(0, ix),
+                target.index_select(0, ix), epoch=0, ctr=(s + 1) * batch)
+            new = _launch_once(torch, "sgd_update", lambda: fused
+                               .apply_updates(spec, params, vels, grads),
+                               per_step)
+            want = fused.apply_updates(spec, params, vels, grads,
+                                       many=update.plain_sgd_update_many)
+            for what, got_rows, want_rows in zip(("params", "vels"), new,
+                                                 want):
+                for r, (gp, wp) in enumerate(zip(got_rows, want_rows)):
+                    for a, b in zip(gp, wp):
+                        if (a is None) != (b is None):
+                            raise AssertionError(f"{path}: {what} row {r}")
+                        if a is not None:
+                            _bit_equal(torch, f"{path} step {s}",
+                                       f"{what} row {r}", a, b)
+            params, vels = new
+        big = model == "alexnet"
+        k_ms, _ = _time_ms(torch, lambda: fused.apply_updates(
+            spec, params, vels, grads), BIG_ITERS if big else ITERS)
+        p_ms, _ = _time_ms(torch, lambda: fused.apply_updates(
+            spec, params, vels, grads, many=update.plain_sgd_update_many),
+            BIG_ITERS if big else ITERS)
+    out = {"steps": FUSED_UPDATE_STEPS, "launches_per_step": per_step,
+           "n_params": n_params, "bit_equal": True, "update_ms": k_ms,
+           "plain_update_ms": p_ms,
+           "bound_ms": sgd_update_bound_ms(n_params)[0]}
+    del wf, params, vels, grads, new, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_fused_update(torch) -> dict:
+    """Each ``FUSED_UPDATE_PATHS`` path's train steps with the update
+    kernel, bit for bit against the same steps with the plain update."""
+    out = {}
+    for path, (_, _, tier, _, _) in FUSED_UPDATE_PATHS.items():
+        with conv_tier(tier) if tier else contextlib.nullcontext():
+            out[path] = _fused_update_steps(torch, path)
+    emit({"phase": "fused_update", "paths": out})
+    return out
 
 
 def row_softmax_bound_ms(n: int, c: int):
@@ -2135,6 +2337,7 @@ def main() -> int:
             **phase_kernel_act(torch),
             "matmul_at_b": phase_kernel_at_b(torch),
             **phase_kernel_conv_gemm(torch)}
+    phase_fused_update(torch)
     #: each conv model's epoch 0 on its default split on the default tier
     cudnn = {}
     mnist = phase_slice(torch, "mnist", MNIST_SPLIT, "mnist 784-100-10")

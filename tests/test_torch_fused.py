@@ -2,10 +2,19 @@
 package's ``FusedTrainer`` on carried-across weights: one train epoch and
 one eval epoch over the same indices, in both.  Per-step loss must match
 at rtol 1e-5 and n_err exactly; final params and velocities at atol 1e-5.
-All inputs are numpy, made from seeds."""
+All inputs are numpy, made from seeds.
+
+``apply_updates`` alone: bit for bit against the per-tensor expression it
+ran before it called ``ops.update.sgd_update_many`` (kept below as the
+golden), and within rtol 2.4e-7 / atol 1e-8 of the reference's
+``apply_updates`` on the same numpy inputs (the tolerance
+tests/test_torch_update.py holds the update to XLA at), on MNIST's spec
+and a tied-deconv autoencoder spec; one call of the list form a step, two
+where a tied deconv updates the W its encoder conv then updates."""
 
 import dataclasses
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -16,6 +25,7 @@ from znicz_tpu.config import root as ref_root
 from znicz_tpu.models import mnist as ref_mnist
 from znicz_tpu.parallel import fused as ref_fused
 from znicz_tpu_torch import convert
+from znicz_tpu_torch.ops import update
 from znicz_tpu_torch.parallel import fused
 
 
@@ -191,3 +201,156 @@ def test_trainer_options_outside_the_slice_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         fused.FusedTrainer(spec=pspec, params=pparams, vels=pvels,
                            device="cpu", **kwargs)
+
+
+# -- apply_updates on the list form of the update ---------------------------
+def _golden_apply_updates(spec, params, vels, grads):
+    """The port's apply_updates before the list form: the update written
+    out per tensor in torch with Python-float hypers."""
+    cur_w = [p[0] for p in params]
+    cur_b = [p[1] for p in params]
+    new_v = [list(v) for v in vels]
+    for i in reversed(range(len(spec.layers))):
+        layer, grad = spec.layers[i], grads[i]
+        if grad is None:
+            continue
+        tgt = layer.cfg.get("tie", i) if layer.kind == "deconv" else i
+        w, b = cur_w[tgt], cur_b[i]
+        (vw, vb), (gw, gb) = vels[i], grad
+        lr, wd, l1, mom = layer.hypers
+        reg = wd * ((1.0 - l1) * w + 0.5 * l1 * torch.sign(w))
+        vw2 = mom * vw - lr * (gw + reg)
+        cur_w[tgt] = w + vw2
+        new_v[i][0] = vw2
+        if b is not None:
+            lrb, wdb, l1b, momb = layer.hypers_bias
+            regb = wdb * ((1.0 - l1b) * b + 0.5 * l1b * torch.sign(b))
+            vb2 = momb * vb - lrb * (gb + regb)
+            cur_b[i] = b + vb2
+            new_v[i][1] = vb2
+    return (list(zip(cur_w, cur_b)), [tuple(v) for v in new_v])
+
+
+def _autoencoder_spec(tied: bool):
+    """The conv autoencoder's rows (conv 5×5×8 → max pool 2 → depooling →
+    deconv) with decay and an L1 mix, the deconv tied to the conv's W
+    (its own velocity, no W of its own) or holding its own W."""
+    def row(kind, hypers=(0.0,) * 4, include_bias=False, **cfg):
+        return ref_fused.LayerSpec(kind=kind, activation="linear",
+                                   include_bias=include_bias, hypers=hypers,
+                                   hypers_bias=(0.002, 0.0, 0.0, 0.9),
+                                   config=tuple(sorted(cfg.items())))
+    rng = np.random.default_rng(9)
+    conv = dict(stride=(1, 1), padding=(2, 2))
+    pool = dict(ksize=(2, 2), stride=(2, 2), padding=(0, 0))
+    w = (rng.standard_normal((5, 5, 1, 8)) * 0.2).astype(np.float32)
+    w[rng.random(w.shape) < 0.2] = 0.0
+    b = (rng.standard_normal(8) * 0.1).astype(np.float32)
+    layers = (row("conv", (0.0005, 1e-3, 0.9, 0.9), True, **conv),
+              row("max_pool", **pool), row("depooling", tie=1, **pool),
+              row("deconv", (0.0007, 5e-4, 0.3, 0.5),
+                  **(dict(conv, tie=0) if tied else conv)))
+    params = [(w, b), (None, None), (None, None),
+              (None, None) if tied else (w[::-1].copy(), None)]
+    vels = [tuple(None if a is None else
+                  (rng.standard_normal(a.shape) * 0.01).astype(np.float32)
+                  for a in p) for p in params]
+    vels[3] = ((rng.standard_normal(w.shape) * 0.01).astype(np.float32),
+               None)
+    return ref_fused.ModelSpec(layers, "mse"), params, vels
+
+
+def _mnist_spec():
+    spec, params, vels, _, _ = _mnist_reference(40)
+    # decay and an L1 mix on every tensor, l1 = 0.9 where the two
+    # conventions of 1 − l1 differ in float32
+    layers = tuple(dataclasses.replace(la, hypers=(0.03, 5e-4, 0.9, 0.9),
+                                       hypers_bias=(0.02, 1e-3, 0.3, 0.5))
+                   for la in spec.layers)
+    return ref_fused.ModelSpec(layers, spec.loss), params, vels
+
+
+UPDATE_SPECS = {"mnist": _mnist_spec,
+                "autoencoder_tied": lambda: _autoencoder_spec(True),
+                "autoencoder_untied": lambda: _autoencoder_spec(False)}
+
+
+def _update_inputs(name):
+    """(reference spec, numpy params, vels, grads) and the port's
+    (spec, params, vels, grads) on the CPU."""
+    spec, params, vels = UPDATE_SPECS[name]()
+    rng = np.random.default_rng(len(name))
+    grads = []
+    for la, (w, b), (vw, _) in zip(spec.layers, params, vels):
+        if la.kind not in fused.PARAM_KINDS:
+            grads.append(None)
+            continue
+        shape = (w if w is not None else vw).shape
+        grads.append(((rng.standard_normal(shape) * 0.1).astype(np.float32),
+                      None if b is None else
+                      (rng.standard_normal(b.shape) * 0.1).astype(
+                          np.float32)))
+    pspec, pparams, pvels = convert.from_reference(
+        [dataclasses.asdict(la) for la in spec.layers], spec.loss, params,
+        vels, device="cpu")
+    pgrads = [None if g is None else tuple(
+        None if a is None else torch.from_numpy(a) for a in g)
+        for g in grads]
+    return (spec, params, vels, grads), (pspec, pparams, pvels, pgrads)
+
+
+def _pairs_equal(got, want):
+    for gp, wp in zip(got, want):
+        for a, b in zip(gp, wp):
+            assert (a is None) == (b is None)
+            if a is not None:
+                assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("name", sorted(UPDATE_SPECS))
+def test_apply_updates_equals_the_per_tensor_golden_bit_for_bit(name):
+    _, (spec, params, vels, grads) = _update_inputs(name)
+    got = fused.apply_updates(spec, params, vels, grads)
+    want = _golden_apply_updates(spec, params, vels, grads)
+    for g, w in zip(got, want):
+        _pairs_equal(g, w)
+
+
+@pytest.mark.parametrize("name", sorted(UPDATE_SPECS))
+def test_apply_updates_matches_the_reference(name):
+    (rspec, rparams, rvels, rgrads), port = _update_inputs(name)
+
+    def j(pairs):
+        return [None if p is None else tuple(
+            None if a is None else jnp.asarray(a) for a in p) for p in pairs]
+    want = ref_fused.apply_updates(rspec, j(rparams), j(rvels), j(rgrads))
+    got = fused.apply_updates(*port)
+    for g, w in zip(got, want):
+        for gp, wp in zip(convert.to_numpy(g), w):
+            for a, b in zip(gp, wp):
+                assert (a is None) == (b is None)
+                if a is not None:
+                    np.testing.assert_allclose(a, np.asarray(b), rtol=2.4e-7,
+                                               atol=1e-8)
+
+
+@pytest.mark.parametrize("name,calls", [("mnist", [4]),
+                                        ("autoencoder_tied", [1, 2]),
+                                        ("autoencoder_untied", [3])])
+def test_one_update_call_a_step_and_a_new_one_at_a_tie(name, calls):
+    """Every W and b in one call; a tied deconv's update of the conv's W
+    is a call of its own, and the conv's entry then reads its output."""
+    _, (spec, params, vels, grads) = _update_inputs(name)
+    seen = []
+
+    def spy(entries):
+        seen.append(entries)
+        return update.plain_sgd_update_many(entries)
+    launches = update.sgd_update_launches
+    new_params, _ = fused.apply_updates(spec, params, vels, grads, many=spy)
+    assert [len(e) for e in seen] == calls
+    assert update.sgd_update_launches == launches   # no kernel on the CPU
+    if name == "autoencoder_tied":
+        first = update.plain_sgd_update_many(seen[0])[0][0]
+        assert torch.equal(seen[1][0][0], first)     # the tie's new W
+        assert new_params[3] == (None, None)

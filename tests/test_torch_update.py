@@ -14,7 +14,16 @@ tolerance is rtol 2.4e-7 / atol 1e-8: XLA's CPU compiler contracts
 ``mom·v − lr·(g + reg)`` into one fused multiply-add inside the jitted
 kernel (and ``(1 − l1)·w + ½·l1·sign w`` likewise), which keeps the last
 bits of a cancelling v′ that a separately rounded product drops — up to
-3.7e-9 absolute on v′ and one ulp on w′ at these inputs."""
+3.7e-9 absolute on v′ and one ulp on w′ at these inputs.
+
+The list form ``sgd_update_many`` takes each entry's five float32
+constants from its caller: ``unit_constants`` (the unit graph: ``1 − l1``
+formed in float32 from float32 hypers) or ``fused_constants`` (the fused
+step: the double ``1.0 − l1`` rounded once).  Its plain version is held
+bit for bit against the per-tensor arithmetic each caller ran before the
+list form (kept below as goldens), under both conventions."""
+
+import math
 
 import numpy as np
 import pytest
@@ -24,6 +33,7 @@ import jax.numpy as jnp
 
 from znicz_tpu.ops import tuning
 from znicz_tpu.ops import update as ref_update
+from znicz_tpu_torch import cuda_build, update_probe
 from znicz_tpu_torch.ops import update
 
 
@@ -150,3 +160,173 @@ def test_cuda_kernel_matches_plain_version_bit_for_bit(case):
     want = update.plain_sgd_update(w, g, v, CASES[case][1])
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+# -- the list form -------------------------------------------------------
+def _unit_golden(w, g, v, hypers):
+    """The unit graph's per-tensor plain update before the list form."""
+    lr, wd, l1, mom = update.f32_hypers(hypers)
+    one_minus_l1 = float(np.float32(1.0) - np.float32(l1))
+    half_l1 = float(np.float32(0.5) * np.float32(l1))
+    reg = wd * (one_minus_l1 * w + half_l1 * torch.sign(w))
+    vel_new = mom * v - lr * (g + reg)
+    return w + vel_new, vel_new
+
+
+def _fused_golden(w, g, v, hypers):
+    """The fused step's per-tensor update before the list form (Python
+    double hypers, rounded by torch at each operation)."""
+    lr, wd, l1, mom = hypers
+    reg = wd * ((1.0 - l1) * w + 0.5 * l1 * torch.sign(w))
+    vel_new = mom * v - lr * (g + reg)
+    return w + vel_new, vel_new
+
+
+CONVENTIONS = {"unit": (update.unit_constants, _unit_golden),
+               "fused": (update.fused_constants, _fused_golden)}
+#: sizes that are not multiples of 4, a scalar-like one and a 2-D one
+MANY_SHAPES = [(7,), (3, 5), (1,), (13, 11), (129,)]
+
+
+def _many_inputs(seed):
+    rng = np.random.default_rng(seed)
+    out = []
+    for shape in MANY_SHAPES:
+        w = rng.standard_normal(shape).astype(np.float32)
+        w[rng.random(shape) < 0.3] = 0.0
+        g = (rng.standard_normal(shape) * 0.1).astype(np.float32)
+        v = (rng.standard_normal(shape) * 0.01).astype(np.float32)
+        out.append(tuple(torch.from_numpy(a) for a in (w, g, v)))
+    return out
+
+
+@pytest.mark.parametrize("wd", [0.0, 5e-4])
+@pytest.mark.parametrize("l1", [0.0, 0.1, 0.3, 0.5, 0.9, 1.0])
+@pytest.mark.parametrize("convention", sorted(CONVENTIONS))
+def test_plain_many_equals_each_callers_per_tensor_arithmetic(convention, l1,
+                                                              wd):
+    constants, golden = CONVENTIONS[convention]
+    tensors = _many_inputs(int(l1 * 10) + int(wd * 1e4))
+    hypers = [(0.03, wd, l1, 0.9), (0.05, wd / 2, l1, 0.5)]
+    entries = [(w, g, v, constants(hypers[k % 2]))
+               for k, (w, g, v) in enumerate(tensors)]
+    got = update.plain_sgd_update_many(entries)
+    assert len(got) == len(tensors)
+    for k, ((w, g, v), (w2, v2)) in enumerate(zip(tensors, got)):
+        want_w, want_v = golden(w, g, v, hypers[k % 2])
+        assert torch.equal(w2.view(torch.int32), want_w.view(torch.int32))
+        assert torch.equal(v2.view(torch.int32), want_v.view(torch.int32))
+
+
+@pytest.mark.parametrize("l1", [0.3, 0.9])
+def test_the_two_conventions_differ_only_in_one_minus_l1(l1):
+    """1 − l1 formed in float32 and the double 1 − l1 rounded once can
+    differ in the last bit (at l1 = 0.9 they do); every other constant
+    agrees."""
+    hypers = (0.03, 5e-4, l1, 0.9)
+    unit, fused = update.unit_constants(hypers), update.fused_constants(
+        hypers)
+    assert unit[:2] + unit[3:] == fused[:2] + fused[3:]
+    assert all(float(np.float32(c)) == c for c in unit + fused)
+    assert unit[2] == float(np.float32(1.0) - np.float32(l1))
+    assert fused[2] == float(np.float32(1.0 - l1))
+    assert (unit[2] != fused[2]) == (l1 == 0.9)
+
+
+def test_many_on_the_cpu_is_the_plain_version_and_leaves_inputs():
+    tensors = _many_inputs(3)
+    before = [tuple(t.clone() for t in ts) for ts in tensors]
+    entries = [(w, g, v, update.unit_constants((0.01, 5e-4, 0.5, 0.9)))
+               for w, g, v in tensors]
+    launches = update.sgd_update_launches
+    got = update.sgd_update_many(entries)
+    want = update.plain_sgd_update_many(entries)
+    assert update.sgd_update_launches == launches   # no kernel on the CPU
+    for (a, b), (c, d) in zip(got, want):
+        assert torch.equal(a, c) and torch.equal(b, d)
+    for ts, ts0 in zip(tensors, before):
+        assert all(torch.equal(t, t0) for t, t0 in zip(ts, ts0))
+    assert update.sgd_update_many([]) == []
+
+
+def test_one_entry_form_is_the_list_form_with_unit_constants():
+    w, g, v = (torch.from_numpy(a) for a in _inputs("decay_l1_0.3"))
+    hypers = CASES["decay_l1_0.3"][1]
+    got = update.sgd_update(w, g, v, hypers)
+    want = update.sgd_update_many([(w, g, v,
+                                    update.unit_constants(hypers))])[0]
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("bad", ["float64", "shape", "non_contiguous",
+                                 "device", "mixed_devices", "constants"])
+def test_many_refuses_what_the_kernel_does_not_take(bad):
+    consts = update.unit_constants((0.1, 0.0, 0.0, 0.9))
+    entries = [[torch.randn(4, 6), torch.randn(4, 6), torch.randn(4, 6),
+                consts] for _ in range(3)]
+    if bad == "float64":
+        entries[1][2] = entries[1][2].double()
+    elif bad == "shape":
+        entries[2][1] = torch.randn(6, 4)
+    elif bad == "non_contiguous":
+        entries[1][0] = torch.randn(6, 4).t()
+    elif bad == "device":
+        entries = [[t.to("meta") if torch.is_tensor(t) else t for t in e]
+                   for e in entries]
+    elif bad == "mixed_devices":
+        entries[2][1] = entries[2][1].to("meta")
+    elif bad == "constants":
+        entries[0][3] = consts[:4]
+    with pytest.raises((TypeError, ValueError)):
+        update.sgd_update_many([tuple(e) for e in entries])
+
+
+@pytest.mark.skipif("not torch.cuda.is_available()",
+                    reason="the CUDA kernel runs only on a card")
+def test_cuda_many_matches_plain_version_bit_for_bit():
+    """50 entries (two launches of at most 48), both conventions, sizes
+    that are not multiples of 4, one unaligned entry (a view one element
+    into its storage: the scalar path) and an empty one."""
+    rng = np.random.default_rng(7)
+    entries = []
+    for k in range(50):
+        n = int(rng.integers(1, 9000)) if k % 7 else 4096 * 3
+        w, g, v = (torch.from_numpy(rng.standard_normal(n).astype(
+            np.float32)).cuda() for _ in range(3))
+        w[::5] = 0.0
+        hypers = (0.01 * (k % 3 + 1), 5e-4 * (k % 2), (0.0, 0.3, 1.0)[k % 3],
+                  0.9)
+        conv = update.unit_constants if k % 2 else update.fused_constants
+        entries.append((w, g, v, conv(hypers)))
+    base = torch.randn(5001, device="cuda")
+    entries[5] = (base[1:], base[1:] * 0.1, base[1:] * 0.01,
+                  entries[5][3])
+    empty = torch.empty(0, device="cuda")
+    entries[9] = (empty, empty, empty, entries[9][3])
+    before = update.sgd_update_launches
+    got = update.sgd_update_many(entries)
+    torch.cuda.synchronize()
+    assert update.sgd_update_launches == before + 2
+    want = update.plain_sgd_update_many(entries)
+    for (a, b), (c, d) in zip(got, want):
+        assert torch.equal(a.view(torch.int32), c.view(torch.int32))
+        assert torch.equal(b.view(torch.int32), d.view(torch.int32))
+
+
+@pytest.mark.parametrize("variant", sorted(update_probe.VARIANTS))
+def test_probe_variants_edit_text_the_kernel_holds(variant):
+    """``python -m znicz_tpu_torch.update_probe`` builds each variant by a
+    text edit of csrc/update.cu; each edit must still find its text."""
+    text = (cuda_build.CSRC_DIR / "update.cu").read_text()
+    assert (update_probe.edited(variant, text) == text) == (
+        variant == "shipped")
+
+
+def test_probe_tables_are_the_fused_steps():
+    """The probe's AlexNet table is the fused step's 16 tensors (62,378,344
+    elements) and its MNIST table the 784→100→10 MLP's four."""
+    def numel(case):
+        return sum(math.prod(s) for s, _ in update_probe.CASES[case])
+    assert numel("alexnet_table") == 62_378_344
+    assert len(update_probe.CASES["alexnet_table"]) == 16
+    assert numel("mnist_table") == 784 * 100 + 100 + 100 * 10 + 10

@@ -8,9 +8,10 @@ evaluator already scales err_output by 1/batch and zeroes padded rows, so
 no batch normalization happens here.
 
 ``torch_run`` multiplies through ``ops.matmul`` with xᵀ and Wᵀ passed as
-views (the kernel reads their strides; no transposed copy) and updates
-through ``ops.update.sgd_update`` (the fused update kernel on the card);
-the activation derivative and the bias sum stay plain torch.
+views (the kernel reads their strides; no transposed copy) and updates W
+and b in one ``ops.update.sgd_update_many`` call (one launch of the fused
+update kernel on the card); the activation derivative and the bias sum
+stay plain torch.
 ``numpy_run`` is the golden path."""
 
 from __future__ import annotations

@@ -5,11 +5,11 @@
 x and err_y; ``∇b = Σ err_y`` over batch and positions; ``err_input`` =
 the conv input gradient (only when ``need_err_input``: the first layer's
 is never read, so no data-gradient conv runs there), then the
-momentum-SGD update of W and b through ``ops.update.sgd_update`` (the
-fused update kernel on the card).  ``torch_run`` takes the gradients from
-``ops.conv`` (its tier: cuDNN on the card, or the implicit-GEMM kernels
-under ``ZNICZ_TPU_CONV=pallas``); ``numpy_run`` is the im2col/col2im
-golden."""
+momentum-SGD update of W and b in one ``ops.update.sgd_update_many`` call
+(one launch of the fused update kernel on the card).  ``torch_run`` takes
+the gradients from ``ops.conv`` (its tier: cuDNN on the card, or the
+implicit-GEMM kernels under ``ZNICZ_TPU_CONV=pallas``); ``numpy_run`` is
+the im2col/col2im golden."""
 
 from __future__ import annotations
 

@@ -5,8 +5,8 @@ By the adjoint relation the gradients are conv ops (``ops.deconv``):
 ``err_input`` is the conv of err_y with the weights, ``∇W`` the conv
 weight gradient with err_y and the deconv input in swapped roles.  W (the
 encoder conv's own Vector when the deconv is tied; this unit keeps its
-own velocity) and b update through ``ops.update.sgd_update`` (the fused
-update kernel on the card)."""
+own velocity) and b update in one ``ops.update.sgd_update_many`` call (one
+launch of the fused update kernel on the card)."""
 
 from __future__ import annotations
 

@@ -185,8 +185,9 @@ class GradientDescentBase(AcceleratedUnit):
             self.bias.mem, self.velocity_bias.mem = b, vb
 
     def _apply_torch(self, gw, gb) -> None:
-        """:meth:`_apply_numpy` on the unit's tensors, the update through
-        ``ops.update.sgd_update`` (the fused update kernel on the card)."""
+        """:meth:`_apply_numpy` on the unit's tensors, W and b updated in
+        one ``ops.update.sgd_update_many`` call (one launch of the fused
+        update kernel on the card)."""
         if self.accumulate_gradient and self.gradient_weights:
             gw = gw + self.gradient_weights.devmem
             if gb is not None:
@@ -196,12 +197,12 @@ class GradientDescentBase(AcceleratedUnit):
             self.gradient_bias.devmem = gb
         if not self.apply_gradient:
             return
-        w, vw = update.sgd_update(self.weights.devmem, gw,
-                                  self.velocity_weights.devmem,
-                                  self._hypers())
-        self.weights.devmem, self.velocity_weights.devmem = w, vw
+        entries = [(self.weights.devmem, gw, self.velocity_weights.devmem,
+                    update.unit_constants(self._hypers()))]
         if self.include_bias:
-            b, vb = update.sgd_update(self.bias.devmem, gb,
-                                      self.velocity_bias.devmem,
-                                      self._hypers_bias())
-            self.bias.devmem, self.velocity_bias.devmem = b, vb
+            entries.append((self.bias.devmem, gb, self.velocity_bias.devmem,
+                            update.unit_constants(self._hypers_bias())))
+        outs = update.sgd_update_many(entries)
+        self.weights.devmem, self.velocity_weights.devmem = outs[0]
+        if self.include_bias:
+            self.bias.devmem, self.velocity_bias.devmem = outs[1]

@@ -7,29 +7,36 @@ The rule, in the reference's order of operations::
     vel' = gradient_moment · vel − learning_rate · (grad + reg)
     w'   = w + vel'
 
-``sgd_update(w, grad, vel, hypers)`` is what the unit graph's
-``GradientDescent`` calls for each weight and bias.  On CUDA tensors it
-launches the hand-written kernel in ``csrc/update.cu`` (the port of
-``pallas_sgd_update``); on CPU tensors it runs ``plain_sgd_update``.
-``hypers`` = (lr, weights_decay, l1_vs_l2, momentum), rounded to float32
-on the host as the reference's f32 hypers array holds them.  Both versions
-round once per operation with no fused multiply-add, so they agree bit
-for bit.  A CUDA tensor never falls back to the plain version."""
+``sgd_update_many(entries)`` updates a list of tensors, each entry
+``(w, grad, vel, constants)``: on CUDA tensors in one launch of the
+hand-written kernel in ``csrc/update.cu`` (the port of
+``pallas_sgd_update``), on CPU tensors through ``plain_sgd_update_many``.
+``constants`` = (lr, weights_decay, 1 − l1_vs_l2, ½·l1_vs_l2, momentum) as
+float32 values, formed by the caller's convention: ``unit_constants`` for
+the unit graph's GD units (the reference's f32 hypers array, ``1 − l1``
+formed in float32), ``fused_constants`` for the fused step (each constant
+formed from the Python hypers and rounded once, as torch rounds a Python
+scalar).  Both versions round once per operation with no fused
+multiply-add, so they agree bit for bit.  A CUDA tensor never falls back
+to the plain version.  ``sgd_update(w, grad, vel, hypers)`` is the
+one-entry form with the unit graph's constants."""
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
 
 #: Launches of the update kernel in this process (the CUDA branch of
-#: ``sgd_update`` adds one per launch, nowhere else).
+#: ``sgd_update_many`` adds one per launch, nowhere else).
 sgd_update_launches = 0
 
-#: w, g, v, w_out, v_out, n, lr, wd, l1, momentum, stream
-_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong]
-             + [ctypes.c_float] * 4 + [ctypes.c_void_p])
+#: ptrs (5 an entry), ns, consts (5 an entry), count, launched, stream
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int,
+                                     ctypes.POINTER(ctypes.c_int),
+                                     ctypes.c_void_p]
 
 
 def np_sgd_update(w, grad, vel, lr, weights_decay=0.0, l1_vs_l2=0.0,
@@ -50,57 +57,136 @@ def f32_hypers(hypers) -> tuple[float, float, float, float]:
     return lr, wd, l1, mom
 
 
+def unit_constants(hypers) -> tuple[float, ...]:
+    """The unit graph's constants: the hypers rounded to float32, then
+    ``1 − l1`` and ``½·l1`` formed in float32, as the reference's kernel
+    forms them from its f32 hypers array."""
+    return _unit_constants(tuple(hypers))
+
+
+def fused_constants(hypers) -> tuple[float, ...]:
+    """The fused step's constants: ``1.0 − l1`` and ``0.5·l1`` formed from
+    the Python hypers, then every constant rounded once to float32, as
+    torch rounds a Python scalar operand of a float32 tensor."""
+    return _fused_constants(tuple(hypers))
+
+
+@functools.lru_cache(maxsize=256)
+def _unit_constants(hypers: tuple) -> tuple[float, ...]:
+    lr, wd, l1, mom = f32_hypers(hypers)
+    return (lr, wd, float(np.float32(1.0) - np.float32(l1)),
+            float(np.float32(0.5) * np.float32(l1)), mom)
+
+
+@functools.lru_cache(maxsize=256)
+def _fused_constants(hypers: tuple) -> tuple[float, ...]:
+    lr, wd, l1, mom = (float(h) for h in hypers)
+    return tuple(float(np.float32(c))
+                 for c in (lr, wd, 1.0 - l1, 0.5 * l1, mom))
+
+
+def plain_sgd_update_many(entries) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """[(w', vel')] of each entry ``(w, grad, vel, constants)`` with the
+    reference kernel's float32 arithmetic, one rounded operation at a
+    time; ``sign(±0) = 0``."""
+    out = []
+    for w, grad, vel, (lr, wd, one_minus_l1, half_l1, mom) in entries:
+        reg = wd * (one_minus_l1 * w + half_l1 * torch.sign(w))
+        vel_new = mom * vel - lr * (grad + reg)
+        out.append((w + vel_new, vel_new))
+    return out
+
+
 def plain_sgd_update(w: torch.Tensor, grad: torch.Tensor, vel: torch.Tensor,
                      hypers) -> tuple[torch.Tensor, torch.Tensor]:
-    """(w', vel') with the reference kernel's float32 arithmetic: the
-    hypers rounded to float32, ``1 − l1`` and ``½·l1`` formed in float32,
-    then one rounded operation at a time.  ``sign(±0) = 0``."""
-    lr, wd, l1, mom = f32_hypers(hypers)
-    one_minus_l1 = float(np.float32(1.0) - np.float32(l1))
-    half_l1 = float(np.float32(0.5) * np.float32(l1))
-    reg = wd * (one_minus_l1 * w + half_l1 * torch.sign(w))
-    vel_new = mom * vel - lr * (grad + reg)
-    return w + vel_new, vel_new
+    """(w', vel') of one tensor with the unit graph's constants."""
+    return plain_sgd_update_many([(w, grad, vel, unit_constants(hypers))])[0]
 
 
-def _check(w: torch.Tensor, grad: torch.Tensor, vel: torch.Tensor) -> None:
+def _check(entries) -> None:
     """Refuse what the kernel does not take; the CPU branch is held to the
     same contract so both devices accept the same inputs."""
-    if w.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"sgd_update: unsupported device {w.device}")
-    for name, t in (("grad", grad), ("vel", vel)):
-        if t.device != w.device:
-            raise ValueError(f"sgd_update: {name} on {t.device}, w on "
-                             f"{w.device}")
-        if t.shape != w.shape:
-            raise ValueError(f"sgd_update: {name} is {tuple(t.shape)}, w is "
-                             f"{tuple(w.shape)}")
-    for name, t in (("w", w), ("grad", grad), ("vel", vel)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"sgd_update: {name} must be float32, got "
-                            f"{t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"sgd_update: {name} must be contiguous")
+    if not entries:
+        return
+    device = entries[0][0].device
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"sgd_update: unsupported device {device}")
+    for k, (w, grad, vel, consts) in enumerate(entries):
+        if len(consts) != 5:
+            raise ValueError(f"sgd_update: entry {k} has {len(consts)} "
+                             f"constants, not 5")
+        for name, t in (("w", w), ("grad", grad), ("vel", vel)):
+            if t.device != device:
+                raise ValueError(f"sgd_update: entry {k} {name} on "
+                                 f"{t.device}, entry 0 w on {device}")
+            if t.shape != w.shape:
+                raise ValueError(f"sgd_update: entry {k} {name} is "
+                                 f"{tuple(t.shape)}, w is {tuple(w.shape)}")
+            if t.dtype != torch.float32:
+                raise TypeError(f"sgd_update: entry {k} {name} must be "
+                                f"float32, got {t.dtype}")
+            if not t.is_contiguous():
+                raise ValueError(f"sgd_update: entry {k} {name} must be "
+                                 f"contiguous")
+
+
+def sgd_update_many(entries) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """[(w', vel')] of each entry ``(w, grad, vel, constants)``: contiguous
+    float32 tensors of one shape an entry, all on one device.  CUDA tensors
+    go through the kernel, in one launch for up to 48 entries; CPU tensors
+    through the plain version.  Outputs are fresh (on the card views into
+    one buffer for every w' and one for every vel'); the inputs are left as
+    they were.  Every entry reads its inputs as given: an update that must
+    read another entry's w' (a tied deconv's, in the fused step) belongs in
+    a later call."""
+    global sgd_update_launches
+    entries = list(entries)
+    _check(entries)
+    if not entries or entries[0][0].device.type == "cpu":
+        return plain_sgd_update_many(entries)
+    from .. import cuda_build
+    outs = empty_outputs(entries)
+    sgd_update_launches += launch_many(
+        cuda_build.kernel("update", "znicz_sgd_update_many_f32", _ARGTYPES),
+        entries, outs)
+    return outs
+
+
+def empty_outputs(entries) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """[(w', vel')] of each entry as views into two fresh buffers, each
+    entry's starting on a 16-byte boundary."""
+    offsets, total = [], 0
+    for w, _, _, _ in entries:
+        offsets.append(total)
+        total += -(-w.numel() // 4) * 4
+    w_buf = torch.empty(total, dtype=torch.float32,
+                        device=entries[0][0].device)
+    v_buf = torch.empty_like(w_buf)
+    return [(torch.as_strided(w_buf, w.shape, w.stride(), o),
+             torch.as_strided(v_buf, w.shape, w.stride(), o))
+            for (w, _, _, _), o in zip(entries, offsets)]
+
+
+def launch_many(fn, entries, outs) -> int:
+    """Call the C entry point ``fn`` on checked CUDA ``entries`` into
+    ``outs``; returns the launches it made, counting none (the probe
+    calls it with variants of the kernel)."""
+    from .. import cuda_build
+    ptrs = np.array([t.data_ptr() for (w, g, v, _), (wo, vo) in
+                     zip(entries, outs) for t in (w, g, v, wo, vo)],
+                    np.uint64)
+    ns = np.array([w.numel() for w, _, _, _ in entries], np.int64)
+    consts = np.array([c for e in entries for c in e[3]], np.float32)
+    launched = ctypes.c_int(0)
+    cuda_build.launch(fn, entries[0][0].device, ptrs.ctypes.data,
+                      ns.ctypes.data, consts.ctypes.data, len(entries),
+                      ctypes.byref(launched))
+    return launched.value
 
 
 def sgd_update(w: torch.Tensor, grad: torch.Tensor, vel: torch.Tensor,
                hypers) -> tuple[torch.Tensor, torch.Tensor]:
-    """(w', vel') for contiguous float32 tensors of one shape and hypers
-    (lr, weights_decay, l1_vs_l2, momentum): the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors.  Fresh outputs; the inputs
-    are left as they were."""
-    global sgd_update_launches
-    _check(w, grad, vel)
-    if w.device.type == "cpu":
-        return plain_sgd_update(w, grad, vel, hypers)
-    w_out = torch.empty_like(w)
-    v_out = torch.empty_like(vel)
-    if w.numel() == 0:
-        return w_out, v_out
-    from .. import cuda_build
-    cuda_build.launch(
-        cuda_build.kernel("update", "znicz_sgd_update_f32", _ARGTYPES),
-        w.device, w.data_ptr(), grad.data_ptr(), vel.data_ptr(),
-        w_out.data_ptr(), v_out.data_ptr(), w.numel(), *f32_hypers(hypers))
-    sgd_update_launches += 1
-    return w_out, v_out
+    """(w', vel') of one tensor and hypers (lr, weights_decay, l1_vs_l2,
+    momentum) with the unit graph's constants: ``sgd_update_many`` of one
+    entry."""
+    return sgd_update_many([(w, grad, vel, unit_constants(hypers))])[0]

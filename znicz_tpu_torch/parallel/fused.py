@@ -35,6 +35,7 @@ from ..ops import normalization as lrn_ops
 from ..ops import pooling as pool_ops
 from ..ops import rngbits
 from ..ops import softmax as softmax_ops
+from ..ops import update as update_ops
 
 #: Layer kinds with trainable parameters.
 PARAM_KINDS = ("fc", "conv", "deconv")
@@ -430,36 +431,49 @@ def backward(spec: ModelSpec, params, caches, out, err, epoch: int = 0,
     return grads
 
 
-def apply_updates(spec: ModelSpec, params, vels, grads):
+def apply_updates(spec: ModelSpec, params, vels, grads, many=None):
     """Momentum SGD with decay, layers in REVERSE order (the GD chain's
     execution order): reg = wd·((1−l1)·w + ½·l1·sign w),
-    v′ = mom·v − lr·(g + reg), w′ = w + v′.  A tied deconv updates the
-    encoder conv's W (``params[tie]``) with its own velocity, before the
-    conv's own update reads W for its decay term, as the unit graph's two
-    GD units do.  Returns new lists.  The reference's per-step
-    ``lr_scale`` arrives with the LR adjusters (ROADMAP.md queue 1 item
-    4)."""
+    v′ = mom·v − lr·(g + reg), w′ = w + v′, every W and b of the step in
+    one ``many`` call (default ``ops.update.sgd_update_many``: one kernel
+    launch on the card) with the fused step's constants.  A tied deconv
+    updates the encoder conv's W (``params[tie]``) with its own velocity,
+    before the conv's own update reads W for its decay term, as the unit
+    graph's two GD units do: a W that a call already updates starts the
+    next call, which reads the new W.  Returns new lists.  The reference's
+    per-step ``lr_scale`` arrives with the LR adjusters (ROADMAP.md queue
+    1 item 4)."""
+    many = many or update_ops.sgd_update_many
     cur_w = [p[0] for p in params]
     cur_b = [p[1] for p in params]
     new_v = [list(v) for v in vels]
+    entries, slots = [], []        # the pending call, and (row, 0 W | 1 b,
+    #                                the row whose param it writes)
+
+    def call():
+        nonlocal entries, slots
+        for (i, j, tgt), (p2, v2) in zip(slots, many(entries)):
+            (cur_w if j == 0 else cur_b)[tgt] = p2
+            new_v[i][j] = v2
+        entries, slots = [], []
+
     for i in reversed(range(len(spec.layers))):
         layer, grad = spec.layers[i], grads[i]
         if grad is None:
             continue
         tgt = layer.cfg.get("tie", i) if layer.kind == "deconv" else i
-        w, b = cur_w[tgt], cur_b[i]
+        if any(j == 0 and t == tgt for _, j, t in slots):
+            call()
         (vw, vb), (gw, gb) = vels[i], grad
-        lr, wd, l1, mom = layer.hypers
-        reg = wd * ((1.0 - l1) * w + 0.5 * l1 * torch.sign(w))
-        vw2 = mom * vw - lr * (gw + reg)
-        cur_w[tgt] = w + vw2
-        new_v[i][0] = vw2
-        if b is not None:
-            lrb, wdb, l1b, momb = layer.hypers_bias
-            regb = wdb * ((1.0 - l1b) * b + 0.5 * l1b * torch.sign(b))
-            vb2 = momb * vb - lrb * (gb + regb)
-            cur_b[i] = b + vb2
-            new_v[i][1] = vb2
+        entries.append((cur_w[tgt], gw, vw,
+                        update_ops.fused_constants(layer.hypers)))
+        slots.append((i, 0, tgt))
+        if cur_b[i] is not None:
+            entries.append((cur_b[i], gb, vb,
+                            update_ops.fused_constants(layer.hypers_bias)))
+            slots.append((i, 1, i))
+    if entries:
+        call()
     return (list(zip(cur_w, cur_b)), [tuple(v) for v in new_v])
 
 
