@@ -84,7 +84,8 @@ exits nonzero without the final ``ok`` line:
    (the activation kernels once a tick forward and once a GD tick
    backward), its epoch 0 against the CPU as in 5 and against phase 10's
    losses (the same function from the same weight draws) within rtol
-   1e-4; the same spec on the fused path launches no activation kernel;
+   1e-4; the same spec on the fused path launches the activation kernels
+   once a step forward and once a train step backward;
 16. alexnet_units slice — AlexNet at full width (as phase 8) on the unit
    graph for 1 epoch (dropout units on the counter-RNG kernel, LRN and
    pool units apart), its launch counts held as in 10, with its units'
@@ -138,12 +139,17 @@ test's (13, 150, 37), a 32×32 sheet on MNIST-width inputs (256, 1024, 784)
 and a ties case (dmin within rtol 1e-5 / atol 1e-5 of the distances'
 scale, winners exact but where the plain version's two candidates lie
 within that gap, each such flip counted; ties to the lowest neuron); the
-activation forward and backward for each of the nine activations at the
-unit graph's (100, 100), three at (128, 55, 55, 96) and sincos with an
-odd last axis (exact for linear, mul and strict_relu, within 2 ulp for
-the others, each case's ulps printed; bound by bytes: the forward reads
-x and writes y, the backward reads err_y and one of y or x and writes
-err_x).
+activation forward and backward (which every non-linear activation of
+every path launches) for each of the nine activations at the unit
+graph's (100, 100), strict ReLU at AlexNet's five conv outputs and fc
+width, tanh at CIFAR's two conv outputs and fc width, tanh and sigmoid
+at (128, 55, 55, 96), the scalar form (an odd element count, inputs one
+float past 16-byte alignment) and sincos with an even and with odd last
+axes (exact for linear, mul and strict_relu, within 2 ulp for the
+others, each case's ulps and vector width printed; bound by bytes: the
+forward reads x and writes y, the backward reads err_y and one of y or x
+and writes err_x).  Every kernel row carries the kernel's time over the
+library call's (``library_factor``) where there is one.
 
 And the conv tier's four: ``matmul_at_b`` (the tensor-core matmul on the
 view aᵀ, 3xTF32) at the patch matrices of CIFAR's conv1 and AlexNet's
@@ -287,21 +293,27 @@ OFF_PATH = {
 
 #: each path's kernels: launches per (train step, eval step); every W and
 #: b of a train step in one sgd_update launch (config 4's deconv holds its
-#: own W; a tied one would take a second, ``FUSED_UPDATE_PATHS``)
+#: own W; a tied one would take a second, ``FUSED_UPDATE_PATHS``); every
+#: non-linear activation one act_fwd a step and one act_bwd a train step
+#: (MNIST's tanh fc; CIFAR's two tanh convs and tanh fc; AlexNet's five
+#: strict-ReLU convs and two fc, conv1's and conv2's derivatives folded
+#: into the LRN->pool pairs; the autoencoder is linear throughout)
 PATHS = {
-    "mnist": {"softmax_ce": (1, 1), "sgd_update": (1, 0)},
+    "mnist": {"softmax_ce": (1, 1), "sgd_update": (1, 0), "act_fwd": (1, 1),
+              "act_bwd": (1, 0)},
     "cifar": {"softmax_ce": (1, 1), "pool_select": (1, 1),
               "pool_scatter": (1, 0), "lrn_y": (1, 1), "gd_lrn_x": (1, 0),
-              "sgd_update": (1, 0)},
+              "sgd_update": (1, 0), "act_fwd": (3, 3), "act_bwd": (3, 0)},
     "alexnet": {"softmax_ce": (1, 1), "pool_select": (1, 1),
                 "pool_scatter": (1, 0), "lrn_maxpool": (2, 2),
                 "gd_lrn_maxpool": (2, 0), "dropout": (4, 0),
-                "sgd_update": (1, 0)},
+                "sgd_update": (1, 0), "act_fwd": (7, 7), "act_bwd": (5, 0)},
     # depooling forward is the scatter; its backward the gather
     "autoencoder": {"pool_select": (1, 1), "pool_scatter": (2, 1),
                     "pool_gather": (1, 0), "sgd_update": (1, 0)},
-    # the standalone tanh layer is plain torch inside the fused step
-    "mnist_act": {"softmax_ce": (1, 1), "sgd_update": (1, 0)},
+    # the fc is linear, the standalone tanh row launches the kernels
+    "mnist_act": {"softmax_ce": (1, 1), "sgd_update": (1, 0),
+                  "act_fwd": (1, 1), "act_bwd": (1, 0)},
 }
 #: the unit graph's kernels: launches per (tick, train tick, tick whose GD
 #: chain runs — every train tick but the last one's);
@@ -316,14 +328,19 @@ PATHS = {
 #: AlexNet's two LRN and three max-pool units run apart, its three fc
 #: layers take three matmuls a tick and six a GD tick, its eight weighted
 #: layers 8 updates, and each dropout unit masks on the train ticks
-#: forward and on the GD ticks backward
+#: forward and on the GD ticks backward; each weighted unit with a
+#: non-linear activation launches act_fwd a tick and its GD unit act_bwd
+#: a GD tick (MNIST's tanh fc, CIFAR's three tanh layers, AlexNet's seven
+#: strict-ReLU layers: the unit graph folds nothing)
 UNIT_PATHS = {
     "mnist_units": {"matmul": (2, 0, 3), "sgd_update": (0, 0, 2),
-                    "softmax": (1, 0, 0)},
+                    "softmax": (1, 0, 0), "act_fwd": (1, 0, 0),
+                    "act_bwd": (0, 0, 1)},
     "cifar_units": {"pool_select": (1, 0, 0), "lrn": (1, 0, 0),
                     "matmul": (2, 0, 4), "softmax": (1, 0, 0),
                     "pool_scatter": (0, 0, 1), "gd_lrn": (0, 0, 1),
-                    "sgd_update": (0, 0, 4)},
+                    "sgd_update": (0, 0, 4), "act_fwd": (3, 0, 0),
+                    "act_bwd": (0, 0, 3)},
     "autoencoder_units": {"pool_select": (1, 0, 0),
                           "pool_scatter": (1, 0, 1),
                           "pool_gather": (0, 0, 1), "sgd_update": (0, 0, 2)},
@@ -333,7 +350,8 @@ UNIT_PATHS = {
     "alexnet_units": {"lrn": (2, 0, 0), "pool_select": (3, 0, 0),
                       "matmul": (3, 0, 6), "softmax": (1, 0, 0),
                       "dropout": (0, 2, 2), "pool_scatter": (0, 0, 3),
-                      "gd_lrn": (0, 0, 2), "sgd_update": (0, 0, 8)},
+                      "gd_lrn": (0, 0, 2), "sgd_update": (0, 0, 8),
+                      "act_fwd": (7, 0, 0), "act_bwd": (0, 0, 7)},
 }
 #: the implicit-GEMM conv tier (ZNICZ_TPU_CONV=pallas) adds its kernels to
 #: a path's own: each conv's forward on every step, its input gradient on
@@ -516,7 +534,9 @@ def _row(torch, name, geo, err, kernel_fn, plain_fn, bound,
     row = {"phase": "kernel", "name": name, **geo, "max_abs_err": err,
            "kernel_ms": k_ms, "kernel_eager_ms": k_eager, "plain_ms": p_ms,
            "plain_eager_ms": p_eager, "bound_ms": bound[0],
-           "bound_by": bound[1], "library_ms": library_ms, "iters": iters}
+           "bound_by": bound[1], "library_ms": library_ms,
+           "library_factor": None if library_ms is None else
+           k_ms / library_ms, "iters": iters}
     emit(row)
     return row
 
@@ -1465,16 +1485,28 @@ ACT_OPS = {"linear": (0, 0), "strict_relu": (1, 2), "tanh": (3, 4),
 #: PyTorch's CUDA kernels call)
 ACT_EXACT = ("linear", "mul", "strict_relu")
 ACT_ULPS = 2
-#: name, shape: the mnist_act_units path's (100, 100) first (tanh is its
-#: layer), every name there, then shapes where the bytes dominate, and
-#: sincos with an odd last axis
-ACT_CASES = ([("tanh", (100, 100))]
-             + [(n, (100, 100)) for n in ("linear", "strict_relu", "sigmoid",
-                                          "relu", "mul", "log", "sincos",
-                                          "tanhlog")]
-             + [(n, (128, 55, 55, 96)) for n in ("tanh", "strict_relu",
-                                                 "sigmoid")]
-             + [("sincos", (7, 13, 37))])
+#: (name, shape, offset in floats of every input): the mnist_act_units
+#: path's (100, 100) first (tanh is its layer), every name there; the
+#: fused and unit paths' shapes (AlexNet's strict ReLU after its five
+#: convs and fc6/fc7, CIFAR's tanh after its two convs and fc64); two
+#: more at AlexNet's conv1 output; the scalar form (an odd element count,
+#: inputs one float past 16-byte alignment); sincos with an even last
+#: axis (parity from the flat index) and with odd ones (FastDiv, in the
+#: vector and the scalar form)
+ACT_CASES = ([("tanh", (100, 100), 0)]
+             + [(n, (100, 100), 0) for n in ("linear", "strict_relu",
+                                             "sigmoid", "relu", "mul", "log",
+                                             "sincos", "tanhlog")]
+             + [("strict_relu", s, 0) for s in (
+                 (128, 55, 55, 96), (128, 27, 27, 256), (128, 13, 13, 384),
+                 (128, 13, 13, 256), (128, 4096))]
+             + [("tanh", s, 0) for s in ((100, 32, 32, 32), (100, 16, 16, 32),
+                                         (100, 64))]
+             + [(n, (128, 55, 55, 96), 0) for n in ("tanh", "sigmoid")]
+             + [("tanh", (99, 101), 0), ("strict_relu", (100, 32, 32, 32), 1),
+                ("tanh", (100, 32, 32, 32), 1)]
+             + [("sincos", (100, 64), 0), ("sincos", (4, 13, 37), 0),
+                ("sincos", (7, 13, 37), 0)])
 
 
 def _ulps(torch, a, b) -> int:
@@ -1500,21 +1532,37 @@ def _act_library(torch, name: str, x, e, y):
     return fwd, bwd
 
 
+def _offset(torch, t, offset: int):
+    """``t``'s values in a contiguous tensor that starts ``offset`` floats
+    into a fresh buffer (1: past the 16-byte alignment the vector form
+    needs)."""
+    if not offset:
+        return t
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    out = buf[offset:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 def phase_kernel_act(torch) -> dict:
-    """The standalone activation kernels against the plain versions (the
-    BY_NAME classes on the card): exact for ACT_EXACT, within ACT_ULPS
-    elsewhere (each case's ulps printed).  The yardstick is the one
-    PyTorch call where there is one (torch.relu, torch.sigmoid,
-    F.softplus, torch.asinh; aten's sigmoid_backward and
-    threshold_backward), else null with the reason."""
+    """The activation kernels against the plain versions (the BY_NAME
+    classes on the card): exact for ACT_EXACT, within ACT_ULPS elsewhere
+    (each case's ulps printed), at every path's shapes and in both forms
+    (each row names the vector width the kernels took, ``act_plan``).
+    The yardstick is the one PyTorch call where there is one (torch.relu,
+    torch.sigmoid, F.softplus, torch.asinh; aten's sigmoid_backward and
+    threshold_backward), with the kernel's time over it, else null with
+    the reason; the plain version is what the fused and weighted paths
+    ran before they launched the kernels."""
     from znicz_tpu_torch.ops import activations
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(SEED + 11)
     rows = {"act_fwd": [], "act_bwd": []}
-    for name, shape in ACT_CASES:
+    for name, shape, offset in ACT_CASES:
         # spanning TanhLog's switch at |x| = 2.25
-        x = (torch.randn(shape, generator=gen) * 2).to(dev)
-        e = torch.randn(shape, generator=gen).to(dev)
+        x = _offset(torch, (torch.randn(shape, generator=gen) * 2).to(dev),
+                    offset)
+        e = _offset(torch, torch.randn(shape, generator=gen).to(dev), offset)
         xin = x if activations.BY_NAME[name].needs_input else None
         y = _launch_once(torch, "act_fwd",
                          lambda: activations.act_fwd(name, x))
@@ -1522,23 +1570,25 @@ def phase_kernel_act(torch) -> dict:
         dx = _launch_once(torch, "act_bwd",
                           lambda: activations.act_bwd(name, e, y, xin))
         want_dx = activations.plain_act_bwd(name, e, y, xin)
+        case = f"{name}_{'x'.join(map(str, shape))}" + (
+            f"_offset{offset}" if offset else "")
         limit = 0 if name in ACT_EXACT else ACT_ULPS
         ulps = {}
         for what, got, want in (("y", y, want_y), ("dx", dx, want_dx)):
             if not torch.isfinite(got).all():
-                raise AssertionError(f"{name} {shape}: {what} not finite")
+                raise AssertionError(f"{case}: {what} not finite")
             ulps[what] = _ulps(torch, got, want)
             if ulps[what] > limit:
-                raise AssertionError(f"{name} {shape}: {what} {ulps[what]} "
-                                     f"ulp from the plain version (limit "
-                                     f"{limit})")
-        big = len(shape) == 4
-        iters = BIG_ITERS if big else ITERS
+                raise AssertionError(f"{case}: {what} {ulps[what]} ulp from "
+                                     f"the plain version (limit {limit})")
         n = x.numel()
+        iters = BIG_ITERS if n > 1 << 22 else ITERS
         lib_f, lib_b = _act_library(torch, name, x, e, y)
-        geo = {"case": f"{name}_{'x'.join(map(str, shape))}",
-               "activation": name, "shape": list(shape),
-               "tolerance_ulps": limit}
+        plans = {"act_fwd": activations.act_plan(name, x, y),
+                 "act_bwd": activations.act_plan(
+                     name, e, y, *(() if xin is None else (xin,)), dx)}
+        geo = {"case": case, "activation": name, "shape": list(shape),
+               "offset_floats": offset, "tolerance_ulps": limit}
         for kname, fn, plain, lib, nbytes, ops, what in (
                 ("act_fwd", lambda: activations.act_fwd(name, x),
                  lambda: activations.plain_act_fwd(name, x), lib_f,
@@ -1548,8 +1598,10 @@ def phase_kernel_act(torch) -> dict:
                  3 * n * 4, ACT_OPS[name][1] * n,
                  "dx")):
             lib_ms = None if lib is None else _time_ms(torch, lib, iters)[0]
+            plan = plans[kname]
             row = _row(torch, kname, {
-                **geo, "ulps": ulps[what],
+                **geo, "vec": plan.vec, "blocks": plan.blocks,
+                "parity": plan.parity, "ulps": ulps[what],
                 "library_note": None if lib is not None else
                 "no single PyTorch call computes this Veles formula"},
                 float((dict(y=y, dx=dx)[what]

@@ -10,9 +10,18 @@ golden), and within rtol 2.4e-7 / atol 1e-8 of the reference's
 ``apply_updates`` on the same numpy inputs (the tolerance
 tests/test_torch_update.py holds the update to XLA at), on MNIST's spec
 and a tied-deconv autoencoder spec; one call of the list form a step, two
-where a tied deconv updates the W its encoder conv then updates."""
+where a tied deconv updates the W its encoder conv then updates.
 
+Every activation of the step goes through ``ops.activations.apply_fwd``
+/ ``apply_bwd`` (the kernels on the card): one train step and one eval
+step of the port's MNIST, CIFAR, AlexNet (narrow widths) and autoencoder
+samples, and a unit-graph epoch of MNIST and CIFAR (its weighted units),
+call them for a non-linear activation as often as chip_smoke.py's launch
+counts say."""
+
+import contextlib
 import dataclasses
+import importlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -24,9 +33,12 @@ from znicz_tpu.backends import Device
 from znicz_tpu.config import root as ref_root
 from znicz_tpu.models import mnist as ref_mnist
 from znicz_tpu.parallel import fused as ref_fused
-from znicz_tpu_torch import convert
-from znicz_tpu_torch.ops import update
+from znicz_tpu_torch import convert, prng
+from znicz_tpu_torch.config import root
+from znicz_tpu_torch.models import alexnet
+from znicz_tpu_torch.ops import activations, update
 from znicz_tpu_torch.parallel import fused
+from znicz_tpu_torch.profile_fused import MODELS
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -354,3 +366,117 @@ def test_one_update_call_a_step_and_a_new_one_at_a_tie(name, calls):
         first = update.plain_sgd_update_many(seen[0])[0][0]
         assert torch.equal(seen[1][0][0], first)     # the tie's new W
         assert new_params[3] == (None, None)
+
+
+# -- the activations of a step go through the kernels' helpers --------------
+#: model → (its config tree, the tree's keys for a small run, the
+#: non-linear activations (forward calls of a train step, of an eval
+#: step), (backward calls of a train step, of an eval step)): MNIST's tanh
+#: fc; CIFAR's two tanh convs and tanh fc; AlexNet's five strict-ReLU
+#: convs and two fc, conv1's and conv2's derivatives folded into the
+#: LRN→pool pairs; the autoencoder linear throughout
+ACT_CALLS = {
+    "mnist": ("mnist", {"synthetic": {"n_train": 40, "n_valid": 20,
+                                      "n_test": 20},
+                        "minibatch_size": 20}, (1, 1), (1, 0)),
+    "cifar": ("cifar", {"synthetic": {"n_train": 20, "n_valid": 10,
+                                      "n_test": 10, "size": 16},
+                        "minibatch_size": 10}, (3, 3), (3, 0)),
+    "alexnet": ("alexnet", {"synthetic": {"n_train": 8, "n_valid": 4,
+                                          "n_test": 4},
+                            "minibatch_size": 4, "size": 67,
+                            "n_classes": 7,
+                            "layers": alexnet.make_layers(
+                                7, widths=(8, 12, 8, 8, 8, 24, 16))},
+                (7, 7), (5, 0)),
+    "autoencoder": ("mnist_ae", {"synthetic": {"n_train": 40, "n_valid": 20,
+                                               "n_test": 20},
+                                 "minibatch_size": 20}, (0, 0), (0, 0)),
+}
+
+
+@contextlib.contextmanager
+def _small(model):
+    """ACT_CALLS's small size in the port's config tree of ``model``,
+    restored after; yields the sample's module, seeded."""
+    tree_name, cfg, _, _ = ACT_CALLS[model]
+    tree = getattr(root, tree_name)
+    saved_syn = tree.synthetic.to_dict()
+    saved = {k: tree.get(k) for k in cfg if k != "synthetic"}
+    tree.synthetic.update(cfg["synthetic"])
+    tree.update({k: v for k, v in cfg.items() if k != "synthetic"})
+    prng.seed_all(1234)
+    try:
+        yield importlib.import_module(f"znicz_tpu_torch.models.{model}")
+    finally:
+        tree.synthetic.update(saved_syn)
+        tree.update(saved)
+
+
+def _small_sample(model):
+    """The port's sample ``model`` initialized on the CPU at ACT_CALLS's
+    small size."""
+    with _small(model) as module:
+        wf = getattr(module, MODELS[model][0])()
+        wf.initialize(device="cpu")
+    return wf
+
+
+def _spy_helpers(monkeypatch) -> list:
+    """Record "fwd"/"bwd" for each call of the helpers with a non-linear
+    activation (the calls that launch a kernel on the card)."""
+    seen = []
+
+    def spy(which, real):
+        def call(act, *args):
+            if act is not activations.Activation:
+                seen.append(which)
+            return real(act, *args)
+        return call
+    monkeypatch.setattr(activations, "apply_fwd",
+                        spy("fwd", activations.apply_fwd))
+    monkeypatch.setattr(activations, "apply_bwd",
+                        spy("bwd", activations.apply_bwd))
+    return seen
+
+
+@pytest.mark.parametrize("model", sorted(ACT_CALLS))
+def test_a_step_calls_the_kernel_helpers_per_activation(model, monkeypatch):
+    wf = _small_sample(model)
+    *_, want_fwd, want_bwd = ACT_CALLS[model]
+    seen = _spy_helpers(monkeypatch)
+    ld = wf.loader
+    batch = ld.max_minibatch_size
+    x = ld.original_data[:batch]
+    t = (ld.original_targets if wf.loss_function == "mse"
+         else ld.original_labels)[:batch]
+    params, vels = wf.spec_rows(wf.params), wf.spec_rows(wf.vels)
+    with torch.no_grad():
+        _, _, metrics = fused.train_minibatch(wf.spec, params, vels, x, t)
+        train = (seen.count("fwd"), seen.count("bwd"))
+        seen.clear()
+        fused.eval_minibatch(wf.spec, params, x, t)
+        evals = (seen.count("fwd"), seen.count("bwd"))
+    assert np.isfinite(float(metrics["loss"]))
+    assert (train[0], evals[0]) == want_fwd
+    assert (train[1], evals[1]) == want_bwd
+
+
+@pytest.mark.parametrize("model", ["mnist", "cifar"])
+def test_a_unit_graph_epoch_calls_the_kernel_helpers_per_activation(
+        model, monkeypatch):
+    """The weighted units of the unit graph go through the same helpers:
+    each non-linear layer forward on every tick and backward on every
+    tick whose GD chain runs (every train tick of one epoch but its
+    last), as chip_smoke.py's UNIT_PATHS counts the launches (these two
+    fold nothing on the fused step either, so its counts serve)."""
+    seen = _spy_helpers(monkeypatch)
+    _, cfg, (per_tick, _), (per_gd_tick, _) = ACT_CALLS[model]
+    with _small(model) as module:
+        module.run(device="cpu", epochs=1, fused=False)
+    split, batch = cfg["synthetic"], cfg["minibatch_size"]
+    train = -(-split["n_train"] // batch)
+    ticks = train + sum(-(-split[k] // batch) for k in ("n_valid",
+                                                         "n_test"))
+    assert seen.count("fwd") == per_tick * ticks
+    assert seen.count("bwd") == per_gd_tick * (train - 1)

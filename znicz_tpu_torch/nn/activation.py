@@ -4,8 +4,10 @@
 Mul, TanhLog} as separate graph units, the layer types
 ``activation_<name>`` (beside the activations built into All2All* and
 Conv*).  ``torch_run`` goes through ``ops.activations.act_fwd`` /
-``act_bwd``, the hand-written elementwise kernels on the card;
-``numpy_run`` is the golden path."""
+``act_bwd``, the hand-written elementwise kernels of
+``csrc/activation.cu`` on the card, the same kernels the weighted units
+and every activation of the fused step launch (``apply_fwd`` /
+``apply_bwd``); ``numpy_run`` is the golden path."""
 
 from __future__ import annotations
 

@@ -4,9 +4,11 @@
 ``All2AllSoftmax`` the row softmax of x·W + b with its ``max_idx`` argmax
 output.  ``torch_run`` takes the product through ``ops.matmul`` (the
 hand-written SGEMM on the card) and the softmax through ``ops.softmax``
-(the row softmax + argmax kernel); the bias add and the activation stay
-plain torch, as XLA does them inside the reference's jitted unit body.
-``numpy_run`` is the golden path."""
+(the row softmax + argmax kernel), the activation through
+``ops.activations.apply_fwd`` (the elementwise kernel on the card, none
+for the linear one); the bias add stays plain torch, as XLA does it
+inside the reference's jitted unit body.  ``numpy_run`` is the golden
+path."""
 
 from __future__ import annotations
 
@@ -58,7 +60,8 @@ class All2All(Forward):
             self._logits_np())
 
     def torch_run(self) -> None:
-        self.output.devmem = self.ACTIVATION.fwd(self._logits())
+        self.output.devmem = activations.apply_fwd(self.ACTIVATION,
+                                                    self._logits())
 
 
 class All2AllTanh(All2All):

@@ -7,7 +7,9 @@ reference's draw order (W, then the bias).  ``padding`` is symmetric, an
 int or ``(pad_h, pad_w)``.  ``torch_run`` convolves through
 ``ops.conv.conv2d``: cuDNN on the card (TF32 off) as the reference leaves
 its convs to XLA, or under ``ZNICZ_TPU_CONV=pallas`` the implicit-GEMM
-kernels as its Pallas tier; ``numpy_run`` is the im2col golden."""
+kernels as its Pallas tier, and applies the activation through
+``ops.activations.apply_fwd`` (the elementwise kernel on the card, none
+for the linear one); ``numpy_run`` is the im2col golden."""
 
 from __future__ import annotations
 
@@ -67,7 +69,7 @@ class Conv(Forward):
                             self.sliding, self.padding)
         if self.include_bias:
             y = y + self.bias.devmem
-        self.output.devmem = self.ACTIVATION.fwd(y)
+        self.output.devmem = activations.apply_fwd(self.ACTIVATION, y)
 
 
 class ConvTanh(Conv):

@@ -9,7 +9,9 @@ with the true forward fan-in, ``1/√(ky·kx·n_kernels)``, as the reference
 sets it.  ``include_bias`` defaults to False (the reference's decoder is
 linear).  ``torch_run`` goes through ``ops.deconv`` (the conv's tier:
 cuDNN on the card, or the implicit-GEMM kernels under
-``ZNICZ_TPU_CONV=pallas``); ``numpy_run`` is the col2im golden.  ``compute_padding`` is the
+``ZNICZ_TPU_CONV=pallas``) and the activation through
+``ops.activations.apply_fwd`` (the elementwise kernel on the card, none
+for the linear one); ``numpy_run`` is the col2im golden.  ``compute_padding`` is the
 reference's geometry helper."""
 
 from __future__ import annotations
@@ -108,7 +110,7 @@ class Deconv(Forward):
                                 self.sliding, self.padding)
         if self.include_bias:
             y = y + self.bias.devmem
-        self.output.devmem = self.ACTIVATION.fwd(y)
+        self.output.devmem = activations.apply_fwd(self.ACTIVATION, y)
 
 
 class DeconvTanh(Deconv):

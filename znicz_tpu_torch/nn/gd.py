@@ -10,8 +10,9 @@ no batch normalization happens here.
 ``torch_run`` multiplies through ``ops.matmul`` with xᵀ and Wᵀ passed as
 views (the kernel reads their strides; no transposed copy) and updates W
 and b in one ``ops.update.sgd_update_many`` call (one launch of the fused
-update kernel on the card); the activation derivative and the bias sum
-stay plain torch.
+update kernel on the card); the activation derivative goes through
+``ops.activations.apply_bwd`` (the elementwise kernel on the card, none
+for the linear one); the bias sum stays plain torch.
 ``numpy_run`` is the golden path."""
 
 from __future__ import annotations
@@ -43,9 +44,8 @@ class GradientDescent(GradientDescentBase):
         x = self.input.devmem
         x2 = x.reshape(x.shape[0], -1)
         y2 = self.output.devmem.reshape(x.shape[0], -1)
-        err_y = self.ACTIVATION.bwd(
-            self.err_output.devmem.reshape(y2.shape), y2,
-            x2 if self.ACTIVATION.needs_input else None)
+        err_y = activations.apply_bwd(
+            self.ACTIVATION, self.err_output.devmem.reshape(y2.shape), y2)
         gw = matmul.matmul(x2.T, err_y)
         gb = err_y.sum(dim=0) if self.include_bias else None
         if self.need_err_input:

@@ -8,8 +8,9 @@ is never read, so no data-gradient conv runs there), then the
 momentum-SGD update of W and b in one ``ops.update.sgd_update_many`` call
 (one launch of the fused update kernel on the card).  ``torch_run`` takes
 the gradients from ``ops.conv`` (its tier: cuDNN on the card, or the
-implicit-GEMM kernels under ``ZNICZ_TPU_CONV=pallas``); ``numpy_run`` is
-the im2col/col2im golden."""
+implicit-GEMM kernels under ``ZNICZ_TPU_CONV=pallas``) and err_y from
+``ops.activations.apply_bwd`` (the elementwise kernel on the card, none
+for the linear one); ``numpy_run`` is the im2col/col2im golden."""
 
 from __future__ import annotations
 
@@ -44,9 +45,8 @@ class GradientDescentConv(GradientDescentBase):
 
     def torch_run(self) -> None:
         x, y = self.input.devmem, self.output.devmem
-        err_y = self.ACTIVATION.bwd(
-            self.err_output.devmem.reshape(y.shape), y,
-            x if self.ACTIVATION.needs_input else None)
+        err_y = activations.apply_bwd(
+            self.ACTIVATION, self.err_output.devmem.reshape(y.shape), y)
         w = self.weights.devmem
         gw = conv_ops.conv2d_grad_weights(x, err_y, tuple(w.shape),
                                           self.sliding, self.padding)

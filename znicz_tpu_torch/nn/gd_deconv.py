@@ -6,7 +6,9 @@ By the adjoint relation the gradients are conv ops (``ops.deconv``):
 weight gradient with err_y and the deconv input in swapped roles.  W (the
 encoder conv's own Vector when the deconv is tied; this unit keeps its
 own velocity) and b update in one ``ops.update.sgd_update_many`` call (one
-launch of the fused update kernel on the card)."""
+launch of the fused update kernel on the card); err_y comes from
+``ops.activations.apply_bwd`` (the elementwise kernel on the card, none
+for the linear one)."""
 
 from __future__ import annotations
 
@@ -40,9 +42,8 @@ class GDDeconv(GradientDescentBase):
 
     def torch_run(self) -> None:
         x, y = self.input.devmem, self.output.devmem
-        err_y = self.ACTIVATION.bwd(
-            self.err_output.devmem.reshape(y.shape), y,
-            x if self.ACTIVATION.needs_input else None)
+        err_y = activations.apply_bwd(
+            self.ACTIVATION, self.err_output.devmem.reshape(y.shape), y)
         w = self.weights.devmem
         gw = deconv_ops.deconv2d_grad_weights(err_y, x, tuple(w.shape),
                                               self.sliding, self.padding)

@@ -5,14 +5,22 @@ Derivative convention (the reference's gradient units): ``bwd`` receives
 the upstream error plus whichever of (output, input) the formula needs,
 and returns the error w.r.t. the activation input.
 
-``act_fwd(name, x)`` and ``act_bwd(name, err_y, y, x=None)`` are what the
-standalone activation units call (the reference's dispatching
-``act_fwd``/``act_bwd``): on CUDA tensors they launch the hand-written
-elementwise kernels of ``csrc/activation.cu`` (the port of
-``pallas_act_fwd``/``pallas_act_bwd``), on CPU tensors they run the
-``BY_NAME`` classes (``plain_act_fwd``/``plain_act_bwd``).  A CUDA tensor
-never falls back.  The fc, conv and fused paths keep the activation as
-plain torch math, as XLA fuses it there in the reference.
+Every activation of every path goes through the hand-written elementwise
+kernels of ``csrc/activation.cu`` on the card (the port of
+``pallas_act_fwd``/``pallas_act_bwd``), and through the ``BY_NAME``
+classes on the CPU:
+
+* ``apply_fwd(act, x)`` and ``apply_bwd(act, err_y, y, x=None)`` take a
+  ``BY_NAME`` class: the fused step's fc, conv and deconv outputs and
+  its standalone activation rows, and the unit graph's weighted units
+  (All2All*, Conv*, Deconv* and their GD units) call them.  ``linear``
+  returns its input itself; a CPU tensor runs the class's plain math as
+  the reference's fused step and units write it; a CUDA tensor launches
+  the kernel (or raises: it never falls back).
+* ``act_fwd(name, x)`` and ``act_bwd(name, err_y, y, x=None)`` are the
+  kernels' wrappers (the reference's dispatching ``act_fwd``/``act_bwd``),
+  which the standalone activation units call: float32, contiguous, the
+  plain version (``plain_act_fwd``/``plain_act_bwd``) on a CPU tensor.
 
 Veles-specific formulas, kept for behavioural parity:
 
@@ -26,6 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -281,6 +290,41 @@ def tanhlog_constants() -> tuple[float, float, float, float]:
             float(f(TanhLog._S_T * TanhLog.THRESHOLD)), float(f(TanhLog._Y_T)))
 
 
+#: the kernels' last four float arguments, formed once
+_TANHLOG_CONSTANTS = tanhlog_constants()
+
+
+#: elements a block of the kernels takes (``kChunk`` of activation.cu:
+#: 256 threads × ``kVecs`` float4s)
+CHUNK = 1024
+
+
+class ActPlan(NamedTuple):
+    """How ``csrc/activation.cu`` runs a call: ``vec`` 4 (float4 loads and
+    stores) or 1 (the scalar form), ``blocks`` (one a ``CHUNK``), and for
+    ``sincos`` how an element finds the parity of its column: "index"
+    (C even: its flat index's) or "fastdiv" (C odd); None for the others."""
+
+    vec: int
+    blocks: int
+    parity: str | None
+
+
+def act_plan(name: str, *tensors: torch.Tensor) -> ActPlan:
+    """The plan the C entry points pick for these tensors (the first gives
+    n and C; every one's address counts): V = 4 where n % 4 == 0 and every
+    address is 16-byte aligned.  The kernels decide it themselves; this
+    mirrors them for the tests and chip_smoke.py's rows."""
+    first = tensors[0]
+    n = first.numel()
+    vec = 4 if n % 4 == 0 and all(t.data_ptr() % 16 == 0
+                                  for t in tensors) else 1
+    parity = None
+    if name == "sincos":
+        parity = "index" if first.shape[-1] % 2 == 0 else "fastdiv"
+    return ActPlan(vec, -(-n // CHUNK), parity)
+
+
 def plain_act_fwd(name: str, x: torch.Tensor) -> torch.Tensor:
     """y = act(x) by the ``BY_NAME`` class: what the kernel is held
     against on the card."""
@@ -333,7 +377,7 @@ def act_fwd(name: str, x: torch.Tensor) -> torch.Tensor:
     cuda_build.launch(
         cuda_build.kernel("activation", "znicz_act_fwd_f32", _FWD_ARGTYPES),
         x.device, x.data_ptr(), y.data_ptr(), x.numel(), x.shape[-1],
-        ACT_IDS[name], *tanhlog_constants())
+        ACT_IDS[name], *_TANHLOG_CONSTANTS)
     act_fwd_launches += 1
     return y
 
@@ -358,6 +402,39 @@ def act_bwd(name: str, err_y: torch.Tensor, y: torch.Tensor,
         cuda_build.kernel("activation", "znicz_act_bwd_f32", _BWD_ARGTYPES),
         err_y.device, err_y.data_ptr(), y.data_ptr(),
         None if x is None else x.data_ptr(), out.data_ptr(), err_y.numel(),
-        err_y.shape[-1], ACT_IDS[name], *tanhlog_constants())
+        err_y.shape[-1], ACT_IDS[name], *_TANHLOG_CONSTANTS)
     act_bwd_launches += 1
     return out
+
+
+# -- every path's activation --------------------------------------------------
+def apply_fwd(act: type[Activation], x: torch.Tensor) -> torch.Tensor:
+    """y = act(x) for a ``BY_NAME`` class: ``linear`` returns ``x`` itself
+    (no launch, no copy); a CPU tensor takes ``act.fwd``, its dtype as
+    given; a CUDA tensor the kernel (``act_fwd``), its input made float32
+    and contiguous first (the paths' are both already)."""
+    if act is Activation:
+        return x
+    if x.device.type == "cpu":
+        return act.fwd(x)
+    return act_fwd(act.name, x.float().contiguous())
+
+
+def apply_bwd(act: type[Activation], err_y: torch.Tensor, y: torch.Tensor,
+              x: torch.Tensor | None = None) -> torch.Tensor:
+    """err_x from (err_y, y[, x]) for a ``BY_NAME`` class; ``x`` is read
+    only by the activations that need it.  ``linear`` returns ``err_y``
+    itself; a CPU tensor takes ``act.bwd``; a CUDA tensor the kernel
+    (``act_bwd``), each operand made float32 and contiguous first.  A
+    narrow ``y`` (the fused step's bf16 or f16 backward cache) then enters
+    the derivative as its exact float32 value, where the plain math would
+    round some of its intermediates (``D2·y·y``, ``1 − y``) to the narrow
+    type; no path on the card stores in a narrow type yet."""
+    if act is Activation:
+        return err_y
+    x = x if act.needs_input else None
+    if err_y.device.type == "cpu":
+        return act.bwd(err_y, y, x)
+    return act_bwd(act.name, err_y.float().contiguous(),
+                   y.float().contiguous(),
+                   None if x is None else x.float().contiguous())

@@ -278,20 +278,20 @@ def forward(spec: ModelSpec, params, x, *, want_caches: bool,
             if is_last and spec.loss == "softmax":
                 h = pre                   # logits; softmax fused with CE
             else:
-                h = spec.act(i).fwd(pre)
+                h = activations.apply_fwd(spec.act(i), pre)
         elif layer.kind == "conv":
             pre = conv_ops.conv2d(_rnd(h, cdt), _rnd(w, cdt), cfg["stride"],
                                   cfg["padding"])
             if b is not None:
                 pre = pre + b
-            h = spec.act(i).fwd(pre)
+            h = activations.apply_fwd(spec.act(i), pre)
         elif layer.kind == "deconv":
             wt = w if w is not None else params[cfg["tie"]][0]
             pre = deconv_ops.deconv2d(_rnd(h, cdt), _rnd(wt, cdt),
                                       cfg["stride"], cfg["padding"])
             if b is not None:
                 pre = pre + b
-            h = spec.act(i).fwd(pre)
+            h = activations.apply_fwd(spec.act(i), pre)
         elif layer.kind == "depooling":
             aux = auxes[cfg["tie"]]
             h = pool_ops.depooling(h, aux, in_shapes[cfg["tie"]],
@@ -318,7 +318,7 @@ def forward(spec: ModelSpec, params, x, *, want_caches: bool,
                 h = drop_ops.dropout(h, dropout_key(cfg, epoch, ctr),
                                      cfg["ratio"])
         elif layer.kind == "activation":
-            h = spec.act(i).fwd(h)
+            h = activations.apply_fwd(spec.act(i), h)
         else:   # ModelSpec refuses unported kinds
             raise NotImplementedError(layer.kind)
         if sdt != torch.float32 and not is_last:
@@ -370,7 +370,8 @@ def backward(spec: ModelSpec, params, caches, out, err, epoch: int = 0,
             # act_folded: the merged lrn_pool above applied this
             # derivative in its kernel already
             err_pre = err if i == n - 1 or cfg.get("act_folded") else \
-                spec.act(i).bwd(err.reshape(y_i.shape), y_i)
+                activations.apply_bwd(spec.act(i), err.reshape(y_i.shape),
+                                      y_i)
         if layer.kind == "fc":
             x2 = x_in.reshape(x_in.shape[0], -1)
             err2 = err_pre.reshape(x2.shape[0], -1)
@@ -425,7 +426,8 @@ def backward(spec: ModelSpec, params, caches, out, err, epoch: int = 0,
             err = drop_ops.dropout(err.reshape(x_in.shape).contiguous(),
                                    dropout_key(cfg, epoch, ctr), cfg["ratio"])
         elif layer.kind == "activation":
-            err = spec.act(i).bwd(err.reshape(y_i.shape), y_i, x_in)
+            err = activations.apply_bwd(spec.act(i), err.reshape(y_i.shape),
+                                        y_i, x_in)
         else:   # ModelSpec refuses unported kinds
             raise NotImplementedError(layer.kind)
     return grads
@@ -493,7 +495,7 @@ def grad_minibatch(spec: ModelSpec, params, x, target, mask=None,
     last = len(spec.layers) - 1
     if spec.loss == "mse" and spec.layers[last].kind in PARAM_KINDS:
         # backward() expects pre-activation err at a param layer
-        err = spec.act(last).bwd(err, out)
+        err = activations.apply_bwd(spec.act(last), err, out)
     grads = backward(spec, params, caches, out, err, epoch=epoch, ctr=ctr)
     return grads, {"loss": loss, "n_err": n_err}
 

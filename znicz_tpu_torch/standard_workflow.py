@@ -28,9 +28,10 @@ units draw it, so the same seed gives the same initial weights in both
 packages.  Both paths cover the fc, conv, pooling, LRN, dropout,
 standalone activation (``activation_<name>``), depooling and deconv
 layers with a softmax or an MSE loss; stochastic pooling and the cutter
-layers raise on both (ROADMAP.md queue 1 item 5a).  The fused step keeps
-the standalone activations as plain torch math, as the reference's does;
-the unit graph's activation units launch the elementwise kernels.
+layers raise on both (ROADMAP.md queue 1 item 5a).  On the card every
+non-linear activation of either path, standalone or built into an fc,
+conv or deconv layer, launches the elementwise kernels
+(``ops.activations``).
 ``"tie"`` in a layer's ``"->"`` options names the
 earlier layer a decoder unit ties to: a depooling layer to the max pool
 whose winner slots it reads, a deconv to the conv whose weights it
