@@ -15,7 +15,9 @@ exits nonzero without the final ``ok`` line:
 3. kernel  — each kernel's wrapper against its plain PyTorch version on the
    card at the main paths' shapes and a few more (ragged, padded and
    overlapping windows, max-abs, ties, the pool scatter bit for bit at
-   each channel width it takes, an even LRN window, β ≠ 0.75; for
+   each channel width it takes, an even LRN window, β ≠ 0.75, the
+   recompute LRN pair at every form of its plan (windows 1-11, 96 to 6144
+   channels, an input one float past alignment); for
    the fused LRN→max-pool pair the geometries of tests/test_lrn_pool.py,
    each folded activation, the scalar form (C % 4 ≠ 0), a window wider
    than the channels, ragged strips and column tiles; dropout at two
@@ -695,28 +697,58 @@ def phase_kernel_pooling(torch) -> dict:
     return rows
 
 
-#: case, x shape, n, alpha, beta, k
+#: case, x shape, n, alpha, beta, k, offset (floats past 16-byte alignment:
+#: the scalar form); the plan's forms (ops/normalization.py lrn_plan): the
+#: warp form (cifar_step), the vector form's tile with n = 5 fixed (c96,
+#: c2048) or run time (n1 .. n11), threads taking several vectors of a
+#: pixel and a tile past 48 KB (c6144), the scalar form of a larger
+#: tensor (cifar_unaligned) and of a small one (the small cases, C % 4 != 0
+#: or not)
 LRN_CASES = [
-    ("cifar_step", (100, 16, 16, 32), 5, 1e-4, 0.75, 2.0),
-    ("ragged", (7, 13, 11, 5), 5, 1e-4, 0.75, 2.0),
-    ("even_n", (7, 4, 3, 7), 4, 1e-3, 0.75, 1.0),
-    ("pow_beta", (7, 3, 4, 9), 5, 2e-3, 0.6, 2.0),
-    ("c_below_n", (7, 3, 3, 3), 5, 1e-2, 0.75, 2.0),
-    ("wide_rows", (2, 3, 5, 300), 5, 1e-4, 0.75, 2.0),
+    ("cifar_step", (100, 16, 16, 32), 5, 1e-4, 0.75, 2.0, 0),
+    ("ragged", (7, 13, 11, 5), 5, 1e-4, 0.75, 2.0, 0),
+    ("even_n", (7, 4, 3, 7), 4, 1e-3, 0.75, 1.0, 0),
+    ("pow_beta", (7, 3, 4, 9), 5, 2e-3, 0.6, 2.0, 0),
+    ("c_below_n", (7, 3, 3, 3), 5, 1e-2, 0.75, 2.0, 0),
+    ("wide_rows", (2, 3, 5, 300), 5, 1e-4, 0.75, 2.0, 0),
+    *((f"n{n}", (40, 16, 16, 32), n, 1e-3, 0.75, 2.0, 0)
+      for n in (1, 3, 7, 9, 11)),
+    ("c96", (32, 13, 13, 96), 5, 1e-4, 0.75, 2.0, 0),
+    ("c2048", (40, 5, 2048), 5, 1e-4, 0.75, 2.0, 0),
+    ("c6144", (50, 6144), 9, 1e-4, 0.75, 2.0, 0),
+    ("cifar_unaligned", (100, 16, 16, 32), 5, 1e-4, 0.75, 2.0, 1),
 ]
 
 
+def _lrn_grad_library(torch, F, x, e, n, alpha, beta, k):
+    """ms of dx by autograd through ``F.local_response_norm`` from (x, err)
+    on NCHW views, the yardstick of ``gd_lrn_x`` (which no single PyTorch
+    call computes): its forward, which the graph needs as ``gd_lrn_x``
+    needs d, and ``torch.autograd.grad``'s backward, several kernels each
+    (square, pad, average pool, pow, divide and their gradients).  Both run
+    inside the timed call, so the backward's kernels land on the stream
+    that the CUDA graph captures."""
+    xn = x.permute(0, 3, 1, 2).detach().requires_grad_(True)
+    en = e.permute(0, 3, 1, 2)
+    return _time_ms(torch, lambda: torch.autograd.grad(
+        F.local_response_norm(xn, n, alpha * n, beta, k), xn, en))[0]
+
+
 def phase_kernel_lrn(torch) -> dict:
+    """The recompute pair bit for bit against its plain versions at every
+    form of its plan; each row names the plan the wrappers launched
+    (``lrn_plan`` with the tensors' alignment)."""
     import torch.nn.functional as F
 
     from znicz_tpu_torch.ops import normalization as lrn
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(SEED + 2)
     rows = {"lrn_y": [], "gd_lrn_x": []}
-    for case, shape, n, alpha, beta, kk in LRN_CASES:
+    for case, shape, n, alpha, beta, kk, offset in LRN_CASES:
         # scaled so that alpha·Σx² moves d well away from k
-        x = (torch.randn(shape, generator=gen) * 4).to(dev)
-        e = torch.randn(shape, generator=gen).to(dev)
+        x = _offset(torch, (torch.randn(shape, generator=gen) * 4).to(dev),
+                    offset)
+        e = _offset(torch, torch.randn(shape, generator=gen).to(dev), offset)
         hp = (n, alpha, beta, kk)
         # bit-equal: the kernels share csrc/lrn_math.cuh's rounding with
         # the fused pair's, and the plain versions round each step too
@@ -726,22 +758,27 @@ def phase_kernel_lrn(torch) -> dict:
         err_b = _close(torch, case, "dx", dx, lrn.plain_gd_lrn_x(e, x, *hp),
                        0, 0)
         geo = {"case": case, "shape": list(shape), "n": n, "alpha": alpha,
-               "beta": beta, "k": kk}
-        lib = None
+               "beta": beta, "k": kk, "offset_floats": offset}
+        plans = {"lrn_y": lrn._plan(shape, n, False, x, y),
+                 "gd_lrn_x": lrn._plan(shape, n, True, e, x, dx)}
+        lib_f = lib_b = None
         if case == "cifar_step":
             # several kernels inside (square, pad, avg-pool, pow, div); it
             # divides alpha by the window, hence alpha·n
             xn = x.permute(0, 3, 1, 2)
-            lib = _time_ms(torch, lambda: F.local_response_norm(
+            lib_f = _time_ms(torch, lambda: F.local_response_norm(
                 xn, n, alpha * n, beta, kk))[0]
+            lib_b = _lrn_grad_library(torch, F, x, e, *hp)
         rows["lrn_y"].append(_row(
-            torch, "lrn_y", geo, err_f, lambda: lrn.lrn_y(x, *hp),
+            torch, "lrn_y", {**geo, "plan": plans["lrn_y"]._asdict()},
+            err_f, lambda: lrn.lrn_y(x, *hp),
             lambda: lrn.plain_lrn_y(x, *hp), lrn_y_bound_ms(x.numel(), n),
-            lib))
+            lib_f))
         rows["gd_lrn_x"].append(_row(
-            torch, "gd_lrn_x", geo, err_b, lambda: lrn.gd_lrn_x(e, x, *hp),
+            torch, "gd_lrn_x", {**geo, "plan": plans["gd_lrn_x"]._asdict()},
+            err_b, lambda: lrn.gd_lrn_x(e, x, *hp),
             lambda: lrn.plain_gd_lrn_x(e, x, *hp),
-            gd_lrn_x_bound_ms(x.numel(), n)))
+            gd_lrn_x_bound_ms(x.numel(), n), lib_b))
     return rows
 
 
@@ -2233,7 +2270,10 @@ def profiled_step(torch, wf) -> dict:
     """One fused train step of the counted run's model (a trainer on copies
     of its weights, the step warmed up once) under ``torch.profiler``: the
     device kernels it ran must hold the tier's three conv kernels and no
-    kernel whose name marks a library convolution."""
+    kernel whose name marks a library convolution.  The profiler traces a
+    warm-up step before the one it records (its schedule), because the
+    card's tracer can drop the first kernels of a window: on an H100 it
+    lost the step's first conv forwards in three of four runs."""
     from znicz_tpu_torch.parallel import fused
 
     def copies(rows):
@@ -2251,9 +2291,12 @@ def profiled_step(torch, wf) -> dict:
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        tr.train_epoch(ld.original_data, target, idx, batch)
-        torch.cuda.synchronize()
+    schedule = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    with torch.profiler.profile(activities=acts, schedule=schedule) as prof:
+        for _ in range(2):   # traced, then traced and recorded
+            tr.train_epoch(ld.original_data, target, idx, batch)
+            torch.cuda.synchronize()
+            prof.step()
     kernels = {e.key: e.self_device_time_total for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA}
     ours, library = split_conv_kernels(kernels)

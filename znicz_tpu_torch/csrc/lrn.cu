@@ -2,7 +2,7 @@
 // two forms: y only with the denominator recomputed in the backward (the
 // fused train step), and y plus the denominator d, cached for the
 // backward (the unit graph's LRNormalizerForward / LRNormalizerBackward).
-// All work on rows = B*H*W contiguous rows of C channels (NHWC), with
+// All work on rows = B*H*W contiguous pixels of C channels (NHWC), with
 // the reference's clipped window [c-(n-1)/2, c+n/2] on the channel axis:
 //
 //   d_c  = k + alpha * sum_{j in win(c)} x_j^2
@@ -15,55 +15,269 @@
 // powf(d, -beta) otherwise.  The backward uses the forward's window even
 // for an even n, as the reference's formula does.
 //
-// lrn_y_kernel replaces the TPU kernel znicz_tpu/ops/elementwise.py
-// pallas_lrn_y (_lrn_fwd_y_kernel); gd_lrn_kernel<false> replaces
-// pallas_gd_lrn_x (_lrn_bwd_x_kernel).  lrn_kernel replaces pallas_lrn
-// (_lrn_fwd_kernel) and gd_lrn_kernel<true> pallas_gd_lrn
-// (_lrn_bwd_kernel): the same math, with d written by the forward and
-// read by the backward instead of recomputed from x.
+// lrn_y_kernel (with its warp and direct forms) replaces the TPU kernel
+// znicz_tpu/ops/elementwise.py pallas_lrn_y (_lrn_fwd_y_kernel);
+// gd_lrn_x_kernel (and its warp form) replaces pallas_gd_lrn_x
+// (_lrn_bwd_x_kernel).  lrn_kernel replaces pallas_lrn
+// (_lrn_fwd_kernel) and gd_lrn_kernel pallas_gd_lrn (_lrn_bwd_kernel): the
+// same math, with d written by the forward and read by the backward
+// instead of recomputed from x.
 //
-// Bound on an H100: bytes.  At the CIFAR step, (100,16,16,32), the forward
-// reads and writes 3.3 MB each (~2.0 us at 3.35 TB/s) and the backward
-// reads 6.6 MB and writes 3.3 MB (~2.9 us), against ~2 float operations
-// per byte, far below the card's ~20 flop/byte float32 balance.  The
-// cached-d forms move one more 3.3 MB tensor each: ~2.9 us and ~3.9 us.
+// Bound on an H100: bytes, then the rounding chain.  At the CIFAR step,
+// (100,16,16,32), the forward reads and writes 3.3 MB each (~2.0 us at
+// 3.35 TB/s) and the backward reads 6.6 MB and writes 3.3 MB (~2.9 us);
+// the cached-d forms move one more 3.3 MB tensor each (~2.9 us, ~3.9 us).
+// Each element also runs a chain of correctly rounded operations (two
+// square roots and a reciprocal for d^-0.75, backward also a divide p/d)
+// that nvcc emits as branch regions of their own, so the chains of a
+// thread's channels do not interleave: at 819,200 elements that is of the
+// order of the bytes' time.
 //
-// Design.  The forwards have one thread per element, C fastest, so a
-// warp's reads are contiguous and each element's <= n neighbours hit L1;
-// lrn_kernel differs from lrn_y_kernel only in also storing d, so its y
-// is lrn_y_kernel's bit for bit.  The backward needs q_j = err_j*x_j*(p_j/d_j) for the <= n neighbours of each
-// element; a block takes whole rows (as many as fit 256 threads, or one
-// row with the threads looping) and works in two passes through shared
-// memory: pass 1 computes d, p = d^-beta and q once per element into the
-// tile, pass 2 sums each element's window of q from the tile.  Each
-// element then pays one d^-beta (two square roots and a divide) and one
-// p/d instead of n of each.  With the cached d, pass 1 reads d where the
-// recompute form takes the window sum of x^2; nothing else differs.
-// Index arithmetic is 32-bit (the wrappers refuse 2^31 elements or more)
-// with the channel found through FastDiv (fastdiv.cuh), and the tile
-// limits C to 6144 channels (48 KB of shared memory).
+// Design of the recompute pair, the fused LRN->max-pool pair's
+// (lrn_pool.cu) without the pooling.  The launch (vector width, threads_x,
+// pixels, shared bytes) is ops/normalization.py lrn_plan's; the width and
+// the form are checked and picked here.
+//
+// - Tile form (lrn_y_kernel<V, kN>, gd_lrn_x_kernel<V, kN>): a block of
+//   threads_x x pixels threads takes `pixels` consecutive pixels, one a row
+//   of threads (blockIdx.x * pixels + threadIdx.y), and a thread takes V =
+//   4 consecutive channels as one 16-byte vector (threadIdx.x * V, then
+//   every threads_x * V channels), so no index is divided.  x is read once
+//   into a shared tile with `halo` zeros on each side of every pixel
+//   (lrn_vec.cuh), so each window sum (lrn_vec.cuh window_sums, aligned
+//   16-byte loads of the tile under kN = 5) needs no bounds test and each
+//   x^2 comes from the tile, not from n global loads.  Forward: d, p =
+//   d^-beta and y = x*p, one 16-byte store.  Backward: q = err*x*(p/d) and
+//   err*p of each element once, q into a zero-haloed q row and err*p into
+//   a row of its own; after one barrier the window of q gives dx, one
+//   16-byte store.  kN = 5 is the window fixed at compile time (every
+//   shipped config), kN = 0 any n.
+// - Warp form (lrn_y_warp_kernel, gd_lrn_x_warp_kernel), where a warp holds
+//   whole pixels (n = 5, a pixel's C / 4 threads dividing 32: CIFAR's 8
+//   threads a pixel): x and err stay in registers, and the one vector on
+//   each side that a window needs comes from the neighbouring threads by
+//   __shfl_up_sync/__shfl_down_sync (zeros past the pixel's edges), q's
+//   likewise; no tile and no barrier.
+// - V = 1, the scalar form, where C % 4 != 0 or a base is not 16-byte
+//   aligned (decided here), and for a small tensor (the plan's choice):
+//   there a thread's latency, not the bytes, sets the time, and one
+//   channel a thread runs a quarter of the vector form's chain of rounded
+//   operations in a row.  A small tensor's forward runs one thread an
+//   element of the flat index that reads its window straight from global
+//   memory (lrn_y_direct_kernel, the channel by FastDiv: no tile, no
+//   barrier).
+//
+// The cached forms keep one thread per element (lrn_kernel, its y bit for
+// bit lrn_y_kernel's) and a block of whole rows in two passes through
+// shared memory (gd_lrn_kernel: pass 1 q and p once per element from the
+// cached d, pass 2 the window of q), the channel found through FastDiv
+// (fastdiv.cuh); gd_lrn_kernel's tile limits C to 6144 channels (48 KB).
+// Index arithmetic is 32-bit (the wrappers refuse 2^31 elements or more).
 //
 // The math (window sums, d^-beta, rounding) is csrc/lrn_math.cuh, shared
 // with the fused LRN->max-pool kernels of lrn_pool.cu.
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 #include "lrn_math.cuh"
+#include "lrn_vec.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kMaxThreads = 1024;
 
-__global__ void lrn_y_kernel(const float* __restrict__ x,
-                             float* __restrict__ y, int total, LrnParams p) {
+// Zero the halo floats each side of the tile row `row` (its channel 0).
+__device__ __forceinline__ void zero_row_halos(float* row, int C, int halo) {
+  for (int h = threadIdx.x; h < halo; h += blockDim.x) {
+    row[h - halo] = 0.0f;
+    row[C + h] = 0.0f;
+  }
+}
+
+// The pixel's C channels at src into the tile row `row`, V a thread.
+template <int V>
+__device__ __forceinline__ void fill_row(float* row, const float* src,
+                                         int C) {
+  for (int c = threadIdx.x * V; c < C; c += blockDim.x * V) {
+    float v[V];
+    load_vec<V>(src + c, v);
+    store_vec<V>(row + c, v);
+  }
+}
+
+template <int V, int kN>
+__global__ void __launch_bounds__(kMaxThreads)
+    lrn_y_kernel(const float* __restrict__ x, float* __restrict__ y,
+                 int rows, int halo, LrnParams p) {
+  extern __shared__ float4 smem4[];
+  const int C = p.C.d;
+  float* xs = reinterpret_cast<float*>(smem4) + threadIdx.y * (C + 2 * halo)
+              + halo;
+  const int pix = blockIdx.x * blockDim.y + threadIdx.y;
+  if (pix < rows) {
+    zero_row_halos(xs, C, halo);
+    fill_row<V>(xs, x + pix * C, C);
+  }
+  __syncthreads();
+  if (pix >= rows) return;
+  float* yr = y + pix * C;
+  for (int c = threadIdx.x * V; c < C; c += blockDim.x * V) {
+    float s[V], xa[V], ya[V];
+    window_sums<V, kN, true>(xs + c, p, s);
+    load_vec<V>(xs + c, xa);
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      ya[i] = __fmul_rn(xa[i], lrn_dpow_nbeta(lrn_d(s[i], p), p));
+    }
+    store_vec<V>(yr + c, ya);
+  }
+}
+
+// The forward of a small tensor: a thread takes one element of the flat
+// index (its channel by FastDiv) and reads its window from global memory
+// (lrn_math.cuh lrn_y_at, the cache holding the neighbours), with no tile
+// and no barrier in its way.  At that size a thread's latency sets the
+// time, and the flat index measured faster than a row of threads a pixel.
+__global__ void __launch_bounds__(kMaxThreads)
+    lrn_y_direct_kernel(const float* __restrict__ x, float* __restrict__ y,
+                        int total, LrnParams p) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= total) return;
   const int c = e - p.C.div(e) * p.C.d;
-  const float* xr = x + (e - c);
-  y[e] = lrn_y_at(xr, c, p);
+  y[e] = lrn_y_at(x + (e - c), c, p);
 }
 
-// y and d = k + alpha * (window sum of x^2), in the order lrn_y_at takes
+// Shared memory: the x rows and the q rows of the block's pixels (each
+// C + 2 * halo floats, zero-haloed), then their err * p rows (C floats).
+template <int V, int kN>
+__global__ void __launch_bounds__(kMaxThreads)
+    gd_lrn_x_kernel(const float* __restrict__ err,
+                    const float* __restrict__ x, float* __restrict__ dx,
+                    int rows, int halo, LrnParams p) {
+  extern __shared__ float4 smem4[];
+  const int C = p.C.d, P = C + 2 * halo;
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* xs = smem + threadIdx.y * P + halo;
+  float* qs = smem + (blockDim.y + threadIdx.y) * P + halo;
+  float* eps = smem + 2 * blockDim.y * P + threadIdx.y * C;
+  const int pix = blockIdx.x * blockDim.y + threadIdx.y;
+  const bool live = pix < rows;
+  if (live) {
+    zero_row_halos(xs, C, halo);
+    zero_row_halos(qs, C, halo);
+    fill_row<V>(xs, x + pix * C, C);
+  }
+  __syncthreads();   // the x row is in
+  if (live) {
+    const float* er = err + pix * C;
+    for (int c = threadIdx.x * V; c < C; c += blockDim.x * V) {
+      float s[V], xa[V], e[V], qa[V], ep[V];
+      window_sums<V, kN, true>(xs + c, p, s);
+      load_vec<V>(xs + c, xa);
+      load_vec<V>(er + c, e);
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        const float d = lrn_d(s[i], p);
+        const float pc = lrn_dpow_nbeta(d, p);
+        qa[i] = lrn_q(e[i], xa[i], d, pc);
+        ep[i] = __fmul_rn(e[i], pc);
+      }
+      store_vec<V>(qs + c, qa);
+      store_vec<V>(eps + c, ep);
+    }
+  }
+  __syncthreads();   // the q row is in
+  if (!live) return;
+  float* dxr = dx + pix * C;
+  for (int c = threadIdx.x * V; c < C; c += blockDim.x * V) {
+    float ws[V], xa[V], ep[V], out[V];
+    window_sums<V, kN, false>(qs + c, p, ws);
+    load_vec<V>(xs + c, xa);
+    load_vec<V>(eps + c, ep);
+#pragma unroll
+    for (int i = 0; i < V; ++i) out[i] = lrn_dx(ep[i], xa[i], ws[i], p);
+    store_vec<V>(dxr + c, out);
+  }
+}
+
+// The neighbours' vectors of v where a pixel's C / 4 threads share a warp:
+// win[0] the vector below v (threadIdx.x - 1), win[2] the one above, zeros
+// past the pixel's edges; win[1] = v.  Every thread of the warp calls it.
+__device__ __forceinline__ void warp_window(float4 v, float4 (&win)[3]) {
+  const unsigned m = 0xffffffffu;
+  const float4 z = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const float4 lo = make_float4(
+      __shfl_up_sync(m, v.x, 1), __shfl_up_sync(m, v.y, 1),
+      __shfl_up_sync(m, v.z, 1), __shfl_up_sync(m, v.w, 1));
+  const float4 hi = make_float4(
+      __shfl_down_sync(m, v.x, 1), __shfl_down_sync(m, v.y, 1),
+      __shfl_down_sync(m, v.z, 1), __shfl_down_sync(m, v.w, 1));
+  win[0] = threadIdx.x == 0 ? z : lo;
+  win[1] = v;
+  win[2] = threadIdx.x + 1 == blockDim.x ? z : hi;
+}
+
+// The warp form of lrn_y_kernel<4, 5>: a pixel's C / 4 threads share a
+// warp, so a thread takes its window's neighbours (within 4 channels) from
+// the next threads' registers; no tile, no barrier.
+__global__ void __launch_bounds__(kMaxThreads)
+    lrn_y_warp_kernel(const float* __restrict__ x, float* __restrict__ y,
+                      int rows, int, LrnParams p) {
+  const int C = p.C.d, c = threadIdx.x * 4;
+  const int pix = blockIdx.x * blockDim.y + threadIdx.y;
+  const bool live = pix < rows;
+  float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (live) v = *reinterpret_cast<const float4*>(x + pix * C + c);
+  float4 win[3];
+  warp_window(v, win);
+  const float xa[4] = {v.x, v.y, v.z, v.w};
+  float s[4], ya[4];
+  window_sums<4, 5, true>(reinterpret_cast<const float*>(&win[1]), p, s);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    ya[i] = __fmul_rn(xa[i], lrn_dpow_nbeta(lrn_d(s[i], p), p));
+  }
+  if (live) store_vec<4>(y + pix * C + c, ya);
+}
+
+// The warp form of gd_lrn_x_kernel<4, 5>: x's and q's neighbours from the
+// next threads' registers.
+__global__ void __launch_bounds__(kMaxThreads)
+    gd_lrn_x_warp_kernel(const float* __restrict__ err,
+                         const float* __restrict__ x, float* __restrict__ dx,
+                         int rows, int, LrnParams p) {
+  const int C = p.C.d, c = threadIdx.x * 4;
+  const int pix = blockIdx.x * blockDim.y + threadIdx.y;
+  const bool live = pix < rows;
+  float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f), ev = v;
+  if (live) {
+    v = *reinterpret_cast<const float4*>(x + pix * C + c);
+    ev = *reinterpret_cast<const float4*>(err + pix * C + c);
+  }
+  float4 win[3];
+  warp_window(v, win);
+  const float xa[4] = {v.x, v.y, v.z, v.w}, e[4] = {ev.x, ev.y, ev.z, ev.w};
+  float s[4], qa[4], ep[4], ws[4], out[4];
+  window_sums<4, 5, true>(reinterpret_cast<const float*>(&win[1]), p, s);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float d = lrn_d(s[i], p);
+    const float pc = lrn_dpow_nbeta(d, p);
+    qa[i] = lrn_q(e[i], xa[i], d, pc);
+    ep[i] = __fmul_rn(e[i], pc);
+  }
+  warp_window(make_float4(qa[0], qa[1], qa[2], qa[3]), win);
+  window_sums<4, 5, false>(reinterpret_cast<const float*>(&win[1]), p, ws);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) out[i] = lrn_dx(ep[i], xa[i], ws[i], p);
+  if (live) store_vec<4>(dx + pix * C + c, out);
+}
+
+// y and d = k + alpha * (window sum of x^2), in the order lrn_y_kernel
+// takes
 __global__ void lrn_kernel(const float* __restrict__ x, float* __restrict__ y,
                            float* __restrict__ d, int total, LrnParams p) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
@@ -75,9 +289,7 @@ __global__ void lrn_kernel(const float* __restrict__ x, float* __restrict__ y,
 }
 
 // One block per `rows_per_block` rows of C channels; shared memory holds
-// q and p = d^-beta for each element of those rows.  kCachedD: d is read
-// from `dcache` (the forward's); otherwise it is recomputed from x.
-template <bool kCachedD>
+// q and p = d^-beta for each element of those rows, from the forward's d.
 __global__ void gd_lrn_kernel(const float* __restrict__ err,
                               const float* __restrict__ x,
                               const float* __restrict__ dcache,
@@ -92,9 +304,7 @@ __global__ void gd_lrn_kernel(const float* __restrict__ err,
   const float* xb = x + row0 * C;
   const float* eb = err + row0 * C;
   for (int t = threadIdx.x; t < n_el; t += blockDim.x) {
-    const int c = t - p.C.div(t) * C;
-    const float d = kCachedD ? dcache[row0 * C + t]
-                             : lrn_denom(xb + (t - c), c, p);
+    const float d = dcache[row0 * C + t];
     const float pc = lrn_dpow_nbeta(d, p);
     q_s[t] = lrn_q(eb[t], xb[t], d, pc);
     p_s[t] = pc;
@@ -109,43 +319,92 @@ __global__ void gd_lrn_kernel(const float* __restrict__ err,
 
 int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
+bool aligned16(const void* ptr) {
+  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
+}
+
+// The vector width of the recompute pair: 4 where C % 4 == 0 and every
+// base is 16-byte aligned, else 1; and the halo of its tile rows, the
+// window's wider side (n - 1 - (n - 1) / 2) rounded up to whole vectors.
+int vec_width(int C, bool aligned) { return C % 4 == 0 && aligned ? 4 : 1; }
+
+int halo_for(int n, int vec) {
+  return (n - 1 - (n - 1) / 2 + vec - 1) / vec * vec;
+}
+
+// The warp form runs where a warp holds whole pixels: the vector form, n =
+// 5 (the window within one vector each side), a pixel's C / 4 threads
+// dividing 32 and the block whole warps.
+bool warp_rows(int C, int vec, int n, int threads_x, int pixels) {
+  return vec == 4 && n == 5 && C == 4 * threads_x && 32 % threads_x == 0 &&
+         threads_x * pixels % 32 == 0;
+}
+
+using ForwardKernel = void (*)(const float*, float*, int, int, LrnParams);
+using BackwardKernel = void (*)(const float*, const float*, float*, int, int,
+                                LrnParams);
+
+// The kernel instance: the warp form, or the tile's with V = 4 or 1 and n
+// = 5 fixed at compile time (every shipped config's; under V = 1 the
+// window loop unrolled) or read at run time.
+ForwardKernel forward_kernel(int vec, int n, bool warp) {
+  if (warp) return lrn_y_warp_kernel;
+  if (vec == 4) return n == 5 ? lrn_y_kernel<4, 5> : lrn_y_kernel<4, 0>;
+  return n == 5 ? lrn_y_kernel<1, 5> : lrn_y_kernel<1, 0>;
+}
+
+BackwardKernel backward_kernel(int vec, int n, bool warp) {
+  if (warp) return gd_lrn_x_warp_kernel;
+  if (vec == 4) {
+    return n == 5 ? gd_lrn_x_kernel<4, 5> : gd_lrn_x_kernel<4, 0>;
+  }
+  return n == 5 ? gd_lrn_x_kernel<1, 5> : gd_lrn_x_kernel<1, 0>;
+}
+
 }  // namespace
 
 // All entry points launch on `stream`, do not synchronise, and return the
-// launch status (cudaGetLastError) as an int, 0 on success.
+// launch status (cudaGetLastError) as an int, 0 on success.  The recompute
+// pair takes the plan of ops/normalization.py lrn_plan (n clipped to
+// 2C + 1, the vector width it asks for, threads_x, pixels, smem: the
+// tile's shared bytes at that width, which cover the scalar form's); the
+// vector form runs only where C and the pointers allow it, and the form
+// (warp or tile) follows from the rest.
 
 extern "C" int znicz_lrn_y_f32(const float* x, float* y, int rows, int C,
                                int n, double alpha, double beta, double k,
-                               void* stream) {
-  const int total = rows * C;
-  if (total <= 0) return 0;
-  lrn_y_kernel<<<blocks_for(total), kThreads, 0,
-                 static_cast<cudaStream_t>(stream)>>>(
-      x, y, total, make_lrn_params(C, n, alpha, beta, k));
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <bool kCachedD>
-int launch_gd_lrn(const float* err, const float* x, const float* d,
-                  float* dx, int rows, int C, int n, double alpha,
-                  double beta, double k, void* stream) {
+                               int plan_vec, int direct, int threads_x,
+                               int pixels, int smem, void* stream) {
   if (rows <= 0 || C <= 0) return 0;
-  const int rows_per_block = C >= kThreads ? 1 : kThreads / C;
-  const int blocks = (rows + rows_per_block - 1) / rows_per_block;
-  const size_t smem = 2 * sizeof(float) * rows_per_block * C;
-  gd_lrn_kernel<kCachedD><<<blocks, kThreads, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
-      err, x, d, dx, rows, rows_per_block,
-      make_lrn_params(C, n, alpha, beta, k));
-  return static_cast<int>(cudaGetLastError());
+  const LrnParams p = make_lrn_params(C, n, alpha, beta, k);
+  const int vec =
+      plan_vec == 4 ? vec_width(C, aligned16(x) && aligned16(y)) : 1;
+  if (direct && vec == 1) {   // a small tensor: one thread an element
+    const int threads = threads_x * pixels, total = rows * C;
+    return launch(lrn_y_direct_kernel, (total + threads - 1) / threads,
+                  threads, 0, stream, x, y, total, p);
+  }
+  const bool warp = warp_rows(C, vec, n, threads_x, pixels);
+  return launch(forward_kernel(vec, n, warp), (rows + pixels - 1) / pixels,
+                dim3(threads_x, pixels), warp ? 0 : smem, stream, x, y, rows,
+                halo_for(n, vec), p);
 }
 
 extern "C" int znicz_gd_lrn_x_f32(const float* err, const float* x,
                                   float* dx, int rows, int C, int n,
                                   double alpha, double beta, double k,
-                                  void* stream) {
-  return launch_gd_lrn<false>(err, x, nullptr, dx, rows, C, n, alpha, beta,
-                              k, stream);
+                                  int plan_vec, int threads_x, int pixels,
+                                  int smem, void* stream) {
+  if (rows <= 0 || C <= 0) return 0;
+  const int vec =
+      plan_vec == 4
+          ? vec_width(C, aligned16(err) && aligned16(x) && aligned16(dx))
+          : 1;
+  const bool warp = warp_rows(C, vec, n, threads_x, pixels);
+  return launch(backward_kernel(vec, n, warp), (rows + pixels - 1) / pixels,
+                dim3(threads_x, pixels), warp ? 0 : smem, stream, err, x, dx,
+                rows, halo_for(n, vec),
+                make_lrn_params(C, n, alpha, beta, k));
 }
 
 extern "C" int znicz_lrn_f32(const float* x, float* y, float* d, int rows,
@@ -163,6 +422,13 @@ extern "C" int znicz_gd_lrn_f32(const float* err, const float* x,
                                 const float* d, float* dx, int rows, int C,
                                 int n, double alpha, double beta, double k,
                                 void* stream) {
-  return launch_gd_lrn<true>(err, x, d, dx, rows, C, n, alpha, beta, k,
-                             stream);
+  if (rows <= 0 || C <= 0) return 0;
+  const int rows_per_block = C >= kThreads ? 1 : kThreads / C;
+  const int blocks = (rows + rows_per_block - 1) / rows_per_block;
+  const size_t smem = 2 * sizeof(float) * rows_per_block * C;
+  gd_lrn_kernel<<<blocks, kThreads, smem,
+                  static_cast<cudaStream_t>(stream)>>>(
+      err, x, d, dx, rows, rows_per_block,
+      make_lrn_params(C, n, alpha, beta, k));
+  return static_cast<int>(cudaGetLastError());
 }

@@ -60,18 +60,19 @@
 //   activation backward (activation.cu) shares.
 //
 // Rounding: lrn_math.cuh's, shared with lrn.cu (every window sum in
-// ascending slot order from slot 0 with __fadd_rn, never a sliding sum);
+// ascending slot order from slot 0 with __fadd_rn, never a sliding sum;
+// the vector loads, window sums and halos are lrn_vec.cuh's, which lrn.cu's
+// lrn_y and gd_lrn_x kernels share);
 // the folded derivatives are act_math.cuh's, expf (smooth ReLU) within 2
 // ulp of the host's exp.  Index arithmetic is 32-bit (the wrappers refuse
 // 2^31 elements or more) through FastDiv (fastdiv.cuh).
 
 #include <cuda_runtime.h>
 
-#include <type_traits>
-
 #include "act_math.cuh"
 #include "fastdiv.cuh"
 #include "lrn_math.cuh"
+#include "lrn_vec.cuh"
 
 namespace {
 
@@ -125,97 +126,6 @@ __device__ __forceinline__ void copy_pixels(T* dst, const T* src, int pixels,
   for (int t = threadIdx.x; t < n; t += blockDim.x) {
     const int j = vecs.div(t);
     cp_async<V>(dst + j * stride + (t - j * vecs.d) * V, src + t * V);
-  }
-}
-
-template <typename T>
-using Vec4 = std::conditional_t<std::is_same<T, int>::value, int4, float4>;
-
-template <int V, typename T>
-__device__ __forceinline__ void load_vec(const T* p, T (&v)[V]) {
-  if constexpr (V == 4) {
-    const Vec4<T> q = *reinterpret_cast<const Vec4<T>*>(p);
-    v[0] = q.x;
-    v[1] = q.y;
-    v[2] = q.z;
-    v[3] = q.w;
-  } else {
-    v[0] = *p;
-  }
-}
-
-template <int V, typename T>
-__device__ __forceinline__ void store_vec(T* p, const T (&v)[V]) {
-  if constexpr (V == 4) {
-    *reinterpret_cast<Vec4<T>*>(p) = Vec4<T>{v[0], v[1], v[2], v[3]};
-  } else {
-    *p = v[0];
-  }
-}
-
-// s[i] = the LRN window sum around channel i of the tile row r (r[j] is
-// the vector's channel j, the tile's zero halo the clipped slots): slots
-// r[i + m - lo], m = 0 .. n-1, added in ascending m from slot 0 with
-// __fadd_rn; kSquare sums squares (the denominator's), else values (q).
-// kN > 0 fixes n at compile time (V = 4: the window as aligned 16-byte
-// loads); kN = 0 reads it from p.
-template <int V, int kN, bool kSquare>
-__device__ __forceinline__ void window_sums(const float* r,
-                                            const LrnParams& p,
-                                            float (&s)[V]) {
-  if constexpr (kN > 0 && V == 4) {
-    constexpr int lo = (kN - 1) / 2;
-    constexpr int below = (lo + 3) / 4;   // float4s left of the vector
-    constexpr int nq = below + (V + kN - 1 - lo + 3) / 4;
-    constexpr int base = 4 * below - lo;  // w[base + j] = r[j - lo]
-    float w[4 * nq];
-#pragma unroll
-    for (int q = 0; q < nq; ++q) {
-      const float4 v = reinterpret_cast<const float4*>(r)[q - below];
-      w[4 * q] = v.x;
-      w[4 * q + 1] = v.y;
-      w[4 * q + 2] = v.z;
-      w[4 * q + 3] = v.w;
-    }
-#pragma unroll
-    for (int j = base; j < base + V + kN - 1; ++j) {
-      if (kSquare) w[j] = __fmul_rn(w[j], w[j]);
-    }
-#pragma unroll
-    for (int i = 0; i < V; ++i) {
-      float acc = w[base + i];
-#pragma unroll
-      for (int m = 1; m < kN; ++m) acc = __fadd_rn(acc, w[base + i + m]);
-      s[i] = acc;
-    }
-  } else {
-    const int n = kN > 0 ? kN : p.n;
-    const float* b = r - (n - 1) / 2;
-    float a[V];   // slot m of channel i, shifted down a slot each step
-#pragma unroll
-    for (int i = 0; i < V; ++i) {
-      a[i] = kSquare ? __fmul_rn(b[i], b[i]) : b[i];
-      s[i] = a[i];
-    }
-    for (int m = 1; m < n; ++m) {
-#pragma unroll
-      for (int i = 0; i + 1 < V; ++i) a[i] = a[i + 1];
-      const float v = b[V - 1 + m];
-      a[V - 1] = kSquare ? __fmul_rn(v, v) : v;
-#pragma unroll
-      for (int i = 0; i < V; ++i) s[i] = __fadd_rn(s[i], a[i]);
-    }
-  }
-}
-
-// Set the halo floats each side of every pixel of `tiles` consecutive
-// tiles of `pixels` pixels of P = C + 2 * halo floats to 0.
-__device__ __forceinline__ void zero_halos(float* tile, int tiles,
-                                           int pixels, int C, int halo) {
-  const int n = tiles * pixels * 2 * halo;
-  for (int t = threadIdx.x; t < n; t += blockDim.x) {
-    const int j = t / (2 * halo), h = t - j * 2 * halo;
-    tile[j * (C + 2 * halo) + (h < halo ? h : C + h)] = 0.0f;
   }
 }
 
@@ -504,21 +414,6 @@ BackwardKernel backward_kernel(int vec, int n) {
                   : gd_lrn_maxpool_kernel<4, 0>;
   }
   return gd_lrn_maxpool_kernel<1, 0>;
-}
-
-// kernel<<<blocks, threads, smem, stream>>>(args...), the kernel's dynamic
-// shared-memory limit raised first where smem passes the default 48 KB.
-template <typename Kernel, typename... Args>
-int launch(Kernel kernel, int blocks, int threads, int smem, void* stream,
-           Args... args) {
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      args...);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace

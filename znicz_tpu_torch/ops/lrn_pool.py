@@ -81,13 +81,13 @@ _ARGTYPES = {
 }
 
 
-#: The most shared memory a block of an H100 may have (227 KB).
-MAX_TILE_BYTES = 232448
-#: A block's threads at most; a thread takes ceil(vectors / this) vectors
-#: of a tile row.
-MAX_THREADS = 1024
-#: The H100's streaming multiprocessors, the plan's default.
-H100_SMS = 132
+#: The card's limits that both LRN plans share: the most shared memory a
+#: block may have (227 KB), a block's threads at most (a thread takes
+#: ceil(vectors / MAX_THREADS) vectors of a tile row) and the H100's
+#: multiprocessors, the plan's default.
+MAX_TILE_BYTES = lrn_ops.MAX_TILE_BYTES
+MAX_THREADS = lrn_ops.MAX_THREADS
+H100_SMS = lrn_ops.H100_SMS
 #: x rows a block has in flight past the one it computes (csrc/lrn_pool.cu
 #: kAhead): the tile holds this many more.
 ROWS_AHEAD = 2

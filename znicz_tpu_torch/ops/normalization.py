@@ -19,11 +19,17 @@ recomputed in the backward, never cached); ``lrn`` → (y, d) and
 d for ``LRNormalizerBackward``).  On a CUDA tensor all four launch the
 hand-written kernels of ``csrc/lrn.cu``; on a CPU tensor they run the
 plain versions, transcriptions of the reference's XLA tier.  ``np_lrn``
-and ``np_gd_lrn`` are the numpy goldens the numpy device runs."""
+and ``np_gd_lrn`` are the numpy goldens the numpy device runs.
+
+The fused path's kernels take a block of pixels through a zero-haloed
+shared tile, 16-byte vectors of 4 channels a thread where C % 4 == 0 and
+every base is aligned (the C entry points decide the width); their launch
+is ``lrn_plan``'s, in Python so that the CPU tests hold it."""
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -137,12 +143,14 @@ def np_gd_lrn(err, x, d, n=5, alpha=1e-4, beta=0.75, k=2.0):
 
 # -- kernels ----------------------------------------------------------------
 _ARGTYPES = {
-    # x, y, rows, C, n, alpha, beta, k, stream
+    # x, y, rows, C, n, alpha, beta, k, vec, direct, threads_x, pixels,
+    # smem, stream
     "znicz_lrn_y_f32": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
-    + [ctypes.c_double] * 3 + [ctypes.c_void_p],
-    # err, x, dx, rows, C, n, alpha, beta, k, stream
+    + [ctypes.c_double] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    # err, x, dx, rows, C, n, alpha, beta, k, vec, threads_x, pixels, smem,
+    # stream
     "znicz_gd_lrn_x_f32": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-    + [ctypes.c_double] * 3 + [ctypes.c_void_p],
+    + [ctypes.c_double] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
     # x, y, d, rows, C, n, alpha, beta, k, stream
     "znicz_lrn_f32": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
     + [ctypes.c_double] * 3 + [ctypes.c_void_p],
@@ -150,8 +158,125 @@ _ARGTYPES = {
     "znicz_gd_lrn_f32": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
     + [ctypes.c_double] * 3 + [ctypes.c_void_p],
 }
-#: The backward kernel keeps a tile of whole rows in 48 KB of shared memory.
+#: The cached backward keeps a tile of whole rows in 48 KB of shared
+#: memory; the recompute pair's one-pixel tile at this width and the widest
+#: window (n clipped to 2C + 1) takes 172 KB of the 227 KB.
 MAX_CHANNELS = 6144
+#: The most shared memory a block of an H100 may have (227 KB).
+MAX_TILE_BYTES = 232448
+#: A block's threads at most.
+MAX_THREADS = 1024
+#: The threads a block of the recompute pair aims at (pixels times the
+#: threads of a pixel; the fewest that did not lose at CIFAR's shape on an
+#: H100, ``python -m znicz_tpu_torch.lrn_probe``).
+PLAN_THREADS = 128
+#: Channels a thread takes at least in the scalar form (V = 1) of a tensor
+#: that is not small: two beat one, four and eight at C = 30 and C = 32 on
+#: an H100 (``lrn_probe``).
+SCALAR_PER = 2
+#: The H100's streaming multiprocessors, the plan's default.
+H100_SMS = 132
+#: Elements a multiprocessor of a small tensor (the plan's scalar form at
+#: one channel a thread, the forward reading its window from global
+#: memory): half the 2048 threads an SM holds, where the vector form drew
+#: level at AlexNet's LRN width on an H100 (``lrn_probe``, 2 to 32 images).
+SMALL_PER_SM = 1024
+
+
+class LrnPlan(NamedTuple):
+    """The launch of ``lrn_y`` (or, ``backward``, of ``gd_lrn_x``): a block
+    of ``threads_x`` × ``pixels`` threads takes ``pixels`` consecutive
+    pixels, a row of ``threads_x`` threads each, with ``smem`` bytes of
+    dynamic shared memory; ``blocks`` blocks in all.  A thread takes
+    ``vec`` consecutive channels as one vector (4: 16-byte loads and
+    stores; 1 where C % 4 != 0 or a base is not 16-byte aligned), then
+    every ``threads_x · vec`` channels.  ``n`` is the window min(n, 2C + 1):
+    past that every slot beyond a channel's edge is another 0.0f, which
+    adds nothing to a sum that already added one; ``kn`` the window the
+    kernel instance fixes at compile time (5, in either form, or 0: read
+    at run time).
+    ``halo`` zero floats each side of a pixel's C channels in the tile
+    rows stand for the window's clipped slots.  ``warp``: a warp holds
+    whole pixels (n = 5, the vector form, a pixel's C / 4 threads dividing
+    32, the block whole warps), so the kernels take the window's
+    neighbours from the next threads by shuffles and use no tile; ``smem``
+    is the tile's all the same.  ``direct``: the forward of a small tensor
+    in the scalar form, one thread an element (blocks of threads_x ·
+    pixels threads over the flat index) reading its window straight from
+    global memory, no tile either."""
+    vec: int
+    n: int
+    kn: int
+    halo: int
+    threads_x: int
+    pixels: int
+    blocks: int
+    smem: int
+    warp: bool
+    direct: bool
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def lrn_tile_bytes(c: int, halo: int, pixels: int, backward: bool) -> int:
+    """Shared bytes of a block of ``pixels`` pixels (P = C + 2·halo floats
+    a tile row): the x rows forward; backward also the q rows and the
+    err·p rows (C floats each)."""
+    p = c + 2 * halo
+    return 4 * pixels * ((2 * p + c) if backward else p)
+
+
+def lrn_plan(shape, n: int, backward: bool = False, aligned: bool = True,
+             n_sm: int = H100_SMS) -> LrnPlan:
+    """The launch of the recompute pair's kernels over a tensor of
+    ``shape`` (channels last), bases 16-byte aligned or not, on a card of
+    ``n_sm`` multiprocessors.  The vector form where C % 4 == 0, the bases
+    are aligned and the tensor is not small (more than ``n_sm`` ·
+    ``SMALL_PER_SM`` elements); a small one takes the scalar form at one
+    channel a thread, whose threads each run one chain of rounded
+    operations (the time of a launch that small is one thread's latency,
+    not bytes), the forward reading its window straight from global memory
+    (``direct``).  A pixel's vectors go to the fewest threads that take one
+    vector each (``SCALAR_PER`` channels in the scalar form of a tensor
+    that is not small), and at most ``MAX_THREADS``; the pixels a block
+    fill ``PLAN_THREADS`` threads,
+    fewer where the tile would pass ``MAX_TILE_BYTES`` (one pixel fits at
+    every C up to ``MAX_CHANNELS``).  The C entry points take the width
+    asked for only where C and the pointers allow it, and the form from C,
+    n and the block; where they take V = 1 under a plan made for V = 4,
+    the narrower halo needs fewer shared bytes than the plan gives."""
+    c = int(shape[-1])
+    rows = int(np.prod([int(v) for v in shape[:-1]], dtype=np.int64))
+    small = rows * c <= n_sm * SMALL_PER_SM
+    vec = 4 if c % 4 == 0 and aligned and not small else 1
+    n = min(int(n), 2 * c + 1)
+    halo = _ceil(n - 1 - (n - 1) // 2, vec) * vec
+    kn = 5 if n == 5 else 0
+    vectors = c // vec
+    per = 1 if vec == 4 or small else SCALAR_PER
+    threads_x = _ceil(vectors, max(per, _ceil(vectors, MAX_THREADS)))
+    pixels = max(1, min(PLAN_THREADS // threads_x, MAX_THREADS // threads_x,
+                        rows))
+    while pixels > 1 and lrn_tile_bytes(c, halo, pixels,
+                                        backward) > MAX_TILE_BYTES:
+        pixels -= 1
+    warp = (vec == 4 and kn == 5 and c == 4 * threads_x
+            and 32 % threads_x == 0
+            and threads_x * pixels % 32 == 0)
+    return LrnPlan(vec, n, kn, halo, threads_x, pixels, _ceil(rows, pixels),
+                   lrn_tile_bytes(c, halo, pixels, backward), warp,
+                   small and not backward)
+
+
+def _plan(shape, n, backward: bool, *tensors) -> LrnPlan:
+    """The plan for a CUDA launch over these tensors (all of them 16-byte
+    aligned or the scalar form) on their card."""
+    return lrn_plan(
+        shape, n, backward, all(t.data_ptr() % 16 == 0 for t in tensors),
+        torch.cuda.get_device_properties(
+            tensors[0].device).multi_processor_count)
 
 
 def _launch(name: str, device, *args) -> None:
@@ -200,8 +325,11 @@ def lrn_y(x, n=5, alpha=1e-4, beta=0.75, k=2.0):
         return plain_lrn_y(x, n, alpha, beta, k)
     c = x.shape[-1]
     y = torch.empty_like(x)
+    plan = _plan(x.shape, n, False, x, y)
     _launch("znicz_lrn_y_f32", x.device, x.data_ptr(), y.data_ptr(),
-            x.numel() // c, c, int(n), float(alpha), float(beta), float(k))
+            x.numel() // c, c, plan.n, float(alpha), float(beta), float(k),
+            plan.vec, int(plan.direct), plan.threads_x, plan.pixels,
+            plan.smem)
     lrn_y_launches += 1
     return y
 
@@ -214,9 +342,11 @@ def gd_lrn_x(err, x, n=5, alpha=1e-4, beta=0.75, k=2.0):
         return plain_gd_lrn_x(err, x, n, alpha, beta, k)
     c = x.shape[-1]
     dx = torch.empty_like(x)
+    plan = _plan(x.shape, n, True, err, x, dx)
     _launch("znicz_gd_lrn_x_f32", x.device, err.data_ptr(), x.data_ptr(),
-            dx.data_ptr(), x.numel() // c, c, int(n), float(alpha),
-            float(beta), float(k))
+            dx.data_ptr(), x.numel() // c, c, plan.n, float(alpha),
+            float(beta), float(k), plan.vec, plan.threads_x, plan.pixels,
+            plan.smem)
     gd_lrn_x_launches += 1
     return dx
 

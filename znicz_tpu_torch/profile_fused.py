@@ -64,11 +64,14 @@ UNIT_MODELS = {"mnist_units": "mnist", "cifar_units": "cifar",
 PORT_KERNELS = ("softmax_ce_kernel", "row_softmax_kernel",
                 "pool_select_kernel", "pool_scatter_kernel",
                 "pool_gather_kernel", "gd_lrn_maxpool_kernel",
-                "lrn_maxpool_kernel", "lrn_y_kernel", "gd_lrn_kernel",
-                "lrn_kernel", "dropout_kernel", "matmul_kernel",
-                "sgd_update_multi_kernel", "dist_argmin_kernel",
-                "act_fwd_kernel", "act_bwd_kernel", "conv_fwd_kernel",
-                "conv_dgrad_kernel", "conv_wgrad_kernel", "split_sum_kernel")
+                "lrn_maxpool_kernel", "lrn_y_kernel", "lrn_y_warp_kernel",
+                "lrn_y_direct_kernel", "gd_lrn_x_kernel",
+                "gd_lrn_x_warp_kernel",
+                "gd_lrn_kernel", "lrn_kernel", "dropout_kernel",
+                "matmul_kernel", "sgd_update_multi_kernel",
+                "dist_argmin_kernel", "act_fwd_kernel", "act_bwd_kernel",
+                "conv_fwd_kernel", "conv_dgrad_kernel", "conv_wgrad_kernel",
+                "split_sum_kernel")
 
 
 def _window(fn, steps: int) -> float:
