@@ -21,7 +21,10 @@ exits nonzero without the final ``ok`` line:
    the fused LRN→max-pool pair the geometries of tests/test_lrn_pool.py,
    each folded activation, the scalar form (C % 4 ≠ 0), a window wider
    than the channels, ragged strips and column tiles; dropout at two
-   ratios and a counter near 2³²), with the stated tolerances; times of
+   ratios and a counter near 2³²; both softmax heads at every form of
+   their plan — narrow, register and streaming rows, C = 1 to 20000, bases
+   one float off alignment, out-of-range labels, ties across warps, rows
+   that hold NaN and ±inf), with the stated tolerances; times of
    kernel, plain version, library call and the byte/flop bound; then the
    fused train step's update (``fused_update``): 20 steps each of MNIST,
    CIFAR on both conv tiers, the autoencoder and AlexNet at full width,
@@ -130,7 +133,8 @@ MNIST's four tensors in one launch, AlexNet's 16 (62,378,344 elements) in
 one, the autoencoder's tied pair as two — and, one tensor a call, at the
 MNIST weights and biases, with decay and l1_vs_l2 = 0.5, at (9216, 4096)
 and on an unaligned entry (the scalar path); the row softmax + argmax at
-(100, 10), (128, 1000) and tied logits, probabilities within rtol 1e-6 and
+(100, 10), (128, 1000), tied logits and ``ROW_SOFTMAX_CASES``' forms and
+edges, probabilities within rtol 1e-6 and
 the argmax exact.  And the decoder slice's three: the LRN forward that
 caches its denominator and the backward that reads it, bit for bit at
 CIFAR's (100,16,16,32), an even window and β ≠ 0.75; the depooling
@@ -497,9 +501,13 @@ def gd_lrn_x_bound_ms(numel: int, n: int):
 
 
 # -- kernel vs plain version -------------------------------------------------
-def _close(torch, case: str, name: str, got, want, rtol, atol) -> float:
+def _close(torch, case: str, name: str, got, want, rtol, atol,
+           finite: bool = True) -> float:
     """Max abs error of ``got`` against ``want`` after checking shape,
-    dtype, finiteness and the tolerance (integers: exactly equal)."""
+    dtype, finiteness and the tolerance (integers: exactly equal).  With
+    ``finite=False`` (inputs that hold NaN or ±inf) NaN and ±inf must sit
+    where the plain version has them, and the error is taken where it is
+    finite."""
     if got.shape != want.shape or got.dtype != want.dtype:
         raise AssertionError(f"{case}: {name} is {tuple(got.shape)} "
                              f"{got.dtype}, plain {tuple(want.shape)} "
@@ -509,11 +517,13 @@ def _close(torch, case: str, name: str, got, want, rtol, atol) -> float:
             raise AssertionError(f"{case}: {name} differs in "
                                  f"{int((got != want).sum())} elements")
         return 0.0
-    if not torch.isfinite(got).all():
+    if finite and not torch.isfinite(got).all():
         raise AssertionError(f"{case}: {name} is not finite")
     torch.testing.assert_close(got, want, atol=atol, rtol=rtol,
+                               equal_nan=not finite,
                                msg=lambda m: f"{case} {name}: {m}")
-    return float((got - want).abs().max())
+    ok = torch.isfinite(want)
+    return float((got[ok] - want[ok]).abs().max()) if ok.any() else 0.0
 
 
 def _launch_once(torch, name: str, fn, launches: int = 1):
@@ -543,33 +553,164 @@ def _row(torch, name, geo, err, kernel_fn, plain_fn, bound,
     return row
 
 
-def phase_kernel_softmax(torch) -> list:
+#: case, N, C, data, floats past 16-byte alignment: the paths' shapes
+#: first (the MNIST step's row is the kernels line's), then each form of
+#: ``ops/softmax.py`` ``softmax_plan`` and its edges: the narrow form at C =
+#: 1 and 31, the register form at 33 and 1001 (no 16-byte vectors) and at
+#: its limit, the streaming form one past it and at 20000, bases one float
+#: off alignment, out-of-range labels, and rows that hold NaN and ±inf
+SOFTMAX_CASES = [
+    ("mnist_step", 100, 10, "normal", 0),
+    ("ragged", 37, 10, "normal", 0),
+    ("bench_kernel_case", 1024, 1000, "normal", 0),
+    ("labels_out_of_range", 64, 10, "out_of_range", 0),
+    ("alexnet_step", 128, 1000, "normal", 0),
+    ("c1", 100, 1, "normal", 0),
+    ("c31", 100, 31, "normal", 0),
+    ("c33", 100, 33, "normal", 0),
+    ("c1001", 128, 1001, "normal", 0),
+    ("c4096", 64, 4096, "normal", 0),
+    ("c4097", 64, 4097, "normal", 0),
+    ("c20000", 64, 20000, "normal", 0),
+    ("alexnet_unaligned", 128, 1000, "normal", 1),
+    ("c20000_unaligned", 16, 20000, "normal", 1),
+    ("labels_out_of_range_c1000", 128, 1000, "out_of_range", 0),
+    ("nonfinite_c10", 100, 10, "nonfinite", 0),
+    ("nonfinite_c1000", 128, 1000, "nonfinite", 0),
+    ("nonfinite_c20000", 16, 20000, "nonfinite", 0),
+]
+#: the row softmax's cases, as ``SOFTMAX_CASES`` (its unit-graph shape
+#: first); ties: small integers, most rows tie at the maximum; ties across
+#: warps: three equal maxima a row at C = 1000 and 20000, row 0's at
+#: columns 600, 130 and 900 (warps 0, 1 and 3 of the register form's 128
+#: threads), so the first index must win across the block reduction
+ROW_SOFTMAX_CASES = [
+    ("mnist_units_step", 100, 10, "normal", 0),
+    ("alexnet_width", 128, 1000, "normal", 0),
+    ("ties", 100, 10, "small_ints", 0),
+    ("c1", 100, 1, "normal", 0),
+    ("c31", 100, 31, "normal", 0),
+    ("c32", 100, 32, "normal", 0),
+    ("c33", 100, 33, "normal", 0),
+    ("c1001", 128, 1001, "normal", 0),
+    ("c4096", 64, 4096, "normal", 0),
+    ("c4097", 64, 4097, "normal", 0),
+    ("c20000", 64, 20000, "normal", 0),
+    ("alexnet_unaligned", 128, 1000, "normal", 1),
+    ("c32_unaligned", 100, 32, "normal", 1),
+    ("ties_across_warps", 128, 1000, "ties_across_warps", 0),
+    ("ties_across_warps_c20000", 16, 20000, "ties_across_warps", 0),
+    ("nonfinite_c10", 100, 10, "nonfinite", 0),
+    ("nonfinite_c1000", 128, 1000, "nonfinite", 0),
+    ("nonfinite_c20000", 16, 20000, "nonfinite", 0),
+]
+
+
+def _softmax_input(torch, n: int, c: int, data: str, offset: int, gen):
+    """(N, C) float32 rows on the card, a contiguous view ``offset`` floats
+    into its storage.  ``nonfinite``: row 0 holds a NaN, row 1 is all
+    −inf, row 2 holds two NaNs, rows 3, 4 and 6 a −inf (first, last,
+    first column) and row 5 a +inf."""
+    if data == "small_ints":
+        x = torch.randint(-2, 3, (n, c), generator=gen).float()
+    elif data == "ties_across_warps":
+        x = torch.randint(-5, 5, (n, c), generator=gen).float()
+        for r in range(n):
+            cols = torch.randperm(c, generator=gen)[:3]
+            if r == 0:
+                cols = torch.tensor([600, 130, 900])
+            x[r, cols] = 10.0
+    else:
+        x = torch.randn((n, c), generator=gen) * 3
+    if data == "nonfinite":
+        nan, inf = float("nan"), float("inf")
+        x[0, c // 2] = nan
+        x[1] = -inf
+        x[2, [1, c - 1]] = nan
+        x[3, 0] = -inf
+        x[4, c - 1] = -inf
+        x[5, c // 3] = inf
+        x[6, 0] = -inf
+    flat = torch.empty(n * c + offset, device="cuda")
+    out = flat[offset:].view(n, c)
+    out.copy_(x)
+    return out
+
+
+def _softmax_labels(torch, n: int, c: int, data: str, gen):
+    """int32 labels on the card: ``out_of_range`` sets every third to −1
+    and the next to C; ``nonfinite`` puts rows 3 and 4's on their −inf
+    (loss +inf) and row 6's away from its −inf (loss NaN, as the plain
+    version's −inf·0)."""
+    labels = torch.randint(0, c, (n,), generator=gen, dtype=torch.int32)
+    if data == "out_of_range":
+        labels[::3] = -1
+        labels[1::3] = c
+    if data == "nonfinite":
+        labels[3], labels[4], labels[6] = 0, c - 1, c - 1
+    return labels.cuda()
+
+
+def _ce_library(torch, x, labels):
+    """The yardstick of ``softmax_ce``: ``torch.softmax``,
+    ``F.cross_entropy(..., reduction="none")`` and ``probs −
+    F.one_hot(labels, C)``, three PyTorch calls (no one call returns
+    probs, loss and err); labels as int64 outside the timed call."""
+    import torch.nn.functional as F
+    lab = labels.long()
+    c = x.shape[1]
+
+    def call():
+        p = torch.softmax(x, 1)
+        return p, F.cross_entropy(x, lab, reduction="none"), \
+            p - F.one_hot(lab, c)
+    return call
+
+
+def _forms_held(name: str, rows: list) -> None:
     from znicz_tpu_torch.ops import softmax
-    dev = torch.device("cuda")
+    held = {r["form"] for r in rows}
+    if held != set(softmax.FORMS):
+        raise AssertionError(f"{name}: forms held {sorted(held)}, not "
+                             f"{list(softmax.FORMS)}")
+
+
+def phase_kernel_softmax(torch) -> list:
+    """The softmax-CE head against the plain version at ``SOFTMAX_CASES``:
+    probs and err within rtol 1e-5 / atol 1e-6, loss within rtol 1e-5 /
+    atol 1e-5 (NaN and ±inf where the plain version has them); each form
+    of the plan held at least once.  The yardstick (``library_ms``, at
+    the cases whose labels are all in range) is ``_ce_library``'s three
+    calls."""
+    from znicz_tpu_torch.ops import softmax
     gen = torch.Generator().manual_seed(SEED)
-    cases = [("mnist_step", 100, 10), ("ragged", 37, 10),
-             ("bench_kernel_case", 1024, 1000),
-             ("labels_out_of_range", 64, 10), ("alexnet_step", 128, 1000)]
     rows = []
-    for case, n, c in cases:
-        logits = (torch.randn((n, c), generator=gen) * 3).to(dev)
-        labels = torch.randint(0, c, (n,), generator=gen, dtype=torch.int32)
-        if case == "labels_out_of_range":
-            labels[::3] = -1
-            labels[1::3] = c
-        labels = labels.to(dev)
+    for case, n, c, data, offset in SOFTMAX_CASES:
+        logits = _softmax_input(torch, n, c, data, offset, gen)
+        labels = _softmax_labels(torch, n, c, data, gen)
+        plan = softmax.plan_for(logits)
         got = _launch_once(torch, "softmax_ce",
                            lambda: softmax.softmax_ce_from_logits(logits,
                                                                   labels))
         want = softmax.plain_softmax_ce_from_logits(logits, labels)
-        err = max(_close(torch, case, "probs", got[0], want[0], 1e-5, 1e-6),
-                  _close(torch, case, "loss", got[1], want[1], 1e-5, 1e-5),
-                  _close(torch, case, "err", got[2], want[2], 1e-5, 1e-6))
+        fin = data != "nonfinite"
+        err = max(_close(torch, case, "probs", got[0], want[0], 1e-5, 1e-6,
+                         fin),
+                  _close(torch, case, "loss", got[1], want[1], 1e-5, 1e-5,
+                         fin),
+                  _close(torch, case, "err", got[2], want[2], 1e-5, 1e-6,
+                         fin))
+        lib = None
+        if data != "out_of_range":
+            lib = _time_ms(torch, _ce_library(torch, logits, labels))[0]
         rows.append(_row(
-            torch, "softmax_ce", {"case": case, "shape": [n, c]}, err,
+            torch, "softmax_ce", {"case": case, "shape": [n, c],
+                                  "offset": offset, "form": plan.form,
+                                  "plan": list(plan)}, err,
             lambda: softmax.softmax_ce_from_logits(logits, labels),
             lambda: softmax.plain_softmax_ce_from_logits(logits, labels),
-            softmax_ce_bound_ms(n, c)))
+            softmax_ce_bound_ms(n, c), lib))
+    _forms_held("softmax_ce", rows)
     return rows
 
 
@@ -1296,30 +1437,32 @@ def row_softmax_bound_ms(n: int, c: int):
 
 
 def phase_kernel_row_softmax(torch) -> list:
-    """The row softmax + argmax against the plain version: probabilities
-    within rtol 1e-6, the argmax exact (ties to the first index).  The
-    yardstick is two PyTorch calls, ``torch.softmax`` and
+    """The row softmax + argmax against the plain version at
+    ``ROW_SOFTMAX_CASES``: probabilities within rtol 1e-6 (NaN and ±inf
+    where the plain version has them), the argmax exact (ties to the first
+    index, a NaN above everything); each form of the plan held at least
+    once.  The yardstick is two PyTorch calls, ``torch.softmax`` and
     ``torch.argmax``."""
     from znicz_tpu_torch.ops import softmax
-    dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(SEED + 7)
     rows = []
-    for case, n, c in (("mnist_units_step", 100, 10),
-                       ("alexnet_width", 128, 1000), ("ties", 100, 10)):
-        x = torch.randn((n, c), generator=gen) * 3
-        if case == "ties":     # small integers: most rows tie at the max
-            x = torch.randint(-2, 3, (n, c), generator=gen).float()
-        x = x.to(dev)
+    for case, n, c, data, offset in ROW_SOFTMAX_CASES:
+        x = _softmax_input(torch, n, c, data, offset, gen)
+        plan = softmax.plan_for(x)
         y, idx = _launch_once(torch, "softmax", lambda: softmax.softmax(x))
         want_y, want_idx = softmax.plain_softmax(x)
         err = max(_close(torch, case, "idx", idx, want_idx, 0, 0),
-                  _close(torch, case, "y", y, want_y, 1e-6, 0))
+                  _close(torch, case, "y", y, want_y, 1e-6, 0,
+                         data != "nonfinite"))
         lib = _time_ms(torch, lambda: (torch.softmax(x, 1),
                                        torch.argmax(x, 1)))[0]
         rows.append(_row(
-            torch, "softmax", {"case": case, "shape": [n, c]}, err,
+            torch, "softmax", {"case": case, "shape": [n, c],
+                               "offset": offset, "form": plan.form,
+                               "plan": list(plan)}, err,
             lambda: softmax.softmax(x), lambda: softmax.plain_softmax(x),
             row_softmax_bound_ms(n, c), lib))
+    _forms_held("softmax", rows)
     return rows
 
 

@@ -13,85 +13,178 @@
 // rtol 1e-6 (the sums are taken in another order), idx exactly.
 //
 // Bound on an H100: bytes.  N*C*4 read and N*C*4 + N*4 written against ~5
-// flops an element: 0.31 µs at (128, 1000) over 3.35 TB/s; the unit
-// graph's (100, 10) is launch-bound.  The design is softmax_ce.cu's: one
-// warp per row, so the three passes over a row (max and argmax, sum,
-// write) re-read it from L1 rather than device memory, and the argmax is a
-// warp reduction that keeps the smaller index on ties.
+// flops an element: 0.31 us at (128, 1000) over 3.35 TB/s; the unit
+// graph's (100, 10) is launch-bound.  The design (softmax_row.cuh) reads
+// each element once into registers, keeps e = exp(x - m) there for the
+// write, and runs expf once an element; the maximum is reduced as a value
+// and the first index of it beside the sum (two reductions, no index
+// carried through the maximum's), in one of three forms that
+// ops/softmax.py softmax_plan picks:
+// - narrow rows (C <= 32): G lanes a row, several rows a warp, small
+//   blocks, so that (100, 10) spreads over tens of SMs; the reductions are
+//   log2(G) shuffle steps;
+// - register rows (C up to the plan's register limit): one block a row,
+//   each thread a few 16-byte vectors of it, one block reduction for the
+//   maximum and one for the sum and the index;
+// - streaming rows (wider): one block a row, three passes over the row
+//   (the maximum, the sum, the write), re-read from L2.
 
-#include <cuda_runtime.h>
-#include <math_constants.h>
+#include <climits>
+
+#include "softmax_row.cuh"
 
 namespace {
 
-constexpr int kWarp = 32;
-constexpr int kRowsPerBlock = 8;   // one warp per row, 256 threads a block
+using namespace softmax_row;
 
-// (v2, a2) beats (v1, a1): a larger value, NaN above everything, the
-// smaller index on a tie; a lane that saw no element carries index -1.
-__device__ __forceinline__ bool beats(float v2, int a2, float v1, int a1) {
-  if (a2 < 0) return false;
-  if (a1 < 0) return true;
-  const bool n2 = v2 != v2;
-  const bool n1 = v1 != v1;
-  if (n2 != n1) return n2;
-  if (n2 || v2 == v1) return a2 < a1;
-  return v2 > v1;
+using RowFn = void (*)(const float*, float*, int*, int, int);
+
+// v is the row's maximum m, or a NaN where m is NaN.
+__device__ __forceinline__ bool is_max(float v, float m) {
+  return v == m || (m != m && v != v);
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = kWarp / 2; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
+// The narrow (G > 0) and register (G == 0) forms: each team member holds K
+// vectors of V floats of its row in registers.
+template <int G, int V, int K>
+__global__ void __launch_bounds__(1024)
+    row_softmax_kernel(const float* __restrict__ x, float* __restrict__ y,
+                       int* __restrict__ idx, int n, int c) {
+  __shared__ float s_max[kMaxWarps], s_sum[kMaxWarps];
+  __shared__ int s_nan[kMaxWarps], s_arg[kMaxWarps];
+  const int rank = team_rank<G>();
+  const int size = team_size<G>();
+  const long long row = team_row<G>();
+  // a dead group of the last block keeps to the shuffles with no row
+  const bool live = row < n;
+  const float* xr = x + row * c;
+
+  float v[K][V];
+  float m = -CUDART_INF_F;
+  bool nan = false;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int j = (k * size + rank) * V;
+    if (live && j < c) {
+      load_vec<V>(xr + j, v[k]);
+#pragma unroll
+      for (int u = 0; u < V; ++u) {
+        nan = nan || v[k][u] != v[k][u];
+        m = fmaxf(m, v[k][u]);
+      }
+    }
+  }
+  m = team_max_nan<G>(m, nan, s_max, s_nan);
+
+  // a member's columns rise with k and u: its first maximum is the first
+  float s = 0.0f;
+  int arg = INT_MAX;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int j = (k * size + rank) * V;
+    if (live && j < c) {
+#pragma unroll
+      for (int u = 0; u < V; ++u) {
+        if (arg == INT_MAX && is_max(v[k][u], m)) arg = j + u;
+        v[k][u] = expf(v[k][u] - m);
+        s += v[k][u];
+      }
+    }
+  }
+  s = team_sum_min<G>(s, arg, s_sum, s_arg);
+
+  float* yr = y + row * c;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int j = (k * size + rank) * V;
+    if (live && j < c) {
+#pragma unroll
+      for (int u = 0; u < V; ++u) v[k][u] = v[k][u] / s;
+      store_vec<V>(yr + j, v[k]);
+    }
+  }
+  if (live && rank == 0) idx[row] = arg;
 }
 
-__global__ void row_softmax_kernel(const float* __restrict__ x,
-                                   float* __restrict__ y,
-                                   int* __restrict__ idx, int n, int c) {
-  const int lane = threadIdx.x % kWarp;
-  const long long row =
-      static_cast<long long>(blockIdx.x) * kRowsPerBlock + threadIdx.x / kWarp;
-  if (row >= n) return;   // whole warp leaves together: shuffles stay full
+// The streaming form: one block a row, three passes over it.
+template <int V>
+__global__ void __launch_bounds__(1024)
+    row_softmax_stream_kernel(const float* __restrict__ x,
+                              float* __restrict__ y, int* __restrict__ idx,
+                              int n, int c) {
+  __shared__ float s_max[kMaxWarps], s_sum[kMaxWarps];
+  __shared__ int s_nan[kMaxWarps], s_arg[kMaxWarps];
+  const long long row = blockIdx.x;
   const float* xr = x + row * c;
   float* yr = y + row * c;
+  const long long step = static_cast<long long>(blockDim.x) * V;
+  const long long first = static_cast<long long>(threadIdx.x) * V;
 
-  // pass 1: this lane's first maximum, then the warp's
   float m = -CUDART_INF_F;
-  int arg = -1;
-  for (int j = lane; j < c; j += kWarp) {
-    const float v = xr[j];
-    if (beats(v, j, m, arg)) {
-      m = v;
-      arg = j;
+  bool nan = false;
+  for (long long j = first; j < c; j += step) {
+    float v[V];
+    load_vec<V>(xr + j, v);
+#pragma unroll
+    for (int u = 0; u < V; ++u) {
+      nan = nan || v[u] != v[u];
+      m = fmaxf(m, v[u]);
     }
   }
-  for (int off = kWarp / 2; off > 0; off >>= 1) {
-    const float m2 = __shfl_xor_sync(0xffffffffu, m, off);
-    const int a2 = __shfl_xor_sync(0xffffffffu, arg, off);
-    if (beats(m2, a2, m, arg)) {
-      m = m2;
-      arg = a2;
-    }
-  }
+  m = team_max_nan<0>(m, nan, s_max, s_nan);
 
-  // pass 2: sum of exp(x - m)
   float s = 0.0f;
-  for (int j = lane; j < c; j += kWarp) s += expf(xr[j] - m);
-  s = warp_sum(s);
+  int arg = INT_MAX;
+  for (long long j = first; j < c; j += step) {
+    float v[V];
+    load_vec<V>(xr + j, v);
+#pragma unroll
+    for (int u = 0; u < V; ++u) {
+      if (arg == INT_MAX && is_max(v[u], m)) arg = static_cast<int>(j) + u;
+      s += expf(v[u] - m);
+    }
+  }
+  s = team_sum_min<0>(s, arg, s_sum, s_arg);
 
-  // pass 3: probabilities and (lane 0) the row's argmax
-  for (int j = lane; j < c; j += kWarp) yr[j] = expf(xr[j] - m) / s;
-  if (lane == 0) idx[row] = arg;
+  for (long long j = first; j < c; j += step) {
+    float v[V];
+    load_vec<V>(xr + j, v);
+#pragma unroll
+    for (int u = 0; u < V; ++u) v[u] = expf(v[u] - m) / s;
+    store_vec<V>(yr + j, v);
+  }
+  if (threadIdx.x == 0) idx[row] = arg;
 }
+
+template <int G, int V, int K>
+struct RowKernel {
+  static RowFn get() { return row_softmax_kernel<G, V, K>; }
+};
+
+template <int V>
+struct RowStream {
+  static RowFn get() { return row_softmax_stream_kernel<V>; }
+};
 
 }  // namespace
 
-// n > 0 rows of c > 0 contiguous float32 values.  Launches on `stream`,
-// does not synchronise; returns cudaGetLastError() as an int.
+// n > 0 rows of c > 0 contiguous float32 values under the plan of
+// ops/softmax.py softmax_plan (form, threads a block, lanes a row, vector
+// width, vectors a lane or thread).  Launches on `stream`, does not
+// synchronise; returns cudaGetLastError() as an int, or
+// cudaErrorInvalidValue for a plan the kernels do not take (vectors where
+// C % 4 != 0 or a base is unaligned among them).
 extern "C" int znicz_row_softmax_f32(const float* x, float* y, int* idx,
-                                     int n, int c, void* stream) {
-  const int blocks = (n + kRowsPerBlock - 1) / kRowsPerBlock;
-  row_softmax_kernel<<<blocks, kRowsPerBlock * kWarp, 0,
-                       static_cast<cudaStream_t>(stream)>>>(x, y, idx, n, c);
+                                     int n, int c, int form, int threads,
+                                     int group, int vec, int per,
+                                     void* stream) {
+  const long long blocks = plan_blocks(n, c, form, threads, group, vec, per,
+                                       aligned16(x) && aligned16(y));
+  const RowFn fn = pick_kernel<RowFn, RowKernel, RowStream>(form, group, vec,
+                                                            per);
+  if (blocks <= 0 || blocks > INT_MAX || fn == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  fn<<<static_cast<unsigned>(blocks), threads, 0,
+       static_cast<cudaStream_t>(stream)>>>(x, y, idx, n, c);
   return static_cast<int>(cudaGetLastError());
 }

@@ -61,7 +61,8 @@ UNIT_MODELS = {"mnist_units": "mnist", "cifar_units": "cifar",
                "autoencoder_units": "autoencoder"}
 #: the hand-written kernels' names in ``csrc/`` (a name that contains
 #: another is listed first, so each kernel is counted once)
-PORT_KERNELS = ("softmax_ce_kernel", "row_softmax_kernel",
+PORT_KERNELS = ("softmax_ce_kernel", "softmax_ce_stream_kernel",
+                "row_softmax_kernel", "row_softmax_stream_kernel",
                 "pool_select_kernel", "pool_scatter_kernel",
                 "pool_gather_kernel", "gd_lrn_maxpool_kernel",
                 "lrn_maxpool_kernel", "lrn_y_kernel", "lrn_y_warp_kernel",
