@@ -140,11 +140,15 @@ caches its denominator and the backward that reads it, bit for bit at
 CIFAR's (100,16,16,32), an even window and β ≠ 0.75; the depooling
 gather at the autoencoder's (100,28,28,16) k2 s2 and an overlapping
 padded window, equal as values (−0.0 = +0.0).  And this slice's three:
-the SOM's distance→argmin at the sample's (100, 64, 2), the reference
-test's (13, 150, 37), a 32×32 sheet on MNIST-width inputs (256, 1024, 784)
-and a ties case (dmin within rtol 1e-5 / atol 1e-5 of the distances'
-scale, winners exact but where the plain version's two candidates lie
-within that gap, each such flip counted; ties to the lowest neuron); the
+the SOM's distance→argmin at the sample's (100, 64, 2) (the small form),
+the reference test's (13, 150, 37), bench.py's 20×20 sheet on MNIST-width
+inputs (256, 400, 784) and a 32×32 sheet (256, 1024, 784) (the large
+form, its neurons split across a row tile's blocks), and ties across
+the split boundaries at both sheets (dmin within rtol 1e-5 / atol 1e-5
+of the distances' scale, winners exact but where the plain version's two
+candidates lie within that gap, each such flip counted; ties to the
+lowest neuron; two calls bit-equal; each row with its plan, registers
+and spilled bytes); the
 activation forward and backward (which every non-linear activation of
 every path launches) for each of the nine activations at the unit
 graph's (100, 100), strict ReLU at AlexNet's five conv outputs and fc
@@ -1589,15 +1593,20 @@ def distance_argmin_bound_ms(b: int, n: int, f: int):
     return _bound((b * f + n * f) * 4 + b * 8, 2 * b * n * f)
 
 
-#: case, B, N, F, data: the SOM sample's step (BASELINE config 5), the
-#: reference test's ragged two-tile case, a 32×32 sheet on MNIST-width
-#: inputs (eight row tiles, each walking 32 neuron tiles), and ties: rows
-#: j < k equal and nearest
+#: case, B, N, F, data: the SOM sample's step (BASELINE config 5, the small
+#: form), the reference test's ragged two-tile case, the JAX package's own
+#: kernel case (bench.py:1547, a 20x20 sheet on MNIST-width inputs) and a
+#: 32x32 sheet (both the large form, the neurons split across the blocks
+#: of a row tile), and ties: rows k and k + N/2 equal and nearest to
+#: sample j (k = j mod N/2, the samples past N/2 repeating the first), so
+#: that each pair lies on both sides of a split boundary of the large form
 DIST_CASES = [
     ("som_step", 100, 64, 2, "normal"),
     ("ragged_two_tiles", 13, 150, 37, "normal"),
+    ("bench_sheet", 256, 400, 784, "normal"),
     ("mnist_sheet", 256, 1024, 784, "normal"),
     ("ties", 256, 1024, 784, "ties"),
+    ("ties_split", 256, 400, 784, "ties"),
 ]
 #: a winner may differ from the plain version's only where the plain
 #: version's distances to both lie within this share of the distances'
@@ -1605,25 +1614,41 @@ DIST_CASES = [
 DIST_RTOL = 1e-5
 
 
+def dist_inputs(torch, gen, b: int, n: int, f: int, data: str):
+    """Seeded (x, w) on the CPU and each row's expected winner on tie data
+    (None otherwise): ``ties`` puts neurons k and k + n/2 at x_k + 0.01
+    for k < min(b, n/2), the other neurons four times as far out, and
+    repeats the first n/2 samples past them, so sample j's winner is
+    j mod n/2, the lower of two equal distances."""
+    x = torch.randn((b, f), generator=gen)
+    w = torch.randn((n, f), generator=gen)
+    if data != "ties":
+        return x, w, None
+    h = n // 2
+    w *= 4.0
+    for j in range(min(b, h)):
+        w[j] = w[j + h] = x[j] + 0.01
+    for j in range(h, b):
+        x[j] = x[j - h]
+    return x, w, [j % h for j in range(b)]
+
+
 def phase_kernel_distance_argmin(torch) -> list:
     """The winner search against the plain version (``distances``, its
     first-index argmin and row minimum; cuBLAS sums the cross term in
     another order): dmin within rtol 1e-5 / atol DIST_RTOL·scale, winners
     exact but where the plain version's two candidates lie within that
-    gap (each such flip counted); ties: the lowest neuron exactly.  The
-    yardstick is two PyTorch calls, ``torch.cdist`` and ``argmin``
-    (Euclidean distances with a square root: not the same expression)."""
+    gap (each such flip counted); ties: the lowest neuron exactly.  Each
+    row carries its plan (form, tiles, splits = blocks a row tile) and
+    the instance's registers and spilled bytes.  The yardstick is two
+    PyTorch calls, ``torch.cdist`` and ``argmin`` (Euclidean distances
+    with a square root: not the same expression)."""
     from znicz_tpu_torch.ops import kohonen as som_ops
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(SEED + 10)
     rows = []
     for case, b, n, f, data in DIST_CASES:
-        x = torch.randn((b, f), generator=gen)
-        w = torch.randn((n, f), generator=gen)
-        if data == "ties":
-            w *= 4.0                      # the rest far away
-            for j in range(b):            # sample j: rows j, j + n/2
-                w[j] = w[j + n // 2] = x[j] + 0.01
+        x, w, want = dist_inputs(torch, gen, b, n, f, data)
         x, w = x.to(dev), w.to(dev)
         win, dmin = _launch_once(torch, "distance_argmin",
                                  lambda: som_ops.distance_argmin(x, w))
@@ -1640,13 +1665,20 @@ def phase_kernel_distance_argmin(torch) -> list:
                                      f"{int(win[r])} vs plain "
                                      f"{int(want_win[r])}, distances "
                                      f"{diff} apart (gap {gap})")
-        if data == "ties" and win.cpu().tolist()[:b] != list(range(b)):
+        if want is not None and win.cpu().tolist() != want:
             raise AssertionError(f"{case}: ties did not go to the lowest "
                                  f"neuron: {win.cpu().tolist()[:8]}")
+        again = som_ops.distance_argmin(x, w)
+        torch.cuda.synchronize()
+        if not (torch.equal(again[0], win) and torch.equal(
+                again[1].view(torch.int32), dmin.view(torch.int32))):
+            raise AssertionError(f"{case}: two calls differ")
+        plan = som_ops.plan_for(x, w)
         lib = _time_ms(torch, lambda: torch.cdist(x, w).argmin(1))[0]
         row = _row(torch, "distance_argmin",
                    {"case": case, "shape": [b, n, f], "flips": len(flips),
-                    "gap_allowed": gap}, err,
+                    "gap_allowed": gap, "plan": plan._asdict(),
+                    **som_ops.kernel_attrs(plan)}, err,
                    lambda: som_ops.distance_argmin(x, w),
                    lambda: som_ops.plain_distance_argmin(x, w),
                    distance_argmin_bound_ms(b, n, f), lib)
@@ -2409,14 +2441,20 @@ def split_conv_kernels(kernels: dict) -> tuple[dict, list]:
     return ours, library
 
 
+#: train steps the profiled step records after its warm-up step
+PROFILED_STEPS = 3
+
+
 def profiled_step(torch, wf) -> dict:
-    """One fused train step of the counted run's model (a trainer on copies
+    """Fused train steps of the counted run's model (a trainer on copies
     of its weights, the step warmed up once) under ``torch.profiler``: the
-    device kernels it ran must hold the tier's three conv kernels and no
-    kernel whose name marks a library convolution.  The profiler traces a
-    warm-up step before the one it records (its schedule), because the
-    card's tracer can drop the first kernels of a window: on an H100 it
-    lost the step's first conv forwards in three of four runs."""
+    device kernels they ran must hold the tier's three conv kernels and no
+    kernel whose name marks a library convolution; the times are a step's
+    (the recorded steps' mean).  The profiler traces a warm-up step before
+    the ones it records (its schedule), and records PROFILED_STEPS steps,
+    because the card's tracer can drop the first kernels of a window: on
+    an H100 it lost the step's first conv forwards in three of four runs
+    of one recorded step without the warm-up, and in one of two with it."""
     from znicz_tpu_torch.parallel import fused
 
     def copies(rows):
@@ -2434,13 +2472,15 @@ def profiled_step(torch, wf) -> dict:
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    schedule = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    schedule = torch.profiler.schedule(wait=0, warmup=1,
+                                       active=PROFILED_STEPS, repeat=1)
     with torch.profiler.profile(activities=acts, schedule=schedule) as prof:
-        for _ in range(2):   # traced, then traced and recorded
+        for _ in range(1 + PROFILED_STEPS):  # traced, then also recorded
             tr.train_epoch(ld.original_data, target, idx, batch)
             torch.cuda.synchronize()
             prof.step()
-    kernels = {e.key: e.self_device_time_total for e in prof.key_averages()
+    kernels = {e.key: e.self_device_time_total / PROFILED_STEPS
+               for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA}
     ours, library = split_conv_kernels(kernels)
     busy = sum(kernels.values())

@@ -23,9 +23,12 @@ many-tile and ties cases included) and skip on a host without a card."""
 
 import json
 import logging
+import math
 import os
+import re
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -203,6 +206,130 @@ def test_wrapper_refuses_inputs_the_kernel_does_not_take(bad):
         x = torch.randn(4)
     with pytest.raises((TypeError, ValueError)):
         som_ops.distance_argmin(x, w)
+
+
+# -- the kernel's launch plan (csrc/kohonen.cu) ---------------------------------
+def _check_plan(plan, b, n, f):
+    """What the C entry point takes, as ``znicz_distance_argmin_f32``
+    checks it."""
+    pow2 = (lambda v: v > 0 and v & (v - 1) == 0)
+    if plan.form == "small":
+        assert pow2(plan.group) and plan.group <= 32
+        assert pow2(plan.threads) and 32 <= plan.threads <= 256
+        assert plan.threads % plan.group == 0
+        assert plan.rows == plan.threads // plan.group
+        assert plan.smem == som_ops.small_smem(n, f, plan.rows) <= 48 * 1024
+        assert (plan.splits, plan.vec, plan.ksplit) == (1, 1, 1)
+    else:
+        assert plan.form == "large" and plan.rows % 8 == 0
+        assert plan.tile_n in (32, 64)
+        assert plan.threads == (plan.rows // som_ops.TM * plan.tile_n
+                                // som_ops.TN * plan.ksplit)
+        assert plan.threads % 32 == 0 and plan.threads <= 256
+        slots = plan.threads // plan.rows   # a row's lanes in the epilogue
+        assert pow2(slots) and slots <= 32 and plan.tile_n % slots == 0
+        assert 1 <= plan.splits <= som_ops.MAX_SPLITS
+        assert plan.splits <= math.ceil(n / plan.tile_n)
+        assert plan.smem == som_ops.large_smem(plan.rows, plan.tile_n,
+                                               plan.ksplit) <= 227 * 1024
+    assert plan.blocks == math.ceil(b / plan.rows) * plan.splits
+
+
+def test_plan_takes_the_small_form_at_the_som_step():
+    """The SOM sample's (100, 64, 2): the codebook staged whole, a group
+    of lanes a row, one launch with no split of the neurons."""
+    plan = som_ops.dist_argmin_plan(100, 64, 2)
+    assert plan.form == "small" and plan.splits == 1
+    assert plan.group * som_ops.SMALL_LANE_NEURONS >= 64
+    _check_plan(plan, 100, 64, 2)
+
+
+@pytest.mark.parametrize("b,n,f", [(256, 400, 784), (256, 1024, 784)])
+def test_plan_takes_the_large_form_and_fills_the_card(b, n, f):
+    """bench.py's 20x20 sheet and a 32x32 sheet on MNIST widths: the
+    large form, at least one block an SM, one tile of neurons a block
+    (the splits as many as the tiles), merged from at most MAX_SPLITS."""
+    plan = som_ops.dist_argmin_plan(b, n, f)
+    assert plan.form == "large"
+    assert plan.blocks >= som_ops.H100_SMS
+    assert 2 <= plan.splits == math.ceil(n / plan.tile_n) <= \
+        som_ops.MAX_SPLITS
+    _check_plan(plan, b, n, f)
+
+
+@pytest.mark.parametrize("f", [1, 2, 37, 784, 785])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_plan_vectors_only_where_f_is_4k_and_bases_aligned(f, aligned):
+    for b, n in ((256, 1024), (64, 20000), (100, 64)):
+        plan = som_ops.dist_argmin_plan(b, n, f, aligned)
+        assert plan.vec == (4 if plan.form == "large" and f % 4 == 0
+                            and aligned else 1)
+        _check_plan(plan, b, n, f)
+
+
+@pytest.mark.parametrize("b,n,f", [(1, 1, 1), (1, 64, 2), (13, 150, 37),
+                                   (70, 300, 45), (1, 1024, 784),
+                                   (100000, 64, 2), (2000, 64, 784),
+                                   (7, 50000, 3), (512, 4096, 256)])
+@pytest.mark.parametrize("n_sm", [132, 16])
+def test_plan_is_one_the_entry_point_takes(b, n, f, n_sm):
+    _check_plan(som_ops.dist_argmin_plan(b, n, f, True, n_sm), b, n, f)
+    _check_plan(som_ops.large_plan(b, n, f, True, n_sm), b, n, f)
+
+
+def test_launch_struct_mirrors_the_entry_points():
+    """``launch_struct`` lays the geometry and the plan out as
+    ``csrc/kohonen.cu`` ``DistLaunch`` declares its fields."""
+    src = (Path(som_ops.__file__).parent.parent / "csrc" / "kohonen.cu")
+    body = re.search(r"struct DistLaunch \{([^}]*)\}", src.read_text())
+    fields = re.findall(r"\w+(?=[,;])", body.group(1))
+    names = [name for name, _ in som_ops._Launch._fields_]
+    assert [f.lower() for f in fields] == names
+    plan = som_ops.dist_argmin_plan(256, 1024, 784)
+    launch = som_ops.launch_struct(256, 1024, 784, plan)
+    assert [getattr(launch, name) for name in names] == [
+        256, 1024, 784, som_ops.FORMS.index(plan.form), *plan[1:]]
+
+
+def _merged_by_splits(x, w, tile_n, splits):
+    """The large form's merge on the CPU: each split's first-index argmin
+    over its tiles (split q takes tiles [q·T/S, (q+1)·T/S)), merged in
+    ascending split order keeping the smaller value, or the smaller index
+    where the values are equal."""
+    d = som_ops.distances(x, w)
+    n = w.shape[0]
+    tiles = math.ceil(n / tile_n)
+    best_v = torch.full((x.shape[0],), float("inf"))
+    best_i = torch.full((x.shape[0],), n, dtype=torch.int64)
+    for q in range(splits):
+        lo = q * tiles // splits * tile_n
+        hi = min(n, (q + 1) * tiles // splits * tile_n)
+        i = torch.argmin(d[:, lo:hi], dim=1)
+        v = d[:, lo:hi].gather(1, i[:, None])[:, 0]
+        i = i + lo
+        take = (v < best_v) | ((v == best_v) & (i < best_i))
+        best_v = torch.where(take, v, best_v)
+        best_i = torch.where(take, i, best_i)
+    return best_i.to(torch.int32), best_v
+
+
+@pytest.mark.parametrize("b,n,f,splits", [(6, 20, 8, 2), (10, 256, 16, 2),
+                                          (10, 256, 16, 3), (12, 400, 8, 6),
+                                          (12, 1024, 8, 8)])
+def test_split_merge_order_keeps_the_lowest_neuron_on_ties(b, n, f, splits):
+    """Rows k and k + n/2 tie on both sides of a split boundary: the
+    ascending merge with the tie rule equals ``plain_distance_argmin``
+    (winners exactly, dmin as values) at the plan's tile widths."""
+    x, w, want = _ties(b, n, f)
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+    plain_win, plain_dmin = som_ops.plain_distance_argmin(xt, wt)
+    np.testing.assert_array_equal(plain_win.numpy(), want)
+    for tile_n in som_ops.TILE_NS:
+        if splits > math.ceil(n / tile_n):
+            continue
+        win, dmin = _merged_by_splits(xt, wt, tile_n, splits)
+        assert torch.equal(win, plain_win)
+        assert torch.equal(dmin, plain_dmin)
 
 
 # -- the sample ---------------------------------------------------------------

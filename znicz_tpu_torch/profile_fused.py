@@ -70,7 +70,8 @@ PORT_KERNELS = ("softmax_ce_kernel", "softmax_ce_stream_kernel",
                 "gd_lrn_x_warp_kernel",
                 "gd_lrn_kernel", "lrn_kernel", "dropout_kernel",
                 "matmul_kernel", "sgd_update_multi_kernel",
-                "dist_argmin_kernel", "act_fwd_kernel", "act_bwd_kernel",
+                "dist_argmin_small_kernel", "dist_argmin_large_kernel",
+                "act_fwd_kernel", "act_bwd_kernel",
                 "conv_fwd_kernel", "conv_dgrad_kernel", "conv_wgrad_kernel",
                 "split_sum_kernel")
 
