@@ -28,17 +28,32 @@ exits nonzero without the final ``ok`` line:
    kernel, plain version, library call and the byte/flop bound; then the
    fused train step's update (``fused_update``): 20 steps each of MNIST,
    CIFAR on both conv tiers, the autoencoder and AlexNet at full width,
-   each step's gradients updated through the kernel and through the plain
-   update, params and velocities bit-equal after every step, one
+   each step's gradients updated in place through the kernel and, on
+   copies, through the plain update, every odd step at learning-rate
+   scales other than 1 (device floats, the weights' and the biases'
+   apart), params and velocities bit-equal after every step, one
    ``sgd_update`` launch a step; and config 4 with its deconv tied to the
    conv's W, two launches a step (the conv's update reads the W the
-   deconv's wrote);
+   deconv's wrote); then ``captured``: the fused steps of MNIST (also with
+   ``accum_steps`` 2), CIFAR and the autoencoder on both conv tiers and
+   the SOM, replayed from CUDA graphs, each against its uncaptured steps
+   from the same start (``capture=False``) over a train epoch, a train
+   epoch at a per-step learning-rate schedule and an eval epoch, bit for
+   bit with the same launches, cuDNN held to its deterministic
+   algorithms for the phase, with ``captured`` and the wall ms a step
+   both ways printed a path; AlexNet reported uncaptured with its reason
+   (its dropout key is folded on the host each step);
 4. slice   — the fused MNIST trainer at full width (784→100→10, batch 100,
    50k/10k/10k synthetic split resident on the card) for 2 epochs through
    ``models.mnist.run``, every kernel's launch count reset just before and
    read just after; each count must equal the steps the loop ran;
 5. parity  — the same seed for one MNIST epoch on the CPU; epoch-0 losses
    agree within rtol 1e-4 and error counts within 0.1% of each class;
+   then ``mnist_lr_accum``: the same MNIST run with a ``step_exp``
+   learning-rate adjuster by minibatch (halving every 100 train
+   minibatches) and ``root.common.accum_steps = 2`` — one ``sgd_update``
+   launch every second train step — its epoch 0 held to the same run on
+   the CPU as above;
 6. cifar slice — the CIFAR-10 conv net at full width (BASELINE config 2,
    batch 100, the 45k/5k/10k synthetic split at 32×32×3 resident on the
    card) for 2 epochs through ``models.cifar.run``, with the launch counts
@@ -132,7 +147,9 @@ launch a list of tensors) bit for bit on the fused step's tables —
 MNIST's four tensors in one launch, AlexNet's 16 (62,378,344 elements) in
 one, the autoencoder's tied pair as two — and, one tensor a call, at the
 MNIST weights and biases, with decay and l1_vs_l2 = 0.5, at (9216, 4096)
-and on an unaligned entry (the scalar path); the row softmax + argmax at
+and on an unaligned entry (the scalar path), and MNIST's table in place
+at a weight and a bias learning-rate scale (0.37, 1.9) read from device
+memory (``mnist_table_scaled_inplace``); the row softmax + argmax at
 (100, 10), (128, 1000), tied logits and ``ROW_SOFTMAX_CASES``' forms and
 edges, probabilities within rtol 1e-6 and
 the argmax exact.  And the decoder slice's three: the LRN forward that
@@ -1264,7 +1281,8 @@ def phase_kernel_update(torch) -> list:
     sign(0) = 0 is exercised.  One tensor a call with the unit graph's
     constants (``UPDATE_CASES``); whole tables with the fused step's:
     MNIST's four tensors and AlexNet's 16 in one launch each, the
-    autoencoder's tied pair as two launches; one unaligned entry.  No
+    autoencoder's tied pair as two launches; one unaligned entry; MNIST's
+    table scaled and in place (``_update_scaled_row``).  No
     single PyTorch call computes it."""
     from znicz_tpu_torch.ops import update
     from znicz_tpu_torch.update_probe import CASES
@@ -1316,8 +1334,53 @@ def phase_kernel_update(torch) -> list:
                    update.unit_constants(hypers))]]
         row(case, {"shape": list(shape), "hypers": list(hypers)}, calls,
             math.prod(shape), case == "alexnet_fc6")
+    rows.append(_update_scaled_row(torch, gen))
     torch.cuda.empty_cache()
     return rows
+
+
+#: the learning-rate scales of the scaled in-place row: weights, biases
+UPDATE_SCALES = (0.37, 1.9)
+
+
+def _update_scaled_row(torch, gen) -> dict:
+    """MNIST's table as the captured fused step runs it: the weights at
+    one learning-rate scale and the biases at another, each a float32 the
+    kernel reads from device memory, w′ and v′ written over w and v; bit
+    for bit the plain version on copies of the same inputs."""
+    from znicz_tpu_torch.ops import update
+    from znicz_tpu_torch.update_probe import CASES
+    s_w, s_b = (torch.full((1,), s, device="cuda") for s in UPDATE_SCALES)
+    entries = [(*_update_tensors(torch, shape, gen),
+                update.fused_constants(hypers),
+                s_w if len(shape) > 1 else s_b)
+               for shape, hypers in CASES["mnist_table"]]
+
+    def copies():
+        return [tuple(t.clone() if torch.is_tensor(t) else t for t in e)
+                for e in entries]
+    got_in, want_in = copies(), copies()
+    got = _launch_once(torch, "sgd_update", lambda: update.sgd_update_many(
+        got_in, inplace=True))
+    want = update.plain_sgd_update_many(want_in, inplace=True)
+    err = 0.0
+    for k, ((gw, gv), (ww, wv), e) in enumerate(zip(got, want, got_in)):
+        if gw.data_ptr() != e[0].data_ptr() or gv.data_ptr() != e[2] \
+                .data_ptr():
+            raise AssertionError("sgd_update inplace wrote elsewhere")
+        err = max(err, _bit_equal(torch, "mnist_table_scaled_inplace",
+                                  f"{k} w", gw, ww),
+                  _bit_equal(torch, "mnist_table_scaled_inplace",
+                             f"{k} v", gv, wv))
+    numel = sum(e[0].numel() for e in entries)
+    return _row(torch, "sgd_update", {
+        "case": "mnist_table_scaled_inplace",
+        "shape": [list(e[0].shape) for e in entries],
+        "scales": list(UPDATE_SCALES), "inplace": True, "numel": numel,
+        "launches_per_call": 1}, err,
+        lambda: update.sgd_update_many(entries, inplace=True),
+        lambda: update.plain_sgd_update_many(entries, inplace=True),
+        sgd_update_bound_ms(numel))
 
 
 #: the conv autoencoder of config 4 with its deconv tied to the encoder
@@ -1350,21 +1413,12 @@ FUSED_UPDATE_PATHS = {
 }
 
 
-def _fused_update_steps(torch, path: str) -> dict:
-    """``FUSED_UPDATE_STEPS`` train steps of ``path``'s model on the card,
-    each step's gradients (``grad_minibatch``) updated twice: through
-    ``apply_updates`` (the kernel) and through it with the plain update
-    (``plain_sgd_update_many``).  Params and velocities must agree bit for
-    bit after every step (so the two runs are the same steps), and the
-    kernel must launch the path's count a step.  Then the update of the
-    last step's gradients timed both ways."""
-    import numpy as np
+def _card_workflow(model: str, split: dict, config: dict | None = None):
+    """``model``'s sample workflow from SEED on ``split``, initialized on
+    the card, with ``config`` over its tree while it is built."""
     from znicz_tpu_torch import prng
     from znicz_tpu_torch.config import root
-    from znicz_tpu_torch.ops import update
-    from znicz_tpu_torch.parallel import fused
     from znicz_tpu_torch.profile_fused import MODELS
-    model, split, _, config, per_step = FUSED_UPDATE_PATHS[path]
     module = importlib.import_module(f"znicz_tpu_torch.models.{model}")
     tree = getattr(root, TREES.get(model, model))
     tree.synthetic.update(split)
@@ -1376,6 +1430,25 @@ def _fused_update_steps(torch, path: str) -> dict:
         wf.initialize(device="cuda")
     finally:
         tree.update(saved)
+    return wf
+
+
+def _fused_update_steps(torch, path: str) -> dict:
+    """``FUSED_UPDATE_STEPS`` train steps of ``path``'s model on the card,
+    each step's gradients (``grad_minibatch``) updated twice, in place:
+    through ``apply_updates`` (the kernel) and, on copies of the same
+    params and velocities, through it with the plain update
+    (``plain_sgd_update_many``); the odd steps at learning-rate scales
+    other than 1 (the weights' and the biases' apart, device floats).
+    Params and velocities must agree bit for bit after every step (so the
+    two runs are the same steps), and the kernel must launch the path's
+    count a step.  Then the update of the last step's gradients timed
+    both ways."""
+    import numpy as np
+    from znicz_tpu_torch.ops import update
+    from znicz_tpu_torch.parallel import fused
+    model, split, _, config, per_step = FUSED_UPDATE_PATHS[path]
+    wf = _card_workflow(model, split, config)
     spec = wf.spec
     params, vels = wf.spec_rows(wf.params), wf.spec_rows(wf.vels)
     ld = wf.loader
@@ -1387,19 +1460,28 @@ def _fused_update_steps(torch, path: str) -> dict:
               else ld.original_labels)
     n_params = sum(t.numel() for pair in params for t in pair
                    if t is not None)
+    def copies(rows):
+        return [tuple(None if t is None else t.clone() for t in pair)
+                for pair in rows]
+
+    def scale(v):
+        return torch.full((1,), v, device="cuda")
     with torch.no_grad():
         for s in range(FUSED_UPDATE_STEPS):
             ix = idx[s * batch:(s + 1) * batch]
             grads, _ = fused.grad_minibatch(
                 spec, params, data.index_select(0, ix),
                 target.index_select(0, ix), epoch=0, ctr=(s + 1) * batch)
-            new = _launch_once(torch, "sgd_update", lambda: fused
-                               .apply_updates(spec, params, vels, grads),
-                               per_step)
-            want = fused.apply_updates(spec, params, vels, grads,
-                                       many=update.plain_sgd_update_many)
-            for what, got_rows, want_rows in zip(("params", "vels"), new,
-                                                 want):
+            # the even steps at scale 1, the odd ones at a schedule's
+            s_w, s_b = ((None, None) if s % 2 == 0 else
+                        (scale(1.0 - s / 40), scale(1.0 + s / 40)))
+            want_p, want_v = copies(params), copies(vels)
+            _launch_once(torch, "sgd_update", lambda: fused.apply_updates(
+                spec, params, vels, grads, s_w, s_b), per_step)
+            fused.apply_updates(spec, want_p, want_v, grads, s_w, s_b,
+                                many=update.plain_sgd_update_many)
+            for what, got_rows, want_rows in (("params", params, want_p),
+                                              ("vels", vels, want_v)):
                 for r, (gp, wp) in enumerate(zip(got_rows, want_rows)):
                     for a, b in zip(gp, wp):
                         if (a is None) != (b is None):
@@ -1407,7 +1489,6 @@ def _fused_update_steps(torch, path: str) -> dict:
                         if a is not None:
                             _bit_equal(torch, f"{path} step {s}",
                                        f"{what} row {r}", a, b)
-            params, vels = new
         big = model == "alexnet"
         k_ms, _ = _time_ms(torch, lambda: fused.apply_updates(
             spec, params, vels, grads), BIG_ITERS if big else ITERS)
@@ -1418,7 +1499,7 @@ def _fused_update_steps(torch, path: str) -> dict:
            "n_params": n_params, "bit_equal": True, "update_ms": k_ms,
            "plain_update_ms": p_ms,
            "bound_ms": sgd_update_bound_ms(n_params)[0]}
-    del wf, params, vels, grads, new, want
+    del wf, params, vels, grads, want_p, want_v
     torch.cuda.empty_cache()
     return out
 
@@ -2106,9 +2187,9 @@ def expected_launches(path: str, split: dict, batch: int, epochs: int
 
 
 def _run(model: str, device: str, epochs: int, split: dict,
-         config: dict | None = None, fused: bool = True):
+         config: dict | None = None, fused: bool = True, **kwargs):
     """``model``'s ``run`` from SEED on ``split``, with ``config`` over its
-    tree for this run only."""
+    tree for this run only and ``kwargs`` to its workflow."""
     from znicz_tpu_torch import prng
     from znicz_tpu_torch.config import root
     module = importlib.import_module(f"znicz_tpu_torch.models.{model}")
@@ -2118,7 +2199,8 @@ def _run(model: str, device: str, epochs: int, split: dict,
     tree.update(config or {})
     prng.seed_all(SEED)
     try:
-        return module.run(device=device, fused=fused, epochs=epochs)
+        return module.run(device=device, fused=fused, epochs=epochs,
+                          **kwargs)
     finally:
         tree.update(saved)
 
@@ -2224,14 +2306,15 @@ def phase_slice(torch, model: str, split: dict, desc: str,
 def phase_parity(model: str, split: dict, card_epoch0: dict, rtol: float,
                  err_share: float, config: dict | None = None,
                  fused: bool = True, phase: str | None = None,
-                 card_wf=None) -> None:
+                 card_wf=None, **kwargs) -> None:
     """Epoch 0 of the same seed on the CPU against the card's: the same
     metrics, losses and MSEs within ``rtol``, error counts within
     ``err_share`` of each class.  With ``card_wf`` (a unit graph's
     workflow) its units' weights and biases are held to the CPU's within
     rtol 1e-4 / atol 1e-6 as well.  ``phase`` names the printed line
-    (default: the model and its path)."""
-    cpu_wf = _run(model, "cpu", 1, split, config, fused)
+    (default: the model and its path); ``kwargs`` go to the workflow.
+    """
+    cpu_wf = _run(model, "cpu", 1, split, config, fused, **kwargs)
     cpu = cpu_wf.decision.epoch_metrics[0]
     if sorted(cpu) != sorted(card_epoch0):
         raise AssertionError(f"{model}: card metrics {sorted(card_epoch0)} "
@@ -2446,8 +2529,9 @@ PROFILED_STEPS = 3
 
 
 def profiled_step(torch, wf) -> dict:
-    """Fused train steps of the counted run's model (a trainer on copies
-    of its weights, the step warmed up once) under ``torch.profiler``: the
+    """Fused train steps of the counted run's model (a trainer of its own,
+    on copies of the weights; the step warmed up, and on a captured path
+    captured, once) under ``torch.profiler``: the
     device kernels they ran must hold the tier's three conv kernels and no
     kernel whose name marks a library convolution; the times are a step's
     (the recorded steps' mean).  The profiler traces a warm-up step before
@@ -2456,13 +2540,9 @@ def profiled_step(torch, wf) -> dict:
     an H100 it lost the step's first conv forwards in three of four runs
     of one recorded step without the warm-up, and in one of two with it."""
     from znicz_tpu_torch.parallel import fused
-
-    def copies(rows):
-        return [tuple(None if t is None else t.clone() for t in pair)
-                for pair in rows]
-    tr = fused.FusedTrainer(spec=wf.spec, params=copies(
-        wf.spec_rows(wf.params)), vels=copies(wf.spec_rows(wf.vels)),
-        device=wf.device.torch_device)
+    tr = fused.FusedTrainer(spec=wf.spec, params=wf.spec_rows(wf.params),
+                            vels=wf.spec_rows(wf.vels),
+                            device=wf.device.torch_device)
     ld = wf.loader
     batch = ld.max_minibatch_size
     idx = ld.train_permutation(0)[:batch]
@@ -2560,6 +2640,206 @@ def phase_gemm_tier(torch, cudnn: dict, alexnet_fused: dict,
     return out
 
 
+#: the captured paths held against their uncaptured steps: path → (model,
+#: split, conv tier, accum_steps); full widths, the parity splits
+CAPTURED_PATHS = {
+    "mnist": ("mnist", FUSED_UPDATE_PATHS["mnist"][1], None, 1),
+    "mnist_accum2": ("mnist", FUSED_UPDATE_PATHS["mnist"][1], None, 2),
+    "cifar": ("cifar", CIFAR_PARITY_SPLIT, None, 1),
+    "cifar_gemm": ("cifar", CIFAR_PARITY_SPLIT, "pallas", 1),
+    "autoencoder": ("autoencoder", AE_PARITY_SPLIT, None, 1),
+    "autoencoder_gemm": ("autoencoder", AE_PARITY_SPLIT, "pallas", 1),
+}
+#: steps of the timed train and eval epochs of the captured phase
+CAPTURED_STEPS = 200
+
+
+def _timed(torch, fn) -> tuple:
+    """(fn's result, its wall seconds, synchronised, and the launches of
+    each kernel it made)."""
+    torch.cuda.synchronize()
+    before = launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    after = launch_counts()
+    return out, wall, {k: after[k] - before[k] for k in after}
+
+
+def _captured_path(torch, path: str) -> dict:
+    """One path's fused steps both ways from the same start: a train and
+    an eval epoch (the captured trainer captures here), then a train epoch
+    at a per-step learning-rate schedule and an eval epoch, each timed,
+    all of CAPTURED_STEPS steps; metrics, params and velocities must agree
+    bit for bit, and each kernel's launches in the timed epochs."""
+    import numpy as np
+    from znicz_tpu_torch.parallel import fused
+    model, split, tier, accum = CAPTURED_PATHS[path]
+    with conv_tier(tier) if tier else contextlib.nullcontext():
+        wf = _card_workflow(model, split)
+        ld = wf.loader
+        batch = ld.max_minibatch_size
+        data = ld.original_data
+        target = (ld.original_targets if wf.loss_function == "mse"
+                  else ld.original_labels)
+        # both epochs CAPTURED_STEPS long, so the plan the first one makes
+        # holds the timed one (a longer plan is captured again)
+        perm0 = np.resize(ld.train_permutation(0), CAPTURED_STEPS * batch)
+        timed = np.resize(ld.train_permutation(1), CAPTURED_STEPS * batch)
+        scales = np.linspace(1.0, 0.5, CAPTURED_STEPS)
+        runs = {}
+        for way, capture in (("captured", None), ("uncaptured", False)):
+            tr = fused.FusedTrainer(spec=wf.spec,
+                                    params=wf.spec_rows(wf.params),
+                                    vels=wf.spec_rows(wf.vels),
+                                    device="cuda", accum_steps=accum,
+                                    capture=capture)
+            first = tr.train_epoch(data, target, perm0, batch, epoch=0)
+            train, t_wall, t_n = _timed(torch, lambda: tr.train_epoch(
+                data, target, timed, batch, epoch=1, lr_scale=scales,
+                lr_scale_bias=0.8))
+            tr.eval_epoch(data, target, perm0, batch)
+            evals, e_wall, e_n = _timed(torch, lambda: tr.eval_epoch(
+                data, target, timed, batch))
+            runs[way] = (tr, (first, train, evals), t_wall, e_wall,
+                         (t_n, e_n))
+    (tr, m_c, t_c, e_c, n_c), (tr_u, m_u, t_u, e_u, n_u) = (
+        runs["captured"], runs["uncaptured"])
+    if not tr.captured or tr_u.captured:
+        raise AssertionError(f"{path}: captured {tr.captured}, "
+                             f"{tr.uncaptured_reason}")
+    for a, b in zip(m_c, m_u):
+        for k in a:
+            if not np.array_equal(a[k], b[k]):
+                raise AssertionError(f"{path}: captured {k} differs")
+    for what, rows_c, rows_u in (("params", tr.params, tr_u.params),
+                                 ("vels", tr.vels, tr_u.vels)):
+        for r, (pc, pu) in enumerate(zip(rows_c, rows_u)):
+            for a, b in zip(pc, pu):
+                if a is not None:
+                    _bit_equal(torch, f"{path} captured", f"{what} {r}",
+                               a, b)
+    if n_c != n_u:
+        raise AssertionError(f"{path}: launches {n_c} captured, {n_u} not")
+    out = {"captured": True, "accum_steps": accum, "bit_equal": True,
+           "graphs": sorted(v for p in tr._plans.values()
+                            for v in p.graphs),
+           "launches_equal": True, "steps": CAPTURED_STEPS,
+           "train_wall_ms_per_step": {"captured": t_c / CAPTURED_STEPS * 1e3,
+                                      "uncaptured": t_u / CAPTURED_STEPS
+                                      * 1e3},
+           "eval_wall_ms_per_step": {"captured": e_c / CAPTURED_STEPS * 1e3,
+                                     "uncaptured": e_u / CAPTURED_STEPS
+                                     * 1e3}}
+    del wf, runs, tr, tr_u
+    torch.cuda.empty_cache()
+    return out
+
+
+def _captured_som(torch) -> dict:
+    """The fused SOM both ways from the same weights: three epochs of
+    CAPTURED_STEPS steps at falling learning rates and σ, the last one
+    timed; the steps' mean |Δw| and the weights bit for bit,
+    distance_argmin's launches alike."""
+    import numpy as np
+    from znicz_tpu_torch.parallel import som
+    wf, _ = _som("cuda", None, True)
+    ld = wf.loader
+    batch = ld.max_minibatch_size
+    perms = [np.resize(ld.train_permutation(e), CAPTURED_STEPS * batch)
+             for e in range(3)]
+    runs = {}
+    for way, capture in (("captured", None), ("uncaptured", False)):
+        tr = som.FusedSOMTrainer(wf.forward.weights.mem, wf.forward.shape,
+                                 device="cuda", capture=capture)
+        diffs = [tr.train_epoch(ld.original_data, perms[e], batch, lr,
+                                sigma)
+                 for e, (lr, sigma) in enumerate(((0.5, 4.0), (0.45, 3.6)))]
+        diff, wall, n = _timed(torch, lambda: tr.train_epoch(
+            ld.original_data, perms[2], batch, 0.4, 3.2))
+        runs[way] = (tr, diffs + [diff], wall, n)
+    (tr, d_c, w_c, n_c), (tr_u, d_u, w_u, n_u) = (runs["captured"],
+                                                  runs["uncaptured"])
+    if not tr.captured or tr_u.captured or d_c != d_u or n_c != n_u:
+        raise AssertionError(f"som: captured {d_c} {n_c}, not {d_u} {n_u}")
+    _bit_equal(torch, "som captured", "weights", tr.weights, tr_u.weights)
+    return {"captured": True, "bit_equal": True, "launches_equal": True,
+            "graphs": sorted(v for p in tr._plans.values()
+                             for v in p.graphs), "steps": CAPTURED_STEPS,
+            "train_wall_ms_per_step": {"captured": w_c / CAPTURED_STEPS * 1e3,
+                                       "uncaptured": w_u / CAPTURED_STEPS
+                                       * 1e3}}
+
+
+def phase_captured(torch) -> dict:
+    """Every captured path (``CAPTURED_PATHS`` and the SOM) against its
+    uncaptured steps from the same start, bit for bit, with cuDNN held to
+    its deterministic algorithms for the phase (restored after: which
+    algorithm cuDNN picks is no part of the capture); AlexNet, whose
+    dropout key is folded on the host each step, reported uncaptured with
+    its reason.  Prints ``captured`` per path and the wall ms a step both
+    ways."""
+    from znicz_tpu_torch.models import alexnet as alexnet_model
+    from znicz_tpu_torch.parallel import fused
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        out = {path: _captured_path(torch, path) for path in CAPTURED_PATHS}
+        out["som"] = _captured_som(torch)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    shrunk = dict(ALEXNET_SHRUNK, layers=alexnet_model.make_layers(
+        ALEXNET_SHRUNK["n_classes"], widths=ALEXNET_SHRUNK_WIDTHS))
+    wf = _card_workflow("alexnet", ALEXNET_SPLIT, shrunk)
+    tr = fused.FusedTrainer(spec=wf.spec, params=wf.spec_rows(wf.params),
+                            vels=wf.spec_rows(wf.vels), device="cuda")
+    if tr.captured or "dropout" not in tr.uncaptured_reason:
+        raise AssertionError(f"alexnet: captured {tr.captured}")
+    out["alexnet"] = {"captured": False,
+                      "uncaptured_reason": tr.uncaptured_reason}
+    emit({"phase": "captured", "cudnn_deterministic": True, "paths": out})
+    return out
+
+
+#: the LR-schedule phase's adjuster: halve the learning rates every 100
+#: train minibatches
+LR_ADJUSTER = {"policy": ("step_exp", {"gamma": 0.5, "step": 100}),
+               "by_epoch": False}
+
+
+def phase_lr_accum(torch) -> dict:
+    """MNIST fused at full width for one epoch with LR_ADJUSTER (per
+    minibatch) and ``root.common.accum_steps = 2``: one ``sgd_update``
+    launch every second train step and at the head's last, and epoch 0's
+    losses within rtol 1e-4 of the same run on the CPU, error counts within
+    0.1% of each class."""
+    from znicz_tpu_torch.config import root
+    saved = root.common.get("accum_steps")
+    root.common.accum_steps = 2
+    try:
+        reset_launch_counts()
+        card = _run("mnist", "cuda", 1, MNIST_SPLIT,
+                    lr_adjuster_config=LR_ADJUSTER)
+        counts = launch_counts()
+        batch = card.loader.max_minibatch_size
+        head = (MNIST_SPLIT["n_train"] - 1) // batch
+        if counts["sgd_update"] != -(-head // 2):
+            raise AssertionError(f"sgd_update launched {counts['sgd_update']}"
+                                 f" times for {head} accumulated steps")
+        phase_parity("mnist", MNIST_SPLIT, card.decision.epoch_metrics[0],
+                     1e-4, 0.001, phase="mnist_lr_accum_parity",
+                     lr_adjuster_config=LR_ADJUSTER)
+    finally:
+        root.common.accum_steps = saved
+    out = {"phase": "mnist_lr_accum", "adjuster": LR_ADJUSTER,
+           "accum_steps": 2, "launches": counts,
+           "epoch_metrics": card.decision.epoch_metrics,
+           "lr_adjuster_minibatches": card.lr_adjuster._minibatches}
+    emit(out)
+    return out
+
+
 def kernels_line(kern: dict, launches: dict) -> dict:
     """One entry per kernel: its numbers at the main path's shape (the
     first case), the launches of the main-path runs, and every case."""
@@ -2616,11 +2896,13 @@ def main() -> int:
             "matmul_at_b": phase_kernel_at_b(torch),
             **phase_kernel_conv_gemm(torch)}
     phase_fused_update(torch)
+    phase_captured(torch)
     #: each conv model's epoch 0 on its default split on the default tier
     cudnn = {}
     mnist = phase_slice(torch, "mnist", MNIST_SPLIT, "mnist 784-100-10")
     phase_parity("mnist", MNIST_SPLIT, mnist["epoch_metrics"][0], 1e-4,
                  0.001)
+    phase_lr_accum(torch)
     cifar = phase_slice(torch, "cifar", CIFAR_SPLIT,
                         "cifar conv5x5x32-maxpool2-lrn5-conv5x5x32-"
                         "avgpool2-fc64-softmax10")

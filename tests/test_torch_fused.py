@@ -203,7 +203,7 @@ def test_narrow_storage_through_float32_kernels_raises(kind):
         fused.ModelSpec((layer,), "mse", storage_dtype="bfloat16")
 
 
-@pytest.mark.parametrize("kwargs", [{"accum_steps": 2}, {"mesh": object()},
+@pytest.mark.parametrize("kwargs", [{"mesh": object()},
                                     {"augment": object()}])
 def test_trainer_options_outside_the_slice_raise(kwargs):
     spec, params, vels, _, _ = _hand_built("mse", False)
@@ -321,11 +321,15 @@ def _pairs_equal(got, want):
 
 @pytest.mark.parametrize("name", sorted(UPDATE_SPECS))
 def test_apply_updates_equals_the_per_tensor_golden_bit_for_bit(name):
-    _, (spec, params, vels, grads) = _update_inputs(name)
-    got = fused.apply_updates(spec, params, vels, grads)
-    want = _golden_apply_updates(spec, params, vels, grads)
-    for g, w in zip(got, want):
-        _pairs_equal(g, w)
+    """In place, the lists given returned, at lr_scale None and at a
+    scale of exactly 1."""
+    for scale in (None, torch.ones(1)):
+        _, (spec, params, vels, grads) = _update_inputs(name)
+        want = _golden_apply_updates(spec, params, vels, grads)
+        got = fused.apply_updates(spec, params, vels, grads, scale)
+        assert got[0] is params and got[1] is vels
+        for g, w in zip(got, want):
+            _pairs_equal(g, w)
 
 
 @pytest.mark.parametrize("name", sorted(UPDATE_SPECS))
@@ -355,9 +359,12 @@ def test_one_update_call_a_step_and_a_new_one_at_a_tie(name, calls):
     _, (spec, params, vels, grads) = _update_inputs(name)
     seen = []
 
-    def spy(entries):
-        seen.append(entries)
-        return update.plain_sgd_update_many(entries)
+    def spy(entries, inplace=False):
+        assert inplace
+        # the entries as the call reads them (the call overwrites them)
+        seen.append([tuple(t.clone() if torch.is_tensor(t) else t
+                           for t in e) for e in entries])
+        return update.plain_sgd_update_many(entries, inplace)
     launches = update.sgd_update_launches
     new_params, _ = fused.apply_updates(spec, params, vels, grads, many=spy)
     assert [len(e) for e in seen] == calls

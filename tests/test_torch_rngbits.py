@@ -127,7 +127,8 @@ class _Recorder:
     def __init__(self, cfg):
         self.cfg, self.keys = cfg, []
 
-    def __call__(self, spec, params, vels, x, t, mask, epoch, ctr):
+    def __call__(self, spec, params, vels, x, t, mask, epoch, ctr,
+                 lr_scale=None, lr_scale_bias=None):
         self.keys.append(fused.dropout_key(self.cfg, epoch, ctr))
         zero = torch.zeros(())
         return params, vels, {"loss": zero, "n_err": zero.int()}

@@ -5,13 +5,19 @@
 // Replaces the TPU kernel znicz_tpu/ops/update.py pallas_sgd_update
 // (_update_kernel).  Per element, in the reference's order of operations:
 //   reg = wd * ((1 - l1) * w + (0.5 * l1) * sign(w))
-//   v'  = mom * v - lr * (g + reg)
+//   v'  = mom * v - (lr * s) * (g + reg)
 //   w'  = w + v'
 // with sign(±0) = 0.  Each entry of the table carries its five constants
 // lr, wd, 1 - l1, 0.5 * l1 and mom as float32, formed by the caller: the
 // unit graph forms 1 - l1 in float32 from float32 hypers (the reference's
 // f32 hypers array), the fused step rounds the double 1 - l1 once, and the
-// kernel forms nothing, so neither path moves.
+// kernel forms nothing, so neither path moves.  s is the learning-rate
+// scale of the step (the fused path's LR schedule), a float32 the kernel
+// loads from device memory, so a CUDA graph that captured the launch
+// follows the schedule; lr * s is rounded to float32 first, as the
+// reference's lr * lr_scale * (g + reg) does.  A null pointer means s = 1,
+// and at s = 1 the kernel computes what it did before the scale (lr * 1 is
+// lr exactly).
 //
 // Rounding: every operation is the correctly rounded intrinsic
 // (__fmul_rn, __fadd_rn, __fsub_rn), which nvcc never contracts into a
@@ -38,7 +44,8 @@
 //
 // In place: w_out may equal w and v_out may equal v (each element is read
 // before it is written, by the same thread), so the pointers carry no
-// __restrict__.  The PyTorch wrapper allocates fresh outputs.
+// __restrict__.  The fused step updates its parameters and velocities in
+// place; the unit graph's wrapper calls allocate fresh outputs.
 //
 // Bound on an H100: bytes.  Three float32 reads and two writes an element
 // (20 bytes) against ~10 flops, far below the card's float32 balance:
@@ -63,6 +70,7 @@ struct Entry {
   const float* v;
   float* w_out;
   float* v_out;
+  const float* scale;                             // s; null: s = 1
   long long n;
   float lr, wd, one_minus_l1, half_l1, mom;
   int vec;                                        // 16-byte path allowed
@@ -78,22 +86,25 @@ static_assert(sizeof(Table) <= 4096, "the table must fit the 4 KB limit");
 __device__ __forceinline__ float4 load4(const float4* p) { return *p; }
 __device__ __forceinline__ void store4(float4* p, float4 x) { *p = x; }
 
-__device__ __forceinline__ void step(const Entry& e, float w, float g,
-                                     float v, float& w_new, float& v_new) {
+// lr is the entry's rate times its step's scale, rounded once
+__device__ __forceinline__ void step(const Entry& e, float lr, float w,
+                                     float g, float v, float& w_new,
+                                     float& v_new) {
   const float s = w > 0.0f ? 1.0f : (w < 0.0f ? -1.0f : 0.0f);
   const float reg = __fmul_rn(
       e.wd, __fadd_rn(__fmul_rn(e.one_minus_l1, w), __fmul_rn(e.half_l1, s)));
-  v_new = __fsub_rn(__fmul_rn(e.mom, v), __fmul_rn(e.lr, __fadd_rn(g, reg)));
+  v_new = __fsub_rn(__fmul_rn(e.mom, v), __fmul_rn(lr, __fadd_rn(g, reg)));
   w_new = __fadd_rn(w, v_new);
 }
 
-__device__ __forceinline__ void step4(const Entry& e, const float4& w,
-                                      const float4& g, const float4& v,
-                                      float4& w_new, float4& v_new) {
-  step(e, w.x, g.x, v.x, w_new.x, v_new.x);
-  step(e, w.y, g.y, v.y, w_new.y, v_new.y);
-  step(e, w.z, g.z, v.z, w_new.z, v_new.z);
-  step(e, w.w, g.w, v.w, w_new.w, v_new.w);
+__device__ __forceinline__ void step4(const Entry& e, float lr,
+                                      const float4& w, const float4& g,
+                                      const float4& v, float4& w_new,
+                                      float4& v_new) {
+  step(e, lr, w.x, g.x, v.x, w_new.x, v_new.x);
+  step(e, lr, w.y, g.y, v.y, w_new.y, v_new.y);
+  step(e, lr, w.z, g.z, v.z, w_new.z, v_new.z);
+  step(e, lr, w.w, g.w, v.w, w_new.w, v_new.w);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -105,6 +116,7 @@ sgd_update_multi_kernel(const __grid_constant__ Table t) {
     if (t.start[mid] <= chunk) lo = mid; else hi = mid - 1;
   }
   const Entry& e = t.e[lo];
+  const float lr = e.scale != nullptr ? __fmul_rn(e.lr, *e.scale) : e.lr;
   const long long base = static_cast<long long>(chunk - t.start[lo]) * kChunk;
   if (e.vec && base + kChunk <= e.n) {
     const float4* w4 = reinterpret_cast<const float4*>(e.w + base);
@@ -124,7 +136,7 @@ sgd_update_multi_kernel(const __grid_constant__ Table t) {
     for (int k = 0; k < kVecs; ++k) {
       const int i = k * kThreads + static_cast<int>(threadIdx.x);
       float4 wn, vn;
-      step4(e, w[k], g[k], v[k], wn, vn);
+      step4(e, lr, w[k], g[k], v[k], wn, vn);
       store4(vo + i, vn);
       store4(wo + i, wn);
     }
@@ -145,7 +157,7 @@ sgd_update_multi_kernel(const __grid_constant__ Table t) {
     const long long i = base + k * kThreads + threadIdx.x;
     if (i < e.n) {
       float wn, vn;
-      step(e, w[k], g[k], v[k], wn, vn);
+      step(e, lr, w[k], g[k], v[k], wn, vn);
       e.v_out[i] = vn;
       e.w_out[i] = wn;
     }
@@ -159,10 +171,12 @@ int launch(const Table& t, int chunks, cudaStream_t stream) {
 
 }  // namespace
 
-// Updates `count` entries: entry i has the pointers ptrs[5i .. 5i+4] (w, g,
-// v, w_out, v_out: contiguous float32), ns[i] elements and the constants
-// consts[5i .. 5i+4] (lr, wd, 1 - l1, 0.5 * l1, mom); it takes the 16-byte
-// path where all five pointers are 16-byte aligned.  Empty entries are
+// Updates `count` entries: entry i has the pointers ptrs[6i .. 6i+5] (w, g,
+// v, w_out, v_out: contiguous float32, w_out and v_out either w and v or
+// apart from every input; then its scale s, one float32, or null for 1),
+// ns[i] elements and the constants consts[5i .. 5i+4] (lr, wd, 1 - l1,
+// 0.5 * l1, mom); it takes the 16-byte path where its five tensors are
+// 16-byte aligned.  Empty entries are
 // skipped; the rest go kMaxEntries to a launch, in order.  Launches on
 // `stream`, does not synchronise; *launched gets the number of launches
 // made, and the return is cudaGetLastError() as an int
@@ -190,7 +204,7 @@ extern "C" int znicz_sgd_update_many_f32(const unsigned long long* ptrs,
       t.count = 0;
       chunks = 0;
     }
-    const unsigned long long* p = ptrs + 5LL * i;
+    const unsigned long long* p = ptrs + 6LL * i;
     const float* c = consts + 5LL * i;
     Entry& e = t.e[t.count];
     e.w = reinterpret_cast<const float*>(p[0]);
@@ -198,6 +212,7 @@ extern "C" int znicz_sgd_update_many_f32(const unsigned long long* ptrs,
     e.v = reinterpret_cast<const float*>(p[2]);
     e.w_out = reinterpret_cast<float*>(p[3]);
     e.v_out = reinterpret_cast<float*>(p[4]);
+    e.scale = reinterpret_cast<const float*>(p[5]);
     e.n = n;
     e.lr = c[0];
     e.wd = c[1];

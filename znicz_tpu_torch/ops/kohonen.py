@@ -298,15 +298,18 @@ def winners(d: torch.Tensor) -> torch.Tensor:
 
 
 def neighborhood(win: torch.Tensor, coords: torch.Tensor,
-                 sigma: float) -> torch.Tensor:
-    """:func:`np_neighborhood` on tensors; ``sigma`` a host float."""
+                 sigma) -> torch.Tensor:
+    """:func:`np_neighborhood` on tensors; ``sigma`` a host float or a
+    float32 scalar tensor on the device (the fused trainer's, which a
+    captured step reads there)."""
     cw = coords[win.long()]
     d2 = ((coords[None, :, :] - cw[:, None, :]) ** 2).sum(dim=2)
     return torch.exp(-d2 / (2.0 * sigma * sigma))
 
 
-def som_delta(w, x, win, coords, lr: float, sigma: float) -> torch.Tensor:
-    """Δw of one batch pull (no (B, N, F) intermediate)."""
+def som_delta(w, x, win, coords, lr, sigma) -> torch.Tensor:
+    """Δw of one batch pull (no (B, N, F) intermediate); ``lr`` and
+    ``sigma`` as :func:`neighborhood` takes ``sigma``."""
     h = neighborhood(win, coords, sigma)
     return (lr / x.shape[0]) * (h.T @ x - h.sum(dim=0)[:, None] * w)
 

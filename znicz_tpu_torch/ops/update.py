@@ -4,13 +4,24 @@
 The rule, in the reference's order of operations::
 
     reg  = weights_decay · ((1 − l1_vs_l2)·w + ½·l1_vs_l2·sign(w))
-    vel' = gradient_moment · vel − learning_rate · (grad + reg)
+    vel' = gradient_moment · vel − (learning_rate · s) · (grad + reg)
     w'   = w + vel'
 
-``sgd_update_many(entries)`` updates a list of tensors, each entry
-``(w, grad, vel, constants)``: on CUDA tensors in one launch of the
-hand-written kernel in ``csrc/update.cu`` (the port of
-``pallas_sgd_update``), on CPU tensors through ``plain_sgd_update_many``.
+``s`` is the step's learning-rate scale (the fused path's LR schedule), a
+one-element float32 tensor on the entry's device that the kernel reads
+from device memory, so a CUDA graph that captured the update follows a
+schedule; ``learning_rate · s`` is rounded to float32 first, as the
+reference's ``lr * lr_scale * (g + reg)`` does.  An entry without one
+takes s = 1, and is updated as it was before the scale existed.
+
+``sgd_update_many(entries, inplace=False)`` updates a list of tensors,
+each entry ``(w, grad, vel, constants)`` or ``(w, grad, vel, constants,
+s)``: on CUDA tensors in one launch of the hand-written kernel in
+``csrc/update.cu`` (the port of ``pallas_sgd_update``), on CPU tensors
+through ``plain_sgd_update_many``.  With ``inplace`` w′ and vel′ are
+written over w and vel (the fused step's parameters and velocities, as
+the reference donates them); no tensor may then appear twice among a
+call's inputs, since an entry's outputs are another's inputs there.
 ``constants`` = (lr, weights_decay, 1 − l1_vs_l2, ½·l1_vs_l2, momentum) as
 float32 values, formed by the caller's convention: ``unit_constants`` for
 the unit graph's GD units (the reference's f32 hypers array, ``1 − l1``
@@ -33,7 +44,7 @@ import torch
 #: ``sgd_update_many`` adds one per launch, nowhere else).
 sgd_update_launches = 0
 
-#: ptrs (5 an entry), ns, consts (5 an entry), count, launched, stream
+#: ptrs (6 an entry), ns, consts (5 an entry), count, launched, stream
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int,
                                      ctypes.POINTER(ctypes.c_int),
                                      ctypes.c_void_p]
@@ -85,15 +96,31 @@ def _fused_constants(hypers: tuple) -> tuple[float, ...]:
                  for c in (lr, wd, 1.0 - l1, 0.5 * l1, mom))
 
 
-def plain_sgd_update_many(entries) -> list[tuple[torch.Tensor, torch.Tensor]]:
-    """[(w', vel')] of each entry ``(w, grad, vel, constants)`` with the
-    reference kernel's float32 arithmetic, one rounded operation at a
-    time; ``sign(±0) = 0``."""
+def _scale(entry):
+    """The entry's scale tensor s, or None (s = 1)."""
+    return entry[4] if len(entry) > 4 else None
+
+
+def plain_sgd_update_many(entries, inplace: bool = False
+                          ) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """[(w', vel')] of each entry ``(w, grad, vel, constants[, s])`` with
+    the reference kernel's float32 arithmetic, one rounded operation at a
+    time; ``sign(±0) = 0``; ``lr · s`` rounded first.  With ``inplace``
+    the results are written over w and vel, and those are returned."""
     out = []
-    for w, grad, vel, (lr, wd, one_minus_l1, half_l1, mom) in entries:
+    for e in entries:
+        w, grad, vel, (lr, wd, one_minus_l1, half_l1, mom) = e[:4]
+        s = _scale(e)
+        if s is not None:
+            lr = s.reshape(()) * lr
         reg = wd * (one_minus_l1 * w + half_l1 * torch.sign(w))
         vel_new = mom * vel - lr * (grad + reg)
-        out.append((w + vel_new, vel_new))
+        w_new = w + vel_new
+        if inplace:
+            vel.copy_(vel_new)
+            w.copy_(w_new)
+            w_new, vel_new = w, vel
+        out.append((w_new, vel_new))
     return out
 
 
@@ -111,10 +138,19 @@ def _check(entries) -> None:
     device = entries[0][0].device
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"sgd_update: unsupported device {device}")
-    for k, (w, grad, vel, consts) in enumerate(entries):
+    for k, e in enumerate(entries):
+        if len(e) not in (4, 5):
+            raise ValueError(f"sgd_update: entry {k} has {len(e)} items, "
+                             f"not (w, grad, vel, constants[, s])")
+        w, grad, vel, consts = e[:4]
         if len(consts) != 5:
             raise ValueError(f"sgd_update: entry {k} has {len(consts)} "
                              f"constants, not 5")
+        s = _scale(e)
+        if s is not None and (s.device != device or s.numel() != 1
+                              or s.dtype != torch.float32):
+            raise ValueError(f"sgd_update: entry {k}'s scale must be one "
+                             f"float32 on {device}")
         for name, t in (("w", w), ("grad", grad), ("vel", vel)):
             if t.device != device:
                 raise ValueError(f"sgd_update: entry {k} {name} on "
@@ -128,24 +164,37 @@ def _check(entries) -> None:
             if not t.is_contiguous():
                 raise ValueError(f"sgd_update: entry {k} {name} must be "
                                  f"contiguous")
+    seen: dict = {}
+    for k, e in enumerate(entries):
+        for name, t in zip(("w", "grad", "vel"), e[:3]):
+            if t.numel() == 0:
+                continue
+            ptr = t.data_ptr()
+            if ptr in seen:
+                raise ValueError(f"sgd_update: entry {k} {name} is also "
+                                 f"{seen[ptr]} of this call")
+            seen[ptr] = f"entry {k} {name}"
 
 
-def sgd_update_many(entries) -> list[tuple[torch.Tensor, torch.Tensor]]:
-    """[(w', vel')] of each entry ``(w, grad, vel, constants)``: contiguous
-    float32 tensors of one shape an entry, all on one device.  CUDA tensors
-    go through the kernel, in one launch for up to 48 entries; CPU tensors
-    through the plain version.  Outputs are fresh (on the card views into
-    one buffer for every w' and one for every vel'); the inputs are left as
-    they were.  Every entry reads its inputs as given: an update that must
-    read another entry's w' (a tied deconv's, in the fused step) belongs in
-    a later call."""
+def sgd_update_many(entries, inplace: bool = False
+                    ) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """[(w', vel')] of each entry ``(w, grad, vel, constants[, s])``:
+    contiguous float32 tensors of one shape an entry, all on one device,
+    and no tensor twice among them.  CUDA tensors go through the kernel, in
+    one launch for up to 48 entries; CPU tensors through the plain version.
+    Outputs are fresh (on the card views into one buffer for every w' and
+    one for every vel') and the inputs are left as they were, or with
+    ``inplace`` w′ and vel′ are written over w and vel.  Every entry reads
+    its inputs as given: an update that must read another entry's w' (a
+    tied deconv's, in the fused step) belongs in a later call."""
     global sgd_update_launches
     entries = list(entries)
     _check(entries)
     if not entries or entries[0][0].device.type == "cpu":
-        return plain_sgd_update_many(entries)
+        return plain_sgd_update_many(entries, inplace)
     from .. import cuda_build
-    outs = empty_outputs(entries)
+    outs = ([(w, v) for w, _, v, *_ in entries] if inplace
+            else empty_outputs(entries))
     sgd_update_launches += launch_many(
         cuda_build.kernel("update", "znicz_sgd_update_many_f32", _ARGTYPES),
         entries, outs)
@@ -156,7 +205,7 @@ def empty_outputs(entries) -> list[tuple[torch.Tensor, torch.Tensor]]:
     """[(w', vel')] of each entry as views into two fresh buffers, each
     entry's starting on a 16-byte boundary."""
     offsets, total = [], 0
-    for w, _, _, _ in entries:
+    for w, *_ in entries:
         offsets.append(total)
         total += -(-w.numel() // 4) * 4
     w_buf = torch.empty(total, dtype=torch.float32,
@@ -164,18 +213,20 @@ def empty_outputs(entries) -> list[tuple[torch.Tensor, torch.Tensor]]:
     v_buf = torch.empty_like(w_buf)
     return [(torch.as_strided(w_buf, w.shape, w.stride(), o),
              torch.as_strided(v_buf, w.shape, w.stride(), o))
-            for (w, _, _, _), o in zip(entries, offsets)]
+            for (w, *_), o in zip(entries, offsets)]
 
 
 def launch_many(fn, entries, outs) -> int:
     """Call the C entry point ``fn`` on checked CUDA ``entries`` into
-    ``outs``; returns the launches it made, counting none (the probe
-    calls it with variants of the kernel)."""
+    ``outs`` (each entry's (w', vel'): its own w and vel, or tensors apart
+    from every input); returns the launches it made, counting none (the
+    probe calls it with variants of the kernel)."""
     from .. import cuda_build
-    ptrs = np.array([t.data_ptr() for (w, g, v, _), (wo, vo) in
-                     zip(entries, outs) for t in (w, g, v, wo, vo)],
-                    np.uint64)
-    ns = np.array([w.numel() for w, _, _, _ in entries], np.int64)
+    ptrs = np.array([p for e, (wo, vo) in zip(entries, outs)
+                     for p in (*(t.data_ptr() for t in (*e[:3], wo, vo)),
+                               0 if _scale(e) is None
+                               else _scale(e).data_ptr())], np.uint64)
+    ns = np.array([e[0].numel() for e in entries], np.int64)
     consts = np.array([c for e in entries for c in e[3]], np.float32)
     launched = ctypes.c_int(0)
     cuda_build.launch(fn, entries[0][0].device, ptrs.ctypes.data,

@@ -3,10 +3,17 @@
 
 The same math as the reference's jitted step — forward chain, softmax-CE
 (or MSE) head, hand-written backward chain and momentum SGD update — as
-plain functions over a list of ``(w, b)`` tensors.  ``FusedTrainer`` runs
-an epoch as a Python loop over minibatches gathered on the device from the
-resident dataset; per-step metrics stay in device tensors until the caller
-reads them, so an epoch needs one host sync.
+plain functions over a list of ``(w, b)`` tensors, the update written over
+the parameters and velocities in place.  ``FusedTrainer`` runs an epoch
+over minibatches gathered on the device from the resident dataset: on the
+card each step is a replay of a CUDA graph (``parallel.capture``), the
+counterpart of the reference's jitted ``lax.scan``, with the step's
+indices, mask and learning-rate scales read from a plan copied in once a
+call; elsewhere, and for a spec with dropout, the same step functions run
+one by one.  Per-step metrics stay in device tensors until the caller
+reads them, so an epoch needs one host sync.  ``accum_steps`` sums the
+gradients of consecutive steps before one update, and ``lr_scale``
+multiplies the learning rates per step (the LR adjusters' schedules).
 
 The port covers the kinds of the MNIST, CIFAR, AlexNet and autoencoder
 slices: ``fc``, standalone ``activation``, ``conv``, ``max_pool``,
@@ -24,6 +31,7 @@ the reference's bit for bit and cost no device sync."""
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -433,50 +441,52 @@ def backward(spec: ModelSpec, params, caches, out, err, epoch: int = 0,
     return grads
 
 
-def apply_updates(spec: ModelSpec, params, vels, grads, many=None):
+def apply_updates(spec: ModelSpec, params, vels, grads, lr_scale=None,
+                  lr_scale_bias=None, many=None):
     """Momentum SGD with decay, layers in REVERSE order (the GD chain's
     execution order): reg = wd·((1−l1)·w + ½·l1·sign w),
-    v′ = mom·v − lr·(g + reg), w′ = w + v′, every W and b of the step in
-    one ``many`` call (default ``ops.update.sgd_update_many``: one kernel
-    launch on the card) with the fused step's constants.  A tied deconv
-    updates the encoder conv's W (``params[tie]``) with its own velocity,
-    before the conv's own update reads W for its decay term, as the unit
-    graph's two GD units do: a W that a call already updates starts the
-    next call, which reads the new W.  Returns new lists.  The reference's
-    per-step ``lr_scale`` arrives with the LR adjusters (ROADMAP.md queue
-    1 item 4)."""
+    v′ = mom·v − (lr·s)·(g + reg), w′ = w + v′, written over the
+    parameters and velocities in place (the reference donates them), every
+    W and b of the step in one ``many`` call (default
+    ``ops.update.sgd_update_many``: one kernel launch on the card) with the
+    fused step's constants.  ``lr_scale`` (s of the weights) and
+    ``lr_scale_bias`` (of the biases; default: ``lr_scale``) are
+    one-element float32 tensors on the parameters' device, which the
+    kernel reads there, or None for 1.  A tied deconv updates the encoder
+    conv's W (``params[tie]``) with its own velocity, before the conv's own
+    update reads W for its decay term, as the unit graph's two GD units
+    do: a W that a call already updates starts the next call, which reads
+    the new W.  Returns ``(params, vels)``, the lists given."""
     many = many or update_ops.sgd_update_many
-    cur_w = [p[0] for p in params]
-    cur_b = [p[1] for p in params]
-    new_v = [list(v) for v in vels]
-    entries, slots = [], []        # the pending call, and (row, 0 W | 1 b,
-    #                                the row whose param it writes)
+    if lr_scale_bias is None:
+        lr_scale_bias = lr_scale
+    entries, pending = [], set()   # the pending call, and the rows whose W
+    #                                it updates
 
     def call():
-        nonlocal entries, slots
-        for (i, j, tgt), (p2, v2) in zip(slots, many(entries)):
-            (cur_w if j == 0 else cur_b)[tgt] = p2
-            new_v[i][j] = v2
-        entries, slots = [], []
+        many(entries, inplace=True)
+        entries.clear()
+        pending.clear()
 
     for i in reversed(range(len(spec.layers))):
         layer, grad = spec.layers[i], grads[i]
         if grad is None:
             continue
         tgt = layer.cfg.get("tie", i) if layer.kind == "deconv" else i
-        if any(j == 0 and t == tgt for _, j, t in slots):
+        if tgt in pending:
             call()
         (vw, vb), (gw, gb) = vels[i], grad
-        entries.append((cur_w[tgt], gw, vw,
-                        update_ops.fused_constants(layer.hypers)))
-        slots.append((i, 0, tgt))
-        if cur_b[i] is not None:
-            entries.append((cur_b[i], gb, vb,
-                            update_ops.fused_constants(layer.hypers_bias)))
-            slots.append((i, 1, i))
+        entries.append((params[tgt][0], gw, vw,
+                        update_ops.fused_constants(layer.hypers), lr_scale))
+        pending.add(tgt)
+        b = params[i][1]
+        if b is not None:
+            entries.append((b, gb, vb,
+                            update_ops.fused_constants(layer.hypers_bias),
+                            lr_scale_bias))
     if entries:
         call()
-    return (list(zip(cur_w, cur_b)), [tuple(v) for v in new_v])
+    return params, vels
 
 
 def _ones(x):
@@ -486,7 +496,7 @@ def _ones(x):
 def grad_minibatch(spec: ModelSpec, params, x, target, mask=None,
                    epoch: int = 0, ctr: int = 0):
     """(grads, metrics) of one minibatch — train_minibatch without the
-    update."""
+    update, the building block gradient accumulation composes."""
     if mask is None:
         mask = _ones(x)
     out, caches = forward(spec, params, x, want_caches=True, train=True,
@@ -500,11 +510,30 @@ def grad_minibatch(spec: ModelSpec, params, x, target, mask=None,
     return grads, {"loss": loss, "n_err": n_err}
 
 
+def grad_zeros(spec: ModelSpec, params):
+    """Float32 zeros shaped like backward()'s gradients (a tied deconv's
+    like the encoder's W, at the deconv's row; None for rows without):
+    the accumulator of ``accum_steps``."""
+    zs = []
+    for i, layer in enumerate(spec.layers):
+        w, b = params[i]
+        if layer.kind not in PARAM_KINDS:
+            zs.append(None)
+            continue
+        if w is None:
+            w = params[layer.cfg["tie"]][0]
+        zs.append(tuple(None if t is None else torch.zeros(
+            t.shape, dtype=torch.float32, device=t.device) for t in (w, b)))
+    return zs
+
+
 def train_minibatch(spec: ModelSpec, params, vels, x, target, mask=None,
-                    epoch: int = 0, ctr: int = 0):
+                    epoch: int = 0, ctr: int = 0, lr_scale=None,
+                    lr_scale_bias=None):
+    """One step, the update in place; returns (params, vels, metrics)."""
     grads, metrics = grad_minibatch(spec, params, x, target, mask,
                                     epoch=epoch, ctr=ctr)
-    params, vels = apply_updates(spec, params, vels, grads)
+    apply_updates(spec, params, vels, grads, lr_scale, lr_scale_bias)
     return params, vels, metrics
 
 
@@ -537,41 +566,84 @@ class FusedTrainer:
     """Owns device-resident params and velocities and runs whole epochs.
 
     ``params``/``vels``: lists of ``(w, b)`` tensors (``None`` for
-    parameter-less layers or no bias), moved to ``device`` (default:
-    CUDA, raising without it).  ``workflow`` receives them on
-    :meth:`write_back`."""
+    parameter-less layers or no bias), copied to ``device`` (default:
+    CUDA, raising without it); the trainer updates its copies in place.
+    ``workflow`` receives copies of them on :meth:`write_back`.
+
+    ``accum_steps=k`` sums the gradients of ``k`` consecutive steps into
+    float32 accumulators (``acc + g`` from zeros, the reference's order)
+    and applies the sum, unscaled, every ``k``-th step and at the call's
+    last step, at that step's learning-rate scale (the unit graph's
+    accumulate_gradient with a deferred apply).
+
+    On the card every step is replayed from a CUDA graph (``capture``,
+    default: wherever the spec allows it; :attr:`captured` says whether it
+    does and :attr:`uncaptured_reason` why not): one train and one eval
+    step per batch size, dataset and conv tier, and with ``k > 1`` an
+    accumulating train step and one that also applies, which the host
+    picks per step as the reference's ``lax.cond`` does.  A spec with a
+    dropout layer runs the same step functions uncaptured, its mask key
+    folded on the host each step (the device word that would let a graph
+    read it is ROADMAP.md queue 1 item 3); so does the CPU."""
 
     def __init__(self, workflow=None, spec: ModelSpec | None = None,
                  params=None, vels=None, device=None, mesh=None,
-                 accum_steps: int = 1, augment=None):
+                 accum_steps: int = 1, augment=None,
+                 capture: bool | None = None):
         if mesh is not None:
             raise NotImplementedError(
                 "mesh-sharded training is not ported yet (ROADMAP.md "
                 "queue 1 item 9, parallelism)")
-        if accum_steps != 1:
-            raise NotImplementedError(
-                "gradient accumulation (accum_steps > 1) is not ported yet "
-                "(ROADMAP.md queue 1 item 3, remaining)")
         if augment is not None:
             raise NotImplementedError(
                 "device augmentation is not ported yet (ROADMAP.md queue 1 "
                 "item 8, data plane)")
+        if not isinstance(accum_steps, int) or isinstance(
+                accum_steps, bool) or accum_steps < 1:
+            raise ValueError(f"accum_steps must be a positive int, got "
+                             f"{accum_steps!r}")
         if device is None:
             from ..backends import resolve
             device = resolve(None)
         self.spec = spec
         self.workflow = workflow
         self.device = torch.device(device)
+        self.accum_steps = accum_steps
 
-        def put(pairs):
+        def put(pairs):   # copies: the trainer updates them in place
             return [tuple(None if t is None else
-                          torch.as_tensor(t).to(self.device) for t in pair)
-                    for pair in pairs]
+                          torch.as_tensor(t).to(self.device,
+                                                copy=True).contiguous()
+                          for t in pair) for pair in pairs]
         self.params = put(params)
         self.vels = put(vels)
+        #: why the steps run uncaptured (None: they replay CUDA graphs)
+        self.uncaptured_reason = self._uncaptured(capture)
+        if capture and self.uncaptured_reason is not None:
+            raise ValueError(f"capture=True: {self.uncaptured_reason}")
         #: the next epoch number train_epoch keys dropout with when the
         #: caller passes none, so repeated calls never reuse masks
         self._auto_epoch = 0
+        #: accum_steps > 1: the gradient sums, zero between groups
+        self._acc = (grad_zeros(spec, self.params) if accum_steps > 1
+                     else None)
+        self._plans: dict = {}          # graph key → capture.StepPlan
+
+    def _uncaptured(self, capture) -> str | None:
+        if capture is False:
+            return "capture=False"
+        if self.device.type != "cuda":
+            return f"the {self.device.type} runs the step functions directly"
+        if any(la.kind == "dropout" for la in self.spec.layers):
+            return ("a dropout layer's mask key is folded on the host each "
+                    "step (ROADMAP.md queue 1 item 3: the key read from a "
+                    "device word)")
+        return None
+
+    @property
+    def captured(self) -> bool:
+        """Whether train and eval steps replay CUDA graphs."""
+        return self.uncaptured_reason is None
 
     @staticmethod
     def _idx_matrix(indices: np.ndarray, batch: int, ctr_base: int = 0
@@ -593,62 +665,175 @@ class FusedTrainer:
         return (padded.reshape(steps, batch).astype(np.int32),
                 mask.reshape(steps, batch), ctrs)
 
-    def _plan(self, indices, batch, ctr_base: int = 0):
-        """(device indices, device mask, host per-step counters)."""
-        idx, mask, ctrs = self._idx_matrix(np.asarray(indices), batch,
-                                           ctr_base)
-        return (torch.from_numpy(idx).to(self.device, torch.int64),
-                torch.from_numpy(mask).to(self.device), ctrs)
+    @staticmethod
+    def _step_scales(lr_scale, lr_scale_bias, n_steps: int):
+        """Per-step (weight, bias) learning-rate multipliers, float32, from
+        scalar or per-step schedules (the bias's default: the weights')."""
+        scales = np.broadcast_to(np.asarray(lr_scale, np.float32),
+                                 (n_steps,))
+        scales_b = scales if lr_scale_bias is None else np.broadcast_to(
+            np.asarray(lr_scale_bias, np.float32), (n_steps,))
+        return scales, scales_b
+
+    def _applies(self, s: int, n_steps: int) -> bool:
+        """Whether step ``s`` of a call updates the parameters."""
+        return (self.accum_steps == 1 or (s + 1) % self.accum_steps == 0
+                or s + 1 == n_steps)
+
+    def _train_step(self, x, t, mask, s_w, s_b, epoch: int, ctr: int,
+                    apply: bool) -> dict:
+        """One train step on the trainer's buffers (in place): with
+        ``accum_steps`` 1 ``train_minibatch``, else the gradients added to
+        the sums, which ``apply`` applies at (s_w, s_b) and zeroes."""
+        spec = self.spec
+        if self.accum_steps == 1:
+            return train_minibatch(spec, self.params, self.vels, x, t, mask,
+                                   epoch=epoch, ctr=ctr, lr_scale=s_w,
+                                   lr_scale_bias=s_b)[2]
+        grads, metrics = grad_minibatch(spec, self.params, x, t, mask,
+                                        epoch=epoch, ctr=ctr)
+        accs = [a for pair in self._acc if pair for a in pair
+                if a is not None]
+        if accs:
+            torch._foreach_add_(accs, [g for pair in grads if pair
+                                       for g in pair if g is not None])
+        if apply:
+            apply_updates(spec, self.params, self.vels, self._acc, s_w, s_b)
+            if accs:
+                torch._foreach_zero_(accs)
+        return metrics
+
+    def _plan(self, kind: str, data, target, batch: int, n_steps: int):
+        """The StepPlan of ``kind`` ("train" or "eval") at ``batch`` over
+        ``data``/``target`` on the current conv tier (a graph reads them by
+        address and runs the tier it was captured on)."""
+        from . import capture
+        key = (kind, batch, data.data_ptr(), tuple(data.shape), data.dtype,
+               target.data_ptr(), tuple(target.shape), target.dtype,
+               conv_ops.gemm_tier())
+        plan = self._plans.get(key)
+        if plan is None:
+            if len(self._plans) >= 8:      # a few datasets and tiers
+                self._plans.pop(next(iter(self._plans)))
+            plan = self._plans[key] = capture.StepPlan(
+                self.device, 2 * batch + 2,
+                max(n_steps, -(-data.shape[0] // batch) + 1),
+                {"loss": torch.float32, "n_err": torch.int32})
+        return plan
+
+    @staticmethod
+    def _rows(idx, mask, scales=None, scales_b=None) -> np.ndarray:
+        """The plan rows: indices, mask bits, then the weight and bias
+        scales' bits (zeros for an eval step)."""
+        n = idx.shape[0]
+        cols = [idx, mask.view(np.int32)]
+        for sc in (scales, scales_b):
+            cols.append(np.zeros((n, 1), np.int32) if sc is None else
+                        np.ascontiguousarray(sc, np.float32)
+                        .view(np.int32).reshape(n, 1))
+        return np.concatenate(cols, axis=1)
+
+    def _run_captured(self, kind: str, data, target, idx, mask, scales=None,
+                      scales_b=None) -> dict:
+        batch = idx.shape[1]
+        n = idx.shape[0]
+        plan = self._plan(kind, data, target, batch, n)
+        plan.load(self._rows(idx, mask, scales, scales_b))
+
+        def step(variant: str):
+            row = plan.row()
+            i = row[:batch]
+            x, t = data.index_select(0, i), target.index_select(0, i)
+            m = row[batch:2 * batch].view(torch.float32)
+            if variant == "eval":
+                ms = eval_minibatch(self.spec, self.params, x, t, m)
+            else:
+                sc = row[2 * batch:].view(torch.float32)
+                ms = self._train_step(x, t, m, sc[0:1], sc[1:2], 0, 0,
+                                      variant != "accumulate")
+            plan.put("loss", ms["loss"])
+            plan.put("n_err", ms["n_err"])
+            plan.advance()
+
+        for s in range(n):
+            variant = ("eval" if kind == "eval" else "train"
+                       if self._applies(s, n) else "accumulate")
+            plan.run(variant, functools.partial(step, variant))
+        return plan.take(n)
 
     @torch.no_grad()
     def train_epoch(self, data, target, indices, batch: int,
                     sync: bool = True, epoch: int | None = None,
-                    ctr_base: int = 0) -> dict:
+                    ctr_base: int = 0, lr_scale=1.0,
+                    lr_scale_bias=None) -> dict:
         """Train over ``indices`` in minibatches of ``batch``.  Returns
         per-step ``{"loss", "n_err"}``: numpy with ``sync``, else device
         tensors (no host sync).  ``epoch`` keys the dropout masks (by
         default one more than the last call's); ``ctr_base`` is the count
-        of this epoch's samples consumed before ``indices``."""
+        of this epoch's samples consumed before ``indices``.
+        ``lr_scale`` multiplies every weight's learning rate, a scalar or
+        one value per step (a per-minibatch schedule); ``lr_scale_bias``
+        the biases' (default: ``lr_scale``).  With ``accum_steps`` > 1 a
+        trailing partial group applies at the call's last step."""
         if epoch is None:
             epoch = self._auto_epoch
         self._auto_epoch = epoch + 1
-        idx, mask, ctrs = self._plan(indices, batch, ctr_base)
-        params, vels = self.params, self.vels
-        losses, n_errs = [], []
-        for s in range(idx.shape[0]):
-            x = data.index_select(0, idx[s])
-            t = target.index_select(0, idx[s])
-            params, vels, m = train_minibatch(self.spec, params, vels, x, t,
-                                              mask[s], epoch=int(epoch),
-                                              ctr=int(ctrs[s]))
-            losses.append(m["loss"])
-            n_errs.append(m["n_err"])
-        self.params, self.vels = params, vels
-        ms = {"loss": torch.stack(losses), "n_err": torch.stack(n_errs)}
+        idx, mask, ctrs = self._idx_matrix(np.asarray(indices), batch,
+                                           ctr_base)
+        n = idx.shape[0]
+        scales, scales_b = self._step_scales(lr_scale, lr_scale_bias, n)
+        if self.captured:
+            ms = self._run_captured("train", data, target, idx, mask,
+                                    scales, scales_b)
+        else:
+            idx_t = torch.from_numpy(idx).to(self.device, torch.int64)
+            mask_t = torch.from_numpy(mask).to(self.device)
+            sc = torch.from_numpy(np.stack([scales, scales_b], 1)).to(
+                self.device)
+            losses, n_errs = [], []
+            for s in range(n):
+                m = self._train_step(
+                    data.index_select(0, idx_t[s]),
+                    target.index_select(0, idx_t[s]), mask_t[s],
+                    sc[s, 0:1], sc[s, 1:2], int(epoch), int(ctrs[s]),
+                    self._applies(s, n))
+                losses.append(m["loss"])
+                n_errs.append(m["n_err"])
+            ms = {"loss": torch.stack(losses), "n_err": torch.stack(n_errs)}
         return to_host(ms)[0] if sync else ms
 
     @torch.no_grad()
     def eval_epoch(self, data, target, indices, batch: int,
                    sync: bool = True) -> dict:
-        idx, mask, _ = self._plan(indices, batch)
-        losses, n_errs = [], []
-        for s in range(idx.shape[0]):
-            m = eval_minibatch(self.spec, self.params,
-                               data.index_select(0, idx[s]),
-                               target.index_select(0, idx[s]), mask[s])
-            losses.append(m["loss"])
-            n_errs.append(m["n_err"])
-        ms = {"loss": torch.stack(losses), "n_err": torch.stack(n_errs)}
+        idx, mask, _ = self._idx_matrix(np.asarray(indices), batch)
+        if self.captured:
+            ms = self._run_captured("eval", data, target, idx, mask)
+        else:
+            idx_t = torch.from_numpy(idx).to(self.device, torch.int64)
+            mask_t = torch.from_numpy(mask).to(self.device)
+            losses, n_errs = [], []
+            for s in range(idx.shape[0]):
+                m = eval_minibatch(self.spec, self.params,
+                                   data.index_select(0, idx_t[s]),
+                                   target.index_select(0, idx_t[s]),
+                                   mask_t[s])
+                losses.append(m["loss"])
+                n_errs.append(m["n_err"])
+            ms = {"loss": torch.stack(losses), "n_err": torch.stack(n_errs)}
         return to_host(ms)[0] if sync else ms
 
     def write_back(self) -> None:
-        """Install the trained params and velocities into the workflow's
-        per-layer lists, each spec row at ``spec.unit_index`` (the merge
+        """Install copies of the trained params and velocities into the
+        workflow's per-layer lists (the trainer's own buffers change under
+        its next step), each spec row at ``spec.unit_index`` (the merge
         makes rows fewer than layers, so a positional copy would land
         weights on the wrong layers)."""
         if self.workflow is None:
             return
         umap = self.spec.unit_index or tuple(range(len(self.params)))
+
+        def copies(pair):
+            return tuple(None if t is None else t.clone() for t in pair)
         for row, u in enumerate(umap):
-            self.workflow.params[u] = self.params[row]
-            self.workflow.vels[u] = self.vels[row]
+            self.workflow.params[u] = copies(self.params[row])
+            self.workflow.vels[u] = copies(self.vels[row])

@@ -12,7 +12,9 @@ the reference's 512/128/128 synthetic split, batch 128) for one warm-up
 epoch on its fused path, then runs ``--steps``
 train steps and as many eval steps (the train set's shuffle, repeated as
 often as the steps need) under ``torch.profiler`` and prints one JSON
-line: host wall time per step (synchronised), device busy time per step
+line: host wall time per step (synchronised), the host's time per step
+until the steps are enqueued (one graph replay a captured step), device
+busy time per step
 (the kernels' summed device time), the device's idle share, kernel
 launches per step, the kernels that take the most device time, and the
 port's own hand-written kernels with their share of the device time.
@@ -76,12 +78,16 @@ PORT_KERNELS = ("softmax_ce_kernel", "softmax_ce_stream_kernel",
                 "split_sum_kernel")
 
 
-def _window(fn, steps: int) -> float:
+def _window(fn, steps: int) -> tuple[float, float]:
+    """(wall ms a step, synchronised; host ms a step: until ``fn``
+    returned, its work enqueued)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
+    t1 = time.perf_counter()
     torch.cuda.synchronize()
-    return (time.perf_counter() - t0) / steps * 1e3
+    t2 = time.perf_counter()
+    return (t2 - t0) / steps * 1e3, (t1 - t0) / steps * 1e3
 
 
 def _workflow(model: str):
@@ -183,7 +189,7 @@ def main(argv=None) -> dict:
         if fn is None:
             continue
         fn()                                      # warm the allocator
-        wall_ms = _window(fn, args.steps)         # unprofiled
+        wall_ms, host_ms = _window(fn, args.steps)    # unprofiled
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
@@ -209,6 +215,7 @@ def main(argv=None) -> dict:
                                   if busy_us else None)
         out[name] = {
             "wall_ms_per_step": wall_ms,
+            "host_ms_per_step": host_ms,
             "device_busy_ms_per_step": (busy_us / 1e3 / args.steps
                                         if busy_us else None),
             "device_idle_share": (1.0 - busy_us / 1e3 / args.steps / wall_ms

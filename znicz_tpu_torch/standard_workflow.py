@@ -6,11 +6,14 @@ through the ``link_loader / link_forwards / link_evaluator /
 link_decision / link_gds`` family, to the reference's control graph::
 
     start → loader → fwd₁ → … → fwdₙ → evaluator → decision
-    decision → gdₙ → … → gd₁ ─(loop back-edge)→ loader
+    decision [→ lr_adjust] → gdₙ → … → gd₁ ─(loop back-edge)→ loader
     decision → end_point [gate: ~complete]
 
 The GD units gate-skip on non-train minibatches and once training is
-complete; ``train(fused=False)`` runs this tick loop (``Workflow.run``),
+complete; an ``lr_adjuster_config`` links a ``LearningRateAdjust`` that
+rewrites their learning rates before each tick's chain (by epoch or by
+train minibatch), which the fused loop turns into per-step learning-rate
+scales; ``train(fused=False)`` runs this tick loop (``Workflow.run``),
 one minibatch a tick, each unit's ``torch_run`` on the card (or
 ``numpy_run`` on the numpy device).  The forward units own the weight
 Vectors and the GD units the velocities.
@@ -55,6 +58,7 @@ from .nn import (activation, all2all, conv, deconv, depooling, dropout, gd,
                  pooling)
 from .nn.decision import DecisionGD, DecisionMSE
 from .nn.evaluator import EvaluatorMSE, EvaluatorSoftmax
+from .nn.lr_adjust import LearningRateAdjust
 from .ops.deconv import deconv_out_size
 from .ops.geometry import norm2, out_size
 from .parallel import fused
@@ -150,16 +154,15 @@ class StandardWorkflow(AcceleratedWorkflow):
         if snapshotter_config is not None:
             raise NotImplementedError(
                 "snapshots are not ported yet (" + _UNIT_GRAPH + ")")
-        if lr_adjuster_config is not None:
-            raise NotImplementedError(
-                "learning-rate adjusters are not ported yet ("
-                + _UNIT_GRAPH + ")")
         if loss_function not in ("softmax", "mse"):
             raise ValueError(loss_function)
         self.layers_config = list(layers or [])
         self.loss_function = loss_function
         self.forwards: list = []
         self.gds: list = []
+        #: the LearningRateAdjust unit of ``lr_adjuster_config`` (None:
+        #: the configured rates throughout)
+        self.lr_adjuster = None
         #: why ``train(fused=False)`` cannot run this model (None: it can)
         self.unit_graph_missing: str | None = None
         #: why ``train(fused=True)`` cannot (``spec`` is then None)
@@ -171,22 +174,32 @@ class StandardWorkflow(AcceleratedWorkflow):
             decision_config = (decision_config.to_dict()
                                if hasattr(decision_config, "to_dict")
                                else dict(decision_config or {}))
-            self.create_workflow(loader, decision_config)
+            self.create_workflow(loader, decision_config,
+                                 lr_adjuster_config.to_dict()
+                                 if hasattr(lr_adjuster_config, "to_dict")
+                                 else lr_adjuster_config)
 
     # -- link_* family (reference API) -------------------------------------------
-    def create_workflow(self, loader, decision_config: dict) -> None:
+    def create_workflow(self, loader, decision_config: dict,
+                        lr_adjuster_config: dict | None = None) -> None:
         """Link the unit graph, or (for a model it does not cover yet) the
-        loader and a free-standing decision for the fused loop."""
+        loader and a free-standing decision (and adjuster) for the fused
+        loop."""
         self.link_loader(loader)
         self.unit_graph_missing = self._unit_graph_gap()
         if self.unit_graph_missing is not None:
             cls = DecisionGD if self.loss_function == "softmax" \
                 else DecisionMSE
             self.decision = cls(self, name="decision", **decision_config)
+            if lr_adjuster_config is not None:
+                self.lr_adjuster = LearningRateAdjust(self,
+                                                      **lr_adjuster_config)
             return
         self.link_forwards()
         self.link_evaluator()
         self.link_decision(**decision_config)
+        if lr_adjuster_config is not None:
+            self.link_lr_adjuster(**lr_adjuster_config)
         self.link_gds()
 
     def _unit_graph_gap(self) -> str | None:
@@ -245,10 +258,20 @@ class StandardWorkflow(AcceleratedWorkflow):
         self.end_point.link_from(self.decision)
         self.end_point.gate_block = ~self.decision.complete
 
+    def link_lr_adjuster(self, **config) -> None:
+        """A LearningRateAdjust between the decision and the GD chain (call
+        before :meth:`link_gds`), skipped once the decision completes."""
+        self.lr_adjuster = LearningRateAdjust(self, **config)
+        self.lr_adjuster.link_from(self.decision)
+        self.lr_adjuster.gate_skip = DerivedBool(
+            lambda: bool(self.decision.complete), ())
+
     def link_gds(self) -> None:
-        """Mirrored gradient chain, last layer first; the last one closes
-        the minibatch loop back to the loader."""
-        prev = self.decision
+        """Mirrored gradient chain, last layer first, from the adjuster
+        where there is one; the last one closes the minibatch loop back to
+        the loader."""
+        prev = self.lr_adjuster if self.lr_adjuster is not None \
+            else self.decision
         loader, decision = self.loader, self.decision
         # skip backprop on valid/test minibatches and once training is
         # complete (so the final weights equal the last snapshot)
@@ -261,7 +284,7 @@ class StandardWorkflow(AcceleratedWorkflow):
                 self, name=f"gd{i}_{spec['type']}", need_err_input=(i > 0),
                 **dict(spec.get("<-", {})))
             unit.setup_from_forward(self.forwards[i])
-            if prev is self.decision:
+            if not self.gds:
                 unit.link_attrs(self.evaluator, "err_output")
             else:
                 unit.link_attrs(prev, ("err_output", "err_input"))
@@ -269,6 +292,8 @@ class StandardWorkflow(AcceleratedWorkflow):
             unit.gate_skip = train_only
             self.gds.insert(0, unit)
             prev = unit
+        if self.lr_adjuster is not None:
+            self.lr_adjuster.link_gds(self.gds)
         self.loader.link_from(self.gds[0])
 
     # -- lifecycle ---------------------------------------------------------------
@@ -587,9 +612,11 @@ class StandardWorkflow(AcceleratedWorkflow):
                   compute_dtype: str | None = None,
                   storage_dtype: str | None = None) -> FusedTrainer:
         """Train on the fused path: whole epochs on the device, with the
-        decision's improvement/stop logic between epochs on the host.
-        Returns the FusedTrainer; its params are written back into
-        ``self.params``/``self.vels``."""
+        decision's improvement/stop logic between epochs on the host, the
+        adjuster's schedule as per-step learning-rate scales and
+        ``root.common.accum_steps`` as the trainer's gradient
+        accumulation.  Returns the FusedTrainer; copies of its params are
+        written back into ``self.params``/``self.vels``."""
         from .config import root
         if not self.initialized:
             raise RuntimeError("initialize() first")
@@ -599,10 +626,6 @@ class StandardWorkflow(AcceleratedWorkflow):
                              "graph (train(fused=False))")
         if self.spec is None:
             raise NotImplementedError(self.fused_missing)
-        if int(root.common.get("accum_steps") or 1) != 1:
-            raise NotImplementedError(
-                "gradient accumulation is not ported yet (ROADMAP.md "
-                "queue 1 item 3, remaining)")
         spec = self.spec
         if compute_dtype is not None:
             spec = dataclasses.replace(spec, compute_dtype=compute_dtype)
@@ -613,7 +636,9 @@ class StandardWorkflow(AcceleratedWorkflow):
         trainer = FusedTrainer(workflow=self, spec=spec,
                                params=self.spec_rows(self.params),
                                vels=self.spec_rows(self.vels),
-                               device=self.device.torch_device)
+                               device=self.device.torch_device,
+                               accum_steps=int(
+                                   root.common.get("accum_steps") or 1))
         loader, decision = self.loader, self.decision
         data = loader.original_data
         target = (loader.original_targets if self.loss_function == "mse"
@@ -628,15 +653,17 @@ class StandardWorkflow(AcceleratedWorkflow):
             else decision.max_epochs
         if epochs is None:
             epochs = 10
+        adj = self.lr_adjuster
         first = True
         # Unit-graph parity for the stop tick: in the tick where Decision
         # sets ``complete`` the GD units are gate-skipped, so the LAST train
         # minibatch of the final epoch never updates weights.  The fused
         # loop reproduces this by deferring each epoch's last minibatch
         # update until it knows training continues; the deferred step keeps
-        # its epoch and counter base, so its dropout masks are the ones the
-        # unit graph would have drawn.
-        pending = None   # (tail indices, epoch, counter base)
+        # its epoch, counter base and learning-rate scales, so its dropout
+        # masks and rates are the ones the unit graph would have used.
+        pending = None   # (tail indices, epoch, counter base, lr_scale,
+        #                   lr_scale_bias)
         for epoch in range(loader.epoch_number, epochs):
             t_epoch0 = time.monotonic()
             loader.epoch_number = epoch
@@ -646,23 +673,30 @@ class StandardWorkflow(AcceleratedWorkflow):
             perm = loader._shuffled[TRAIN]
             n_train = len(cls_idx[TRAIN])
             steps_per_epoch = max(1, -(-n_train // batch))
+            scale, tail_scale = _lr_scales(adj, "policy", epoch,
+                                           steps_per_epoch)
+            scale_b, tail_scale_b = _lr_scales(adj, "bias_policy", epoch,
+                                               steps_per_epoch)
             if pending is not None:
                 trainer.train_epoch(data, target, pending[0], batch,
                                     sync=False, epoch=pending[1],
-                                    ctr_base=pending[2])
+                                    ctr_base=pending[2],
+                                    lr_scale=pending[3],
+                                    lr_scale_bias=pending[4])
             split = ((n_train - 1) // batch) * batch
             head, tail = perm[:split], perm[split:]
             # everything below stays on the device until the one readback
             runs = {}
             if len(head):
-                runs["head"] = trainer.train_epoch(data, target, head, batch,
-                                                   sync=False, epoch=epoch)
+                runs["head"] = trainer.train_epoch(
+                    data, target, head, batch, sync=False, epoch=epoch,
+                    lr_scale=scale, lr_scale_bias=scale_b)
             # the tail minibatch's metrics come from a forward pass over the
             # post-head weights — the weights the unit graph's evaluator saw
             # before the (skipped-or-deferred) update
             runs["tail"] = trainer.eval_epoch(data, target, tail, batch,
                                               sync=False)
-            pending = (tail, epoch, split)
+            pending = (tail, epoch, split, tail_scale, tail_scale_b)
             for k in (VALID, TEST):
                 if len(cls_idx[k]):
                     runs[k] = trainer.eval_epoch(data, target, cls_idx[k],
@@ -698,6 +732,10 @@ class StandardWorkflow(AcceleratedWorkflow):
                     "epoch": epoch,
                     "train_examples_per_sec": n_train / epoch_s,
                     "train_step_time_ms": epoch_s / steps_per_epoch * 1e3})
+            if adj is not None:
+                # the unit graph's iteration counter, current for a later
+                # tick-path run of this workflow
+                adj._minibatches = (epoch + 1) * steps_per_epoch
             improved = decision.better_than_best(metrics)
             decision.improved.set(improved)
             decision._fails = 0 if improved else decision._fails + 1
@@ -708,3 +746,24 @@ class StandardWorkflow(AcceleratedWorkflow):
         if self.forwards:
             self._params_to_units()
         return trainer
+
+
+def _lr_scales(adj, which: str, epoch: int, steps_per_epoch: int):
+    """(head scales, tail scale) of the adjuster's ``which`` policy for
+    one epoch, the iterations counted as ``LearningRateAdjust`` counts
+    them on the tick path: the epoch's one scale, or (``by_epoch`` False)
+    one per train minibatch — the head's as a float32 array, the deferred
+    tail's alone.  (1.0, 1.0) without an adjuster; (None, None) for a
+    bias policy that is the weights' (the bias scales follow them)."""
+    if adj is None:
+        return (1.0, 1.0) if which == "policy" else (None, None)
+    policy = getattr(adj, which)
+    if which == "bias_policy" and policy is adj.policy:
+        return None, None
+    if adj.by_epoch:
+        s = policy.scale(epoch)
+        return s, s
+    base = epoch * steps_per_epoch
+    head = np.asarray([policy.scale(base + i)
+                       for i in range(steps_per_epoch - 1)], np.float32)
+    return head, policy.scale(base + steps_per_epoch - 1)
