@@ -133,7 +133,34 @@ exits nonzero without the final ``ok`` line:
    versions on the CPU (losses within rtol 5e-4, error counts within 1%
    of each class), and AlexNet's full-width epoch 0 against phase 8's,
    its step time printed beside phase 8's;
-18. the ``kernels`` line, then ``{"ok": true, "device": {...}}`` last.
+18. serve — the port's serving path (``serving.ServingEngine``: one CUDA
+   graph a bucket key, captured after one eager run; the
+   ``MicroBatcher``) over the models phases 4, 6, 8, 13 and 14 trained
+   and exported (``export.export_workflow``): the MNIST MLP at B = 1, 5,
+   8, 32, 100, 128 and 300 (every bucket of 1/8/32/128, padded, full and
+   chunked) against ``torch_forward`` on the CPU (rtol 1e-5 / atol
+   1e-6), the native C++ engine (rtol 1e-4 / atol 1e-5) and the eager
+   forward on the card of each padded chunk (bit for bit), four captures
+   and then cache hits, the wall ms of a call at buckets 1 and 128, graph
+   and eager; 64 one-row requests from threads through a
+   ``MicroBatcher`` in at most 8 forwards, each answer within rtol 1e-5 /
+   atol 1e-6 of its row served alone; int8 (``torch._int_mm``) served or
+   fallen back and why; a reload to a second generation and a
+   bit-flipped one refused (``verify_failed``, the generation kept);
+   AlexNet at full width at buckets 1/8/32/128, each graph against the
+   eager forward bit for bit and against the CPU (rtol 1e-4 / atol
+   1e-6), each bucket's capture ms, wall and device ms and images/s,
+   graph and eager, and the resident weight bytes; CIFAR, the
+   autoencoder (also on the implicit-GEMM tier) and the SOM against the
+   CPU; a capture that fails raises to the caller (its exception type on
+   this torch printed), with no retry and no fallback.  cuDNN is held to
+   its deterministic algorithms for the phase.  Every engine keeps
+   ``fallback_calls`` 0 and its breaker closed, and the serve path's
+   launches, counted from 0 around each engine call (not around the
+   comparisons), equal each engine's launches a forward times its
+   forwards and captures;
+19. the ``kernels`` line (with the serve path's launches), then ``{"ok":
+   true, "device": {...}}`` last.
 
 The kernel phase holds, besides the fused paths' kernels, the unit graph's
 three: the tensor-core matmul (3xTF32) at the five products of the MNIST
@@ -201,6 +228,7 @@ device, or outside a checkout of the repository, it fails."""
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import importlib
 import json
@@ -208,6 +236,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s outside
@@ -397,6 +426,30 @@ UNIT_PATHS["cifar_units_gemm"] = {**UNIT_PATHS["cifar_units"],
                                   "conv_fwd": (2, 0, 0),
                                   "conv_dgrad": (0, 0, 1),
                                   "conv_wgrad": (0, 0, 2)}
+#: the kernel each ``.znn`` layer kind launches in one serving forward on
+#: the card (a non-linear fc, conv, deconv or activation layer adds
+#: act_fwd); the implicit-GEMM conv tier swaps in its own for the convs
+LAYER_KERNELS = {"softmax": "softmax", "max_pool": "pool_select",
+                 "lrn": "lrn_y", "depool": "pool_scatter"}
+GEMM_LAYER_KERNELS = {"conv": "conv_fwd", "deconv": "conv_dgrad"}
+
+
+def serve_launches(layers, gemm_tier: bool = False) -> dict:
+    """{kernel name: n}: the launches one ``torch_forward`` of ``layers``
+    makes on the card."""
+    out: dict = collections.Counter()
+    for lay in layers:
+        if lay.kind in ("fc", "conv", "deconv", "activation") \
+                and lay.activation != "linear":
+            out["act_fwd"] += 1
+        kernel = LAYER_KERNELS.get(lay.kind)
+        if gemm_tier:
+            kernel = GEMM_LAYER_KERNELS.get(lay.kind, kernel)
+        if kernel is not None:
+            out[kernel] += 1
+    return dict(out)
+
+
 #: the MNIST MLP with its tanh as a standalone layer (same weight draws as
 #: the All2AllTanh sample: the activation layer draws nothing)
 MNIST_ACT_LAYERS = [
@@ -601,13 +654,15 @@ SOFTMAX_CASES = [
     ("nonfinite_c20000", 16, 20000, "nonfinite", 0),
 ]
 #: the row softmax's cases, as ``SOFTMAX_CASES`` (its unit-graph shape
-#: first); ties: small integers, most rows tie at the maximum; ties across
-#: warps: three equal maxima a row at C = 1000 and 20000, row 0's at
-#: columns 600, 130 and 900 (warps 0, 1 and 3 of the register form's 128
-#: threads), so the first index must win across the block reduction
+#: first, AlexNet's head at serve buckets 128 and 1 next); ties: small
+#: integers, most rows tie at the maximum; ties across warps: three equal
+#: maxima a row at C = 1000 and 20000, row 0's at columns 600, 130 and 900
+#: (warps 0, 1 and 3 of the register form's 128 threads), so the first
+#: index must win across the block reduction
 ROW_SOFTMAX_CASES = [
     ("mnist_units_step", 100, 10, "normal", 0),
     ("alexnet_width", 128, 1000, "normal", 0),
+    ("alexnet_serve_b1", 1, 1000, "normal", 0),
     ("ties", 100, 10, "small_ints", 0),
     ("c1", 100, 1, "normal", 0),
     ("c31", 100, 31, "normal", 0),
@@ -738,8 +793,10 @@ def phase_kernel_softmax(torch) -> list:
 #: case, x shape, ksize, stride, padding, max-abs, data: CIFAR's pool
 #: first (every pooling kernel's main-path row), ragged padded windows that
 #: overlap at C = 5 (the scatter's scalar form) and at C = 8 (its vectors),
-#: max-abs, ties, AlexNet's pool5 (overlapping) and the autoencoder's pool,
-#: whose scatter is also its depooling forward
+#: max-abs, ties, AlexNet's pool5 (overlapping), the autoencoder's pool,
+#: whose scatter is also its depooling forward, and the pools AlexNet's
+#: serve path runs standalone (training fuses them into lrn_maxpool) at
+#: buckets 128 and 1
 POOL_CASES = [
     ("cifar_step", (100, 32, 32, 32), 2, 2, 0, False, "normal"),
     ("overlap_pad_ragged", (7, 13, 11, 5), 3, 2, 1, False, "normal"),
@@ -748,6 +805,9 @@ POOL_CASES = [
     ("ties", (100, 32, 32, 32), 2, 2, 0, False, "ties"),
     ("maxabs_ties_padded", (7, 13, 11, 5), 3, 2, 1, True, "ties"),
     ("alexnet_pool5", (128, 13, 13, 256), 3, 2, 0, False, "normal"),
+    ("alexnet_serve_pool1", (128, 55, 55, 96), 3, 2, 0, False, "normal"),
+    ("alexnet_serve_pool2", (128, 27, 27, 256), 3, 2, 0, False, "normal"),
+    ("alexnet_serve_pool1_b1", (1, 55, 55, 96), 3, 2, 0, False, "normal"),
     ("autoencoder_step", (100, 28, 28, 16), 2, 2, 0, False, "normal"),
 ]
 #: the cases timed against the library's pooling
@@ -865,7 +925,8 @@ def phase_kernel_pooling(torch) -> dict:
 #: c2048) or run time (n1 .. n11), threads taking several vectors of a
 #: pixel and a tile past 48 KB (c6144), the scalar form of a larger
 #: tensor (cifar_unaligned) and of a small one (the small cases, C % 4 != 0
-#: or not)
+#: or not); last, the LRNs AlexNet's serve path runs standalone at buckets
+#: 128 and 1
 LRN_CASES = [
     ("cifar_step", (100, 16, 16, 32), 5, 1e-4, 0.75, 2.0, 0),
     ("ragged", (7, 13, 11, 5), 5, 1e-4, 0.75, 2.0, 0),
@@ -879,6 +940,9 @@ LRN_CASES = [
     ("c2048", (40, 5, 2048), 5, 1e-4, 0.75, 2.0, 0),
     ("c6144", (50, 6144), 9, 1e-4, 0.75, 2.0, 0),
     ("cifar_unaligned", (100, 16, 16, 32), 5, 1e-4, 0.75, 2.0, 1),
+    ("alexnet_serve_lrn1", (128, 55, 55, 96), 5, 1e-4, 0.75, 2.0, 0),
+    ("alexnet_serve_lrn2", (128, 27, 27, 256), 5, 1e-4, 0.75, 2.0, 0),
+    ("alexnet_serve_lrn1_b1", (1, 55, 55, 96), 5, 1e-4, 0.75, 2.0, 0),
 ]
 
 
@@ -2386,7 +2450,7 @@ def _som_weights_close(what: str, got, want) -> float:
     return float(np.abs(got - want).max())
 
 
-def phase_som(torch) -> dict:
+def phase_som(torch, export=None) -> dict:
     """BASELINE config 5 on the card at its own size, on the unit graph
     and on the fused path, launch counts reset and read around each: the
     fused path launches ``distance_argmin`` once a step, the unit graph
@@ -2394,7 +2458,8 @@ def phase_som(torch) -> dict:
     error falls from its initial value.  Then the fused path against the
     loop after 4 epochs, and the card against the CPU after 3 epochs on
     each path, within rtol 5e-4 / atol 1e-5 (n_train % batch == 0, so both
-    paths see the same minibatches)."""
+    paths see the same minibatches).  ``export(torch, wf)`` takes the
+    fused path's trained workflow."""
     import numpy as np
     out = {}
     for path, fused in (("som_units", False), ("som", True)):
@@ -2431,6 +2496,8 @@ def phase_som(torch) -> dict:
             "host_syncs_per_epoch": (tr.host_syncs / epochs if fused
                                      else "one a tick (the trainer reads "
                                           "mean |dw| each tick)")}
+        if fused and export is not None:
+            out[path].update(export(torch, wf))
         emit(out[path])
     loop, _ = _som("cuda", 4, False)
     loop.run()
@@ -2840,6 +2907,489 @@ def phase_lr_accum(torch) -> dict:
     return out
 
 
+#: the serve phase's request sizes for the MNIST model: every bucket of the
+#: default ladder (1/8/32/128), padded and full, and a batch chunked
+#: through the top bucket
+SERVE_BATCHES = (1, 5, 8, 32, 100, 128, 300)
+#: the card against the CPU's torch_forward (fc, softmax, activations)
+SERVE_RTOL, SERVE_ATOL = 1e-5, 1e-6
+#: the card against the native C++ engine (tests/test_native_engine.py:56)
+NATIVE_RTOL, NATIVE_ATOL = 1e-4, 1e-5
+#: the conv models on the card against the CPU (cuDNN's or the GEMM tier's
+#: summation order against the CPU's conv)
+CONV_SERVE_RTOL, CONV_SERVE_ATOL = 1e-4, 1e-6
+#: AlexNet's sample, its buckets and the timed calls at each
+ALEXNET_SAMPLE = (227, 227, 3)
+ALEXNET_BUCKETS = (1, 8, 32, 128)
+SERVE_TIMED_CALLS = 20
+MNIST_TIMED_CALLS = 200
+#: the kernels the serve phase's forwards launch (the autoencoder's conv
+#: and deconv on the implicit-GEMM tier launch the last two)
+SERVE_KERNELS = ("act_fwd", "softmax", "pool_select", "lrn_y",
+                 "pool_scatter", "conv_fwd", "conv_dgrad")
+#: the micro-batcher drive: one-row requests from as many threads
+BATCHER_REQUESTS, BATCHER_MAX_BATCH = 64, 8
+
+
+def _export_to(directory: str, name: str, exports: dict, extra=None):
+    """A ``phase_slice`` extra that exports the trained workflow to
+    ``directory/<name>.znn`` (recorded in ``exports``) after ``extra``."""
+    def run(torch, wf):
+        from znicz_tpu_torch.export import export_workflow
+        out = extra(torch, wf) if extra is not None else {}
+        path = export_workflow(wf, os.path.join(directory, f"{name}.znn"))
+        exports[name] = path
+        out["exported_znn_bytes"] = os.path.getsize(path)
+        return out
+    return run
+
+
+class ServeDrive:
+    """The serve path's launches: every engine call the phase makes runs
+    through :meth:`run`, which sets every count to 0 just before and adds
+    what it read just after, so the eager forwards that the phase compares
+    against stay out of the count."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.counts = {k: 0 for k in KERNELS}
+
+    def run(self, fn):
+        self.torch.cuda.synchronize()
+        reset_launch_counts()
+        out = fn()
+        self.torch.cuda.synchronize()
+        for k, v in launch_counts().items():
+            self.counts[k] += v
+        return out
+
+
+class _ServeCheck:
+    """One engine's serve-path bookkeeping: its forwards and builds inside
+    the drive's windows, and the launches they must have made."""
+
+    def __init__(self, drive: ServeDrive, eng, gemm: bool = False):
+        self.drive, self.eng = drive, eng
+        self.per = serve_launches(eng.layers, gemm)
+        self.counts = {k: 0 for k in KERNELS}
+        self.calls = 0
+
+    def run(self, fn):
+        m0 = self.eng.metrics()
+        before = dict(self.drive.counts)
+        out = self.drive.run(fn)
+        m1 = self.eng.metrics()
+        self.calls += (m1["forward_calls"] - m0["forward_calls"]
+                       + m1["builds"] - m0["builds"])
+        for k in KERNELS:
+            self.counts[k] += self.drive.counts[k] - before[k]
+        return out
+
+    def held(self, what: str) -> dict:
+        """The launches, held to ``per`` × (forwards + captures), and the
+        engine's fallback count and breaker."""
+        want = {k: self.per.get(k, 0) * self.calls for k in KERNELS}
+        if self.counts != want:
+            raise AssertionError(f"serve {what}: launches {self.counts} != "
+                                 f"{want}")
+        m = self.eng.metrics()
+        if m["fallback_calls"] or m["breaker"]["state"] != "closed":
+            raise AssertionError(f"serve {what}: fallback_calls "
+                                 f"{m['fallback_calls']}, breaker "
+                                 f"{m['breaker']}")
+        return {"launches": {k: v for k, v in self.counts.items() if v},
+                "launches_per_forward": self.per,
+                "forwards_and_captures": self.calls,
+                "fallback_calls": 0, "breaker": m["breaker"]["state"]}
+
+
+def _graph_vs_eager(torch, eng, x, got, what: str) -> None:
+    """The engine's answer bit for bit the eager forward of each padded
+    chunk of ``x`` on the card (the same weights, uploaded apart)."""
+    import numpy as np
+    from znicz_tpu_torch.serving.engine import torch_forward
+    top = eng.buckets[-1]
+    for start in range(0, len(x), top):
+        chunk = x[start:start + top]
+        bucket = eng.bucket_for(len(chunk))
+        padded = np.zeros((bucket,) + chunk.shape[1:], np.float32)
+        padded[:len(chunk)] = chunk
+        want = torch_forward(eng.layers, torch.from_numpy(padded).cuda())
+        want = want.cpu().numpy()[:len(chunk)]
+        if not np.array_equal(got[start:start + len(chunk)].view(np.int32),
+                              want.view(np.int32)):
+            raise AssertionError(f"serve {what}: the graph differs from the "
+                                 f"eager forward at rows {start}+")
+
+
+def _cpu_close(eng, x, got, rtol, atol, what: str) -> float:
+    """The engine's answer against ``torch_forward`` of ``x`` on the CPU
+    (the plain versions of every kernel)."""
+    import numpy as np
+    import torch
+    from znicz_tpu_torch.serving.engine import torch_forward
+    want = torch_forward(eng.layers, torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=atol,
+                               err_msg=f"serve {what}: card vs CPU")
+    return float(np.abs(got - want).max())
+
+
+def _rows(shape, n: int, seed: int):
+    import numpy as np
+    return np.random.default_rng(seed).uniform(
+        -1.0, 1.0, (n,) + tuple(shape)).astype(np.float32)
+
+
+def _second_generation(path: str, directory: str) -> str:
+    """The model of ``path`` with every weight and bias halved, written
+    and committed as a new artifact."""
+    from znicz_tpu_torch import export
+    layers = export.read_znn(path)
+    out = os.path.join(directory, "second.znn")
+    with open(out + ".tmp", "wb") as fh:
+        export._write_header(fh, len(layers))
+        for la in layers:
+            w, b = la.w, la.b
+            if w is not None and la.kind != "lrn":  # LRN's: hyperparameters
+                w = w * 0.5
+            if b is not None:
+                b = b * 0.5
+            export._pack_layer(fh, export.KIND[la.kind],
+                               export.ACT[la.activation], la.p, w, b)
+    return export._commit_znn(out)
+
+
+def _bit_flipped(path: str, directory: str) -> str:
+    """A copy of ``path`` and its manifest with one byte flipped halfway."""
+    import shutil
+    from znicz_tpu_torch import durability
+    out = os.path.join(directory, "corrupt.znn")
+    shutil.copyfile(path, out)
+    shutil.copyfile(durability.manifest_path(path),
+                    durability.manifest_path(out))
+    with open(out, "r+b") as fh:
+        fh.seek(os.path.getsize(out) // 2)
+        b = fh.read(1)
+        fh.seek(-1, 1)
+        fh.write(bytes([b[0] ^ 0x20]))
+    return out
+
+
+def _int8_engine(path: str, **kwargs) -> tuple:
+    """An int8 engine over ``path`` and whether it serves int8, with the
+    reasons its build fell back (``quantize_fallback_total``)."""
+    from znicz_tpu_torch.serving import ServingEngine
+    from znicz_tpu_torch.telemetry.registry import REGISTRY
+    counter = REGISTRY.counter("quantize_fallback_total")
+    reasons = ("unsupported", "tolerance", "error")
+    before = {r: counter.value(reason=r) for r in reasons}
+    q = ServingEngine(path, quantize="int8", **kwargs)
+    return q, {"served_int8": q.quantized_active(),
+               "fallback_reasons": {r: counter.value(reason=r) - before[r]
+                                    for r in reasons
+                                    if counter.value(reason=r) > before[r]}}
+
+
+def _serve_mnist(torch, drive: ServeDrive, path: str, directory: str):
+    """The MNIST MLP of phase 4 on the card: SERVE_BATCHES against the
+    CPU, the native engine and the eager forward; four captures, then
+    hits; the wall of a call at buckets 1 and 128, graph and eager; the
+    batcher from threads; int8; a reload and a refused one."""
+    import threading
+
+    import numpy as np
+    from znicz_tpu_torch.export import NativeEngine
+    from znicz_tpu_torch.serving import MicroBatcher, ServingEngine
+    from znicz_tpu_torch.serving.engine import (QUANT_ATOL, QUANT_RTOL,
+                                                output_features,
+                                                torch_forward)
+    eng = ServingEngine(path)
+    check = _ServeCheck(drive, eng)
+    params = [tuple(None if a is None else torch.from_numpy(a).cuda()
+                    for a in (la.w, la.b)) for la in eng.layers]
+    native = NativeEngine().load(path)
+    feats = output_features(eng.layers, (784,))
+    rows = {}
+    for i, b in enumerate(SERVE_BATCHES):
+        x = _rows((784,), b, i)
+        y = check.run(lambda: eng.predict(x))
+        _graph_vs_eager(torch, eng, x, y, f"mnist B={b}")
+        want = native.infer(x, feats)
+        np.testing.assert_allclose(y, want, rtol=NATIVE_RTOL,
+                                   atol=NATIVE_ATOL,
+                                   err_msg=f"mnist B={b}: card vs native")
+        rows[b] = {"cpu_max_abs_err": _cpu_close(
+                       eng, x, y, SERVE_RTOL, SERVE_ATOL, f"mnist B={b}"),
+                   "native_max_abs_err": float(np.abs(y - want).max())}
+    m = eng.metrics()
+    forwards = sum(-(-b // 128) for b in SERVE_BATCHES)
+    if (m["builds"], m["cache_misses"], m["cache_hits"]) != (
+            4, 4, forwards - 4):
+        raise AssertionError(f"serve mnist: builds {m['builds']}, misses "
+                             f"{m['cache_misses']}, hits {m['cache_hits']}")
+    timed = {}
+    for b in (1, 128):                  # the least and the top bucket
+        x = _rows((784,), b, 50 + b)
+        wall = check.run(lambda: _timed_calls(
+            torch, lambda: eng.predict(x), MNIST_TIMED_CALLS))
+        timed[b] = {"graph_wall_ms": wall, "eager_wall_ms": _timed_calls(
+            torch, lambda: torch_forward(
+                eng.layers, torch.from_numpy(x).cuda(), params).cpu(),
+            MNIST_TIMED_CALLS)}
+    # one-row requests from threads through the batcher
+    x = _rows((784,), BATCHER_REQUESTS, 99)
+    alone = check.run(lambda: [eng.predict(x[i:i + 1])
+                               for i in range(len(x))])
+    calls0 = eng.metrics()["forward_calls"]
+    mb = MicroBatcher(eng, max_batch=BATCHER_MAX_BATCH, max_wait_ms=150.0,
+                      max_queue=256)
+    answers = [None] * len(x)
+    barrier = threading.Barrier(len(x))
+
+    def client(i):
+        barrier.wait()
+        answers[i] = mb.predict(x[i:i + 1], timeout=60.0)
+
+    def burst():
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(x))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60.0)
+    try:
+        check.run(burst)
+    finally:
+        mb.close()
+    batched = eng.metrics()["forward_calls"] - calls0
+    if batched > -(-len(x) // BATCHER_MAX_BATCH):
+        raise AssertionError(f"serve batcher: {batched} forwards for "
+                             f"{len(x)} requests")
+    for got, want in zip(answers, alone):
+        np.testing.assert_allclose(got, want, rtol=SERVE_RTOL,
+                                   atol=SERVE_ATOL,
+                                   err_msg="batched vs alone")
+    batcher = {"requests": len(x), "max_batch": BATCHER_MAX_BATCH,
+               "forwards": batched,
+               "batch_size_histogram": mb.metrics()["batch_size_histogram"],
+               "bit_equal_to_alone": sum(bool(np.array_equal(a, b))
+                                         for a, b in zip(answers, alone)),
+               "max_abs_err_to_alone": max(float(np.abs(a - b).max())
+                                           for a, b in zip(answers, alone))}
+    # int8: served or fell back, and why
+    q, int8 = _int8_engine(path)
+    qcheck = _ServeCheck(drive, q)
+    xq = _rows((784,), 100, 7)
+    yq = qcheck.run(lambda: q.predict(xq))
+    y32 = check.run(lambda: eng.predict(xq))
+    int8["max_abs_err_to_fp32"] = float(np.abs(yq - y32).max())
+    if q.quantized_active():          # the engine's verification bound
+        np.testing.assert_allclose(yq, y32, rtol=QUANT_RTOL,
+                                   atol=QUANT_ATOL)
+    # reload to a second generation, then a corrupted copy rolls back
+    second = _second_generation(path, directory)
+    ok = eng.reload(second)
+    x = _rows((784,), 32, 5)
+    y2 = check.run(lambda: eng.predict(x))
+    _cpu_close(eng, x, y2, SERVE_RTOL, SERVE_ATOL, "mnist generation 2")
+    bad = eng.reload(_bit_flipped(second, directory))
+    y3 = check.run(lambda: eng.predict(x))
+    if (ok["outcome"], ok["generation"], bad["outcome"], bad["generation"],
+            eng.generation) != ("ok", 2, "verify_failed", 2, 2) \
+            or not np.array_equal(y2, y3):
+        raise AssertionError(f"serve reload: {ok}, {bad}")
+    return {"batches": rows, "timed": timed, "metrics_after_batches": {
+                k: m[k] for k in ("builds", "cache_misses", "cache_hits",
+                                  "forward_calls", "padded_rows")},
+            "batcher": batcher, "int8": int8,
+            "reload": {"ok": {k: ok[k] for k in ("outcome", "generation",
+                                                  "canary")},
+                       "corrupt": {k: bad[k] for k in ("outcome",
+                                                       "generation")}},
+            **check.held("mnist"), "int8_path": qcheck.held("mnist int8")}
+
+
+def _timed_calls(torch, fn, n: int) -> float:
+    """Wall ms a call of ``fn`` over ``n`` calls, synchronised."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def _device_ms(torch, fn, n: int) -> float:
+    """Device ms a call of ``fn`` by CUDA events over ``n`` calls."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def _serve_alexnet(torch, drive: ServeDrive, path: str) -> dict:
+    """AlexNet at full width on the card: each bucket's graph against the
+    eager forward bit for bit and against the CPU, and per bucket
+    the capture ms, the wall and device ms of a call and images/s, graph
+    and eager, with the resident weight bytes."""
+    import numpy as np
+    from znicz_tpu_torch.serving import ServingEngine
+    from znicz_tpu_torch.serving.engine import torch_forward
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    eng = ServingEngine(path, buckets=ALEXNET_BUCKETS)
+    check = _ServeCheck(drive, eng)
+    params = [tuple(None if a is None else torch.from_numpy(a).cuda()
+                    for a in (la.w, la.b)) for la in eng.layers]
+    out = {}
+    for i, b in enumerate(ALEXNET_BUCKETS):
+        x = _rows(ALEXNET_SAMPLE, b, 20 + i)
+        t0 = time.perf_counter()
+        y = check.run(lambda: eng.predict(x))
+        capture_ms = (time.perf_counter() - t0) * 1e3
+        _graph_vs_eager(torch, eng, x, y, f"alexnet bucket {b}")
+        dev0 = eng.device_ms_total()
+        wall = check.run(lambda: _timed_calls(
+            torch, lambda: eng.predict(x), SERVE_TIMED_CALLS))
+        engine_ms = (eng.device_ms_total() - dev0) / SERVE_TIMED_CALLS
+        entry = eng._cache[next(k for k in eng._cache if k[1] == b)].fn
+        replay_ms = _device_ms(torch, entry.graph.graph.replay,
+                               SERVE_TIMED_CALLS)
+        xd = torch.from_numpy(x).cuda()
+
+        def eager():
+            # from the host array to the host answer, as a call does
+            return torch_forward(eng.layers, torch.from_numpy(x).cuda(),
+                                 params).cpu()
+        eager()
+        eager_wall = _timed_calls(torch, eager, SERVE_TIMED_CALLS)
+        eager_dev = _device_ms(
+            torch, lambda: torch_forward(eng.layers, xd, params),
+            SERVE_TIMED_CALLS)
+        copy_in_ms = _device_ms(torch, lambda: torch.from_numpy(x).cuda(),
+                                SERVE_TIMED_CALLS)
+        out[b] = {"capture_ms": capture_ms,
+                  "copy_in_ms": copy_in_ms,
+                  "graph": {"wall_ms": wall, "engine_device_ms": engine_ms,
+                            "replay_device_ms": replay_ms,
+                            "images_per_s": b / wall * 1e3},
+                  "eager": {"wall_ms": eager_wall,
+                            "device_ms": eager_dev,
+                            "images_per_s": b / eager_wall * 1e3},
+                  "cpu_max_abs_err": _cpu_close(
+                      eng, x, y, CONV_SERVE_RTOL, CONV_SERVE_ATOL,
+                      f"alexnet bucket {b}")}
+    del params
+    torch.cuda.synchronize()
+    # a conv-first chain has no int8 path (as the reference's): fc6's
+    # K = 9216 never reaches the verification
+    q, int8 = _int8_engine(path, buckets=(8,))
+    if int8["served_int8"] or "unsupported" not in int8["fallback_reasons"]:
+        raise AssertionError(f"serve alexnet int8: {int8}")
+    del q
+    return {"buckets": out, "int8": int8,
+            "resident_weight_bytes": eng.resident_weight_bytes(),
+            "device_bytes_after_captures": torch.cuda.memory_allocated()
+            - mem0, "builds": eng.metrics()["builds"],
+            **check.held("alexnet")}
+
+
+#: the other models served against the CPU: name → (sample shape,
+#: rtol, atol)
+SERVE_OTHERS = {"cifar": ((32, 32, 3), CONV_SERVE_RTOL, CONV_SERVE_ATOL),
+                "autoencoder": ((28, 28, 1), 1e-4, 1e-5),
+                "som": ((2,), 1e-5, 1e-5)}
+
+
+def _serve_other(torch, drive: ServeDrive, name: str, path: str,
+                 gemm: bool = False) -> dict:
+    from znicz_tpu_torch.serving import ServingEngine
+    shape, rtol, atol = SERVE_OTHERS[name]
+    eng = ServingEngine(path)
+    check = _ServeCheck(drive, eng, gemm)
+    err = {}
+    for i, b in enumerate((5, 100)):
+        x = _rows(shape, b, 40 + i)
+        y = check.run(lambda: eng.predict(x))
+        _graph_vs_eager(torch, eng, x, y, f"{name} B={b}")
+        err[b] = _cpu_close(eng, x, y, rtol, atol, f"{name} B={b}")
+    return {"cpu_max_abs_err": err, "rtol": rtol, "atol": atol,
+            **check.held(name + ("_gemm" if gemm else ""))}
+
+
+def _failing_capture(torch, path: str) -> dict:
+    """A forward that syncs the host inside its capture: the error's type
+    on this torch, and that it reaches the caller with no fallback."""
+    import numpy as np
+    from znicz_tpu_torch.serving import ServingEngine
+    from znicz_tpu_torch.serving import engine as engine_mod
+    eng = ServingEngine(path, buckets=(1,))
+    real = engine_mod.torch_forward
+
+    def syncing(layers, x, params=None):
+        y = real(layers, x, params)
+        y.sum().item()
+        return y
+    engine_mod.torch_forward = syncing
+    try:
+        eng.predict(np.zeros((1, 784), np.float32))
+    except Exception as e:             # noqa: BLE001 — reported below
+        error = e
+    else:
+        raise AssertionError("a capture with a host sync did not raise")
+    finally:
+        engine_mod.torch_forward = real
+    torch.cuda.synchronize()
+    m = eng.metrics()
+    if m["fallback_calls"] or m["retries"] or engine_mod.engine_transient(
+            error):
+        raise AssertionError(f"failing capture: {error!r}, {m}")
+    return {"type": f"{type(error).__module__}.{type(error).__name__}",
+            "mro": [c.__name__ for c in type(error).__mro__],
+            "message": str(error).splitlines()[0][:200],
+            "fallback_calls": 0, "retries": 0}
+
+
+def phase_serve(torch, exports: dict, directory: str) -> dict:
+    """The port's serving path on the card (``serving.ServingEngine``, one
+    CUDA graph a bucket, and the ``MicroBatcher``) over the models the
+    slices trained and exported: MNIST (phase 4) at every bucket, padded,
+    full and chunked, against the CPU, the native engine and the eager
+    forward, its captures and hits, the batcher from threads, int8, a
+    reload and a refused corrupt one; AlexNet at full width (phase 8),
+    each bucket against the CPU and timed graph and eager; CIFAR (phase 6), the autoencoder
+    (phase 13; also on the implicit-GEMM conv tier) and the SOM (phase 14)
+    against the CPU; a capture that fails raises to the caller.  cuDNN is
+    held to its deterministic algorithms for the phase (graph against
+    eager bit for bit).  Every engine keeps ``fallback_calls`` 0 and its
+    breaker closed, and the serve path's launches equal each engine's
+    launches a forward times its forwards and captures."""
+    drive = ServeDrive(torch)
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        out = {"mnist": _serve_mnist(torch, drive, exports["mnist"],
+                                     directory),
+               "alexnet": _serve_alexnet(torch, drive, exports["alexnet"])}
+        for name in SERVE_OTHERS:
+            out[name] = _serve_other(torch, drive, name, exports[name])
+        with conv_tier("pallas"):
+            out["autoencoder_gemm"] = _serve_other(
+                torch, drive, "autoencoder", exports["autoencoder"], True)
+        out["failing_capture"] = _failing_capture(torch, exports["mnist"])
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    for kernel in SERVE_KERNELS:
+        if not drive.counts[kernel]:
+            raise AssertionError(f"serve path never launched {kernel}")
+    out["launches"] = drive.counts
+    emit({"phase": "serve", **out})
+    return out
+
+
 def kernels_line(kern: dict, launches: dict) -> dict:
     """One entry per kernel: its numbers at the main path's shape (the
     first case), the launches of the main-path runs, and every case."""
@@ -2882,6 +3432,19 @@ def main() -> int:
 
     info = phase_device(torch)
     phase_build()
+    # the slices' trained models, exported for the serve phase
+    exports: dict = {}
+    serve_dir = tempfile.TemporaryDirectory(prefix="znicz_serve_")
+    try:
+        return run_phases(torch, info, exports, serve_dir.name)
+    finally:
+        serve_dir.cleanup()
+
+
+def run_phases(torch, info: dict, exports: dict, serve_dir: str) -> int:
+    """Phases 3-19 (``main`` ran the device and build phases); the slices
+    export their trained models into ``serve_dir`` (``exports``: name →
+    path) for the serve phase."""
     kern = {"softmax_ce": phase_kernel_softmax(torch),
             **phase_kernel_pooling(torch), **phase_kernel_lrn(torch),
             **phase_kernel_lrn_pool(torch),
@@ -2899,13 +3462,15 @@ def main() -> int:
     phase_captured(torch)
     #: each conv model's epoch 0 on its default split on the default tier
     cudnn = {}
-    mnist = phase_slice(torch, "mnist", MNIST_SPLIT, "mnist 784-100-10")
+    mnist = phase_slice(torch, "mnist", MNIST_SPLIT, "mnist 784-100-10",
+                        _export_to(serve_dir, "mnist", exports))
     phase_parity("mnist", MNIST_SPLIT, mnist["epoch_metrics"][0], 1e-4,
                  0.001)
     phase_lr_accum(torch)
     cifar = phase_slice(torch, "cifar", CIFAR_SPLIT,
                         "cifar conv5x5x32-maxpool2-lrn5-conv5x5x32-"
-                        "avgpool2-fc64-softmax10")
+                        "avgpool2-fc64-softmax10",
+                        _export_to(serve_dir, "cifar", exports))
     cudnn["cifar"] = _run("cifar", "cuda", 1, CIFAR_PARITY_SPLIT).decision \
         .epoch_metrics[0]
     phase_parity("cifar", CIFAR_PARITY_SPLIT, cudnn["cifar"], 5e-4, 0.01)
@@ -2913,7 +3478,8 @@ def main() -> int:
                           "alexnet 227x227x3 conv11/4x96-lrnpool-conv5x256-"
                           "lrnpool-conv3x384-conv3x384-conv3x256-maxpool3/2-"
                           "dropout-fc4096-dropout-fc4096-softmax1000",
-                          alexnet_geometry)
+                          _export_to(serve_dir, "alexnet", exports,
+                                     alexnet_geometry))
     from znicz_tpu_torch.models import alexnet as alexnet_model
     shrunk = dict(ALEXNET_SHRUNK, layers=alexnet_model.make_layers(
         ALEXNET_SHRUNK["n_classes"], widths=ALEXNET_SHRUNK_WIDTHS))
@@ -2933,7 +3499,8 @@ def main() -> int:
     phase_parity("cifar", CIFAR_PARITY_SPLIT, cudnn["cifar_units"], 5e-4,
                  0.01, fused=False)
     ae_desc = "mnist autoencoder conv5x5x16-maxpool2-depool-deconv5x5x16>1"
-    ae = phase_slice(torch, "autoencoder", MNIST_SPLIT, ae_desc)
+    ae = phase_slice(torch, "autoencoder", MNIST_SPLIT, ae_desc,
+                     _export_to(serve_dir, "autoencoder", exports))
     ae_units = phase_slice(torch, "autoencoder", MNIST_SPLIT,
                            ae_desc + " unit graph", path="autoencoder_units")
     for fused in (True, False):
@@ -2942,7 +3509,7 @@ def main() -> int:
                      card.decision.epoch_metrics[0], 5e-4, 0.0, fused=fused)
         if fused:
             cudnn["autoencoder"] = card.decision.epoch_metrics[0]
-    som = phase_som(torch)
+    som = phase_som(torch, _export_to(serve_dir, "som", exports))
     act_cfg = {"layers": MNIST_ACT_LAYERS}
     act_units = phase_slice(torch, "mnist", MNIST_SPLIT,
                             "mnist 784-100-activation_tanh-10 unit graph",
@@ -2971,6 +3538,7 @@ def main() -> int:
                  5e-4, 0.01, shrunk, fused=False, card_wf=card)
     del card
     gemm = phase_gemm_tier(torch, cudnn, alexnet, shrunk)
+    serve = phase_serve(torch, exports, serve_dir)
     emit(kernels_line(kern, {"mnist": mnist["launches"],
                              "cifar": cifar["launches"],
                              "alexnet": alexnet["launches"],
@@ -2984,7 +3552,8 @@ def main() -> int:
                              "mnist_act": act_fused["launches"],
                              "alexnet_units": alexnet_units["launches"],
                              **{path: line["launches"]
-                                for path, line in gemm.items()}}))
+                                for path, line in gemm.items()},
+                             "serve": serve["launches"]}))
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],
                                  "count": torch.cuda.device_count()}})
     return 0

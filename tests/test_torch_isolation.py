@@ -47,6 +47,45 @@ def test_no_jax_or_reference_import(path):
     assert not bad, f"{path} imports {bad}"
 
 
+def test_the_serving_modules_are_walked():
+    for part in ("telemetry/", "resilience/", "durability/", "export.py",
+                 "serving/"):
+        assert any(f.startswith(f"znicz_tpu_torch/{part}")
+                   for f in PORT_FILES), part
+    assert "znicz_tpu_torch/serving/engine.py" in PORT_FILES
+    assert "znicz_tpu_torch/serving/batcher.py" in PORT_FILES
+
+
+def test_fresh_process_exports_and_serves_without_jax(tmp_path):
+    code = (
+        "import sys, numpy as np, torch\n"
+        "torch.set_num_threads(2)\n"
+        "from znicz_tpu_torch import export, prng\n"
+        "from znicz_tpu_torch.config import root\n"
+        "from znicz_tpu_torch.models import mnist\n"
+        "from znicz_tpu_torch.serving import MicroBatcher, ServingEngine\n"
+        "root.mnist.synthetic.update({'n_train': 200, 'n_valid': 50, "
+        "'n_test': 50})\n"
+        "prng.seed_all(1234)\n"
+        "wf = mnist.run(device='cpu', epochs=1)\n"
+        f"path = export.export_workflow(wf, {str(tmp_path / 'm.znn')!r})\n"
+        "x = np.asarray(wf.loader.original_data[:5], np.float32)\n"
+        "eng = ServingEngine(path, backend='cpu')\n"
+        "mb = MicroBatcher(eng, max_batch=4)\n"
+        "y = mb.predict(x)\n"
+        "mb.close()\n"
+        "z = ServingEngine(path, backend='native').predict(x)\n"
+        "assert np.allclose(y, z, rtol=1e-4, atol=1e-5)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
+        " ('jax', 'jaxlib', 'znicz_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="2")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and "clean" in proc.stdout, proc.stderr
+
+
 def _train_in_fresh_process(model: str, split: str, setup: str = "",
                             fused: bool = True, tree: str | None = None
                             ) -> None:

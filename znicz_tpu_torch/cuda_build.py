@@ -1,5 +1,5 @@
 """Builds the port's CUDA sources with ``nvcc`` and loads them with
-``ctypes``.
+``ctypes``; :func:`build_host` builds a host C++ library the same way.
 
 Each ``csrc/<name>.cu`` becomes ``build/<name>-<hash>.so`` with a plain C
 interface (no PyTorch headers, so one source compiles in seconds).  The
@@ -40,6 +40,11 @@ _lock = threading.Lock()
 
 class BuildError(RuntimeError):
     """nvcc is missing or refused a source."""
+
+
+class LaunchError(RuntimeError):
+    """The CUDA runtime refused a kernel launch (its error code in the
+    message)."""
 
 
 def nvcc_path() -> str:
@@ -151,11 +156,53 @@ def kernel(library: str, name: str, argtypes: list):
 
 def launch(fn, device, *args) -> None:
     """Call a kernel's entry point on ``device``'s current stream and raise
-    if the launch was refused (its ``cudaGetLastError``); it does not
-    synchronise."""
+    :class:`LaunchError` if the launch was refused (its
+    ``cudaGetLastError``); it does not synchronise."""
     import torch
     with torch.cuda.device(device):
         status = fn(*args, torch.cuda.current_stream().cuda_stream)
     if status != 0:
-        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error "
-                           f"{status}")
+        raise LaunchError(f"{fn.__name__} launch failed: CUDA error "
+                          f"{status}")
+
+
+#: the host compiler's flags, as ``native/Makefile`` gives them
+CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-Wall", "-pthread", "-shared")
+
+
+def build_host(name: str, source: Path, headers=(), flags=CXX_FLAGS,
+               libs=("-lpthread",), force: bool = False) -> Path:
+    """Build the host C++ ``source`` (``$CXX``, default ``g++``) into
+    ``build/<name>-<hash>.so`` unless it is built already (``force``:
+    build again) and return its path; the hash covers the source,
+    ``headers`` and the flags, a lock file keeps two processes from
+    racing on one build, and the library lands by one rename, so a
+    loader never sees a partial file.  A failing compiler raises
+    :class:`BuildError` with its stderr; nothing is written beside the
+    source."""
+    cxx = os.environ.get("CXX") or shutil.which("g++") or "g++"
+    h = hashlib.sha256(" ".join((*flags, *libs)).encode())
+    for p in (Path(source), *map(Path, headers)):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    with open(BUILD_DIR / f"{name}.lock", "w") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        try:
+            if force or not out.exists():
+                tmp = out.with_suffix(f".{os.getpid()}.tmp")
+                try:
+                    proc = subprocess.run(
+                        [cxx, *flags, "-o", str(tmp), str(source), *libs],
+                        capture_output=True, text=True)
+                except OSError as e:
+                    raise BuildError(f"{cxx} could not run: {e}") from e
+                if proc.returncode != 0:
+                    tmp.unlink(missing_ok=True)
+                    raise BuildError(f"{cxx} failed on {source} (exit "
+                                     f"{proc.returncode}):\n{proc.stderr}")
+                os.replace(tmp, out)
+        finally:
+            fcntl.flock(fh, fcntl.LOCK_UN)
+    return out

@@ -2,36 +2,71 @@
 plain PyTorch version beside the wrapper of its hand-written kernel.
 
 Each wrapper counts its kernel's launches in a module-level integer named
-``<kernel>_launches``; ``launch_counts`` reads them all.  A CUDA graph
-that captured wrapper calls takes back what the capture counted
-(``set_launch_counts``) and adds it on every replay
-(``parallel.capture``), so the counts stay the launches the card ran."""
+``<kernel>_launches`` through :func:`count_launch`; ``launch_counts``
+reads them all.  Counts are added under one lock, so wrappers called
+from several threads (the serving batcher and its callers) keep them
+exact.  A CUDA graph's capture counts into :func:`recording` instead of
+the counters (a capture launches nothing), and every replay adds what it
+recorded (``parallel.capture``), so the counts stay the launches the card
+ran."""
 
 from __future__ import annotations
 
+import contextlib
 import importlib
+import sys
+import threading
 
 #: the op modules whose wrappers count their kernels' launches
 COUNTING = ("activations", "conv", "dropout", "kohonen", "lrn_pool",
             "matmul", "normalization", "pooling", "softmax", "update")
+
+_lock = threading.Lock()
+_local = threading.local()
 
 
 def _module(name: str):
     return importlib.import_module(f"{__name__}.{name}")
 
 
+def count_launch(module: str, attr: str, n: int = 1) -> None:
+    """Add ``n`` launches to counter ``attr`` of the op module named
+    ``module`` (a wrapper passes its ``__name__``), or, inside
+    :func:`recording` on this thread, to that recording instead."""
+    rec = getattr(_local, "recording", None)
+    if rec is not None:
+        key = (module.rsplit(".", 1)[-1], attr)
+        rec[key] = rec.get(key, 0) + n
+        return
+    add_launches(sys.modules[module], attr, n)
+
+
+def add_launches(mod, attr: str, n: int) -> None:
+    """Add ``n`` to counter ``attr`` of module object ``mod``."""
+    with _lock:
+        setattr(mod, attr, getattr(mod, attr) + n)
+
+
+@contextlib.contextmanager
+def recording():
+    """Launches this thread's wrappers count inside the block go to the
+    yielded ``{(module, counter): n}`` and not to the counters."""
+    prev = getattr(_local, "recording", None)
+    rec: dict = {}
+    _local.recording = rec
+    try:
+        yield rec
+    finally:
+        _local.recording = prev
+
+
 def launch_counts() -> dict:
     """{(module, counter): launches so far} of every kernel wrapper."""
     out = {}
-    for name in COUNTING:
-        mod = _module(name)
-        for attr, value in vars(mod).items():
-            if attr.endswith("_launches") and isinstance(value, int):
-                out[(name, attr)] = value
+    with _lock:
+        for name in COUNTING:
+            mod = _module(name)
+            for attr, value in vars(mod).items():
+                if attr.endswith("_launches") and isinstance(value, int):
+                    out[(name, attr)] = value
     return out
-
-
-def set_launch_counts(counts: dict) -> None:
-    """Set each ``(module, counter)`` of ``counts`` to its value."""
-    for (name, attr), value in counts.items():
-        setattr(_module(name), attr, value)

@@ -39,6 +39,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from . import count_launch
+
 #: Launches of the activation kernels in this process (the CUDA branches
 #: of ``act_fwd`` / ``act_bwd`` add one per launch, nowhere else).
 act_fwd_launches = 0
@@ -366,7 +368,6 @@ def _check(who: str, name: str, *tensors) -> None:
 def act_fwd(name: str, x: torch.Tensor) -> torch.Tensor:
     """y = act(x) for a contiguous float32 tensor: the CUDA kernel for a
     CUDA tensor, the plain version for a CPU tensor."""
-    global act_fwd_launches
     _check("act_fwd", name, x)
     if x.device.type == "cpu":
         return plain_act_fwd(name, x)
@@ -378,7 +379,7 @@ def act_fwd(name: str, x: torch.Tensor) -> torch.Tensor:
         cuda_build.kernel("activation", "znicz_act_fwd_f32", _FWD_ARGTYPES),
         x.device, x.data_ptr(), y.data_ptr(), x.numel(), x.shape[-1],
         ACT_IDS[name], *_TANHLOG_CONSTANTS)
-    act_fwd_launches += 1
+    count_launch(__name__, "act_fwd_launches")
     return y
 
 
@@ -388,7 +389,6 @@ def act_bwd(name: str, err_y: torch.Tensor, y: torch.Tensor,
     shape: the CUDA kernel for CUDA tensors, the plain version for CPU
     tensors.  ``log``, ``sincos`` and ``tanhlog`` need the forward input
     and raise without it."""
-    global act_bwd_launches
     if BY_NAME.get(name, Activation).needs_input and x is None:
         raise ValueError(f"{name} backward needs the forward input")
     _check("act_bwd", name, err_y, y, *(() if x is None else (x,)))
@@ -403,7 +403,7 @@ def act_bwd(name: str, err_y: torch.Tensor, y: torch.Tensor,
         err_y.device, err_y.data_ptr(), y.data_ptr(),
         None if x is None else x.data_ptr(), out.data_ptr(), err_y.numel(),
         err_y.shape[-1], ACT_IDS[name], *_TANHLOG_CONSTANTS)
-    act_bwd_launches += 1
+    count_launch(__name__, "act_bwd_launches")
     return out
 
 

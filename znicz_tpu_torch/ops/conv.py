@@ -41,6 +41,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import count_launch
 from .geometry import norm2, out_size
 from .matmul import (TC_WIDTHS, _tc_width, launch_split, plain_matmul_at_b,
                      tc_split_plan)
@@ -325,7 +326,6 @@ def conv2d_gemm(x, w, stride=1, padding=0):
     """The implicit-GEMM forward: (B,OH,OW,OC) float32 of contiguous
     float32 x (B,H,W,C) and w (KH,KW,C,OC); the ``conv_fwd`` kernel for
     CUDA tensors, ``plain_conv2d_gemm`` for CPU tensors."""
-    global conv_fwd_launches
     geo = _gemm_geometry("conv2d_gemm", x.shape, w.shape, stride, padding,
                          kind="fwd")
     _check_gemm("conv2d_gemm", x, w)
@@ -336,7 +336,7 @@ def conv2d_gemm(x, w, stride=1, padding=0):
     if y.numel() == 0:
         return y
     _launch_conv("znicz_conv_fwd_f32", "fwd", x, w, y, geo)
-    conv_fwd_launches += 1
+    count_launch(__name__, "conv_fwd_launches")
     return y
 
 
@@ -345,7 +345,6 @@ def conv2d_grad_input_gemm(err, w, x_shape, stride=1, padding=0):
     float32 of contiguous float32 err (B,OH,OW,OC) and w; the
     ``conv_dgrad`` kernel for CUDA tensors,
     ``plain_conv2d_grad_input_gemm`` for CPU tensors."""
-    global conv_dgrad_launches
     geo = _gemm_geometry("conv2d_grad_input_gemm", x_shape, w.shape, stride,
                          padding, err.shape, kind="dgrad")
     _check_gemm("conv2d_grad_input_gemm", err, w)
@@ -355,7 +354,7 @@ def conv2d_grad_input_gemm(err, w, x_shape, stride=1, padding=0):
     if dx.numel() == 0:
         return dx
     _launch_conv("znicz_conv_dgrad_f32", "dgrad", err, w, dx, geo)
-    conv_dgrad_launches += 1
+    count_launch(__name__, "conv_dgrad_launches")
     return dx
 
 
@@ -364,7 +363,6 @@ def conv2d_grad_weights_gemm(x, err, w_shape, stride=1, padding=0):
     contiguous float32 x and err, summed over batch and positions in a
     fixed order; the ``conv_wgrad`` kernel for CUDA tensors,
     ``plain_conv2d_grad_weights_gemm`` for CPU tensors."""
-    global conv_wgrad_launches
     geo = _gemm_geometry("conv2d_grad_weights_gemm", x.shape, w_shape,
                          stride, padding, err.shape)
     _check_gemm("conv2d_grad_weights_gemm", x, err)
@@ -380,7 +378,7 @@ def conv2d_grad_weights_gemm(x, err, w_shape, stride=1, padding=0):
     launch_wgrad(x, err, dw, geo, wgrad_plan(
         c, oc, kh * kw * c, b * oh * ow,
         x.data_ptr() % 16 == 0 and err.data_ptr() % 16 == 0))
-    conv_wgrad_launches += 1
+    count_launch(__name__, "conv_wgrad_launches")
     return dw
 
 

@@ -20,7 +20,7 @@ import ctypes
 import numpy as np
 import torch
 
-from . import rngbits
+from . import count_launch, rngbits
 
 #: Launches of the dropout kernel in this process (the CUDA branch of
 #: ``dropout`` adds one per launch, nowhere else).
@@ -81,7 +81,6 @@ def dropout(x: torch.Tensor, key: int, ratio: float) -> torch.Tensor:
     """x · mask(key) for a contiguous float32 tensor: the CUDA kernel for a
     CUDA tensor, the plain version for a CPU tensor.  ``key`` is the
     host-folded u32 key (``rngbits.fold``)."""
-    global dropout_launches
     ratio = float(ratio)
     _check(x, ratio)
     if x.device.type == "cpu":
@@ -95,5 +94,5 @@ def dropout(x: torch.Tensor, key: int, ratio: float) -> torch.Tensor:
         x.device, x.data_ptr(), out.data_ptr(), x.numel(),
         int(key) & rngbits.MASK32, float(np.float32(ratio)),
         float(_scale(ratio)))
-    dropout_launches += 1
+    count_launch(__name__, "dropout_launches")
     return out

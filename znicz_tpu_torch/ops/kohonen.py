@@ -36,6 +36,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from . import count_launch
+
 #: Launches of the distance→argmin kernel in this process (the CUDA branch
 #: of ``distance_argmin`` adds one per launch, nowhere else).
 distance_argmin_launches = 0
@@ -431,7 +433,6 @@ def distance_argmin(x: torch.Tensor, w: torch.Tensor):
     ``(win int32 (B,), dmin f32 (B,))``, ties to the lowest neuron: the
     CUDA kernel for CUDA tensors (one launch, by ``plan_for``, the plan
     made once a geometry), the plain version for CPU tensors."""
-    global distance_argmin_launches
     _check(x, w)
     if x.device.type == "cpu":
         return plain_distance_argmin(x, w)
@@ -439,5 +440,5 @@ def distance_argmin(x: torch.Tensor, w: torch.Tensor):
         return (torch.empty((0,), dtype=torch.int32, device=x.device),
                 torch.empty((0,), dtype=torch.float32, device=x.device))
     out = launch_distance_argmin(x, w, *_cuda_launch(x, w))
-    distance_argmin_launches += 1
+    count_launch(__name__, "distance_argmin_launches")
     return out

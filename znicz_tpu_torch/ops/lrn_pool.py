@@ -27,7 +27,8 @@ from typing import NamedTuple
 
 import torch
 
-from . import activations, normalization as lrn_ops, pooling as pool_ops
+from . import activations, count_launch
+from . import normalization as lrn_ops, pooling as pool_ops
 from .geometry import norm2
 
 #: Launches of the fused pair's kernels in this process (the CUDA branches
@@ -237,7 +238,6 @@ def lrn_maxpool(x, n, alpha, beta, k, ksize, stride, padding=0,
     """(pooled, int32 offsets) of LRN then max (max-|·| with ``use_abs``)
     pooling over NHWC float32 ``x``: the CUDA kernel for a CUDA tensor, the
     plain version for a CPU tensor."""
-    global lrn_maxpool_launches
     who = "lrn_maxpool"
     (kh, kw), (sh, sw), (oh, ow) = _geometry(who, x, n, ksize, stride,
                                              padding)
@@ -251,7 +251,7 @@ def lrn_maxpool(x, n, alpha, beta, k, ksize, stride, padding=0,
     _launch("znicz_lrn_maxpool_f32", x.device, x.data_ptr(), y.data_ptr(),
             off.data_ptr(), b, h, w, c, kh, kw, sh, sw, float(alpha),
             float(beta), float(k), int(use_abs), *plan)
-    lrn_maxpool_launches += 1
+    count_launch(__name__, "lrn_maxpool_launches")
     return y, off
 
 
@@ -260,7 +260,6 @@ def gd_lrn_maxpool(errp, offsets, x, n, alpha, beta, k, ksize, stride,
     """dx of the fused pair from the pooled err, the winner offsets and the
     pair's input x; ``fold_act`` also applies the derivative of the
     preceding layer's (y-only) activation at its output y = x."""
-    global gd_lrn_maxpool_launches
     who = "gd_lrn_maxpool"
     act = activations.fold_id(fold_act)
     (kh, kw), (sh, sw), (oh, ow) = _geometry(who, x, n, ksize, stride,
@@ -278,5 +277,5 @@ def gd_lrn_maxpool(errp, offsets, x, n, alpha, beta, k, ksize, stride,
     _launch("znicz_gd_lrn_maxpool_f32", x.device, errp.data_ptr(),
             offsets.data_ptr(), x.data_ptr(), dx.data_ptr(), b, h, w, c, kh,
             kw, sh, sw, float(alpha), float(beta), float(k), act, *plan)
-    gd_lrn_maxpool_launches += 1
+    count_launch(__name__, "gd_lrn_maxpool_launches")
     return dx

@@ -35,6 +35,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from . import count_launch
+
 #: Launches of the matmul kernel in this process (the CUDA branch of
 #: ``matmul`` adds one per launch, nowhere else).
 matmul_launches = 0
@@ -258,7 +260,6 @@ def matmul_at_b(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(K, N) float32 ``aᵀ·b`` of row-major (M, K) and (M, N) float32
     matrices, without a transposed copy of ``a``: the CUDA kernel for CUDA
     tensors, the plain version for CPU tensors."""
-    global matmul_at_b_launches
     _check_at_b(a, b)
     if a.device.type == "cpu":
         return plain_matmul_at_b(a, b)
@@ -272,7 +273,7 @@ def matmul_at_b(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     c = launch_matmul(a.as_strided((k, m), (1, k)),
                       b.as_strided((m, n), (n, 1)), at_b_plan(
         m, k, n, a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0))
-    matmul_at_b_launches += 1
+    count_launch(__name__, "matmul_at_b_launches")
     return c
 
 
@@ -280,7 +281,6 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(M, N) float32 product of (M, K) and (K, N) float32 matrices, which
     may be strided views (a transpose included): the CUDA kernel for CUDA
     tensors, the plain version for CPU tensors."""
-    global matmul_launches
     _check(a, b)
     if a.device.type == "cpu":
         return plain_matmul(a, b)
@@ -290,5 +290,5 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     c = launch_matmul(a, b, matmul_plan(
         a.shape, a.stride(), b.shape, b.stride(), a.data_ptr() % 16 == 0,
         b.data_ptr() % 16 == 0))
-    matmul_launches += 1
+    count_launch(__name__, "matmul_launches")
     return c

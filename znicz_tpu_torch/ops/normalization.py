@@ -35,6 +35,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import count_launch
+
 #: Reference defaults (AlexNet LRN).
 DEFAULTS = dict(n=5, alpha=1e-4, beta=0.75, k=2.0)
 
@@ -319,7 +321,6 @@ def _check(who: str, n: int, *tensors) -> None:
 def lrn_y(x, n=5, alpha=1e-4, beta=0.75, k=2.0):
     """LRN forward emitting only y, over the last (channel) axis of a
     contiguous float32 tensor."""
-    global lrn_y_launches
     _check("lrn_y", n, x)
     if x.device.type == "cpu":
         return plain_lrn_y(x, n, alpha, beta, k)
@@ -330,13 +331,12 @@ def lrn_y(x, n=5, alpha=1e-4, beta=0.75, k=2.0):
             x.numel() // c, c, plan.n, float(alpha), float(beta), float(k),
             plan.vec, int(plan.direct), plan.threads_x, plan.pixels,
             plan.smem)
-    lrn_y_launches += 1
+    count_launch(__name__, "lrn_y_launches")
     return y
 
 
 def gd_lrn_x(err, x, n=5, alpha=1e-4, beta=0.75, k=2.0):
     """LRN backward recomputing the denominator from x (no cached d)."""
-    global gd_lrn_x_launches
     _check("gd_lrn_x", n, err, x)
     if x.device.type == "cpu":
         return plain_gd_lrn_x(err, x, n, alpha, beta, k)
@@ -347,14 +347,13 @@ def gd_lrn_x(err, x, n=5, alpha=1e-4, beta=0.75, k=2.0):
             dx.data_ptr(), x.numel() // c, c, plan.n, float(alpha),
             float(beta), float(k), plan.vec, plan.threads_x, plan.pixels,
             plan.smem)
-    gd_lrn_x_launches += 1
+    count_launch(__name__, "gd_lrn_x_launches")
     return dx
 
 
 def lrn(x, n=5, alpha=1e-4, beta=0.75, k=2.0):
     """LRN forward → (y, d), d = k + α·(window sum of x²) cached for
     :func:`gd_lrn`, over the last axis of a contiguous float32 tensor."""
-    global lrn_launches
     _check("lrn", n, x)
     if x.device.type == "cpu":
         return plain_lrn(x, n, alpha, beta, k)
@@ -364,13 +363,12 @@ def lrn(x, n=5, alpha=1e-4, beta=0.75, k=2.0):
     _launch("znicz_lrn_f32", x.device, x.data_ptr(), y.data_ptr(),
             d.data_ptr(), x.numel() // c, c, int(n), float(alpha),
             float(beta), float(k))
-    lrn_launches += 1
+    count_launch(__name__, "lrn_launches")
     return y, d
 
 
 def gd_lrn(err, x, d, n=5, alpha=1e-4, beta=0.75, k=2.0):
     """LRN backward from the forward's cached denominator ``d``."""
-    global gd_lrn_launches
     _check("gd_lrn", n, err, x, d)
     if x.device.type == "cpu":
         return plain_gd_lrn(err, x, d, n, alpha, beta, k)
@@ -379,5 +377,5 @@ def gd_lrn(err, x, d, n=5, alpha=1e-4, beta=0.75, k=2.0):
     _launch("znicz_gd_lrn_f32", x.device, err.data_ptr(), x.data_ptr(),
             d.data_ptr(), dx.data_ptr(), x.numel() // c, c, int(n),
             float(alpha), float(beta), float(k))
-    gd_lrn_launches += 1
+    count_launch(__name__, "gd_lrn_launches")
     return dx

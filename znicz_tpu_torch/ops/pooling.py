@@ -25,6 +25,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import count_launch
 from .geometry import norm2, out_size
 
 #: Launches of the pool-select / pool-scatter kernels in this process (the
@@ -303,7 +304,6 @@ def _check(who: str, name: str, t: torch.Tensor, dtype, device=None,
 
 
 def _select(who, x, ksize, stride, padding, use_abs: bool):
-    global pool_select_launches
     _check(who, "x", x, torch.float32)
     (kh, kw), (sh, sw), (ph, pw), (oh, ow) = _geometry(
         who, x.shape, ksize, stride, padding)
@@ -314,7 +314,7 @@ def _select(who, x, ksize, stride, padding, use_abs: bool):
     off = torch.empty((b, oh, ow, c), dtype=torch.int32, device=x.device)
     _launch("znicz_pool_select_f32", x.device, x.data_ptr(), y.data_ptr(),
             off.data_ptr(), b, h, w, c, kh, kw, sh, sw, ph, pw, int(use_abs))
-    pool_select_launches += 1
+    count_launch(__name__, "pool_select_launches")
     return y, off
 
 
@@ -358,7 +358,6 @@ def gd_max_pooling(err, offsets, x_shape, ksize, stride=None, padding=0):
     contain it in the reference's order, several channels a thread where
     they lie in 16-byte vectors (``scatter_width``); no atomics, no
     memset."""
-    global pool_scatter_launches
     who = "gd_max_pooling"
     _check(who, "err", err, torch.float32)
     x_shape = tuple(int(s) for s in x_shape)
@@ -374,7 +373,7 @@ def gd_max_pooling(err, offsets, x_shape, ksize, stride=None, padding=0):
     # dx is a fresh allocation: the caching allocator aligns it
     dx = launch_pool_scatter(err, offsets, x_shape, window,
                              scatter_width(c, err, offsets))
-    pool_scatter_launches += 1
+    count_launch(__name__, "pool_scatter_launches")
     return dx
 
 
@@ -392,7 +391,6 @@ def gd_depooling(err, offsets, ksize, stride=None, padding=0):
     at each window's winner slot → shaped like ``offsets``.  On the card
     one kernel reads each window's slot and the one tap it names; a tap in
     the padding gives 0."""
-    global pool_gather_launches
     who = "gd_depooling"
     _check(who, "err", err, torch.float32)
     (kh, kw), (sh, sw), (ph, pw), (oh, ow) = _geometry(
@@ -406,5 +404,5 @@ def gd_depooling(err, offsets, ksize, stride=None, padding=0):
     _launch("znicz_pool_gather_f32", err.device, err.data_ptr(),
             offsets.data_ptr(), out.data_ptr(), b, h, w, c, oh, ow, kh, kw,
             sh, sw, ph, pw)
-    pool_gather_launches += 1
+    count_launch(__name__, "pool_gather_launches")
     return out

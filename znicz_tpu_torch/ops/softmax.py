@@ -31,6 +31,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from . import count_launch
+
 #: Launches of the row softmax kernel in this process (the CUDA branch of
 #: ``softmax`` adds one per launch, nowhere else).
 softmax_launches = 0
@@ -208,7 +210,6 @@ def _check_rows(who: str, x: torch.Tensor) -> None:
 def softmax(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(probabilities, int32 argmax) of (N, C) contiguous float32 rows: the
     CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
-    global softmax_launches
     _check_rows("softmax", x)
     if x.device.type == "cpu":
         return plain_softmax(x)
@@ -221,7 +222,7 @@ def softmax(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
                           _SOFTMAX_ARGTYPES),
         x.device, x.data_ptr(), y.data_ptr(), idx.data_ptr(), n, c,
         *plan_args(plan_for(x)))
-    softmax_launches += 1
+    count_launch(__name__, "softmax_launches")
     return y, idx
 
 
@@ -269,7 +270,6 @@ def softmax_ce_from_logits(logits: torch.Tensor, labels: torch.Tensor
     """(probs, per-row loss, err) from (N, C) contiguous float32 logits and
     (N,) integer labels: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors."""
-    global softmax_ce_launches
     _check(logits, labels)
     if logits.device.type == "cpu":
         return plain_softmax_ce_from_logits(logits, labels)
@@ -284,5 +284,5 @@ def softmax_ce_from_logits(logits: torch.Tensor, labels: torch.Tensor
         logits.device, logits.data_ptr(), labels.data_ptr(),
         probs.data_ptr(), loss.data_ptr(), err.data_ptr(), n, c,
         *plan_args(plan_for(logits)))
-    softmax_ce_launches += 1
+    count_launch(__name__, "softmax_ce_launches")
     return probs, loss, err

@@ -40,6 +40,8 @@ import functools
 import numpy as np
 import torch
 
+from . import count_launch
+
 #: Launches of the update kernel in this process (the CUDA branch of
 #: ``sgd_update_many`` adds one per launch, nowhere else).
 sgd_update_launches = 0
@@ -187,7 +189,6 @@ def sgd_update_many(entries, inplace: bool = False
     ``inplace`` w′ and vel′ are written over w and vel.  Every entry reads
     its inputs as given: an update that must read another entry's w' (a
     tied deconv's, in the fused step) belongs in a later call."""
-    global sgd_update_launches
     entries = list(entries)
     _check(entries)
     if not entries or entries[0][0].device.type == "cpu":
@@ -195,9 +196,9 @@ def sgd_update_many(entries, inplace: bool = False
     from .. import cuda_build
     outs = ([(w, v) for w, _, v, *_ in entries] if inplace
             else empty_outputs(entries))
-    sgd_update_launches += launch_many(
+    count_launch(__name__, "sgd_update_launches", launch_many(
         cuda_build.kernel("update", "znicz_sgd_update_many_f32", _ARGTYPES),
-        entries, outs)
+        entries, outs))
     return outs
 
 

@@ -16,9 +16,12 @@ kernels and builds the libraries' handles and workspaces on the stream
 the capture then uses — and is then captured from the state it left, so
 the capture moves nothing and the captured epoch equals the eager one
 bit for bit.  The kernel wrappers count their launches as they are
-called; the counts a capture makes are taken back and added again on
-every replay, so they stay the launches the card ran.  A capture or a
-replay that fails raises; nothing falls back to the eager step."""
+called; what they count during the capture is recorded apart
+(``ops.recording``) and added on every replay, so the counts stay the
+launches the card ran, also while other threads launch.  A capture or a
+replay that fails raises; nothing falls back to the eager step.  The
+serving engine captures its bucket forwards through :func:`capture`
+too."""
 
 from __future__ import annotations
 
@@ -39,30 +42,29 @@ class StepGraph:
     def replay(self) -> None:
         self.graph.replay()
         for mod, attr, n in self.launches:
-            setattr(mod, attr, getattr(mod, attr) + n)
+            ops.add_launches(mod, attr, n)
 
 
 def capture(fn, stream, pool) -> StepGraph:
     """Run ``fn`` eagerly once on ``stream``, then capture it there into a
-    graph of memory ``pool``; the caller's stream waits for both."""
+    graph of memory ``pool`` (None: a pool of its own); the caller's
+    stream waits for both.  The capture's error mode is
+    ``"thread_local"``: other threads (the serving batcher's, its
+    callers') keep using the card while this one captures."""
     current = torch.cuda.current_stream(stream.device)
     stream.wait_stream(current)
     try:
         with torch.cuda.stream(stream):
             fn()
             graph = torch.cuda.CUDAGraph()
-            before = ops.launch_counts()
-            try:
-                with torch.cuda.graph(graph, pool=pool, stream=stream):
+            with ops.recording() as counted:    # the capture runs nothing
+                with torch.cuda.graph(graph, pool=pool, stream=stream,
+                                      capture_error_mode="thread_local"):
                     fn()
-                after = ops.launch_counts()
-            finally:
-                ops.set_launch_counts(before)   # the capture ran nothing
     finally:
         current.wait_stream(stream)
-    return StepGraph(graph, [(ops._module(m), a, after[(m, a)] - n)
-                             for (m, a), n in before.items()
-                             if after[(m, a)] != n])
+    return StepGraph(graph, [(ops._module(m), a, n)
+                             for (m, a), n in counted.items() if n])
 
 
 class StepPlan:
