@@ -133,7 +133,35 @@ exits nonzero without the final ``ok`` line:
    versions on the CPU (losses within rtol 5e-4, error counts within 1%
    of each class), and AlexNet's full-width epoch 0 against phase 8's,
    its step time printed beside phase 8's;
-18. serve — the port's serving path (``serving.ServingEngine``: one CUDA
+18. resume — snapshots, resume and device checkpoints, each part on a
+   line of its own, cuDNN deterministic: CIFAR at full width (45k/5k/10k,
+   fused and captured) on the default and on the implicit-GEMM conv tier
+   and MNIST's unit graph (50k/10k/10k): a continuous 3-epoch run against
+   a run stopped right after its epoch-1 snapshot (``interval=1``; the
+   stop is a preemption, so the snapshot is mid-run and holds the
+   epoch's deferred tail update) plus ``Launcher(snapshot=...)`` in a
+   fresh workflow for the third epoch — params, velocities and epoch
+   metrics bit-equal, each kernel's launches of the two parts adding up
+   to the continuous run's; the newest CIFAR snapshot bit-flipped on disk,
+   quarantined, the restore on the older one; a CIFAR trainer whose train
+   graph is captured, a checkpoint restored into it in place (addresses
+   kept, no new capture) and its next replayed epoch bit-equal to the
+   checkpoint's continuation; AlexNet at full width (fused, dropout,
+   uncaptured) through ``TrainerCheckpointer``: asynchronous saves after
+   each epoch (the first overlapping epoch 1) leave the run bit-equal to
+   the continuous one, the newest step bit-flipped is quarantined, a
+   restore into the live perturbed trainer lands on epoch 1's step in
+   place and epoch 2 from there equals the continuous run's; two CIFAR
+   epochs under ``Launcher(profile=..., timeline_jsonl=...)`` whose trace
+   holds CUDA kernel events of ``softmax_ce_kernel`` and
+   ``sgd_update_multi_kernel`` and whose timeline has one row an epoch,
+   its examples/s the epoch's ``epoch_timings``; then the timings:
+   snapshot save and load ms (CIFAR, MNIST, AlexNet once), AlexNet's
+   checkpoint save blocking and asynchronous, epoch 1's step time with
+   and without the overlapped save, restore ms, and each resumed epoch
+   beside the continuous run's last (its first steps eager, then
+   captured);
+19. serve — the port's serving path (``serving.ServingEngine``: one CUDA
    graph a bucket key, captured after one eager run; the
    ``MicroBatcher``) over the models phases 4, 6, 8, 13 and 14 trained
    and exported (``export.export_workflow``): the MNIST MLP at B = 1, 5,
@@ -159,7 +187,8 @@ exits nonzero without the final ``ok`` line:
    launches, counted from 0 around each engine call (not around the
    comparisons), equal each engine's launches a forward times its
    forwards and captures;
-19. the ``kernels`` line (with the serve path's launches), then ``{"ok":
+20. the ``kernels`` line (with the resume and serve paths' launches),
+   then ``{"ok":
    true, "device": {...}}`` last.
 
 The kernel phase holds, besides the fused paths' kernels, the unit graph's
@@ -3390,6 +3419,470 @@ def phase_serve(torch, exports: dict, directory: str) -> dict:
     return out
 
 
+#: the resume phase: epochs of the continuous runs; the stopped run dies
+#: right after its snapshot of epoch 1 (index 1), which is mid-run
+RESUME_EPOCHS = 3
+#: (model, split, fused, conv tier) of each snapshot resume case
+RESUME_CASES = {
+    "cifar": ("cifar", CIFAR_SPLIT, True, None),
+    "cifar_gemm": ("cifar", CIFAR_SPLIT, True, "pallas"),
+    "mnist_units": ("mnist", MNIST_SPLIT, False, None),
+}
+
+
+class Preempted(Exception):
+    """Raised right after a run's epoch-1 snapshot: the run dies there, as
+    a preempted run dies, with a mid-run snapshot on disk."""
+
+
+@contextlib.contextmanager
+def snapshot_hooks(stop_after: int | None = None):
+    """Time every ``SnapshotterToFile.save``/``load`` into the yielded
+    lists (ms), and with ``stop_after`` raise Preempted(the ``current``
+    snapshot's path) once that many epochs have been seen."""
+    from znicz_tpu_torch.snapshotter import SnapshotterToFile
+    saves, loads = [], []
+    names = ("save", "load", "epoch_end")
+    own = {k: SnapshotterToFile.__dict__.get(k) for k in names}
+    orig = {k: getattr(SnapshotterToFile, k) for k in names}
+
+    def save(self, tag):
+        t0 = time.perf_counter()
+        path = orig["save"](self, tag)
+        saves.append((time.perf_counter() - t0) * 1e3)
+        return path
+
+    def load(workflow, path, verify=True):
+        t0 = time.perf_counter()
+        meta = orig["load"](workflow, path, verify)
+        loads.append((time.perf_counter() - t0) * 1e3)
+        return meta
+
+    def epoch_end(self, improved, before_save=None):
+        orig["epoch_end"](self, improved, before_save)
+        if stop_after is not None and self._epochs_seen == stop_after:
+            raise Preempted(self.last_path)
+
+    SnapshotterToFile.save = save
+    SnapshotterToFile.load = staticmethod(load)
+    SnapshotterToFile.epoch_end = epoch_end
+    try:
+        yield saves, loads
+    finally:
+        for k, v in own.items():
+            if v is None:
+                delattr(SnapshotterToFile, k)
+            else:
+                setattr(SnapshotterToFile, k, v)
+
+
+def _host_state(wf) -> dict:
+    """Every unit's weights, biases and velocities on the host, read
+    through the Vectors' maps as a snapshot reads them."""
+    from znicz_tpu_torch.snapshotter import collect_state
+    return collect_state(wf)[0]
+
+
+def _same_state(what: str, got: dict, want: dict) -> None:
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{what}: state keys {sorted(got)} != "
+                             f"{sorted(want)}")
+    for k in want:
+        if not (got[k].dtype == want[k].dtype
+                and got[k].tobytes() == want[k].tobytes()):
+            raise AssertionError(f"{what}: {k} differs from the "
+                                 "continuous run")
+
+
+def _resume_case(torch, case: str, directory: str) -> dict:
+    """Continuous RESUME_EPOCHS epochs against a run stopped after its
+    epoch-1 snapshot plus ``Launcher(snapshot=...)`` in a fresh workflow
+    for the last epoch: state and epoch metrics bit-equal, each kernel's
+    launches of the two parts adding up to the continuous run's (which
+    equal the steps or ticks run times the path's multiplicities)."""
+    from znicz_tpu_torch.config import root
+    from znicz_tpu_torch.launcher import Launcher
+    model, split, fused, tier = RESUME_CASES[case]
+    path = case if fused else f"{model}_units" + (
+        "_gemm" if tier else "")
+    importlib.import_module(f"znicz_tpu_torch.models.{model}")
+    tree = getattr(root, TREES.get(model, model))
+    batch = int(tree.get("minibatch_size"))
+    ctx = conv_tier(tier) if tier else contextlib.nullcontext()
+    with ctx:
+        reset_launch_counts()
+        t0 = time.monotonic()
+        cont = _run(model, "cuda", RESUME_EPOCHS, split, fused=fused)
+        torch.cuda.synchronize()
+        cont_s = time.monotonic() - t0
+        cont_counts = launch_counts()
+        expected = expected_launches(path, split, batch, RESUME_EPOCHS)
+        if cont_counts != expected:
+            raise AssertionError(f"{case}: continuous launches "
+                                 f"{cont_counts} != {expected}")
+        want = _host_state(cont)
+        want_metrics = cont.decision.epoch_metrics
+        cont_timings = cont.epoch_timings
+        del cont
+        reset_launch_counts()
+        with snapshot_hooks(stop_after=2) as (saves, _):
+            try:
+                _run(model, "cuda", RESUME_EPOCHS, split, fused=fused,
+                     snapshotter_config={
+                         "directory": os.path.join(directory, case),
+                         "prefix": case, "interval": 1})
+            except Preempted as e:
+                snap = e.args[0]
+            else:
+                raise AssertionError(f"{case}: the run was not stopped")
+        torch.cuda.synchronize()
+        stopped_counts = launch_counts()
+        reset_launch_counts()
+        with snapshot_hooks() as (_, loads):
+            t0 = time.monotonic()
+            res = Launcher(f"znicz_tpu_torch.models.{model}", device="cuda",
+                           snapshot=snap, epochs=RESUME_EPOCHS, fused=fused,
+                           seed=SEED).run()
+            torch.cuda.synchronize()
+            resume_s = time.monotonic() - t0
+        resumed_counts = launch_counts()
+    summed = {k: stopped_counts[k] + resumed_counts[k] for k in KERNELS}
+    if summed != cont_counts:
+        raise AssertionError(f"{case}: launches stopped + resumed {summed} "
+                             f"!= continuous {cont_counts}")
+    if res.decision.epoch_metrics != want_metrics:
+        raise AssertionError(f"{case}: metrics {res.decision.epoch_metrics}"
+                             f" != continuous {want_metrics}")
+    _same_state(case, _host_state(res), want)
+    for t in (t for pair in res.params for t in pair if t is not None):
+        if t.device.type != "cuda":
+            raise AssertionError(f"{case}: params left the card")
+    out = {"case": case, "path": path, "split": split, "fused": fused,
+           "snapshot": os.path.basename(snap),
+           "snapshot_bytes": os.path.getsize(snap),
+           "snapshot_save_ms": saves, "snapshot_load_ms": loads,
+           "continuous_wall_s": cont_s, "resume_wall_s": resume_s,
+           "continuous_last_epoch": cont_timings[-1],
+           "resumed_epoch": res.epoch_timings[-1],
+           "launches": cont_counts,
+           "launches_stopped": stopped_counts,
+           "launches_resumed": resumed_counts,
+           "bit_equal": True}
+    emit({"phase": "resume", **out})
+    return out
+
+
+def _corrupt(path: str) -> None:
+    size = os.path.getsize(path)
+    with open(path, "r+b") as fh:
+        fh.seek(size // 2)
+        b = fh.read(1)
+        fh.seek(size // 2)
+        fh.write(bytes([b[0] ^ 0xFF]))
+
+
+def _snapshot_fallback(directory: str) -> dict:
+    """The newest snapshot of a prefix bit-flipped on the card machine's
+    disk: ``SnapshotterToFile.restore`` quarantines it and loads the
+    older one."""
+    from znicz_tpu_torch.snapshotter import (SnapshotterToFile,
+                                             snapshot_candidates)
+    directory = os.path.join(directory, "cifar")
+    cands = snapshot_candidates(directory, "cifar")
+    if len(cands) < 2:
+        raise AssertionError(f"want two cifar snapshots, have {cands}")
+    newest, older = cands[0], cands[1]
+    past = time.time() - 60
+    os.utime(older, (past, past))
+    _corrupt(newest)
+    wf = _card_workflow("cifar", CIFAR_SPLIT)
+    meta, path = SnapshotterToFile.restore(wf, directory, "cifar")
+    if path != older or not os.path.exists(newest + ".corrupt") \
+            or os.path.exists(newest):
+        raise AssertionError(f"restore took {path}, not {older}, or left "
+                             f"{newest} unquarantined")
+    out = {"corrupted": os.path.basename(newest),
+           "restored": os.path.basename(path),
+           "epoch_number": meta["epoch_number"]}
+    emit({"phase": "resume_snapshot_fallback", **out})
+    return out
+
+
+def _alexnet_epoch2(torch, trainer, wf) -> dict:
+    """Epoch 2 of ``run_fused`` on ``trainer`` from a state whose epoch-1
+    tail update is applied: the head's train steps and the tail's eval
+    step on epoch 2's shuffle, as the loop runs them."""
+    import numpy as np
+
+    from znicz_tpu_torch.loader.base import TRAIN
+    ld = wf.loader
+    perm = ld.train_permutation(2)
+    batch = ld.max_minibatch_size
+    n_train = ld.class_lengths[TRAIN]
+    split = ((n_train - 1) // batch) * batch
+    tm = trainer.train_epoch(ld.original_data, ld.original_labels,
+                             perm[:split], batch, epoch=2, lr_scale=1.0,
+                             lr_scale_bias=None)
+    em = trainer.eval_epoch(ld.original_data, ld.original_labels,
+                            perm[split:], batch)
+    torch.cuda.synchronize()
+    return {"train_loss": float(np.concatenate([tm["loss"], em["loss"]])
+                                .mean())}
+
+
+def _alexnet_checkpoints(torch, directory: str) -> dict:
+    """AlexNet at full width (fused, dropout, uncaptured) through
+    ``TrainerCheckpointer``: a run saving asynchronously after each epoch
+    (the save after epoch 0 overlaps epoch 1) equals the continuous run;
+    the newest step bit-flipped on disk is quarantined and a restore into
+    the live, perturbed trainer lands on epoch 1's step in place; epoch 2
+    from there equals the continuous run's.  Times a blocking save, an
+    asynchronous one (the call and the wait), a restore, and one snapshot
+    save and load of the workflow."""
+    from znicz_tpu_torch.parallel.checkpoint import TrainerCheckpointer
+    from znicz_tpu_torch.snapshotter import SnapshotterToFile
+    reset_launch_counts()
+    cont_wf = _card_workflow("alexnet", ALEXNET_SPLIT)
+    cont_tr = cont_wf.train(fused=True, max_epochs=RESUME_EPOCHS)
+    torch.cuda.synchronize()
+    cont_counts = launch_counts()
+    want = [t.clone() for pair in cont_tr.params + cont_tr.vels
+            for t in pair if t is not None]
+    ck_dir = os.path.join(directory, "alexnet_ckpt")
+    wf = _card_workflow("alexnet", ALEXNET_SPLIT)
+    ck = TrainerCheckpointer(ck_dir, max_to_keep=None)
+    try:
+        tr = wf.train(fused=True, max_epochs=RESUME_EPOCHS, checkpointer=ck)
+        got = [t for pair in tr.params + tr.vels for t in pair
+               if t is not None]
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError("alexnet: the checkpointed run differs "
+                                 "from the continuous one")
+        if wf.decision.epoch_metrics != cont_wf.decision.epoch_metrics:
+            raise AssertionError("alexnet: checkpointed metrics differ")
+        steps = sorted(os.listdir(ck_dir))
+        if steps != ["0", "1", "2"]:
+            raise AssertionError(f"alexnet: steps {steps}")
+        # timings on a directory of their own
+        timed = TrainerCheckpointer(os.path.join(directory, "timed"),
+                                    max_to_keep=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        timed.save(tr, 0, block=True)
+        blocking_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        timed.save(tr, 1, block=False)
+        async_call_ms = (time.perf_counter() - t0) * 1e3
+        timed.wait()
+        async_total_ms = (time.perf_counter() - t0) * 1e3
+        timed.close()
+        _corrupt(os.path.join(ck_dir, "2", "state.npz"))
+        ptrs = [t.data_ptr() for t in got]
+        with torch.no_grad():
+            for t in got:
+                t.add_(1.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step = ck.restore(tr)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        if step != 1 or not os.path.isdir(os.path.join(ck_dir,
+                                                       "2.corrupt")):
+            raise AssertionError(f"alexnet: restored step {step}; the "
+                                 "corrupt step 2 not quarantined")
+        if [t.data_ptr() for t in got] != ptrs:
+            raise AssertionError("alexnet: restore moved the tensors")
+        epoch2 = _alexnet_epoch2(torch, tr, wf)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError("alexnet: epoch 2 from the restored "
+                                 "checkpoint differs from the continuous "
+                                 "run's")
+        if epoch2["train_loss"] != \
+                cont_wf.decision.epoch_metrics[2]["train_loss"]:
+            raise AssertionError(f"alexnet: epoch 2 train loss {epoch2} != "
+                                 f"{cont_wf.decision.epoch_metrics[2]}")
+    finally:
+        ck.close()
+    snap = SnapshotterToFile(None, directory=os.path.join(
+        directory, "alexnet_snap"), prefix="alexnet")
+    snap.workflow = cont_wf
+    with snapshot_hooks() as (saves, loads):
+        path = snap.save("current")
+        fresh = _card_workflow("alexnet", ALEXNET_SPLIT)
+        SnapshotterToFile.load(fresh, path)
+    _same_state("alexnet snapshot", _host_state(fresh),
+                _host_state(cont_wf))
+    out = {"checkpoint_bytes": sum(
+               os.path.getsize(os.path.join(ck_dir, "1", f))
+               for f in os.listdir(os.path.join(ck_dir, "1"))),
+           "checkpoint_save_blocking_ms": blocking_ms,
+           "checkpoint_save_async_call_ms": async_call_ms,
+           "checkpoint_save_async_total_ms": async_total_ms,
+           "checkpoint_restore_ms": restore_ms,
+           "epoch_timings_continuous": cont_wf.epoch_timings,
+           "epoch_timings_with_async_saves": wf.epoch_timings,
+           "snapshot_bytes": os.path.getsize(path),
+           "snapshot_save_ms": saves, "snapshot_load_ms": loads,
+           "restored_step": step, "quarantined": "2.corrupt",
+           "launches": cont_counts, "bit_equal": True}
+    emit({"phase": "resume_alexnet", **out})
+    return out
+
+
+def _captured_restore(torch, directory: str) -> dict:
+    """A CIFAR trainer at full width whose train graph is captured: a
+    checkpoint restored into it (after its params were perturbed) copies
+    in place, every address kept, and the next epoch, replayed from the
+    same graphs, equals bit for bit the epoch it ran from the
+    checkpoint's state the first time."""
+    from znicz_tpu_torch.parallel import fused
+    from znicz_tpu_torch.parallel.checkpoint import TrainerCheckpointer
+    wf = _card_workflow("cifar", CIFAR_SPLIT)
+    tr = fused.FusedTrainer(workflow=wf, spec=wf.spec,
+                            params=wf.spec_rows(wf.params),
+                            vels=wf.spec_rows(wf.vels), device="cuda")
+    if not tr.captured:
+        raise AssertionError(f"cifar: uncaptured ({tr.uncaptured_reason})")
+    ld = wf.loader
+    data = (ld.original_data, ld.original_labels)
+    batch = ld.max_minibatch_size
+    tr.train_epoch(*data, ld.train_permutation(0), batch, epoch=0)
+    ck = TrainerCheckpointer(os.path.join(directory, "cifar_ckpt"))
+    try:
+        ck.save(tr, 0)
+        first = tr.train_epoch(*data, ld.train_permutation(1), batch,
+                               epoch=1)
+        tensors = [t for pair in tr.params + tr.vels for t in pair
+                   if t is not None]
+        want = [t.clone() for t in tensors]
+        ptrs = [t.data_ptr() for t in tensors]
+        graphs = {k: dict(p.graphs) for k, p in tr._plans.items()}
+        with torch.no_grad():
+            for t in tensors:
+                t.add_(1.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ck.restore(tr)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        if [t.data_ptr() for t in tensors] != ptrs:
+            raise AssertionError("cifar: restore moved the tensors")
+        again = tr.train_epoch(*data, ld.train_permutation(1), batch,
+                               epoch=1)
+    finally:
+        ck.close()
+    if {k: dict(p.graphs) for k, p in tr._plans.items()} != graphs:
+        raise AssertionError("cifar: the restore made the trainer capture "
+                             "again")
+    for k in first:
+        if first[k].tobytes() != again[k].tobytes():
+            raise AssertionError(f"cifar: replayed {k} after the restore "
+                                 "differs from the checkpoint's "
+                                 "continuation")
+    if not all(torch.equal(a, b) for a, b in zip(tensors, want)):
+        raise AssertionError("cifar: the replayed epoch did not train the "
+                             "restored weights")
+    out = {"captured": True, "graphs": sum(len(g) for g in graphs.values()),
+           "steps": int(len(first["loss"])), "restore_ms": restore_ms,
+           "addresses_kept": True, "bit_equal": True}
+    emit({"phase": "resume_captured_restore", **out})
+    return out
+
+
+#: kernels the profiled CIFAR run must show on the card
+PROFILED_KERNELS = ("softmax_ce_kernel", "sgd_update_multi_kernel")
+
+
+def _profile_and_timeline(torch, directory: str) -> dict:
+    """Two CIFAR fused epochs (full width, the parity split) under
+    ``Launcher(profile=..., timeline_jsonl=...)``: the Chrome trace holds
+    CUDA kernel events of PROFILED_KERNELS, and the timeline one row an
+    epoch whose examples/s is the epoch's ``epoch_timings``."""
+    from znicz_tpu_torch.config import root
+    from znicz_tpu_torch.launcher import Launcher
+    root.cifar.synthetic.update(CIFAR_PARITY_SPLIT)
+    prof = os.path.join(directory, "profile")
+    timeline = os.path.join(directory, "timeline.jsonl")
+    wf = Launcher("znicz_tpu_torch.models.cifar", device="cuda", epochs=2,
+                  fused=True, seed=SEED, profile=prof,
+                  timeline_jsonl=timeline).run()
+    traces = [f for f in os.listdir(prof) if f.endswith(".pt.trace.json")]
+    if len(traces) != 1:
+        raise AssertionError(f"profile: traces {traces}")
+    with open(os.path.join(prof, traces[0])) as fh:
+        events = json.load(fh)["traceEvents"]
+    kernels = collections.Counter(e.get("name", "") for e in events
+                                  if e.get("cat") == "kernel")
+    found = {k: sum(n for name, n in kernels.items() if k in name)
+             for k in PROFILED_KERNELS}
+    if not all(found.values()):
+        raise AssertionError(f"profile: kernel events {found}")
+    with open(timeline) as fh:
+        rows = [json.loads(line) for line in fh]
+    if [r["epoch"] for r in rows] != [0, 1] or any(
+            r["examples_per_sec"] != round(t["train_examples_per_sec"], 1)
+            for r, t in zip(rows, wf.epoch_timings)):
+        raise AssertionError(f"timeline rows {rows} against "
+                             f"{wf.epoch_timings}")
+    out = {"trace": traces[0], "trace_bytes": os.path.getsize(
+               os.path.join(prof, traces[0])),
+           "kernel_events": sum(kernels.values()),
+           "profiled_kernels": found, "timeline_rows": rows}
+    emit({"phase": "resume_profile", **out})
+    return out
+
+
+def phase_resume(torch) -> dict:
+    """Snapshots, resume and device checkpoints on the card, each part on
+    its own line: the RESUME_CASES, the snapshot fallback, the in-place
+    restore into a captured trainer, AlexNet's checkpoints, the profile
+    and the timeline; then one line of the timings.  cuDNN is held to its
+    deterministic algorithms for the phase (bit-equal runs)."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out = {}
+    try:
+        with tempfile.TemporaryDirectory(prefix="znicz_resume_") as d:
+            for case in RESUME_CASES:
+                out[case] = _resume_case(torch, case, d)
+            out["snapshot_fallback"] = _snapshot_fallback(d)
+            out["captured_restore"] = _captured_restore(torch, d)
+            out["alexnet"] = _alexnet_checkpoints(torch, d)
+            out["profile"] = _profile_and_timeline(torch, d)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    alex = out["alexnet"]
+    emit({"phase": "resume_timings",
+          "snapshot_save_ms": {c: out[c]["snapshot_save_ms"]
+                               for c in RESUME_CASES} | {
+              "alexnet": alex["snapshot_save_ms"]},
+          "snapshot_load_ms": {c: out[c]["snapshot_load_ms"]
+                               for c in RESUME_CASES} | {
+              "alexnet": alex["snapshot_load_ms"]},
+          "snapshot_bytes": {c: out[c]["snapshot_bytes"]
+                             for c in RESUME_CASES} | {
+              "alexnet": alex["snapshot_bytes"]},
+          "alexnet_checkpoint_bytes": alex["checkpoint_bytes"],
+          "alexnet_checkpoint_save_blocking_ms":
+              alex["checkpoint_save_blocking_ms"],
+          "alexnet_checkpoint_save_async_call_ms":
+              alex["checkpoint_save_async_call_ms"],
+          "alexnet_checkpoint_save_async_total_ms":
+              alex["checkpoint_save_async_total_ms"],
+          "alexnet_epoch1": {
+              "continuous": alex["epoch_timings_continuous"][1],
+              "async_save_of_epoch0_overlapping": alex[
+                  "epoch_timings_with_async_saves"][1]},
+          "restore_ms": {"alexnet": alex["checkpoint_restore_ms"],
+                         "cifar_captured":
+                             out["captured_restore"]["restore_ms"]},
+          "resumed_epoch_vs_continuous": {
+              c: {"resumed": out[c]["resumed_epoch"],
+                  "continuous": out[c]["continuous_last_epoch"]}
+              for c in RESUME_CASES}})
+    return out
+
+
 def kernels_line(kern: dict, launches: dict) -> dict:
     """One entry per kernel: its numbers at the main path's shape (the
     first case), the launches of the main-path runs, and every case."""
@@ -3442,7 +3935,7 @@ def main() -> int:
 
 
 def run_phases(torch, info: dict, exports: dict, serve_dir: str) -> int:
-    """Phases 3-19 (``main`` ran the device and build phases); the slices
+    """Phases 3-20 (``main`` ran the device and build phases); the slices
     export their trained models into ``serve_dir`` (``exports``: name →
     path) for the serve phase."""
     kern = {"softmax_ce": phase_kernel_softmax(torch),
@@ -3538,6 +4031,7 @@ def run_phases(torch, info: dict, exports: dict, serve_dir: str) -> int:
                  5e-4, 0.01, shrunk, fused=False, card_wf=card)
     del card
     gemm = phase_gemm_tier(torch, cudnn, alexnet, shrunk)
+    resume = phase_resume(torch)
     serve = phase_serve(torch, exports, serve_dir)
     emit(kernels_line(kern, {"mnist": mnist["launches"],
                              "cifar": cifar["launches"],
@@ -3553,6 +4047,9 @@ def run_phases(torch, info: dict, exports: dict, serve_dir: str) -> int:
                              "alexnet_units": alexnet_units["launches"],
                              **{path: line["launches"]
                                 for path, line in gemm.items()},
+                             **{f"resume_{case}": resume[case]["launches"]
+                                for case in RESUME_CASES},
+                             "resume_alexnet": resume["alexnet"]["launches"],
                              "serve": serve["launches"]}))
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],
                                  "count": torch.cuda.device_count()}})

@@ -24,10 +24,14 @@ Layering, as far as the port reaches today:
   units;
 * ``parallel/fused.py`` — the fused train step and ``FusedTrainer``;
   ``parallel/som.py`` — the fused SOM trainer;
+* ``snapshotter.py`` (snapshots in the reference's format, resume),
+  ``parallel/checkpoint.py`` (device checkpoints of the fused trainer),
+  ``durability/``, ``resilience/``, ``telemetry/`` (manifests, faults,
+  metrics, traces);
 * ``standard_workflow.py`` (the unit graph and the fused loop),
   ``models/mnist.py``, ``models/cifar.py``, ``models/alexnet.py``,
   ``models/autoencoder.py``, ``models/kohonen.py`` and the
-  ``python -m znicz_tpu_torch`` CLI.
+  ``python -m znicz_tpu_torch`` CLI (``launcher.py``).
 
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``); without a CUDA device they raise.

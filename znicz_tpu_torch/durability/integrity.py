@@ -1,16 +1,21 @@
-"""Checksummed manifests + verify-on-load for model artifacts.
+"""Checksummed manifests + verify-on-load for model artifacts (a copy of
+the JAX package's ``durability/integrity.py``: the same manifests, so
+either package verifies the other's ``.znn`` files, snapshots and
+checkpoint steps).
 
-Manifest format (``<artifact>.manifest.json`` beside the artifact):
+Manifest format (``<artifact>.manifest.json`` beside a file artifact,
+``manifest.znicz.json`` inside a directory artifact such as a
+``TrainerCheckpointer`` step):
 
 ```json
-{"format": "znicz-manifest", "version": 1, "kind": "znn",
- "artifact": "model.znn", "size": 123456,
- "sha256": "<hex>", "created": 1754200000.0}
+{"format": "znicz-manifest", "version": 1, "kind": "snapshot",
+ "artifact": "snapshot_current.npz", "size": 123456,
+ "sha256": "<hex>", "created": 1754200000.0,
+ "files": {"rel/path": {"size": 1, "sha256": "<hex>"}, ...}}
 ```
 
-``size``/``sha256`` cover the artifact's bytes.  The port writes and
-reads ``.znn`` artifacts only; the JAX package's snapshot codecs and
-directory (checkpoint) manifests come with the port's snapshotter.
+``size``/``sha256`` cover a file artifact's bytes; ``files`` covers a
+directory artifact per blob (and then the top-level pair is absent).
 
 **Write protocol (pinned by tests/test_durability.py).**  Writers that
 replace an artifact in place run ``invalidate → commit blob → write
@@ -32,7 +37,7 @@ Verification reasons (the ``reason`` attribute of
 ``manifest`` (unreadable/malformed manifest sidecar — the blob may
 still be fine; :func:`verify_or_heal` deep-parses and re-blesses),
 ``version`` (format version from a future writer), ``size`` /
-``digest`` (bytes disagree with the manifest: rot),
+``digest`` (bytes disagree with the manifest: rot — quarantine),
 ``parse`` (format-level deep check failed — truncated container, bad
 magic, CRC error).
 """
@@ -53,10 +58,19 @@ log = logging.getLogger("durability")
 MANIFEST_FORMAT = "znicz-manifest"
 MANIFEST_VERSION = 1
 
+#: manifest file name used INSIDE directory artifacts (checkpoint
+#: steps) — it must live in the step dir so max_to_keep garbage
+#: collection removes it together with the arrays it describes
+DIR_MANIFEST_NAME = "manifest.znicz.json"
+
 _verify_failures = REGISTRY.counter(
     "artifact_verify_failures_total",
-    "artifact verifications that failed, by kind (znn | other) and "
-    "reason (missing | manifest | version | size | digest | parse)")
+    "artifact verifications that failed, by kind (znn | snapshot | "
+    "checkpoint | other) and reason (missing | manifest | version | "
+    "size | digest | parse)")
+_quarantined = REGISTRY.counter(
+    "artifacts_quarantined_total",
+    "corrupt artifacts renamed aside to *.corrupt, by kind")
 _healed = REGISTRY.counter(
     "manifests_healed_total",
     "manifest sidecars (re)written at load time for a blob that "
@@ -82,16 +96,29 @@ class ArtifactCorrupt(RuntimeError):
 
 
 def artifact_kind(path: str) -> str:
-    """Bounded artifact-kind label: ``znn`` | ``other``."""
-    return "znn" if os.fspath(path).endswith(".znn") else "other"
+    """Bounded artifact-kind label: ``znn`` | ``snapshot`` (``.npz``
+    with optional outer codec) | ``checkpoint`` (directory) |
+    ``other``."""
+    path = os.fspath(path)
+    if os.path.isdir(path):
+        return "checkpoint"
+    name = os.path.basename(path)
+    if name.endswith(".znn"):
+        return "znn"
+    if ".npz" in name:
+        return "snapshot"
+    return "other"
 
 
 def manifest_path(path: str) -> str:
-    return os.fspath(path) + ".manifest.json"
+    path = os.fspath(path)
+    if os.path.isdir(path):
+        return os.path.join(path, DIR_MANIFEST_NAME)
+    return path + ".manifest.json"
 
 
 def sha256_file(path: str, chunk: int = 1 << 20) -> tuple[str, int]:
-    """(hex digest, byte size) of one file, streamed — artifacts can be
+    """(hex digest, byte size) of one file, streamed — snapshots can be
     GBs of parameters and must not transit RAM twice."""
     h, n = hashlib.sha256(), 0
     with open(path, "rb") as fh:
@@ -129,10 +156,11 @@ def invalidate_manifest(path: str) -> None:
 def write_manifest(path: str, kind: str | None = None,
                    extra: dict | None = None,
                    if_absent: bool = False) -> str | None:
-    """Hash ``path`` and commit its manifest sidecar atomically.
-    Returns the manifest path.  Call AFTER the artifact's own
-    rename-commit (and after :func:`invalidate_manifest` went before
-    it — see the write protocol in the module docstring).
+    """Hash ``path`` (file, or every file under a directory artifact)
+    and commit its manifest sidecar atomically.  Returns the manifest
+    path.  Call AFTER the artifact's own rename-commit (and after
+    :func:`invalidate_manifest` went before it — see the write
+    protocol in the module docstring).
 
     ``if_absent=True`` is the READ-side (heal) mode: the manifest is
     published only if none exists by the time the hash finishes
@@ -146,9 +174,21 @@ def write_manifest(path: str, kind: str | None = None,
                  "kind": kind or artifact_kind(path),
                  "artifact": os.path.basename(path),
                  "created": time.time()}
-    digest, size = sha256_file(path)
-    obj["sha256"] = digest
-    obj["size"] = size
+    if os.path.isdir(path):
+        files = {}
+        for dirpath, _dirnames, filenames in os.walk(path):
+            for name in sorted(filenames):
+                full = os.path.join(dirpath, name)
+                rel = os.path.relpath(full, path)
+                if rel == DIR_MANIFEST_NAME or rel.endswith(".tmp"):
+                    continue
+                digest, size = sha256_file(full)
+                files[rel] = {"sha256": digest, "size": size}
+        obj["files"] = files
+    else:
+        digest, size = sha256_file(path)
+        obj["sha256"] = digest
+        obj["size"] = size
     if extra:
         obj.update(extra)
     mpath = manifest_path(path)
@@ -207,13 +247,33 @@ def read_manifest(path: str) -> dict | None:
 
 def deep_check(path: str) -> None:
     """Format-level self-check: actually parse the artifact the way a
-    loader would (a ``.znn`` walks its layer table).  Raises
-    ``ArtifactCorrupt('parse')``."""
+    loader would (every byte of a ``.npz`` passes its CRCs, a ``.znn``
+    walks its layer table).  Raises ``ArtifactCorrupt('parse')``.
+    Directories deep-check as manifest-only (the checkpointer checks its
+    own metadata on restore)."""
     path = os.fspath(path)
+    if os.path.isdir(path):
+        return
+    kind = artifact_kind(path)
     try:
-        if artifact_kind(path) == "znn":
+        if kind == "znn":
             from ..export import read_znn
             read_znn(path)
+        elif kind == "snapshot":
+            import io
+
+            import numpy as np
+
+            from ..snapshotter import _OPENERS
+            ext = path.rsplit(".", 1)[-1]
+            if ext in _OPENERS:
+                with _OPENERS[ext](path, "rb") as fh:
+                    buf = io.BytesIO(fh.read())
+                arrays = dict(np.load(buf, allow_pickle=False))
+            else:
+                arrays = dict(np.load(path, allow_pickle=False))
+            if "__meta_json__" in arrays:
+                json.loads(arrays["__meta_json__"].tobytes())
         else:
             with open(path, "rb") as fh:     # readable at all?
                 fh.read(1)
@@ -226,7 +286,7 @@ def deep_check(path: str) -> None:
         # errno; a REAL I/O failure (EIO, ESTALE on a network mount)
         # carries one and must propagate so the caller's RetryPolicy
         # retries it — classifying a transient blip as corruption
-        # would refuse a perfectly good artifact
+        # would quarantine a perfectly good checkpoint
         if e.errno is None:
             raise ArtifactCorrupt(path, "parse", repr(e))
         raise
@@ -234,18 +294,34 @@ def deep_check(path: str) -> None:
         raise ArtifactCorrupt(path, "parse", repr(e))
 
 
+def _verify_dir(path: str, manifest: dict) -> None:
+    for rel, want in sorted((manifest.get("files") or {}).items()):
+        full = os.path.join(path, rel)
+        if not os.path.exists(full):
+            raise ArtifactCorrupt(path, "missing",
+                                  f"manifest file {rel!r} absent")
+        digest, size = sha256_file(full)
+        if size != int(want.get("size", -1)):
+            raise ArtifactCorrupt(
+                path, "size", f"{rel!r}: {size} bytes, manifest says "
+                              f"{want.get('size')}")
+        if digest != want.get("sha256"):
+            raise ArtifactCorrupt(path, "digest",
+                                  f"{rel!r} sha256 mismatch")
+
+
 def verify(path: str, deep: bool | None = None) -> dict:
     """Validate ``path`` against its manifest (size + sha256 + format
     version).  ``deep=None`` (the default) format-parses the blob only
     when there is NO manifest — a digest match against an
     invalidate-first manifest already proves the bytes are exactly
-    what the producer committed, and GB-scale artifacts must not be
+    what the producer committed, and GB-scale snapshots must not be
     read twice per load; ``deep=True`` forces the parse as well.
     Returns a report dict (``kind``, ``manifest``: the parsed sidecar
     or None for a legacy artifact that passed the deep check).  Raises
     :class:`ArtifactCorrupt`; every failure bumps
     ``artifact_verify_failures_total{kind,reason}``.  A candidate that
-    vanishes mid-verify (a concurrent writer removed it)
+    vanishes mid-verify (a concurrent quarantine won the rename race)
     reports as ``missing`` corruption so scans skip it; a REAL
     transient I/O error (errno-carrying OSError — EIO on a network
     mount) propagates instead, for the caller's RetryPolicy —
@@ -259,23 +335,28 @@ def verify(path: str, deep: bool | None = None) -> dict:
                 raise ArtifactCorrupt(path, "missing")
             manifest = read_manifest(path)
             if manifest is not None:
-                digest, size = sha256_file(path)
-                if "size" in manifest and size != int(manifest["size"]):
-                    raise ArtifactCorrupt(
-                        path, "size", f"{size} bytes on disk, manifest "
-                                      f"says {manifest['size']}")
-                if "sha256" in manifest \
-                        and digest != manifest["sha256"]:
-                    raise ArtifactCorrupt(path, "digest",
-                                          "sha256 mismatch")
+                if os.path.isdir(path):
+                    _verify_dir(path, manifest)
+                else:
+                    digest, size = sha256_file(path)
+                    if "size" in manifest \
+                            and size != int(manifest["size"]):
+                        raise ArtifactCorrupt(
+                            path, "size",
+                            f"{size} bytes on disk, manifest says "
+                            f"{manifest['size']}")
+                    if "sha256" in manifest \
+                            and digest != manifest["sha256"]:
+                        raise ArtifactCorrupt(path, "digest",
+                                              "sha256 mismatch")
             if deep or manifest is None:
                 # a legacy artifact (no sidecar) still gets the format
                 # parse — truncation never loads blindly just because
                 # the writer predates manifests
                 deep_check(path)
         except FileNotFoundError as e:
-            # the candidate vanished mid-verify (a sibling process
-            # removed it): report it, don't crash
+            # the candidate vanished mid-verify (a sibling process's
+            # quarantine won the rename race): skip it, don't crash
             raise ArtifactCorrupt(path, "missing", str(e))
         except OSError as e:
             if e.errno is None:   # hand-raised parser IOError
@@ -284,8 +365,8 @@ def verify(path: str, deep: bool | None = None) -> dict:
         except (TypeError, ValueError) as e:
             # valid JSON carrying junk where a number belongs
             # ("size": "x", "version": null) — rot/tampering inside a
-            # JSON value; the int() conversions above must refuse the
-            # candidate, not crash the load
+            # JSON value; the int() conversions above must demote the
+            # candidate, not crash the resume scan
             raise ArtifactCorrupt(path, "manifest", repr(e))
     except ArtifactCorrupt as e:
         _verify_failures.inc(kind=kind, reason=e.reason)
@@ -310,7 +391,7 @@ def verify_or_heal(path: str, deep: bool | None = None,
     ``size``/``digest`` mismatches are NOT healed: with
     invalidate-first writers they can only mean the blob's bytes
     changed under a live manifest, i.e. rot — re-raised for the caller
-    to refuse.  Re-blessing is best-effort (a read-only
+    to quarantine.  Re-blessing is best-effort (a read-only snapshot
     mount must not fail the load) and can be disabled with
     ``heal=False`` — multi-process restores gate writes on process 0,
     the same ownership rule the producers follow."""
@@ -382,6 +463,58 @@ def verify_or_heal(path: str, deep: bool | None = None,
             report = verify(path, deep=False)
             report["healed"] = False
     return report
+
+
+def quarantine(path: str, reason: str) -> str:
+    """Rename a corrupt artifact (and its manifest) aside to
+    ``*.corrupt`` so resume scans stop tripping on it while operators
+    keep the evidence.  Returns the quarantined path."""
+    path = os.fspath(path)
+    kind = artifact_kind(path)
+    target = path + ".corrupt"
+    n = 0
+    while os.path.exists(target):
+        n += 1
+        target = f"{path}.corrupt.{n}"
+    os.replace(path, target)
+    mpath = manifest_path(path)
+    if not os.path.isdir(target) and os.path.exists(mpath):
+        os.replace(mpath, target + ".manifest.json")
+    log.error("quarantined corrupt artifact %s -> %s (reason: %s)",
+              path, target, reason)
+    _quarantined.inc(kind=kind)
+    return target
+
+
+def newest_verified(candidates, on_corrupt: str = "quarantine",
+                    deep: bool | None = None,
+                    heal: bool = True) -> str | None:
+    """First verifiable path of ``candidates`` (ordered newest→oldest),
+    or None when every one is corrupt/absent.  Corrupt entries are
+    quarantined (``on_corrupt="quarantine"``) or just logged
+    (``"skip"``) — either way the scan continues to the next-oldest
+    instead of crashing, which IS the last-good-fallback contract.
+    That contract extends to filesystem races: several processes
+    resuming at once may quarantine the same entry, and losing the
+    rename race (or having a candidate vanish mid-hash) demotes the
+    candidate, never crashes the scan.  Genuine transient I/O errors
+    (errno-carrying OSError) are NOT corruption and propagate — the
+    caller's RetryPolicy retries the whole scan rather than this
+    function destroying evidence it couldn't actually read."""
+    for path in candidates:
+        try:
+            verify_or_heal(path, deep=deep, heal=heal)
+            return os.fspath(path)
+        except ArtifactCorrupt as e:
+            log.error("resume candidate rejected: %s", e)
+            if on_corrupt == "quarantine" and e.reason != "missing" \
+                    and os.path.exists(os.fspath(path)):
+                try:
+                    quarantine(path, e.reason)
+                except OSError as qe:     # a sibling process won the
+                    log.warning("quarantine of %s lost a race: %s",
+                                path, qe)  # rename; the scan goes on
+    return None
 
 
 def chaos_bitflip(path: str) -> None:

@@ -13,7 +13,10 @@ class possibly short) into the ``minibatch_data`` / ``minibatch_labels`` /
 ``minibatch_size``, ``last_minibatch`` and ``epoch_ended``, which the
 evaluator and Decision read.  The fused path reads the epoch plan
 (``_build_epoch_plan``, ``_shuffled``, ``train_permutation``) and the
-resident tensors directly."""
+resident tensors directly.  A snapshot stores :meth:`resume_epoch` and a
+restore rebuilds that epoch's plan (:meth:`reset_state`) from the
+restored ``"loader"`` stream, so the shuffles continue where the saved run
+left them."""
 
 from __future__ import annotations
 
@@ -108,6 +111,19 @@ class Loader(Unit):
             self.epoch_number = epoch
             self._build_epoch_plan()
         return self._shuffled[TRAIN]
+
+    def resume_epoch(self) -> int:
+        """The epoch a run restored from this state starts: this one, or
+        the next once this epoch's plan has been served (the unit graph's
+        last tick of an epoch; the fused loop moves ``epoch_number`` on
+        itself)."""
+        served = bool(self._order) and self._pos >= len(self._order)
+        return self.epoch_number + int(served)
+
+    def reset_state(self) -> None:
+        """For a resume: rebuild the plan at the stored ``epoch_number``,
+        drawing its shuffle from the (restored) ``"loader"`` stream."""
+        self._build_epoch_plan()
 
     def run(self) -> None:
         """Serve the next minibatch of the plan (a new epoch's plan after

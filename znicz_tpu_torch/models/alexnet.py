@@ -29,7 +29,7 @@ import numpy as np
 from .. import prng
 from ..config import root
 from ..loader.fullbatch import FullBatchLoader
-from ..standard_workflow import StandardWorkflow
+from ..standard_workflow import StandardWorkflow, sample_snapshotter_config
 
 
 def make_layers(n_classes: int = 1000, lr: float = 0.01,
@@ -146,9 +146,8 @@ class AlexNetWorkflow(StandardWorkflow):
             loss_function="softmax",
             decision_config=decision_config
             or root.alexnet.decision.to_dict(),
-            snapshotter_config=(snapshotter_config
-                                if snapshotter_config is not None
-                                else root.alexnet.get("snapshotter")),
+            snapshotter_config=sample_snapshotter_config(
+                root.alexnet, snapshotter_config),
             lr_adjuster_config=lr_adjuster_config)
 
 

@@ -19,7 +19,7 @@ import numpy as np
 
 from ..config import root
 from ..loader.fullbatch import FullBatchLoaderMSE
-from ..standard_workflow import StandardWorkflow
+from ..standard_workflow import StandardWorkflow, sample_snapshotter_config
 from .mnist import MnistLoader
 
 root.mnist_ae.setdefaults({
@@ -70,9 +70,8 @@ class MnistAEWorkflow(StandardWorkflow):
             loss_function="mse",
             decision_config=decision_config
             or root.mnist_ae.decision.to_dict(),
-            snapshotter_config=(snapshotter_config
-                                if snapshotter_config is not None
-                                else root.mnist_ae.get("snapshotter")),
+            snapshotter_config=sample_snapshotter_config(
+                root.mnist_ae, snapshotter_config),
             lr_adjuster_config=lr_adjuster_config)
 
 

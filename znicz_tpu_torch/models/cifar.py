@@ -24,7 +24,7 @@ import numpy as np
 from .. import prng
 from ..config import root
 from ..loader.fullbatch import FullBatchLoader
-from ..standard_workflow import StandardWorkflow
+from ..standard_workflow import StandardWorkflow, sample_snapshotter_config
 
 root.cifar.setdefaults({
     "minibatch_size": 100,
@@ -126,9 +126,8 @@ class CifarWorkflow(StandardWorkflow):
             loss_function="softmax",
             decision_config=decision_config
             or root.cifar.decision.to_dict(),
-            snapshotter_config=(snapshotter_config
-                                if snapshotter_config is not None
-                                else root.cifar.get("snapshotter")),
+            snapshotter_config=sample_snapshotter_config(
+                root.cifar, snapshotter_config),
             lr_adjuster_config=lr_adjuster_config)
 
 

@@ -23,7 +23,7 @@ import numpy as np
 from .. import prng
 from ..config import root
 from ..loader.fullbatch import FullBatchLoader
-from ..standard_workflow import StandardWorkflow
+from ..standard_workflow import StandardWorkflow, sample_snapshotter_config
 
 root.mnist.setdefaults({
     "minibatch_size": 100,
@@ -123,9 +123,8 @@ class MnistWorkflow(StandardWorkflow):
             loss_function="softmax",
             decision_config=decision_config
             or root.mnist.decision.to_dict(),
-            snapshotter_config=(snapshotter_config
-                                if snapshotter_config is not None
-                                else root.mnist.get("snapshotter")),
+            snapshotter_config=sample_snapshotter_config(
+                root.mnist, snapshotter_config),
             lr_adjuster_config=lr_adjuster_config)
 
 

@@ -7,10 +7,18 @@ as in the JAX package (sha256 of ``f"{seed}:{name}"``, first 8 bytes
 little-endian) and feeds the same numpy ``PCG64``, so the host-side draws
 are bit-identical to the reference for the same seed.  The JAX key is
 replaced by a ``torch.Generator`` per device, seeded from the same stream
-seed, for randomness drawn on the torch side."""
+seed, for randomness drawn on the torch side.
+
+:func:`state` / :func:`set_state` carry every stream's position in the
+reference's JSON form (``bg``, ``stream_seed``, ``fold``), so a
+snapshot's ``prng_state`` crosses between the packages both ways; the
+port has no key folding and writes ``fold: 0``, and it keeps the states
+of the torch generators a stream has made under ``"torch"``, which the
+reference ignores."""
 
 from __future__ import annotations
 
+import base64
 import hashlib
 
 import numpy as np
@@ -78,3 +86,39 @@ def get(name: str = "default") -> RandomGenerator:
     if name not in _streams:
         _streams[name] = RandomGenerator(name, _global_seed)
     return _streams[name]
+
+
+def state() -> dict:
+    """JSON-serializable positions of every stream: the numpy
+    bit-generator state, the stream's derived seed, ``fold: 0`` (the
+    reference's key-fold count; the port folds no keys) and, under
+    ``"torch"``, each torch generator's state by device (base64)."""
+    out = {}
+    for name, gen in _streams.items():
+        entry = {"bg": gen.numpy.bit_generator.state,
+                 "stream_seed": gen.stream_seed, "fold": 0}
+        if gen._torch:
+            entry["torch"] = {
+                str(dev): base64.b64encode(
+                    g.get_state().numpy().tobytes()).decode()
+                for dev, g in gen._torch.items()}
+        out[name] = entry
+    return out
+
+
+def set_state(st: dict) -> None:
+    """Restore stream positions captured by :func:`state` here or in the
+    reference (streams not yet made are made first).  ``fold`` is read
+    by the reference only; a stream's torch generators are restored where
+    the snapshot holds them and dropped (re-seeded at their next use)
+    where it does not."""
+    for name, s in st.items():
+        gen = get(name)
+        gen.numpy.bit_generator.state = s["bg"]
+        if "stream_seed" in s:
+            gen.stream_seed = int(s["stream_seed"])
+        gen._torch = {}
+        for dev, blob in s.get("torch", {}).items():
+            g = gen.torch_generator(dev)
+            g.set_state(torch.frombuffer(bytearray(base64.b64decode(blob)),
+                                         dtype=torch.uint8))

@@ -27,16 +27,26 @@ Instrumented sites in this package:
                        deliberately does NOT pass through this site)
 ``batcher.dispatch``   MicroBatcher just before an engine call (latency
                        injection point for deadline/backpressure tests)
+``checkpoint.save``    SnapshotterToFile.save and TrainerCheckpointer.save
+                       (crash-during-checkpoint, fired BEFORE any
+                       filesystem mutation)
+``checkpoint.load``    SnapshotterToFile.load and TrainerCheckpointer.
+                       restore (corrupt/unreadable resume)
+``checkpoint.write_torn``  inside SnapshotterToFile.save's torn window,
+                       between the blob rename and the manifest rename
+                       — an error fault dies torn (new blob, no
+                       manifest), a latency fault holds the window open
+                       for a SIGKILL crash test
 ``artifact.bitflip``   durability.chaos_bitflip, called on every
-                       just-committed .znn blob — an error fault here is
-                       *interpreted*: one mid-file byte is flipped in
-                       place (deterministic storage rot; verify-on-load
-                       must refuse it)
+                       just-committed .znn or snapshot blob — an error
+                       fault here is *interpreted*: one mid-file byte is
+                       flipped in place (deterministic storage rot;
+                       verify-on-load must quarantine or refuse it)
 =====================  ====================================================
 
-The JAX package instruments more sites (checkpoints, the relay, the
-promotion controller, replicas, the capture tap, the fleet journal);
-they arrive with the subsystems that own them.
+The JAX package instruments more sites (the relay, the promotion
+controller, replicas, the capture tap, the fleet journal); they arrive
+with the subsystems that own them.
 """
 
 from __future__ import annotations

@@ -8,6 +8,7 @@ link_decision / link_gds`` family, to the reference's control graph::
     start → loader → fwd₁ → … → fwdₙ → evaluator → decision
     decision [→ lr_adjust] → gdₙ → … → gd₁ ─(loop back-edge)→ loader
     decision → end_point [gate: ~complete]
+    decision, gd₁ → snapshotter
 
 The GD units gate-skip on non-train minibatches and once training is
 complete; an ``lr_adjuster_config`` links a ``LearningRateAdjust`` that
@@ -38,10 +39,21 @@ conv or deconv layer, launches the elementwise kernels
 ``"tie"`` in a layer's ``"->"`` options names the
 earlier layer a decoder unit ties to: a depooling layer to the max pool
 whose winner slots it reads, a deconv to the conv whose weights it
-shares."""
+shares.
+
+A ``snapshotter_config`` (the samples default it from
+``root.<name>.snapshotter``, :func:`sample_snapshotter_config`) links a
+``SnapshotterToFile``; ``run_fused`` saves through the same unit between
+epochs, with the deferred tail update applied first unless the epoch is
+the last.  ``run_fused`` also takes device checkpoints
+(``parallel.checkpoint.TrainerCheckpointer``, ``checkpoint_dir``), a
+``torch.profiler`` trace or a window of it every N epochs, and writes one
+timeline row an epoch (``telemetry.flightrecorder``) and the training
+gauges of ``telemetry.registry.REGISTRY``."""
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 import zlib
@@ -63,6 +75,10 @@ from .ops.deconv import deconv_out_size
 from .ops.geometry import norm2, out_size
 from .parallel import fused
 from .parallel.fused import FusedTrainer, LayerSpec, ModelSpec
+from .snapshotter import SnapshotterToFile
+from .telemetry import flightrecorder as _flightrecorder
+from .telemetry import profiler as _profiler
+from .telemetry.registry import REGISTRY
 
 #: StandardWorkflow layer type → activation of the fc layer.  The last
 #: layer of a softmax model keeps "linear": its softmax is fused with CE.
@@ -151,9 +167,6 @@ class StandardWorkflow(AcceleratedWorkflow):
                  snapshotter_config=None, lr_adjuster_config=None,
                  workflow=None):
         super().__init__(workflow, name or type(self).__name__)
-        if snapshotter_config is not None:
-            raise NotImplementedError(
-                "snapshots are not ported yet (" + _UNIT_GRAPH + ")")
         if loss_function not in ("softmax", "mse"):
             raise ValueError(loss_function)
         self.layers_config = list(layers or [])
@@ -163,6 +176,9 @@ class StandardWorkflow(AcceleratedWorkflow):
         #: the LearningRateAdjust unit of ``lr_adjuster_config`` (None:
         #: the configured rates throughout)
         self.lr_adjuster = None
+        #: the SnapshotterToFile of ``snapshotter_config`` (None: no
+        #: snapshots)
+        self.snapshotter = None
         #: why ``train(fused=False)`` cannot run this model (None: it can)
         self.unit_graph_missing: str | None = None
         #: why ``train(fused=True)`` cannot (``spec`` is then None)
@@ -171,20 +187,21 @@ class StandardWorkflow(AcceleratedWorkflow):
         self.params: list = []
         self.vels: list = []
         if loader is not None:
-            decision_config = (decision_config.to_dict()
-                               if hasattr(decision_config, "to_dict")
-                               else dict(decision_config or {}))
-            self.create_workflow(loader, decision_config,
-                                 lr_adjuster_config.to_dict()
-                                 if hasattr(lr_adjuster_config, "to_dict")
-                                 else lr_adjuster_config)
+            # configs may arrive as Config subtrees (the samples default
+            # them from root.<name>.*)
+            def as_dict(c):
+                return c.to_dict() if hasattr(c, "to_dict") else c
+            self.create_workflow(loader, as_dict(decision_config) or {},
+                                 as_dict(snapshotter_config),
+                                 as_dict(lr_adjuster_config))
 
     # -- link_* family (reference API) -------------------------------------------
     def create_workflow(self, loader, decision_config: dict,
+                        snapshotter_config: dict | None = None,
                         lr_adjuster_config: dict | None = None) -> None:
         """Link the unit graph, or (for a model it does not cover yet) the
-        loader and a free-standing decision (and adjuster) for the fused
-        loop."""
+        loader and a free-standing decision, adjuster and snapshotter for
+        the fused loop."""
         self.link_loader(loader)
         self.unit_graph_missing = self._unit_graph_gap()
         if self.unit_graph_missing is not None:
@@ -194,6 +211,9 @@ class StandardWorkflow(AcceleratedWorkflow):
             if lr_adjuster_config is not None:
                 self.lr_adjuster = LearningRateAdjust(self,
                                                       **lr_adjuster_config)
+            if snapshotter_config is not None:
+                self.snapshotter = SnapshotterToFile(self,
+                                                     **snapshotter_config)
             return
         self.link_forwards()
         self.link_evaluator()
@@ -201,6 +221,8 @@ class StandardWorkflow(AcceleratedWorkflow):
         if lr_adjuster_config is not None:
             self.link_lr_adjuster(**lr_adjuster_config)
         self.link_gds()
+        if snapshotter_config is not None:
+            self.link_snapshotter(**snapshotter_config)
 
     def _unit_graph_gap(self) -> str | None:
         for spec in self.layers_config:
@@ -295,6 +317,14 @@ class StandardWorkflow(AcceleratedWorkflow):
         if self.lr_adjuster is not None:
             self.lr_adjuster.link_gds(self.gds)
         self.loader.link_from(self.gds[0])
+
+    def link_snapshotter(self, **config) -> None:
+        """A SnapshotterToFile after the decision, as the reference links
+        it, and after the GD chain's last unit: the epoch's last tick
+        saves once its update is applied, so a resume continues the
+        continuous run (``snapshotter.py``)."""
+        self.snapshotter = SnapshotterToFile(self, **config)
+        self.snapshotter.link_from(self.decision, *self.gds[:1])
 
     # -- lifecycle ---------------------------------------------------------------
     def initialize(self, device=None, **kwargs) -> None:
@@ -580,22 +610,41 @@ class StandardWorkflow(AcceleratedWorkflow):
     def train(self, fused: bool = False, mesh=None, mesh_shape=None,
               max_epochs: int | None = None,
               compute_dtype: str | None = None,
-              storage_dtype: str | None = None):
+              storage_dtype: str | None = None,
+              profile_dir: str | None = None,
+              profile_every: int | None = None,
+              checkpoint_dir: str | None = None,
+              checkpoint_every: int | None = None,
+              checkpointer=None,
+              timeline_jsonl: str | None = None):
         """``fused=False`` runs the unit-graph tick loop (:meth:`run`,
         one minibatch a tick); ``fused=True`` runs :meth:`run_fused`.  The
         dtypes of the fused path default from
-        ``root.common.compute_dtype``/``storage_dtype``; the tick loop
-        computes in float32, as the reference's does."""
+        ``root.common.compute_dtype``/``storage_dtype``, the profile from
+        ``$ZNICZ_PROFILE_DIR``/``$ZNICZ_PROFILE_EVERY`` and the timeline
+        from ``$ZNICZ_TIMELINE_JSONL``.  The tick loop computes in float32,
+        as the reference's does, and warns that the timeline and the
+        device checkpoints are the fused path's (its snapshotter saves)."""
         from .config import root
         if mesh is not None or mesh_shape is not None \
                 or root.common.get("mesh_shape") is not None:
             raise NotImplementedError(
                 "mesh-sharded training is not ported yet (ROADMAP.md "
                 "queue 1 item 9, parallelism)")
+        if timeline_jsonl is None:
+            timeline_jsonl = _flightrecorder.timeline_path_from_env()
         if not fused:
             if self.unit_graph_missing is not None:
                 raise NotImplementedError(
                     "train(fused=False): " + self.unit_graph_missing)
+            if timeline_jsonl is not None:
+                self.warning("the per-step timeline (timeline_jsonl) is a "
+                             "fused-path feature; the tick loop records "
+                             "nothing there")
+            if checkpoint_dir is not None or checkpointer is not None:
+                self.warning("device checkpoints (checkpoint_dir/"
+                             "checkpointer) are a fused-path feature; "
+                             "the tick loop keeps its snapshotter")
             if max_epochs is not None:
                 self.decision.max_epochs = max_epochs
             self.run()
@@ -604,20 +653,45 @@ class StandardWorkflow(AcceleratedWorkflow):
             compute_dtype = root.common.get("compute_dtype")
         if storage_dtype is None:
             storage_dtype = root.common.get("storage_dtype")
+        if profile_dir is None:
+            profile_dir = _profiler.dir_from_env()
+        if profile_every is None:
+            profile_every = _profiler.every_from_env()
         return self.run_fused(max_epochs=max_epochs,
                               compute_dtype=compute_dtype,
-                              storage_dtype=storage_dtype)
+                              storage_dtype=storage_dtype,
+                              profile_dir=profile_dir,
+                              profile_every=profile_every,
+                              checkpoint_dir=checkpoint_dir,
+                              checkpoint_every=checkpoint_every,
+                              checkpointer=checkpointer,
+                              timeline_jsonl=timeline_jsonl)
 
     def run_fused(self, max_epochs: int | None = None,
                   compute_dtype: str | None = None,
-                  storage_dtype: str | None = None) -> FusedTrainer:
+                  storage_dtype: str | None = None,
+                  profile_dir: str | None = None,
+                  profile_every: int | None = None,
+                  checkpoint_dir: str | None = None,
+                  checkpoint_every: int | None = None,
+                  checkpointer=None,
+                  timeline_jsonl: str | None = None) -> FusedTrainer:
         """Train on the fused path: whole epochs on the device, with the
         decision's improvement/stop logic between epochs on the host, the
         adjuster's schedule as per-step learning-rate scales and
         ``root.common.accum_steps`` as the trainer's gradient
         accumulation.  Returns the FusedTrainer; copies of its params are
-        written back into ``self.params``/``self.vels``."""
-        from .config import root
+        written back into ``self.params``/``self.vels``.
+
+        Between epochs: the snapshotter's cadence
+        (``SnapshotterBase.epoch_end``) and, with ``checkpoint_dir`` (a
+        checkpointer owned and closed here) or ``checkpointer`` (the
+        caller's, waited for), an asynchronous device checkpoint every
+        ``checkpoint_every`` epochs (default 1) and at the end.
+        ``profile_dir`` traces the whole run (``torch.profiler``); with
+        ``profile_every=N`` a one-epoch window every N epochs instead.
+        ``timeline_jsonl`` appends one JSON row an epoch with its wall /
+        device / host split."""
         if not self.initialized:
             raise RuntimeError("initialize() first")
         if not self.device.is_torch:
@@ -626,6 +700,29 @@ class StandardWorkflow(AcceleratedWorkflow):
                              "graph (train(fused=False))")
         if self.spec is None:
             raise NotImplementedError(self.fused_missing)
+        dev = self.device.torch_device
+        hook = None
+        ctx = contextlib.nullcontext()
+        if profile_dir is not None and profile_every:
+            hook = _profiler.StepTraceHook(profile_dir,
+                                           every=int(profile_every),
+                                           device=dev)
+        elif profile_dir is not None:
+            ctx = _profiler.trace(profile_dir, dev)
+        try:
+            with ctx:
+                return self._run_fused_body(
+                    max_epochs, compute_dtype, storage_dtype, hook,
+                    checkpoint_dir, checkpoint_every, checkpointer,
+                    timeline_jsonl)
+        finally:
+            if hook is not None:
+                hook.close()
+
+    def _run_fused_body(self, max_epochs, compute_dtype, storage_dtype,
+                        profile_hook, checkpoint_dir, checkpoint_every,
+                        checkpointer, timeline_jsonl) -> FusedTrainer:
+        from .config import root
         spec = self.spec
         if compute_dtype is not None:
             spec = dataclasses.replace(spec, compute_dtype=compute_dtype)
@@ -639,6 +736,30 @@ class StandardWorkflow(AcceleratedWorkflow):
                                device=self.device.torch_device,
                                accum_steps=int(
                                    root.common.get("accum_steps") or 1))
+        timeline = (_flightrecorder.TimelineWriter(timeline_jsonl)
+                    if timeline_jsonl else None)
+        ckpt, own_ckpt = checkpointer, False
+        if ckpt is None and checkpoint_dir is not None:
+            from .parallel.checkpoint import TrainerCheckpointer
+            ckpt, own_ckpt = TrainerCheckpointer(checkpoint_dir), True
+        try:
+            self._epochs(trainer, max_epochs, profile_hook, timeline, ckpt,
+                         max(1, int(checkpoint_every or 1)))
+        finally:
+            if timeline is not None:
+                timeline.close()
+            if ckpt is not None:
+                # flush the writes in flight (each manifest commits as its
+                # bytes land); a borrowed checkpointer stays open
+                if own_ckpt:
+                    ckpt.close()
+                else:
+                    ckpt.wait()
+        return trainer
+
+    def _epochs(self, trainer, max_epochs, profile_hook, timeline, ckpt,
+                ckpt_every: int) -> None:
+        """The fused epoch loop of :meth:`run_fused`."""
         loader, decision = self.loader, self.decision
         data = loader.original_data
         target = (loader.original_targets if self.loss_function == "mse"
@@ -654,6 +775,19 @@ class StandardWorkflow(AcceleratedWorkflow):
         if epochs is None:
             epochs = 10
         adj = self.lr_adjuster
+        gauges = _train_gauges()
+        # host-vs-device split: the wall time inside the trainer's calls
+        # and the epoch's one readback counts as device time, the rest of
+        # the epoch (shuffle, metrics, decision, saves) as host time
+        dev_acc = [0.0]
+
+        def on_device(fn, *a, **kw):
+            t0 = time.monotonic()
+            try:
+                return fn(*a, **kw)
+            finally:
+                dev_acc[0] += time.monotonic() - t0
+
         first = True
         # Unit-graph parity for the stop tick: in the tick where Decision
         # sets ``complete`` the GD units are gate-skipped, so the LAST train
@@ -664,8 +798,17 @@ class StandardWorkflow(AcceleratedWorkflow):
         # masks and rates are the ones the unit graph would have used.
         pending = None   # (tail indices, epoch, counter base, lr_scale,
         #                   lr_scale_bias)
+
+        def run_pending():
+            on_device(trainer.train_epoch, data, target, pending[0], batch,
+                      sync=False, epoch=pending[1], ctr_base=pending[2],
+                      lr_scale=pending[3], lr_scale_bias=pending[4])
+
         for epoch in range(loader.epoch_number, epochs):
+            if profile_hook is not None:
+                profile_hook.on_step(epoch)
             t_epoch0 = time.monotonic()
+            dev0 = dev_acc[0]
             loader.epoch_number = epoch
             if not first:   # initialize() already built epoch 0's plan
                 loader._build_epoch_plan()
@@ -678,74 +821,154 @@ class StandardWorkflow(AcceleratedWorkflow):
             scale_b, tail_scale_b = _lr_scales(adj, "bias_policy", epoch,
                                                steps_per_epoch)
             if pending is not None:
-                trainer.train_epoch(data, target, pending[0], batch,
-                                    sync=False, epoch=pending[1],
-                                    ctr_base=pending[2],
-                                    lr_scale=pending[3],
-                                    lr_scale_bias=pending[4])
+                run_pending()
             split = ((n_train - 1) // batch) * batch
             head, tail = perm[:split], perm[split:]
             # everything below stays on the device until the one readback
             runs = {}
             if len(head):
-                runs["head"] = trainer.train_epoch(
-                    data, target, head, batch, sync=False, epoch=epoch,
-                    lr_scale=scale, lr_scale_bias=scale_b)
+                runs["head"] = on_device(
+                    trainer.train_epoch, data, target, head, batch,
+                    sync=False, epoch=epoch, lr_scale=scale,
+                    lr_scale_bias=scale_b)
             # the tail minibatch's metrics come from a forward pass over the
             # post-head weights — the weights the unit graph's evaluator saw
             # before the (skipped-or-deferred) update
-            runs["tail"] = trainer.eval_epoch(data, target, tail, batch,
-                                              sync=False)
+            runs["tail"] = on_device(trainer.eval_epoch, data, target, tail,
+                                     batch, sync=False)
             pending = (tail, epoch, split, tail_scale, tail_scale_b)
             for k in (VALID, TEST):
                 if len(cls_idx[k]):
-                    runs[k] = trainer.eval_epoch(data, target, cls_idx[k],
-                                                 batch, sync=False)
-            host = dict(zip(runs, fused.to_host(*runs.values())))
-            tm = host.get("head", {"loss": np.zeros((0,), np.float32),
-                                   "n_err": np.zeros((0,), np.int32)})
-            metrics = {"epoch": epoch}
-            metrics["train_loss"] = float(
-                np.concatenate([tm["loss"], host["tail"]["loss"]]).mean())
-            metrics["train_n_err"] = int(tm["n_err"].sum()
-                                         + host["tail"]["n_err"].sum())
-            metrics["train_err_pct"] = 100.0 * metrics["train_n_err"] \
-                / max(n_train, 1)
-            for k in (VALID, TEST):
-                if k not in host:
-                    continue
-                name = CLASS_NAMES[k]
-                metrics[f"{name}_loss"] = float(host[k]["loss"].mean())
-                metrics[f"{name}_n_err"] = int(host[k]["n_err"].sum())
-                metrics[f"{name}_err_pct"] = (100.0
-                                              * metrics[f"{name}_n_err"]
-                                              / len(cls_idx[k]))
-            if self.loss_function == "mse":
-                metrics["train_mse"] = metrics["train_loss"]
-                if "validation_loss" in metrics:
-                    metrics["validation_mse"] = metrics["validation_loss"]
+                    runs[k] = on_device(trainer.eval_epoch, data, target,
+                                        cls_idx[k], batch, sync=False)
+            host = dict(zip(runs, on_device(fused.to_host, *runs.values())))
+            metrics = self._epoch_metrics(epoch, host, cls_idx)
             decision.epoch_metrics.append(metrics)
             loader.epoch_number = epoch + 1
             epoch_s = time.monotonic() - t_epoch0
+            device_s = dev_acc[0] - dev0
+            host_s = max(0.0, epoch_s - device_s)
             if epoch_s > 0:
                 self.epoch_timings.append({
                     "epoch": epoch,
                     "train_examples_per_sec": n_train / epoch_s,
                     "train_step_time_ms": epoch_s / steps_per_epoch * 1e3})
+                gauges["step_ms"].set(epoch_s / steps_per_epoch * 1e3)
+                gauges["eps"].set(n_train / epoch_s)
+                gauges["device_ms"].set(device_s * 1e3)
+                gauges["host_ms"].set(host_s * 1e3)
+            gauges["epoch"].set(epoch)
+            step_row = {"epoch": epoch, "steps": steps_per_epoch,
+                        "examples": n_train,
+                        "wall_ms": round(epoch_s * 1e3, 3),
+                        "device_ms": round(device_s * 1e3, 3),
+                        "host_ms": round(host_s * 1e3, 3),
+                        "examples_per_sec": (round(n_train / epoch_s, 1)
+                                             if epoch_s > 0 else None)}
+            _flightrecorder.RECORDER.record(
+                "train_step", duration_ms=epoch_s * 1e3, **step_row)
+            if timeline is not None:
+                timeline.write({"at": time.time(), **step_row})
             if adj is not None:
                 # the unit graph's iteration counter, current for a later
-                # tick-path run of this workflow
+                # tick-path run of this workflow and for snapshots
                 adj._minibatches = (epoch + 1) * steps_per_epoch
             improved = decision.better_than_best(metrics)
             decision.improved.set(improved)
             decision._fails = 0 if improved else decision._fails + 1
+            # A mid-run snapshot or checkpoint must hold this epoch's
+            # deferred tail update (a continuous run applies it at the next
+            # epoch's start; a resumed one starts with nothing pending).  On
+            # the final epoch the stop tick skips that update, so it stays
+            # pending and the save equals the unit graph's final one.
+            is_final = (epoch == epochs - 1
+                        or decision._fails >= decision.fail_iterations)
+
+            def sync_weights():
+                nonlocal pending
+                if not is_final and pending is not None:
+                    run_pending()
+                    pending = None
+                trainer.write_back()
+                if self.forwards:
+                    self._params_to_units()
+
+            if self.snapshotter is not None:
+                self.snapshotter.epoch_end(improved,
+                                           before_save=sync_weights)
+            if ckpt is not None and ((epoch + 1) % ckpt_every == 0
+                                     or is_final):
+                sync_weights()
+                ckpt.save(trainer, epoch, block=False)
             if decision._fails >= decision.fail_iterations:
                 break
         decision.complete.set(True)
         trainer.write_back()
         if self.forwards:
             self._params_to_units()
-        return trainer
+
+    def _epoch_metrics(self, epoch: int, host: dict, cls_idx: dict) -> dict:
+        """The epoch's metrics dict from the readback of its runs (the
+        train head's and tail's, validation's and test's)."""
+        n_train = len(cls_idx[TRAIN])
+        tm = host.get("head", {"loss": np.zeros((0,), np.float32),
+                               "n_err": np.zeros((0,), np.int32)})
+        metrics = {"epoch": epoch}
+        metrics["train_loss"] = float(
+            np.concatenate([tm["loss"], host["tail"]["loss"]]).mean())
+        metrics["train_n_err"] = int(tm["n_err"].sum()
+                                     + host["tail"]["n_err"].sum())
+        metrics["train_err_pct"] = 100.0 * metrics["train_n_err"] \
+            / max(n_train, 1)
+        for k in (VALID, TEST):
+            if k not in host:
+                continue
+            name = CLASS_NAMES[k]
+            metrics[f"{name}_loss"] = float(host[k]["loss"].mean())
+            metrics[f"{name}_n_err"] = int(host[k]["n_err"].sum())
+            metrics[f"{name}_err_pct"] = (100.0 * metrics[f"{name}_n_err"]
+                                          / len(cls_idx[k]))
+        if self.loss_function == "mse":
+            metrics["train_mse"] = metrics["train_loss"]
+            if "validation_loss" in metrics:
+                metrics["validation_mse"] = metrics["validation_loss"]
+        return metrics
+
+
+def _train_gauges() -> dict:
+    """The training gauges of ``REGISTRY`` (the reference's names and
+    meanings), by short name."""
+    return {
+        "step_ms": REGISTRY.gauge(
+            "train_step_time_ms",
+            "mean per-minibatch wall time over the last epoch, "
+            "milliseconds (fused loop: epoch wall / steps)"),
+        "eps": REGISTRY.gauge(
+            "train_examples_per_sec",
+            "training examples consumed per second over the last epoch"),
+        "epoch": REGISTRY.gauge("train_epoch",
+                                "last completed training epoch index"),
+        "device_ms": REGISTRY.gauge(
+            "train_device_ms",
+            "wall time of the last epoch spent inside the trainer's calls "
+            "and its one readback; dispatch is asynchronous here, so the "
+            "calls return once their steps are queued and most of the "
+            "device's time shows up as the readback's wait (the first "
+            "epoch also carries each step variant's eager run and CUDA "
+            "graph capture)"),
+        "host_ms": REGISTRY.gauge(
+            "train_host_ms",
+            "wall time of the last epoch NOT inside the trainer's calls "
+            "(loader shuffle, metrics, decision, snapshots and checkpoint "
+            "copies) — host-dominated epochs are a pipeline problem")}
+
+
+def sample_snapshotter_config(tree, explicit):
+    """The defaulting rule every sample uses for its snapshotter: an
+    explicit argument (even ``{}`` = all defaults) wins; otherwise the
+    sample's config tree (``root.<name>.snapshotter``, reachable from
+    config files and ``--set``) provides it."""
+    return explicit if explicit is not None else tree.get("snapshotter")
 
 
 def _lr_scales(adj, which: str, epoch: int, steps_per_epoch: int):

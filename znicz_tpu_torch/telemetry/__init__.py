@@ -1,5 +1,5 @@
-"""Observability for the port's serving path (copied from the JAX
-package's ``telemetry``, stdlib only):
+"""Observability for the port's serving and training paths (from the
+JAX package's ``telemetry``; stdlib only but the profiler):
 
 * :mod:`registry` — process-wide, thread-safe counters / gauges /
   bounded histograms, with JSON and Prometheus text exposition views.
@@ -8,9 +8,13 @@ package's ``telemetry``, stdlib only):
 * :mod:`compilestats` — compile accounting at every executable-creation
   site; in this package a compile is a CUDA graph's first eager run
   plus its capture (``site="serving.engine"``).
+* :mod:`flightrecorder` — bounded rings of recent records (the fused
+  loop's ``train_step`` rows) and the per-epoch ``TimelineWriter``.
+* :mod:`profiler` — ``torch.profiler`` Chrome traces, whole-run or a
+  window every N epochs.
 
-The flight recorder, trace store, status pages, build info and profiler
-of the JAX package come with the next serving slice.
+The trace store, status pages and build info of the JAX package come
+with the next serving slice.
 """
 
 from .registry import (REGISTRY, Counter, Gauge, Histogram,
