@@ -187,8 +187,31 @@ exits nonzero without the final ``ok`` line:
    launches, counted from 0 around each engine call (not around the
    comparisons), equal each engine's launches a forward times its
    forwards and captures;
-20. the ``kernels`` line (with the resume and serve paths' launches),
-   then ``{"ok":
+20. serve_http — the HTTP tier (``serving.ServingServer`` on 127.0.0.1,
+   port 0) over a ``ModelZoo`` of the same exports: AlexNet at full
+   width, CIFAR, the autoencoder, the SOM and MNIST as a two-replica
+   ``EngineReplicaSet`` with hedging.  The first request of each row
+   count (its capture), then threads over JSON and the binary wire for
+   every model, each answer against the CPU at the serve phase's
+   tolerances, with requests/s and p50/p99 wall; MNIST's binary cell
+   again with replica 1 slowed by a ``replica.slow.1`` latency fault,
+   where a hedge on replica 0 must win; AlexNet's 1, 8 and 32
+   rows over the binary wire, 128 rows refused 413 at the default body
+   cap (64·10⁶ bytes) and served with it raised; a budget that evicts
+   AlexNet, then a request that pages it in and captures again;
+   /metrics (Prometheus: the serving families), /healthz (``mesh``
+   ``1x1``), /statusz, /tracez and /debug/threadz; ``POST
+   /admin/reload`` of MNIST (403 without the token), after which its
+   requests build nothing (the census warm-up built every observed
+   shape's buckets during the reload); every engine's
+   ``fallback_calls`` 0 and its breaker closed, and the launches equal
+   each engine's launches a forward times its forwards and captures (a
+   reload's canary and census builds twice: an eager run and a
+   replay).  Last, ``python -m znicz_tpu_torch serve --model
+   mnist=<path> --port 0`` in a subprocess: both wire formats against
+   the CPU, ``fallback_calls`` 0, SIGTERM, "drain complete", exit 0;
+21. the ``kernels`` line (with the resume, serve and serve_http paths'
+   launches), then ``{"ok":
    true, "device": {...}}`` last.
 
 The kernel phase holds, besides the fused paths' kernels, the unit graph's
@@ -2994,42 +3017,77 @@ class ServeDrive:
 
 
 class _ServeCheck:
-    """One engine's serve-path bookkeeping: its forwards and builds inside
-    the drive's windows, and the launches they must have made."""
+    """The serve paths' bookkeeping over engines {name: engine}: every
+    window of traffic, eviction or reload runs through :meth:`run`, inside
+    the drive's counts (set to 0 just before, read just after), and adds
+    each engine's forwards and builds (a build's eager run; its replay is
+    a forward).  A reload window adds, for each reloaded engine, its
+    canary and each census build once more (an eager run and a replay,
+    neither a request's forward).  Hedged dispatches still running at a
+    window's end are waited for."""
 
-    def __init__(self, drive: ServeDrive, eng, gemm: bool = False):
-        self.drive, self.eng = drive, eng
-        self.per = serve_launches(eng.layers, gemm)
+    def __init__(self, drive: ServeDrive, engines: dict, gemm: bool = False):
+        self.drive, self.engines = drive, engines
+        self.per = {n: serve_launches(e.layers, gemm)
+                    for n, e in engines.items()}
+        self.calls = {n: 0 for n in engines}
         self.counts = {k: 0 for k in KERNELS}
-        self.calls = 0
 
-    def run(self, fn):
-        m0 = self.eng.metrics()
+    def metrics(self) -> dict:
+        return {n: e.metrics() for n, e in self.engines.items()}
+
+    def run(self, fn, reloaded=()):
+        m0 = self.metrics()
         before = dict(self.drive.counts)
-        out = self.drive.run(fn)
-        m1 = self.eng.metrics()
-        self.calls += (m1["forward_calls"] - m0["forward_calls"]
-                       + m1["builds"] - m0["builds"])
+
+        def settled():
+            out = fn()
+            _settle_replicas()
+            return out
+        out = self.drive.run(settled)
+        m1 = self.metrics()
+        for n in self.engines:
+            forwards = m1[n]["forward_calls"] - m0[n]["forward_calls"]
+            builds = m1[n]["builds"] - m0[n]["builds"]
+            self.calls[n] += forwards + builds
+            if n in reloaded:
+                self.calls[n] += builds + 2      # the canary: eager, replay
         for k in KERNELS:
             self.counts[k] += self.drive.counts[k] - before[k]
         return out
 
     def held(self, what: str) -> dict:
-        """The launches, held to ``per`` × (forwards + captures), and the
-        engine's fallback count and breaker."""
-        want = {k: self.per.get(k, 0) * self.calls for k in KERNELS}
+        """The launches, held to each engine's launches a forward times
+        its forwards and captures, and each engine's fallback count and
+        breaker."""
+        want = {k: 0 for k in KERNELS}
+        for n, calls in self.calls.items():
+            for k, v in self.per[n].items():
+                want[k] += v * calls
         if self.counts != want:
-            raise AssertionError(f"serve {what}: launches {self.counts} != "
+            raise AssertionError(f"{what}: launches {self.counts} != "
                                  f"{want}")
-        m = self.eng.metrics()
-        if m["fallback_calls"] or m["breaker"]["state"] != "closed":
-            raise AssertionError(f"serve {what}: fallback_calls "
-                                 f"{m['fallback_calls']}, breaker "
-                                 f"{m['breaker']}")
+        engines = {}
+        for n, m in self.metrics().items():
+            if m["fallback_calls"] or m["breaker"]["state"] != "closed":
+                raise AssertionError(f"{what} {n}: fallback_calls "
+                                     f"{m['fallback_calls']}, breaker "
+                                     f"{m['breaker']}")
+            engines[n] = {"launches_per_forward": self.per[n],
+                          "forwards_and_captures": self.calls[n],
+                          "builds": m["builds"], "fallback_calls": 0,
+                          "breaker": m["breaker"]["state"]}
         return {"launches": {k: v for k, v in self.counts.items() if v},
-                "launches_per_forward": self.per,
-                "forwards_and_captures": self.calls,
-                "fallback_calls": 0, "breaker": m["breaker"]["state"]}
+                "engines": engines}
+
+
+def _settle_replicas() -> None:
+    """Wait for hedged dispatches still running (a losing attempt runs on
+    to its end on its own thread)."""
+    import threading
+    for t in threading.enumerate():
+        if t.name.startswith("znicz-replica-"):
+            t.join(120.0)
 
 
 def _graph_vs_eager(torch, eng, x, got, what: str) -> None:
@@ -3133,7 +3191,7 @@ def _serve_mnist(torch, drive: ServeDrive, path: str, directory: str):
                                                 output_features,
                                                 torch_forward)
     eng = ServingEngine(path)
-    check = _ServeCheck(drive, eng)
+    check = _ServeCheck(drive, {"mnist": eng})
     params = [tuple(None if a is None else torch.from_numpy(a).cuda()
                     for a in (la.w, la.b)) for la in eng.layers]
     native = NativeEngine().load(path)
@@ -3207,7 +3265,7 @@ def _serve_mnist(torch, drive: ServeDrive, path: str, directory: str):
                                            for a, b in zip(answers, alone))}
     # int8: served or fell back, and why
     q, int8 = _int8_engine(path)
-    qcheck = _ServeCheck(drive, q)
+    qcheck = _ServeCheck(drive, {"mnist_int8": q})
     xq = _rows((784,), 100, 7)
     yq = qcheck.run(lambda: q.predict(xq))
     y32 = check.run(lambda: eng.predict(xq))
@@ -3235,7 +3293,8 @@ def _serve_mnist(torch, drive: ServeDrive, path: str, directory: str):
                                                   "canary")},
                        "corrupt": {k: bad[k] for k in ("outcome",
                                                        "generation")}},
-            **check.held("mnist"), "int8_path": qcheck.held("mnist int8")}
+            **check.held("serve mnist"),
+            "int8_path": qcheck.held("serve mnist int8")}
 
 
 def _timed_calls(torch, fn, n: int) -> float:
@@ -3270,7 +3329,7 @@ def _serve_alexnet(torch, drive: ServeDrive, path: str) -> dict:
     torch.cuda.synchronize()
     mem0 = torch.cuda.memory_allocated()
     eng = ServingEngine(path, buckets=ALEXNET_BUCKETS)
-    check = _ServeCheck(drive, eng)
+    check = _ServeCheck(drive, {"alexnet": eng})
     params = [tuple(None if a is None else torch.from_numpy(a).cuda()
                     for a in (la.w, la.b)) for la in eng.layers]
     out = {}
@@ -3323,7 +3382,7 @@ def _serve_alexnet(torch, drive: ServeDrive, path: str) -> dict:
             "resident_weight_bytes": eng.resident_weight_bytes(),
             "device_bytes_after_captures": torch.cuda.memory_allocated()
             - mem0, "builds": eng.metrics()["builds"],
-            **check.held("alexnet")}
+            **check.held("serve alexnet")}
 
 
 #: the other models served against the CPU: name → (sample shape,
@@ -3338,7 +3397,7 @@ def _serve_other(torch, drive: ServeDrive, name: str, path: str,
     from znicz_tpu_torch.serving import ServingEngine
     shape, rtol, atol = SERVE_OTHERS[name]
     eng = ServingEngine(path)
-    check = _ServeCheck(drive, eng, gemm)
+    check = _ServeCheck(drive, {name: eng}, gemm)
     err = {}
     for i, b in enumerate((5, 100)):
         x = _rows(shape, b, 40 + i)
@@ -3346,7 +3405,7 @@ def _serve_other(torch, drive: ServeDrive, name: str, path: str,
         _graph_vs_eager(torch, eng, x, y, f"{name} B={b}")
         err[b] = _cpu_close(eng, x, y, rtol, atol, f"{name} B={b}")
     return {"cpu_max_abs_err": err, "rtol": rtol, "atol": atol,
-            **check.held(name + ("_gemm" if gemm else ""))}
+            **check.held("serve " + name + ("_gemm" if gemm else ""))}
 
 
 def _failing_capture(torch, path: str) -> dict:
@@ -3416,6 +3475,412 @@ def phase_serve(torch, exports: dict, directory: str) -> dict:
             raise AssertionError(f"serve path never launched {kernel}")
     out["launches"] = drive.counts
     emit({"phase": "serve", **out})
+    return out
+
+
+#: the HTTP phase (``serve_http``): each zoo model's sample shape, the
+#: tolerances of the serve phase against the CPU, the row counts its
+#: requests draw from and the requests a wire format (MNIST's enough for
+#: the hedge policy's ``min_samples`` forwards before its hedged cell)
+SERVE_HTTP_MODELS = {
+    "alexnet": (ALEXNET_SAMPLE, CONV_SERVE_RTOL, CONV_SERVE_ATOL,
+                (1, 8, 32), 12),
+    "cifar": SERVE_OTHERS["cifar"] + ((1, 5, 8), 16),
+    "autoencoder": SERVE_OTHERS["autoencoder"] + ((1, 5, 8), 16),
+    "som": SERVE_OTHERS["som"] + ((1, 7, 32), 16),
+    "mnist": ((784,), SERVE_RTOL, SERVE_ATOL, (1, 3, 8, 20), 24)}
+#: client threads a (model, wire) cell
+SERVE_HTTP_THREADS = 4
+SERVE_HTTP_TOKEN = "chip-smoke-admin"
+#: the families the serving tier's /metrics must carry
+SERVE_HTTP_FAMILIES = ("predict_latency_ms", "requests_total",
+                       "wire_requests_total", "model_requests_total",
+                       "model_latency_ms", "serving_engine_forward_calls",
+                       "replica_dispatches_total",
+                       "hedges_total", "model_pagein_total",
+                       "model_evictions_total", "breaker_state",
+                       "engine_busy_ratio", "compiles_total",
+                       "trace_stage_ms")
+
+
+def _http(port: int, method: str, path: str, body=None, headers=None,
+          timeout: float = 300.0):
+    """(status, headers lowercased, body) of one request to 127.0.0.1."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request(method, path, body=body, headers=headers or {})
+        r = conn.getresponse()
+        return (r.status, {k.lower(): v for k, v in r.getheaders()},
+                r.read())
+    finally:
+        conn.close()
+
+
+def _http_predict(port: int, name: str, x, binary: bool):
+    """One /predict of ``x`` for model ``name``; (answer, wall ms)."""
+    import numpy as np
+    from znicz_tpu_torch.serving import wire
+    if binary:
+        body = wire.encode_tensor(x)
+        headers = {"Content-Type": wire.CONTENT_TYPE,
+                   "Accept": wire.CONTENT_TYPE, "X-Model": name}
+    else:
+        body = json.dumps({"inputs": x.tolist(), "model": name}).encode()
+        headers = {"Content-Type": "application/json"}
+    t0 = time.perf_counter()
+    code, _, raw = _http(port, "POST", "/predict", body, headers)
+    wall = (time.perf_counter() - t0) * 1e3
+    if code != 200:
+        raise AssertionError(f"serve_http {name}: {code} {raw[:300]!r}")
+    y = (np.array(wire.decode_tensor(raw)) if binary
+         else np.asarray(json.loads(raw)["outputs"], np.float32))
+    return y, wall
+
+
+def _cell(port: int, name: str, binary: bool, pool: dict, n: int) -> dict:
+    """``n`` requests of model ``name`` from SERVE_HTTP_THREADS threads,
+    rows drawn in turn from ``pool`` ({rows: (x, CPU answer)}); each
+    answer against the CPU's; requests/s and p50/p99 wall."""
+    import threading
+
+    import numpy as np
+    _, rtol, atol, _, _ = SERVE_HTTP_MODELS[name]
+    sizes = sorted(pool)
+    walls, errs, worst = [], [], [0.0]
+    lock = threading.Lock()
+
+    def client(t):
+        try:
+            for i in range(t, n, SERVE_HTTP_THREADS):
+                x, want = pool[sizes[i % len(sizes)]]
+                y, wall = _http_predict(port, name, x, binary)
+                np.testing.assert_allclose(
+                    y, want, rtol=rtol, atol=atol,
+                    err_msg=f"serve_http {name}: card vs CPU")
+                with lock:
+                    walls.append(wall)
+                    worst[0] = max(worst[0], float(np.abs(y - want).max()))
+        except Exception as e:               # noqa: BLE001 — raised below
+            errs.append(e)
+    threads = [threading.Thread(target=client, args=(t,))
+               for t in range(SERVE_HTTP_THREADS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600.0)
+    elapsed = time.perf_counter() - t0
+    if errs:
+        raise errs[0]
+    if len(walls) != n:
+        raise AssertionError(f"serve_http {name}: {len(walls)} of {n} "
+                             "answers")
+    walls.sort()
+    return {"requests": n, "rows": sizes, "requests_per_s": n / elapsed,
+            "p50_wall_ms": walls[len(walls) // 2],
+            "p99_wall_ms": walls[min(len(walls) - 1,
+                                     int(len(walls) * 0.99))],
+            "cpu_max_abs_err": worst[0]}
+
+
+def _hedged_cell(port: int, mnist, pool: dict) -> dict:
+    """MNIST's binary cell again with replica 1 slowed by a latency fault
+    (``replica.slow.1``): a batch on it outlives the hedge threshold (the
+    p95 of the forwards so far) and a hedge on replica 0 wins."""
+    from znicz_tpu_torch.resilience import faults
+    before = dict(mnist.hedge_status()["outcomes"])
+    plan = faults.FaultPlan([faults.FaultSpec(
+        "replica.slow.1", kind="latency", latency_s=0.25)])
+    with plan:
+        cell = _cell(port, "mnist", True, pool, 8)
+    after = mnist.hedge_status()
+    won = after["outcomes"].get("won", 0) - before.get("won", 0)
+    if not won:
+        raise AssertionError(f"serve_http: no hedge won under the fault: "
+                             f"{after}")
+    return {**cell, "fault_hits": plan.snapshot(), "hedges_won": won,
+            "hedge": after}
+
+
+def _first_requests(port: int, name: str, pool: dict) -> dict:
+    """The first request of each row count (each a bucket's capture on
+    its path): wall ms."""
+    return {rows: _http_predict(port, name, pool[rows][0], True)[1]
+            for rows in sorted(pool)}
+
+
+def _alexnet_cap(port: int, server, pool: dict) -> dict:
+    """128 rows at the default body cap: refused 413 from the length
+    alone (the body is never sent); then, with the cap raised, served."""
+    import http.client
+
+    import numpy as np
+    from znicz_tpu_torch.serving import wire
+    x, want = pool[128]
+    n = len(wire.encode_tensor(x[:1])) - x[:1].nbytes + x.nbytes
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        conn.putrequest("POST", "/predict")
+        for k, v in (("Content-Type", wire.CONTENT_TYPE),
+                     ("X-Model", "alexnet"), ("Content-Length", str(n))):
+            conn.putheader(k, v)
+        conn.endheaders()
+        r = conn.getresponse()
+        refused, body = r.status, r.read()
+    finally:
+        conn.close()
+    if refused != 413 or n <= server.max_body:
+        raise AssertionError(f"serve_http alexnet: 128 rows ({n} bytes) "
+                             f"at the {server.max_body}-byte cap got "
+                             f"{refused} {body[:200]!r}")
+    default = server.max_body
+    server.max_body = n + 4096
+    try:
+        y, wall = _http_predict(port, "alexnet", x, True)
+    finally:
+        server.max_body = default
+    _, rtol, atol, _, _ = SERVE_HTTP_MODELS["alexnet"]
+    np.testing.assert_allclose(y, want, rtol=rtol, atol=atol,
+                               err_msg="serve_http alexnet 128 rows")
+    return {"default_cap_bytes": default, "body_bytes": n,
+            "status_at_default_cap": refused, "raised_cap_wall_ms": wall,
+            "cpu_max_abs_err": float(np.abs(y - want).max())}
+
+
+def _evict_alexnet(port: int, zoo, pool: dict) -> dict:
+    """A budget that evicts AlexNet (the coldest model), then, the budget
+    lifted, a request that pages it in again and captures its bucket
+    anew."""
+    import numpy as np
+    alex = zoo.resolve("alexnet").engine
+    total = zoo.resident_bytes()
+    zoo.memory_budget = total - alex.resident_weight_bytes() + 1
+    try:
+        evicted = zoo.evict_to_budget(keep="mnist")
+    finally:
+        zoo.memory_budget = None
+    if alex.weights_resident() or evicted != 1:
+        raise AssertionError(f"serve_http: the budget evicted {evicted} "
+                             f"models, AlexNet resident "
+                             f"{alex.weights_resident()}")
+    x, want = pool[8]
+    y, wall = _http_predict(port, "alexnet", x, True)
+    _, rtol, atol, _, _ = SERVE_HTTP_MODELS["alexnet"]
+    np.testing.assert_allclose(y, want, rtol=rtol, atol=atol,
+                               err_msg="serve_http alexnet paged in")
+    m = alex.metrics()
+    return {"budget_bytes": total - alex.resident_weight_bytes() + 1,
+            "evicted_models": evicted, "pagein_request_wall_ms": wall,
+            "weight_pageins": m["weight_pageins"],
+            "weight_releases": m["weight_releases"],
+            "pagein_ms": zoo.metrics()["pagein_p99_ms"]}
+
+
+def _reload_mnist(port: int, check: _ServeCheck, mnist,
+                  pool: dict) -> dict:
+    """POST /admin/reload of MNIST with the token (403 without), then
+    MNIST's traffic again: the census warm-up built every observed
+    shape's buckets during the reload, so the requests after the swap
+    build nothing."""
+    code, _, _ = _http(port, "POST", "/admin/reload",
+                       json.dumps({"name": "mnist"}).encode())
+    if code != 403:
+        raise AssertionError(f"serve_http reload without token: {code}")
+    names = [f"mnist.{i}" for i in range(len(mnist.replicas))]
+    b0 = {n: check.engines[n].metrics()["builds"] for n in names}
+    t0 = time.perf_counter()
+    code, _, raw = check.run(lambda: _http(
+        port, "POST", "/admin/reload",
+        json.dumps({"name": "mnist", "wait": True}).encode(),
+        {"X-Admin-Token": SERVE_HTTP_TOKEN}), reloaded=names)
+    wall = (time.perf_counter() - t0) * 1e3
+    status = json.loads(raw)
+    if code != 200 or status["last_reload"]["outcome"] != "ok" \
+            or status["model_generation"] != 2:
+        raise AssertionError(f"serve_http reload: {code} {status}")
+    b1 = {n: check.engines[n].metrics()["builds"] for n in names}
+    after = {}
+    for binary in (False, True):
+        after["binary" if binary else "json"] = check.run(lambda: _cell(
+            port, "mnist", binary, pool, 16))
+    b2 = {n: check.engines[n].metrics()["builds"] for n in names}
+    if b2 != b1:
+        raise AssertionError(f"serve_http: requests after the reload "
+                             f"built graphs: {b1} -> {b2}")
+    return {"wall_ms": wall, "duration_ms": [
+                e.last_reload["duration_ms"] for e in mnist.replicas],
+            "census_builds": {n: b1[n] - b0[n] for n in names},
+            "builds_after_swap": {n: b2[n] - b1[n] for n in names},
+            "generation": status["model_generation"], "after": after}
+
+
+def _endpoints(port: int) -> dict:
+    """/metrics (Prometheus), /healthz, /statusz, /tracez, /debug/threadz."""
+    token = {"X-Admin-Token": SERVE_HTTP_TOKEN}
+    out = {}
+    code, _, raw = _http(port, "GET", "/metrics?format=prometheus")
+    fams = {line.split()[2] for line in raw.decode().splitlines()
+            if line.startswith("# TYPE ")}
+    missing = [f for f in SERVE_HTTP_FAMILIES if f not in fams]
+    if code != 200 or missing:
+        raise AssertionError(f"serve_http /metrics: {code}, missing "
+                             f"{missing}")
+    out["metric_families"] = len(fams)
+    code, _, raw = _http(port, "GET", "/healthz")
+    health = json.loads(raw)
+    if code != 200 or health.get("mesh") != "1x1" \
+            or health["status"] != "ok" or len(health["models"]) != 5:
+        raise AssertionError(f"serve_http /healthz: {code} {health}")
+    out["healthz"] = {k: health[k] for k in ("status", "mesh", "backend",
+                                             "model_generation")}
+    for path, hdrs in (("/statusz", token), ("/tracez", {}),
+                       ("/debug/threadz", token)):
+        code, _, raw = _http(port, "GET", path, None, hdrs)
+        if code != 200 or not raw:
+            raise AssertionError(f"serve_http {path}: {code}")
+        out[path] = len(raw)
+    code, _, _ = _http(port, "GET", "/statusz")
+    if code != 403:
+        raise AssertionError(f"serve_http /statusz without token: {code}")
+    return out
+
+
+def _serve_cli(path: str, pool: dict) -> dict:
+    """``python -m znicz_tpu_torch serve --model mnist=<path> --port 0``
+    in a subprocess on the card (``--backend auto``, the default): both
+    wire formats from CUDA graphs, then SIGTERM and a drain; exit 0."""
+    import signal
+    import threading
+
+    import numpy as np
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    p = subprocess.Popen(
+        [sys.executable, "-m", "znicz_tpu_torch", "serve", "--model",
+         f"mnist={path}", "--port", "0"], cwd=root, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    killer = threading.Timer(300.0, p.kill)
+    killer.start()
+    try:
+        line = p.stdout.readline()
+        start_ms = (time.perf_counter() - t0) * 1e3
+        if " at http://127.0.0.1:" not in line \
+                or "[cuda]" not in line:
+            raise AssertionError(f"serve CLI did not start: {line!r}")
+        port = int(line.split(" at http://127.0.0.1:")[1].split("/")[0])
+        errs = {}
+        for binary in (False, True):
+            x, want = pool[8 if binary else 1]
+            y, _ = _http_predict(port, "mnist", x, binary)
+            np.testing.assert_allclose(y, want, rtol=SERVE_RTOL,
+                                       atol=SERVE_ATOL,
+                                       err_msg="serve CLI vs CPU")
+            errs["binary" if binary else "json"] = float(
+                np.abs(y - want).max())
+        code, _, raw = _http(port, "GET", "/metrics")
+        eng = json.loads(raw)["engine"]
+        if code != 200 or eng["backend"] != "cuda" \
+                or eng["fallback_calls"] or eng["builds"] < 2:
+            raise AssertionError(f"serve CLI metrics: {code} {eng}")
+        p.send_signal(signal.SIGTERM)
+        out, err = p.communicate(timeout=120)
+    finally:
+        killer.cancel()
+        if p.poll() is None:
+            p.kill()
+            p.communicate()
+    if p.returncode != 0 or "drain complete" not in out:
+        raise AssertionError(f"serve CLI exit {p.returncode}: {out[-500:]}"
+                             f" {err[-1500:]}")
+    return {"start_ms": start_ms, "cpu_max_abs_err": errs,
+            "builds": eng["builds"], "fallback_calls": 0,
+            "exit": p.returncode, "drained": True}
+
+
+def phase_serve_http(torch, exports: dict, info: dict) -> dict:
+    """The port's HTTP serving tier on the card (``serving.ServingServer``
+    on 127.0.0.1, port 0, over a ``ModelZoo`` of the models the slices
+    exported: AlexNet at full width, CIFAR, the autoencoder, the SOM and
+    MNIST as a two-replica ``EngineReplicaSet`` with hedging): first
+    requests of each row count (their captures), then threads over JSON
+    and the binary wire for every model, each answer against the CPU's
+    ``torch_forward``; AlexNet's 128 rows refused 413 at the default body
+    cap and served with it raised; a budget that evicts AlexNet and a
+    request that pages it in; hedges winning against a slowed replica;
+    /metrics, /healthz, /statusz, /tracez and
+    /debug/threadz; ``POST /admin/reload`` of MNIST, after which its
+    requests build nothing (the census warm-up); every engine's
+    ``fallback_calls`` 0, its breaker closed, and the launches equal each
+    engine's launches a forward times its forwards and captures (see
+    :class:`_ServeCheck`).  Last, the ``serve`` CLI in a subprocess.
+    Every engine keeps the default cache size: the census warm-up of a
+    reloaded engine builds only the shapes that engine accepts."""
+    import numpy as np
+    from znicz_tpu_torch.resilience import overload
+    from znicz_tpu_torch.serving import (EngineReplicaSet, ModelZoo,
+                                         ServingEngine, ServingServer)
+    from znicz_tpu_torch.serving.engine import torch_forward
+    from znicz_tpu_torch.telemetry import flightrecorder
+    # the census is this phase's traffic alone
+    flightrecorder.RECORDER = flightrecorder.FlightRecorder()
+    zoo = ModelZoo()
+    mnist = EngineReplicaSet(
+        lambda i: ServingEngine(exports["mnist"]), 2,
+        hedge=overload.HedgePolicy())
+    engines = {f"mnist.{i}": e for i, e in enumerate(mnist.replicas)}
+    for name in ("alexnet", "cifar", "autoencoder", "som"):
+        eng = ServingEngine(exports[name])
+        zoo.add(name, engine=eng)
+        engines[name] = eng
+    zoo.add("mnist", engine=mnist, default=True)
+    pools = {}
+    for i, (name, (shape, _, _, sizes, _)) in enumerate(
+            SERVE_HTTP_MODELS.items()):
+        layers = engines["mnist.0" if name == "mnist" else name].layers
+        pools[name] = {}
+        for rows in sizes + ((128,) if name == "alexnet" else ()):
+            x = _rows(shape, rows, 700 + 10 * i + rows)
+            pools[name][rows] = (x, torch_forward(
+                layers, torch.from_numpy(x)).numpy())
+    drive = ServeDrive(torch)
+    check = _ServeCheck(drive, engines)
+    server = ServingServer(zoo=zoo, admin_token=SERVE_HTTP_TOKEN).start()
+    port = server.server.server_address[1]
+    out = {"card": info["nvidia_smi"], "models": {}}
+    try:
+        for name, (_, _, _, sizes, n) in SERVE_HTTP_MODELS.items():
+            pool = {r: pools[name][r] for r in sizes}
+            row = {"first_request_wall_ms": check.run(
+                lambda: _first_requests(port, name, pool))}
+            if name == "alexnet":
+                row["json"] = check.run(lambda: _cell(
+                    port, name, False, {1: pool[1]}, 2))
+                row["binary"] = check.run(lambda: _cell(
+                    port, name, True, pool, n))
+                row["body_cap"] = check.run(lambda: _alexnet_cap(
+                    port, server, pools["alexnet"]))
+            else:
+                for binary in (False, True):
+                    row["binary" if binary else "json"] = check.run(
+                        lambda: _cell(port, name, binary, pool, n))
+            out["models"][name] = row
+        out["eviction"] = check.run(lambda: _evict_alexnet(
+            port, zoo, pools["alexnet"]))
+        out["hedge"] = check.run(lambda: _hedged_cell(
+            port, mnist, pools["mnist"]))
+        out["reload"] = _reload_mnist(port, check, mnist, pools["mnist"])
+        out["endpoints"] = _endpoints(port)
+    finally:
+        server.stop()
+    out["engines"] = check.held("serve_http")["engines"]
+    out["launches"] = check.counts
+    for kernel in SERVE_KERNELS[:5]:
+        if not check.counts[kernel]:
+            raise AssertionError(f"serve_http never launched {kernel}")
+    out["cli"] = _serve_cli(exports["mnist"], pools["mnist"])
+    zoo.close()
+    emit({"phase": "serve_http", **out})
     return out
 
 
@@ -3935,7 +4400,7 @@ def main() -> int:
 
 
 def run_phases(torch, info: dict, exports: dict, serve_dir: str) -> int:
-    """Phases 3-20 (``main`` ran the device and build phases); the slices
+    """Phases 3-21 (``main`` ran the device and build phases); the slices
     export their trained models into ``serve_dir`` (``exports``: name →
     path) for the serve phase."""
     kern = {"softmax_ce": phase_kernel_softmax(torch),
@@ -4033,6 +4498,7 @@ def run_phases(torch, info: dict, exports: dict, serve_dir: str) -> int:
     gemm = phase_gemm_tier(torch, cudnn, alexnet, shrunk)
     resume = phase_resume(torch)
     serve = phase_serve(torch, exports, serve_dir)
+    serve_http = phase_serve_http(torch, exports, info)
     emit(kernels_line(kern, {"mnist": mnist["launches"],
                              "cifar": cifar["launches"],
                              "alexnet": alexnet["launches"],
@@ -4050,7 +4516,8 @@ def run_phases(torch, info: dict, exports: dict, serve_dir: str) -> int:
                              **{f"resume_{case}": resume[case]["launches"]
                                 for case in RESUME_CASES},
                              "resume_alexnet": resume["alexnet"]["launches"],
-                             "serve": serve["launches"]}))
+                             "serve": serve["launches"],
+                             "serve_http": serve_http["launches"]}))
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],
                                  "count": torch.cuda.device_count()}})
     return 0

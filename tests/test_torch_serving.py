@@ -17,15 +17,22 @@
   error the forward raises of its own (a ``BuildError``, a
   ``LaunchError``, a CUDA or device error, an ``OSError`` from loading a
   kernel library) reaches the caller unretried, with no fallback call;
-- the default backend raises without a card; ``tp=2``, ``"auto"`` and
-  census warmup raise;
+- the default backend raises without a card; ``tp=2`` and ``"auto"``
+  raise; census warmup with no census warms nothing, and a wrong
+  fallback shape raises;
 - ``MicroBatcher``: N concurrent requests take at most ⌈N/max_batch⌉
   engine forwards; a full queue raises ``QueueFull``; a request whose
   deadline passes in the queue fails with ``DeadlineExceeded``;
 - the breaker's states, the retry schedule (seeded jitter) and the
   registry's Prometheus text, driven the same way in both packages,
-  are equal."""
+  are equal;
+- ``parallel.capture.capture`` (every CUDA graph of the engine) records
+  with the garbage collector off — a collection would destroy an
+  unreachable graph on the capturing thread and invalidate the capture
+  — and turns it on again after (``torch.cuda``'s graph calls faked)."""
 
+import contextlib
+import gc
 import math
 import threading
 import time
@@ -48,7 +55,7 @@ from znicz_tpu_torch.resilience import breaker, faults, retry
 from znicz_tpu_torch.serving import (DeadlineExceeded, EngineUnavailable,
                                      MicroBatcher, QueueFull, ServingEngine)
 from znicz_tpu_torch.serving import engine
-from znicz_tpu_torch.telemetry import registry
+from znicz_tpu_torch.telemetry import flightrecorder, registry
 from test_torch_serving_card import CHAINS, write_chain
 
 RTOL, ATOL = 1e-5, 1e-6
@@ -383,8 +390,10 @@ def test_refusals(tmp_path, monkeypatch):
     with pytest.raises(ValueError):
         ServingEngine(path, backend="cpu", buckets=(8, 1))
     eng = ServingEngine(path, backend="cpu")
-    with pytest.raises(NotImplementedError, match="flightrecorder"):
-        eng.warmup_from_census()
+    empty = flightrecorder.FlightRecorder()
+    assert eng.warmup_from_census(recorder=empty) == 0
+    with pytest.raises(ValueError, match="fc expects"):
+        eng.warmup_from_census(recorder=empty, fallback_shape=(783,))
     with pytest.raises(ValueError):
         eng.predict(np.zeros((0, 784), np.float32))
     with pytest.raises(ValueError):
@@ -602,3 +611,86 @@ def test_jnp_and_torch_take_the_same_zero_row_scale():
     t = torch.from_numpy(amax)
     got = torch.where(t > 0, t / 127.0, torch.ones_like(t)).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+def test_the_collector_is_off_while_a_graph_records(monkeypatch):
+    from znicz_tpu_torch.parallel import capture
+
+    class Stream:
+        device = torch.device("cpu")
+
+        def wait_stream(self, other):
+            pass
+
+    recording = []
+
+    @contextlib.contextmanager
+    def graph(g, pool=None, stream=None, capture_error_mode=None):
+        assert capture_error_mode == "thread_local"
+        recording.append(gc.isenabled())
+        yield
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", lambda: object())
+    monkeypatch.setattr(torch.cuda, "graph", graph)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: Stream())
+    monkeypatch.setattr(torch.cuda, "stream",
+                        lambda s: contextlib.nullcontext())
+    runs = []
+    assert gc.isenabled()
+    capture.capture(lambda: runs.append(gc.isenabled()), Stream(), None)
+    # the eager run collects as usual; the recorded run does not
+    assert runs == [True, False] and recording == [False]
+    assert gc.isenabled()
+    # a capture that raises turns the collector on again too
+    with pytest.raises(RuntimeError):
+        capture.capture(lambda: (_ for _ in ()).throw(RuntimeError("x"))
+                        if not gc.isenabled() else None, Stream(), None)
+    assert gc.isenabled()
+
+
+def test_one_capture_at_a_time(monkeypatch):
+    """A second thread's capture waits until the first one has recorded,
+    so neither turns the collector back on under the other."""
+    import threading
+
+    from znicz_tpu_torch.parallel import capture
+
+    class Stream:
+        device = torch.device("cpu")
+
+        def wait_stream(self, other):
+            pass
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", lambda: object())
+    monkeypatch.setattr(torch.cuda, "graph",
+                        lambda *a, **k: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: Stream())
+    monkeypatch.setattr(torch.cuda, "stream",
+                        lambda s: contextlib.nullcontext())
+    recording, release = threading.Event(), threading.Event()
+    order = []
+
+    def first():
+        order.append("first")
+        if len(order) == 2:             # the recorded run: hold it open
+            recording.set()
+            release.wait(10.0)
+
+    def second():
+        order.append("second")
+    a = threading.Thread(target=capture.capture, args=(first, Stream(), None))
+    a.start()
+    assert recording.wait(10.0)
+    b = threading.Thread(target=capture.capture,
+                         args=(second, Stream(), None))
+    b.start()
+    b.join(0.3)
+    assert b.is_alive() and order == ["first", "first"]
+    assert not gc.isenabled()
+    release.set()
+    a.join(10.0)
+    b.join(10.0)
+    assert order == ["first", "first", "second", "second"]
+    assert gc.isenabled()

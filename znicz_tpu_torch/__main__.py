@@ -1,6 +1,8 @@
 """CLI: ``python -m znicz_tpu_torch <workflow> [<config.py>] [options]``
-(port of the training form of ``znicz_tpu/__main__.py``, driving
-:class:`~znicz_tpu_torch.launcher.Launcher`).
+(port of ``znicz_tpu/__main__.py``, driving
+:class:`~znicz_tpu_torch.launcher.Launcher`), and ``python -m
+znicz_tpu_torch serve --model model.znn --port 8100`` (the HTTP serving
+tier, :func:`znicz_tpu_torch.serving.server.main`).
 
 Examples::
 
@@ -21,7 +23,12 @@ trains on the unit graph (the reference's default).  Each finished
 epoch's metrics print on one line.  ``--coordinator``,
 ``--num-processes``, ``--process-id``, ``--mesh`` and
 ``--compile-cache-dir`` parse as the reference's do; any value but the
-single-process default raises (ROADMAP.md queue 1 items 9 and 10)."""
+single-process default raises (ROADMAP.md queue 1 items 9 and 10).
+
+The reference's other sub-commands (``route``, ``autoscale``, ``chaos``,
+``promote``, ``online-train``, ``lint``) are not ported yet: each raises
+and names the ROADMAP.md queue 1 item that brings it, instead of being
+read as a workflow module."""
 
 from __future__ import annotations
 
@@ -74,8 +81,30 @@ def make_parser() -> argparse.ArgumentParser:
     return p
 
 
+#: the reference's sub-commands the port does not have yet -> the
+#: ROADMAP.md queue 1 item that brings each
+UNPORTED_COMMANDS = {
+    "route": "item 11 (the fleet router)",
+    "autoscale": "item 11 (the fleet autoscaler)",
+    "chaos": "item 10 (resilience/chaos.py)",
+    "promote": "item 10 (the promotion controller)",
+    "online-train": "item 10 (the online loop)",
+    "lint": "item 12 (analysis)",
+}
+
+
 def main(argv=None) -> int:
-    args = make_parser().parse_args(sys.argv[1:] if argv is None else argv)
+    argv = sys.argv[1:] if argv is None else argv
+    if argv and argv[0] == "serve":
+        # inference serving is its own sub-CLI (a .znn path, not a
+        # workflow module)
+        from .serving.server import main as serve_main
+        return serve_main(argv[1:])
+    if argv and argv[0] in UNPORTED_COMMANDS:
+        raise NotImplementedError(
+            f"`{argv[0]}` is not ported yet: it comes with ROADMAP.md "
+            f"queue 1 {UNPORTED_COMMANDS[argv[0]]}")
+    args = make_parser().parse_args(argv)
     if args.mesh and not args.fused:
         # as the reference's: --mesh means the fused path
         print("--mesh implies --fused: taking the fused train path",

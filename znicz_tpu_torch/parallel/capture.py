@@ -25,10 +25,17 @@ too."""
 
 from __future__ import annotations
 
+import gc
+import threading
+
 import numpy as np
 import torch
 
 from .. import ops
+
+#: one capture at a time in the process: the serving batchers, their
+#: callers and a trainer may capture from several threads
+_LOCK = threading.Lock()
 
 
 class StepGraph:
@@ -50,19 +57,30 @@ def capture(fn, stream, pool) -> StepGraph:
     graph of memory ``pool`` (None: a pool of its own); the caller's
     stream waits for both.  The capture's error mode is
     ``"thread_local"``: other threads (the serving batcher's, its
-    callers') keep using the card while this one captures."""
-    current = torch.cuda.current_stream(stream.device)
-    stream.wait_stream(current)
-    try:
-        with torch.cuda.stream(stream):
-            fn()
-            graph = torch.cuda.CUDAGraph()
-            with ops.recording() as counted:    # the capture runs nothing
-                with torch.cuda.graph(graph, pool=pool, stream=stream,
-                                      capture_error_mode="thread_local"):
-                    fn()
-    finally:
-        current.wait_stream(stream)
+    callers') keep using the card while this one captures.  Captures
+    take the process-wide lock, so one runs at a time.
+
+    The garbage collector is off while the graph records: a collection
+    would run the destructors of unreachable graphs on this thread, and
+    destroying a graph while this thread captures invalidates the
+    capture.  Under the lock no other capture turns it back on early."""
+    with _LOCK:
+        current = torch.cuda.current_stream(stream.device)
+        stream.wait_stream(current)
+        collecting = gc.isenabled()
+        try:
+            with torch.cuda.stream(stream):
+                fn()
+                graph = torch.cuda.CUDAGraph()
+                with ops.recording() as counted:  # the capture runs nothing
+                    gc.disable()
+                    with torch.cuda.graph(graph, pool=pool, stream=stream,
+                                          capture_error_mode="thread_local"):
+                        fn()
+        finally:
+            if collecting:
+                gc.enable()
+            current.wait_stream(stream)
     return StepGraph(graph, [(ops._module(m), a, n)
                              for (m, a), n in counted.items() if n])
 

@@ -56,10 +56,13 @@ page-in captures them again (compile cause ``fallback``).
 from __future__ import annotations
 
 import collections
+import functools
+import logging
 import os
 import tempfile
 import threading
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -105,11 +108,6 @@ _quant_fallbacks = REGISTRY.counter(
     "(unsupported = no quantizable fc chain or the native backend | "
     "tolerance = verification batch breached the parity tolerances | "
     "error = the quantized build/verify raised)")
-
-#: one capture at a time in the process: the batcher and the callers
-#: predict from other threads
-_CAPTURE_LOCK = threading.Lock()
-
 
 class ReloadInProgress(RuntimeError):
     """A hot reload is already running — reloads are single-flight."""
@@ -351,6 +349,41 @@ def output_features(layers: list[ZnnLayer], sample_shape) -> int:
     return int(np.prod(shape))
 
 
+def accepts_shape(layers: list[ZnnLayer], sample_shape) -> bool:
+    """Whether the chain takes one sample of ``sample_shape``: the first
+    layer's input (an fc's or a kohonen head's width, a conv's rank and
+    channels) and the chain's arithmetic (:func:`output_features`).  The
+    census warm-up drops the shapes it refuses: in a zoo the census holds
+    every model's shapes, and clients send junk."""
+    shape = tuple(int(d) for d in sample_shape)
+    first = layers[0]
+    if first.kind == "kohonen" and int(np.prod(shape)) != first.p[1]:
+        return False
+    if first.kind == "conv" and (len(shape) != 3
+                                 or shape[2] != first.p[2]):
+        return False
+    try:
+        output_features(layers, shape)
+    except ValueError:
+        return False
+    return True
+
+
+def _weak(method):
+    """``method`` called through a weak reference to its object.  The
+    engine hands its hooks to what it owns (its generations, its cache's
+    first-call wrappers); a bound method there would close a cycle that
+    keeps a dropped engine, and its CUDA graphs, alive until a
+    collection."""
+    ref = weakref.WeakMethod(method)
+
+    def call(*args):
+        fn = ref()
+        if fn is not None:
+            fn(*args)
+    return call
+
+
 def _int8_product(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     """int32 product of int8 ``xq`` (M, K) and ``wq`` (K, N).  On the card
     ``torch._int_mm``, with the rows padded with zeros to at least
@@ -529,7 +562,7 @@ class _GraphForward:
 
     Its first call copies the batch in, runs the forward once eagerly on
     a side stream and captures it there (``parallel.capture.capture``,
-    under the process-wide capture lock, ``thread_local`` error mode);
+    one capture at a time in the process, ``thread_local`` error mode);
     every call then replays the graph under the entry's lock and copies
     the output out before the lock drops (the next replay overwrites
     it).  The graph keeps the weights it was captured with alive, so an
@@ -551,9 +584,8 @@ class _GraphForward:
         def forward():
             self.static_y = torch_forward(self.layers, self.static_x,
                                           params)
-        with _CAPTURE_LOCK:
-            self.graph = capture.capture(
-                forward, torch.cuda.Stream(self.device), None)
+        self.graph = capture.capture(forward, torch.cuda.Stream(self.device),
+                                     None)
         self.params = params
 
     def __call__(self, params, x: np.ndarray) -> np.ndarray:
@@ -635,7 +667,7 @@ class ServingEngine:
         #: forward with its measured wall time
         self.on_device_time = None
         self._gen = _Generation(1, path, layers, self.device)
-        self._gen.on_pagein = self._note_pagein
+        self._gen.on_pagein = _weak(self._note_pagein)
         if backend == "native":
             from ..export import NativeEngine
             self._gen.adopt_native(NativeEngine().load(path))
@@ -872,7 +904,8 @@ class ServingEngine:
                          else "new_bucket")
             fn = compilestats.first_call_timed(
                 self._new_executable(gen), site="serving.engine",
-                cause=cause, on_first=lambda: self._mark_compiled(shape_key))
+                cause=cause, on_first=functools.partial(
+                    _weak(self._mark_compiled), shape_key))
             if gen is self._gen:
                 # only the CURRENT generation may occupy cache slots: an
                 # in-flight request pinned to a just-retired generation
@@ -932,12 +965,56 @@ class ServingEngine:
 
     def warmup_from_census(self, recorder=None, top: int = 4,
                            fallback_shape=None) -> int:
-        """Census-driven warmup needs the flight recorder
-        (``telemetry.flightrecorder``), which is not ported yet."""
-        raise NotImplementedError(
-            "warmup_from_census needs telemetry.flightrecorder, which "
-            "comes with the next serving slice (ROADMAP.md queue 1 item "
-            "7); use warmup(sample_shape)")
+        """Census-driven warmup: build the bucket ladder for the sample
+        shapes live traffic ACTUALLY sent — the flight recorder's
+        request records carry each request's shape, so a reload can
+        build what the operator could only guess at with
+        ``--warmup-shape``.  The ``top`` most frequent shapes warm
+        (shape cardinality is client-controlled; warming every shape
+        ever probed would build without bound); with no census yet
+        (fresh process, no traffic) ``fallback_shape`` warms instead —
+        the operator guess remains the bootstrap.  Shapes the model
+        refuses (:func:`accepts_shape`) are dropped first; whatever else
+        a build raises reaches the caller.  Returns executables built (0
+        on the native backend, which has nothing to build)."""
+        if self.backend == "native":
+            return 0
+        from ..telemetry import flightrecorder
+        rec = recorder if recorder is not None else flightrecorder.RECORDER
+        # the warm set must FIT the LRU: warming top*len(buckets)
+        # executables into a smaller cache would evict its own entries
+        # — and the reload-seeded canary executable, whose slot stays
+        # reserved here — re-exposing the very request-path builds
+        # this exists to prevent.  With cache_size <= len(buckets)
+        # even ONE shape overflows, so census warming skips entirely
+        # (the warning below names the knob)
+        fit = (self.cache_size - 1) // len(self.buckets)
+        top = min(max(0, int(top)), max(0, fit))
+        # the census holds every shape clients sent to the process: in a
+        # zoo the other models' shapes, and junk the model refuses with a
+        # 400 — neither may take a build attempt or a slot of the cap
+        layers = self._current().layers
+        census = [(s, n) for s, n in rec.shape_census()
+                  if accepts_shape(layers, s)]
+        shapes = [s for s, _ in census[:top]]
+        if len(census) > top:
+            # never a silent cap: a dropped shape's traffic will pay
+            # request-path builds after the next swap — tell the
+            # operator which, and what knob fixes it
+            logging.getLogger("ServingEngine").warning(
+                "census warmup: %d observed shape(s) beyond the "
+                "cache-fit cap of %d not warmed (%s...); raise "
+                "--cache-size to cover them",
+                len(census) - top, top,
+                [list(s) for s, _ in census[top:top + 3]])
+        if not shapes and fallback_shape is not None:
+            # the OPERATOR's shape fails loud: a --warmup-shape typo
+            # must error at startup, not silently warm nothing and
+            # hand every first request a build spike
+            return self.warmup(tuple(int(d) for d in fallback_shape))
+        # a shape the model accepts builds or raises: a kernel's build or
+        # launch error, or the card's, reaches the caller
+        return sum(self.warmup(s) for s in shapes)
 
     # -- degraded path ----------------------------------------------------
     def _fallback_predict(self, x: np.ndarray, gen: _Generation,
@@ -1134,10 +1211,12 @@ class ServingEngine:
         swapped, the previous generation keeps serving, and the outcome
         lands in :attr:`last_reload` / ``model_reloads_total{outcome}``.
         Single-flight; a concurrent attempt raises
-        :class:`ReloadInProgress`.  The reference then warms the
-        shapes its flight recorder saw; that waits for the recorder
-        (:meth:`warmup_from_census`), so here only the canary's
-        executable is seeded."""
+        :class:`ReloadInProgress`.  After a successful swap the canary's
+        executable is seeded and :meth:`warmup_from_census` builds the
+        bucket ladder of every shape the flight recorder saw served, so
+        the requests after the swap capture no graph on their path; a
+        warm-up that raises is logged and counted in
+        ``warmup_failures``."""
         if not self._reload_lock.acquire(blocking=False):
             raise ReloadInProgress("a hot reload is already running")
         try:
@@ -1153,7 +1232,7 @@ class ServingEngine:
                                         self.device)
                 # the candidate's first materialization (the canary)
                 # must count like any other page-in
-                candidate.on_pagein = self._note_pagein
+                candidate.on_pagein = _weak(self._note_pagein)
                 # re-quantize PER GENERATION, verified against the
                 # candidate's own fp32 forward
                 self._try_quantize(candidate)
@@ -1189,6 +1268,21 @@ class ServingEngine:
                     self._mark_compiled_locked(key[1:])
             if outcome == "ok":
                 _generation.set(candidate.number)
+                # census-driven warmup belongs to the reload itself, not
+                # to any one caller: POST /admin/reload, SIGHUP and a
+                # direct engine.reload must all leave the new generation
+                # warm for the shapes live traffic has been sending —
+                # the canary seeded only ONE (shape, bucket) executable.
+                # The swap stands if it fails (warm-up is an optimisation),
+                # but the failure is logged and counted, never dropped
+                try:
+                    self.warmup_from_census()
+                except Exception:
+                    with self._lock:
+                        self._stats["warmup_failures"] += 1
+                    logging.getLogger("ServingEngine").exception(
+                        "census warm-up after the reload to generation "
+                        "%d failed", candidate.number)
             record = {"outcome": outcome, "error": error,
                       "path": target, "canary": canary_result,
                       "generation": (candidate.number
@@ -1229,7 +1323,8 @@ class ServingEngine:
         for k in ("reloads", "cache_hits", "cache_misses",
                   "cache_evictions", "forward_calls", "forward_failures",
                   "fallback_calls", "retries", "weight_pageins",
-                  "weight_releases", "quantize_fallbacks", "builds"):
+                  "weight_releases", "quantize_fallbacks", "builds",
+                  "warmup_failures"):
             m.setdefault(k, 0)
         m.setdefault("device_ms_total", 0.0)
         m["quantize_mode"] = self.quantize
@@ -1247,6 +1342,10 @@ class ServingEngine:
         return len(self.layers)
 
     def close(self) -> None:
+        """Free the executables (on the card their graphs) and the
+        temporary artifact of a live workflow."""
+        with self._lock:
+            self._cache.clear()
         if self._tmpdir is not None:
             self._tmpdir.cleanup()
             self._tmpdir = None

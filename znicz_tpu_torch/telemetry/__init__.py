@@ -11,18 +11,24 @@ JAX package's ``telemetry``; stdlib only but the profiler):
 * :mod:`flightrecorder` — bounded rings of recent records (the fused
   loop's ``train_step`` rows) and the per-epoch ``TimelineWriter``.
 * :mod:`profiler` — ``torch.profiler`` Chrome traces, whole-run or a
-  window every N epochs.
-
-The trace store, status pages and build info of the JAX package come
-with the next serving slice.
+  window every N epochs (``serve --profile-dir``, the launcher's
+  ``--profile``).
+* :mod:`tracestore` — the tail-sampled trace store behind ``/tracez``
+  and cross-hop trace assembly.
+* :mod:`buildinfo` — the git-rev stamp of scraped metrics.
+* :mod:`debugz` — ``GET /statusz``, thread/stack introspection
+  (``/debug/threadz``, SIGUSR1 dump), process uptime.
+* :mod:`sloengine` — per-model SLOs as multi-window burn rates
+  (``serve --slo``, ``GET /alertz``).
 """
 
+from .flightrecorder import RECORDER, FlightRecorder
 from .registry import (REGISTRY, Counter, Gauge, Histogram,
                        MetricsRegistry, PROMETHEUS_CONTENT_TYPE)
 from .tracing import (Span, accept_request_id, current_request_id,
                       new_request_id, recent_spans, span)
 
-__all__ = ["REGISTRY", "Counter", "Gauge", "Histogram",
-           "MetricsRegistry", "PROMETHEUS_CONTENT_TYPE", "Span",
+__all__ = ["RECORDER", "FlightRecorder", "REGISTRY", "Counter",
+           "Gauge", "Histogram", "MetricsRegistry", "PROMETHEUS_CONTENT_TYPE", "Span",
            "accept_request_id", "current_request_id", "new_request_id",
            "recent_spans", "span"]

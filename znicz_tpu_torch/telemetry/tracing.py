@@ -32,8 +32,8 @@ router into the ``X-Znicz-Trace`` request header and installed here via
 same ``contextvars`` plumbing as the request ids (including the
 batcher's thread hop via :func:`set_request_ids`), so every span a
 request touches tags itself with the trace id and the router can join
-its half of the request with the backend's (the reference's
-``telemetry.tracestore``, not ported yet).  Still deliberately small:
+its half of the request with the backend's
+(:mod:`znicz_tpu_torch.telemetry.tracestore`).  Still deliberately small:
 no clock-skew correction (hop timings are computed from span GAPS on
 one process's monotonic clock, never by subtracting stamps across
 machines), and the wire format is two headers, not a collector
