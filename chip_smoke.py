@@ -99,6 +99,34 @@ exits nonzero without the final ``ok`` line:
    epoch and the fused path's host syncs per epoch; then the fused path
    against the loop after 4 epochs and the card against the CPU after 3,
    weights within rtol 5e-4 / atol 1e-5;
+14a. cifar_stochastic — the CIFAR-10 net of phase 6 at full width with
+   its max pool a stochastic pool and its average pool a stochastic-abs
+   pool, one epoch fused and one on the unit graph at 45k/5k/10k, launch
+   counts held as in 4 and 10 (``pool_scatter`` once a pool a train step
+   or GD tick, ``pool_select`` never); its captured steps against its
+   uncaptured ones from the same start, bit for bit; the picks that
+   differ between the card and the CPU over the parity split's train
+   minibatches (printed before the gates); epoch 0 of both paths on the
+   parity split against the CPU as in 7; the counter RNG's device ms at
+   each pool's shape;
+14b. mnist_rbm — the RBM sample at its own widths (784→256→64→10, batch
+   100) on the MNIST split: 3 CD-1 pretraining epochs a level, each step
+   a CUDA-graph replay, each epoch's examples/s; 2 fine-tune epochs on
+   the unit graph and 2 on the fused path, launch counts held as in 10
+   and 4; level 0 on the parity split (2000/400/400) against the CPU over
+   one epoch — the flipped hidden draws counted and printed first, the
+   captured epoch bit for bit an uncaptured one, the weights within rtol
+   1e-4 / atol 1e-6, the reconstruction mse within RBM_RECON_RTOL; the
+   unit graph's ``RBMTrainer`` against ``FusedRBMTrainer`` as
+   tests/test_rbm.py:132; the sample's epoch 0 of both paths on the
+   parity split against the CPU as in 5; the fused model exported for the
+   serve phase;
+14c. units_options — the MNIST unit graph of phase 10 for one epoch with
+   ``accumulate_gradient`` on its first layer, and again with
+   ``apply_gradient`` False, each held as in 10 and 11; ``run_fused``
+   refuses both;
+14d. flops — ``ops.flops.model_flops`` of every fused spec the script
+   runs, at full width;
 15. mnist_act_units slice — the MNIST MLP of phase 10 with its tanh as a
    standalone ``activation_tanh`` layer, on the unit graph for 2 epochs
    (the activation kernels once a tick forward and once a GD tick
@@ -179,8 +207,8 @@ exits nonzero without the final ``ok`` line:
    eager forward bit for bit and against the CPU (rtol 1e-4 / atol
    1e-6), each bucket's capture ms, wall and device ms and images/s,
    graph and eager, and the resident weight bytes; CIFAR, the
-   autoencoder (also on the implicit-GEMM tier) and the SOM against the
-   CPU; a capture that fails raises to the caller (its exception type on
+   autoencoder (also on the implicit-GEMM tier), the SOM and the RBM
+   sample's sigmoid MLP against the CPU; a capture that fails raises to the caller (its exception type on
    this torch printed), with no retry and no fallback.  cuDNN is held to
    its deterministic algorithms for the phase.  Every engine keeps
    ``fallback_calls`` 0 and its breaker closed, and the serve path's
@@ -478,6 +506,33 @@ UNIT_PATHS["cifar_units_gemm"] = {**UNIT_PATHS["cifar_units"],
                                   "conv_fwd": (2, 0, 0),
                                   "conv_dgrad": (0, 0, 1),
                                   "conv_wgrad": (0, 0, 2)}
+#: the CIFAR net with its max pool a stochastic pool and its average pool
+#: a stochastic-abs pool: the draws and picks are plain torch, each
+#: pool's backward the scatter kernel (twice a train step or GD tick),
+#: and no pool_select
+PATHS["cifar_stochastic"] = {"softmax_ce": (1, 1), "pool_scatter": (2, 0),
+                             "lrn_y": (1, 1), "gd_lrn_x": (1, 0),
+                             "sgd_update": (1, 0), "act_fwd": (3, 3),
+                             "act_bwd": (3, 0)}
+UNIT_PATHS["cifar_stochastic_units"] = {
+    "lrn": (1, 0, 0), "matmul": (2, 0, 4), "softmax": (1, 0, 0),
+    "pool_scatter": (0, 0, 2), "gd_lrn": (0, 0, 1), "sgd_update": (0, 0, 4),
+    "act_fwd": (3, 0, 0), "act_bwd": (0, 0, 3)}
+#: the RBM sample's fine-tune, 784→256 sigmoid→64 sigmoid→10 softmax (its
+#: CD-1 pretraining is plain torch and launches none): two sigmoid fc a
+#: step; on the unit graph three products a tick forward and five a GD
+#: tick (two each for the upper layers, the first's weight gradient)
+PATHS["mnist_rbm"] = {"softmax_ce": (1, 1), "sgd_update": (1, 0),
+                      "act_fwd": (2, 2), "act_bwd": (2, 0)}
+UNIT_PATHS["mnist_rbm_units"] = {"matmul": (3, 0, 5), "softmax": (1, 0, 0),
+                                 "sgd_update": (0, 0, 3),
+                                 "act_fwd": (2, 0, 0), "act_bwd": (0, 0, 2)}
+#: the MNIST unit graph with its first layer's GD options: accumulating
+#: adds the sums in plain torch and still updates every GD tick; without
+#: apply_gradient that layer never updates
+UNIT_PATHS["mnist_units_accumulate"] = UNIT_PATHS["mnist_units"]
+UNIT_PATHS["mnist_units_no_apply"] = {**UNIT_PATHS["mnist_units"],
+                                      "sgd_update": (0, 0, 1)}
 #: the kernel each ``.znn`` layer kind launches in one serving forward on
 #: the card (a non-linear fc, conv, deconv or activation layer adds
 #: act_fwd); the implicit-GEMM conv tier swaps in its own for the convs
@@ -861,6 +916,8 @@ POOL_CASES = [
     ("alexnet_serve_pool2", (128, 27, 27, 256), 3, 2, 0, False, "normal"),
     ("alexnet_serve_pool1_b1", (1, 55, 55, 96), 3, 2, 0, False, "normal"),
     ("autoencoder_step", (100, 28, 28, 16), 2, 2, 0, False, "normal"),
+    # the stochastic CIFAR net's second pool (its first is cifar_step's)
+    ("cifar_stochastic_pool2", (100, 16, 16, 32), 2, 2, 0, False, "normal"),
 ]
 #: the cases timed against the library's pooling
 POOL_LIBRARY_CASES = ("cifar_step", "alexnet_pool5", "autoencoder_step")
@@ -1265,8 +1322,10 @@ def split_sweep(torch, launch, depth: int, counts, iters: int) -> dict:
 
 #: case, A shape, B shape, A passed as a transposed view, B likewise: the
 #: five products of the MNIST unit graph first (fwd1 is the main path's
-#: first), a ragged case, AlexNet fc6's forward x·W, weight gradient
-#: xᵀ·err_y (A M-major) and input error err_y·Wᵀ (B K-major)
+#: first), a ragged case, the eight of the mnist_rbm unit graph
+#: (784→256→64→10: three forward, three weight gradients, two input
+#: errors), AlexNet fc6's forward x·W, weight gradient xᵀ·err_y (A
+#: M-major) and input error err_y·Wᵀ (B K-major)
 MATMUL_CASES = [
     ("fwd1", (100, 784), (784, 100), False, False),
     ("fwd2", (100, 100), (100, 10), False, False),
@@ -1274,6 +1333,14 @@ MATMUL_CASES = [
     ("gdsoftmax_err_in", (100, 10), (10, 100), False, True),
     ("gdtanh_gw", (784, 100), (100, 100), True, False),
     ("ragged", (37, 129), (129, 3), False, False),
+    ("rbm_fwd1", (100, 784), (784, 256), False, False),
+    ("rbm_fwd2", (100, 256), (256, 64), False, False),
+    ("rbm_fwd3", (100, 64), (64, 10), False, False),
+    ("rbm_gdsoftmax_gw", (64, 100), (100, 10), True, False),
+    ("rbm_gdsoftmax_err_in", (100, 10), (10, 64), False, True),
+    ("rbm_gd2_gw", (256, 100), (100, 64), True, False),
+    ("rbm_gd2_err_in", (100, 64), (64, 256), False, True),
+    ("rbm_gd1_gw", (784, 100), (100, 256), True, False),
     ("alexnet_fc6", (128, 9216), (9216, 4096), False, False),
     ("alexnet_fc6_gw", (9216, 128), (128, 4096), True, False),
     ("alexnet_fc6_err_in", (128, 4096), (4096, 9216), False, True),
@@ -1342,7 +1409,7 @@ def sgd_update_bound_ms(numel: int):
 
 
 #: case, shape, hypers (lr, weights_decay, l1_vs_l2, momentum): one tensor
-#: with the unit graph's constants
+#: with the unit graph's constants (MNIST's, then mnist_rbm's)
 UPDATE_CASES = [
     ("mnist_w1", (784, 100), (0.03, 0.0, 0.0, 0.9)),
     ("mnist_b1", (100,), (0.03, 0.0, 0.0, 0.9)),
@@ -1350,7 +1417,12 @@ UPDATE_CASES = [
     ("mnist_b2", (10,), (0.03, 0.0, 0.0, 0.9)),
     ("decay_half_l1", (784, 100), (0.01, 5e-4, 0.5, 0.9)),
     ("alexnet_fc6", (9216, 4096), (0.01, 5e-4, 0.0, 0.9)),
-]
+] + [(f"rbm_{k}", shape, (0.5, 0.0, 0.0, 0.9)) for k, shape in (
+    ("w1", (784, 256)), ("b1", (256,)), ("w2", (256, 64)), ("b2", (64,)),
+    ("w3", (64, 10)), ("b3", (10,)))]
+#: the fused mnist_rbm step's table (reverse layer order, one launch)
+RBM_UPDATE_TABLE = [(s, (0.5, 0.0, 0.0, 0.9)) for s in (
+    (64, 10), (10,), (256, 64), (64,), (784, 256), (256,))]
 #: the autoencoder's tied pair as two calls of (shape, hypers) entries,
 #: with the fused step's constants: the tied deconv's update of the
 #: encoder conv's W, then the conv's own W (``"tie"``: the first call's
@@ -1396,7 +1468,8 @@ def phase_kernel_update(torch) -> list:
     once per operation, no fused multiply-add); a quarter of w is zero so
     sign(0) = 0 is exercised.  One tensor a call with the unit graph's
     constants (``UPDATE_CASES``); whole tables with the fused step's:
-    MNIST's four tensors and AlexNet's 16 in one launch each, the
+    MNIST's four tensors, mnist_rbm's six and AlexNet's 16 in one launch
+    each, the
     autoencoder's tied pair as two launches; one unaligned entry; MNIST's
     table scaled and in place (``_update_scaled_row``).  No
     single PyTorch call computes it."""
@@ -1405,6 +1478,7 @@ def phase_kernel_update(torch) -> list:
     gen = torch.Generator().manual_seed(SEED + 6)
     rows = []
     tables = {"mnist_table": [CASES["mnist_table"]],
+              "mnist_rbm_table": [RBM_UPDATE_TABLE],
               "alexnet_table": [CASES["alexnet_table"]],
               "autoencoder_tied_pair": AE_TIED_PAIR}
 
@@ -1535,14 +1609,15 @@ def _card_workflow(model: str, split: dict, config: dict | None = None):
     from znicz_tpu_torch import prng
     from znicz_tpu_torch.config import root
     from znicz_tpu_torch.profile_fused import MODELS
-    module = importlib.import_module(f"znicz_tpu_torch.models.{model}")
-    tree = getattr(root, TREES.get(model, model))
+    spec = MODELS[model]
+    module = importlib.import_module(f"znicz_tpu_torch.models.{spec.module}")
+    tree = getattr(root, spec.tree)
     tree.synthetic.update(split)
     saved = {k: tree.get(k) for k in config or {}}
     tree.update(config or {})
     prng.seed_all(SEED)
     try:
-        wf = getattr(module, MODELS[model][0])()
+        wf = getattr(module, spec.workflow)()
         wf.initialize(device="cuda")
     finally:
         tree.update(saved)
@@ -1898,7 +1973,8 @@ ACT_ULPS = 2
 #: path's (100, 100) first (tanh is its layer), every name there; the
 #: fused and unit paths' shapes (AlexNet's strict ReLU after its five
 #: convs and fc6/fc7, CIFAR's tanh after its two convs and fc64); two
-#: more at AlexNet's conv1 output; the scalar form (an odd element count,
+#: more at AlexNet's conv1 output; mnist_rbm's sigmoid after its two
+#: hidden layers; the scalar form (an odd element count,
 #: inputs one float past 16-byte alignment); sincos with an even last
 #: axis (parity from the flat index) and with odd ones (FastDiv, in the
 #: vector and the scalar form)
@@ -1912,6 +1988,7 @@ ACT_CASES = ([("tanh", (100, 100), 0)]
              + [("tanh", s, 0) for s in ((100, 32, 32, 32), (100, 16, 16, 32),
                                          (100, 64))]
              + [(n, (128, 55, 55, 96), 0) for n in ("tanh", "sigmoid")]
+             + [("sigmoid", s, 0) for s in ((100, 256), (100, 64))]
              + [("tanh", (99, 101), 0), ("strict_relu", (100, 32, 32, 32), 1),
                 ("tanh", (100, 32, 32, 32), 1)]
              + [("sincos", (100, 64), 0), ("sincos", (4, 13, 37), 0),
@@ -2786,17 +2863,20 @@ def _timed(torch, fn) -> tuple:
     return out, wall, {k: after[k] - before[k] for k in after}
 
 
-def _captured_path(torch, path: str) -> dict:
+def _captured_path(torch, path: str, config: dict | None = None) -> dict:
     """One path's fused steps both ways from the same start: a train and
     an eval epoch (the captured trainer captures here), then a train epoch
     at a per-step learning-rate schedule and an eval epoch, each timed,
     all of CAPTURED_STEPS steps; metrics, params and velocities must agree
-    bit for bit, and each kernel's launches in the timed epochs."""
+    bit for bit, and each kernel's launches in the timed epochs.  The
+    path is one of ``CAPTURED_PATHS`` or ``STOCHASTIC_CAPTURED``, its
+    model built with ``config`` over its tree."""
     import numpy as np
     from znicz_tpu_torch.parallel import fused
-    model, split, tier, accum = CAPTURED_PATHS[path]
+    model, split, tier, accum = {**CAPTURED_PATHS,
+                                 **STOCHASTIC_CAPTURED}[path]
     with conv_tier(tier) if tier else contextlib.nullcontext():
-        wf = _card_workflow(model, split)
+        wf = _card_workflow(model, split, config)
         ld = wf.loader
         batch = ld.max_minibatch_size
         data = ld.original_data
@@ -3389,7 +3469,8 @@ def _serve_alexnet(torch, drive: ServeDrive, path: str) -> dict:
 #: rtol, atol)
 SERVE_OTHERS = {"cifar": ((32, 32, 3), CONV_SERVE_RTOL, CONV_SERVE_ATOL),
                 "autoencoder": ((28, 28, 1), 1e-4, 1e-5),
-                "som": ((2,), 1e-5, 1e-5)}
+                "som": ((2,), 1e-5, 1e-5),
+                "mnist_rbm": ((784,), 1e-5, 1e-6)}
 
 
 def _serve_other(torch, drive: ServeDrive, name: str, path: str,
@@ -4348,6 +4429,404 @@ def phase_resume(torch) -> dict:
     return out
 
 
+#: the stochastic CIFAR net's captured path: phase 6's net on the parity
+#: split, its steps replayed against its uncaptured steps
+STOCHASTIC_CAPTURED = {"cifar_stochastic": ("cifar", CIFAR_PARITY_SPLIT,
+                                            None, 1)}
+
+
+def cifar_stochastic_config() -> dict:
+    """The CIFAR tree's ``layers`` with its max pool a stochastic pool and
+    its average pool a stochastic-abs pool."""
+    from znicz_tpu_torch.config import root
+    from znicz_tpu_torch.profile_fused import stochastic_layers
+    importlib.import_module("znicz_tpu_torch.models.cifar")
+    return {"layers": stochastic_layers(root.cifar.layers)}
+
+
+def _stochastic_flips(torch, config: dict) -> dict:
+    """The stochastic pools' picks that differ between the card and the
+    CPU: the training forward of every train minibatch of epoch 0 on the
+    parity split, from the same initial weights and at the run's counters
+    (epoch 0, the samples consumed after the step), on both devices."""
+    import numpy as np
+    from znicz_tpu_torch.parallel import fused
+    wf = _card_workflow("cifar", CIFAR_PARITY_SPLIT, config)
+    ld = wf.loader
+    batch = ld.max_minibatch_size
+    params = wf.spec_rows(wf.params)
+    cpu_params = [tuple(None if t is None else t.cpu() for t in pair)
+                  for pair in params]
+    perm = ld.train_permutation(0)
+    rows = [i for i, la in enumerate(wf.spec.layers)
+            if la.kind in fused.STOCHASTIC_KINDS]
+    flips, picks = [0] * len(rows), [0] * len(rows)
+    steps = len(perm) // batch
+    with torch.no_grad():
+        for s in range(steps):
+            idx = torch.from_numpy(perm[s * batch:(s + 1) * batch]
+                                   .astype(np.int64))
+            x = ld.original_data.index_select(0, idx.cuda())
+            caches = [fused.forward(wf.spec, p, xx, want_caches=True,
+                                    train=True, epoch=0,
+                                    ctr=(s + 1) * batch)[1]
+                      for p, xx in ((params, x), (cpu_params, x.cpu()))]
+            for j, i in enumerate(rows):
+                off_card, off_cpu = caches[0][i][1].cpu(), caches[1][i][1]
+                flips[j] += int((off_card != off_cpu).sum())
+                picks[j] += off_card.numel()
+    return {"minibatches": steps, "rows": rows, "flipped": flips,
+            "picks": picks}
+
+
+def _stochastic_rng_ms(torch) -> dict:
+    """Device ms of the counter RNG that feeds each stochastic pool of a
+    captured train step (its key folded from the plan row's epoch and
+    counter on the device, then the int64 hash of every output element),
+    and of the whole plain pool with it, at the net's two pool shapes."""
+    from znicz_tpu_torch.ops import pooling
+    dev = torch.device("cuda")
+    words = torch.tensor([3, 4200], dtype=torch.int32, device=dev)
+    gen = torch.Generator().manual_seed(SEED + 7)
+    out = {}
+    for name, shape in (("pool1", (100, 32, 32, 32)),
+                        ("pool2", (100, 16, 16, 32))):
+        oshape = pooling.pool_out_shape(shape, 2)
+        x = torch.randn(shape, generator=gen).to(dev)
+
+        def rng():
+            return pooling.stochastic_uniform(SEED, (7, words[0:1],
+                                                     words[1:2]), oshape)
+
+        def pool():
+            return pooling.stochastic_pooling(x, 2, u=rng())
+        rng_ms, rng_eager = _time_ms(torch, rng)
+        pool_ms, pool_eager = _time_ms(torch, pool)
+        out[name] = {"x": list(shape), "uniforms": list(oshape),
+                     "rng_ms": rng_ms, "rng_eager_ms": rng_eager,
+                     "pool_with_rng_ms": pool_ms,
+                     "pool_with_rng_eager_ms": pool_eager}
+    return out
+
+
+def phase_cifar_stochastic(torch) -> dict:
+    """The CIFAR-10 net at full width (phase 6's split and batch) with its
+    max pool a stochastic pool and its average pool a stochastic-abs pool,
+    one epoch on the fused path and one on the unit graph, launch counts
+    reset and read around each (``pool_scatter`` once a pool a train step
+    or GD tick); its captured steps against its uncaptured steps from the
+    same start, bit for bit (cuDNN deterministic); the picks that differ
+    between the card and the CPU over an epoch's train minibatches;
+    epoch 0 of both paths on the parity split against the CPU (losses
+    within rtol 5e-4, error counts within 1% of each class); the counter
+    RNG's device time in a step."""
+    config = cifar_stochastic_config()
+    desc = ("cifar conv5x5x32-stochasticpool2-lrn5-conv5x5x32-"
+            "stochasticabspool2-fc64-softmax10")
+    fused_line = phase_slice(torch, "cifar", CIFAR_SPLIT, desc,
+                             path="cifar_stochastic", config=config,
+                             epochs=1)
+    units_line = phase_slice(torch, "cifar", CIFAR_SPLIT,
+                             desc + " unit graph",
+                             path="cifar_stochastic_units", config=config,
+                             epochs=1)
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        captured = _captured_path(torch, "cifar_stochastic", config)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    flips = _stochastic_flips(torch, config)
+    # printed before the parity gates, which may fail on flipped picks
+    emit({"phase": "cifar_stochastic_flips", **flips})
+    for fused in (True, False):
+        card = _run("cifar", "cuda", 1, CIFAR_PARITY_SPLIT, config,
+                    fused=fused)
+        phase_parity("cifar", CIFAR_PARITY_SPLIT,
+                     card.decision.epoch_metrics[0], 5e-4, 0.01, config,
+                     fused=fused, phase="cifar_stochastic"
+                     + ("" if fused else "_units") + "_parity")
+    out = {"phase": "cifar_stochastic", "captured": captured,
+           "flipped_picks": flips, "rng": _stochastic_rng_ms(torch),
+           "launches": {"cifar_stochastic": fused_line["launches"],
+                        "cifar_stochastic_units": units_line["launches"]},
+           "epoch_timings": {"fused": fused_line["epoch_timings"],
+                             "units": units_line["epoch_timings"]}}
+    emit(out)
+    return out
+
+
+#: the RBM sample at its own widths (784→256→64→10, batch 100): its
+#: pretraining 3 CD-1 epochs a level
+RBM_CONFIG = {"hidden": [256, 64], "minibatch_size": 100,
+              "pretrain": {"epochs": 3, "learning_rate": 0.1,
+                           "momentum": 0.5, "weights_decay": 2e-4}}
+RBM_PARITY_SPLIT = {"n_train": 2000, "n_valid": 400, "n_test": 400,
+                    "noise": 0.35}
+#: the pretraining's reconstruction mse, card against CPU over one epoch:
+#: with no Bernoulli draw flipped the two differ only by cuBLAS's and the
+#: CPU's float32 rounding (the weights held at rtol 1e-4 / atol 1e-6); a
+#: flipped hidden draw changes one sample's reconstruction by σ'·|W| ≈
+#: 0.25·0.03 per visible unit, ~1e-5 of the epoch's mean over 2000
+#: samples, so 1e-4 holds a handful of flips and no more
+RBM_RECON_RTOL = 1e-4
+
+
+def _bars(n: int, size: int = 4):
+    """tests/test_rbm.py's bars data, from the ``"bars"`` stream."""
+    import numpy as np
+    from znicz_tpu_torch import prng
+    gen = prng.get("bars")
+    data = np.zeros((n, size, size), np.float32)
+    for i in range(n):
+        if gen.randint(0, 2):
+            data[i, gen.randint(0, size), :] = 1.0
+        else:
+            data[i, :, gen.randint(0, size)] = 1.0
+    return data.reshape(n, size * size)
+
+
+def _rbm_units_vs_fused(torch) -> dict:
+    """tests/test_rbm.py:132 on the card: two epochs of the unit graph's
+    ``RBMTrainer`` over the bars data against ``FusedRBMTrainer``
+    (captured) from the same weights, the weights within rtol 1e-4 /
+    atol 1e-6."""
+    import numpy as np
+    from znicz_tpu_torch import backends, prng
+    from znicz_tpu_torch.memory import Vector
+    from znicz_tpu_torch.nn import rbm_units
+    from znicz_tpu_torch.parallel.rbm import FusedRBMTrainer
+    from znicz_tpu_torch.workflow import Workflow
+
+    class Loader:
+        epoch_number = 0
+        minibatch_offset = 0
+        minibatch_size = 16
+
+    prng.seed_all(21)
+    v = _bars(64)
+    dev = backends.get("cuda")
+    wf = Workflow(name="rbm_units")
+    wf.loader = Loader()
+    fwd = rbm_units.RBM(wf, n_hidden=12)
+    fwd.__dict__["input"] = Vector(v[:16].copy()).initialize(dev)
+    fwd.initialize(dev)
+    tr = rbm_units.RBMTrainer(wf, learning_rate=0.5, momentum=0.6,
+                              weights_decay=1e-4)
+    tr.setup_from_forward(fwd)
+    tr.initialize(dev)
+    ftr = FusedRBMTrainer(np.array(fwd.weights.mem), np.zeros(16),
+                          np.zeros(12), seed=tr.rng.stream_seed,
+                          unit_id=tr.unit_id, learning_rate=0.5,
+                          momentum=0.6, weights_decay=1e-4, device="cuda")
+    data = torch.from_numpy(v).cuda()
+    for epoch in range(2):
+        wf.loader.epoch_number = epoch
+        for off in range(0, 64, 16):
+            fwd.__dict__["input"] = Vector(v[off:off + 16].copy()) \
+                .initialize(dev)
+            wf.loader.minibatch_offset = off + 16
+            tr.run()
+        ftr.train_epoch(data, np.arange(64), 16, epoch)
+    got, want = ftr.params[0].cpu().numpy(), tr.weights.mem
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-6)
+    return {"captured": ftr.captured,
+            "max_abs_err": float(np.abs(got - want).max())}
+
+
+def _rbm_pretrain_parity(torch) -> dict:
+    """One CD-1 epoch of the sample's level 0 (784→256, batch 100) on the
+    parity split's train rows scaled to [0, 1], on the card and on the
+    CPU from the same weights: the hidden draws that flip (each step's
+    Bernoulli draws from the card's and the CPU's probabilities at the
+    card's parameters, the same uniforms), the captured epoch bit for bit
+    an uncaptured one, the weights within rtol 1e-4 / atol 1e-6 and the
+    reconstruction mse within RBM_RECON_RTOL."""
+    import zlib
+
+    import numpy as np
+    from znicz_tpu_torch import prng
+    from znicz_tpu_torch.ops import rbm as rbm_ops
+    from znicz_tpu_torch.ops import rngbits
+    from znicz_tpu_torch.parallel.rbm import FusedRBMTrainer
+    wf = _card_workflow("mnist_rbm", RBM_PARITY_SPLIT)
+    ld = wf.loader
+    batch = ld.max_minibatch_size
+    v = ld.original_data[sum(ld.class_lengths[:2]):].reshape(-1, 784)
+    v = (v - v.min()) / (v.max() - v.min())
+    w0 = prng.get("rbm").normal(0.0, 0.01, (784, 256))
+    seed, uid = prng.get("rbm").stream_seed, zlib.crc32(b"rbm_pre0")
+    kw = dict(seed=seed, unit_id=uid, learning_rate=0.1, momentum=0.5,
+              weights_decay=2e-4)
+    zeros = (np.zeros(784, np.float32), np.zeros(256, np.float32))
+    idx = np.arange(len(v))
+    steps = len(v) // batch
+    probe = FusedRBMTrainer(w0, *zeros, device="cuda", capture=False, **kw)
+    flips = 0
+    with torch.no_grad():
+        for s in range(steps):
+            v0 = v[s * batch:(s + 1) * batch]
+            p_card = rbm_ops.hidden_probs(v0, probe.params[0],
+                                          probe.params[2]).cpu()
+            p_cpu = rbm_ops.hidden_probs(v0.cpu(), probe.params[0].cpu(),
+                                         probe.params[2].cpu())
+            u = rngbits.uniforms(seed, (uid, 0, (s + 1) * batch),
+                                 p_cpu.shape)
+            flips += int(((u < p_card) != (u < p_cpu)).sum())
+            probe._step(v0, 0, (s + 1) * batch)
+    card = FusedRBMTrainer(w0, *zeros, device="cuda", **kw)
+    cpu = FusedRBMTrainer(w0, *zeros, device="cpu", **kw)
+    recon = {"card": card.train_epoch(v, idx, batch, 0),
+             "cpu": cpu.train_epoch(v.cpu(), idx, batch, 0)}
+    line = {"steps": steps, "draws": steps * batch * 256,
+            "flipped_draws": flips, "recon_mse": recon,
+            "captured": card.captured,
+            "graphs": sorted(g for p in card._plans.values()
+                             for g in p.graphs)}
+    # printed before the gates below, which flipped draws may fail
+    emit({"phase": "mnist_rbm_pretrain_flips", **line})
+    for a, b in zip(card.params + card.vels, probe.params + probe.vels):
+        _bit_equal(torch, "rbm captured", "params", a, b)
+    worst = 0.0
+    for a, b in zip(card.params, cpu.params):
+        a = a.cpu().numpy()
+        np.testing.assert_allclose(a, b.numpy(), rtol=1e-4, atol=1e-6)
+        worst = max(worst, float(np.abs(a - b.numpy()).max()))
+    if not math.isclose(recon["card"], recon["cpu"], rel_tol=RBM_RECON_RTOL):
+        raise AssertionError(f"rbm recon {recon}")
+    return {**line, "params_max_abs_err": worst,
+            "recon_rtol": RBM_RECON_RTOL}
+
+
+def phase_mnist_rbm(torch, serve_dir: str, exports: dict) -> dict:
+    """The RBM sample at its own widths (RBM_CONFIG) on the MNIST phase's
+    split: its CD-1 pretraining (3 epochs a level, each step a replay of
+    one CUDA graph; each epoch's examples/s, read from the sample's
+    ``pretrain_trainers``) then 2 fine-tune epochs on the unit graph, and
+    again with 2 on the fused path, launch counts reset and read around
+    each run (the pretraining launches none of the port's kernels); the
+    pretraining's level 0 on the parity split held against the CPU
+    (``_rbm_pretrain_parity``), the unit graph's ``RBMTrainer`` against
+    ``FusedRBMTrainer``, and the sample's epoch 0 of both paths on the
+    parity split against the CPU (losses within rtol 1e-4, error counts
+    within 0.1% of each class).  The fused run's model is exported to
+    ``serve_dir`` for the serve phase."""
+    from znicz_tpu_torch.config import root
+    importlib.import_module("znicz_tpu_torch.models.mnist_rbm")
+    saved = root.mnist_rbm.to_dict()
+    root.mnist_rbm.update(RBM_CONFIG)
+    epochs_run = []
+
+    def pretraining(torch, wf):
+        epochs = [{"level": list(tr.params[0].shape), **e,
+                   "examples_per_sec": e["examples"] / e["wall_s"],
+                   "captured": tr.captured}
+                  for tr in wf.pretrain_trainers for e in tr.epoch_timings]
+        epochs_run.extend(epochs)
+        return {"pretrain_epochs": epochs}
+    desc = "mnist_rbm 784-256-64-10 sigmoid, CD-1 pretrained"
+    try:
+        units = phase_slice(torch, "mnist_rbm", MNIST_SPLIT,
+                            desc + " unit graph", pretraining,
+                            path="mnist_rbm_units")
+        fused = phase_slice(torch, "mnist_rbm", MNIST_SPLIT, desc,
+                            _export_to(serve_dir, "mnist_rbm", exports,
+                                       pretraining), path="mnist_rbm")
+        if len(epochs_run) != 12 or not all(e["captured"]
+                                            for e in epochs_run):
+            raise AssertionError(f"rbm pretraining epochs {epochs_run}")
+        pretrain = _rbm_pretrain_parity(torch)
+        units_vs_fused = _rbm_units_vs_fused(torch)
+        for fused_path in (False, True):
+            card = _run("mnist_rbm", "cuda", 1, RBM_PARITY_SPLIT,
+                        fused=fused_path)
+            phase_parity("mnist_rbm", RBM_PARITY_SPLIT,
+                         card.decision.epoch_metrics[0], 1e-4, 0.001,
+                         fused=fused_path)
+    finally:
+        root.mnist_rbm.update(saved)
+    out = {"phase": "mnist_rbm", "config": RBM_CONFIG,
+           "pretrain_epochs": epochs_run, "pretrain_parity": pretrain,
+           "units_vs_fused_trainer": units_vs_fused,
+           "launches": {"mnist_rbm_units": units["launches"],
+                        "mnist_rbm": fused["launches"]},
+           "epoch_metrics": {"units": units["epoch_metrics"],
+                             "fused": fused["epoch_metrics"]}}
+    emit(out)
+    return out
+
+
+#: the unit graph's GD options on MNIST's first layer
+UNIT_OPTIONS = {"accumulate": {"accumulate_gradient": True},
+                "no_apply": {"apply_gradient": False}}
+
+
+def phase_units_options(torch) -> dict:
+    """The MNIST unit graph (phase 10's net and split) for one epoch with
+    each of ``UNIT_OPTIONS`` on its first layer's ``"<-"``, launch counts
+    held as in phase 10 (without apply_gradient that layer launches no
+    update), epoch 0 against the CPU as in phase 11; ``run_fused`` refuses
+    each, as the reference's fused path does."""
+    from znicz_tpu_torch.config import root
+    importlib.import_module("znicz_tpu_torch.models.mnist")
+    out = {}
+    for name, option in UNIT_OPTIONS.items():
+        layers = [dict(la) for la in root.mnist.layers]
+        layers[0]["<-"] = dict(layers[0]["<-"], **option)
+        config = {"layers": layers}
+        line = phase_slice(torch, "mnist", MNIST_SPLIT,
+                           f"mnist 784-100-10 unit graph, {option}",
+                           path=f"mnist_units_{name}", config=config,
+                           epochs=1)
+        phase_parity("mnist", MNIST_SPLIT, line["epoch_metrics"][0], 1e-4,
+                     0.001, config, fused=False,
+                     phase=f"mnist_units_{name}_parity")
+        wf = _card_workflow("mnist", MNIST_SPLIT, config)
+        try:
+            wf.train(fused=True, max_epochs=1)
+        except NotImplementedError as e:
+            refusal = str(e)
+        else:
+            raise AssertionError(f"run_fused ran with {option}")
+        out[name] = {"option": option, "launches": line["launches"],
+                     "epoch_metrics": line["epoch_metrics"],
+                     "run_fused_refusal": refusal}
+        del wf
+    emit({"phase": "units_options", **out})
+    return out
+
+
+#: every fused spec the script runs: name → (model, its config); the
+#: GEMM tier's specs are their default tier's
+FLOPS_SPECS = {"mnist": ("mnist", None), "mnist_act": ("mnist", "act"),
+               "cifar": ("cifar", None), "alexnet": ("alexnet", None),
+               "autoencoder": ("autoencoder", None),
+               "cifar_stochastic": ("cifar", "stochastic"),
+               "mnist_rbm": ("mnist_rbm", "rbm")}
+FLOPS_SPLIT = {"n_train": 8, "n_valid": 4, "n_test": 4}
+
+
+def phase_flops(torch) -> dict:
+    """``ops.flops.model_flops`` of every fused spec the script runs, at
+    its full width (a tiny split: the spec does not depend on it): FLOPs
+    an image forward and in a train step, and the parameters."""
+    from znicz_tpu_torch.ops import flops
+    configs = {None: None, "act": {"layers": MNIST_ACT_LAYERS},
+               "stochastic": cifar_stochastic_config(),
+               "rbm": {"hidden": RBM_CONFIG["hidden"]}}
+    out = {}
+    for name, (model, cfg) in FLOPS_SPECS.items():
+        wf = _card_workflow(model, FLOPS_SPLIT, configs[cfg])
+        shape = tuple(wf.loader.original_data.shape[1:])
+        out[name] = {"input_shape": list(shape),
+                     **flops.model_flops(wf.spec, wf.spec_rows(wf.params),
+                                         shape)}
+        del wf
+    torch.cuda.empty_cache()
+    emit({"phase": "flops", "specs": out})
+    return out
+
+
 def kernels_line(kern: dict, launches: dict) -> dict:
     """One entry per kernel: its numbers at the main path's shape (the
     first case), the launches of the main-path runs, and every case."""
@@ -4468,6 +4947,10 @@ def run_phases(torch, info: dict, exports: dict, serve_dir: str) -> int:
         if fused:
             cudnn["autoencoder"] = card.decision.epoch_metrics[0]
     som = phase_som(torch, _export_to(serve_dir, "som", exports))
+    stochastic = phase_cifar_stochastic(torch)
+    rbm = phase_mnist_rbm(torch, serve_dir, exports)
+    options = phase_units_options(torch)
+    phase_flops(torch)
     act_cfg = {"layers": MNIST_ACT_LAYERS}
     act_units = phase_slice(torch, "mnist", MNIST_SPLIT,
                             "mnist 784-100-activation_tanh-10 unit graph",
@@ -4511,6 +4994,9 @@ def run_phases(torch, info: dict, exports: dict, serve_dir: str) -> int:
                              "mnist_act_units": act_units["launches"],
                              "mnist_act": act_fused["launches"],
                              "alexnet_units": alexnet_units["launches"],
+                             **stochastic["launches"], **rbm["launches"],
+                             **{f"mnist_units_{name}": line["launches"]
+                                for name, line in options.items()},
                              **{path: line["launches"]
                                 for path, line in gemm.items()},
                              **{f"resume_{case}": resume[case]["launches"]

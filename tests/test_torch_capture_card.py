@@ -73,7 +73,7 @@ def _tier(gemm: bool):
 
 
 def _workflow(model):
-    cls_name, tree_name, _ = MODELS[model]
+    cls_name, tree_name = MODELS[model][:2]
     tree = getattr(root, tree_name)
     saved = tree.synthetic.to_dict()
     tree.synthetic.update(SPLITS[model])

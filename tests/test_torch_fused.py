@@ -162,11 +162,11 @@ def test_idx_matrix_matches_reference(n, batch):
 @pytest.mark.parametrize("kind", ["lrn_pool", "stochastic_pool",
                                   "dropout", "deconv", "depooling"])
 def test_unported_kinds_raise_naming_the_roadmap(kind):
-    """A kind the port does not run raises naming its ROADMAP.md item.
-    For the kinds later slices ported the unported part raises the same
-    way: the narrow-storage form of lrn_pool, dropout and depooling (their
-    kernels take float32). A tied deconv with a bias is refused as the
-    reference's fused path refuses it, naming no item."""
+    """The unported part of a kind raises naming its ROADMAP.md item: the
+    narrow-storage form of lrn_pool, the stochastic pool, dropout and
+    depooling (their kernels take float32; the stochastic pool's backward
+    is the pool-scatter kernel). A tied deconv with a bias is refused as
+    the reference's fused path refuses it, naming no item."""
     def row(k, include_bias=False, **cfg):
         return fused.LayerSpec(kind=k, activation="linear",
                                include_bias=include_bias,
@@ -176,7 +176,8 @@ def test_unported_kinds_raise_naming_the_roadmap(kind):
     conv = dict(stride=(1, 1), padding=(0, 0))
     layers, storage = {
         "lrn_pool": ((row("lrn_pool"),), "bfloat16"),
-        "stochastic_pool": ((row("stochastic_pool"),), "float32"),
+        "stochastic_pool": ((row("stochastic_pool", seed=5, unit_id=9,
+                                 **pool),), "bfloat16"),
         "dropout": ((row("dropout"),), "bfloat16"),
         "deconv": ((row("conv", True, **conv),
                     row("deconv", True, tie=0, **conv)), "float32"),
@@ -407,6 +408,9 @@ def _small(model):
     """ACT_CALLS's small size in the port's config tree of ``model``,
     restored after; yields the sample's module, seeded."""
     tree_name, cfg, _, _ = ACT_CALLS[model]
+    # the sample's defaults first: a key read before them would be
+    # restored as None
+    module = importlib.import_module(f"znicz_tpu_torch.models.{model}")
     tree = getattr(root, tree_name)
     saved_syn = tree.synthetic.to_dict()
     saved = {k: tree.get(k) for k in cfg if k != "synthetic"}
@@ -414,7 +418,7 @@ def _small(model):
     tree.update({k: v for k, v in cfg.items() if k != "synthetic"})
     prng.seed_all(1234)
     try:
-        yield importlib.import_module(f"znicz_tpu_torch.models.{model}")
+        yield module
     finally:
         tree.synthetic.update(saved_syn)
         tree.update(saved)

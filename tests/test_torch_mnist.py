@@ -174,18 +174,17 @@ def test_cli_numpy_device_trains_on_the_unit_graph():
 
 
 def _with_stochastic_pool(layers):
-    """A sample's layers with its max pools made stochastic pools, a layer
-    type that still has no unit and no fused kind."""
+    """A sample's layers with its max pools made stochastic pools."""
     return [dict(la, type="stochastic_pooling")
             if la["type"] == "max_pooling" else la for la in layers]
 
 
 @pytest.mark.parametrize("model", ["cifar", "alexnet"])
 def test_cli_without_fused_raises_for_conv_models(model, tmp_path):
-    """A conv sample with a layer that has no unit yet — CIFAR or AlexNet
-    with stochastic pools — raises in the tick loop, naming the
-    conv-stack units it waits for.  (AlexNet's dropout has its unit:
-    tests/test_torch_dropout_units.py trains its unit graph.)"""
+    """A conv sample with its max pools made stochastic pools — CIFAR or
+    AlexNet — trains in the tick loop from the CLI (stochastic pooling
+    has its units since the slice that ported them; before, this raised
+    naming the units it waited for)."""
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
     sets = {"cifar": ["cifar.synthetic.n_train=20", "cifar.synthetic.size=8",
                       "cifar.synthetic.n_valid=10",
@@ -195,7 +194,8 @@ def test_cli_without_fused_raises_for_conv_models(model, tmp_path):
                         "alexnet.synthetic.n_test=2"]}[model]
     args = [a for s in sets for a in ("--set", s)]
     layers = {"cifar": "root.cifar.layers",
-              "alexnet": "alexnet.make_layers(5)"}[model]
+              "alexnet": "alexnet.make_layers(5, widths=(8, 12, 8, 8, 8, "
+                         "24, 16))"}[model]
     config = tmp_path / "stochastic_pool.py"
     config.write_text(
         f"from znicz_tpu_torch.models import {model}  # its defaults\n"
@@ -209,14 +209,18 @@ def test_cli_without_fused_raises_for_conv_models(model, tmp_path):
          f"znicz_tpu_torch.models.{model}", *args, "--epochs", "1",
          "--device", "cpu"], cwd=REPO, env=env, capture_output=True,
         text=True, timeout=120)
-    assert proc.returncode != 0
-    assert "NotImplementedError" in proc.stderr
-    assert "ROADMAP.md queue 1 item 5" in proc.stderr, proc.stderr
+    assert proc.returncode == 0, proc.stderr
+    lines = [ln for ln in proc.stdout.splitlines() if "'epoch': 0" in ln]
+    assert len(lines) == 1 and "validation_loss" in lines[0], proc.stdout
 
 
 @pytest.mark.parametrize("model", ["cifar", "alexnet"])
 def test_run_without_fused_raises_for_conv_models(model):
+    """``run(fused=False)`` of CIFAR or AlexNet with stochastic pools: the
+    unit graph trains, its metrics finite, and the stochastic pool units
+    sit where the max pools were (before their slice this raised)."""
     from znicz_tpu_torch.models import alexnet, cifar
+    from znicz_tpu_torch.nn import pooling
     saved = getattr(root, model).to_dict()
     getattr(root, model).synthetic.update(
         {"n_train": 4, "n_valid": 2, "n_test": 2, "size": 8}
@@ -224,16 +228,21 @@ def test_run_without_fused_raises_for_conv_models(model):
     if model == "alexnet":
         root.alexnet.update({"size": 67, "n_classes": 5,
                              "layers": _with_stochastic_pool(
-                                 alexnet.make_layers(5))})
+                                 alexnet.make_layers(
+                                     5, widths=(8, 12, 8, 8, 8, 24, 16)))})
     else:
         root.cifar.update({"layers": _with_stochastic_pool(
             root.cifar.layers)})
     try:
         module = {"cifar": cifar, "alexnet": alexnet}[model]
-        with pytest.raises(NotImplementedError, match="conv"):
-            module.run(device="cpu", epochs=1, fused=False)
+        wf = module.run(device="cpu", epochs=1, fused=False)
     finally:
         getattr(root, model).update(saved)
+    (m,) = wf.decision.epoch_metrics
+    assert all(np.isfinite(v) for v in m.values()), m
+    pools = [f for f in wf.forwards
+             if isinstance(f, pooling.StochasticPooling)]
+    assert len(pools) == {"cifar": 1, "alexnet": 3}[model]
 
 
 def _mse_workflows(autoencoder: bool):

@@ -15,8 +15,10 @@ calls on the same ``.znn`` files, the port's engines with
   re-admitted, the rolling reload, and hedging under a
   ``replica.slow.1`` latency fault (the hedge wins); its metrics report
   the one-device mesh;
-- ``write_trained_model("mnist_rbm")`` raises naming ROADMAP.md queue 1
-  item 6b; ``"autoencoder"`` trains on the host and serves."""
+- ``write_trained_model`` trains both families on the host
+  (``"autoencoder"`` and the RBM-pretrained ``"mnist_rbm"``) and serves
+  them against the reference's engine; ``make_full_zoo`` writes all five
+  families and a zoo of them serves each."""
 
 import os
 
@@ -298,9 +300,14 @@ def test_replica_sets_match(demo, tmp_path):
 
 
 def test_write_trained_model(tmp_path):
-    with pytest.raises(NotImplementedError, match="queue 1 item 6b"):
-        zoo.write_trained_model(str(tmp_path / "rbm.znn"), "mnist_rbm",
-                                device="cpu")
+    rbm = zoo.write_trained_model(str(tmp_path / "rbm.znn"), "mnist_rbm",
+                                  device="cpu")
+    durability.verify(rbm)
+    x = np.random.default_rng(2).normal(0, 1, (3, 784)).astype(np.float32)
+    np.testing.assert_allclose(
+        ServingEngine(rbm, backend="cpu").predict(x),
+        ref_engine.ServingEngine(rbm, backend="jax").predict(x), rtol=1e-4,
+        atol=1e-5)
     with pytest.raises(ValueError, match="unknown trained family"):
         zoo.write_trained_model(str(tmp_path / "x.znn"), "resnet",
                                 device="cpu")
@@ -318,3 +325,29 @@ def test_write_trained_model(tmp_path):
                                          ).astype(np.float32)
     np.testing.assert_allclose(eng.predict(x), ref.predict(x), rtol=1e-4,
                                atol=1e-5)
+
+
+def test_make_full_zoo_serves_every_family(tmp_path):
+    paths = zoo.make_full_zoo(str(tmp_path / "zoo"), device="cpu")
+    assert sorted(paths) == sorted(zoo.DEMO_FAMILIES
+                                   + zoo.TRAINED_FAMILIES)
+    assert len(paths) == 5
+    # the demo trio byte for byte the reference's
+    ref_paths = ref_zoo.make_demo_zoo(str(tmp_path / "ref"))
+    for fam, p in ref_paths.items():
+        with open(p, "rb") as a, open(paths[fam], "rb") as b:
+            assert a.read() == b.read(), fam
+    z = zoo.ModelZoo()
+    for fam, p in paths.items():
+        durability.verify(p)
+        z.add(fam, p, backend="cpu")
+    shapes = {**{f: (n,) for f, n in zoo.DEMO_SHAPES.items()},
+              **zoo.TRAINED_SAMPLE_SHAPES}
+    try:
+        for fam in paths:
+            x = np.random.default_rng(3).uniform(
+                0, 1, (2,) + shapes[fam]).astype(np.float32)
+            y = z.resolve(fam).predict(x)
+            assert len(y) == 2 and np.isfinite(y).all(), fam
+    finally:
+        z.close()

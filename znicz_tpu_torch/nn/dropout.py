@@ -23,7 +23,8 @@ from ..loader.base import TRAIN
 from ..memory import Vector
 from ..ops import dropout as drop_ops
 from ..ops import rngbits
-from .nn_units import Forward, GradientDescentBase
+from .nn_units import (Forward, GradientDescentBase, loader_counters,
+                       unit_loader)
 
 
 class DropoutForward(Forward):
@@ -59,15 +60,10 @@ class DropoutForward(Forward):
 
     def counters(self) -> tuple[int, int, int]:
         """(unit id, epoch, minibatch offset) keying this tick's mask."""
-        loader = getattr(self.workflow, "loader", None) \
-            if self.workflow is not None else None
-        if loader is None:
-            return (self.unit_id, 0, 0)
-        return (self.unit_id, loader.epoch_number, loader.minibatch_offset)
+        return loader_counters(self)
 
     def is_training(self) -> bool:
-        loader = getattr(self.workflow, "loader", None) \
-            if self.workflow is not None else None
+        loader = unit_loader(self)
         return self.training if loader is None \
             else loader.minibatch_class == TRAIN
 

@@ -24,7 +24,8 @@ class GDPoolingBase(GradientDescentBase):
 
 
 class GDMaxPooling(GDPoolingBase):
-    """Scatter to the stored winner slot (max and max-abs pooling)."""
+    """Scatter to the stored winner slot (max, max-abs and stochastic
+    pooling)."""
 
     MAPPING = ("max_pooling",)
 
@@ -50,6 +51,16 @@ class GDMaxPooling(GDPoolingBase):
 
 class GDMaxAbsPooling(GDMaxPooling):
     MAPPING = ("maxabs_pooling",)
+
+
+class GDStochasticPooling(GDMaxPooling):
+    """The stochastic pool's backward: the scatter to its drawn taps."""
+
+    MAPPING = ("stochastic_pooling",)
+
+
+class GDStochasticAbsPooling(GDMaxPooling):
+    MAPPING = ("stochastic_abs_pooling",)
 
 
 class GDAvgPooling(GDPoolingBase):

@@ -26,6 +26,22 @@ from ..memory import Vector
 from ..ops import activations, update
 
 
+def unit_loader(unit):
+    """The loader of ``unit``'s workflow, or None (a unit used alone)."""
+    wf = unit.workflow
+    return None if wf is None else getattr(wf, "loader", None)
+
+
+def loader_counters(unit, step: int = 0) -> tuple[int, int, int]:
+    """(unit id, loader epoch, minibatch offset): the counters that key a
+    unit's random draws this tick; (unit id, 0, ``step``) with no
+    loader."""
+    loader = unit_loader(unit)
+    if loader is None:
+        return (unit.unit_id, 0, step)
+    return (unit.unit_id, loader.epoch_number, loader.minibatch_offset)
+
+
 def fill(gen, shape: tuple[int, ...], filling: str,
          stddev: float | None) -> np.ndarray:
     """The reference's ``Forward._fill``: uniform ±stddev (default

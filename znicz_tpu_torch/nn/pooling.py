@@ -1,21 +1,29 @@
 """Pooling forward units (port of ``znicz_tpu/nn/pooling.py``).
 
-``MaxPooling`` and ``MaxAbsPooling`` record in ``input_offset`` the
-winner's dense window slot ``t = i·kw + j`` per output element, which
-``GDMaxPooling`` and a tied ``Depooling`` consume; ``AvgPooling`` records
-nothing.  ``torch_run`` selects through ``ops.pooling`` (the pool-select
-kernel on the card); average pooling stays plain PyTorch, as XLA runs it
-in the reference.  Stochastic pooling is not ported yet (ROADMAP.md queue
-1 item 5a): its layer types have no unit here."""
+``MaxPooling``, ``MaxAbsPooling`` and the stochastic pools record in
+``input_offset`` the winner's dense window slot ``t = i·kw + j`` per
+output element, which ``GDMaxPooling`` and a tied ``Depooling`` consume;
+``AvgPooling`` records nothing.  ``torch_run`` selects through
+``ops.pooling`` (the pool-select kernel on the card); average pooling and
+the stochastic pools' draw stay plain PyTorch, as XLA runs them in the
+reference.  A stochastic pool draws its uniforms from the counter RNG of
+the ``"pooling"`` stream at (crc32 of the unit's name, the loader's
+epoch, its minibatch offset), so every tier picks the same taps, and
+takes the deterministic weighted mean on validation and test
+minibatches."""
 
 from __future__ import annotations
 
+import zlib
+
 import numpy as np
 
+from .. import prng
+from ..loader.base import TRAIN
 from ..memory import Vector
 from ..ops import pooling as pool_ops
 from ..ops.geometry import norm2
-from .nn_units import Forward
+from .nn_units import Forward, loader_counters, unit_loader
 
 
 class Pooling(Forward):
@@ -51,10 +59,10 @@ class Pooling(Forward):
         self.init_vectors(self.output)
 
 
-class MaxPooling(Pooling):
-    """Max pooling; ``input_offset`` holds each window's winner slot."""
+class _OffsetPooling(Pooling):
+    """Pooling that records each window's winner slot for the backward
+    scatter."""
 
-    MAPPING = ("max_pooling",)
     USE_ABS = False
 
     def __init__(self, workflow=None, name=None, **kwargs):
@@ -66,6 +74,12 @@ class MaxPooling(Pooling):
         if not self.input_offset:
             self.input_offset.mem = np.zeros(self.output.shape, np.int32)
         self.init_vectors(self.input_offset)
+
+
+class MaxPooling(_OffsetPooling):
+    """Max pooling; ``input_offset`` holds each window's winner slot."""
+
+    MAPPING = ("max_pooling",)
 
     def numpy_run(self) -> None:
         fn = (pool_ops.np_maxabs_pooling if self.USE_ABS
@@ -97,3 +111,49 @@ class AvgPooling(Pooling):
     def torch_run(self) -> None:
         self.output.devmem = pool_ops.avg_pooling(
             self.input.devmem, self.ksize, self.sliding, self.padding)
+
+
+class StochasticPooling(_OffsetPooling):
+    """Zeiler–Fergus stochastic pooling: on a train minibatch a window
+    element drawn in proportion to max(x, 0), on the others the
+    probability-weighted mean (the reference's semantics)."""
+
+    MAPPING = ("stochastic_pooling",)
+
+    def __init__(self, workflow=None, name=None, **kwargs):
+        super().__init__(workflow, name, **kwargs)
+        self.rng = prng.get("pooling")
+        # the full name's hash: distinct units draw distinct streams
+        self.unit_id = zlib.crc32((self.name or "pool").encode())
+
+    def _is_training(self) -> bool:
+        loader = unit_loader(self)
+        return loader is None or loader.minibatch_class == TRAIN
+
+    def numpy_run(self) -> None:
+        det = not self._is_training()
+        u = None if det else pool_ops.stochastic_uniform(
+            self.rng.stream_seed, loader_counters(self),
+            self.output.shape).numpy()
+        self.output.mem, self.input_offset.mem = \
+            pool_ops.np_stochastic_pooling(
+                self.input.mem, self.ksize, self.sliding, self.padding, u,
+                use_abs=self.USE_ABS, deterministic=det)
+
+    def torch_run(self) -> None:
+        det = not self._is_training()
+        x = self.input.devmem
+        u = None if det else pool_ops.stochastic_uniform(
+            self.rng.stream_seed, loader_counters(self), self.output.shape,
+            x.device)
+        self.output.devmem, self.input_offset.devmem = \
+            pool_ops.stochastic_pooling(
+                x, self.ksize, self.sliding, self.padding, u,
+                use_abs=self.USE_ABS, deterministic=det)
+
+
+class StochasticAbsPooling(StochasticPooling):
+    """Stochastic pooling in proportion to |x|."""
+
+    MAPPING = ("stochastic_abs_pooling",)
+    USE_ABS = True

@@ -13,9 +13,12 @@ a CUDA tensor and run the plain versions (``plain_*``, transcriptions of
 the reference's XLA tier) on a CPU tensor; a CUDA tensor never falls back
 to the plain version.  ``depooling`` (the decoder's unpooling) is the
 max-pool backward's scatter used as a forward, as in the reference, so it
-launches the scatter kernel.  Average pooling is XLA in the reference, so
-it stays PyTorch on both devices.  The ``np_*`` functions are the numpy
-goldens the numpy device runs."""
+launches the scatter kernel.  Average pooling and the stochastic pool's
+forward (Zeiler–Fergus: a window element drawn in proportion to max(x, 0)
+or |x| on a train minibatch, the probability-weighted mean otherwise) are
+XLA in the reference, so they stay PyTorch on both devices; the stochastic
+pool's backward is the max pool's scatter.  The ``np_*`` functions are the
+numpy goldens the numpy device runs."""
 
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from . import count_launch
+from . import count_launch, rngbits
 from .geometry import norm2, out_size
 
 #: Launches of the pool-select / pool-scatter kernels in this process (the
@@ -118,6 +121,90 @@ def avg_pooling(x, ksize, stride=None, padding=0):
     return acc * (1.0 / (kh * kw))
 
 
+def _stochastic_pool(x, ksize, stride, padding, u, use_abs: bool,
+                     deterministic: bool, xp):
+    """The reference's ``_stochastic_pool`` over torch (``xp`` None) or
+    numpy (``xp`` np) arrays.  Train: each window's tap t is taken where
+    the running sum of the weights max(x, 0) (|x| with ``use_abs``) first
+    exceeds u·total, so an all-zero window takes no tap and gives 0.
+    Eval (``deterministic``): Σ x·a / Σ a, 0 where Σ a = 0, and offsets
+    all 0."""
+    (kh, kw), (sh, sw), (ph, pw) = norm2(ksize), norm2(stride), \
+        norm2(padding)
+    b, h, w, c = x.shape
+    oh, ow = out_size(h, kh, sh, ph), out_size(w, kw, sw, pw)
+    if xp is np:
+        zeros = np.zeros
+        where, maximum, absolute = np.where, np.maximum, np.abs
+        i32 = np.int32
+        slices = _slices(_np_pad(x, ph, pw, 0.0), kh, kw, sh, sw, oh, ow)
+    else:
+        def zeros(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=x.device)
+        where, absolute, i32 = torch.where, torch.abs, torch.int32
+
+        def maximum(a, v):
+            return torch.clamp(a, min=v)
+        slices = _slices(_pad(x, ph, pw, 0.0), kh, kw, sh, sw, oh, ow)
+    weights = [absolute(sl) if use_abs else maximum(sl, 0.0)
+               for sl in slices]
+    total = weights[0]
+    for a in weights[1:]:
+        total = total + a
+    if deterministic:
+        num = slices[0] * weights[0]
+        for sl, a in zip(slices[1:], weights[1:]):
+            num = num + sl * a
+        y = where(total > 0, num / maximum(total, 1e-30), 0.0)
+        return y, zeros((b, oh, ow, c), i32)
+    thr = u.reshape(total.shape) * total
+    cum = (np if xp is np else torch).zeros_like(total)
+    idx = zeros((b, oh, ow, c), i32)
+    chosen = cum
+    done = cum > thr                      # all-zero windows never trigger
+    for t, (sl, a) in enumerate(zip(slices, weights)):
+        cum = cum + a
+        hit = (cum > thr) & ~done
+        idx = where(hit, i32(t) if xp is np else t, idx)
+        chosen = where(hit, sl, chosen)
+        done = done | hit
+    return where(total > 0, chosen, 0.0), idx
+
+
+def plain_stochastic_pooling(x, ksize, stride=None, padding=0, u=None,
+                             use_abs=False, deterministic=False):
+    """(y, offsets) of the stochastic pool on torch tensors: the
+    reference's ``xla_stochastic_pooling`` (``u``: uniforms shaped like
+    the output, ignored when ``deterministic``)."""
+    y, idx = _stochastic_pool(x, ksize, stride or ksize, padding, u,
+                              use_abs, deterministic, None)
+    return y.contiguous(), idx.contiguous()
+
+
+#: output-shaped uniforms of the counter RNG, the reference's name
+stochastic_uniform = rngbits.uniforms
+
+
+def stochastic_pooling(x, ksize, stride=None, padding=0, u=None,
+                       use_abs=False, deterministic=False):
+    """(y, offsets) of stochastic pooling over NHWC float32 ``x``, plain
+    PyTorch on both devices (the reference computes it outside any Pallas
+    kernel); the offsets feed ``gd_max_pooling``'s scatter kernel."""
+    who = "stochastic_pooling"
+    _check(who, "x", x, torch.float32)
+    (kh, kw), (sh, sw), (ph, pw), (oh, ow) = _geometry(
+        who, x.shape, ksize, stride, padding)
+    if not deterministic:
+        b, _, _, c = x.shape
+        if u is None or tuple(u.shape) != (b, oh, ow, c) \
+                or u.device != x.device:
+            raise ValueError(f"{who}: u must be {(b, oh, ow, c)} on "
+                             f"{x.device}, got "
+                             f"{None if u is None else tuple(u.shape)}")
+    return plain_stochastic_pooling(x, (kh, kw), (sh, sw), (ph, pw), u,
+                                    use_abs, deterministic)
+
+
 def plain_depooling(x, offsets, out_shape, ksize, stride=None, padding=0):
     """Unpooling: each pooled value scattered back to its recorded winner
     slot (the reference's ``xla_depooling``, the max-pool backward)."""
@@ -188,6 +275,12 @@ def np_max_pooling(x, ksize, stride=None, padding=0):
 
 def np_maxabs_pooling(x, ksize, stride=None, padding=0):
     return _np_max_pool(x, ksize, stride or ksize, padding, True)
+
+
+def np_stochastic_pooling(x, ksize, stride=None, padding=0, u=None,
+                          use_abs=False, deterministic=False):
+    return _stochastic_pool(x, ksize, stride or ksize, padding, u, use_abs,
+                            deterministic, np)
 
 
 def _np_place(taps, x_shape, ksize, stride, padding):

@@ -4,7 +4,10 @@
 Randomness is a pure integer hash of ``(stream seed, counters..., element
 index)``: the murmur3 finalizer (``fmix32``) over uint32 values.  Keys are
 folded on the host with Python ints (``fold``), so a kernel receives its
-key as an argument and the device never syncs for it.  ``uniform01`` is
+key as an argument and the device never syncs for it; ``fold_t`` folds
+counters that live in device tensors (a captured step's epoch and
+counter, read from its plan row at each replay) into a key tensor, bit
+for bit the host fold of the same values.  ``uniform01`` is
 the plain torch version of the per-element hash; torch on the CPU has no
 uint32 ``>>``, ``+`` or ``arange``, so it computes in int64 masked to 32
 bits, splitting each 32×32-bit product so that no int64 overflows."""
@@ -54,9 +57,43 @@ def _mix_t(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
-def uniform01(key: int, n: int, device="cpu") -> torch.Tensor:
+def fold_t(seed: int, *counters) -> int | torch.Tensor:
+    """``fold`` where counters may be integer tensors (any integer dtype,
+    each taken mod 2³² as the reference's uint32 casts take it): the host
+    folds the leading Python ints, the device the rest, in masked int64.
+    Returns a Python int when every counter is one, else an int64 tensor
+    of the counters' broadcast shape on their device."""
+    key = mix(int(seed) & MASK32)
+    for c in counters:
+        if isinstance(c, torch.Tensor):
+            c32 = c.to(torch.int64) & MASK32
+            key = _mix_t(((c32 ^ key) + GOLDEN) & MASK32)
+        elif isinstance(key, torch.Tensor):
+            key = _mix_t(((key ^ (int(c) & MASK32)) + GOLDEN) & MASK32)
+        else:
+            key = mix(((key ^ (int(c) & MASK32)) + GOLDEN) & MASK32)
+    return key
+
+
+def uniform01(key, n: int, device="cpu") -> torch.Tensor:
     """n float32 values in [0, 1): fmix32(i·C2 ^ key) ≫ 8 / 2²⁴ for the
-    flat index i."""
+    flat index i; ``key`` a Python int or a one-element int64 tensor of
+    ``fold_t`` (on ``device``)."""
     idx = torch.arange(n, dtype=torch.int64, device=device)
-    h = _mix_t(_mul32(idx, C2) ^ (int(key) & MASK32))
+    if not isinstance(key, torch.Tensor):
+        key = int(key) & MASK32
+    h = _mix_t(_mul32(idx, C2) ^ key)
     return (h >> 8).to(torch.float32) * (1.0 / (1 << 24))
+
+
+def uniforms(seed: int, counters, shape, device="cpu") -> torch.Tensor:
+    """``shape``-shaped uniforms at (seed, counters): ``uniform01`` of the
+    folded key.  Counters may be device tensors (a captured step's epoch
+    and counter), and then the draw is made on their device."""
+    key = fold_t(seed, *counters)
+    if isinstance(key, torch.Tensor):
+        device = key.device
+    n = 1
+    for d in shape:
+        n *= int(d)
+    return uniform01(key, n, device).reshape(tuple(shape))

@@ -15,18 +15,21 @@ reads them, so an epoch needs one host sync.  ``accum_steps`` sums the
 gradients of consecutive steps before one update, and ``lr_scale``
 multiplies the learning rates per step (the LR adjusters' schedules).
 
-The port covers the kinds of the MNIST, CIFAR, AlexNet and autoencoder
-slices: ``fc``, standalone ``activation``, ``conv``, ``max_pool``,
-``maxabs_pool``, ``avg_pool``, ``lrn``, the merged LRN→max-pool pair
-``lrn_pool``, ``dropout``, ``depooling`` (tied by ``tie`` to the max pool
-whose winner slots it scatters through) and ``deconv`` (tied or not to an
-encoder conv's weights).  Every other kind raises ``NotImplementedError``
-naming the ROADMAP.md item that ports it.
+The port covers every kind of the reference's fused path: ``fc``,
+standalone ``activation``, ``conv``, ``max_pool``, ``maxabs_pool``,
+``avg_pool``, ``stochastic_pool``, ``stochastic_abs_pool``, ``lrn``, the
+merged LRN→max-pool pair ``lrn_pool``, ``dropout``, ``depooling`` (tied by
+``tie`` to the pool whose winner slots it scatters through) and ``deconv``
+(tied or not to an encoder conv's weights).
 
-Dropout draws from the counter RNG keyed by (stream seed, unit id, epoch,
-counter), the counter being the loader's sample offset after the step;
-the key is folded on the host and handed to the kernel, so the masks equal
-the reference's bit for bit and cost no device sync."""
+Dropout and the stochastic pools draw from the counter RNG keyed by
+(stream seed, unit id, epoch, counter), the counter being the loader's
+sample offset after the step, so the masks and picks equal the
+reference's bit for bit.  Dropout's key is folded on the host and handed
+to the kernel; a stochastic pool folds its key from the epoch and counter
+where they live: Python ints on an uncaptured step, the plan row's device
+words on a captured one (``rngbits.fold_t``), so a replayed graph draws
+each step's own bits."""
 
 from __future__ import annotations
 
@@ -48,20 +51,17 @@ from ..ops import update as update_ops
 #: Layer kinds with trainable parameters.
 PARAM_KINDS = ("fc", "conv", "deconv")
 
-#: Kinds this port runs, and the ROADMAP.md item for each one it doesn't.
+#: The kinds of the fused step (every kind of the reference's).
+STOCHASTIC_KINDS = ("stochastic_pool", "stochastic_abs_pool")
 PORTED_KINDS = ("fc", "activation", "conv", "max_pool", "maxabs_pool",
-                "avg_pool", "lrn", "lrn_pool", "dropout", "deconv",
-                "depooling")
-_ROADMAP_ITEM = {
-    "stochastic_pool": "queue 1 item 5a (stochastic pooling)",
-    "stochastic_abs_pool": "queue 1 item 5a (stochastic pooling)",
-}
+                "avg_pool", *STOCHASTIC_KINDS, "lrn", "lrn_pool", "dropout",
+                "deconv", "depooling")
 #: Kinds whose kernels take float32 only: a narrower storage dtype between
 #: layers is refused rather than run at another precision.
-_F32_KERNEL_KINDS = ("max_pool", "maxabs_pool", "lrn", "lrn_pool",
-                     "dropout", "depooling")
+_F32_KERNEL_KINDS = ("max_pool", "maxabs_pool", *STOCHASTIC_KINDS, "lrn",
+                     "lrn_pool", "dropout", "depooling")
 #: Kinds a depooling layer may tie to (they record winner slots).
-_OFFSET_KINDS = ("max_pool", "maxabs_pool", "lrn_pool")
+OFFSET_KINDS = ("max_pool", "maxabs_pool", "lrn_pool", *STOCHASTIC_KINDS)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -77,8 +77,7 @@ def torch_dtype(name: str) -> torch.dtype:
 
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
-    kind: str                     # PORTED_KINDS; see _ROADMAP_ITEM for
-    #                               the others
+    kind: str                     # PORTED_KINDS
     activation: str               # activations.BY_NAME key; last fc layer
     include_bias: bool            # of a softmax model keeps "linear"
     hypers: tuple                 # (lr, weights_decay, l1_vs_l2, momentum)
@@ -106,12 +105,7 @@ class ModelSpec:
     def __post_init__(self):
         for layer in self.layers:
             if layer.kind not in PORTED_KINDS:
-                item = _ROADMAP_ITEM.get(layer.kind)
-                if item is None:
-                    raise ValueError(f"unknown layer kind {layer.kind!r}")
-                raise NotImplementedError(
-                    f"layer kind {layer.kind!r} is not ported to "
-                    f"znicz_tpu_torch yet (ROADMAP.md {item})")
+                raise ValueError(f"unknown layer kind {layer.kind!r}")
         if self.loss not in ("softmax", "mse"):
             raise ValueError(f"unknown loss {self.loss!r}")
         torch_dtype(self.compute_dtype)
@@ -161,9 +155,9 @@ def _check_tie(layers, i: int) -> None:
     tie = layer.cfg.get("tie")
     if layer.kind == "depooling":
         if tie is None or not 0 <= tie < i \
-                or layers[tie].kind not in _OFFSET_KINDS:
+                or layers[tie].kind not in OFFSET_KINDS:
             raise ValueError(f"depooling row {i} must tie to an earlier "
-                             f"{'/'.join(_OFFSET_KINDS)} row, got tie={tie}")
+                             f"{'/'.join(OFFSET_KINDS)} row, got tie={tie}")
     elif layer.kind == "deconv" and tie is not None:
         if not 0 <= tie < i or layers[tie].kind != "conv":
             raise ValueError(f"deconv row {i} must tie to an earlier conv "
@@ -259,13 +253,16 @@ def dropout_key(cfg: dict, epoch: int, ctr: int) -> int:
 
 
 def forward(spec: ModelSpec, params, x, *, want_caches: bool,
-            train: bool = False, epoch: int = 0, ctr: int = 0):
+            train: bool = False, epoch=0, ctr=0):
     """(net output before the loss, caches).  For softmax loss the last
     layer's output is the *logits*; ``caches[i]`` = (layer input, aux),
-    aux being the pool winner offsets of a max pool or merged LRN→pool and
-    None elsewhere (the LRN backward recomputes its denominator from the
-    cached input; dropout regenerates its mask).  ``epoch``/``ctr`` key
-    the dropout masks when ``train``; eval is dropout-free."""
+    aux being the pool winner offsets of a max, stochastic or merged
+    LRN→max pool and None elsewhere (the LRN backward recomputes its
+    denominator from the cached input; dropout regenerates its mask).
+    ``epoch``/``ctr`` key the dropout masks and the stochastic pools'
+    draws when ``train`` (ints, or for the pools one-element integer
+    tensors on the device); eval is dropout-free and pools
+    deterministically."""
     cdt = torch_dtype(spec.compute_dtype)
     sdt = torch_dtype(spec.storage_dtype)
     h = x
@@ -314,6 +311,18 @@ def forward(spec: ModelSpec, params, x, *, want_caches: bool,
         elif layer.kind == "avg_pool":
             h = pool_ops.avg_pooling(h, cfg["ksize"], cfg["stride"],
                                      cfg["padding"])
+        elif layer.kind in STOCHASTIC_KINDS:
+            u = None
+            if train:
+                u = pool_ops.stochastic_uniform(
+                    cfg["seed"], (cfg["unit_id"], epoch, ctr),
+                    pool_ops.pool_out_shape(h.shape, cfg["ksize"],
+                                            cfg["stride"], cfg["padding"]),
+                    h.device)
+            h, aux = pool_ops.stochastic_pooling(
+                h, cfg["ksize"], cfg["stride"], cfg["padding"], u,
+                use_abs=layer.kind == "stochastic_abs_pool",
+                deterministic=not train)
         elif layer.kind == "lrn":
             h = lrn_ops.lrn_y(h, cfg["n"], cfg["alpha"], cfg["beta"],
                               cfg["k"])
@@ -360,8 +369,7 @@ def _loss_and_err(spec: ModelSpec, out, target, mask):
                                         device=out.device)
 
 
-def backward(spec: ModelSpec, params, caches, out, err, epoch: int = 0,
-             ctr: int = 0):
+def backward(spec: ModelSpec, params, caches, out, err, epoch=0, ctr=0):
     """Hand-written gradient chain (same math as the GD* units).  ``err``
     on entry: w.r.t. the last layer's pre-activation.  ``epoch``/``ctr``
     regenerate the training forward's dropout masks."""
@@ -414,7 +422,7 @@ def backward(spec: ModelSpec, params, caches, out, err, epoch: int = 0,
             err = pool_ops.gd_depooling(err.reshape(y_i.shape), aux,
                                         cfg["ksize"], cfg["stride"],
                                         cfg["padding"])
-        elif layer.kind in ("max_pool", "maxabs_pool"):
+        elif layer.kind in ("max_pool", "maxabs_pool", *STOCHASTIC_KINDS):
             err = pool_ops.gd_max_pooling(
                 err.reshape(y_i.shape), aux, x_in.shape, cfg["ksize"],
                 cfg["stride"], cfg["padding"])
@@ -494,7 +502,7 @@ def _ones(x):
 
 
 def grad_minibatch(spec: ModelSpec, params, x, target, mask=None,
-                   epoch: int = 0, ctr: int = 0):
+                   epoch=0, ctr=0):
     """(grads, metrics) of one minibatch — train_minibatch without the
     update, the building block gradient accumulation composes."""
     if mask is None:
@@ -528,8 +536,7 @@ def grad_zeros(spec: ModelSpec, params):
 
 
 def train_minibatch(spec: ModelSpec, params, vels, x, target, mask=None,
-                    epoch: int = 0, ctr: int = 0, lr_scale=None,
-                    lr_scale_bias=None):
+                    epoch=0, ctr=0, lr_scale=None, lr_scale_bias=None):
     """One step, the update in place; returns (params, vels, metrics)."""
     grads, metrics = grad_minibatch(spec, params, x, target, mask,
                                     epoch=epoch, ctr=ctr)
@@ -581,10 +588,12 @@ class FusedTrainer:
     does and :attr:`uncaptured_reason` why not): one train and one eval
     step per batch size, dataset and conv tier, and with ``k > 1`` an
     accumulating train step and one that also applies, which the host
-    picks per step as the reference's ``lax.cond`` does.  A spec with a
-    dropout layer runs the same step functions uncaptured, its mask key
-    folded on the host each step (the device word that would let a graph
-    read it is ROADMAP.md queue 1 item 3); so does the CPU."""
+    picks per step as the reference's ``lax.cond`` does.  A captured train
+    step reads its epoch and counter from its plan row, so a stochastic
+    pool draws that step's bits on every replay.  A spec with a dropout
+    layer runs the same step functions uncaptured, its mask key folded on
+    the host each step (the device word the dropout kernel would read is
+    ROADMAP.md queue 1 item 3); so does the CPU."""
 
     def __init__(self, workflow=None, spec: ModelSpec | None = None,
                  params=None, vels=None, device=None, mesh=None,
@@ -680,7 +689,7 @@ class FusedTrainer:
         return (self.accum_steps == 1 or (s + 1) % self.accum_steps == 0
                 or s + 1 == n_steps)
 
-    def _train_step(self, x, t, mask, s_w, s_b, epoch: int, ctr: int,
+    def _train_step(self, x, t, mask, s_w, s_b, epoch, ctr,
                     apply: bool) -> dict:
         """One train step on the trainer's buffers (in place): with
         ``accum_steps`` 1 ``train_minibatch``, else the gradients added to
@@ -716,29 +725,36 @@ class FusedTrainer:
             if len(self._plans) >= 8:      # a few datasets and tiers
                 self._plans.pop(next(iter(self._plans)))
             plan = self._plans[key] = capture.StepPlan(
-                self.device, 2 * batch + 2,
+                self.device, 2 * batch + 4,
                 max(n_steps, -(-data.shape[0] // batch) + 1),
                 {"loss": torch.float32, "n_err": torch.int32})
         return plan
 
     @staticmethod
-    def _rows(idx, mask, scales=None, scales_b=None) -> np.ndarray:
-        """The plan rows: indices, mask bits, then the weight and bias
-        scales' bits (zeros for an eval step)."""
+    def _rows(idx, mask, scales=None, scales_b=None, epoch: int = 0,
+              ctrs=None) -> np.ndarray:
+        """The plan rows: indices, mask bits, the weight and bias scales'
+        bits, then the epoch's and the step's counter's bits as uint32,
+        which key the stochastic pools' draws (zeros for an eval step)."""
         n = idx.shape[0]
         cols = [idx, mask.view(np.int32)]
         for sc in (scales, scales_b):
             cols.append(np.zeros((n, 1), np.int32) if sc is None else
                         np.ascontiguousarray(sc, np.float32)
                         .view(np.int32).reshape(n, 1))
+        cols.append(np.full((n, 1), int(epoch) & 0xFFFF_FFFF,
+                            np.uint32).view(np.int32))
+        cols.append(np.zeros((n, 1), np.int32) if ctrs is None else
+                    np.ascontiguousarray(ctrs, np.uint32)
+                    .view(np.int32).reshape(n, 1))
         return np.concatenate(cols, axis=1)
 
     def _run_captured(self, kind: str, data, target, idx, mask, scales=None,
-                      scales_b=None) -> dict:
+                      scales_b=None, epoch: int = 0, ctrs=None) -> dict:
         batch = idx.shape[1]
         n = idx.shape[0]
         plan = self._plan(kind, data, target, batch, n)
-        plan.load(self._rows(idx, mask, scales, scales_b))
+        plan.load(self._rows(idx, mask, scales, scales_b, epoch, ctrs))
 
         def step(variant: str):
             row = plan.row()
@@ -748,8 +764,12 @@ class FusedTrainer:
             if variant == "eval":
                 ms = eval_minibatch(self.spec, self.params, x, t, m)
             else:
-                sc = row[2 * batch:].view(torch.float32)
-                ms = self._train_step(x, t, m, sc[0:1], sc[1:2], 0, 0,
+                sc = row[2 * batch:2 * batch + 2].view(torch.float32)
+                # the epoch and counter as device words: a replay folds
+                # the stochastic pools' keys from this step's row
+                ms = self._train_step(x, t, m, sc[0:1], sc[1:2],
+                                      row[2 * batch + 2:2 * batch + 3],
+                                      row[2 * batch + 3:2 * batch + 4],
                                       variant != "accumulate")
             plan.put("loss", ms["loss"])
             plan.put("n_err", ms["n_err"])
@@ -784,7 +804,7 @@ class FusedTrainer:
         scales, scales_b = self._step_scales(lr_scale, lr_scale_bias, n)
         if self.captured:
             ms = self._run_captured("train", data, target, idx, mask,
-                                    scales, scales_b)
+                                    scales, scales_b, epoch, ctrs)
         else:
             idx_t = torch.from_numpy(idx).to(self.device, torch.int64)
             mask_t = torch.from_numpy(mask).to(self.device)

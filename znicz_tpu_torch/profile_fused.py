@@ -2,8 +2,10 @@
 goes on the card.
 
     python -m znicz_tpu_torch.profile_fused
-        [--model mnist|cifar|alexnet|autoencoder|mnist_units|cifar_units|
-                 autoencoder_units|som] [--steps 50] [--out DIR]
+        [--model mnist|cifar|cifar_stochastic|alexnet|autoencoder|
+                 mnist_units|cifar_units|cifar_stochastic_units|
+                 alexnet_units|autoencoder_units|som|som_units|mnist_rbm]
+        [--steps 50] [--out DIR]
 
 Trains the sample at full width on its split resident on the card (MNIST
 784→100→10 and the MNIST conv autoencoder on 50k/10k/10k, the CIFAR-10
@@ -23,9 +25,17 @@ port's own hand-written kernels with their share of the device time.
 split): after the epoch's test and validation ticks as warm-up,
 ``--steps`` train ticks, then (past the rest of the epoch) as many test
 and validation ticks of the next epoch; a "step" in its line is a tick.
-``--model som`` profiles the fused SOM (BASELINE config 5 at its own
-size: 2000 points, an 8×8 sheet, batch 100): train steps only, after a
-warm-up epoch.
+``alexnet_units`` takes a split of 512/256/128, so that three one-tick
+windows of each kind fit in an epoch (``--steps 1``).
+``cifar_stochastic`` is the CIFAR net with its max pool made a
+stochastic pool and its average pool a stochastic-abs pool
+(``stochastic_layers``), fused or (``cifar_stochastic_units``) on the
+unit graph.  ``--model som`` profiles the fused SOM (BASELINE config 5 at
+its own size: 2000 points, an 8×8 sheet, batch 100): train steps only,
+after a warm-up epoch; ``som_units`` its unit graph, train ticks only.
+``--model mnist_rbm`` profiles the RBM sample's pretraining step: CD-1 of
+its first level (784→256, batch 100) on the MNIST split, after a warm-up
+epoch through ``pretrain_stack``.
 With ``--out`` the Chrome traces are written there.  The conv family runs
 on the tier ``ZNICZ_TPU_CONV`` selects, as everywhere in the port
 (``ZNICZ_TPU_CONV=pallas``: the implicit-GEMM kernels).  It needs a CUDA
@@ -37,6 +47,7 @@ import argparse
 import importlib
 import json
 import time
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -47,20 +58,54 @@ from .loader.base import TRAIN
 
 _MNIST_SPLIT = {"n_train": 50000, "n_valid": 10000, "n_test": 10000,
                 "noise": 0.35}
-#: model → (workflow class, its config tree, the real split at full width)
+
+
+def stochastic_layers(layers) -> list:
+    """``layers`` with each max pool made a stochastic pool and each
+    average pool a stochastic-abs pool (the CIFAR net's stochastic
+    variant)."""
+    kinds = {"max_pooling": "stochastic_pooling",
+             "avg_pooling": "stochastic_abs_pooling"}
+    return [dict(la, type=kinds.get(la["type"], la["type"]))
+            for la in layers]
+
+
+class Sample(NamedTuple):
+    """A sample's workflow class, its config tree, the real split at full
+    width, its module under ``models`` and, where the tree's layers are
+    changed, a function of them."""
+    workflow: str
+    tree: str
+    split: dict
+    module: str
+    layers: Callable[[list], list] | None = None
+
+
+_CIFAR_SPLIT = {"n_train": 45000, "n_valid": 5000, "n_test": 10000,
+                "noise": 0.3, "size": 32}
 MODELS = {
-    "mnist": ("MnistWorkflow", "mnist", _MNIST_SPLIT),
-    "cifar": ("CifarWorkflow", "cifar",
-              {"n_train": 45000, "n_valid": 5000, "n_test": 10000,
-               "noise": 0.3, "size": 32}),
-    "alexnet": ("AlexNetWorkflow", "alexnet",
-                {"n_train": 512, "n_valid": 128, "n_test": 128,
-                 "noise": 0.4}),
-    "autoencoder": ("MnistAEWorkflow", "mnist_ae", _MNIST_SPLIT),
+    "mnist": Sample("MnistWorkflow", "mnist", _MNIST_SPLIT, "mnist"),
+    "cifar": Sample("CifarWorkflow", "cifar", _CIFAR_SPLIT, "cifar"),
+    "cifar_stochastic": Sample("CifarWorkflow", "cifar", _CIFAR_SPLIT,
+                               "cifar", stochastic_layers),
+    "alexnet": Sample("AlexNetWorkflow", "alexnet",
+                      {"n_train": 512, "n_valid": 128, "n_test": 128,
+                       "noise": 0.4}, "alexnet"),
+    "autoencoder": Sample("MnistAEWorkflow", "mnist_ae", _MNIST_SPLIT,
+                          "autoencoder"),
+    "mnist_rbm": Sample("MnistRBMWorkflow", "mnist_rbm", _MNIST_SPLIT,
+                        "mnist_rbm"),
 }
-#: the unit graphs, at the same widths and splits
+#: the unit graphs, at the same widths and splits (AlexNet's: see the
+#: module's docstring)
 UNIT_MODELS = {"mnist_units": "mnist", "cifar_units": "cifar",
+               "cifar_stochastic_units": "cifar_stochastic",
+               "alexnet_units": "alexnet",
                "autoencoder_units": "autoencoder"}
+_UNIT_SPLITS = {"alexnet_units": {"n_train": 512, "n_valid": 256,
+                                  "n_test": 128, "noise": 0.4}}
+#: the SOM's steps, which have no sample workflow of the table
+OTHER_MODELS = ("som", "som_units")
 #: the hand-written kernels' names in ``csrc/`` (a name that contains
 #: another is listed first, so each kernel is counted once)
 PORT_KERNELS = ("softmax_ce_kernel", "softmax_ce_stream_kernel",
@@ -90,13 +135,16 @@ def _window(fn, steps: int) -> tuple[float, float]:
     return (t2 - t0) / steps * 1e3, (t1 - t0) / steps * 1e3
 
 
-def _workflow(model: str):
-    """The sample's workflow at its full-width split, seeded."""
-    cls_name, tree, split = MODELS[model]
-    module = importlib.import_module(f".models.{model}", __package__)
-    getattr(root, tree).synthetic.update(split)
+def _workflow(model: str, split: dict | None = None):
+    """The sample's workflow at its full-width split (or ``split``),
+    seeded."""
+    spec = MODELS[model]
+    module = importlib.import_module(f".models.{spec.module}", __package__)
+    tree = getattr(root, spec.tree)
+    tree.synthetic.update(split or spec.split)
     prng.seed_all(1234)
-    return getattr(module, cls_name)()
+    cls = getattr(module, spec.workflow)
+    return cls(layers=spec.layers(tree.layers)) if spec.layers else cls()
 
 
 def _fused_steps(args):
@@ -125,7 +173,7 @@ def _unit_ticks(args):
     next ``--steps`` ticks of the tick loop — train ticks (GD chain on),
     or evaluation ticks (test and validation, GD skipped) — after
     running on to the next minibatch of that kind."""
-    wf = _workflow(UNIT_MODELS[args.model])
+    wf = _workflow(UNIT_MODELS[args.model], _UNIT_SPLITS.get(args.model))
     wf.decision.max_epochs = 1 << 30             # never completes here
     wf.initialize(device="cuda")
     ld = wf.loader
@@ -170,19 +218,61 @@ def _som_steps(args):
     return batch, train, None
 
 
+def _som_ticks(args):
+    """(batch, train, None): ``--steps`` train ticks of the SOM's unit
+    graph (it has no evaluation ticks), after a warm-up epoch."""
+    from .models import kohonen
+    prng.seed_all(1234)
+    wf = kohonen.KohonenWorkflow()
+    wf.decision.max_epochs = 1 << 30             # never completes here
+    wf.decision.epsilon = -1.0
+    wf.initialize(device="cuda")
+    ticks = -(-wf.loader.class_lengths[TRAIN]
+              // wf.loader.max_minibatch_size)
+    wf.run(max_ticks=ticks)                      # warm-up epoch
+
+    def train():
+        wf.run(max_ticks=args.steps)
+    return wf.loader.max_minibatch_size, train, None
+
+
+def _rbm_steps(args):
+    """(batch, train, None): ``--steps`` CD-1 steps of the RBM sample's
+    first level (784→256) on the MNIST split resident on the card, after
+    a warm-up epoch of ``pretrain_stack``."""
+    from .models import mnist_rbm
+    wf = _workflow("mnist_rbm")
+    wf.initialize(device="cuda")
+    ld = wf.loader
+    batch = ld.max_minibatch_size
+    data = ld.original_data.reshape(len(ld.original_data), -1)
+    trainers = []
+    mnist_rbm.pretrain_stack(data, root.mnist_rbm.hidden[:1], epochs=1,
+                             batch=batch, device=wf.device.torch_device,
+                             trainers=trainers)
+    idx = np.resize(ld.train_permutation(1), args.steps * batch)
+
+    def train():
+        trainers[0].train_epoch(data, idx, batch, 1)
+    return batch, train, None
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", choices=sorted(MODELS) + sorted(UNIT_MODELS)
-                    + ["som"], default="mnist")
+                    + list(OTHER_MODELS), default="mnist")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--out", default=None,
                     help="directory for the Chrome traces")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_fused needs a CUDA card")
-    batch, train, evaluate = (
-        _som_steps if args.model == "som" else _unit_ticks
-        if args.model in UNIT_MODELS else _fused_steps)(args)
+    # the pretraining step is the RBM sample's, not a fused step
+    steps_of = {"som": _som_steps, "som_units": _som_ticks,
+                "mnist_rbm": _rbm_steps}
+    batch, train, evaluate = steps_of.get(
+        args.model, _unit_ticks if args.model in UNIT_MODELS
+        else _fused_steps)(args)
     out = {"model": args.model, "steps": args.steps, "batch": batch,
            "device": torch.cuda.get_device_name(0)}
     for name, fn in (("train", train), ("eval", evaluate)):

@@ -65,8 +65,8 @@ DEMO_FAMILIES = tuple(sorted(DEMO_SHAPES))
 #: REAL trained families: briefly-but-actually-trained workflows of the
 #: models/ package, exported through export_workflow — the autoencoder
 #: exercises the DECODER path (conv/pool encoder mirrored by
-#: depool/deconv) and mnist_rbm the RBM-pretrained sigmoid MLP (whose
-#: model is not ported yet).  name -> sample shape a /predict row must
+#: depool/deconv) and mnist_rbm the RBM-pretrained sigmoid MLP.
+#: name -> sample shape a /predict row must
 #: carry (the AE is a conv chain: NHWC, not flat)
 TRAINED_SAMPLE_SHAPES = {"autoencoder": (28, 28, 1),
                          "mnist_rbm": (784,)}
@@ -719,31 +719,35 @@ def write_trained_model(path: str, family: str, seed: int = 7,
 
     ``autoencoder`` trains the MNIST conv autoencoder (conv 5×5×16 →
     maxpool → depooling → deconv, MSE) on the unit graph — the decoder
-    path the serving engine replays winner offsets for.  The config tree
-    is shrunk (synthetic data, one epoch) so it builds in seconds, then
-    restored — the point is real trained weights through the real
-    training path, not convergence.  ``device`` is where it trains: the
-    CUDA card by default (raising without one), ``"cpu"`` on the host.
-
-    ``mnist_rbm`` (the RBM-pretrained sigmoid MLP of the reference)
-    raises: the port has no RBM yet (ROADMAP.md queue 1 item 6b), and no
-    other model stands in for it."""
+    path the serving engine replays winner offsets for; ``mnist_rbm``
+    runs the greedy CD-1 stack pretraining and the sigmoid-MLP fine-tune.
+    The config trees are shrunk (synthetic data, one epoch, small hidden
+    sizes) so each builds in seconds, then restored — the point is real
+    trained weights through the real training path, not convergence.
+    ``device`` is where it trains: the CUDA card by default (raising
+    without one), ``"cpu"`` on the host."""
     from .. import prng
     from ..config import root
     from ..export import export_workflow
 
-    if family == "mnist_rbm":
-        raise NotImplementedError(
-            "write_trained_model('mnist_rbm') needs the RBM, which is "
-            "not ported yet (ROADMAP.md queue 1 item 6b)")
-    if family != "autoencoder":
+    if family == "autoencoder":
+        from ..models import autoencoder as mod
+        cfg = root.mnist_ae
+        shrink = {"minibatch_size": 32}
+        synthetic = {"n_train": 192, "n_valid": 32, "n_test": 0}
+    elif family == "mnist_rbm":
+        from ..models import mnist_rbm as mod
+        cfg = root.mnist_rbm
+        shrink = {"minibatch_size": 32, "hidden": [32, 16]}
+        synthetic = {"n_train": 384, "n_valid": 64, "n_test": 0}
+    else:
         raise ValueError(f"unknown trained family {family!r} "
                          f"(have {TRAINED_FAMILIES})")
-    from ..models import autoencoder as mod
-    cfg = root.mnist_ae
     saved = cfg.to_dict()
-    cfg.update({"minibatch_size": 32})
-    cfg.synthetic.update({"n_train": 192, "n_valid": 32, "n_test": 0})
+    cfg.update(shrink)
+    cfg.synthetic.update(synthetic)
+    if family == "mnist_rbm":
+        cfg.pretrain.update({"epochs": 1})
     cfg.decision.update({"max_epochs": epochs, "fail_iterations": 5})
     try:
         prng.seed_all(seed)
@@ -752,3 +756,14 @@ def write_trained_model(path: str, family: str, seed: int = 7,
         cfg.update(saved)
     return export_workflow(wf, path)
 
+
+def make_full_zoo(directory: str, seed: int = 7, device=None) -> dict:
+    """The demo trio plus both trained families, each trained on
+    ``device`` (as :func:`write_trained_model`); returns ``{family:
+    path}``."""
+    out = make_demo_zoo(directory, seed=seed)
+    for i, fam in enumerate(TRAINED_FAMILIES):
+        p = os.path.join(directory, f"{fam}.znn")
+        write_trained_model(p, fam, seed=seed + 10 + i, device=device)
+        out[fam] = p
+    return out

@@ -29,10 +29,13 @@ maps the spec's rows back to the layers.  Where the unit graph exists,
 back afterwards, as the reference's ``extract_model``/``write_back`` do;
 elsewhere the ``"weights"`` stream is drawn in the order the reference's
 units draw it, so the same seed gives the same initial weights in both
-packages.  Both paths cover the fc, conv, pooling, LRN, dropout,
-standalone activation (``activation_<name>``), depooling and deconv
-layers with a softmax or an MSE loss; stochastic pooling and the cutter
-layers raise on both (ROADMAP.md queue 1 item 5a).  On the card every
+packages.  Both paths cover the fc, conv, pooling (stochastic pooling
+too), LRN, dropout, standalone activation (``activation_<name>``),
+depooling and deconv layers with a softmax or an MSE loss.  The cutter
+and the mergers, and the GD units' ``accumulate_gradient`` and
+``apply_gradient`` options, train on the unit graph only: the
+reference's fused path refuses them, and so does this one
+(``fused_missing``).  On the card every
 non-linear activation of either path, standalone or built into an fc,
 conv or deconv layer, launches the elementwise kernels
 (``ops.activations``).
@@ -65,9 +68,9 @@ from . import prng
 from .accelerated_units import AcceleratedWorkflow
 from .loader.base import CLASS_NAMES, TEST, TRAIN, VALID
 from .mutable import DerivedBool
-from .nn import (activation, all2all, conv, deconv, depooling, dropout, gd,
-                 gd_conv, gd_deconv, gd_pooling, nn_units, normalization,
-                 pooling)
+from .nn import (activation, all2all, conv, cutter, deconv, depooling,
+                 dropout, gd, gd_conv, gd_deconv, gd_pooling, nn_units,
+                 normalization, pooling)
 from .nn.decision import DecisionGD, DecisionMSE
 from .nn.evaluator import EvaluatorMSE, EvaluatorSoftmax
 from .nn.lr_adjust import LearningRateAdjust
@@ -93,12 +96,18 @@ DECONV_TYPES = {"deconv": "linear", "deconv_tanh": "tanh",
                 "deconv_sigmoid": "sigmoid"}
 #: Pooling layer type → fused kind (nn/pooling.py).
 POOL_TYPES = {"max_pooling": "max_pool", "maxabs_pooling": "maxabs_pool",
-              "avg_pooling": "avg_pool"}
+              "avg_pooling": "avg_pool",
+              "stochastic_pooling": "stochastic_pool",
+              "stochastic_abs_pooling": "stochastic_abs_pool"}
 LRN_TYPES = ("norm", "lrn")
+#: Glue layer types (nn/cutter.py): the unit graph runs them, the fused
+#: path refuses them, as the reference's ``extract_model`` does
+GLUE_TYPES = {"cutter": "Cutter", "channel_merger": "ChannelMerger",
+              "sum_merger": "EltwiseSumMerger"}
 
 _UNIT_GRAPH = "ROADMAP.md queue 1 item 4 (core engine: the unit graph)"
-_CONV_UNITS = "ROADMAP.md queue 1 item 5a (stochastic pooling and the " \
-    "cutter, channel_merger and sum_merger units)"
+#: the GD options that keep a model on the unit graph
+GD_SCHEDULE_OPTIONS = ("accumulate_gradient", "apply_gradient")
 
 
 def _build_registries():
@@ -108,7 +117,7 @@ def _build_registries():
     fwd_map, gd_map = {}, {}
     for mod in (all2all, gd, conv, gd_conv, pooling, gd_pooling,
                 normalization, depooling, deconv, gd_deconv, dropout,
-                activation):
+                activation, cutter):
         for obj in vars(mod).values():
             if isinstance(obj, type) and issubclass(obj, Forward):
                 fwd_map.update(dict.fromkeys(obj.MAPPING, obj))
@@ -125,7 +134,7 @@ FWD_MAP, GD_MAP = _build_registries()
 ACTIVATION_TYPES = {t: cls.ACTIVATION.name for t, cls in FWD_MAP.items()
                     if issubclass(cls, activation.ActivationForward)}
 PORTED_TYPES = (*FC_TYPES, *CONV_TYPES, *POOL_TYPES, *LRN_TYPES, "dropout",
-                "depooling", *DECONV_TYPES, *ACTIVATION_TYPES)
+                "depooling", *DECONV_TYPES, *ACTIVATION_TYPES, *GLUE_TYPES)
 
 
 def _no_options_left(fwd: dict) -> None:
@@ -136,7 +145,8 @@ def _no_options_left(fwd: dict) -> None:
 
 def _gd_hypers(cfg: dict) -> tuple[tuple, tuple]:
     """(hypers, hypers_bias) from a layer's ``"<-"`` dict with the defaults
-    of the reference's ``GradientDescentBase.__init__``."""
+    of the reference's ``GradientDescentBase.__init__``; the schedule
+    options (``GD_SCHEDULE_OPTIONS``) go to the GD units only."""
     lr = cfg.get("learning_rate", 0.01)
     mom = cfg.get("gradient_moment", 0.0)
     lr_b = cfg.get("learning_rate_bias")
@@ -150,7 +160,7 @@ def _gd_hypers(cfg: dict) -> tuple[tuple, tuple]:
     unknown = set(cfg) - {"learning_rate", "learning_rate_bias",
                           "weights_decay", "weights_decay_bias", "l1_vs_l2",
                           "l1_vs_l2_bias", "gradient_moment",
-                          "gradient_moment_bias"}
+                          "gradient_moment_bias", *GD_SCHEDULE_OPTIONS}
     if unknown:
         raise NotImplementedError(
             f"gradient options {sorted(unknown)} are not ported yet "
@@ -227,8 +237,8 @@ class StandardWorkflow(AcceleratedWorkflow):
     def _unit_graph_gap(self) -> str | None:
         for spec in self.layers_config:
             if spec["type"] not in FWD_MAP:
-                return (f"layer type {spec['type']!r} has no unit yet ("
-                        f"{_CONV_UNITS})")
+                return (f"unknown layer type {spec['type']!r}; known: "
+                        f"{sorted(FWD_MAP)}")
         if not self.layers_config:
             return "the model has no layers"
         return None
@@ -344,6 +354,7 @@ class StandardWorkflow(AcceleratedWorkflow):
         # shapes[i]: the input sample shape of layer i
         shapes = [tuple(int(s) for s in self.loader.original_data.shape[1:])]
         layers, params = [], []
+        refusal = None   # why the fused path cannot run this model
         for i, spec in enumerate(self.layers_config):
             ltype = spec["type"]
             fwd = dict(spec.get("->", {}))
@@ -364,6 +375,8 @@ class StandardWorkflow(AcceleratedWorkflow):
             elif ltype in POOL_TYPES:
                 kind, act, pair = POOL_TYPES[ltype], "linear", None
                 config, shape = self._pool(ltype, fwd, shape)
+                if kind.startswith("stochastic"):
+                    config = self._stochastic(i, ltype, config)
             elif ltype == "depooling":
                 kind, act, pair = "depooling", "linear", None
                 config, shape = self._depooling(i, fwd, shapes, layers)
@@ -376,14 +389,27 @@ class StandardWorkflow(AcceleratedWorkflow):
             elif ltype in ACTIVATION_TYPES:
                 kind, act, pair = "activation", ACTIVATION_TYPES[ltype], None
                 config = ()
+            elif ltype in GLUE_TYPES:
+                # a placeholder row: the spec is never built (refusal)
+                kind, act, pair, config = ltype, "linear", None, ()
+                shape = self._glue(ltype, fwd, shape, unit)
+                refusal = refusal or (f"fused path does not support "
+                                      f"{GLUE_TYPES[ltype]}")
             else:
-                raise NotImplementedError(
-                    f"layer type {ltype!r} is not ported to znicz_tpu_torch "
-                    f"yet ({_CONV_UNITS} for the rest of the conv stack, "
-                    f"{_UNIT_GRAPH} for the rest); ported: "
-                    f"{sorted(PORTED_TYPES)}")
+                raise ValueError(f"unknown layer type {ltype!r}; known: "
+                                 f"{sorted(PORTED_TYPES)}")
             _no_options_left(fwd)
-            hypers, hypers_bias = _gd_hypers(dict(spec.get("<-", {})))
+            back = dict(spec.get("<-", {}))
+            hypers, hypers_bias = _gd_hypers(back)
+            if back.get("accumulate_gradient", False) \
+                    or not back.get("apply_gradient", True):
+                # the reference's extract_model refuses them the same way
+                refusal = refusal or (
+                    f"gd{i}_{ltype}: accumulate_gradient/apply_gradient "
+                    f"schedules need the unit-graph path (train(fused="
+                    f"False)); for fused accumulation clear those unit "
+                    f"flags and set root.common.accum_steps — a per-unit "
+                    f"schedule has no fused form")
             layers.append(LayerSpec(
                 kind=kind, activation=act,
                 include_bias=pair is not None and pair[1] is not None,
@@ -404,6 +430,11 @@ class StandardWorkflow(AcceleratedWorkflow):
                 # its own velocity, shaped like the shared encoder W
                 self.vels[i] = (torch.zeros_like(
                     self.params[la.cfg["tie"]][0]), self.vels[i][1])
+        if refusal is not None:
+            if self.unit_graph_missing is not None:
+                raise NotImplementedError(refusal)
+            self.spec, self.fused_missing = None, refusal
+            return
         layers, _, _, unit_index = fused._merge_lrn_pool(layers, self.params,
                                                          self.vels)
         try:
@@ -566,9 +597,9 @@ class StandardWorkflow(AcceleratedWorkflow):
         window and the pool's input shape → (config, output shape)."""
         tie = fwd.pop("tie", None)
         if tie is None or not 0 <= tie < i \
-                or layers[tie].kind not in ("max_pool", "maxabs_pool"):
+                or layers[tie].kind not in fused.OFFSET_KINDS:
             raise ValueError(f"depooling: tie={tie} must name an earlier "
-                             f"max or max-abs pooling layer")
+                             f"pooling layer that records winner slots")
         return (tuple(sorted(dict(layers[tie].cfg, tie=tie).items())),
                 shapes[tie])
 
@@ -584,6 +615,29 @@ class StandardWorkflow(AcceleratedWorkflow):
                  ("stride", sliding)),
                 (out_size(h, ksize[0], sliding[0], padding[0]),
                  out_size(w, ksize[1], sliding[1], padding[1]), c))
+
+    @staticmethod
+    def _stochastic(i: int, ltype: str, config: tuple) -> tuple:
+        """A stochastic pool's config with the ``"pooling"`` stream's seed
+        and the crc32 of the unit name the reference gives layer i, which
+        key its draws (the reference's ``extract_model``)."""
+        return tuple(sorted(dict(
+            config, seed=prng.get("pooling").stream_seed,
+            unit_id=zlib.crc32(f"fwd{i}_{ltype}".encode())).items()))
+
+    @staticmethod
+    def _glue(ltype, fwd, shape, unit):
+        """The output sample shape of a cutter (``padding`` = left, top,
+        right, bottom crop margins) or of a merger (its unit's, which
+        ``link_inputs`` wired)."""
+        if ltype == "cutter":
+            le, to, ri, bo = (int(p) for p in fwd.pop("padding"))
+            h, w, c = shape
+            return (h - to - bo, w - le - ri, c)
+        if unit is None:
+            raise ValueError(f"{ltype}: a merger needs its unit graph "
+                             f"(link_inputs)")
+        return tuple(unit.output.shape[1:])
 
     @staticmethod
     def _lrn(fwd):
