@@ -127,6 +127,32 @@ exits nonzero without the final ``ok`` line:
    refuses both;
 14d. flops — ``ops.flops.model_flops`` of every fused spec the script
    runs, at full width;
+14e. the data plane, in a temporary directory deleted after it:
+   ``stream_alexnet`` — AlexNet at full width (1000 classes, batch 128,
+   the default cuDNN tier) trained one epoch through
+   ``StandardWorkflow.train(fused=True)`` → ``StreamTrainer`` from
+   ``.znr`` shards of 512/128/128 decode-size frames (256², float32, 604
+   MB) written there: the native reader fills a pinned ring, a side
+   stream copies each minibatch into the ring's device slot, the step
+   crops it to 227² on the card; one minibatch's device crop held to the
+   host ``apply`` bit for bit first; launches as the resident AlexNet's a
+   step; every row served by the native reader; then the streamed steps
+   and the resident steps over the same frames in device memory
+   (``FusedTrainer(augment=...)``) traced alike: wall, device busy, idle
+   share, host-to-device copy ms and the share of it kernels overlapped,
+   and the epoch's host read and copy ms a minibatch; ``stream_parity`` —
+   CIFAR (captured), MNIST with ``accum_steps`` 2 and the autoencoder
+   (the MSE input target) on their parity splits streamed from shards of
+   their own data, metrics, params, velocities and launches bit-equal to
+   the resident trainer's; ``stream_units`` — the MNIST unit graph from
+   shards equal to it from the resident loader (metrics, weights,
+   launches); ``resident_augment`` — the CIFAR net on 36² frames cropped
+   to 32², captured and uncaptured ``FusedTrainer(augment=...)`` and
+   ``StreamTrainer(device_augment=True)`` bit-equal; ``data_dir`` — the
+   shrunk AlexNet of phase 9 through ``models.alexnet.run(data_dir=...)``
+   from a PNG tree written there (PIL decode at 76² in the loader's
+   thread pool), launches as the resident path's, epoch 0 against the
+   CPU as phase 9;
 15. mnist_act_units slice — the MNIST MLP of phase 10 with its tanh as a
    standalone ``activation_tanh`` layer, on the unit graph for 2 epochs
    (the activation kernels once a tick forward and once a GD tick
@@ -238,8 +264,8 @@ exits nonzero without the final ``ok`` line:
    replay).  Last, ``python -m znicz_tpu_torch serve --model
    mnist=<path> --port 0`` in a subprocess: both wire formats against
    the CPU, ``fallback_calls`` 0, SIGTERM, "drain complete", exit 0;
-21. the ``kernels`` line (with the resume, serve and serve_http paths'
-   launches), then ``{"ok":
+21. the ``kernels`` line (with the resume, serve, serve_http and
+   data-plane paths' launches), then ``{"ok":
    true, "device": {...}}`` last.
 
 The kernel phase holds, besides the fused paths' kernels, the unit graph's
@@ -4827,6 +4853,556 @@ def phase_flops(torch) -> dict:
     return out
 
 
+#: the data plane (the streaming slice): AlexNet at full width streamed
+#: from .znr shards of decode-size frames (STREAM_DECODE², float32, the
+#: synthetic stand-in's draws at that size), STREAM_SHARD_ROWS rows a
+#: shard, cropped to 227² on the card; a step's kernels and launches are
+#: the resident AlexNet's
+STREAM_DECODE = 256
+STREAM_CROP = 227
+STREAM_CLASSES = 1000
+STREAM_SHARD_ROWS = 256
+#: the timed and traced window: the train rows this many times over (a
+#: call's first copy has no step before it to overlap)
+STREAM_WINDOW_EPOCHS = 4
+#: MNIST's parity split (the autoencoder's default split)
+MNIST_PARITY_SPLIT = AE_PARITY_SPLIT
+#: stream_parity's cases: model, split, accum_steps (each streamed from
+#: shards of its own normalized data against its resident trainer)
+STREAM_PARITY = {"cifar": ("cifar", CIFAR_PARITY_SPLIT, 1),
+                 "mnist_accum": ("mnist", MNIST_PARITY_SPLIT, 2),
+                 "autoencoder": ("autoencoder", AE_PARITY_SPLIT, 1)}
+#: resident_augment: the CIFAR net (captured) on 36² frames cropped to 32²
+AUGMENT_FRAME = 36
+#: data_dir: the shrunk AlexNet of phase 9 from a PNG tree of
+#: DATA_DIR_SPLIT images a class, decoded at 76² and cropped to 67²
+DATA_DIR_SPLIT = {"train": 10, "valid": 3, "test": 2}
+DATA_DIR_FRAME = (90, 84)
+DATA_DIR_DECODE = 76
+
+
+def _write_shards(directory: str, data, labels, class_lengths) -> dict:
+    """test/valid/train ``.znr`` shards of rows laid out [test | valid |
+    train], STREAM_SHARD_ROWS rows a shard; split → paths."""
+    from znicz_tpu_torch.loader import write_records
+    out, lo = {}, 0
+    for name, n in zip(("test", "valid", "train"), class_lengths):
+        out[name] = (write_records(os.path.join(directory, f"{name}.znr"),
+                                   data[lo:lo + n], labels[lo:lo + n],
+                                   shard_size=STREAM_SHARD_ROWS)
+                     if n else [])
+        lo += n
+    return out
+
+
+def _record_loader(paths: dict, batch: int, augment=None):
+    from znicz_tpu_torch.loader import RecordLoader
+    return RecordLoader(train_paths=paths["train"],
+                        validation_paths=paths["valid"],
+                        test_paths=paths["test"], minibatch_size=batch,
+                        augment=augment)
+
+
+def _intervals_ms(intervals) -> float:
+    """Length of the union of (start, end) µs intervals, in ms."""
+    total, end = 0.0, None
+    for a, b in sorted(intervals):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total / 1e3
+
+
+def _overlap_ms(spans, cover) -> float:
+    """Milliseconds of ``spans`` that the union of ``cover`` overlaps."""
+    merged = []
+    for a, b in sorted(cover):
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    total = 0.0
+    for a, b in spans:
+        for c, d in merged:
+            total += max(0.0, min(b, d) - max(a, c))
+    return total / 1e3
+
+
+def device_timeline(torch, fn, steps: int, directory: str) -> dict:
+    """``fn`` (``steps`` train steps) once untraced for its wall, then
+    under ``torch.profiler`` (a warm-up call traced first, as
+    ``profiled_step`` does): the device's busy ms a step (the union of its
+    kernels, copies and memsets on every stream), its idle share against
+    the untraced wall, the host-to-device copies' ms a step and the share
+    of it that kernels on the card overlapped."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    schedule = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    with torch.profiler.profile(activities=acts, schedule=schedule) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    trace = os.path.join(directory, "trace.json")
+    prof.export_chrome_trace(trace)
+    with open(trace) as fh:
+        events = json.load(fh)["traceEvents"]
+    os.unlink(trace)
+
+    def spans(cats, name=""):
+        return [(e["ts"], e["ts"] + e["dur"]) for e in events
+                if e.get("cat") in cats and name in e.get("name", "")
+                and "dur" in e]
+    kernels = spans(("kernel",))
+    device = spans(("kernel", "gpu_memcpy", "gpu_memset"))
+    h2d = spans(("gpu_memcpy",), "HtoD")
+    busy = _intervals_ms(device) / steps
+    h2d_ms = _intervals_ms(h2d)
+    if not kernels:
+        raise AssertionError("the profiler recorded no kernel")
+    return {"wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy,
+            "idle_share": max(0.0, 1.0 - busy / wall_ms),
+            "h2d_copy_ms_per_step": h2d_ms / steps,
+            "h2d_copy_overlapped_share": (_overlap_ms(h2d, kernels) / h2d_ms
+                                          if h2d_ms else None)}
+
+
+def phase_stream_alexnet(torch, directory: str) -> dict:
+    """AlexNet at full width (1000 classes, batch 128, the default cuDNN
+    tier) streamed for one epoch through ``StandardWorkflow.train(fused=
+    True)`` → ``run_fused`` → ``StreamTrainer`` from ``.znr`` shards of
+    512/128/128 decode-size frames written here (the synthetic stand-in's
+    draws at STREAM_DECODE², float32), each minibatch read by the native
+    reader into a pinned ring, copied on a side stream and cropped to 227²
+    on the card.  Before the epoch one minibatch's device crop is held to
+    the host ``apply`` bit for bit; the epoch's launches equal the
+    resident AlexNet's per step (``PATHS["alexnet"]``); every row came
+    from the native reader.  Then the streamed train steps and the
+    resident steps over the same frames in device memory (``FusedTrainer(
+    augment=...)``, the same crops) are timed and traced alike over
+    STREAM_WINDOW_EPOCHS passes of the train rows in one call: wall,
+    device busy, idle share, copy ms and how much of it kernels
+    overlapped; with the host read ms and copy ms a minibatch of the
+    epoch."""
+    import numpy as np
+    from znicz_tpu_torch import prng
+    from znicz_tpu_torch.loader import RandomCropFlip
+    from znicz_tpu_torch.models import alexnet
+    from znicz_tpu_torch.parallel import fused
+    from znicz_tpu_torch.parallel.stream import StreamTrainer
+    from znicz_tpu_torch.standard_workflow import StandardWorkflow
+    split, batch = ALEXNET_SPLIT, 128
+    prng.seed_all(SEED)
+    t0 = time.monotonic()
+    gen = alexnet.ImagenetSyntheticLoader(size=STREAM_DECODE,
+                                          n_classes=STREAM_CLASSES,
+                                          synthetic_sizes=split)
+    gen.load_data()
+    paths = _write_shards(directory, gen.original_data,
+                          gen.original_labels, gen.class_lengths)
+    shard_bytes = sum(os.path.getsize(p) for v in paths.values() for p in v)
+    write_s = time.monotonic() - t0
+    del gen
+    pol = RandomCropFlip((STREAM_CROP, STREAM_CROP), seed=SEED)
+    prng.seed_all(SEED)
+    wf = StandardWorkflow(
+        "AlexNetStream", layers=alexnet.make_layers(STREAM_CLASSES),
+        loader=_record_loader(paths, batch, pol),
+        decision_config={"max_epochs": 1, "fail_iterations": 50})
+    wf.initialize(device="cuda")
+    ld = wf.loader
+    # one minibatch's crop, host against card, before the epoch (rows
+    # chosen without a draw from the loader's stream)
+    rows = np.arange(ld._train_base(), ld._train_base() + batch)
+    raw = ld.read_batch(rows)[0]
+    host = pol.apply(raw, rows, 0, np.ones(batch, bool))
+    dev = pol.device_apply(torch.from_numpy(raw).cuda(),
+                           torch.from_numpy(rows).cuda(), 0)
+    _bit_equal(torch, "stream_alexnet", "device crop",
+               dev, torch.from_numpy(host).cuda())
+    expected = expected_launches("alexnet", split, batch, 1)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.monotonic()
+    trainer = wf.train(fused=True, max_epochs=1)
+    torch.cuda.synchronize()
+    wall_s = time.monotonic() - t0
+    counts = launch_counts()
+    if type(trainer) is not StreamTrainer or not trainer.device_augment:
+        raise AssertionError(f"stream_alexnet trained through "
+                             f"{type(trainer).__name__}")
+    if counts != expected:
+        raise AssertionError(f"stream_alexnet: launches {counts} != the "
+                             f"resident path's {expected}")
+    metrics = wf.decision.epoch_metrics
+    if len(metrics) != 1 or not all(math.isfinite(v)
+                                    for v in metrics[0].values()):
+        raise AssertionError(f"stream_alexnet metrics {metrics}")
+    served = ld.served()
+    if ld.reader != "native" or served["numpy"] or not served["native"]:
+        raise AssertionError(f"stream_alexnet: rows served {served} by "
+                             f"{ld.reader}")
+    st = trainer.stream_stats
+    copies = trainer.copy_ms()
+    epoch = {"wall_s": wall_s, "batches": st["batches"],
+             "host_read_ms_per_batch": st["read_s"] / st["batches"] * 1e3,
+             "copy_ms_per_batch": (sum(copies) / len(copies) if copies
+                                   else None),
+             "copy_bytes_per_batch": batch * STREAM_DECODE ** 2 * 3 * 4
+             + batch * 4}
+    # the same steps streamed and resident, timed and traced alike
+    train_rows = np.tile(np.arange(ld._train_base(), ld._train_base()
+                                   + split["n_train"]), STREAM_WINDOW_EPOCHS)
+    steps = len(train_rows) // batch
+    stream = device_timeline(torch, lambda: trainer.train_epoch(
+        None, None, train_rows, batch, epoch=1, sync=False), steps,
+        directory)
+    data, labels = ld.read_batch(np.arange(sum(ld.class_lengths)))
+    data = torch.from_numpy(data).cuda()
+    labels = torch.from_numpy(np.asarray(labels)).cuda()
+    res = fused.FusedTrainer(spec=trainer.spec, params=trainer.params,
+                             vels=trainer.vels, device="cuda", augment=pol)
+    resident = device_timeline(torch, lambda: res.train_epoch(
+        data, labels, train_rows, batch, epoch=1, sync=False), steps,
+        directory)
+    out = {"phase": "stream_alexnet", "split": split, "batch": batch,
+           "decode": [STREAM_DECODE, STREAM_DECODE, 3],
+           "crop": [STREAM_CROP, STREAM_CROP],
+           "shard_bytes": shard_bytes, "shards": {k: len(v) for k, v in
+                                                  paths.items()},
+           "write_s": write_s, "reader": ld.reader, "rows_served": served,
+           "captured": trainer.captured,
+           "uncaptured_reason": trainer.uncaptured_reason,
+           "device_crop_bit_equal": True, "launches": counts,
+           "epoch_metrics": metrics, "epoch_timings": wf.epoch_timings,
+           "epoch": epoch, "streamed": stream, "resident_augmented": resident,
+           "peak_device_bytes": torch.cuda.max_memory_allocated()}
+    emit(out)
+    del wf, trainer, res, data
+    for v in paths.values():
+        for p in v:
+            os.unlink(p)
+    torch.cuda.empty_cache()
+    return out
+
+
+def _stream_parity_case(torch, case: str, directory: str) -> dict:
+    """One STREAM_PARITY case: the model's resident ``FusedTrainer`` and a
+    ``StreamTrainer`` over shards of the same normalized rows, from the
+    same weights: a train epoch (the loader's epoch-0 order) and an eval
+    epoch of the validation rows each, metrics, params, velocities and
+    launches bit-equal, both captured."""
+    import numpy as np
+    from znicz_tpu_torch.parallel import fused
+    from znicz_tpu_torch.parallel.stream import StreamTrainer
+    model, split, accum = STREAM_PARITY[case]
+    wf = _card_workflow(model, split)
+    ld = wf.loader
+    batch = ld.max_minibatch_size
+    data = ld.original_data
+    target = (ld.original_targets if wf.loss_function == "mse"
+              else ld.original_labels)
+    sub = os.path.join(directory, case)
+    os.makedirs(sub)
+    paths = _write_shards(sub, data.cpu().numpy(),
+                          ld.original_labels.cpu().numpy(),
+                          ld.class_lengths)
+    rl = _record_loader(paths, batch)
+    rl.initialize("cuda")
+    perm = ld.train_permutation(0)
+    valid = np.arange(ld.class_lengths[0], sum(ld.class_lengths[:2]))
+    runs = {}
+    for way in ("resident", "streamed"):
+        kw = dict(spec=wf.spec, params=wf.spec_rows(wf.params),
+                  vels=wf.spec_rows(wf.vels), device="cuda",
+                  accum_steps=accum)
+        tr = (fused.FusedTrainer(**kw) if way == "resident" else
+              StreamTrainer(loader=rl, mse_target="input", **kw))
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        ms = (tr.train_epoch(data, target, perm, batch, epoch=0),
+              tr.eval_epoch(data, target, valid, batch))
+        torch.cuda.synchronize()
+        runs[way] = (tr, ms, launch_counts(), time.perf_counter() - t0)
+    (tr_r, m_r, n_r, w_r), (tr_s, m_s, n_s, w_s) = (runs["resident"],
+                                                    runs["streamed"])
+    if not (tr_r.captured and tr_s.captured):
+        raise AssertionError(f"stream_parity {case}: captured "
+                             f"{tr_r.captured}/{tr_s.captured}")
+    for a, b in zip(m_r, m_s):
+        for k in a:
+            if not np.array_equal(a[k], b[k]):
+                raise AssertionError(f"stream_parity {case}: {k} differs")
+    for what, rows_r, rows_s in (("params", tr_r.params, tr_s.params),
+                                 ("vels", tr_r.vels, tr_s.vels)):
+        for r, (pr, ps) in enumerate(zip(rows_r, rows_s)):
+            for a, b in zip(pr, ps):
+                if a is not None:
+                    _bit_equal(torch, f"stream_parity {case}",
+                               f"{what} {r}", a, b)
+    if n_r != n_s:
+        raise AssertionError(f"stream_parity {case}: launches {n_s} "
+                             f"streamed, {n_r} resident")
+    if rl.reader != "native" or rl.served()["numpy"]:
+        raise AssertionError(f"stream_parity {case}: {rl.served()}")
+    steps = len(m_r[0]["loss"]) + len(m_r[1]["loss"])
+    out = {"model": model, "split": split, "accum_steps": accum,
+           "loss": wf.loss_function, "captured": True, "bit_equal": True,
+           "launches": n_s, "ring_slots": tr_s.prefetch_depth + 1,
+           "wall_ms_per_step": {"resident": w_r / steps * 1e3,
+                                "streamed": w_s / steps * 1e3},
+           "host_read_ms_per_batch": tr_s.stream_stats["read_s"]
+           / tr_s.stream_stats["batches"] * 1e3}
+    del wf, runs, tr_r, tr_s
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_stream_parity(torch, directory: str) -> dict:
+    """``STREAM_PARITY``: CIFAR at its parity split (captured), MNIST with
+    ``accum_steps`` 2 and the autoencoder (the MSE input target), each
+    streamed from record shards bit-equal to its resident trainer, cuDNN
+    held to its deterministic algorithms."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        out = {case: _stream_parity_case(torch, case, directory)
+               for case in STREAM_PARITY}
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    emit({"phase": "stream_parity", "cases": out})
+    return out
+
+
+def phase_stream_units(torch, directory: str) -> dict:
+    """The MNIST unit graph (one minibatch a tick) for one epoch on the
+    parity split, from the resident loader and from record shards of the
+    same normalized rows (``StreamingLoader.fill_minibatch``): epoch
+    metrics, every unit's weights and each kernel's launches equal."""
+    import numpy as np
+    from znicz_tpu_torch import prng
+    from znicz_tpu_torch.config import root
+    from znicz_tpu_torch.standard_workflow import StandardWorkflow
+    split = MNIST_PARITY_SPLIT
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = _run("mnist", "cuda", 1, split, fused=False)
+    torch.cuda.synchronize()
+    wall_r, n_r = time.perf_counter() - t0, launch_counts()
+    ld = res.loader
+    sub = os.path.join(directory, "units")
+    os.makedirs(sub)
+    paths = _write_shards(sub, ld.original_data.cpu().numpy(),
+                          ld.original_labels.cpu().numpy(),
+                          ld.class_lengths)
+    prng.seed_all(SEED)
+    wf = StandardWorkflow(
+        "MnistStream", layers=root.mnist.get("layers"),
+        loader=_record_loader(paths, ld.max_minibatch_size),
+        decision_config=root.mnist.decision.to_dict())
+    wf.initialize(device="cuda")
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    wf.train(fused=False, max_epochs=1)
+    torch.cuda.synchronize()
+    wall_s, n_s = time.perf_counter() - t0, launch_counts()
+    if wf.decision.epoch_metrics != res.decision.epoch_metrics:
+        raise AssertionError(f"stream_units: {wf.decision.epoch_metrics} "
+                             f"!= {res.decision.epoch_metrics}")
+    for i, (f, g) in enumerate(zip(wf.forwards, res.forwards)):
+        for a, b in ((f.weights, g.weights), (f.bias, g.bias)):
+            if not np.array_equal(a.mem, b.mem):
+                raise AssertionError(f"stream_units: layer {i} differs")
+    if n_s != n_r:
+        raise AssertionError(f"stream_units: launches {n_s} != {n_r}")
+    out = {"phase": "stream_units", "split": split, "bit_equal": True,
+           "launches": n_s, "reader": wf.loader.reader,
+           "wall_s": {"resident": wall_r, "streamed": wall_s},
+           "epoch_metrics": wf.decision.epoch_metrics}
+    emit(out)
+    del wf, res
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_resident_augment(torch, directory: str) -> dict:
+    """The CIFAR net (captured) trained on AUGMENT_FRAME² frames cropped
+    to 32² on the card, three ways from the same weights: a captured
+    ``FusedTrainer(augment=...)`` with the frames resident, the same
+    uncaptured (each crop drawn in Python each step), and a
+    ``StreamTrainer(device_augment=True)`` over shards of the frames —
+    two train epochs (other crops each epoch) and an eval epoch (center
+    crops), metrics, params and launches bit-equal.  A replay that froze
+    the crop of its capture would differ from the uncaptured steps."""
+    import numpy as np
+    from znicz_tpu_torch.loader import RandomCropFlip
+    from znicz_tpu_torch.parallel import fused
+    from znicz_tpu_torch.parallel.stream import StreamTrainer
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        # the frames' workflow first: the spec's leaves the tree at 32²
+        frames = _card_workflow("cifar", dict(CIFAR_PARITY_SPLIT,
+                                              size=AUGMENT_FRAME)).loader
+        wf = _card_workflow("cifar", CIFAR_PARITY_SPLIT)
+        data, labels = frames.original_data, frames.original_labels
+        batch = wf.loader.max_minibatch_size
+        pol = RandomCropFlip((32, 32), seed=SEED)
+        sub = os.path.join(directory, "augment")
+        os.makedirs(sub)
+        paths = _write_shards(sub, data.cpu().numpy(),
+                              labels.cpu().numpy(), frames.class_lengths)
+        rl = _record_loader(paths, batch, pol)
+        rl.initialize("cuda")
+        perm = [frames.train_permutation(e) for e in (0, 1)]
+        valid = np.arange(frames.class_lengths[0],
+                          sum(frames.class_lengths[:2]))
+        runs = {}
+        for way in ("captured", "uncaptured", "streamed"):
+            kw = dict(spec=wf.spec, params=wf.spec_rows(wf.params),
+                      vels=wf.spec_rows(wf.vels), device="cuda")
+            tr = (StreamTrainer(loader=rl, device_augment=True, **kw)
+                  if way == "streamed" else fused.FusedTrainer(
+                      augment=pol, capture=way == "captured", **kw))
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            ms = [tr.train_epoch(data, labels, perm[e], batch, epoch=e)
+                  for e in (0, 1)] + [tr.eval_epoch(data, labels, valid,
+                                                    batch)]
+            torch.cuda.synchronize()
+            runs[way] = (tr, ms, launch_counts(), time.perf_counter() - t0)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    base_tr, base_ms, base_n, _ = runs["captured"]
+    if not base_tr.captured or runs["uncaptured"][0].captured \
+            or not runs["streamed"][0].captured:
+        raise AssertionError("resident_augment: capture modes")
+    for way in ("uncaptured", "streamed"):
+        tr, ms, n, _ = runs[way]
+        for a, b in zip(base_ms, ms):
+            for k in a:
+                if not np.array_equal(a[k], b[k]):
+                    raise AssertionError(f"resident_augment: {way} {k}")
+        for r, (pa, pb) in enumerate(zip(base_tr.params, tr.params)):
+            for a, b in zip(pa, pb):
+                if a is not None:
+                    _bit_equal(torch, "resident_augment", f"{way} {r}",
+                               a, b)
+        if n != base_n:
+            raise AssertionError(f"resident_augment: launches {way} {n} "
+                                 f"!= {base_n}")
+    out = {"phase": "resident_augment", "frame": [AUGMENT_FRAME] * 2,
+           "crop": [32, 32], "split": CIFAR_PARITY_SPLIT, "bit_equal": True,
+           "launches": base_n,
+           "wall_s": {k: v[3] for k, v in runs.items()},
+           "train_loss": [float(m["loss"].mean()) for m in base_ms[:2]]}
+    emit(out)
+    del wf, frames, runs
+    torch.cuda.empty_cache()
+    return out
+
+
+def _png_tree(directory: str, classes: int, seed: int) -> dict:
+    """``directory/<split>/cNN/iNNN.png`` of seeded random RGB pixels at
+    DATA_DIR_FRAME, DATA_DIR_SPLIT images a class; split sizes."""
+    import numpy as np
+    from PIL import Image
+    gen = np.random.default_rng(seed)
+    for split, n in DATA_DIR_SPLIT.items():
+        for c in range(classes):
+            d = os.path.join(directory, split, f"c{c:02d}")
+            os.makedirs(d)
+            for i in range(n):
+                px = gen.integers(0, 256, (*DATA_DIR_FRAME, 3), np.uint8)
+                Image.fromarray(px).save(os.path.join(d, f"i{i:03d}.png"))
+    return {"n_train": classes * DATA_DIR_SPLIT["train"],
+            "n_valid": classes * DATA_DIR_SPLIT["valid"],
+            "n_test": classes * DATA_DIR_SPLIT["test"]}
+
+
+def phase_data_dir(torch, directory: str) -> dict:
+    """The shrunk AlexNet of phase 9 (67² crops, widths 8-12-8-8-8-24-16,
+    7 classes, batch 32) trained for one epoch through
+    ``models.alexnet.run(data_dir=...)`` from a PNG tree written here:
+    ``OnTheFlyImageLoader`` decodes at 76² in its thread pool, the
+    ``StreamTrainer`` crops on the card.  Launches as the resident
+    AlexNet's a step; epoch 0 against the same run on the CPU (losses
+    within rtol 5e-4, error counts within 1% of each class, as phase 9)."""
+    from znicz_tpu_torch.loader.streaming import OnTheFlyImageLoader
+    from znicz_tpu_torch.models import alexnet
+    from znicz_tpu_torch.parallel.stream import StreamTrainer
+    tree = os.path.join(directory, "tree")
+    classes = ALEXNET_SHRUNK["n_classes"]
+    split = _png_tree(tree, classes, SEED)
+    config = dict(ALEXNET_SHRUNK, decode_size=DATA_DIR_DECODE,
+                  layers=alexnet.make_layers(
+                      classes, widths=ALEXNET_SHRUNK_WIDTHS))
+    batch = config["minibatch_size"]
+    expected = expected_launches("alexnet", split, batch, 1)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.monotonic()
+        wf = _run("alexnet", device, 1, {}, config, data_dir=tree)
+        torch.cuda.synchronize()
+        runs[device] = (wf, launch_counts(), time.monotonic() - t0)
+    wf, counts, wall_s = runs["cuda"]
+    if not isinstance(wf.loader, OnTheFlyImageLoader):
+        raise AssertionError(f"data_dir loader {type(wf.loader).__name__}")
+    if counts != expected:
+        raise AssertionError(f"data_dir: launches {counts} != {expected}")
+    card, cpu = wf.decision.epoch_metrics[0], \
+        runs["cpu"][0].decision.epoch_metrics[0]
+    for k, v in card.items():
+        if k.endswith("_loss") and not math.isclose(v, cpu[k],
+                                                    rel_tol=5e-4):
+            raise AssertionError(f"data_dir {k}: card {v} vs cpu {cpu[k]}")
+        if k.endswith("_n_err") and abs(v - cpu[k]) > 0.01 * split[
+                {"train": "n_train", "validation": "n_valid",
+                 "test": "n_test"}[k.split("_")[0]]]:
+            raise AssertionError(f"data_dir {k}: card {v} vs cpu {cpu[k]}")
+    out = {"phase": "data_dir", "split": split, "frame":
+           list(DATA_DIR_FRAME), "decode": DATA_DIR_DECODE,
+           "crop": ALEXNET_SHRUNK["size"], "batch": batch,
+           "trainer": StreamTrainer.__name__, "launches": counts,
+           "wall_s": wall_s, "card_epoch0": card, "cpu_epoch0": cpu}
+    emit(out)
+    del wf, runs
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_data_plane(torch) -> dict:
+    """The data-plane phases in a temporary directory deleted after:
+    ``stream_alexnet``, ``stream_parity``, ``stream_units``,
+    ``resident_augment`` and ``data_dir``; path → launches."""
+    with tempfile.TemporaryDirectory(prefix="znicz_stream_") as directory:
+        alex = phase_stream_alexnet(torch, directory)
+        parity = phase_stream_parity(torch, directory)
+        units = phase_stream_units(torch, directory)
+        augment = phase_resident_augment(torch, directory)
+        data_dir = phase_data_dir(torch, directory)
+    return {"stream_alexnet": alex["launches"],
+            **{f"stream_parity_{case}": line["launches"]
+               for case, line in parity.items()},
+            "stream_units": units["launches"],
+            "resident_augment": augment["launches"],
+            "data_dir": data_dir["launches"]}
+
+
 def kernels_line(kern: dict, launches: dict) -> dict:
     """One entry per kernel: its numbers at the main path's shape (the
     first case), the launches of the main-path runs, and every case."""
@@ -4951,6 +5527,7 @@ def run_phases(torch, info: dict, exports: dict, serve_dir: str) -> int:
     rbm = phase_mnist_rbm(torch, serve_dir, exports)
     options = phase_units_options(torch)
     phase_flops(torch)
+    plane = phase_data_plane(torch)
     act_cfg = {"layers": MNIST_ACT_LAYERS}
     act_units = phase_slice(torch, "mnist", MNIST_SPLIT,
                             "mnist 784-100-activation_tanh-10 unit graph",
@@ -5003,7 +5580,8 @@ def run_phases(torch, info: dict, exports: dict, serve_dir: str) -> int:
                                 for case in RESUME_CASES},
                              "resume_alexnet": resume["alexnet"]["launches"],
                              "serve": serve["launches"],
-                             "serve_http": serve_http["launches"]}))
+                             "serve_http": serve_http["launches"],
+                             **plane}))
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -254,11 +254,6 @@ def test_alexnet_conv_geometries_match_reference(geom, fn):
                                atol=1e-5 * max(1.0, np.abs(want).max()))
 
 
-def test_data_dir_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        alexnet.AlexNetWorkflow(data_dir="/nonexistent")
-
-
 def test_cli_trains_one_epoch_on_the_cpu(tmp_path):
     """The CLI with a config file (narrow widths, which keep the process
     small) and ``--set`` overrides, as a user would shrink the sample."""

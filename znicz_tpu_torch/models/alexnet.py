@@ -11,12 +11,18 @@ the pair's backward (``parallel/fused.py`` ``_merge_lrn_pool``); the unit
 graph runs one unit a layer, its LRN and pool units apart and its dropout
 units on the counter-RNG kernel.
 
-ImageNet is not in the repository: a seeded synthetic stand-in with the
-real tensor geometry (per-class 8×8 prototypes upsampled, plus noise) is
-drawn from the ``"imagenet_synthetic"`` stream, bit-identical to the JAX
-package's for the same seed.  Shapes and class count shrink through
-``root.alexnet`` for tests.  The on-the-fly ImageNet pipeline of the
-reference (``data_dir``) is not ported yet.
+With ``data_dir`` (or ``root.alexnet.data_dir``) it trains from a
+directory tree of images bigger than device memory, the reference's
+on-the-fly ImageNet pipeline (``make_imagenet_loader``): ``train/``,
+``valid/`` and ``test/`` subtrees of class directories, decoded per
+minibatch at ``decode_size``² in a thread pool, random ``size``² crops and
+mirrors at train time and center crops at eval, made on the card inside
+the fused step (``StreamTrainer``).  Without it, ImageNet not being in the
+repository, a seeded synthetic stand-in with the real tensor geometry
+(per-class 8×8 prototypes upsampled, plus noise) is drawn from the
+``"imagenet_synthetic"`` stream, bit-identical to the JAX package's for
+the same seed.  Shapes and class count shrink through ``root.alexnet``
+for tests.
 
 Run:  ``python -m znicz_tpu_torch znicz_tpu_torch.models.alexnet --fused
 [--epochs N] [--device cuda|cpu]`` (without ``--fused``: the unit graph)
@@ -24,11 +30,15 @@ Run:  ``python -m znicz_tpu_torch znicz_tpu_torch.models.alexnet --fused
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
 from .. import prng
 from ..config import root
+from ..loader.augment import RandomCropFlip
 from ..loader.fullbatch import FullBatchLoader
+from ..loader.streaming import OnTheFlyImageLoader
 from ..standard_workflow import StandardWorkflow, sample_snapshotter_config
 
 
@@ -81,16 +91,11 @@ root.alexnet.setdefaults({
     "decision": {"max_epochs": 10, "fail_iterations": 50},
     "synthetic": {"n_train": 512, "n_valid": 128, "n_test": 128,
                   "noise": 0.4},
-    #: a directory tree of images for the reference's on-the-fly ImageNet
-    #: pipeline; not ported yet (raises)
+    #: a directory tree of images (train/, valid/, test/ of class
+    #: directories) for the on-the-fly ImageNet pipeline
     "data_dir": None,
     "decode_size": 256,
 })
-
-_DATA_DIR = ("the on-the-fly ImageNet pipeline (alexnet.data_dir) is not "
-             "ported yet (ROADMAP.md queue 1 item 8, the data plane); the "
-             "synthetic stand-in runs when data_dir is unset")
-
 
 class ImagenetSyntheticLoader(FullBatchLoader):
     """Seeded synthetic stand-in with ImageNet tensor geometry: per-class
@@ -125,19 +130,47 @@ class ImagenetSyntheticLoader(FullBatchLoader):
         self.class_lengths = [n_test, n_valid, n_train]
 
 
+def make_imagenet_loader(data_dir: str, size: int = 227,
+                         decode_size: int = 256,
+                         minibatch_size: int = 128):
+    """The on-the-fly ImageNet pipeline: a disk tree bigger than device
+    memory, decoded at ``decode_size``² in a thread pool, with counter-RNG
+    random ``size``² crops and mirrors at train time (center crops at
+    eval), streamed to the card by the prefetcher."""
+    splits = {}
+    for split, key in (("train", "train_paths"),
+                       ("valid", "validation_paths"),
+                       ("test", "test_paths")):
+        p = os.path.join(data_dir, split)
+        if os.path.isdir(p):
+            splits[key] = [p]
+    if "train_paths" not in splits:
+        raise ValueError(f"{data_dir}: no train/ subtree")
+    return OnTheFlyImageLoader(
+        size=(decode_size, decode_size),
+        augment=RandomCropFlip((size, size)),
+        minibatch_size=minibatch_size, **splits)
+
+
 class AlexNetWorkflow(StandardWorkflow):
     """BASELINE config 3: the ImageNet AlexNet training workflow."""
 
     def __init__(self, name="AlexNetWorkflow", layers=None,
                  decision_config=None, snapshotter_config=None,
                  lr_adjuster_config=None, data_dir=None, **kwargs):
-        if data_dir or root.alexnet.get("data_dir"):
-            raise NotImplementedError(_DATA_DIR)
-        loader = ImagenetSyntheticLoader(
-            minibatch_size=root.alexnet.get("minibatch_size", 128),
-            size=root.alexnet.get("size", 227),
-            n_classes=root.alexnet.get("n_classes", 1000),
-            synthetic_sizes=kwargs.get("synthetic_sizes"))
+        data_dir = data_dir or root.alexnet.get("data_dir")
+        if data_dir:
+            loader = make_imagenet_loader(
+                data_dir,
+                size=root.alexnet.get("size", 227),
+                decode_size=root.alexnet.get("decode_size", 256),
+                minibatch_size=root.alexnet.get("minibatch_size", 128))
+        else:
+            loader = ImagenetSyntheticLoader(
+                minibatch_size=root.alexnet.get("minibatch_size", 128),
+                size=root.alexnet.get("size", 227),
+                n_classes=root.alexnet.get("n_classes", 1000),
+                synthetic_sizes=kwargs.get("synthetic_sizes"))
         super().__init__(
             name,
             layers=layers or root.alexnet.get("layers")

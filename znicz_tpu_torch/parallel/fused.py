@@ -593,7 +593,14 @@ class FusedTrainer:
     pool draws that step's bits on every replay.  A spec with a dropout
     layer runs the same step functions uncaptured, its mask key folded on
     the host each step (the device word the dropout kernel would read is
-    ROADMAP.md queue 1 item 3); so does the CPU."""
+    ROADMAP.md queue 1 item 3); so does the CPU.
+
+    ``augment`` (a ``loader.augment.RandomCropFlip`` or any policy with its
+    ``device_apply``) crops and mirrors each train minibatch on the device
+    from a resident dataset kept at decode size, keyed by (epoch, global
+    row) as the streaming loaders' host crops are, and center-crops eval
+    minibatches.  A captured step reads its rows and epoch from its plan
+    row, so each replay crops afresh."""
 
     def __init__(self, workflow=None, spec: ModelSpec | None = None,
                  params=None, vels=None, device=None, mesh=None,
@@ -603,10 +610,10 @@ class FusedTrainer:
             raise NotImplementedError(
                 "mesh-sharded training is not ported yet (ROADMAP.md "
                 "queue 1 item 9, parallelism)")
-        if augment is not None:
-            raise NotImplementedError(
-                "device augmentation is not ported yet (ROADMAP.md queue 1 "
-                "item 8, data plane)")
+        if augment is not None and not hasattr(augment, "device_apply"):
+            raise TypeError(f"augment needs a policy with device_apply (a "
+                            f"loader.augment.RandomCropFlip), got "
+                            f"{type(augment).__name__}")
         if not isinstance(accum_steps, int) or isinstance(
                 accum_steps, bool) or accum_steps < 1:
             raise ValueError(f"accum_steps must be a positive int, got "
@@ -618,6 +625,10 @@ class FusedTrainer:
         self.workflow = workflow
         self.device = torch.device(device)
         self.accum_steps = accum_steps
+        #: the device crop of each minibatch (None: the rows as gathered)
+        self.augment = augment
+        #: an MSE step whose target is its (cropped) input
+        self._x_is_target = False
 
         def put(pairs):   # copies: the trainer updates them in place
             return [tuple(None if t is None else
@@ -725,17 +736,18 @@ class FusedTrainer:
             if len(self._plans) >= 8:      # a few datasets and tiers
                 self._plans.pop(next(iter(self._plans)))
             plan = self._plans[key] = capture.StepPlan(
-                self.device, 2 * batch + 4,
+                self.device, 2 * batch + 4 + (batch if self.augment else 0),
                 max(n_steps, -(-data.shape[0] // batch) + 1),
                 {"loss": torch.float32, "n_err": torch.int32})
         return plan
 
     @staticmethod
     def _rows(idx, mask, scales=None, scales_b=None, epoch: int = 0,
-              ctrs=None) -> np.ndarray:
+              ctrs=None, aug_rows=None) -> np.ndarray:
         """The plan rows: indices, mask bits, the weight and bias scales'
         bits, then the epoch's and the step's counter's bits as uint32,
-        which key the stochastic pools' draws (zeros for an eval step)."""
+        which key the stochastic pools' draws (zeros for an eval step), and
+        with ``aug_rows`` the global rows that key each minibatch's crops."""
         n = idx.shape[0]
         cols = [idx, mask.view(np.int32)]
         for sc in (scales, scales_b):
@@ -747,28 +759,50 @@ class FusedTrainer:
         cols.append(np.zeros((n, 1), np.int32) if ctrs is None else
                     np.ascontiguousarray(ctrs, np.uint32)
                     .view(np.int32).reshape(n, 1))
+        if aug_rows is not None:
+            cols.append(np.asarray(aug_rows, np.int32))
         return np.concatenate(cols, axis=1)
 
+    def _inputs(self, data, target, i, rows, epoch, train: bool):
+        """A step's (x, t): rows ``i`` of ``data``/``target``, x cropped by
+        the augment policy at (``epoch``, global ``rows``) (center crops for
+        eval), and t the cropped x where the step regresses its input."""
+        x = data.index_select(0, i)
+        if self.augment is not None:
+            x = self.augment.device_apply(x, rows, epoch, train=train)
+        t = x if self._x_is_target else target.index_select(0, i)
+        return x, t
+
     def _run_captured(self, kind: str, data, target, idx, mask, scales=None,
-                      scales_b=None, epoch: int = 0, ctrs=None) -> dict:
+                      scales_b=None, epoch: int = 0, ctrs=None,
+                      aug_rows=None, feed=None) -> dict:
+        """Each step replayed from its variant's graph.  ``aug_rows``: the
+        global rows of each step where ``idx`` indexes something else (a
+        streaming trainer's device ring); ``feed``: an object whose
+        ``before(s)``/``after(s)`` run around step ``s`` (the ring's copy
+        waits and releases)."""
         batch = idx.shape[1]
         n = idx.shape[0]
         plan = self._plan(kind, data, target, batch, n)
-        plan.load(self._rows(idx, mask, scales, scales_b, epoch, ctrs))
+        if self.augment is not None and aug_rows is None:
+            aug_rows = idx
+        plan.load(self._rows(idx, mask, scales, scales_b, epoch, ctrs,
+                             aug_rows if self.augment is not None else None))
 
         def step(variant: str):
             row = plan.row()
             i = row[:batch]
-            x, t = data.index_select(0, i), target.index_select(0, i)
             m = row[batch:2 * batch].view(torch.float32)
+            # the epoch and counter as device words: a replay folds the
+            # stochastic pools' keys and the crops' from this step's row
+            ep = row[2 * batch + 2:2 * batch + 3]
+            x, t = self._inputs(data, target, i, row[2 * batch + 4:], ep,
+                                variant != "eval")
             if variant == "eval":
                 ms = eval_minibatch(self.spec, self.params, x, t, m)
             else:
                 sc = row[2 * batch:2 * batch + 2].view(torch.float32)
-                # the epoch and counter as device words: a replay folds
-                # the stochastic pools' keys from this step's row
-                ms = self._train_step(x, t, m, sc[0:1], sc[1:2],
-                                      row[2 * batch + 2:2 * batch + 3],
+                ms = self._train_step(x, t, m, sc[0:1], sc[1:2], ep,
                                       row[2 * batch + 3:2 * batch + 4],
                                       variant != "accumulate")
             plan.put("loss", ms["loss"])
@@ -778,8 +812,42 @@ class FusedTrainer:
         for s in range(n):
             variant = ("eval" if kind == "eval" else "train"
                        if self._applies(s, n) else "accumulate")
+            if feed is not None:
+                feed.before(s)
             plan.run(variant, functools.partial(step, variant))
+            if feed is not None:
+                feed.after(s)
         return plan.take(n)
+
+    def _run_eager(self, kind: str, data, target, idx, mask, scales=None,
+                   scales_b=None, epoch: int = 0, ctrs=None, aug_rows=None,
+                   feed=None) -> dict:
+        """The same steps run one by one (a spec with dropout, the CPU)."""
+        n = idx.shape[0]
+        idx_t = torch.from_numpy(idx).to(self.device, torch.int64)
+        rows_t = idx_t if aug_rows is None else torch.from_numpy(
+            np.asarray(aug_rows)).to(self.device, torch.int64)
+        mask_t = torch.from_numpy(mask).to(self.device)
+        if kind != "eval":
+            sc = torch.from_numpy(np.stack([scales, scales_b], 1)).to(
+                self.device)
+        losses, n_errs = [], []
+        for s in range(n):
+            if feed is not None:
+                feed.before(s)
+            x, t = self._inputs(data, target, idx_t[s], rows_t[s],
+                                int(epoch), kind != "eval")
+            if kind == "eval":
+                m = eval_minibatch(self.spec, self.params, x, t, mask_t[s])
+            else:
+                m = self._train_step(x, t, mask_t[s], sc[s, 0:1],
+                                     sc[s, 1:2], int(epoch), int(ctrs[s]),
+                                     self._applies(s, n))
+            if feed is not None:
+                feed.after(s)
+            losses.append(m["loss"])
+            n_errs.append(m["n_err"])
+        return {"loss": torch.stack(losses), "n_err": torch.stack(n_errs)}
 
     @torch.no_grad()
     def train_epoch(self, data, target, indices, batch: int,
@@ -800,46 +868,19 @@ class FusedTrainer:
         self._auto_epoch = epoch + 1
         idx, mask, ctrs = self._idx_matrix(np.asarray(indices), batch,
                                            ctr_base)
-        n = idx.shape[0]
-        scales, scales_b = self._step_scales(lr_scale, lr_scale_bias, n)
-        if self.captured:
-            ms = self._run_captured("train", data, target, idx, mask,
-                                    scales, scales_b, epoch, ctrs)
-        else:
-            idx_t = torch.from_numpy(idx).to(self.device, torch.int64)
-            mask_t = torch.from_numpy(mask).to(self.device)
-            sc = torch.from_numpy(np.stack([scales, scales_b], 1)).to(
-                self.device)
-            losses, n_errs = [], []
-            for s in range(n):
-                m = self._train_step(
-                    data.index_select(0, idx_t[s]),
-                    target.index_select(0, idx_t[s]), mask_t[s],
-                    sc[s, 0:1], sc[s, 1:2], int(epoch), int(ctrs[s]),
-                    self._applies(s, n))
-                losses.append(m["loss"])
-                n_errs.append(m["n_err"])
-            ms = {"loss": torch.stack(losses), "n_err": torch.stack(n_errs)}
+        scales, scales_b = self._step_scales(lr_scale, lr_scale_bias,
+                                             idx.shape[0])
+        run = self._run_captured if self.captured else self._run_eager
+        ms = run("train", data, target, idx, mask, scales, scales_b, epoch,
+                 ctrs)
         return to_host(ms)[0] if sync else ms
 
     @torch.no_grad()
     def eval_epoch(self, data, target, indices, batch: int,
                    sync: bool = True) -> dict:
         idx, mask, _ = self._idx_matrix(np.asarray(indices), batch)
-        if self.captured:
-            ms = self._run_captured("eval", data, target, idx, mask)
-        else:
-            idx_t = torch.from_numpy(idx).to(self.device, torch.int64)
-            mask_t = torch.from_numpy(mask).to(self.device)
-            losses, n_errs = [], []
-            for s in range(idx.shape[0]):
-                m = eval_minibatch(self.spec, self.params,
-                                   data.index_select(0, idx_t[s]),
-                                   target.index_select(0, idx_t[s]),
-                                   mask_t[s])
-                losses.append(m["loss"])
-                n_errs.append(m["n_err"])
-            ms = {"loss": torch.stack(losses), "n_err": torch.stack(n_errs)}
+        run = self._run_captured if self.captured else self._run_eager
+        ms = run("eval", data, target, idx, mask)
         return to_host(ms)[0] if sync else ms
 
     def write_back(self) -> None:

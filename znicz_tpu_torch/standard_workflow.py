@@ -21,7 +21,8 @@ Vectors and the GD units the velocities.
 
 The same config is also a ``ModelSpec`` plus ``(w, b)`` parameters and
 velocities for ``train(fused=True)`` → ``run_fused``, the port of the
-reference's ``_run_fused_body`` for a resident loader.  ``params`` and
+reference's ``_run_fused_body`` for a resident loader (a
+``FusedTrainer``) or a streaming one (a ``StreamTrainer``).  ``params`` and
 ``vels`` keep one pair per configured layer; the spec merges each LRN with
 the max pool after it (``fused._merge_lrn_pool``), and its ``unit_index``
 maps the spec's rows back to the layers.  Where the unit graph exists,
@@ -67,6 +68,7 @@ import torch
 from . import prng
 from .accelerated_units import AcceleratedWorkflow
 from .loader.base import CLASS_NAMES, TEST, TRAIN, VALID
+from .loader.streaming import StreamingLoader
 from .mutable import DerivedBool
 from .nn import (activation, all2all, conv, cutter, deconv, depooling,
                  dropout, gd, gd_conv, gd_deconv, gd_pooling, nn_units,
@@ -78,6 +80,7 @@ from .ops.deconv import deconv_out_size
 from .ops.geometry import norm2, out_size
 from .parallel import fused
 from .parallel.fused import FusedTrainer, LayerSpec, ModelSpec
+from .parallel.stream import StreamTrainer
 from .snapshotter import SnapshotterToFile
 from .telemetry import flightrecorder as _flightrecorder
 from .telemetry import profiler as _profiler
@@ -352,7 +355,7 @@ class StandardWorkflow(AcceleratedWorkflow):
         order the reference's units draw it."""
         gen = prng.get("weights")
         # shapes[i]: the input sample shape of layer i
-        shapes = [tuple(int(s) for s in self.loader.original_data.shape[1:])]
+        shapes = [_sample_shape(self.loader)]
         layers, params = [], []
         refusal = None   # why the fused path cannot run this model
         for i, spec in enumerate(self.layers_config):
@@ -729,7 +732,9 @@ class StandardWorkflow(AcceleratedWorkflow):
                   checkpoint_dir: str | None = None,
                   checkpoint_every: int | None = None,
                   checkpointer=None,
-                  timeline_jsonl: str | None = None) -> FusedTrainer:
+                  timeline_jsonl: str | None = None,
+                  mse_target: str | None = None,
+                  step_callback=None) -> FusedTrainer:
         """Train on the fused path: whole epochs on the device, with the
         decision's improvement/stop logic between epochs on the host, the
         adjuster's schedule as per-step learning-rate scales and
@@ -745,7 +750,14 @@ class StandardWorkflow(AcceleratedWorkflow):
         ``profile_dir`` traces the whole run (``torch.profiler``); with
         ``profile_every=N`` a one-epoch window every N epochs instead.
         ``timeline_jsonl`` appends one JSON row an epoch with its wall /
-        device / host split."""
+        device / host split.
+
+        A ``StreamingLoader`` trains through a :class:`StreamTrainer`
+        (minibatches streamed from disk, the same steps): an MSE head
+        regresses ``mse_target`` (default: a float label block if the
+        loader has one, else the input), a loader's augment policy with a
+        ``device_apply`` crops on the device, and ``step_callback(epoch,
+        step)`` runs after each streamed train step."""
         if not self.initialized:
             raise RuntimeError("initialize() first")
         if not self.device.is_torch:
@@ -768,14 +780,15 @@ class StandardWorkflow(AcceleratedWorkflow):
                 return self._run_fused_body(
                     max_epochs, compute_dtype, storage_dtype, hook,
                     checkpoint_dir, checkpoint_every, checkpointer,
-                    timeline_jsonl)
+                    timeline_jsonl, mse_target, step_callback)
         finally:
             if hook is not None:
                 hook.close()
 
     def _run_fused_body(self, max_epochs, compute_dtype, storage_dtype,
                         profile_hook, checkpoint_dir, checkpoint_every,
-                        checkpointer, timeline_jsonl) -> FusedTrainer:
+                        checkpointer, timeline_jsonl, mse_target=None,
+                        step_callback=None) -> FusedTrainer:
         from .config import root
         spec = self.spec
         if compute_dtype is not None:
@@ -784,12 +797,28 @@ class StandardWorkflow(AcceleratedWorkflow):
             spec = dataclasses.replace(spec, storage_dtype=storage_dtype)
         if self.forwards:
             self._params_from_units()
-        trainer = FusedTrainer(workflow=self, spec=spec,
-                               params=self.spec_rows(self.params),
-                               vels=self.spec_rows(self.vels),
-                               device=self.device.torch_device,
-                               accum_steps=int(
-                                   root.common.get("accum_steps") or 1))
+        kwargs = dict(workflow=self, spec=spec,
+                      params=self.spec_rows(self.params),
+                      vels=self.spec_rows(self.vels),
+                      device=self.device.torch_device,
+                      accum_steps=int(root.common.get("accum_steps") or 1))
+        loader = self.loader
+        if isinstance(loader, StreamingLoader):
+            if mse_target is None:
+                # a float label block is the regression target (denoising
+                # shards); int labels mean reconstruct the input
+                mse_target = ("labels" if self.loss_function == "mse"
+                              and np.dtype(loader.label_dtype).kind == "f"
+                              else "input")
+            trainer = StreamTrainer(
+                loader=loader, mse_target=mse_target,
+                step_callback=step_callback,
+                # the crop rides the step on the card; a policy without a
+                # device twin keeps the host crop in the prefetcher
+                device_augment=hasattr(getattr(loader, "augment", None),
+                                       "device_apply"), **kwargs)
+        else:
+            trainer = FusedTrainer(**kwargs)
         timeline = (_flightrecorder.TimelineWriter(timeline_jsonl)
                     if timeline_jsonl else None)
         ckpt, own_ckpt = checkpointer, False
@@ -815,9 +844,12 @@ class StandardWorkflow(AcceleratedWorkflow):
                 ckpt_every: int) -> None:
         """The fused epoch loop of :meth:`run_fused`."""
         loader, decision = self.loader, self.decision
-        data = loader.original_data
-        target = (loader.original_targets if self.loss_function == "mse"
-                  else loader.original_labels)
+        if isinstance(loader, StreamingLoader):
+            data = target = None        # the StreamTrainer reads the loader
+        else:
+            data = loader.original_data
+            target = (loader.original_targets if self.loss_function == "mse"
+                      else loader.original_labels)
         bounds = np.cumsum([0] + list(loader.class_lengths))
         cls_idx = {k: np.arange(bounds[k], bounds[k + 1])
                    for k in (TEST, VALID, TRAIN)}
@@ -987,6 +1019,14 @@ class StandardWorkflow(AcceleratedWorkflow):
             if "validation_loss" in metrics:
                 metrics["validation_mse"] = metrics["validation_loss"]
         return metrics
+
+
+def _sample_shape(loader) -> tuple:
+    """The per-sample input shape the model sees: a streaming loader's
+    (post-augmentation) ``sample_shape``, else the resident data's."""
+    if isinstance(loader, StreamingLoader):
+        return tuple(int(s) for s in loader.sample_shape)
+    return tuple(int(s) for s in loader.original_data.shape[1:])
 
 
 def _train_gauges() -> dict:
