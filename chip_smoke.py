@@ -153,6 +153,24 @@ exits nonzero without the final ``ok`` line:
    from a PNG tree written there (PIL decode at 76² in the loader's
    thread pool), launches as the resident path's, epoch 0 against the
    CPU as phase 9;
+14f. routing — AlexNet at full width (batch 128, ALEXNET_SPLIT, the
+   default cuDNN tier) under each ``ZNICZ_TPU_LRN_POOL`` routing
+   (fused1, fused2, nofold, split) and under fused1 with
+   ``ZNICZ_TPU_CONV1=s2d``: 3 train steps and an eval step from the same
+   initial weights over the same minibatches, launches exact for the
+   routing (fused2: the pair over halves, 2 a step each way, conv1's and
+   conv2's halves activated apart), held against fused1 (losses rtol
+   1e-5 / atol 1e-6, error counts exactly, every weight and bias rtol
+   2e-4 / atol 2e-5, s2d's rtol 1e-4 / atol 1e-5), then the train
+   step's wall, device busy time and idle share (``device_timeline``);
+14g. narrow_storage — the same AlexNet steps at bfloat16 and float16
+   storage under fused1 and fused2 against phase 14f's float32 fused1
+   (losses within rtol 2e-2 / 3e-3, error counts within 2% / 1% of a
+   step's samples), with their walls; CIFAR and the autoencoder one
+   captured epoch on their parity splits at float32, bfloat16 and
+   float16, epoch 0 held the same way, every inner cache in the storage
+   dtype; the launches exact for each narrow path, and every
+   storage-dtype and halves form launched by its own counter;
 15. mnist_act_units slice — the MNIST MLP of phase 10 with its tanh as a
    standalone ``activation_tanh`` layer, on the unit graph for 2 epochs
    (the activation kernels once a tick forward and once a GD tick
@@ -267,6 +285,15 @@ exits nonzero without the final ``ok`` line:
 21. the ``kernels`` line (with the resume, serve, serve_http and
    data-plane paths' launches), then ``{"ok":
    true, "device": {...}}`` last.
+
+The kernel phase also holds the forms of the twenty-third slice
+(``FORMS``): the pool select and the depooling scatter, the recompute
+LRN pair, the LRN→pool pair (unsplit and over column-parity halves, dx
+as halves), dropout and the activation backward, each at bfloat16 and
+float16 storage, and the pair over halves at float32, at the main paths'
+shapes, each bit for bit against its plain version and every halves form
+against the unsplit kernel's output; bounds at the stored tensors'
+width (2 bytes an element, float32 errors and int32 slots at 4).
 
 The kernel phase holds, besides the fused paths' kernels, the unit graph's
 three: the tensor-core matmul (3xTF32) at the five products of the MNIST
@@ -435,6 +462,20 @@ KERNELS = {
     "conv_wgrad": ("znicz_tpu_torch/csrc/conv_gemm.cu",
                    "znicz_tpu/ops/conv.py:362", "conv", "conv_wgrad_launches"),
 }
+#: the forms of the kernels that read a stored activation, in each narrow
+#: storage dtype (``ModelSpec.storage_dtype``), and of the LRN→pool pair
+#: over column-parity halves (the fused2 routing; float32 too): form →
+#: the kernel whose source and TPU kernel it shares; each counts its
+#: launches apart (``ops.form_counter``)
+FORMS = {
+    **{f"{k}_{s}": k for s in ("bf16", "f16")
+       for k in ("pool_select", "pool_scatter", "lrn_y", "gd_lrn_x",
+                 "lrn_maxpool", "gd_lrn_maxpool", "dropout", "act_bwd")},
+    **{f"{k}_split{s}": k for s in ("", "_bf16", "_f16")
+       for k in ("lrn_maxpool", "gd_lrn_maxpool")},
+}
+KERNELS.update({form: (*KERNELS[base][:3], f"{form}_launches")
+                for form, base in FORMS.items()})
 #: the tile loop each product kernel runs on (the kernels line names it
 #: beside the kernel's source)
 LOOPS = {
@@ -959,7 +1000,8 @@ def _bit_equal(torch, case: str, name: str, got, want) -> float:
         raise AssertionError(f"{case}: {name} is {tuple(got.shape)} "
                              f"{got.dtype}, plain {tuple(want.shape)} "
                              f"{want.dtype}")
-    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+    ints = {4: torch.int32, 2: torch.int16}[got.element_size()]
+    if not torch.equal(got.view(ints), want.view(ints)):
         raise AssertionError(f"{case}: {name} differs from its plain "
                              f"version in {int((got != want).sum())} "
                              f"values, max abs "
@@ -5403,6 +5445,637 @@ def phase_data_plane(torch) -> dict:
             "data_dir": data_dir["launches"]}
 
 
+# -- the storage-dtype and halves forms (the twenty-third slice) -----------
+#: the storage dtypes the narrow forms take, by the counters' suffix
+FORM_DTYPES = {"bf16": "bfloat16", "f16": "float16"}
+
+
+#: bytes of one stored element
+ELEM_BYTES = {"float32": 4, "bfloat16": 2, "float16": 2}
+
+
+def _form_bounds(kind: str, x_numel: int, y_numel: int, elem: int,
+                 taps: int = 9, n: int = 5):
+    """The bound of a form at ``elem`` bytes a stored element (float32
+    err, dx and int32 slots at 4): each input read once, each output
+    written once; the operations as the float32 rows count them."""
+    if kind == "pool_select":
+        return _bound(x_numel * elem + y_numel * (elem + 4),
+                      2 * taps * y_numel)
+    if kind == "pool_scatter":                 # the depooling forward
+        return _bound(y_numel * (elem + 4) + x_numel * elem,
+                      2 * taps * y_numel)
+    if kind == "lrn_y":
+        return _bound(2 * x_numel * elem, (2 * n + 6) * x_numel)
+    if kind == "gd_lrn_x":
+        return _bound(x_numel * (elem + 8), (3 * n + 11) * x_numel)
+    if kind == "lrn_maxpool":
+        return _bound(x_numel * elem + y_numel * (elem + 4),
+                      (2 * n + 6) * x_numel + 2 * taps * y_numel)
+    if kind == "gd_lrn_maxpool":
+        return _bound(2 * y_numel * 4 + x_numel * (elem + 4),
+                      2 * taps * y_numel + (3 * n + 15) * x_numel)
+    if kind == "dropout":
+        return _bound(2 * x_numel * elem, 16 * x_numel)
+    if kind == "act_bwd":
+        return _bound(x_numel * (elem + 8), 4 * x_numel)
+    raise ValueError(kind)
+
+
+#: the forms' cases: the main paths' shapes (AlexNet's pairs, pool5, its
+#: dropouts and unfolded ReLU layers; CIFAR's pool, LRN and tanh conv;
+#: the autoencoder's pool and depooling) and the edges a form adds
+FORM_PAIR_CASES = [("alexnet_pair1", (128, 55, 55, 96), "strict_relu"),
+                   ("alexnet_pair2", (128, 27, 27, 256), "strict_relu"),
+                   ("fold_tanh", (16, 27, 27, 32), "tanh"),
+                   ("odd_c6_scalar", (2, 9, 9, 6), None)]
+FORM_POOL_CASES = [("alexnet_pool5", (128, 13, 13, 256), 3, 2, 0),
+                   ("cifar_step", (100, 32, 32, 32), 2, 2, 0),
+                   ("autoencoder_step", (100, 28, 28, 16), 2, 2, 0),
+                   ("overlap_pad_ragged", (7, 13, 11, 5), 3, 2, 1)]
+FORM_LRN_CASES = [("cifar_step", (100, 16, 16, 32)),
+                  ("alexnet_lrn1", (128, 55, 55, 96)),
+                  ("ragged", (7, 13, 11, 5))]
+FORM_DROPOUT_CASES = [("alexnet_pool5", (128, 6, 6, 256)),
+                      ("alexnet_fc6", (128, 4096))]
+FORM_ACT_CASES = [("alexnet_conv3", "strict_relu", (128, 13, 13, 384)),
+                  ("alexnet_fc6", "strict_relu", (128, 4096)),
+                  ("cifar_conv1", "tanh", (100, 32, 32, 32)),
+                  ("sigmoid_odd", "sigmoid", (7, 13, 5))]
+
+
+def phase_kernel_forms(torch) -> dict:
+    """The narrow storage forms (bf16, f16) of the kernels that read a
+    stored activation, and the LRN→pool pair over column-parity halves
+    (float32 too), each against its plain version on the same inputs bit
+    for bit (the depooling scatter's sums and the tanh fold at the stored
+    value in float32 on both sides), each halves form also against the
+    unsplit kernel's output bit for bit; timed, with the bound at the
+    stored tensors' width."""
+    import torch.nn.functional as F
+
+    from znicz_tpu_torch.ops import (activations, dropout, lrn_pool,
+                                     normalization as lrn, pooling)
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 23)
+    hp = (5, 1e-4, 0.75, 2.0)
+    rows = collections.defaultdict(list)
+
+    def rnd(shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(dev)
+
+    def iters(shape):
+        return BIG_ITERS if math.prod(shape) > 2 ** 22 else ITERS
+
+    for sfx, storage in [("", "float32")] + [
+            (f"_{s}", st) for s, st in FORM_DTYPES.items()]:
+        dt = getattr(torch, storage)
+        elem = ELEM_BYTES[storage]
+        geo0 = {"storage": storage}
+        for case, shape, fold in FORM_PAIR_CASES:
+            data = {"strict_relu": torch.relu, None: lambda a: a,
+                    "tanh": lambda a: 1.7159 * torch.tanh(0.6666 * a)}[fold]
+            x = data(rnd(shape, 4)).to(dt)
+            xs = tuple(h.contiguous() for h in lrn_pool.split_cols(x))
+            geo = {**geo0, "case": case, "shape": list(shape),
+                   "fold_act": fold}
+            it = iters(shape)
+            taps = 9
+            want = lrn_pool.plain_lrn_maxpool(x, *hp, 3, 2)
+            n_y = want[0].numel()
+            e = rnd(tuple(want[0].shape), 0.1)
+            lib = None
+            if sfx and case.startswith("alexnet"):
+                xn = x.permute(0, 3, 1, 2).contiguous()
+                lib = _time_ms(torch, lambda: F.max_pool2d(
+                    F.local_response_norm(xn, hp[0], hp[1] * hp[0], hp[2],
+                                          hp[3]), 3, 2,
+                    return_indices=True), it)[0]
+            unsplit = None
+            if sfx:
+                name = f"lrn_maxpool{sfx}"
+                unsplit = _launch_once(torch, name, lambda: lrn_pool
+                                       .lrn_maxpool(x, *hp, 3, 2))
+                err = max(_bit_equal(torch, case, "y", unsplit[0], want[0]),
+                          _close(torch, case, "offsets", unsplit[1],
+                                 want[1], 0, 0))
+                rows[name].append(_row(
+                    torch, name, geo, err,
+                    lambda: lrn_pool.lrn_maxpool(x, *hp, 3, 2),
+                    lambda: lrn_pool.plain_lrn_maxpool(x, *hp, 3, 2),
+                    _form_bounds("lrn_maxpool", x.numel(), n_y, elem, taps),
+                    lib, it))
+            name = f"lrn_maxpool_split{sfx}"
+            got = _launch_once(torch, name, lambda: lrn_pool
+                               .lrn_maxpool_split(*xs, *hp, 3, 2))
+            err = max(_bit_equal(torch, case, "y (halves)", got[0], want[0]),
+                      _close(torch, case, "offsets (halves)", got[1],
+                             want[1], 0, 0))
+            if unsplit is None:
+                unsplit = lrn_pool.lrn_maxpool(x, *hp, 3, 2)
+            _bit_equal(torch, case, "y (halves against unsplit)", got[0],
+                       unsplit[0])
+            rows[name].append(_row(
+                torch, name, geo, err,
+                lambda: lrn_pool.lrn_maxpool_split(*xs, *hp, 3, 2),
+                lambda: lrn_pool.plain_lrn_maxpool_split(*xs, *hp, 3, 2),
+                _form_bounds("lrn_maxpool", x.numel(), n_y, elem, taps),
+                lib, it))
+            off = want[1]
+            want_dx = lrn_pool.plain_gd_lrn_maxpool(e, off, x, *hp, 3, 2, 0,
+                                                    fold)
+            dx = None
+            if sfx:
+                name = f"gd_lrn_maxpool{sfx}"
+                dx = _launch_once(torch, name, lambda: lrn_pool
+                                  .gd_lrn_maxpool(e, off, x, *hp, 3, 2, 0,
+                                                  fold))
+                err = _bit_equal(torch, case, "dx", dx, want_dx)
+                rows[name].append(_row(
+                    torch, name, geo, err,
+                    lambda: lrn_pool.gd_lrn_maxpool(e, off, x, *hp, 3, 2, 0,
+                                                    fold),
+                    lambda: lrn_pool.plain_gd_lrn_maxpool(e, off, x, *hp, 3,
+                                                          2, 0, fold),
+                    _form_bounds("gd_lrn_maxpool", x.numel(), n_y, elem,
+                                 taps), None, it))
+            if dx is None:
+                dx = lrn_pool.gd_lrn_maxpool(e, off, x, *hp, 3, 2, 0, fold)
+            name = f"gd_lrn_maxpool_split{sfx}"
+            halves = _launch_once(torch, name, lambda: lrn_pool
+                                  .gd_lrn_maxpool_split(
+                                      e, off, *xs, *hp, 3, 2, 0, fold,
+                                      return_split=True))
+            err = 0.0
+            for i, (g, w) in enumerate(zip(halves, lrn_pool.split_cols(
+                    want_dx))):
+                err = max(err, _bit_equal(torch, case, f"dx half {i}", g,
+                                          w.contiguous()))
+            for i, (g, w) in enumerate(zip(halves, lrn_pool.split_cols(
+                    dx))):
+                _bit_equal(torch, case, f"dx half {i} against unsplit", g,
+                           w.contiguous())
+            _bit_equal(torch, case, "dx (halves in, dx unsplit)",
+                       lrn_pool.gd_lrn_maxpool_split(e, off, *xs, *hp, 3, 2,
+                                                     0, fold), want_dx)
+            rows[name].append(_row(
+                torch, name, {**geo, "return_split": True}, err,
+                lambda: lrn_pool.gd_lrn_maxpool_split(
+                    e, off, *xs, *hp, 3, 2, 0, fold, return_split=True),
+                lambda: lrn_pool.plain_gd_lrn_maxpool_split(
+                    e, off, *xs, *hp, 3, 2, 0, fold, True),
+                _form_bounds("gd_lrn_maxpool", x.numel(), n_y, elem, taps),
+                None, it))
+        if not sfx:
+            continue
+        for case, shape, k, st, pad in FORM_POOL_CASES:
+            x = rnd(shape, 2).to(dt)
+            geo = {**geo0, "case": case, "shape": list(shape), "ksize": k,
+                   "stride": st, "padding": pad}
+            name = f"pool_select{sfx}"
+            y, off = _launch_once(torch, name, lambda: pooling.max_pooling(
+                x, k, st, pad))
+            want = pooling.plain_max_pooling(x, k, st, pad)
+            err = max(_bit_equal(torch, case, "y", y, want[0]),
+                      _close(torch, case, "offsets", off, want[1], 0, 0))
+            xn = x.permute(0, 3, 1, 2).contiguous()
+            lib = _time_ms(torch, lambda: F.max_pool2d(
+                xn, k, st, pad, return_indices=True))[0]
+            rows[name].append(_row(
+                torch, name, geo, err,
+                lambda: pooling.max_pooling(x, k, st, pad),
+                lambda: pooling.plain_max_pooling(x, k, st, pad),
+                _form_bounds("pool_select", x.numel(), y.numel(), elem,
+                             k * k), lib))
+            name = f"pool_scatter{sfx}"
+            got = _launch_once(torch, name, lambda: pooling.depooling(
+                y, off, shape, k, st, pad))
+            err = _bit_equal(torch, case, "depooled", got,
+                             pooling.plain_gd_max_pooling(
+                                 y.float(), off, shape, k, st, pad).to(dt))
+            lib = None
+            if k <= st and pad == 0:
+                yn = y.permute(0, 3, 1, 2).contiguous()
+                _, idx = F.max_pool2d(xn, k, st, pad, return_indices=True)
+                lib = _time_ms(torch, lambda: F.max_unpool2d(
+                    yn, idx, k, st, pad, output_size=xn.shape[-2:]))[0]
+            rows[name].append(_row(
+                torch, name, {**geo, "role": "depooling forward"}, err,
+                lambda: pooling.depooling(y, off, shape, k, st, pad),
+                lambda: pooling.plain_gd_max_pooling(
+                    y.float(), off, shape, k, st, pad).to(dt),
+                _form_bounds("pool_scatter", x.numel(), y.numel(), elem,
+                             k * k), lib))
+        for case, shape in FORM_LRN_CASES:
+            x = rnd(shape, 4).to(dt)
+            e = rnd(shape)
+            geo = {**geo0, "case": case, "shape": list(shape)}
+            it = iters(shape)
+            name = f"lrn_y{sfx}"
+            y = _launch_once(torch, name, lambda: lrn.lrn_y(x, *hp))
+            err = _bit_equal(torch, case, "y", y, lrn.plain_lrn_y(x, *hp))
+            xn = x.permute(0, 3, 1, 2)
+            lib = _time_ms(torch, lambda: F.local_response_norm(
+                xn, hp[0], hp[1] * hp[0], hp[2], hp[3]), it)[0]
+            rows[name].append(_row(
+                torch, name, {**geo, "plan": lrn._plan(
+                    shape, hp[0], False, x, y)._asdict()}, err,
+                lambda: lrn.lrn_y(x, *hp), lambda: lrn.plain_lrn_y(x, *hp),
+                _form_bounds("lrn_y", x.numel(), 0, elem), lib, it))
+            name = f"gd_lrn_x{sfx}"
+            dx = _launch_once(torch, name, lambda: lrn.gd_lrn_x(e, x, *hp))
+            err = _bit_equal(torch, case, "dx", dx,
+                             lrn.plain_gd_lrn_x(e, x, *hp))
+            rows[name].append(_row(
+                torch, name, {**geo, "plan": lrn._plan(
+                    shape, hp[0], True, e, x, dx)._asdict()}, err,
+                lambda: lrn.gd_lrn_x(e, x, *hp),
+                lambda: lrn.plain_gd_lrn_x(e, x, *hp),
+                _form_bounds("gd_lrn_x", x.numel(), 0, elem), None, it))
+        for case, shape in FORM_DROPOUT_CASES:
+            x = rnd(shape).to(dt)
+            key = 0x5EED0017
+            name = f"dropout{sfx}"
+            got = _launch_once(torch, name, lambda: dropout.dropout(
+                x, key, 0.5))
+            err = _bit_equal(torch, case, "out", got,
+                             dropout.plain_dropout(x, key, 0.5))
+            lib = _time_ms(torch, lambda: F.dropout(x, 0.5,
+                                                    training=True))[0]
+            rows[name].append(_row(
+                torch, name, {**geo0, "case": case, "shape": list(shape)},
+                err, lambda: dropout.dropout(x, key, 0.5),
+                lambda: dropout.plain_dropout(x, key, 0.5),
+                _form_bounds("dropout", x.numel(), 0, elem), lib))
+        for case, act, shape in FORM_ACT_CASES:
+            pre = rnd(shape, 2)
+            y = activations.BY_NAME[act].fwd(pre).to(dt)
+            e = rnd(shape)
+            name = f"act_bwd{sfx}"
+            got = _launch_once(torch, name, lambda: activations.act_bwd(
+                act, e, y))
+            err = _bit_equal(torch, case, "err_x", got,
+                             activations.plain_act_bwd(act, e, y))
+            rows[name].append(_row(
+                torch, name, {**geo0, "case": case, "activation": act,
+                              "shape": list(shape),
+                              "plan": activations.act_plan(
+                                  act, e, y)._asdict()}, err,
+                lambda: activations.act_bwd(act, e, y),
+                lambda: activations.plain_act_bwd(act, e, y),
+                _form_bounds("act_bwd", e.numel(), 0, elem), None))
+    missing = set(FORMS) - set(rows)
+    if missing:
+        raise AssertionError(f"forms without a row: {sorted(missing)}")
+    return dict(rows)
+
+
+#: the AlexNet routings of ``ZNICZ_TPU_LRN_POOL`` the routing phase runs,
+#: and "s2d": fused1 with ``ZNICZ_TPU_CONV1=s2d``
+ROUTINGS = ("fused1", "fused2", "nofold", "split", "s2d")
+#: train steps of a routing's comparison run (and of each timing call)
+ROUTING_STEPS = 3
+#: tests/test_lrn_pool.py:289-296 (fused2 against fused1): losses, weights;
+#: s2d tests/test_fused_conv.py:198-250's weights
+ROUTING_TOL = {"loss": (1e-5, 1e-6), "weights": (2e-4, 2e-5),
+               "s2d_weights": (1e-4, 1e-5)}
+
+
+def alexnet_path(routing: str, storage: str = "float32") -> dict:
+    """AlexNet's launches a (train step, eval step) on the fused path under
+    ``routing`` at ``storage``: ``PATHS["alexnet"]`` is fused1 at float32;
+    fused2 runs the pair over halves and activates each conv half apart
+    (conv1 and conv2 two act_fwd each), nofold leaves conv1's and conv2's
+    derivatives to act_bwd, split runs the LRN pair and the three max
+    pools apart; a narrow storage moves every kernel that reads a stored
+    activation to its form (dropout's forward too; its backward reads the
+    float32 err)."""
+    p = dict(PATHS["alexnet"])
+    if routing == "fused2":
+        p["act_fwd"] = (9, 9)
+        p["lrn_maxpool_split"] = p.pop("lrn_maxpool")
+        p["gd_lrn_maxpool_split"] = p.pop("gd_lrn_maxpool")
+    elif routing == "nofold":
+        p["act_bwd"] = (7, 0)
+    elif routing == "split":
+        del p["lrn_maxpool"], p["gd_lrn_maxpool"]
+        p.update(lrn_y=(2, 2), gd_lrn_x=(2, 0), pool_select=(3, 3),
+                 pool_scatter=(3, 0), act_bwd=(7, 0))
+    return narrow_path(p, storage, dropout=True)
+
+
+def narrow_path(p: dict, storage: str, dropout: bool = False,
+                depooling: bool = False) -> dict:
+    """``p`` with each kernel that reads a stored activation moved to its
+    ``storage`` form: the pools' selects, the LRNs, the pairs and the
+    unfolded activations' backward; with ``dropout`` half its launches
+    (the forwards); with ``depooling`` the scatter's forward launches."""
+    sfx = {"float32": "", "bfloat16": "_bf16", "float16": "_f16"}[storage]
+    if not sfx:
+        return p
+    p = dict(p)
+    for k in ("lrn_maxpool", "gd_lrn_maxpool", "lrn_maxpool_split",
+              "gd_lrn_maxpool_split", "pool_select", "lrn_y", "gd_lrn_x",
+              "act_bwd"):
+        if k in p:
+            p[k + sfx] = p.pop(k)
+    if dropout:
+        train, _ = p.pop("dropout")
+        p["dropout"] = p["dropout" + sfx] = (train // 2, 0)
+    if depooling:
+        (train, evals) = p.pop("pool_scatter")
+        p["pool_scatter"] = (train - 1, evals - 1)
+        p["pool_scatter" + sfx] = (1, 1)
+    return p
+
+
+def launches_for(mult: dict, train: int, evals: int) -> dict:
+    return {k: (mult[k][0] * train + mult[k][1] * evals if k in mult
+                else 0) for k in KERNELS}
+
+
+@contextlib.contextmanager
+def routing_env(routing: str):
+    """The routing's variables for the block (s2d: fused1 with
+    ``ZNICZ_TPU_CONV1=s2d``), the process's restored after."""
+    names = ("ZNICZ_TPU_LRN_POOL", "ZNICZ_TPU_CONV1")
+    saved = {k: os.environ.get(k) for k in names}
+    os.environ["ZNICZ_TPU_LRN_POOL"] = "fused1" if routing == "s2d" \
+        else routing
+    os.environ.pop("ZNICZ_TPU_CONV1", None)
+    if routing == "s2d":
+        os.environ["ZNICZ_TPU_CONV1"] = "s2d"
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _alexnet_initialized(torch):
+    """AlexNet at full width on ALEXNET_SPLIT from SEED, initialized on the
+    card and not trained."""
+    from znicz_tpu_torch import prng
+    from znicz_tpu_torch.config import root
+    from znicz_tpu_torch.models import alexnet
+    root.alexnet.synthetic.update(ALEXNET_SPLIT)
+    prng.seed_all(SEED)
+    wf = alexnet.AlexNetWorkflow()
+    wf.initialize(device="cuda")
+    return wf
+
+
+def _routed_trainer(torch, wf, storage: str = "float32"):
+    """A FusedTrainer on copies of ``wf``'s initial weights, its rows
+    merged under the routing of the environment."""
+    from znicz_tpu_torch.parallel import fused
+    layers, params, vels, unit_index = fused._merge_lrn_pool(
+        list(wf.layer_specs), wf.params, wf.vels)
+    spec = fused.ModelSpec(tuple(layers), wf.loss_function,
+                           storage_dtype=storage, unit_index=unit_index)
+    return fused.FusedTrainer(spec=spec, params=params, vels=vels,
+                              device="cuda")
+
+
+def _alexnet_steps(torch, wf, tr, routing: str, storage: str,
+                   directory: str) -> dict:
+    """ROUTING_STEPS train steps and one eval step from the initial
+    weights, their launches exact for the routing, then the train steps'
+    wall, device busy time and idle share (``device_timeline``)."""
+    ld = wf.loader
+    n0, n1, _ = ld.class_lengths
+    batch = ld.max_minibatch_size
+    train_idx = list(range(n0 + n1, n0 + n1 + ROUTING_STEPS * batch))
+    eval_idx = list(range(n0, n0 + batch))
+    data, labels = ld.original_data, ld.original_labels
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    m_train = tr.train_epoch(data, labels, train_idx, batch, epoch=0)
+    m_eval = tr.eval_epoch(data, labels, eval_idx, batch)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = launches_for(alexnet_path(
+        "fused1" if routing == "s2d" else routing, storage), ROUTING_STEPS,
+        1)
+    if counts != want:
+        raise AssertionError(f"alexnet {routing} {storage}: launches "
+                             f"{counts} != {want}")
+    params = [t.detach().clone() for pair in tr.params for t in pair
+              if t is not None]
+    timing = device_timeline(torch, lambda: tr.train_epoch(
+        data, labels, train_idx, batch, epoch=1, sync=False),
+        ROUTING_STEPS, directory)
+    for m in (m_train, m_eval):
+        if not all(math.isfinite(float(v)) for v in m["loss"]):
+            raise AssertionError(f"{routing} {storage}: non-finite loss")
+    return {"train": m_train, "eval": m_eval, "params": params,
+            "launches": counts, "timing": timing}
+
+
+def _max_rel(got, want) -> float:
+    return max(abs(float(g) - float(w)) / max(abs(float(w)), 1e-30)
+               for g, w in zip(got, want))
+
+
+def phase_routing(torch, directory: str) -> dict:
+    """AlexNet at full width under each of ``ROUTINGS``: the fused steps
+    from the same initial weights over the same minibatches, each held
+    against fused1 (losses, error counts, every weight and bias after the
+    steps), the halves kernels' launches exact, the step's wall, busy
+    time and idle share.  Returns routing → its run."""
+    wf = _alexnet_initialized(torch)
+    out = {}
+    for routing in ROUTINGS:
+        with routing_env(routing):
+            tr = _routed_trainer(torch, wf)
+            run = _alexnet_steps(torch, wf, tr, routing, "float32",
+                                 directory)
+            del tr
+        out[routing] = run
+        base = out["fused1"]
+        wkey = "s2d_weights" if routing == "s2d" else "weights"
+        rtol, atol = ROUTING_TOL[wkey]
+        gaps = [float(((g - w).abs() - atol - rtol * w.abs()).max())
+                for g, w in zip(run["params"], base["params"])]
+        line = {"phase": "routing", "routing": routing,
+                "resolved": _resolved(routing),
+                "steps": ROUTING_STEPS, "batch": wf.loader.max_minibatch_size,
+                "train_loss": [float(v) for v in run["train"]["loss"]],
+                "train_n_err": [int(v) for v in run["train"]["n_err"]],
+                "eval_loss": float(run["eval"]["loss"][0]),
+                "loss_max_rel_vs_fused1": _max_rel(
+                    run["train"]["loss"], base["train"]["loss"]),
+                "weights_worst_gap_over_tol": max(gaps),
+                "launches": {k: v for k, v in run["launches"].items() if v},
+                **run["timing"]}
+        emit(line)
+        lr, la = ROUTING_TOL["loss"]
+        for key in ("train", "eval"):
+            for g, w in zip(run[key]["loss"], base[key]["loss"]):
+                if abs(float(g) - float(w)) > la + lr * abs(float(w)):
+                    raise AssertionError(f"{routing}: {key} loss {g} vs "
+                                         f"fused1 {w}")
+            if list(run[key]["n_err"]) != list(base[key]["n_err"]):
+                raise AssertionError(f"{routing}: {key} n_err "
+                                     f"{run[key]['n_err']} vs fused1 "
+                                     f"{base[key]['n_err']}")
+        if max(gaps) > 0:
+            raise AssertionError(f"{routing}: weights off fused1's by more "
+                                 f"than rtol {rtol} / atol {atol}")
+    for run in out.values():
+        run.pop("params")
+    out["fused1_weights_wf"] = wf
+    return out
+
+
+def _resolved(routing: str) -> dict:
+    from znicz_tpu_torch.ops import tuning
+    with routing_env(routing):
+        return tuning.resolved_routing()
+
+
+#: narrow storage against float32 on the card, epoch 0 or the AlexNet
+#: steps: losses within rtol, error counts within a share of the samples
+NARROW_TOL = {"bfloat16": (2e-2, 0.02), "float16": (3e-3, 0.01)}
+
+
+def _narrow_model(torch, model: str, split: dict, storage: str) -> dict:
+    """One fused epoch of ``model`` on ``split`` at ``storage``, captured;
+    the launch counts exact for its narrow path, the caches' dtypes."""
+    from znicz_tpu_torch import prng
+    from znicz_tpu_torch.config import root
+    from znicz_tpu_torch.parallel import fused
+    module = importlib.import_module(f"znicz_tpu_torch.models.{model}")
+    tree = getattr(root, TREES.get(model, model))
+    tree.synthetic.update(split)
+    batch = int(tree.get("minibatch_size"))
+    prng.seed_all(SEED)
+    wf = {"cifar": lambda: module.CifarWorkflow(),
+          "autoencoder": lambda: module.MnistAEWorkflow()}[model]()
+    wf.decision.max_epochs = 1
+    wf.initialize(device="cuda")
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.monotonic()
+    tr = wf.train(fused=True, max_epochs=1, storage_dtype=storage)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = launch_counts()
+    mult = narrow_path(PATHS[model], storage,
+                       depooling=model == "autoencoder")
+    per = expected_steps(split, batch, 1)
+    want = launches_for(mult, sum(p["train"] for p in per),
+                        sum(p["eval"] for p in per))
+    if counts != want:
+        raise AssertionError(f"{model} {storage}: launches {counts} != "
+                             f"{want}")
+    if not tr.captured:
+        raise AssertionError(f"{model} {storage}: not captured "
+                             f"({tr.uncaptured_reason})")
+    x = wf.loader.original_data[:8]
+    with torch.no_grad():
+        out, caches = fused.forward(tr.spec, tr.params, x, want_caches=True,
+                                    train=True, epoch=0, ctr=8)
+    inner = {str(c[0].dtype) for c in caches[1:]}
+    if out.dtype != torch.float32 or caches[0][0].dtype != torch.float32 \
+            or inner != {str(getattr(torch, storage))}:
+        raise AssertionError(f"{model} {storage}: output {out.dtype}, "
+                             f"input cache {caches[0][0].dtype}, inner "
+                             f"caches {inner}")
+    return {"metrics": wf.decision.epoch_metrics[0], "launches": counts,
+            "wall_s": wall, "captured": tr.captured,
+            "inner_cache_dtypes": sorted(inner)}
+
+
+def _hold_narrow(what: str, storage: str, got: dict, want: dict,
+                 samples: dict) -> dict:
+    """Epoch-0 metrics at ``storage`` against float32's within
+    ``NARROW_TOL``; returns the gaps."""
+    rtol, share = NARROW_TOL[storage]
+    gaps = {}
+    for k, w in want.items():
+        g = got[k]
+        if k.endswith(("_loss", "_mse")):
+            gaps[k] = abs(g - w) / max(abs(w), 1e-30)
+            if gaps[k] > rtol:
+                raise AssertionError(f"{what} {storage}: {k} {g} vs float32 "
+                                     f"{w} (rtol {rtol})")
+        elif k.endswith("_n_err"):
+            n = samples[k.split("_")[0]]
+            gaps[k] = abs(g - w) / n
+            if gaps[k] > share:
+                raise AssertionError(f"{what} {storage}: {k} {g} vs float32 "
+                                     f"{w} (share {share} of {n})")
+    return gaps
+
+
+def phase_narrow_storage(torch, routing: dict, directory: str) -> dict:
+    """bf16 and f16 activation storage on the card: AlexNet at full width
+    under fused1 and fused2 (the routing phase's steps from the same
+    weights, held against its float32 fused1 run), CIFAR and the
+    autoencoder (depooling) one epoch on their parity splits against the
+    same epoch at float32, captured; every storage-dtype kernel launched,
+    each by its counter.  Returns path → launches."""
+    wf = routing.pop("fused1_weights_wf")
+    base = routing["fused1"]
+    launches = {}
+    samples = {"train": ROUTING_STEPS * wf.loader.max_minibatch_size}
+    for storage in FORM_DTYPES.values():
+        for r in ("fused1", "fused2"):
+            with routing_env(r):
+                tr = _routed_trainer(torch, wf, storage)
+                run = _alexnet_steps(torch, wf, tr, r, storage, directory)
+                del tr
+            rtol, share = NARROW_TOL[storage]
+            rel = _max_rel(run["train"]["loss"], base["train"]["loss"])
+            n_gap = max(abs(int(g) - int(w)) for g, w in zip(
+                run["train"]["n_err"], base["train"]["n_err"]))
+            emit({"phase": "narrow_storage", "model": "alexnet",
+                  "routing": r, "storage": storage,
+                  "train_loss": [float(v) for v in run["train"]["loss"]],
+                  "train_loss_float32": [float(v)
+                                         for v in base["train"]["loss"]],
+                  "loss_max_rel_vs_float32": rel,
+                  "n_err_max_gap_a_step": n_gap,
+                  "launches": {k: v for k, v in run["launches"].items()
+                               if v}, **run["timing"]})
+            if rel > rtol or n_gap > share * samples["train"] / \
+                    ROUTING_STEPS + 1:
+                raise AssertionError(f"alexnet {r} {storage}: loss rel "
+                                     f"{rel}, n_err gap {n_gap}")
+            launches[f"narrow_alexnet_{r}_{storage}"] = run["launches"]
+    del wf
+    torch.cuda.empty_cache()
+    for model, split in (("cifar", CIFAR_PARITY_SPLIT),
+                         ("autoencoder", AE_PARITY_SPLIT)):
+        ref = _narrow_model(torch, model, split, "float32")
+        sizes = {"train": split["n_train"], "validation": split["n_valid"],
+                 "test": split["n_test"]}
+        for storage in FORM_DTYPES.values():
+            run = _narrow_model(torch, model, split, storage)
+            gaps = _hold_narrow(model, storage, run["metrics"],
+                                ref["metrics"], sizes)
+            emit({"phase": "narrow_storage", "model": model,
+                  "storage": storage, "split": split,
+                  "epoch_metrics": run["metrics"],
+                  "epoch_metrics_float32": ref["metrics"], "gaps": gaps,
+                  "captured": run["captured"],
+                  "inner_cache_dtypes": run["inner_cache_dtypes"],
+                  "wall_s": run["wall_s"], "wall_s_float32": ref["wall_s"],
+                  "launches": {k: v for k, v in run["launches"].items()
+                               if v}})
+            launches[f"narrow_{model}_{storage}"] = run["launches"]
+    never = [name for name in FORMS
+             if not any(c[name] for c in launches.values())
+             and not any(r["launches"][name] for r in routing.values())]
+    if never:
+        raise AssertionError(f"forms no path launched: {never}")
+    return launches
+
+
 def kernels_line(kern: dict, launches: dict) -> dict:
     """One entry per kernel: its numbers at the main path's shape (the
     first case), the launches of the main-path runs, and every case."""
@@ -5440,8 +6113,10 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import znicz_tpu_torch  # noqa: F401  (fails outside a checkout)
-    # the paths before phase 17 run the default conv tier
-    os.environ.pop("ZNICZ_TPU_CONV", None)
+    # the paths before phase 17 run the default conv tier, every path but
+    # the routing phase's the default routing (fused1, conv1 direct)
+    for name in ("ZNICZ_TPU_CONV", "ZNICZ_TPU_LRN_POOL", "ZNICZ_TPU_CONV1"):
+        os.environ.pop(name, None)
 
     info = phase_device(torch)
     phase_build()
@@ -5470,7 +6145,8 @@ def run_phases(torch, info: dict, exports: dict, serve_dir: str) -> int:
             "distance_argmin": phase_kernel_distance_argmin(torch),
             **phase_kernel_act(torch),
             "matmul_at_b": phase_kernel_at_b(torch),
-            **phase_kernel_conv_gemm(torch)}
+            **phase_kernel_conv_gemm(torch),
+            **phase_kernel_forms(torch)}
     phase_fused_update(torch)
     phase_captured(torch)
     #: each conv model's epoch 0 on its default split on the default tier
@@ -5528,6 +6204,9 @@ def run_phases(torch, info: dict, exports: dict, serve_dir: str) -> int:
     options = phase_units_options(torch)
     phase_flops(torch)
     plane = phase_data_plane(torch)
+    with tempfile.TemporaryDirectory(prefix="znicz_routing_") as directory:
+        routing = phase_routing(torch, directory)
+        narrow = phase_narrow_storage(torch, routing, directory)
     act_cfg = {"layers": MNIST_ACT_LAYERS}
     act_units = phase_slice(torch, "mnist", MNIST_SPLIT,
                             "mnist 784-100-activation_tanh-10 unit graph",
@@ -5581,7 +6260,9 @@ def run_phases(torch, info: dict, exports: dict, serve_dir: str) -> int:
                              "resume_alexnet": resume["alexnet"]["launches"],
                              "serve": serve["launches"],
                              "serve_http": serve_http["launches"],
-                             **plane}))
+                             **plane,
+                             **{f"routing_{r}": routing[r]["launches"]
+                                for r in ROUTINGS}, **narrow}))
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -174,13 +174,19 @@ def test_fused1_epoch_matches_reference_trainer(tier, monkeypatch):
 
 def test_default_fused2_epoch_matches_reference_trainer(monkeypatch):
     """The reference's default routing makes conv1 and conv2 emit
-    column-parity halves; ``from_reference`` drops those keys, and the
-    port's epoch stays within the tolerances the reference holds fused2 to
+    column-parity halves; ``from_reference`` keeps those keys, so the port
+    runs the same fused2 routing (split convs, the pair over halves), and
+    its epoch stays within the tolerances the reference holds fused2 to
     against fused1."""
     ref, _ = _both()
     spec, want, got, wparams, gparams = _epoch_against_reference(
         ref, None, "xla", monkeypatch)
     assert sum(bool(la.cfg.get("split_out")) for la in spec.layers) == 2
+    pspec = convert.from_reference(
+        [dataclasses.asdict(la) for la in spec.layers], spec.loss, [], [],
+        device="cpu")[0]
+    assert [dataclasses.asdict(la) for la in pspec.layers] == \
+        [dataclasses.asdict(la) for la in spec.layers]
     np.testing.assert_array_equal(got["n_err"], np.asarray(want["n_err"]))
     np.testing.assert_allclose(got["loss"], np.asarray(want["loss"]),
                                rtol=1e-5, atol=1e-6)

@@ -162,11 +162,10 @@ def test_idx_matrix_matches_reference(n, batch):
 @pytest.mark.parametrize("kind", ["lrn_pool", "stochastic_pool",
                                   "dropout", "deconv", "depooling"])
 def test_unported_kinds_raise_naming_the_roadmap(kind):
-    """The unported part of a kind raises naming its ROADMAP.md item: the
-    narrow-storage form of lrn_pool, the stochastic pool, dropout and
-    depooling (their kernels take float32; the stochastic pool's backward
-    is the pool-scatter kernel). A tied deconv with a bias is refused as
-    the reference's fused path refuses it, naming no item."""
+    """Nothing of these kinds is left unported: the narrow-storage forms of
+    lrn_pool, the stochastic pool, dropout and depooling are accepted (their
+    kernels take the storage dtypes).  A tied deconv with a bias is refused
+    as the reference's fused path refuses it, naming no item."""
     def row(k, include_bias=False, **cfg):
         return fused.LayerSpec(kind=k, activation="linear",
                                include_bias=include_bias,
@@ -184,24 +183,30 @@ def test_unported_kinds_raise_naming_the_roadmap(kind):
         "depooling": ((row("max_pool", **pool),
                        row("depooling", tie=0, **pool)), "bfloat16"),
     }[kind]
-    # the tied deconv names no queue item: nothing is left to port there
-    match = ("reference's fused path refuses it too" if kind == "deconv"
-             else "ROADMAP.md queue 1")
-    with pytest.raises(NotImplementedError, match=match):
+    if kind != "deconv":
+        assert fused.ModelSpec(layers, "mse",
+                               storage_dtype=storage).storage_dtype == storage
+        return
+    with pytest.raises(NotImplementedError,
+                       match="reference's fused path refuses it too"):
         fused.ModelSpec(layers, "mse", storage_dtype=storage)
 
 
 @pytest.mark.parametrize("kind", ["max_pool", "maxabs_pool", "lrn",
                                   "lrn_pool", "dropout"])
 def test_narrow_storage_through_float32_kernels_raises(kind):
-    """The pool and LRN kernels take float32: a bf16 storage dtype on a
-    spec with them is refused, not run at another precision."""
+    """The pool, LRN and dropout kernels take every storage dtype: a
+    bfloat16 or float16 storage dtype on a spec with them is accepted (an
+    unknown one is still refused)."""
     layer = fused.LayerSpec(kind=kind, activation="linear",
                             include_bias=False, hypers=(0.0,) * 4,
                             hypers_bias=(0.0,) * 4)
     fused.ModelSpec((layer,), "mse")                     # float32: fine
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        fused.ModelSpec((layer,), "mse", storage_dtype="bfloat16")
+    for storage in ("bfloat16", "float16"):
+        assert fused.ModelSpec((layer,), "mse", storage_dtype=storage
+                               ).storage_dtype == storage
+    with pytest.raises(ValueError, match="unknown dtype"):
+        fused.ModelSpec((layer,), "mse", storage_dtype="float8")
 
 
 @pytest.mark.parametrize("kwargs", [{"mesh": object()},

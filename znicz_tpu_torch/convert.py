@@ -9,15 +9,15 @@ vels)`` on a device.  A depooling row's ``tie`` (its max pool's row) and a
 tied deconv's (its encoder conv's row, whose W it shares: its params are
 ``(None, None)``, its velocity its own) come across in the config as
 they are.
-``to_numpy`` is its inverse for the parameters.  Nothing here imports
-``znicz_tpu``: the caller hands over numpy arrays.
+``to_reference`` and ``to_numpy`` are its inverses (the whole plain form,
+and the parameters alone).  Nothing here imports ``znicz_tpu``: the caller
+hands over numpy arrays.
 
 A spec exported under the reference's default ``fused2`` routing marks the
 convs before each merged LRN→pool pair ``split_out`` and the pair
 ``emit_split``: there the convs emit column-parity halves and take split
-gradients back, a layout device for Mosaic's lack of strided loads.  The
-math is the same as without it (``fused1``), and the port's kernels read
-x unsplit, so ``from_reference`` drops both keys."""
+gradients back.  Both keys come across as they are, and the port runs
+them (``parallel/fused.py``), whatever its own default routing."""
 
 from __future__ import annotations
 
@@ -27,16 +27,12 @@ import torch
 from .parallel.fused import LayerSpec, ModelSpec
 
 
-#: config keys of the reference's parity-split routing (module docstring)
-_SPLIT_KEYS = ("split_out", "emit_split")
-
-
 def _config(pairs) -> tuple:
     """Sorted ``(key, value)`` pairs with list values (as JSON gives
     them) turned back into the reference's tuples, e.g. ``("ksize",
-    (2, 2))``, and the parity-split keys dropped."""
+    (2, 2))``."""
     return tuple((k, tuple(v) if isinstance(v, list) else v)
-                 for k, v in pairs if k not in _SPLIT_KEYS)
+                 for k, v in pairs)
 
 
 def _layer(d: dict) -> LayerSpec:
@@ -72,3 +68,17 @@ def to_numpy(params) -> list:
     return [tuple(None if t is None else t.detach().cpu().numpy()
                   for t in pair)
             for pair in params]
+
+
+def to_reference(spec: ModelSpec, params, vels) -> tuple:
+    """The inverse of :func:`from_reference`: ``(layers, loss, params,
+    vels, unit_index)`` in the reference's plain form — each ``LayerSpec``
+    as a dict (its config pairs as they are, the routing keys
+    ``act_folded``, ``fold_act``, ``split_out`` and ``emit_split``
+    among them) and numpy ``(w, b)`` pairs."""
+    layers = [{"kind": la.kind, "activation": la.activation,
+               "include_bias": la.include_bias, "hypers": la.hypers,
+               "hypers_bias": la.hypers_bias, "config": la.config}
+              for la in spec.layers]
+    return (layers, spec.loss, to_numpy(params), to_numpy(vels),
+            spec.unit_index)

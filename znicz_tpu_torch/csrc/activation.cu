@@ -47,6 +47,11 @@
 // operation; the vector form changes where an element is loaded, never
 // its arithmetic.  Indices are 32-bit: the wrappers refuse 2^31 elements
 // or more.
+//
+// The backward also reads the stored y (or x) of the fused step's narrow
+// storage types (narrow.cuh; entry points suffixed bf16, f16): converted to
+// float at the load (8-byte loads of 4 values in the vector form) and the
+// derivative computed in float; err_y and err_x stay float.
 
 #include <cstdint>
 #include <initializer_list>
@@ -55,6 +60,7 @@
 
 #include "act_math.cuh"
 #include "fastdiv.cuh"
+#include "narrow.cuh"
 
 namespace {
 
@@ -68,6 +74,20 @@ using act_math::TanhLogConsts;
 __device__ __forceinline__ float4 load4(const float4* p) { return *p; }
 __device__ __forceinline__ void store4(float4* p, float4 v) { *p = v; }
 __device__ __forceinline__ float load1(const float* p) { return *p; }
+// 4 stored values (float: one float4; narrow: one 8-byte load) as a float4,
+// one as a float
+template <typename T>
+__device__ __forceinline__ float4 load4s(const T* p) {
+  if constexpr (kNarrow<T>) {
+    float v[4];
+    load_vec<4>(p, v);
+    return make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    return *reinterpret_cast<const float4*>(p);
+  }
+}
+template <typename T>
+__device__ __forceinline__ float load1s(const T* p) { return to_f32(*p); }
 __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
 
 template <int A>
@@ -152,18 +172,17 @@ act_fwd_kernel(const float* __restrict__ x, float* __restrict__ y, int n,
   }
 }
 
-template <int A, int V>
+template <int A, int V, typename TS>
 __global__ void __launch_bounds__(kThreads)
-act_bwd_kernel(const float* __restrict__ e, const float* __restrict__ y,
-               const float* __restrict__ x, float* __restrict__ out, int n,
+act_bwd_kernel(const float* __restrict__ e, const TS* __restrict__ y,
+               const TS* __restrict__ x, float* __restrict__ out, int n,
                Parity p, TanhLogConsts k) {
-  const float* __restrict__ s = needs_x<A>() ? x : y;
+  const TS* __restrict__ s = needs_x<A>() ? x : y;
   if constexpr (V == 4) {
     const int n4 = n >> 2;
     const int first = static_cast<int>(blockIdx.x) * (kThreads * kVecs) +
                       static_cast<int>(threadIdx.x);
     const float4* e4 = reinterpret_cast<const float4*>(e);
-    const float4* s4 = reinterpret_cast<const float4*>(s);
     float4* o4 = reinterpret_cast<float4*>(out);
     float4 ve[kVecs], vs[kVecs];
 #pragma unroll
@@ -171,7 +190,7 @@ act_bwd_kernel(const float* __restrict__ e, const float* __restrict__ y,
       const int i = first + u * kThreads;
       if (i < n4) {
         ve[u] = load4(e4 + i);
-        vs[u] = load4(s4 + i);
+        vs[u] = load4s(s + 4 * i);
       }
     }
 #pragma unroll
@@ -195,7 +214,7 @@ act_bwd_kernel(const float* __restrict__ e, const float* __restrict__ y,
       const unsigned i = first + u * kThreads;
       if (i < un) {
         ve[u] = load1(e + i);
-        vs[u] = load1(s + i);
+        vs[u] = load1s(s + i);
       }
     }
 #pragma unroll
@@ -232,17 +251,42 @@ void launch_fwd(const float* x, float* y, int n, const Parity& p,
   }
 }
 
-template <int A>
-void launch_bwd(const float* e, const float* y, const float* x, float* out,
-                int n, const Parity& p, const TanhLogConsts& k, bool vec,
+template <int A, typename TS>
+void launch_bwd(const float* e, const TS* y, const TS* x, float* out, int n,
+                const Parity& p, const TanhLogConsts& k, bool vec,
                 cudaStream_t stream) {
   if (vec) {
-    act_bwd_kernel<A, 4><<<blocks_for(n), kThreads, 0, stream>>>(
+    act_bwd_kernel<A, 4, TS><<<blocks_for(n), kThreads, 0, stream>>>(
         e, y, x, out, n, p, k);
   } else {
-    act_bwd_kernel<A, 1><<<blocks_for(n), kThreads, 0, stream>>>(
+    act_bwd_kernel<A, 1, TS><<<blocks_for(n), kThreads, 0, stream>>>(
         e, y, x, out, n, p, k);
   }
+}
+
+// err_x of activation `act` (an unknown id: cudaErrorInvalidValue), the
+// vector form where n and the pointers allow it
+template <typename TS>
+int act_bwd(const float* e, const TS* y, const TS* x, float* out, int n,
+            int C, int act, float t, float inv_t, float a, float y_t,
+            void* stream) {
+  const Parity p{make_fastdiv(C), C % 2 == 0};
+  const TanhLogConsts k{t, inv_t, a, y_t};
+  const bool v = vec_ok(n, {e, y, x, out});
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (act) {
+    case act_math::kLinear: launch_bwd<act_math::kLinear>(e, y, x, out, n, p, k, v, s); break;
+    case act_math::kStrictRelu: launch_bwd<act_math::kStrictRelu>(e, y, x, out, n, p, k, v, s); break;
+    case act_math::kTanh: launch_bwd<act_math::kTanh>(e, y, x, out, n, p, k, v, s); break;
+    case act_math::kSigmoid: launch_bwd<act_math::kSigmoid>(e, y, x, out, n, p, k, v, s); break;
+    case act_math::kRelu: launch_bwd<act_math::kRelu>(e, y, x, out, n, p, k, v, s); break;
+    case act_math::kMul: launch_bwd<act_math::kMul>(e, y, x, out, n, p, k, v, s); break;
+    case act_math::kLog: launch_bwd<act_math::kLog>(e, y, x, out, n, p, k, v, s); break;
+    case act_math::kSinCos: launch_bwd<act_math::kSinCos>(e, y, x, out, n, p, k, v, s); break;
+    case act_math::kTanhLog: launch_bwd<act_math::kTanhLog>(e, y, x, out, n, p, k, v, s); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -276,26 +320,15 @@ extern "C" int znicz_act_fwd_f32(const float* x, float* y, int n, int C,
   return static_cast<int>(cudaGetLastError());
 }
 
-// x may be null for the activations whose derivative needs only y.
-extern "C" int znicz_act_bwd_f32(const float* e, const float* y,
-                                 const float* x, float* out, int n, int C,
-                                 int act, float t, float inv_t, float a,
-                                 float y_t, void* stream) {
-  const Parity p{make_fastdiv(C), C % 2 == 0};
-  const TanhLogConsts k{t, inv_t, a, y_t};
-  const bool v = vec_ok(n, {e, y, x, out});
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (act) {
-    case act_math::kLinear: launch_bwd<act_math::kLinear>(e, y, x, out, n, p, k, v, s); break;
-    case act_math::kStrictRelu: launch_bwd<act_math::kStrictRelu>(e, y, x, out, n, p, k, v, s); break;
-    case act_math::kTanh: launch_bwd<act_math::kTanh>(e, y, x, out, n, p, k, v, s); break;
-    case act_math::kSigmoid: launch_bwd<act_math::kSigmoid>(e, y, x, out, n, p, k, v, s); break;
-    case act_math::kRelu: launch_bwd<act_math::kRelu>(e, y, x, out, n, p, k, v, s); break;
-    case act_math::kMul: launch_bwd<act_math::kMul>(e, y, x, out, n, p, k, v, s); break;
-    case act_math::kLog: launch_bwd<act_math::kLog>(e, y, x, out, n, p, k, v, s); break;
-    case act_math::kSinCos: launch_bwd<act_math::kSinCos>(e, y, x, out, n, p, k, v, s); break;
-    case act_math::kTanhLog: launch_bwd<act_math::kTanhLog>(e, y, x, out, n, p, k, v, s); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+// x may be null for the activations whose derivative needs only y; y and
+// x (whichever the derivative reads) are in the suffix's storage type (f32,
+// bf16, f16), err_y and err_x are float.
+#define ZNICZ_ACT_BWD_ENTRY(T, SFX)                                          \
+  extern "C" int znicz_act_bwd_##SFX(const float* e, const T* y, const T* x, \
+                                     float* out, int n, int C, int act,      \
+                                     float t, float inv_t, float a,          \
+                                     float y_t, void* stream) {              \
+    return act_bwd<T>(e, y, x, out, n, C, act, t, inv_t, a, y_t, stream);    \
   }
-  return static_cast<int>(cudaGetLastError());
-}
+
+ZNICZ_FOR_EACH_STORAGE(ZNICZ_ACT_BWD_ENTRY)

@@ -76,6 +76,11 @@
 //
 // The math (window sums, d^-beta, rounding) is csrc/lrn_math.cuh, shared
 // with the fused LRN->max-pool kernels of lrn_pool.cu.
+//
+// The recompute pair takes x (and the forward writes y) in the fused step's
+// storage type T (float, __nv_bfloat16 or __half; narrow.cuh): x converted
+// to float where it is loaded, y rounded once where it is stored; err and
+// dx are float.  Its entry points carry the type's suffix.
 
 #include <cuda_runtime.h>
 
@@ -97,10 +102,10 @@ __device__ __forceinline__ void zero_row_halos(float* row, int C, int halo) {
   }
 }
 
-// The pixel's C channels at src into the tile row `row`, V a thread.
-template <int V>
-__device__ __forceinline__ void fill_row(float* row, const float* src,
-                                         int C) {
+// The pixel's C channels at src (float or narrow) into the float tile row
+// `row`, V a thread.
+template <int V, typename T>
+__device__ __forceinline__ void fill_row(float* row, const T* src, int C) {
   for (int c = threadIdx.x * V; c < C; c += blockDim.x * V) {
     float v[V];
     load_vec<V>(src + c, v);
@@ -108,10 +113,23 @@ __device__ __forceinline__ void fill_row(float* row, const float* src,
   }
 }
 
-template <int V, int kN>
+// 4 consecutive values at p (16-byte aligned float or 8-byte aligned
+// narrow) as a float4
+template <typename T>
+__device__ __forceinline__ float4 load4f(const T* p) {
+  if constexpr (kNarrow<T>) {
+    float v[4];
+    load_vec<4>(p, v);
+    return make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    return *reinterpret_cast<const float4*>(p);
+  }
+}
+
+template <int V, int kN, typename T>
 __global__ void __launch_bounds__(kMaxThreads)
-    lrn_y_kernel(const float* __restrict__ x, float* __restrict__ y,
-                 int rows, int halo, LrnParams p) {
+    lrn_y_kernel(const T* __restrict__ x, T* __restrict__ y, int rows,
+                 int halo, LrnParams p) {
   extern __shared__ float4 smem4[];
   const int C = p.C.d;
   float* xs = reinterpret_cast<float*>(smem4) + threadIdx.y * (C + 2 * halo)
@@ -123,7 +141,7 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
   __syncthreads();
   if (pix >= rows) return;
-  float* yr = y + pix * C;
+  T* yr = y + pix * C;
   for (int c = threadIdx.x * V; c < C; c += blockDim.x * V) {
     float s[V], xa[V], ya[V];
     window_sums<V, kN, true>(xs + c, p, s);
@@ -141,8 +159,9 @@ __global__ void __launch_bounds__(kMaxThreads)
 // (lrn_math.cuh lrn_y_at, the cache holding the neighbours), with no tile
 // and no barrier in its way.  At that size a thread's latency sets the
 // time, and the flat index measured faster than a row of threads a pixel.
+template <typename T>
 __global__ void __launch_bounds__(kMaxThreads)
-    lrn_y_direct_kernel(const float* __restrict__ x, float* __restrict__ y,
+    lrn_y_direct_kernel(const T* __restrict__ x, T* __restrict__ y,
                         int total, LrnParams p) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= total) return;
@@ -152,11 +171,11 @@ __global__ void __launch_bounds__(kMaxThreads)
 
 // Shared memory: the x rows and the q rows of the block's pixels (each
 // C + 2 * halo floats, zero-haloed), then their err * p rows (C floats).
-template <int V, int kN>
+template <int V, int kN, typename T>
 __global__ void __launch_bounds__(kMaxThreads)
-    gd_lrn_x_kernel(const float* __restrict__ err,
-                    const float* __restrict__ x, float* __restrict__ dx,
-                    int rows, int halo, LrnParams p) {
+    gd_lrn_x_kernel(const float* __restrict__ err, const T* __restrict__ x,
+                    float* __restrict__ dx, int rows, int halo,
+                    LrnParams p) {
   extern __shared__ float4 smem4[];
   const int C = p.C.d, P = C + 2 * halo;
   float* smem = reinterpret_cast<float*>(smem4);
@@ -223,14 +242,15 @@ __device__ __forceinline__ void warp_window(float4 v, float4 (&win)[3]) {
 // The warp form of lrn_y_kernel<4, 5>: a pixel's C / 4 threads share a
 // warp, so a thread takes its window's neighbours (within 4 channels) from
 // the next threads' registers; no tile, no barrier.
+template <typename T>
 __global__ void __launch_bounds__(kMaxThreads)
-    lrn_y_warp_kernel(const float* __restrict__ x, float* __restrict__ y,
-                      int rows, int, LrnParams p) {
+    lrn_y_warp_kernel(const T* __restrict__ x, T* __restrict__ y, int rows,
+                      int, LrnParams p) {
   const int C = p.C.d, c = threadIdx.x * 4;
   const int pix = blockIdx.x * blockDim.y + threadIdx.y;
   const bool live = pix < rows;
   float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  if (live) v = *reinterpret_cast<const float4*>(x + pix * C + c);
+  if (live) v = load4f(x + pix * C + c);
   float4 win[3];
   warp_window(v, win);
   const float xa[4] = {v.x, v.y, v.z, v.w};
@@ -245,16 +265,17 @@ __global__ void __launch_bounds__(kMaxThreads)
 
 // The warp form of gd_lrn_x_kernel<4, 5>: x's and q's neighbours from the
 // next threads' registers.
+template <typename T>
 __global__ void __launch_bounds__(kMaxThreads)
     gd_lrn_x_warp_kernel(const float* __restrict__ err,
-                         const float* __restrict__ x, float* __restrict__ dx,
+                         const T* __restrict__ x, float* __restrict__ dx,
                          int rows, int, LrnParams p) {
   const int C = p.C.d, c = threadIdx.x * 4;
   const int pix = blockIdx.x * blockDim.y + threadIdx.y;
   const bool live = pix < rows;
   float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f), ev = v;
   if (live) {
-    v = *reinterpret_cast<const float4*>(x + pix * C + c);
+    v = load4f(x + pix * C + c);
     ev = *reinterpret_cast<const float4*>(err + pix * C + c);
   }
   float4 win[3];
@@ -340,25 +361,64 @@ bool warp_rows(int C, int vec, int n, int threads_x, int pixels) {
          threads_x * pixels % 32 == 0;
 }
 
-using ForwardKernel = void (*)(const float*, float*, int, int, LrnParams);
-using BackwardKernel = void (*)(const float*, const float*, float*, int, int,
+template <typename T>
+using ForwardKernel = void (*)(const T*, T*, int, int, LrnParams);
+template <typename T>
+using BackwardKernel = void (*)(const float*, const T*, float*, int, int,
                                 LrnParams);
 
 // The kernel instance: the warp form, or the tile's with V = 4 or 1 and n
 // = 5 fixed at compile time (every shipped config's; under V = 1 the
 // window loop unrolled) or read at run time.
-ForwardKernel forward_kernel(int vec, int n, bool warp) {
-  if (warp) return lrn_y_warp_kernel;
-  if (vec == 4) return n == 5 ? lrn_y_kernel<4, 5> : lrn_y_kernel<4, 0>;
-  return n == 5 ? lrn_y_kernel<1, 5> : lrn_y_kernel<1, 0>;
+template <typename T>
+ForwardKernel<T> forward_kernel(int vec, int n, bool warp) {
+  if (warp) return lrn_y_warp_kernel<T>;
+  if (vec == 4) return n == 5 ? lrn_y_kernel<4, 5, T> : lrn_y_kernel<4, 0, T>;
+  return n == 5 ? lrn_y_kernel<1, 5, T> : lrn_y_kernel<1, 0, T>;
 }
 
-BackwardKernel backward_kernel(int vec, int n, bool warp) {
-  if (warp) return gd_lrn_x_warp_kernel;
+template <typename T>
+BackwardKernel<T> backward_kernel(int vec, int n, bool warp) {
+  if (warp) return gd_lrn_x_warp_kernel<T>;
   if (vec == 4) {
-    return n == 5 ? gd_lrn_x_kernel<4, 5> : gd_lrn_x_kernel<4, 0>;
+    return n == 5 ? gd_lrn_x_kernel<4, 5, T> : gd_lrn_x_kernel<4, 0, T>;
   }
-  return n == 5 ? gd_lrn_x_kernel<1, 5> : gd_lrn_x_kernel<1, 0>;
+  return n == 5 ? gd_lrn_x_kernel<1, 5, T> : gd_lrn_x_kernel<1, 0, T>;
+}
+
+template <typename T>
+int lrn_y(const T* x, T* y, int rows, int C, int n, double alpha,
+          double beta, double k, int plan_vec, int direct, int threads_x,
+          int pixels, int smem, void* stream) {
+  if (rows <= 0 || C <= 0) return 0;
+  const LrnParams p = make_lrn_params(C, n, alpha, beta, k);
+  const int vec =
+      plan_vec == 4 ? vec_width(C, aligned16(x) && aligned16(y)) : 1;
+  if (direct && vec == 1) {   // a small tensor: one thread an element
+    const int threads = threads_x * pixels, total = rows * C;
+    return launch(lrn_y_direct_kernel<T>, (total + threads - 1) / threads,
+                  threads, 0, stream, x, y, total, p);
+  }
+  const bool warp = warp_rows(C, vec, n, threads_x, pixels);
+  return launch(forward_kernel<T>(vec, n, warp),
+                (rows + pixels - 1) / pixels, dim3(threads_x, pixels),
+                warp ? 0 : smem, stream, x, y, rows, halo_for(n, vec), p);
+}
+
+template <typename T>
+int gd_lrn_x(const float* err, const T* x, float* dx, int rows, int C,
+             int n, double alpha, double beta, double k, int plan_vec,
+             int threads_x, int pixels, int smem, void* stream) {
+  if (rows <= 0 || C <= 0) return 0;
+  const int vec =
+      plan_vec == 4
+          ? vec_width(C, aligned16(err) && aligned16(x) && aligned16(dx))
+          : 1;
+  const bool warp = warp_rows(C, vec, n, threads_x, pixels);
+  return launch(backward_kernel<T>(vec, n, warp),
+                (rows + pixels - 1) / pixels, dim3(threads_x, pixels),
+                warp ? 0 : smem, stream, err, x, dx, rows, halo_for(n, vec),
+                make_lrn_params(C, n, alpha, beta, k));
 }
 
 }  // namespace
@@ -371,41 +431,23 @@ BackwardKernel backward_kernel(int vec, int n, bool warp) {
 // vector form runs only where C and the pointers allow it, and the form
 // (warp or tile) follows from the rest.
 
-extern "C" int znicz_lrn_y_f32(const float* x, float* y, int rows, int C,
-                               int n, double alpha, double beta, double k,
-                               int plan_vec, int direct, int threads_x,
-                               int pixels, int smem, void* stream) {
-  if (rows <= 0 || C <= 0) return 0;
-  const LrnParams p = make_lrn_params(C, n, alpha, beta, k);
-  const int vec =
-      plan_vec == 4 ? vec_width(C, aligned16(x) && aligned16(y)) : 1;
-  if (direct && vec == 1) {   // a small tensor: one thread an element
-    const int threads = threads_x * pixels, total = rows * C;
-    return launch(lrn_y_direct_kernel, (total + threads - 1) / threads,
-                  threads, 0, stream, x, y, total, p);
+#define ZNICZ_LRN_ENTRIES(T, SFX)                                          \
+  extern "C" int znicz_lrn_y_##SFX(                                         \
+      const T* x, T* y, int rows, int C, int n, double alpha, double beta,  \
+      double k, int plan_vec, int direct, int threads_x, int pixels,        \
+      int smem, void* stream) {                                             \
+    return lrn_y<T>(x, y, rows, C, n, alpha, beta, k, plan_vec, direct,     \
+                    threads_x, pixels, smem, stream);                       \
+  }                                                                         \
+  extern "C" int znicz_gd_lrn_x_##SFX(                                      \
+      const float* err, const T* x, float* dx, int rows, int C, int n,      \
+      double alpha, double beta, double k, int plan_vec, int threads_x,     \
+      int pixels, int smem, void* stream) {                                 \
+    return gd_lrn_x<T>(err, x, dx, rows, C, n, alpha, beta, k, plan_vec,    \
+                       threads_x, pixels, smem, stream);                    \
   }
-  const bool warp = warp_rows(C, vec, n, threads_x, pixels);
-  return launch(forward_kernel(vec, n, warp), (rows + pixels - 1) / pixels,
-                dim3(threads_x, pixels), warp ? 0 : smem, stream, x, y, rows,
-                halo_for(n, vec), p);
-}
 
-extern "C" int znicz_gd_lrn_x_f32(const float* err, const float* x,
-                                  float* dx, int rows, int C, int n,
-                                  double alpha, double beta, double k,
-                                  int plan_vec, int threads_x, int pixels,
-                                  int smem, void* stream) {
-  if (rows <= 0 || C <= 0) return 0;
-  const int vec =
-      plan_vec == 4
-          ? vec_width(C, aligned16(err) && aligned16(x) && aligned16(dx))
-          : 1;
-  const bool warp = warp_rows(C, vec, n, threads_x, pixels);
-  return launch(backward_kernel(vec, n, warp), (rows + pixels - 1) / pixels,
-                dim3(threads_x, pixels), warp ? 0 : smem, stream, err, x, dx,
-                rows, halo_for(n, vec),
-                make_lrn_params(C, n, alpha, beta, k));
-}
+ZNICZ_FOR_EACH_STORAGE(ZNICZ_LRN_ENTRIES)
 
 extern "C" int znicz_lrn_f32(const float* x, float* y, float* d, int rows,
                              int C, int n, double alpha, double beta,

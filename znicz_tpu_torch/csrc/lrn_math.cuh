@@ -24,6 +24,7 @@
 #include <cuda_runtime.h>
 
 #include "fastdiv.cuh"
+#include "narrow.cuh"
 
 struct LrnParams {
   FastDiv C;        // the channel count, for the index's channel
@@ -49,15 +50,17 @@ __device__ __forceinline__ float lrn_d(float s, const LrnParams& p) {
   return __fadd_rn(p.k, __fmul_rn(p.alpha, s));
 }
 
-// d_c = k + alpha * (window sum of x^2 around channel c of row xr)
-__device__ __forceinline__ float lrn_denom(const float* __restrict__ xr,
-                                           int c, const LrnParams& p) {
+// d_c = k + alpha * (window sum of x^2 around channel c of row xr), x in
+// float or a narrow storage type (narrow.cuh), converted at the load
+template <typename T>
+__device__ __forceinline__ float lrn_denom(const T* __restrict__ xr, int c,
+                                           const LrnParams& p) {
   float s = 0.0f;
   for (int m = 0; m < p.n; ++m) {
     const int j = c + m - p.half_lo;
     float v = 0.0f;
     if (j >= 0 && j < static_cast<int>(p.C.d)) {
-      const float xj = xr[j];
+      const float xj = to_f32(xr[j]);
       v = __fmul_rn(xj, xj);
     }
     s = (m == 0) ? v : __fadd_rn(s, v);
@@ -66,9 +69,10 @@ __device__ __forceinline__ float lrn_denom(const float* __restrict__ xr,
 }
 
 // y_c = x_c * d_c^-beta for channel c of row xr
-__device__ __forceinline__ float lrn_y_at(const float* __restrict__ xr,
-                                          int c, const LrnParams& p) {
-  return __fmul_rn(xr[c], lrn_dpow_nbeta(lrn_denom(xr, c, p), p));
+template <typename T>
+__device__ __forceinline__ float lrn_y_at(const T* __restrict__ xr, int c,
+                                          const LrnParams& p) {
+  return __fmul_rn(to_f32(xr[c]), lrn_dpow_nbeta(lrn_denom(xr, c, p), p));
 }
 
 // q_c = err_c * x_c * (p_c / d_c)

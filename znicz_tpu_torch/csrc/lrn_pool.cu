@@ -1,13 +1,25 @@
 // Cross-channel LRN fused into the max pool that follows it (AlexNet's
-// conv -> LRN -> pool 3/2 pairs), forward and backward, over NHWC float32
-// tensors with padding 0.  The LRN output y and its gradient err_y never
-// reach device memory.
+// conv -> LRN -> pool 3/2 pairs), forward and backward, over NHWC tensors
+// with padding 0.  The LRN output y and its gradient err_y never reach
+// device memory.
 //
 // lrn_maxpool_kernel replaces the TPU kernel znicz_tpu/ops/lrn_pool.py
 // pallas_lrn_maxpool_split (_lrn_pool_fwd_kernel), gd_lrn_maxpool_kernel
-// replaces pallas_gd_lrn_maxpool_split (_lrn_pool_bwd_kernel).  The Pallas
-// kernels read x as column-parity halves, because Mosaic has no strided
-// loads; these read x unsplit.
+// replaces pallas_gd_lrn_maxpool_split (_lrn_pool_bwd_kernel).  x comes in
+// either layout (struct Cols): unsplit, or as the reference's column-parity
+// halves (column iw of half iw & 1 at iw >> 1, widths ceil(W/2) and
+// floor(W/2)), which a conv of the fused2 routing emits directly
+// (ops/conv.py conv2d_split); the backward writes dx in either layout, the
+// halves for that conv's gradients.  A block's tile is laid out in logical
+// columns either way, so the layout changes only the address of a pixel's
+// copy and of its dx store, and no pass ever interleaves the halves.
+//
+// x and y are in the fused step's storage type T (float, __nv_bfloat16 or
+// __half; narrow.cuh); err and dx are float.  x is converted to float as it
+// is staged (a narrow x by plain loads, float by cp.async), and each LRN
+// output is rounded to T before the pooling compares it, so the winners are
+// those of the LRN stored in T and then pooled (the split routing's); the
+// folded derivative is taken at the stored x.
 //
 // Bound on an H100: bytes.  AlexNet pair 1, (128,55,55,96) -> (128,27,27,96):
 // the forward reads 148.7 MB and writes 2 x 35.8 MB (~66 us at 3.35 TB/s);
@@ -73,6 +85,7 @@
 #include "fastdiv.cuh"
 #include "lrn_math.cuh"
 #include "lrn_vec.cuh"
+#include "narrow.cuh"
 
 namespace {
 
@@ -117,6 +130,23 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kAhead - 1) : "memory");
 }
 
+// Where a tensor of W columns lives: unsplit (h0, W columns a row), or as
+// the column-parity halves, column iw in half iw & 1 (h0 even, h1 odd) at
+// column iw >> 1 of its we = ceil(W/2) or wo = floor(W/2).
+template <typename T>
+struct Cols {
+  T* h0;
+  T* h1;
+  int split, we, wo;
+
+  // pixel iw of row bh (b * H + row) of C channels
+  __device__ __forceinline__ T* at(int bh, int W, int iw, int C) const {
+    if (!split) return h0 + (bh * W + iw) * C;
+    return (iw & 1) ? h1 + (bh * wo + (iw >> 1)) * C
+                    : h0 + (bh * we + (iw >> 1)) * C;
+  }
+};
+
 // Copy `pixels` pixels of C channels, contiguous at src, into a tile
 // whose pixel j starts at dst + j * stride, V channels a copy.
 template <int V, typename T>
@@ -129,9 +159,33 @@ __device__ __forceinline__ void copy_pixels(T* dst, const T* src, int pixels,
   }
 }
 
-template <int V, int kN>
+// Stage `pixels` pixels of row bh of x from column iw0 on into the float
+// tile at dst (pixel j at dst + j * stride), V channels a copy: cp.async
+// for float (in flight until cp_async_wait), a load converted to float and
+// a shared store for a narrow T (done when the next barrier is passed).
+template <int V, typename T>
+__device__ __forceinline__ void copy_x_row(float* dst, const Cols<const T>& x,
+                                           int bh, int W, int iw0, int pixels,
+                                           int stride, const FastDiv& vecs) {
+  const int n = pixels * vecs.d, C = vecs.d * V;
+  const T* row = x.h0 + (bh * W + iw0) * C;
+  for (int t = threadIdx.x; t < n; t += blockDim.x) {
+    const int j = vecs.div(t);
+    const int c = (t - j * vecs.d) * V;
+    const T* src = x.split ? x.at(bh, W, iw0 + j, C) + c : row + t * V;
+    if constexpr (kNarrow<T>) {
+      float v[V];
+      load_vec<V>(src, v);
+      store_vec<V>(dst + j * stride + c, v);
+    } else {
+      cp_async<V>(dst + j * stride + c, src);
+    }
+  }
+}
+
+template <int V, int kN, typename T>
 __global__ void __launch_bounds__(kMaxThreads)
-    lrn_maxpool_kernel(const float* __restrict__ x, float* __restrict__ y,
+    lrn_maxpool_kernel(Cols<const T> x, T* __restrict__ y,
                        int* __restrict__ offsets, Geometry g, Tiling tl,
                        LrnParams p, int use_abs) {
   extern __shared__ float4 smem4[];
@@ -152,7 +206,7 @@ __global__ void __launch_bounds__(kMaxThreads)
   float* ring = smem + kSlots * x_slot;         // of wi_max x C each
   zero_halos(smem, kSlots, wi_max, C, halo);
 
-  const float* xb = x + ((b * H) * W + ow0 * sw) * C;
+  const int bh = b * H, iw0 = ow0 * sw;
   const int last = (r1 - 1) * sh + kh - 1;      // the strip's last x row
   // the next row after `row` that some window holds (rows that no window
   // holds, where sh > kh, are skipped)
@@ -167,8 +221,8 @@ __global__ void __launch_bounds__(kMaxThreads)
   for (int a = 0; a < kAhead; ++a) {
     if (a > 0) ahead = next_row(ahead);
     if (ahead <= last) {
-      copy_pixels<V>(smem + a * x_slot + halo, xb + ahead * W * C, wi, P,
-                     tl.vecs);
+      copy_x_row<V>(smem + a * x_slot + halo, x, bh + ahead, W, iw0, wi, P,
+                    tl.vecs);
     }
     cp_async_commit();
   }
@@ -214,8 +268,8 @@ __global__ void __launch_bounds__(kMaxThreads)
     if (ahead <= last) {
       const int to = slot + kAhead < kSlots ? slot + kAhead
                                             : slot + kAhead - kSlots;
-      copy_pixels<V>(smem + to * x_slot + halo, xb + ahead * W * C, wi, P,
-                     tl.vecs);
+      copy_x_row<V>(smem + to * x_slot + halo, x, bh + ahead, W, iw0, wi, P,
+                    tl.vecs);
     }
     cp_async_commit();
     // LRN of row ih into ring row `at`, and in the same pass the window
@@ -233,6 +287,10 @@ __global__ void __launch_bounds__(kMaxThreads)
 #pragma unroll
         for (int i = 0; i < V; ++i) {
           ya[i] = __fmul_rn(xa[i], lrn_dpow_nbeta(lrn_d(s[i], p), p));
+        }
+        if constexpr (kNarrow<T>) {   // y as stored, before the compare
+#pragma unroll
+          for (int i = 0; i < V; ++i) ya[i] = round_to<T>(ya[i]);
         }
         store_vec<V>(yr + t * V, ya);
       }
@@ -252,13 +310,12 @@ __global__ void __launch_bounds__(kMaxThreads)
   pool(pending, pending_at);
 }
 
-template <int V, int kN>
+template <int V, int kN, typename T>
 __global__ void __launch_bounds__(kMaxThreads)
     gd_lrn_maxpool_kernel(const float* __restrict__ err,
-                          const int* __restrict__ offsets,
-                          const float* __restrict__ x,
-                          float* __restrict__ dx, Geometry g, Tiling tl,
-                          LrnParams p, int act) {
+                          const int* __restrict__ offsets, Cols<const T> x,
+                          Cols<float> dx, Geometry g, Tiling tl, LrnParams p,
+                          int act) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int H = g.H.d, W = g.W.d, C = g.C.d, OH = g.OH.d, OW = g.OW.d;
@@ -290,7 +347,6 @@ __global__ void __launch_bounds__(kMaxThreads)
     return first <= 0 ? 0 : g.sh.div(first + sh - 1);
   };
   auto oh_hi = [&](int ih) { return min(OH - 1, g.sh.div(ih)); };
-  const float* xb = x + ((b * H) * W + w0) * C;
   const int eb = (b * OH * OW + oc0) * C;
   int loaded = -1;   // pooled rows up to this one are in the ring
   // x row ih into tile slot `slot` and the pooled rows it needs into the
@@ -300,8 +356,8 @@ __global__ void __launch_bounds__(kMaxThreads)
       cp_async_commit();
       return;
     }
-    copy_pixels<V>(smem + slot * x_slot + halo, xb + ih * W * C, n_w, P,
-                   tl.vecs);
+    copy_x_row<V>(smem + slot * x_slot + halo, x, b * H + ih, W, w0, n_w, P,
+                  tl.vecs);
     const int hi = oh_hi(ih);
     for (int oh = max(loaded + 1, oh_lo(ih)); oh <= hi; ++oh) {
       const int ring_row = oh % ring_rows;
@@ -368,7 +424,7 @@ __global__ void __launch_bounds__(kMaxThreads)
       store_vec<V>(eps + t * V, ep);
     }
     __syncthreads();   // the q row is in
-    float* dxr = dx + ((b * H + ih) * W + w0) * C;
+    float* dxr = dx.h0 + ((b * H + ih) * W + w0) * C;
     for (int t = threadIdx.x; t < nv; t += blockDim.x) {
       const int j = tl.vecs.div(t);
       const int c = (t - j * tl.vecs.d) * V;
@@ -381,7 +437,8 @@ __global__ void __launch_bounds__(kMaxThreads)
         out[l] = act_math::fold_act(lrn_dx(ep[l], xa[l], ws[l], p), xa[l],
                                     act);
       }
-      store_vec<V>(dxr + t * V, out);
+      store_vec<V>(dx.split ? dx.at(b * H + ih, W, w0 + j, C) + c
+                            : dxr + t * V, out);
     }
     slot = slot + 1 == kSlots ? 0 : slot + 1;
   }
@@ -394,64 +451,131 @@ Geometry make_geometry(int H, int W, int C, int OH, int OW, int kh, int kw,
                   make_fastdiv(sw), kh, kw};
 }
 
-using ForwardKernel = void (*)(const float*, float*, int*, Geometry, Tiling,
+template <typename T>
+using ForwardKernel = void (*)(Cols<const T>, T*, int*, Geometry, Tiling,
                                LrnParams, int);
-using BackwardKernel = void (*)(const float*, const int*, const float*,
-                                float*, Geometry, Tiling, LrnParams, int);
+template <typename T>
+using BackwardKernel = void (*)(const float*, const int*, Cols<const T>,
+                                Cols<float>, Geometry, Tiling, LrnParams,
+                                int);
 
 // The kernel instance of a plan: V = 4 or 1, n = 5 fixed at compile time
 // (AlexNet's and every shipped config's) or read at run time.
-ForwardKernel forward_kernel(int vec, int n) {
+template <typename T>
+ForwardKernel<T> forward_kernel(int vec, int n) {
   if (vec == 4) {
-    return n == 5 ? lrn_maxpool_kernel<4, 5> : lrn_maxpool_kernel<4, 0>;
+    return n == 5 ? lrn_maxpool_kernel<4, 5, T> : lrn_maxpool_kernel<4, 0, T>;
   }
-  return lrn_maxpool_kernel<1, 0>;
+  return lrn_maxpool_kernel<1, 0, T>;
 }
 
-BackwardKernel backward_kernel(int vec, int n) {
+template <typename T>
+BackwardKernel<T> backward_kernel(int vec, int n) {
   if (vec == 4) {
-    return n == 5 ? gd_lrn_maxpool_kernel<4, 5>
-                  : gd_lrn_maxpool_kernel<4, 0>;
+    return n == 5 ? gd_lrn_maxpool_kernel<4, 5, T>
+                  : gd_lrn_maxpool_kernel<4, 0, T>;
   }
-  return gd_lrn_maxpool_kernel<1, 0>;
+  return gd_lrn_maxpool_kernel<1, 0, T>;
 }
 
-}  // namespace
-
-// Both entry points take the plan of ops/lrn_pool.py lrn_pool_plan (vec,
-// n clipped to 2C + 1, halo, rows, strips, cols, col_tiles, threads,
-// smem), launch on `stream`, do not synchronise, and return the launch
-// status (cudaGetLastError) as an int, 0 on success.
-
-extern "C" int znicz_lrn_maxpool_f32(
-    const float* x, float* y, int* offsets, int B, int H, int W, int C,
-    int kh, int kw, int sh, int sw, double alpha, double beta, double k,
-    int use_abs, int vec, int n, int halo, int rows, int strips, int cols,
-    int col_tiles, int threads, int smem, void* stream) {
+template <typename T>
+int lrn_maxpool(Cols<const T> x, T* y, int* offsets, int B, int H, int W,
+                int C, int kh, int kw, int sh, int sw, double alpha,
+                double beta, double k, int use_abs, int vec, int n, int halo,
+                int rows, int strips, int cols, int col_tiles, int threads,
+                int smem, void* stream) {
   const int OH = (H - kh) / sh + 1;
   const int OW = (W - kw) / sw + 1;
   if (B <= 0 || OH <= 0 || OW <= 0 || C <= 0) return 0;
   const Tiling tl{make_fastdiv(strips), make_fastdiv(col_tiles),
                   make_fastdiv(C / vec), rows, cols, halo};
-  return launch(forward_kernel(vec, n), B * strips * col_tiles, threads,
+  return launch(forward_kernel<T>(vec, n), B * strips * col_tiles, threads,
                 smem, stream, x, y, offsets,
                 make_geometry(H, W, C, OH, OW, kh, kw, sh, sw), tl,
                 make_lrn_params(C, n, alpha, beta, k), use_abs);
 }
 
-extern "C" int znicz_gd_lrn_maxpool_f32(
-    const float* err, const int* offsets, const float* x, float* dx, int B,
-    int H, int W, int C, int kh, int kw, int sh, int sw, double alpha,
-    double beta, double k, int act, int vec, int n, int halo, int rows,
-    int strips, int cols, int col_tiles, int threads, int smem,
-    void* stream) {
+template <typename T>
+int gd_lrn_maxpool(const float* err, const int* offsets, Cols<const T> x,
+                   Cols<float> dx, int B, int H, int W, int C, int kh,
+                   int kw, int sh, int sw, double alpha, double beta,
+                   double k, int act, int vec, int n, int halo, int rows,
+                   int strips, int cols, int col_tiles, int threads,
+                   int smem, void* stream) {
   const int OH = (H - kh) / sh + 1;
   const int OW = (W - kw) / sw + 1;
   if (B <= 0 || H <= 0 || W <= 0 || C <= 0) return 0;
   const Tiling tl{make_fastdiv(strips), make_fastdiv(col_tiles),
                   make_fastdiv(C / vec), rows, cols, halo};
-  return launch(backward_kernel(vec, n), B * strips * col_tiles, threads,
+  return launch(backward_kernel<T>(vec, n), B * strips * col_tiles, threads,
                 smem, stream, err, offsets, x, dx,
                 make_geometry(H, W, C, OH, OW, kh, kw, sh, sw), tl,
                 make_lrn_params(C, n, alpha, beta, k), act);
 }
+
+template <typename T>
+Cols<T> unsplit(T* p) {
+  return Cols<T>{p, nullptr, 0, 0, 0};
+}
+
+template <typename T>
+Cols<T> halves(T* e, T* o, int W) {
+  return Cols<T>{e, o, 1, (W + 1) / 2, W / 2};
+}
+
+}  // namespace
+
+// The entry points take the plan of ops/lrn_pool.py lrn_pool_plan (vec,
+// n clipped to 2C + 1, halo, rows, strips, cols, col_tiles, threads,
+// smem), launch on `stream`, do not synchronise, and return the launch
+// status (cudaGetLastError) as an int, 0 on success.  Each comes in the
+// three storage types of x and y (suffix f32, bf16, f16); W is the logical
+// width.  The _split forms take x as its halves xe (B, H, ceil(W/2), C)
+// and xo (B, H, floor(W/2), C); the backward's writes dx as halves into
+// dxe and dxo where dx_split is 1, else unsplit into dxe.
+
+#define ZNICZ_LRN_POOL_ENTRIES(T, SFX)                                        \
+  extern "C" int znicz_lrn_maxpool_##SFX(                                     \
+      const T* x, T* y, int* offsets, int B, int H, int W, int C, int kh,     \
+      int kw, int sh, int sw, double alpha, double beta, double k,            \
+      int use_abs, int vec, int n, int halo, int rows, int strips, int cols,  \
+      int col_tiles, int threads, int smem, void* stream) {                   \
+    return lrn_maxpool<T>(unsplit(x), y, offsets, B, H, W, C, kh, kw, sh, sw, \
+                          alpha, beta, k, use_abs, vec, n, halo, rows,        \
+                          strips, cols, col_tiles, threads, smem, stream);    \
+  }                                                                           \
+  extern "C" int znicz_lrn_maxpool_split_##SFX(                               \
+      const T* xe, const T* xo, T* y, int* offsets, int B, int H, int W,      \
+      int C, int kh, int kw, int sh, int sw, double alpha, double beta,       \
+      double k, int use_abs, int vec, int n, int halo, int rows, int strips,  \
+      int cols, int col_tiles, int threads, int smem, void* stream) {         \
+    return lrn_maxpool<T>(halves(xe, xo, W), y, offsets, B, H, W, C, kh, kw,  \
+                          sh, sw, alpha, beta, k, use_abs, vec, n, halo,      \
+                          rows, strips, cols, col_tiles, threads, smem,       \
+                          stream);                                            \
+  }                                                                           \
+  extern "C" int znicz_gd_lrn_maxpool_##SFX(                                  \
+      const float* err, const int* offsets, const T* x, float* dx, int B,     \
+      int H, int W, int C, int kh, int kw, int sh, int sw, double alpha,      \
+      double beta, double k, int act, int vec, int n, int halo, int rows,     \
+      int strips, int cols, int col_tiles, int threads, int smem,             \
+      void* stream) {                                                         \
+    return gd_lrn_maxpool<T>(err, offsets, unsplit(x), unsplit(dx), B, H, W,  \
+                             C, kh, kw, sh, sw, alpha, beta, k, act, vec, n,  \
+                             halo, rows, strips, cols, col_tiles, threads,    \
+                             smem, stream);                                   \
+  }                                                                           \
+  extern "C" int znicz_gd_lrn_maxpool_split_##SFX(                            \
+      const float* err, const int* offsets, const T* xe, const T* xo,         \
+      float* dxe, float* dxo, int dx_split, int B, int H, int W, int C,       \
+      int kh, int kw, int sh, int sw, double alpha, double beta, double k,    \
+      int act, int vec, int n, int halo, int rows, int strips, int cols,      \
+      int col_tiles, int threads, int smem, void* stream) {                   \
+    return gd_lrn_maxpool<T>(                                                 \
+        err, offsets, halves(xe, xo, W),                                      \
+        dx_split ? halves(dxe, dxo, W) : unsplit(dxe), B, H, W, C, kh, kw,    \
+        sh, sw, alpha, beta, k, act, vec, n, halo, rows, strips, cols,        \
+        col_tiles, threads, smem, stream);                                    \
+  }
+
+ZNICZ_FOR_EACH_STORAGE(ZNICZ_LRN_POOL_ENTRIES)

@@ -14,6 +14,7 @@
 #include <type_traits>
 
 #include "lrn_math.cuh"
+#include "narrow.cuh"
 
 template <typename T>
 using Vec4 = std::conditional_t<std::is_same<T, int>::value, int4, float4>;

@@ -63,6 +63,13 @@
 // 1.3 MB written, ~2.25 us at 3.35 TB/s; no arithmetic beyond the index.
 //
 // The adds use __fadd_rn/__fmul_rn so nvcc cannot contract them into FMAs.
+//
+// The select and the scatter also come in the fused step's narrow storage
+// types (narrow.cuh; entry points suffixed bf16, f16): the select reads x
+// and writes y in that type (a winner is one of x's values, so nothing is
+// rounded), the scatter as the depooling forward reads its pooled input
+// and writes its output in it, each dx element's sum in float rounded once.
+// The max-pool backward's err and dx stay float (the _f32 entry point).
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -70,6 +77,7 @@
 #include <type_traits>
 
 #include "fastdiv.cuh"
+#include "narrow.cuh"
 
 namespace {
 
@@ -84,8 +92,9 @@ struct Geometry {
   int kh, kw, ph, pw;
 };
 
-__global__ void pool_select_kernel(const float* __restrict__ x,
-                                   float* __restrict__ y,
+template <typename T>
+__global__ void pool_select_kernel(const T* __restrict__ x,
+                                   T* __restrict__ y,
                                    int* __restrict__ offsets, int total,
                                    Geometry g, int use_abs) {
   const int o = blockIdx.x * blockDim.x + threadIdx.x;
@@ -98,7 +107,7 @@ __global__ void pool_select_kernel(const float* __restrict__ x,
   const int ow = r - q * g.OW.d;
   const int b = g.OH.div(q);
   const int oh = q - b * g.OH.d;
-  const float* xb = x + b * H * W * C + c;
+  const T* xb = x + b * H * W * C + c;
   const float pad = use_abs ? 0.0f : -CUDART_INF_F;
   float best = 0.0f, best_val = 0.0f;
   int best_t = 0;
@@ -107,7 +116,7 @@ __global__ void pool_select_kernel(const float* __restrict__ x,
     for (int j = 0; j < kw; ++j, ++t) {
       const int iw = ow * sw + j - pw;
       const float v = (ih >= 0 && ih < H && iw >= 0 && iw < W)
-                          ? xb[(ih * W + iw) * C]
+                          ? to_f32(xb[(ih * W + iw) * C])
                           : pad;
       const float s = use_abs ? fabsf(v) : v;
       if (t == 0 || s > best) {
@@ -117,7 +126,7 @@ __global__ void pool_select_kernel(const float* __restrict__ x,
       }
     }
   }
-  y[o] = best_val;
+  y[o] = from_f32<T>(best_val);
   offsets[o] = best_t;
 }
 
@@ -132,11 +141,13 @@ __device__ __forceinline__ void window_range(int p, int k, const FastDiv& s,
 }
 
 // V consecutive values at p (V = 1, or 4 with p 16-byte aligned: one
-// 16-byte load).
-template <int V, typename T>
+// 16-byte load; a narrow T: one 8-byte load, as floats).
+template <int V, typename T, typename U>
 __device__ __forceinline__ void load_lanes(const T* __restrict__ p,
-                                           T (&v)[V]) {
-  if constexpr (V == 1) {
+                                           U (&v)[V]) {
+  if constexpr (kNarrow<T>) {
+    load_vec<V>(p, v);
+  } else if constexpr (V == 1) {
     v[0] = p[0];
   } else {
     using T4 = std::conditional_t<std::is_same_v<T, float>, float4, int4>;
@@ -150,10 +161,10 @@ __device__ __forceinline__ void load_lanes(const T* __restrict__ p,
 
 // One thread per V consecutive channels of a dx pixel; g.C divides by the
 // groups a pixel has, C / V.
-template <int V>
-__global__ void pool_scatter_kernel(const float* __restrict__ err,
+template <int V, typename T>
+__global__ void pool_scatter_kernel(const T* __restrict__ err,
                                     const int* __restrict__ offsets,
-                                    float* __restrict__ dx, int total,
+                                    T* __restrict__ dx, int total,
                                     Geometry g) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= total) return;
@@ -189,8 +200,10 @@ __global__ void pool_scatter_kernel(const float* __restrict__ err,
                            slot[v] == t ? gv[v] : __fmul_rn(gv[v], 0.0f));
     }
   }
-  float* out = dx + static_cast<long long>(e) * V;
-  if constexpr (V == 1) {
+  T* out = dx + static_cast<long long>(e) * V;
+  if constexpr (kNarrow<T>) {
+    store_vec<V>(out, acc);
+  } else if constexpr (V == 1) {
     out[0] = acc[0];
   } else {
     *reinterpret_cast<float4*>(out) =
@@ -237,21 +250,16 @@ Geometry make_geometry(int H, int W, int C, int OH, int OW, int kh, int kw,
                   make_fastdiv(sw), make_fastdiv(kw), kh, kw, ph, pw};
 }
 
-}  // namespace
-
-// All entry points launch on `stream`, do not synchronise, and return the
-// launch status (cudaGetLastError) as an int, 0 on success.
-
-extern "C" int znicz_pool_select_f32(const float* x, float* y, int* offsets,
-                                     int B, int H, int W, int C, int kh,
-                                     int kw, int sh, int sw, int ph, int pw,
-                                     int use_abs, void* stream) {
+template <typename T>
+int pool_select(const T* x, T* y, int* offsets, int B, int H, int W, int C,
+                int kh, int kw, int sh, int sw, int ph, int pw, int use_abs,
+                void* stream) {
   const int OH = (H + 2 * ph - kh) / sh + 1;
   const int OW = (W + 2 * pw - kw) / sw + 1;
   const int total = B * OH * OW * C;
   if (total <= 0) return 0;
-  pool_select_kernel<<<blocks_for(total), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
+  pool_select_kernel<T><<<blocks_for(total), kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
       x, y, offsets, total,
       make_geometry(H, W, C, OH, OW, kh, kw, sh, sw, ph, pw), use_abs);
   return static_cast<int>(cudaGetLastError());
@@ -259,11 +267,10 @@ extern "C" int znicz_pool_select_f32(const float* x, float* y, int* offsets,
 
 // vec: the channels a thread owns, 1 or 4; 4 needs C a multiple of 4 and
 // err, offsets and dx 16-byte aligned (cudaErrorInvalidValue otherwise).
-extern "C" int znicz_pool_scatter_f32(const float* err, const int* offsets,
-                                      float* dx, int B, int H, int W, int C,
-                                      int OH, int OW, int kh, int kw, int sh,
-                                      int sw, int ph, int pw, int vec,
-                                      void* stream) {
+template <typename T>
+int pool_scatter(const T* err, const int* offsets, T* dx, int B, int H,
+                 int W, int C, int OH, int OW, int kh, int kw, int sh,
+                 int sw, int ph, int pw, int vec, void* stream) {
   if (!(vec == 1 || vec == 4) ||
       (vec == 4 && (C % 4 != 0 || !aligned16(err) || !aligned16(offsets) ||
                     !aligned16(dx))))
@@ -274,13 +281,36 @@ extern "C" int znicz_pool_scatter_f32(const float* err, const int* offsets,
                                    pw);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (vec == 4)
-    pool_scatter_kernel<4><<<blocks_for(total), kThreads, 0, st>>>(
+    pool_scatter_kernel<4, T><<<blocks_for(total), kThreads, 0, st>>>(
         err, offsets, dx, total, g);
   else
-    pool_scatter_kernel<1><<<blocks_for(total), kThreads, 0, st>>>(
+    pool_scatter_kernel<1, T><<<blocks_for(total), kThreads, 0, st>>>(
         err, offsets, dx, total, g);
   return static_cast<int>(cudaGetLastError());
 }
+
+}  // namespace
+
+// All entry points launch on `stream`, do not synchronise, and return the
+// launch status (cudaGetLastError) as an int, 0 on success.  The select
+// and the scatter come in each storage type (suffix f32, bf16, f16).
+
+#define ZNICZ_POOL_ENTRIES(T, SFX)                                            \
+  extern "C" int znicz_pool_select_##SFX(                                     \
+      const T* x, T* y, int* offsets, int B, int H, int W, int C, int kh,     \
+      int kw, int sh, int sw, int ph, int pw, int use_abs, void* stream) {    \
+    return pool_select<T>(x, y, offsets, B, H, W, C, kh, kw, sh, sw, ph, pw,  \
+                          use_abs, stream);                                   \
+  }                                                                           \
+  extern "C" int znicz_pool_scatter_##SFX(                                    \
+      const T* err, const int* offsets, T* dx, int B, int H, int W, int C,    \
+      int OH, int OW, int kh, int kw, int sh, int sw, int ph, int pw,         \
+      int vec, void* stream) {                                                \
+    return pool_scatter<T>(err, offsets, dx, B, H, W, C, OH, OW, kh, kw, sh,  \
+                           sw, ph, pw, vec, stream);                          \
+  }
+
+ZNICZ_FOR_EACH_STORAGE(ZNICZ_POOL_ENTRIES)
 
 extern "C" int znicz_pool_gather_f32(const float* err, const int* offsets,
                                      float* out, int B, int H, int W, int C,

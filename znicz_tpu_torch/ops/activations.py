@@ -39,12 +39,15 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import count_launch
+from . import STORAGE_DTYPES, STORAGE_SUFFIX, count_launch, form_counter
 
-#: Launches of the activation kernels in this process (the CUDA branches
-#: of ``act_fwd`` / ``act_bwd`` add one per launch, nowhere else).
+#: Launches of the activation kernels in this process, the backward's one
+#: counter a dtype of the y (or x) it reads (the CUDA branches of
+#: ``act_fwd`` / ``act_bwd`` add one per launch, nowhere else).
 act_fwd_launches = 0
 act_bwd_launches = 0
+act_bwd_bf16_launches = 0
+act_bwd_f16_launches = 0
 
 TANH_A = 1.7159
 TANH_B = 0.6666
@@ -335,24 +338,31 @@ def plain_act_fwd(name: str, x: torch.Tensor) -> torch.Tensor:
 
 def plain_act_bwd(name: str, err_y: torch.Tensor, y: torch.Tensor,
                   x: torch.Tensor | None = None) -> torch.Tensor:
-    return BY_NAME[name].bwd(err_y, y, x)
+    """err_x by the ``BY_NAME`` class, a narrow y (or x) taken at its
+    float32 value, as the kernel takes it."""
+    return BY_NAME[name].bwd(err_y, y.float(),
+                             None if x is None else x.float())
 
 
-def _check(who: str, name: str, *tensors) -> None:
+def _check(who: str, name: str, *tensors, stored=()) -> None:
     """Refuse what the kernels do not take; the CPU branch is held to the
-    same contract so both devices accept the same inputs."""
+    same contract so both devices accept the same inputs.  Every tensor is
+    float32 but those at the indices ``stored`` (the backward's y and x),
+    which may be in any storage dtype."""
     if name not in ACT_IDS:
         raise ValueError(f"{who}: unknown activation {name!r}; known: "
                          f"{sorted(ACT_IDS)}")
     first = tensors[0]
     if first.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{who}: unsupported device {first.device}")
-    for t in tensors:
+    for i, t in enumerate(tensors):
         if t.device != first.device:
             raise ValueError(f"{who}: tensors on {first.device} and "
                              f"{t.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{who}: tensors must be float32, got {t.dtype}")
+        if t.dtype not in (STORAGE_DTYPES if i in stored
+                           else (torch.float32,)):
+            raise TypeError(f"{who}: tensors must be float32 (y and x a "
+                            f"storage dtype), got {t.dtype}")
         if t.shape != first.shape:
             raise ValueError(f"{who}: shapes {tuple(first.shape)} and "
                              f"{tuple(t.shape)}")
@@ -385,25 +395,33 @@ def act_fwd(name: str, x: torch.Tensor) -> torch.Tensor:
 
 def act_bwd(name: str, err_y: torch.Tensor, y: torch.Tensor,
             x: torch.Tensor | None = None) -> torch.Tensor:
-    """err_x from (err_y, y[, x]) for contiguous float32 tensors of one
-    shape: the CUDA kernel for CUDA tensors, the plain version for CPU
-    tensors.  ``log``, ``sincos`` and ``tanhlog`` need the forward input
-    and raise without it."""
-    if BY_NAME.get(name, Activation).needs_input and x is None:
+    """err_x from (err_y, y[, x]) for contiguous tensors of one shape,
+    err_y float32, y and x in a storage dtype (the fused step's stored
+    activations; taken at their float32 values, err_x float32): the CUDA
+    kernel for CUDA tensors, the plain version for CPU tensors.  ``log``,
+    ``sincos`` and ``tanhlog`` need the forward input and raise without
+    it."""
+    needs_x = BY_NAME.get(name, Activation).needs_input
+    if needs_x and x is None:
         raise ValueError(f"{name} backward needs the forward input")
-    _check("act_bwd", name, err_y, y, *(() if x is None else (x,)))
+    _check("act_bwd", name, err_y, y, *(() if x is None else (x,)),
+           stored=(1, 2))
     if err_y.device.type == "cpu":
         return plain_act_bwd(name, err_y, y, x)
     out = torch.empty_like(err_y)
     if err_y.numel() == 0:
         return out
+    # the kernel reads one of them, in its entry point's type
+    dtype = (x if needs_x else y).dtype
     from .. import cuda_build
     cuda_build.launch(
-        cuda_build.kernel("activation", "znicz_act_bwd_f32", _BWD_ARGTYPES),
+        cuda_build.kernel("activation",
+                          f"znicz_act_bwd_{STORAGE_SUFFIX[dtype]}",
+                          _BWD_ARGTYPES),
         err_y.device, err_y.data_ptr(), y.data_ptr(),
         None if x is None else x.data_ptr(), out.data_ptr(), err_y.numel(),
         err_y.shape[-1], ACT_IDS[name], *_TANHLOG_CONSTANTS)
-    count_launch(__name__, "act_bwd_launches")
+    count_launch(__name__, form_counter("act_bwd", dtype))
     return out
 
 
@@ -425,16 +443,15 @@ def apply_bwd(act: type[Activation], err_y: torch.Tensor, y: torch.Tensor,
     """err_x from (err_y, y[, x]) for a ``BY_NAME`` class; ``x`` is read
     only by the activations that need it.  ``linear`` returns ``err_y``
     itself; a CPU tensor takes ``act.bwd``; a CUDA tensor the kernel
-    (``act_bwd``), each operand made float32 and contiguous first.  A
-    narrow ``y`` (the fused step's bf16 or f16 backward cache) then enters
-    the derivative as its exact float32 value, where the plain math would
-    round some of its intermediates (``D2·y·y``, ``1 − y``) to the narrow
-    type; no path on the card stores in a narrow type yet."""
+    (``act_bwd``), err_y made float32 and every operand contiguous first.
+    A narrow ``y`` or ``x`` (the fused step's bfloat16 or float16 backward
+    cache) enters the derivative as its exact float32 value on both
+    devices, so its intermediates (``D2·y·y``, ``1 − y``) are float32, as
+    in the kernel."""
     if act is Activation:
         return err_y
     x = x if act.needs_input else None
     if err_y.device.type == "cpu":
-        return act.bwd(err_y, y, x)
-    return act_bwd(act.name, err_y.float().contiguous(),
-                   y.float().contiguous(),
-                   None if x is None else x.float().contiguous())
+        return act.bwd(err_y, y.float(), None if x is None else x.float())
+    return act_bwd(act.name, err_y.float().contiguous(), y.contiguous(),
+                   None if x is None else x.contiguous())

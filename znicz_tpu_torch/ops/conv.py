@@ -28,20 +28,33 @@ calls (``znicz_tpu_torch/__init__.py``).  ``tf32_rn`` and
 ``matmul_3xtf32`` model the tensor-core kernels' arithmetic for the
 tests; no path calls them.  The ``np_*`` functions are the
 reference's numpy goldens (explicit im2col/col2im), which the numpy
-device runs.  The parity-split and space-to-depth forms are not ported
-yet (ROADMAP.md queue 1 item 5b)."""
+device runs.
+
+Two more forms run on the default tier whichever tier is chosen (the
+reference computes them in XLA, never in Pallas):
+
+* ``ZNICZ_TPU_CONV1=s2d`` (``tuning.conv_s2d``) routes a tiny-C strided
+  conv's forward and weight gradient (``s2d_applicable``: AlexNet's conv1)
+  through space-to-depth, ``conv2d_s2d``/``conv2d_grad_weights_s2d``: the
+  stride folds into the channel axis, a stride-1 conv over s²·C channels
+  against a kernel with structurally zero taps.
+* The column-parity convs of the ``fused2`` routing, ``conv2d_split`` and
+  its gradients: the even and odd output columns of a stride-(sh, sw) conv
+  are each a conv of stride (sh, 2·sw) whose input starts ``p·sw`` columns
+  later (a negative pad is a crop), so a conv feeding the fused LRN→pool
+  pair emits the pair's halves directly; the gradients sum the two halves'
+  convs, even then odd, and never build the interleaved tensor."""
 
 from __future__ import annotations
 
 import ctypes
-import os
 from typing import NamedTuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from . import count_launch
+from . import count_launch, tuning
 from .geometry import norm2, out_size
 from .matmul import (TC_WIDTHS, _tc_width, launch_split, plain_matmul_at_b,
                      tc_split_plan)
@@ -119,9 +132,9 @@ def wgrad_plan(c: int, oc: int, k_total: int, pixels: int,
 
 def gemm_tier() -> bool:
     """Whether ``ZNICZ_TPU_CONV=pallas`` routes the conv family to the
-    implicit-GEMM tier (the reference's ``tuning.force_pallas_conv()``);
-    read on every call."""
-    return os.environ.get("ZNICZ_TPU_CONV") == "pallas"
+    implicit-GEMM tier (``tuning.force_pallas_conv``); read on every
+    call."""
+    return tuning.force_pallas_conv()
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -142,6 +155,8 @@ def conv2d(x, w, stride=1, padding=0, out_dtype=None):
     x32, w32 = x.float(), w.float()
     if gemm_tier():
         y = conv2d_gemm(x32.contiguous(), w32.contiguous(), stride, padding)
+    elif tuning.conv_s2d() and s2d_applicable(w.shape, stride, padding):
+        y = conv2d_s2d(x32, w32, stride, padding)
     else:
         y = _nhwc(F.conv2d(_nchw(x32), _oihw(w32), stride=norm2(stride),
                            padding=norm2(padding)))
@@ -175,11 +190,177 @@ def conv2d_grad_weights(x, err, w_shape, stride=1, padding=0):
         return conv2d_grad_weights_gemm(x.float().contiguous(),
                                         err.float().contiguous(), w_shape,
                                         stride, padding)
+    if tuning.conv_s2d() and s2d_applicable(w_shape, stride, padding):
+        return conv2d_grad_weights_s2d(x, err, w_shape, stride, padding)
+    return _grad_weights(x, err, w_shape, stride, padding)
+
+
+def _grad_weights(x, err, w_shape, stride, padding):
+    """The default tier's weight gradient (cuDNN on the card)."""
     kh, kw, c, oc = w_shape
     w = torch.empty((kh, kw, c, oc), dtype=torch.float32, device=err.device)
     dw = _backward(err, x.float(), w, stride, padding,
                    (False, True, False))[1]
     return dw.permute(2, 3, 1, 0).contiguous()
+
+
+# -- space-to-depth (ZNICZ_TPU_CONV1=s2d) ------------------------------------
+def s2d_applicable(w_shape, stride, padding) -> bool:
+    """Whether a conv takes the space-to-depth route: tiny C (at most 8)
+    and a real stride, equal in both axes (the reference's test)."""
+    (sh, sw) = norm2(stride)
+    return sh == sw and sh >= 2 and int(w_shape[2]) <= 8
+
+
+def _s2d_input(x, s: int, rows: int, cols: int):
+    """(B, H, W, C) → (B, rows, cols, s²C) phase stack, zero-padded (or
+    trimmed: trailing rows no window reaches) to rows·s × cols·s first."""
+    b, h, w, c = x.shape
+    hp, wp = rows * s, cols * s
+    x = x[:, :min(h, hp), :min(w, wp)]
+    if (hp, wp) != tuple(x.shape[1:3]):
+        x = F.pad(x, (0, 0, 0, wp - x.shape[2], 0, hp - x.shape[1]))
+    x = x.reshape(b, rows, s, cols, s, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, rows, cols, s * s * c)
+
+
+def _s2d_kernel(w, s: int):
+    """(KH, KW, C, F) → (⌈KH/s⌉, ⌈KW/s⌉, s²C, F); the taps past the true
+    support are zeros."""
+    kh, kw, c, f = w.shape
+    khp, kwp = -(-kh // s), -(-kw // s)
+    wz = w.new_zeros((khp * s, kwp * s, c, f))
+    wz[:kh, :kw] = w
+    wz = wz.reshape(khp, s, kwp, s, c, f).permute(0, 2, 1, 3, 4, 5)
+    return wz.reshape(khp, kwp, s * s * c, f)
+
+
+def _s2d_stack(x, w_shape, stride, padding):
+    """(phase stack of the padded x, s, ⌈KH/s⌉, ⌈KW/s⌉)."""
+    kh, kw = int(w_shape[0]), int(w_shape[1])
+    (s, _), (ph, pw) = norm2(stride), norm2(padding)
+    if (ph, pw) != (0, 0):
+        x = F.pad(x, (0, 0, pw, pw, ph, ph))
+    _, h, w_in, _ = x.shape
+    oh, ow = out_size(h, kh, s, 0), out_size(w_in, kw, s, 0)
+    khp, kwp = -(-kh // s), -(-kw // s)
+    return _s2d_input(x, s, oh + khp - 1, ow + kwp - 1), s, khp, kwp
+
+
+def conv2d_s2d(x, w, stride=1, padding=0, out_dtype=None):
+    """``conv2d`` by space-to-depth (the reference's ``xla_conv2d_s2d``):
+    the same function, another order of the sums (close, not bit-equal)."""
+    xs, s, _, _ = _s2d_stack(x.float(), w.shape, stride, padding)
+    y = _nhwc(F.conv2d(_nchw(xs), _oihw(_s2d_kernel(w.float(), s))))
+    return y.to(out_dtype or x.dtype)
+
+
+def conv2d_grad_weights_s2d(x, err, w_shape, stride=1, padding=0):
+    """dW through the same phase algebra (the reference's
+    ``xla_conv2d_grad_weights_s2d``): the gradient of the s²C kernel,
+    rearranged to (KH, KW, C, F), the zero taps' gradients dropped."""
+    kh, kw, c, f = (int(v) for v in w_shape)
+    xs, s, khp, kwp = _s2d_stack(x.float(), w_shape, stride, padding)
+    dwp = _grad_weights(xs, err, (khp, kwp, s * s * c, f), 1, 0)
+    dwp = dwp.reshape(khp, kwp, s, s, c, f).permute(0, 2, 1, 3, 4, 5)
+    return dwp.reshape(khp * s, kwp * s, c, f)[:kh, :kw].contiguous()
+
+
+# -- the column-parity convs (the fused2 routing) ----------------------------
+def _window(x, top: int, bottom: int, left: int, right: int):
+    """NHWC ``x`` padded with zeros by each positive amount and cropped by
+    each negative one (``F.conv2d`` takes no negative padding)."""
+    h, w = x.shape[1], x.shape[2]
+    x = x[:, max(0, -top):h - max(0, -bottom),
+          max(0, -left):w - max(0, -right)]
+    if max(top, bottom, left, right) > 0:
+        x = F.pad(x, (0, 0, max(left, 0), max(right, 0), max(top, 0),
+                      max(bottom, 0)))
+    return x
+
+
+def _unwindow(g, top: int, bottom: int, left: int, right: int):
+    """The adjoint of ``_window``: the gradient of the windowed input
+    brought back onto the input (its padding cropped, its crops zeros)."""
+    h, w = g.shape[1], g.shape[2]
+    g = g[:, max(0, top):h - max(0, bottom), max(0, left):w - max(0, right)]
+    if min(top, bottom, left, right) < 0:
+        g = F.pad(g, (0, 0, max(-left, 0), max(-right, 0), max(-top, 0),
+                      max(-bottom, 0)))
+    return g
+
+
+def _half_pads(p: int, width: int, w_in: int, kw: int, sw: int, pw: int):
+    """(left, right) padding of the input for parity half ``p`` of
+    ``width`` output columns: the half is the conv of column stride 2·sw
+    over x shifted by p·sw columns; either side may be negative (a crop;
+    AlexNet's conv1 odd half: −4 and −4)."""
+    left = pw - p * sw
+    return left, (width - 1) * 2 * sw + kw - w_in - left
+
+
+def conv2d_split(x, w, stride=1, padding=0, out_dtype=None):
+    """(y_even, y_odd): the column-parity halves of ``conv2d`` (the
+    reference's ``xla_conv2d_split``), each its own conv of stride
+    (sh, 2·sw); a half of width 0 (an output one column wide) comes out
+    empty."""
+    kh, kw, _, oc = w.shape
+    (sh, sw), (ph, pw) = norm2(stride), norm2(padding)
+    b, h_in, w_in, _ = x.shape
+    oh, ow = out_size(h_in, kh, sh, ph), out_size(w_in, kw, sw, pw)
+    x32, w32 = x.float(), _oihw(w.float())
+    halves = []
+    for p, width in ((0, -(-ow // 2)), (1, ow // 2)):
+        if width == 0:
+            halves.append(x.new_zeros((b, oh, 0, oc),
+                                      dtype=out_dtype or x.dtype))
+            continue
+        left, right = _half_pads(p, width, w_in, kw, sw, pw)
+        xp = _window(x32, ph, ph, left, right)
+        y = _nhwc(F.conv2d(_nchw(xp), w32, stride=(sh, 2 * sw)))
+        halves.append(y.to(out_dtype or x.dtype))
+    return halves[0], halves[1]
+
+
+def conv2d_grad_weights_split(x, err_e, err_o, w_shape, stride=1,
+                              padding=0):
+    """dW float32 from the output error's parity halves (the reference's
+    ``xla_conv2d_grad_weights_split``): the even half's gradient plus the
+    odd half's."""
+    kw = int(w_shape[1])
+    (sh, sw), (ph, pw) = norm2(stride), norm2(padding)
+    w_in = x.shape[2]
+    x32 = x.float()
+    dw = None
+    for p, err in ((0, err_e), (1, err_o)):
+        if err.shape[2] == 0:
+            continue
+        left, right = _half_pads(p, err.shape[2], w_in, kw, sw, pw)
+        g = _grad_weights(_window(x32, ph, ph, left, right), err, w_shape,
+                          (sh, 2 * sw), 0)
+        dw = g if dw is None else dw + g
+    return dw
+
+
+def conv2d_grad_input_split(err_e, err_o, w, x_shape, stride=1, padding=0):
+    """dx float32 from the output error's parity halves (the reference's
+    ``xla_conv2d_grad_input_split``): each half's transposed conv on its
+    windowed input, brought back onto x's columns, even plus odd."""
+    kw = int(w.shape[1])
+    (sh, sw), (ph, pw) = norm2(stride), norm2(padding)
+    b, h, w_in, c = (int(v) for v in x_shape)
+    w32 = w.float()
+    dx = None
+    for p, err in ((0, err_e), (1, err_o)):
+        if err.shape[2] == 0:
+            continue
+        left, right = _half_pads(p, err.shape[2], w_in, kw, sw, pw)
+        xp = torch.empty((b, h + 2 * ph, w_in + left + right, c),
+                         dtype=torch.float32, device=err.device)
+        g = _backward(err, xp, w32, (sh, 2 * sw), 0, (True, False, False))[0]
+        g = _unwindow(_nhwc(g), ph, ph, left, right)
+        dx = g if dx is None else dx + g
+    return dx.contiguous()
 
 
 # -- the implicit-GEMM tier: plain versions --------------------------------

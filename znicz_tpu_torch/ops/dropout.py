@@ -11,7 +11,10 @@ backward) and no mask is ever stored.
 
 On a CUDA tensor ``dropout`` launches the hand-written kernel of
 ``csrc/dropout.cu``; on a CPU tensor it runs ``plain_dropout``, the mask
-multiply of the reference's fused path.  A CUDA tensor never falls back."""
+multiply of the reference's fused path.  A CUDA tensor never falls back.
+x may be in any of the fused step's storage dtypes (the forward over a
+stored activation): the product is formed in float32 and rounded once to
+x's dtype."""
 
 from __future__ import annotations
 
@@ -20,11 +23,15 @@ import ctypes
 import numpy as np
 import torch
 
-from . import count_launch, rngbits
+from . import (STORAGE_DTYPES, STORAGE_SUFFIX, count_launch, form_counter,
+               rngbits)
 
-#: Launches of the dropout kernel in this process (the CUDA branch of
-#: ``dropout`` adds one per launch, nowhere else).
+#: Launches of the dropout kernel in this process, one counter a storage
+#: dtype (the CUDA branch of ``dropout`` adds one per launch, nowhere
+#: else).
 dropout_launches = 0
+dropout_bf16_launches = 0
+dropout_f16_launches = 0
 
 #: x, out, n, key, ratio, scale, stream
 _ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_uint32,
@@ -57,8 +64,10 @@ def plain_make_mask(stream_seed: int, counters, shape, ratio: float,
 
 
 def plain_dropout(x: torch.Tensor, key: int, ratio: float) -> torch.Tensor:
-    """x · mask, as the reference's fused forward and backward apply it."""
-    return x * mask_from_key(key, x.shape, ratio, x.device)
+    """x · mask, as the reference's fused forward and backward apply it
+    (a narrow x in float32, the product rounded once to its dtype)."""
+    return (x.float() * mask_from_key(key, x.shape, ratio, x.device)).to(
+        x.dtype)
 
 
 def _check(x: torch.Tensor, ratio: float) -> None:
@@ -66,8 +75,9 @@ def _check(x: torch.Tensor, ratio: float) -> None:
     same contract so both devices accept the same inputs."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"dropout: unsupported device {x.device}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"dropout: x must be float32, got {x.dtype}")
+    if x.dtype not in STORAGE_DTYPES:
+        raise TypeError(f"dropout: x must be one of {STORAGE_DTYPES}, got "
+                        f"{x.dtype}")
     if not x.is_contiguous():
         raise ValueError("dropout: x must be contiguous")
     if x.numel() >= 2 ** 31:
@@ -78,9 +88,9 @@ def _check(x: torch.Tensor, ratio: float) -> None:
 
 
 def dropout(x: torch.Tensor, key: int, ratio: float) -> torch.Tensor:
-    """x · mask(key) for a contiguous float32 tensor: the CUDA kernel for a
-    CUDA tensor, the plain version for a CPU tensor.  ``key`` is the
-    host-folded u32 key (``rngbits.fold``)."""
+    """x · mask(key) for a contiguous tensor in a storage dtype (out in
+    its dtype): the CUDA kernel for a CUDA tensor, the plain version for a
+    CPU tensor.  ``key`` is the host-folded u32 key (``rngbits.fold``)."""
     ratio = float(ratio)
     _check(x, ratio)
     if x.device.type == "cpu":
@@ -90,9 +100,10 @@ def dropout(x: torch.Tensor, key: int, ratio: float) -> torch.Tensor:
         return out
     from .. import cuda_build
     cuda_build.launch(
-        cuda_build.kernel("dropout", "znicz_dropout_f32", _ARGTYPES),
+        cuda_build.kernel("dropout", f"znicz_dropout_"
+                          f"{STORAGE_SUFFIX[x.dtype]}", _ARGTYPES),
         x.device, x.data_ptr(), out.data_ptr(), x.numel(),
         int(key) & rngbits.MASK32, float(np.float32(ratio)),
         float(_scale(ratio)))
-    count_launch(__name__, "dropout_launches")
+    count_launch(__name__, form_counter("dropout", x.dtype))
     return out

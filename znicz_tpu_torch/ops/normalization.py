@@ -35,7 +35,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from . import count_launch
+from . import STORAGE_DTYPES, STORAGE_SUFFIX, count_launch, form_counter
 
 #: Reference defaults (AlexNet LRN).
 DEFAULTS = dict(n=5, alpha=1e-4, beta=0.75, k=2.0)
@@ -43,7 +43,11 @@ DEFAULTS = dict(n=5, alpha=1e-4, beta=0.75, k=2.0)
 #: Launches of the LRN kernels in this process (the CUDA branches of the
 #: wrappers add one per launch, nowhere else).
 lrn_y_launches = 0
+lrn_y_bf16_launches = 0
+lrn_y_f16_launches = 0
 gd_lrn_x_launches = 0
+gd_lrn_x_bf16_launches = 0
+gd_lrn_x_f16_launches = 0
 lrn_launches = 0
 gd_lrn_launches = 0
 
@@ -91,13 +95,15 @@ def _bwd(err, x, d, n, alpha, beta):
 
 
 def plain_lrn_y(x, n=5, alpha=1e-4, beta=0.75, k=2.0):
-    """LRN forward, y only: the reference's ``xla_lrn(...)[0]``."""
-    return _fwd(x, n, alpha, beta, k)[0]
+    """LRN forward, y only: the reference's ``xla_lrn(...)[0]``; a narrow
+    x (bfloat16, float16) in float32, y rounded once to x's dtype."""
+    return _fwd(x.float(), n, alpha, beta, k)[0].to(x.dtype)
 
 
 def plain_gd_lrn_x(err, x, n=5, alpha=1e-4, beta=0.75, k=2.0):
     """LRN backward with the denominator recomputed from x: the
-    reference's ``xla_gd_lrn_x``."""
+    reference's ``xla_gd_lrn_x``; a narrow x in float32."""
+    x = x.float()
     d = k + alpha * _window_sum(x * x, n)
     return _bwd(err, x, d, n, alpha, beta)
 
@@ -147,12 +153,14 @@ def np_gd_lrn(err, x, d, n=5, alpha=1e-4, beta=0.75, k=2.0):
 _ARGTYPES = {
     # x, y, rows, C, n, alpha, beta, k, vec, direct, threads_x, pixels,
     # smem, stream
-    "znicz_lrn_y_f32": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
-    + [ctypes.c_double] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    **{f"znicz_lrn_y_{sfx}": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+       + [ctypes.c_double] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+       for sfx in STORAGE_SUFFIX.values()},
     # err, x, dx, rows, C, n, alpha, beta, k, vec, threads_x, pixels, smem,
-    # stream
-    "znicz_gd_lrn_x_f32": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-    + [ctypes.c_double] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    # stream (x in the entry point's storage type)
+    **{f"znicz_gd_lrn_x_{sfx}": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+       + [ctypes.c_double] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+       for sfx in STORAGE_SUFFIX.values()},
     # x, y, d, rows, C, n, alpha, beta, k, stream
     "znicz_lrn_f32": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
     + [ctypes.c_double] * 3 + [ctypes.c_void_p],
@@ -287,21 +295,25 @@ def _launch(name: str, device, *args) -> None:
                       device, *args)
 
 
-def _check(who: str, n: int, *tensors) -> None:
+def _check(who: str, n: int, *tensors, narrow: int | None = -1) -> None:
     """Refuse what the kernels do not take; the CPU branch is held to the
-    same contract so both devices accept the same inputs."""
+    same contract so both devices accept the same inputs.  The tensors
+    are float32 but ``tensors[narrow]`` (None: none), the recompute pair's
+    stored x, which may be in any storage dtype (``ops.STORAGE_DTYPES``)."""
     first = tensors[0]
     if first.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{who}: unsupported device {first.device}")
     if not 1 <= int(n) < 2 ** 31:
         raise ValueError(f"{who}: window n must be positive, got {n}")
-    for t in tensors:
+    for i, t in enumerate(tensors):
         if t.device != first.device:
             raise ValueError(f"{who}: tensors on {t.device} and "
                              f"{first.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{who}: tensors must be float32, got "
-                            f"{t.dtype}")
+        if t.dtype != torch.float32 and not (
+                narrow is not None and i == narrow % len(tensors)
+                and t.dtype in STORAGE_DTYPES):
+            raise TypeError(f"{who}: tensors must be float32 (x a storage "
+                            f"dtype), got {t.dtype}")
         if t.shape != first.shape:
             raise ValueError(f"{who}: shapes {tuple(t.shape)} and "
                              f"{tuple(first.shape)} differ")
@@ -320,41 +332,43 @@ def _check(who: str, n: int, *tensors) -> None:
 
 def lrn_y(x, n=5, alpha=1e-4, beta=0.75, k=2.0):
     """LRN forward emitting only y, over the last (channel) axis of a
-    contiguous float32 tensor."""
+    contiguous tensor in a storage dtype (float32, bfloat16, float16; y in
+    x's dtype, computed in float32 and rounded once)."""
     _check("lrn_y", n, x)
     if x.device.type == "cpu":
         return plain_lrn_y(x, n, alpha, beta, k)
     c = x.shape[-1]
     y = torch.empty_like(x)
     plan = _plan(x.shape, n, False, x, y)
-    _launch("znicz_lrn_y_f32", x.device, x.data_ptr(), y.data_ptr(),
-            x.numel() // c, c, plan.n, float(alpha), float(beta), float(k),
-            plan.vec, int(plan.direct), plan.threads_x, plan.pixels,
-            plan.smem)
-    count_launch(__name__, "lrn_y_launches")
+    _launch(f"znicz_lrn_y_{STORAGE_SUFFIX[x.dtype]}", x.device,
+            x.data_ptr(), y.data_ptr(), x.numel() // c, c, plan.n,
+            float(alpha), float(beta), float(k), plan.vec, int(plan.direct),
+            plan.threads_x, plan.pixels, plan.smem)
+    count_launch(__name__, form_counter("lrn_y", x.dtype))
     return y
 
 
 def gd_lrn_x(err, x, n=5, alpha=1e-4, beta=0.75, k=2.0):
-    """LRN backward recomputing the denominator from x (no cached d)."""
+    """LRN backward recomputing the denominator from x (no cached d): dx
+    float32 from float32 err and x in a storage dtype."""
     _check("gd_lrn_x", n, err, x)
     if x.device.type == "cpu":
         return plain_gd_lrn_x(err, x, n, alpha, beta, k)
     c = x.shape[-1]
-    dx = torch.empty_like(x)
+    dx = torch.empty_like(err)
     plan = _plan(x.shape, n, True, err, x, dx)
-    _launch("znicz_gd_lrn_x_f32", x.device, err.data_ptr(), x.data_ptr(),
-            dx.data_ptr(), x.numel() // c, c, plan.n, float(alpha),
-            float(beta), float(k), plan.vec, plan.threads_x, plan.pixels,
-            plan.smem)
-    count_launch(__name__, "gd_lrn_x_launches")
+    _launch(f"znicz_gd_lrn_x_{STORAGE_SUFFIX[x.dtype]}", x.device,
+            err.data_ptr(), x.data_ptr(), dx.data_ptr(), x.numel() // c, c,
+            plan.n, float(alpha), float(beta), float(k), plan.vec,
+            plan.threads_x, plan.pixels, plan.smem)
+    count_launch(__name__, form_counter("gd_lrn_x", x.dtype))
     return dx
 
 
 def lrn(x, n=5, alpha=1e-4, beta=0.75, k=2.0):
     """LRN forward → (y, d), d = k + α·(window sum of x²) cached for
     :func:`gd_lrn`, over the last axis of a contiguous float32 tensor."""
-    _check("lrn", n, x)
+    _check("lrn", n, x, narrow=None)
     if x.device.type == "cpu":
         return plain_lrn(x, n, alpha, beta, k)
     c = x.shape[-1]
@@ -369,7 +383,7 @@ def lrn(x, n=5, alpha=1e-4, beta=0.75, k=2.0):
 
 def gd_lrn(err, x, d, n=5, alpha=1e-4, beta=0.75, k=2.0):
     """LRN backward from the forward's cached denominator ``d``."""
-    _check("gd_lrn", n, err, x, d)
+    _check("gd_lrn", n, err, x, d, narrow=None)
     if x.device.type == "cpu":
         return plain_gd_lrn(err, x, d, n, alpha, beta, k)
     c = x.shape[-1]

@@ -18,7 +18,14 @@ forward (Zeiler–Fergus: a window element drawn in proportion to max(x, 0)
 or |x| on a train minibatch, the probability-weighted mean otherwise) are
 XLA in the reference, so they stay PyTorch on both devices; the stochastic
 pool's backward is the max pool's scatter.  The ``np_*`` functions are the
-numpy goldens the numpy device runs."""
+numpy goldens the numpy device runs.
+
+The forwards take x in any of the fused step's storage dtypes (float32,
+bfloat16, float16; ``ops.STORAGE_DTYPES``) and give y in x's dtype: the max
+pools select in that dtype (a winner is one of x's values), the average and
+stochastic pools compute in float32 and round once; the depooling forward
+scatters its pooled input in its dtype.  Errors and gradients are
+float32."""
 
 from __future__ import annotations
 
@@ -28,13 +35,18 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from . import count_launch, rngbits
+from . import (STORAGE_DTYPES, STORAGE_SUFFIX, count_launch, form_counter,
+               rngbits)
 from .geometry import norm2, out_size
 
 #: Launches of the pool-select / pool-scatter kernels in this process (the
 #: CUDA branches of the wrappers add one per launch, nowhere else).
 pool_select_launches = 0
+pool_select_bf16_launches = 0
+pool_select_f16_launches = 0
 pool_scatter_launches = 0
+pool_scatter_bf16_launches = 0
+pool_scatter_f16_launches = 0
 pool_gather_launches = 0
 
 
@@ -110,7 +122,10 @@ def plain_gd_max_pooling(err, offsets, x_shape, ksize, stride=None,
 
 def avg_pooling(x, ksize, stride=None, padding=0):
     """Mean over the window, zero padding counted in the full window area
-    (the reference's ``_avg_pool``)."""
+    (the reference's ``_avg_pool``); a narrow x in float32, the mean
+    rounded once to its dtype."""
+    if x.dtype != torch.float32:
+        return avg_pooling(x.float(), ksize, stride, padding).to(x.dtype)
     (kh, kw), (sh, sw), (ph, pw) = norm2(ksize), \
         norm2(stride or ksize), norm2(padding)
     _, h, w, _ = x.shape
@@ -187,11 +202,12 @@ stochastic_uniform = rngbits.uniforms
 
 def stochastic_pooling(x, ksize, stride=None, padding=0, u=None,
                        use_abs=False, deterministic=False):
-    """(y, offsets) of stochastic pooling over NHWC float32 ``x``, plain
+    """(y, offsets) of stochastic pooling over NHWC ``x`` (a storage
+    dtype; computed in float32, y rounded once to x's dtype), plain
     PyTorch on both devices (the reference computes it outside any Pallas
     kernel); the offsets feed ``gd_max_pooling``'s scatter kernel."""
     who = "stochastic_pooling"
-    _check(who, "x", x, torch.float32)
+    _check(who, "x", x, STORAGE_DTYPES)
     (kh, kw), (sh, sw), (ph, pw), (oh, ow) = _geometry(
         who, x.shape, ksize, stride, padding)
     if not deterministic:
@@ -201,8 +217,9 @@ def stochastic_pooling(x, ksize, stride=None, padding=0, u=None,
             raise ValueError(f"{who}: u must be {(b, oh, ow, c)} on "
                              f"{x.device}, got "
                              f"{None if u is None else tuple(u.shape)}")
-    return plain_stochastic_pooling(x, (kh, kw), (sh, sw), (ph, pw), u,
-                                    use_abs, deterministic)
+    y, idx = plain_stochastic_pooling(x.float(), (kh, kw), (sh, sw),
+                                      (ph, pw), u, use_abs, deterministic)
+    return y.to(x.dtype), idx
 
 
 def plain_depooling(x, offsets, out_shape, ksize, stride=None, padding=0):
@@ -339,12 +356,14 @@ def np_gd_avg_pooling(err, x_shape, ksize, stride=None, padding=0):
 # -- kernels ----------------------------------------------------------------
 _ARGTYPES = {
     # x, y, offsets, B, H, W, C, kh, kw, sh, sw, ph, pw, use_abs, stream
-    "znicz_pool_select_f32": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11
-    + [ctypes.c_void_p],
+    **{f"znicz_pool_select_{sfx}": [ctypes.c_void_p] * 3
+       + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+       for sfx in STORAGE_SUFFIX.values()},
     # err, offsets, dx, B, H, W, C, OH, OW, kh, kw, sh, sw, ph, pw, vec,
     # stream
-    "znicz_pool_scatter_f32": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 13
-    + [ctypes.c_void_p],
+    **{f"znicz_pool_scatter_{sfx}": [ctypes.c_void_p] * 3
+       + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+       for sfx in STORAGE_SUFFIX.values()},
     # err, offsets, out, B, H, W, C, OH, OW, kh, kw, sh, sw, ph, pw, stream
     "znicz_pool_gather_f32": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 12
     + [ctypes.c_void_p],
@@ -379,12 +398,13 @@ def _geometry(who, x_shape, ksize, stride, padding):
 def _check(who: str, name: str, t: torch.Tensor, dtype, device=None,
            shape=None) -> None:
     """Refuse what the kernels do not take; the CPU branch is held to the
-    same contract so both devices accept the same inputs."""
+    same contract so both devices accept the same inputs.  ``dtype``: one
+    dtype or a tuple of those taken (``ops.STORAGE_DTYPES``)."""
     if t.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{who}: unsupported device {t.device}")
     if device is not None and t.device != device:
         raise ValueError(f"{who}: {name} on {t.device}, expected {device}")
-    if t.dtype != dtype:
+    if t.dtype not in (dtype if isinstance(dtype, tuple) else (dtype,)):
         raise TypeError(f"{who}: {name} must be {dtype}, got {t.dtype}")
     if t.dim() != 4 or t.numel() == 0:
         raise ValueError(f"{who}: {name} must be a non-empty NHWC tensor, "
@@ -397,23 +417,25 @@ def _check(who: str, name: str, t: torch.Tensor, dtype, device=None,
 
 
 def _select(who, x, ksize, stride, padding, use_abs: bool):
-    _check(who, "x", x, torch.float32)
+    _check(who, "x", x, STORAGE_DTYPES)
     (kh, kw), (sh, sw), (ph, pw), (oh, ow) = _geometry(
         who, x.shape, ksize, stride, padding)
     if x.device.type == "cpu":
         return _max_pool(x, (kh, kw), (sh, sw), (ph, pw), use_abs)
     b, h, w, c = x.shape
-    y = torch.empty((b, oh, ow, c), dtype=torch.float32, device=x.device)
+    y = torch.empty((b, oh, ow, c), dtype=x.dtype, device=x.device)
     off = torch.empty((b, oh, ow, c), dtype=torch.int32, device=x.device)
-    _launch("znicz_pool_select_f32", x.device, x.data_ptr(), y.data_ptr(),
-            off.data_ptr(), b, h, w, c, kh, kw, sh, sw, ph, pw, int(use_abs))
-    count_launch(__name__, "pool_select_launches")
+    _launch(f"znicz_pool_select_{STORAGE_SUFFIX[x.dtype]}", x.device,
+            x.data_ptr(), y.data_ptr(), off.data_ptr(), b, h, w, c, kh, kw,
+            sh, sw, ph, pw, int(use_abs))
+    count_launch(__name__, form_counter("pool_select", x.dtype))
     return y, off
 
 
 def max_pooling(x, ksize, stride=None, padding=0):
-    """(y, offsets) of max pooling over NHWC float32 ``x``: the CUDA
-    kernel for a CUDA tensor, the plain version for a CPU tensor."""
+    """(y, offsets) of max pooling over NHWC ``x`` in a storage dtype (y
+    in x's dtype): the CUDA kernel for a CUDA tensor, the plain version
+    for a CPU tensor."""
     return _select("max_pooling", x, ksize, stride, padding, False)
 
 
@@ -438,10 +460,10 @@ def launch_pool_scatter(err, offsets, x_shape, window, vec: int):
     measurement that sets its own width calls."""
     (kh, kw), (sh, sw), (ph, pw), (oh, ow) = window
     b, h, w, c = x_shape
-    dx = torch.empty(x_shape, dtype=torch.float32, device=err.device)
-    _launch("znicz_pool_scatter_f32", err.device, err.data_ptr(),
-            offsets.data_ptr(), dx.data_ptr(), b, h, w, c, oh, ow, kh, kw,
-            sh, sw, ph, pw, vec)
+    dx = torch.empty(x_shape, dtype=err.dtype, device=err.device)
+    _launch(f"znicz_pool_scatter_{STORAGE_SUFFIX[err.dtype]}", err.device,
+            err.data_ptr(), offsets.data_ptr(), dx.data_ptr(), b, h, w, c,
+            oh, ow, kh, kw, sh, sw, ph, pw, vec)
     return dx
 
 
@@ -451,8 +473,14 @@ def gd_max_pooling(err, offsets, x_shape, ksize, stride=None, padding=0):
     contain it in the reference's order, several channels a thread where
     they lie in 16-byte vectors (``scatter_width``); no atomics, no
     memset."""
-    who = "gd_max_pooling"
-    _check(who, "err", err, torch.float32)
+    return _scatter("gd_max_pooling", err, offsets, x_shape, ksize, stride,
+                    padding, torch.float32)
+
+
+def _scatter(who, err, offsets, x_shape, ksize, stride, padding, dtypes):
+    """The scatter of ``err`` (one of ``dtypes``; dx in its dtype, each
+    element's sum in float32 rounded once) through the winner offsets."""
+    _check(who, "err", err, dtypes)
     x_shape = tuple(int(s) for s in x_shape)
     window = _geometry(who, x_shape, ksize, stride, padding)
     b, h, w, c = x_shape
@@ -462,21 +490,24 @@ def gd_max_pooling(err, offsets, x_shape, ksize, stride=None, padding=0):
                          f"{tuple(err.shape)}")
     _check(who, "offsets", offsets, torch.int32, err.device, err.shape)
     if err.device.type == "cpu":
-        return plain_gd_max_pooling(err, offsets, x_shape, *window[:3])
+        return plain_gd_max_pooling(err.float(), offsets, x_shape,
+                                    *window[:3]).to(err.dtype)
     # dx is a fresh allocation: the caching allocator aligns it
     dx = launch_pool_scatter(err, offsets, x_shape, window,
                              scatter_width(c, err, offsets))
-    count_launch(__name__, "pool_scatter_launches")
+    count_launch(__name__, form_counter("pool_scatter", err.dtype))
     return dx
 
 
 def depooling(x, offsets, out_shape, ksize, stride=None, padding=0):
-    """Unpooling of the pooled ``x`` (the decoder): each value scattered
-    back to its winner slot in a zero tensor of ``out_shape``, the tied
-    pool's input shape.  The same function as the max-pool backward, so on
-    the card it launches the scatter kernel (``gd_max_pooling``), as the
-    reference's ``depooling`` runs ``pallas_pool_scatter``."""
-    return gd_max_pooling(x, offsets, out_shape, ksize, stride, padding)
+    """Unpooling of the pooled ``x`` (the decoder; a storage dtype, the
+    output in its dtype): each value scattered back to its winner slot in
+    a zero tensor of ``out_shape``, the tied pool's input shape.  The same
+    function as the max-pool backward, so on the card it launches the
+    scatter kernel, as the reference's ``depooling`` runs
+    ``pallas_pool_scatter``."""
+    return _scatter("depooling", x, offsets, out_shape, ksize, stride,
+                    padding, STORAGE_DTYPES)
 
 
 def gd_depooling(err, offsets, ksize, stride=None, padding=0):

@@ -46,6 +46,7 @@ from ..ops import normalization as lrn_ops
 from ..ops import pooling as pool_ops
 from ..ops import rngbits
 from ..ops import softmax as softmax_ops
+from ..ops import tuning
 from ..ops import update as update_ops
 
 #: Layer kinds with trainable parameters.
@@ -56,10 +57,6 @@ STOCHASTIC_KINDS = ("stochastic_pool", "stochastic_abs_pool")
 PORTED_KINDS = ("fc", "activation", "conv", "max_pool", "maxabs_pool",
                 "avg_pool", *STOCHASTIC_KINDS, "lrn", "lrn_pool", "dropout",
                 "deconv", "depooling")
-#: Kinds whose kernels take float32 only: a narrower storage dtype between
-#: layers is refused rather than run at another precision.
-_F32_KERNEL_KINDS = ("max_pool", "maxabs_pool", *STOCHASTIC_KINDS, "lrn",
-                     "lrn_pool", "dropout", "depooling")
 #: Kinds a depooling layer may tie to (they record winner slots).
 OFFSET_KINDS = ("max_pool", "maxabs_pool", "lrn_pool", *STOCHASTIC_KINDS)
 
@@ -96,7 +93,10 @@ class ModelSpec:
     #: dtype of the matmul operands (products accumulate in float32)
     compute_dtype: str = "float32"
     #: dtype activations are stored in between layers (and so in the
-    #: backward caches); the last layer's output stays float32
+    #: backward caches): float32, bfloat16 or float16; the last layer's
+    #: output, every error and every gradient stay float32, and each
+    #: kernel that reads a stored activation computes in float32 and
+    #: rounds once where it stores one
     storage_dtype: str = "float32"
     #: per-spec-row index into the workflow's layers (write-back map): the
     #: lrn_pool merge makes spec rows fewer than layers; () means identity
@@ -110,12 +110,6 @@ class ModelSpec:
             raise ValueError(f"unknown loss {self.loss!r}")
         torch_dtype(self.compute_dtype)
         torch_dtype(self.storage_dtype)
-        if self.storage_dtype != "float32" and any(
-                la.kind in _F32_KERNEL_KINDS for la in self.layers):
-            raise NotImplementedError(
-                f"storage_dtype {self.storage_dtype!r} through the pool and "
-                f"LRN kernels (float32 only) is not ported yet (ROADMAP.md "
-                f"queue 1 item 5b, narrow storage through the conv stack)")
         # the softmax-CE head consumes 2D logits and backward() hands the
         # last layer a pre-activation error — only well-defined for a
         # final fc layer; the MSE head accepts any output shape
@@ -187,18 +181,25 @@ def _mm(a: torch.Tensor, b: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
 
 def _merge_lrn_pool(layers, params, vels):
     """Collapse each (lrn, max_pool|maxabs_pool) pair whose pool is
-    ``lrn_pool.fusable`` into one ``lrn_pool`` row (the reference's
-    ``_merge_lrn_pool`` under its ``fused1`` routing), and fold the
-    preceding conv's y-only activation derivative into the pair's backward
-    (``fold_act`` on the pair, ``act_folded`` on the conv).  ``tie``
-    indices are remapped.  Returns (layers, params, vels, unit_index), the
-    last mapping each row to its original layer (the write-back map).
+    ``lrn_pool.fusable`` into one ``lrn_pool`` row under the routing of
+    ``ZNICZ_TPU_LRN_POOL`` (``ops/tuning.py``, read here, as the
+    reference's ``_merge_lrn_pool`` reads it):
 
-    The reference's default ``fused2`` routing also makes the two convs
-    emit column-parity halves (``split_out``/``emit_split``), a layout
-    device for Mosaic's lack of strided loads; the port's kernels read x
-    unsplit, so it never sets those."""
+    - ``split``: no merge (the layers as given);
+    - ``nofold``: the merge alone;
+    - ``fused1`` (the port's default): the merge, and the preceding conv's
+      y-only activation derivative folded into the pair's backward
+      (``fold_act`` on the pair, ``act_folded`` on the conv);
+    - ``fused2``: ``fused1``, and a folded pair's conv emits the pair's
+      column-parity halves (``split_out``) and takes the pair's gradient
+      back as halves (``emit_split`` on the pair).
+
+    ``tie`` indices are remapped.  Returns (layers, params, vels,
+    unit_index), the last mapping each row to its original layer (the
+    write-back map)."""
     identity = tuple(range(len(layers)))
+    if not tuning.lrn_pool_merge():
+        return layers, params, vels, identity
     out_l, out_p, out_v, src, idx_map = [], [], [], [], {}
     i = 0
     while i < len(layers):
@@ -214,12 +215,17 @@ def _merge_lrn_pool(layers, params, vels):
             cfg["use_abs"] = pool.kind == "maxabs_pool"
             prev = out_l[-1] if out_l else None
             if (prev is not None and prev.kind in ("conv", "deconv")
+                    and tuning.lrn_pool_act_fold()
                     and prev.activation != "linear"
                     and not activations.BY_NAME[prev.activation]
                     .needs_input):
                 cfg["fold_act"] = prev.activation
-                out_l[-1] = dataclasses.replace(prev, config=tuple(sorted(
-                    dict(prev.config, act_folded=True).items())))
+                prev_cfg = dict(prev.config, act_folded=True)
+                if prev.kind == "conv" and tuning.lrn_pool_split_conv():
+                    prev_cfg["split_out"] = True
+                    cfg["emit_split"] = True
+                out_l[-1] = dataclasses.replace(
+                    prev, config=tuple(sorted(prev_cfg.items())))
             idx_map[i] = idx_map[i + 1] = len(out_l)
             out_l.append(LayerSpec(
                 kind="lrn_pool", activation="linear", include_bias=False,
@@ -259,6 +265,8 @@ def forward(spec: ModelSpec, params, x, *, want_caches: bool,
     aux being the pool winner offsets of a max, stochastic or merged
     LRN→max pool and None elsewhere (the LRN backward recomputes its
     denominator from the cached input; dropout regenerates its mask).
+    A ``split_out`` conv hands the pair after it its output as the
+    column-parity halves (xe, xo), which the pair caches as its input.
     ``epoch``/``ctr`` key the dropout masks and the stochastic pools'
     draws when ``train`` (ints, or for the pools one-element integer
     tensors on the device); eval is dropout-free and pools
@@ -273,7 +281,11 @@ def forward(spec: ModelSpec, params, x, *, want_caches: bool,
     n = len(spec.layers)
     for i, (layer, (w, b)) in enumerate(zip(spec.layers, params)):
         x_in, aux = h, None
-        in_shapes.append(tuple(h.shape))
+        if isinstance(h, tuple):   # a split-out conv's halves: the logical
+            b_, h_, we, c_ = h[0].shape            # shape for the ties
+            in_shapes.append((b_, h_, we + h[1].shape[2], c_))
+        else:
+            in_shapes.append(tuple(h.shape))
         cfg = layer.cfg
         is_last = i == n - 1
         if layer.kind == "fc":
@@ -284,6 +296,13 @@ def forward(spec: ModelSpec, params, x, *, want_caches: bool,
                 h = pre                   # logits; softmax fused with CE
             else:
                 h = activations.apply_fwd(spec.act(i), pre)
+        elif layer.kind == "conv" and cfg.get("split_out"):
+            # the fused2 routing: the conv emits the pair's halves
+            halves = conv_ops.conv2d_split(_rnd(h, cdt), _rnd(w, cdt),
+                                           cfg["stride"], cfg["padding"])
+            h = tuple(activations.apply_fwd(
+                spec.act(i), half if b is None else half + b)
+                for half in halves)
         elif layer.kind == "conv":
             pre = conv_ops.conv2d(_rnd(h, cdt), _rnd(w, cdt), cfg["stride"],
                                   cfg["padding"])
@@ -326,6 +345,10 @@ def forward(spec: ModelSpec, params, x, *, want_caches: bool,
         elif layer.kind == "lrn":
             h = lrn_ops.lrn_y(h, cfg["n"], cfg["alpha"], cfg["beta"],
                               cfg["k"])
+        elif layer.kind == "lrn_pool" and isinstance(h, tuple):
+            h, aux = lrn_pool_ops.lrn_maxpool_split(
+                *h, cfg["n"], cfg["alpha"], cfg["beta"], cfg["k"],
+                cfg["ksize"], cfg["stride"], cfg["padding"], cfg["use_abs"])
         elif layer.kind == "lrn_pool":
             h, aux = lrn_pool_ops.lrn_maxpool(
                 h, cfg["n"], cfg["alpha"], cfg["beta"], cfg["k"],
@@ -342,7 +365,8 @@ def forward(spec: ModelSpec, params, x, *, want_caches: bool,
             # storage cast between layers: the next layer's input (and its
             # backward cache) live in sdt; the last layer's output stays
             # f32 so the loss head and its error are full precision
-            h = h.to(sdt)
+            h = (tuple(t.to(sdt) for t in h) if isinstance(h, tuple)
+                 else h.to(sdt))
         auxes.append(aux)
         if want_caches:
             caches.append((x_in, aux))
@@ -384,7 +408,8 @@ def backward(spec: ModelSpec, params, caches, out, err, epoch=0, ctr=0):
         cfg = layer.cfg
         if layer.kind in PARAM_KINDS:
             # act_folded: the merged lrn_pool above applied this
-            # derivative in its kernel already
+            # derivative in its kernel already (and handed a split_out
+            # conv its err as the halves)
             err_pre = err if i == n - 1 or cfg.get("act_folded") else \
                 activations.apply_bwd(spec.act(i), err.reshape(y_i.shape),
                                       y_i)
@@ -394,6 +419,18 @@ def backward(spec: ModelSpec, params, caches, out, err, epoch=0, ctr=0):
             gw = _mm(x2.t(), err2, cdt)
             gb = torch.sum(err2, dim=0) if b is not None else None
             err = _mm(err2, w.t(), cdt).reshape(x_in.shape)
+            grads[i] = (gw, gb)
+        elif layer.kind == "conv" and cfg.get("split_out"):
+            ee, eo = (_rnd(e, cdt) for e in err_pre)
+            gw = conv_ops.conv2d_grad_weights_split(
+                _rnd(x_in, cdt), ee, eo, w.shape, cfg["stride"],
+                cfg["padding"])
+            gb = (torch.sum(err_pre[0], dim=(0, 1, 2))
+                  + torch.sum(err_pre[1], dim=(0, 1, 2))
+                  if b is not None else None)
+            err = None if i == 0 else conv_ops.conv2d_grad_input_split(
+                ee, eo, _rnd(w, cdt), x_in.shape, cfg["stride"],
+                cfg["padding"])
             grads[i] = (gw, gb)
         elif layer.kind == "conv":
             gw = conv_ops.conv2d_grad_weights(
@@ -433,6 +470,12 @@ def backward(spec: ModelSpec, params, caches, out, err, epoch=0, ctr=0):
         elif layer.kind == "lrn":
             err = lrn_ops.gd_lrn_x(err.reshape(y_i.shape), x_in, cfg["n"],
                                    cfg["alpha"], cfg["beta"], cfg["k"])
+        elif layer.kind == "lrn_pool" and isinstance(x_in, tuple):
+            err = lrn_pool_ops.gd_lrn_maxpool_split(
+                err.reshape(y_i.shape), aux, *x_in, cfg["n"], cfg["alpha"],
+                cfg["beta"], cfg["k"], cfg["ksize"], cfg["stride"],
+                cfg["padding"], cfg.get("fold_act"),
+                return_split=bool(cfg.get("emit_split")))
         elif layer.kind == "lrn_pool":
             err = lrn_pool_ops.gd_lrn_maxpool(
                 err.reshape(y_i.shape), aux, x_in, cfg["n"], cfg["alpha"],
@@ -586,9 +629,9 @@ class FusedTrainer:
     On the card every step is replayed from a CUDA graph (``capture``,
     default: wherever the spec allows it; :attr:`captured` says whether it
     does and :attr:`uncaptured_reason` why not): one train and one eval
-    step per batch size, dataset and conv tier, and with ``k > 1`` an
-    accumulating train step and one that also applies, which the host
-    picks per step as the reference's ``lax.cond`` does.  A captured train
+    step per batch size, dataset, conv tier and conv1 route, and with
+    ``k > 1`` an accumulating train step and one that also applies, which
+    the host picks per step as the reference's ``lax.cond`` does.  A captured train
     step reads its epoch and counter from its plan row, so a stochastic
     pool draws that step's bits on every replay.  A spec with a dropout
     layer runs the same step functions uncaptured, its mask key folded on
@@ -725,12 +768,13 @@ class FusedTrainer:
 
     def _plan(self, kind: str, data, target, batch: int, n_steps: int):
         """The StepPlan of ``kind`` ("train" or "eval") at ``batch`` over
-        ``data``/``target`` on the current conv tier (a graph reads them by
-        address and runs the tier it was captured on)."""
+        ``data``/``target`` on the current conv tier and conv1 route (a
+        graph reads them by address and runs the convs it was captured
+        with)."""
         from . import capture
         key = (kind, batch, data.data_ptr(), tuple(data.shape), data.dtype,
                target.data_ptr(), tuple(target.shape), target.dtype,
-               conv_ops.gemm_tier())
+               conv_ops.gemm_tier(), tuning.conv_s2d())
         plan = self._plans.get(key)
         if plan is None:
             if len(self._plans) >= 8:      # a few datasets and tiers

@@ -197,6 +197,9 @@ class StandardWorkflow(AcceleratedWorkflow):
         #: why ``train(fused=True)`` cannot (``spec`` is then None)
         self.fused_missing: str | None = None
         self.spec: ModelSpec | None = None
+        #: the fused rows before the LRN→pool merge, one a layer (the merge
+        #: under another ``ZNICZ_TPU_LRN_POOL`` routing starts from them)
+        self.layer_specs: tuple = ()
         self.params: list = []
         self.vels: list = []
         if loader is not None:
@@ -438,6 +441,7 @@ class StandardWorkflow(AcceleratedWorkflow):
                 raise NotImplementedError(refusal)
             self.spec, self.fused_missing = None, refusal
             return
+        self.layer_specs = tuple(layers)
         layers, _, _, unit_index = fused._merge_lrn_pool(layers, self.params,
                                                          self.vels)
         try:
