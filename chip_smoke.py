@@ -282,8 +282,23 @@ exits nonzero without the final ``ok`` line:
    replay).  Last, ``python -m znicz_tpu_torch serve --model
    mnist=<path> --port 0`` in a subprocess: both wire formats against
    the CPU, ``fallback_calls`` 0, SIGTERM, "drain complete", exit 0;
-21. the ``kernels`` line (with the resume, serve, serve_http and
-   data-plane paths' launches), then ``{"ok":
+20a. san_serve — ``ZNICZ_SAN=1 python -m znicz_tpu_torch serve`` over
+   MNIST, CIFAR, the autoencoder and AlexNet at full width (the same
+   exports) in a subprocess, the port's lock-order sanitizer wrapping
+   every lock the package creates: every (model, wire) cell's clients at
+   once, each answer against the CPU at the serve tolerances, a ``POST
+   /admin/reload`` of MNIST inside that traffic, /metrics (the default
+   engine on the card, ``fallback_calls`` 0), /healthz (every model
+   ``ok``), /statusz, /tracez, /debug/threadz, SIGTERM, "drain
+   complete", exit 0; the sanitizer's exit report must show 0
+   inversions, acquires and order edges (its long holds printed, not
+   gated), the server's launches (written at its exit,
+   ``ZNICZ_LAUNCH_COUNTS``) must include each of the five serving
+   kernels; the same server and traffic without the sanitizer first
+   (``unsanitized``), whose requests/s print beside the sanitized
+   run's and serve_http's;
+21. the ``kernels`` line (with the resume, serve, serve_http, san_serve
+   and data-plane paths' launches), then ``{"ok":
    true, "device": {...}}`` last.
 
 The kernel phase also holds the forms of the twenty-third slice
@@ -3666,8 +3681,16 @@ def _http(port: int, method: str, path: str, body=None, headers=None,
         conn.close()
 
 
-def _http_predict(port: int, name: str, x, binary: bool):
-    """One /predict of ``x`` for model ``name``; (answer, wall ms)."""
+#: a client's retries of one request the server shed (503 + Retry-After)
+SHED_RETRIES = 10
+
+
+def _http_predict(port: int, name: str, x, binary: bool, sheds=None):
+    """One /predict of ``x`` for model ``name``; (answer, wall ms).  With
+    a list ``sheds``, a 503 that carries Retry-After is waited out and
+    sent again, as a client honouring the header would (at most
+    SHED_RETRIES times), each wait's seconds appended to ``sheds``; the
+    wall is the answered attempt's."""
     import numpy as np
     from znicz_tpu_torch.serving import wire
     if binary:
@@ -3677,9 +3700,14 @@ def _http_predict(port: int, name: str, x, binary: bool):
     else:
         body = json.dumps({"inputs": x.tolist(), "model": name}).encode()
         headers = {"Content-Type": "application/json"}
-    t0 = time.perf_counter()
-    code, _, raw = _http(port, "POST", "/predict", body, headers)
-    wall = (time.perf_counter() - t0) * 1e3
+    for _ in range(SHED_RETRIES + 1):
+        t0 = time.perf_counter()
+        code, hdrs, raw = _http(port, "POST", "/predict", body, headers)
+        wall = (time.perf_counter() - t0) * 1e3
+        if code != 503 or sheds is None or "retry-after" not in hdrs:
+            break
+        sheds.append(float(hdrs["retry-after"]))
+        time.sleep(sheds[-1])
     if code != 200:
         raise AssertionError(f"serve_http {name}: {code} {raw[:300]!r}")
     y = (np.array(wire.decode_tensor(raw)) if binary
@@ -3687,10 +3715,12 @@ def _http_predict(port: int, name: str, x, binary: bool):
     return y, wall
 
 
-def _cell(port: int, name: str, binary: bool, pool: dict, n: int) -> dict:
+def _cell(port: int, name: str, binary: bool, pool: dict, n: int,
+          sheds=None) -> dict:
     """``n`` requests of model ``name`` from SERVE_HTTP_THREADS threads,
     rows drawn in turn from ``pool`` ({rows: (x, CPU answer)}); each
-    answer against the CPU's; requests/s and p50/p99 wall."""
+    answer against the CPU's; requests/s and p50/p99 wall.  ``sheds``:
+    as :func:`_http_predict`'s."""
     import threading
 
     import numpy as np
@@ -3703,7 +3733,7 @@ def _cell(port: int, name: str, binary: bool, pool: dict, n: int) -> dict:
         try:
             for i in range(t, n, SERVE_HTTP_THREADS):
                 x, want = pool[sizes[i % len(sizes)]]
-                y, wall = _http_predict(port, name, x, binary)
+                y, wall = _http_predict(port, name, x, binary, sheds)
                 np.testing.assert_allclose(
                     y, want, rtol=rtol, atol=atol,
                     err_msg=f"serve_http {name}: card vs CPU")
@@ -4030,6 +4060,254 @@ def phase_serve_http(torch, exports: dict, info: dict) -> dict:
     out["cli"] = _serve_cli(exports["mnist"], pools["mnist"])
     zoo.close()
     emit({"phase": "serve_http", **out})
+    return {**out, "pools": pools}
+
+
+#: the sanitized serving run: the models the server loads (the serve
+#: phase's exports), and each one's (rows of the binary cells, requests a
+#: wire); AlexNet's JSON cell takes one row, its 0.6 MB of floats a request
+SAN_SERVE_MODELS = {"mnist": ((1, 3, 8), 24), "cifar": ((1, 5, 8), 16),
+                    "autoencoder": ((1, 5, 8), 16), "alexnet": ((1, 8), 12)}
+#: the kernels the four models' forwards launch on the card
+SAN_SERVE_KERNELS = ("softmax", "act_fwd", "pool_select", "lrn_y",
+                     "pool_scatter")
+
+
+def _zsan_report(stderr: str) -> dict:
+    """The ``zsan:`` summary a ZNICZ_SAN=1 process prints at exit, and
+    its long holds (site, ms, thread)."""
+    import re
+    m = re.search(r"zsan: (\d+) acquires, (\d+) order edges, (\d+) "
+                  r"inversion\(s\), (\d+) long hold\(s\)", stderr)
+    if m is None:
+        raise AssertionError(f"san_serve: no zsan report: {stderr[-1500:]}")
+    holds = [{"site": site, "ms": float(ms), "thread": thread}
+             for site, ms, thread in re.findall(
+                 r"LONG HOLD: (\S+) held ([\d.]+) ms \(> [\d.]+ ms\) by "
+                 r"(.+)", stderr)]
+    return {"acquires": int(m.group(1)), "edges": int(m.group(2)),
+            "inversions": int(m.group(3)), "long_holds": int(m.group(4)),
+            "long_hold_sites": holds,
+            "inversion_text": [line for line in stderr.splitlines()
+                               if "INVERSION" in line]}
+
+
+def phase_san_serve(torch, exports: dict, serve_http: dict,
+                    directory: str) -> dict:
+    """``ZNICZ_SAN=1 python -m znicz_tpu_torch serve`` over MNIST, CIFAR,
+    the autoencoder and AlexNet at full width in a subprocess on the
+    card, with the port's lock-order sanitizer wrapping every lock the
+    package creates (the batchers', the zoo's, the engines', the replica
+    and capture locks): each model's buckets captured first, one model at
+    a time (:func:`_san_warm`), then concurrent clients over both wires
+    to every model at once, each answer against the CPU at the serve
+    tolerances, a ``POST /admin/reload`` of MNIST while that traffic
+    flows, then /metrics, /statusz, /tracez and /debug/threadz, and
+    SIGTERM: "drain complete", exit 0.  The sanitizer's exit report must
+    show 0 inversions, acquires and order edges; its long holds are
+    printed, not gated (a capture under the process-wide capture lock
+    holds it on purpose).  The server writes its kernel launches at exit
+    (``ZNICZ_LAUNCH_COUNTS``): a fresh process, so they are this path's
+    alone, and each of ``SAN_SERVE_KERNELS`` must have run.  The same
+    server and traffic run once before without the sanitizer
+    (``unsanitized``): what the instrumentation costs, beside
+    serve_http's requests/s (one cell at a time, clients in this
+    process)."""
+    pools = {name: {r: serve_http["pools"][name][r] for r in rows}
+             for name, (rows, _) in SAN_SERVE_MODELS.items()}
+    argv = [sys.executable, "-m", "znicz_tpu_torch", "serve"]
+    for name in SAN_SERVE_MODELS:
+        argv += ["--model", f"{name}={exports[name]}"]
+    argv += ["--default-model", "mnist", "--admin-token", SERVE_HTTP_TOKEN,
+             "--port", "0"]
+    plain_env = {k: v for k, v in os.environ.items() if k != "ZNICZ_SAN"}
+    plain, _ = _san_server(argv, plain_env, pools, directory)
+    counts_path = os.path.join(directory, "san_serve_launches.json")
+    out, stderr = _san_server(argv, dict(os.environ, ZNICZ_SAN="1",
+                                         ZNICZ_LAUNCH_COUNTS=counts_path),
+                              pools, directory)
+    zsan = _zsan_report(stderr)
+    if zsan["inversions"] or zsan["acquires"] <= 0 or zsan["edges"] <= 0:
+        raise AssertionError(f"san_serve: sanitizer {zsan}")
+    with open(counts_path) as fh:
+        counts = json.load(fh)
+    launches = {k: counts.get(f"{m}.{a}", 0)
+                for k, (_, _, m, a) in KERNELS.items()}
+    for kernel in SAN_SERVE_KERNELS:
+        if not launches[kernel]:
+            raise AssertionError(f"san_serve never launched {kernel}")
+    out = {"card": serve_http["card"], **out, "zsan": zsan,
+           "launches": launches,
+           "unsanitized": {k: plain[k] for k in (
+               "start_ms", "requests_per_s", "window_s", "sheds",
+               "wall_s")} | {"cells": {
+                   cell: {k: c[k] for k in ("requests_per_s",
+                                            "p50_wall_ms", "p99_wall_ms")}
+                   for cell, c in plain["cells"].items()}},
+           "serve_http_requests_per_s": {
+               cell: serve_http["models"][cell.split(".")[0]][
+                   cell.split(".")[1]]["requests_per_s"]
+               for cell in plain["cells"]}}
+    emit({"phase": "san_serve", **out})
+    return out
+
+
+def _san_server(argv: list, env: dict, pools: dict, directory: str):
+    """One run of the served subprocess: start, :func:`_san_warm`,
+    :func:`_san_traffic`, :func:`_san_endpoints`, SIGTERM, "drain
+    complete", exit 0; (its numbers, its stderr)."""
+    import signal
+    import threading
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    err_path = os.path.join(directory, "san_serve.stderr")
+    t0 = time.perf_counter()
+    with open(err_path, "w") as err:
+        p = subprocess.Popen(argv, cwd=root, env=env, text=True,
+                             stdout=subprocess.PIPE, stderr=err)
+        killer = threading.Timer(300.0, p.kill)
+        killer.start()
+        try:
+            line = p.stdout.readline()
+            start_ms = (time.perf_counter() - t0) * 1e3
+            if " at http://127.0.0.1:" not in line or "[cuda]" not in line:
+                raise AssertionError(f"san_serve: the server did not "
+                                     f"start: {line!r}")
+            port = int(line.split(" at http://127.0.0.1:")[1]
+                       .split("/")[0])
+            out = {"start_ms": start_ms,
+                   "first_requests_wall_ms": _san_warm(port, pools),
+                   **_san_traffic(port, pools),
+                   "endpoints": _san_endpoints(port)}
+            p.send_signal(signal.SIGTERM)
+            stdout, _ = p.communicate(timeout=120)
+        finally:
+            killer.cancel()
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    with open(err_path) as fh:
+        stderr = fh.read()
+    if p.returncode != 0 or "drain complete" not in stdout:
+        raise AssertionError(f"san_serve exit {p.returncode}: "
+                             f"{stdout[-500:]} {stderr[-1500:]}")
+    out.update(exit=p.returncode, drained=True,
+               wall_s=time.perf_counter() - t0)
+    return out, stderr
+
+
+def _san_warm(port: int, pools: dict) -> dict:
+    """One model at a time, a request at each bucket the window's batches
+    reach (1, 8 and 32 rows: four clients' 8 rows coalesce to 32), each
+    answer against the CPU: the captures run here, one at a time under
+    the capture lock, and not inside the window, where a model waiting
+    for another's capture would have its traffic shed.  Wall ms a
+    request."""
+    import numpy as np
+    out = {}
+    for name, pool in pools.items():
+        _, rtol, atol, _, _ = SERVE_HTTP_MODELS[name]
+        x8, want8 = pool[8]
+        out[name] = {}
+        for rows, (x, want) in ((1, pool[1]), (8, pool[8]),
+                                (32, (np.concatenate([x8] * 4),
+                                      np.concatenate([want8] * 4)))):
+            y, wall = _http_predict(port, name, x, True)
+            np.testing.assert_allclose(y, want, rtol=rtol, atol=atol,
+                                       err_msg=f"san_serve {name} warm")
+            out[name][rows] = wall
+    return out
+
+
+def _san_traffic(port: int, pools: dict) -> dict:
+    """Every (model, wire) cell at once, SERVE_HTTP_THREADS clients each,
+    with a ``POST /admin/reload`` of MNIST sent while they run; the
+    requests/s of the window beside serve_http's.  The window overloads
+    the server's host on purpose (serve_http runs one cell at a time):
+    its CoDel shedder answers 503 + Retry-After, and the clients wait the
+    header out and send again; the sheds are counted a cell."""
+    import threading
+    cells, errs = {}, []
+
+    def cell(name, binary):
+        pool, n = pools[name], SAN_SERVE_MODELS[name][1]
+        if name == "alexnet" and not binary:
+            pool, n = {1: pool[1]}, 2
+        sheds = []
+        try:
+            key = f"{name}.{'binary' if binary else 'json'}"
+            cells[key] = _cell(port, name, binary, pool, n, sheds)
+            cells[key]["sheds"] = len(sheds)
+        except Exception as e:               # noqa: BLE001 — raised below
+            errs.append(e)
+
+    reload = {}
+
+    def reloader():
+        try:
+            time.sleep(0.5)                  # inside the traffic
+            t1 = time.perf_counter()
+            code, _, raw = _http(
+                port, "POST", "/admin/reload",
+                json.dumps({"name": "mnist", "wait": True}).encode(),
+                {"X-Admin-Token": SERVE_HTTP_TOKEN})
+            status = json.loads(raw)
+            if code != 200 or status["last_reload"]["outcome"] != "ok" \
+                    or status["model_generation"] != 2:
+                raise AssertionError(f"san_serve reload: {code} {status}")
+            reload.update(wall_ms=(time.perf_counter() - t1) * 1e3,
+                          sent_at_s=t1 - t0, cells_running=sum(
+                              t.is_alive() for t in threads[:-1]),
+                          generation=status["model_generation"])
+        except Exception as e:               # noqa: BLE001 — raised below
+            errs.append(e)
+
+    threads = [threading.Thread(target=cell, args=(name, binary))
+               for name in SAN_SERVE_MODELS for binary in (True, False)]
+    threads.append(threading.Thread(target=reloader))
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600.0)
+    elapsed = time.perf_counter() - t0
+    if errs:
+        raise errs[0]
+    if len(cells) != 2 * len(SAN_SERVE_MODELS) or not reload:
+        raise AssertionError(f"san_serve: cells {sorted(cells)}, reload "
+                             f"{reload}")
+    total = sum(c["requests"] for c in cells.values())
+    return {"requests": total, "window_s": elapsed,
+            "sheds": sum(c["sheds"] for c in cells.values()),
+            "requests_per_s": total / elapsed, "cells": cells,
+            "reload": reload,
+            "cpu_max_abs_err": max(c["cpu_max_abs_err"]
+                                   for c in cells.values())}
+
+
+def _san_endpoints(port: int) -> dict:
+    """/metrics (JSON: the default model's engine on the card, no
+    fallback), /healthz (every model ``ok``), /statusz, /tracez and
+    /debug/threadz."""
+    token = {"X-Admin-Token": SERVE_HTTP_TOKEN}
+    code, _, raw = _http(port, "GET", "/metrics")
+    eng = json.loads(raw)["engine"]
+    if code != 200 or eng["backend"] != "cuda" or eng["fallback_calls"] \
+            or eng["breaker"]["state"] != "closed":
+        raise AssertionError(f"san_serve /metrics: {code} {eng}")
+    code, _, raw = _http(port, "GET", "/healthz")
+    models = {r["model"]: r["state"] for r in json.loads(raw)["models"]}
+    if code != 200 or sorted(models) != sorted(SAN_SERVE_MODELS) \
+            or set(models.values()) != {"ok"}:
+        raise AssertionError(f"san_serve /healthz: {code} {models}")
+    out = {"fallback_calls": 0, "states": models,
+           "forward_calls": eng["forward_calls"], "builds": eng["builds"]}
+    for path, hdrs in (("/statusz", token), ("/tracez", {}),
+                       ("/debug/threadz", token)):
+        code, _, raw = _http(port, "GET", path, None, hdrs)
+        if code != 200 or not raw:
+            raise AssertionError(f"san_serve {path}: {code}")
+        out[path] = len(raw)
     return out
 
 
@@ -6238,6 +6516,7 @@ def run_phases(torch, info: dict, exports: dict, serve_dir: str) -> int:
     resume = phase_resume(torch)
     serve = phase_serve(torch, exports, serve_dir)
     serve_http = phase_serve_http(torch, exports, info)
+    san_serve = phase_san_serve(torch, exports, serve_http, serve_dir)
     emit(kernels_line(kern, {"mnist": mnist["launches"],
                              "cifar": cifar["launches"],
                              "alexnet": alexnet["launches"],
@@ -6260,6 +6539,7 @@ def run_phases(torch, info: dict, exports: dict, serve_dir: str) -> int:
                              "resume_alexnet": resume["alexnet"]["launches"],
                              "serve": serve["launches"],
                              "serve_http": serve_http["launches"],
+                             "san_serve": san_serve["launches"],
                              **plane,
                              **{f"routing_{r}": routing[r]["launches"]
                                 for r in ROUTINGS}, **narrow}))

@@ -31,11 +31,41 @@ Layering, as far as the port reaches today:
 * ``standard_workflow.py`` (the unit graph and the fused loop),
   ``models/mnist.py``, ``models/cifar.py``, ``models/alexnet.py``,
   ``models/autoencoder.py``, ``models/kohonen.py`` and the
-  ``python -m znicz_tpu_torch`` CLI (``launcher.py``).
+  ``python -m znicz_tpu_torch`` CLI (``launcher.py``);
+* ``analysis/`` ("zlint", ``python -m znicz_tpu_torch lint``) and
+  ``sanitizer.py`` (the runtime lock-order sanitizer, ``ZNICZ_SAN=1``).
 
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``); without a CUDA device they raise.
 """
+
+import atexit as _atexit
+import os as _os
+import sys as _sys
+
+if _os.environ.get("ZNICZ_SAN") == "1":
+    # zsan runtime layer: must engage BEFORE any package module runs, so
+    # every module-level and instance lock the package creates is a
+    # tracked wrapper.  The report prints to stderr at exit.
+    from . import sanitizer as _sanitizer
+    _sanitizer.enable()
+
+    @_atexit.register
+    def _san_report():
+        print(_sanitizer.format_report(), file=_sys.stderr)
+
+if _os.environ.get("ZNICZ_LAUNCH_COUNTS"):
+    # at exit, this process's kernel launches by wrapper counter
+    # ({"softmax.softmax_launches": n, ...}) as JSON to the named file:
+    # how a caller reads the launches of a process it drives from outside
+    # (chip_smoke.py's san_serve phase reads a served subprocess's)
+    @_atexit.register
+    def _write_launch_counts(path=_os.environ["ZNICZ_LAUNCH_COUNTS"]):
+        import json
+        from . import ops
+        with open(path, "w") as fh:
+            json.dump({f"{m}.{a}": n
+                       for (m, a), n in ops.launch_counts().items()}, fh)
 
 import torch
 

@@ -25,10 +25,14 @@ epoch's metrics print on one line.  ``--coordinator``,
 ``--compile-cache-dir`` parse as the reference's do; any value but the
 single-process default raises (ROADMAP.md queue 1 items 9 and 10).
 
+``python -m znicz_tpu_torch lint [--format json] [--changed] ...`` runs
+zlint over the port (:func:`znicz_tpu_torch.analysis.cli.main`; exit 0
+when nothing new fires).
+
 The reference's other sub-commands (``route``, ``autoscale``, ``chaos``,
-``promote``, ``online-train``, ``lint``) are not ported yet: each raises
-and names the ROADMAP.md queue 1 item that brings it, instead of being
-read as a workflow module."""
+``promote``, ``online-train``) are not ported yet: each raises and
+names the ROADMAP.md queue 1 item that brings it, instead of being read
+as a workflow module."""
 
 from __future__ import annotations
 
@@ -89,7 +93,6 @@ UNPORTED_COMMANDS = {
     "chaos": "item 10 (resilience/chaos.py)",
     "promote": "item 10 (the promotion controller)",
     "online-train": "item 10 (the online loop)",
-    "lint": "item 12 (analysis)",
 }
 
 
@@ -100,6 +103,9 @@ def main(argv=None) -> int:
         # workflow module)
         from .serving.server import main as serve_main
         return serve_main(argv[1:])
+    if argv and argv[0] == "lint":
+        from .analysis.cli import main as lint_main
+        return lint_main(argv[1:])
     if argv and argv[0] in UNPORTED_COMMANDS:
         raise NotImplementedError(
             f"`{argv[0]}` is not ported yet: it comes with ROADMAP.md "
