@@ -21,7 +21,11 @@ exits nonzero without the final ``ok`` line:
    the fused LRN→max-pool pair the geometries of tests/test_lrn_pool.py,
    each folded activation, the scalar form (C % 4 ≠ 0), a window wider
    than the channels, ragged strips and column tiles; dropout at two
-   ratios and a counter near 2³²; both softmax heads at every form of
+   ratios and a counter near 2³², and its shard form (``index``: the
+   last data index's rows of a dp = 2 split of AlexNet's two dropout
+   inputs, the last model index's channels of a tp = 2 split of pool5's)
+   at float32 and bfloat16, bit-equal to the plain version's and to the
+   whole tensor's mask at the shard; both softmax heads at every form of
    their plan — narrow, register and streaming rows, C = 1 to 20000, bases
    one float off alignment, out-of-range labels, ties across warps, rows
    that hold NaN and ±inf), with the stated tolerances; times of
@@ -297,8 +301,31 @@ exits nonzero without the final ``ok`` line:
    kernels; the same server and traffic without the sanitizer first
    (``unsanitized``), whose requests/s print beside the sanitized
    run's and serve_http's;
-21. the ``kernels`` line (with the resume, serve, serve_http, san_serve
-   and data-plane paths' launches), then ``{"ok":
+20b. mesh_dp, mesh_tp, mesh_2x2 — the parallelism paths (``MESH_PATHS``),
+   each a fleet of dp·tp rank processes of this script (``--mesh-rank``)
+   on a loopback rendezvous, over gloo on the one card (the ranks share
+   it; each collective staged through pinned host memory): AlexNet at
+   full width on its 512/128/128 split at the global batch 128, dp = 2
+   (64 rows a rank) and tp = 2, and MNIST 784-100-10 at (2, 2) on its
+   50k/10k/10k split, one epoch each through the model's ``run`` with
+   ``root.common.mesh_shape`` set.  The single-process card run of the
+   same split and seed first; each rank holds its final weights to it at
+   rtol 1e-4 / atol 1e-5, every rank's epoch-0 losses at rtol 1e-5 /
+   atol 1e-6 and error counts within one sample, the ranks' weights
+   bit-equal to each other, and each rank's launches, counted from 0
+   around its run, equal to the model's ``PATHS`` multiplicities times
+   the epoch's steps.  Printed a rank: the backend, the cards, its step
+   wall, the all-reduces' calls, bytes and ms (the gradient bucket, the
+   tensor-parallel sums and gathers, the metrics) in all and a train
+   step, its peak memory and launches;
+20c. elastic — ``ElasticRunner`` over two ranks of MNIST at dp = 2 (2000
+   train rows, two epochs, a checkpoint an epoch through
+   ``TrainerCheckpointer(mesh=...)``): rank 1 exits 17 after the epoch-0
+   checkpoint, the fleet restarts once on a fresh port and resumes from
+   the newest verified checkpoint, and the final weights equal an
+   uninterrupted single-process run's within rtol 1e-5 / atol 1e-6;
+21. the ``kernels`` line (with the resume, serve, serve_http, san_serve,
+   data-plane and each mesh rank's launches), then ``{"ok":
    true, "device": {...}}`` last.
 
 The kernel phase also holds the forms of the twenty-third slice
@@ -1336,9 +1363,60 @@ DROPOUT_CASES = [
 ]
 
 
+#: the shard form of dropout (``index``) at AlexNet's two dropout shapes,
+#: as the mesh paths launch it: the last data index's rows of a dp split
+#: and the last model index's channels of a tp split (case, whole shape,
+#: dp, tp)
+DROPOUT_SHARD_CASES = [("alexnet_pool5_dp2", (128, 6, 6, 256), 2, 1),
+                       ("alexnet_fc6_dp2", (128, 4096), 2, 1),
+                       ("alexnet_pool5_tp2", (128, 6, 6, 256), 1, 2)]
+
+
+def dropout_shard(shape, dp: int, tp: int) -> tuple[tuple, tuple]:
+    """(local shape, ``index``) of the last rank of a (dp, tp) split of
+    ``shape``: rows of the batch, channels of the last axis."""
+    b, c = shape[0], shape[-1]
+    feat = math.prod(shape[1:])
+    bl, k = b // dp, c // tp
+    base = (dp - 1) * bl * feat
+    index = (base, k, c, (tp - 1) * k) if tp > 1 else (base, feat, feat, 0)
+    return (bl, *shape[1:-1], k), index
+
+
+def _dropout_shard_rows(torch, dt, name: str, gen) -> list:
+    """Each shard case at ``dt``: the kernel on the shard bit-equal to the
+    plain version's offset form and to the kernel's whole-tensor mask at
+    the shard's elements; timed, bound by bytes."""
+    from znicz_tpu_torch.ops import dropout
+    dev = torch.device("cuda")
+    key = 0x5EED0025
+    rows = []
+    for case, shape, dp, tp in DROPOUT_SHARD_CASES:
+        local, index = dropout_shard(shape, dp, tp)
+        whole = torch.randn(shape, generator=gen).to(dev).to(dt)
+        x = whole[-local[0]:, ..., -local[-1]:].contiguous()
+        got = _launch_once(torch, name, lambda: dropout.dropout(
+            x, key, 0.5, index=index))
+        err = _bit_equal(torch, case, "out", got,
+                         dropout.plain_dropout(x, key, 0.5, index))
+        full = dropout.dropout(whole, key, 0.5)
+        _bit_equal(torch, case, "shard_of_whole", got,
+                   full[-local[0]:, ..., -local[-1]:].contiguous())
+        elem = whole.element_size()
+        rows.append(_row(
+            torch, name, {"case": case, "shape": list(local),
+                          "whole_shape": list(shape), "index": list(index),
+                          "storage": str(dt).replace("torch.", "")}, err,
+            lambda: dropout.dropout(x, key, 0.5, index=index),
+            lambda: dropout.plain_dropout(x, key, 0.5, index),
+            _bound(2 * x.numel() * elem, (16 + 4 * (tp > 1)) * x.numel())))
+    return rows
+
+
 def phase_kernel_dropout(torch) -> list:
     """The kernel's output exactly equal to the plain mask multiply, with
-    the key folded on the host as the fused step folds it."""
+    the key folded on the host as the fused step folds it; then the shard
+    form (``DROPOUT_SHARD_CASES``)."""
     import zlib
 
     import torch.nn.functional as F
@@ -1369,6 +1447,7 @@ def phase_kernel_dropout(torch) -> list:
             lambda: dropout.dropout(x, key, ratio),
             lambda: dropout.plain_dropout(x, key, ratio),
             dropout_bound_ms(x.numel()), lib))
+    rows.extend(_dropout_shard_rows(torch, torch.float32, "dropout", gen))
     return rows
 
 
@@ -5985,6 +6064,9 @@ def phase_kernel_forms(torch) -> dict:
                 err, lambda: dropout.dropout(x, key, 0.5),
                 lambda: dropout.plain_dropout(x, key, 0.5),
                 _form_bounds("dropout", x.numel(), 0, elem), lib))
+        if sfx == "_bf16":
+            rows[f"dropout{sfx}"].extend(
+                _dropout_shard_rows(torch, dt, f"dropout{sfx}", gen))
         for case, act, shape in FORM_ACT_CASES:
             pre = rnd(shape, 2)
             y = activations.BY_NAME[act].fwd(pre).to(dt)
@@ -6354,6 +6436,365 @@ def phase_narrow_storage(torch, routing: dict, directory: str) -> dict:
     return launches
 
 
+#: the mesh paths (the twenty-fifth slice): model, split and (dp, tp),
+#: each a fleet of dp·tp rank processes on this card over gloo, one epoch
+#: through the model's ``run`` with ``root.common.mesh_shape`` set, held to
+#: the single-process card run of the same split and seed
+MESH_PATHS = {"mesh_dp": ("alexnet", ALEXNET_SPLIT, (2, 1)),
+              "mesh_tp": ("alexnet", ALEXNET_SPLIT, (1, 2)),
+              "mesh_2x2": ("mnist", MNIST_SPLIT, (2, 2))}
+#: weights at the reference's mesh tolerance (tests/test_fused_parallel.py),
+#: losses at its tp losses'; an error count within one sample (a rounding
+#: flip of an argmax near a tie)
+MESH_WEIGHT_TOL = (1e-4, 1e-5)
+MESH_LOSS_TOL = (1e-5, 1e-6)
+#: the elastic drill: MNIST at dp = 2 for two epochs of this split, rank
+#: 1 lost after the epoch-0 checkpoint on the first round
+ELASTIC_SPLIT = AE_PARITY_SPLIT
+ELASTIC_EPOCHS = 2
+ELASTIC_BATCH = 100
+ELASTIC_TOL = (1e-5, 1e-6)
+RANK_TIMEOUT = 420
+
+
+def _whole_params(wf) -> dict:
+    """The workflow's params and velocities (whole: ``write_back`` gathers
+    a mesh trainer's shares) as host arrays."""
+    out = {}
+    for group, pairs in (("p", wf.params), ("v", wf.vels)):
+        for i, pair in enumerate(pairs):
+            for part, t in zip("wb", pair):
+                if t is not None:
+                    out[f"{group}{i}{part}"] = t.detach().cpu().numpy()
+    return out
+
+
+def _digest(arrays: dict) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for k in sorted(arrays):
+        h.update(k.encode())
+        h.update(arrays[k].tobytes())
+    return h.hexdigest()
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _spawn_ranks(mode: str, world: int, directory: str) -> list:
+    """Start ``world`` rank processes of this script on a loopback port
+    and wait for all of them (each its own deadline); raises with every
+    failed rank's log tail.  Returns each rank's result."""
+    port = _free_port()
+    procs, logs = [], []
+    try:
+        for r in range(world):
+            log = open(os.path.join(directory, f"{mode}.rank{r}.log"), "w")
+            logs.append(log)
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--mesh-rank",
+                 mode, str(r), str(world), str(port), directory],
+                stdout=log, stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + RANK_TIMEOUT
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if failed:
+        tails = []
+        for r in failed:
+            with open(os.path.join(directory, f"{mode}.rank{r}.log")) as fh:
+                tails.append(f"rank {r} rc={procs[r].returncode}: "
+                             + fh.read()[-3000:])
+        raise AssertionError(f"{mode}: " + "\n".join(tails))
+    out = []
+    for r in range(world):
+        with open(os.path.join(directory, f"{mode}.rank{r}.json")) as fh:
+            out.append(json.load(fh))
+    return out
+
+
+def _hold_metrics(what: str, got: dict, want: dict) -> dict:
+    """Epoch-0 metrics of a mesh run against the single-process run's:
+    losses within ``MESH_LOSS_TOL``, error counts within one sample."""
+    diffs = {}
+    for k, v in want.items():
+        if k.endswith("_loss"):
+            gap = abs(got[k] - v)
+            if gap > MESH_LOSS_TOL[1] + MESH_LOSS_TOL[0] * abs(v):
+                raise AssertionError(f"{what}: {k} {got[k]} vs {v}")
+            diffs[k] = gap
+        elif k.endswith("_n_err"):
+            if abs(got[k] - v) > 1:
+                raise AssertionError(f"{what}: {k} {got[k]} vs {v}")
+            diffs[k] = got[k] - v
+    return diffs
+
+
+def mesh_rank(argv: list) -> int:
+    """One rank of a mesh path or of the elastic drill (``--mesh-rank
+    MODE RANK WORLD PORT DIR``): the process group over gloo on this card,
+    the path through the model's ``run``, its result to
+    ``DIR/MODE.rankR.json``."""
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from znicz_tpu_torch.config import root
+    from znicz_tpu_torch.parallel import distributed, mesh as mesh_lib
+    mode, rank, world, port, directory = (argv[0], int(argv[1]),
+                                          int(argv[2]), int(argv[3]),
+                                          argv[4])
+    distributed.initialize(f"127.0.0.1:{port}", world, rank, device="cuda")
+    try:
+        if mode == "elastic":
+            return _elastic_rank(torch, rank, directory)
+        model, split, shape = MESH_PATHS[mode]
+        root.common.mesh_shape = shape
+        reset_launch_counts()
+        mesh_lib.reset_comm()
+        t0 = time.monotonic()
+        wf = _run(model, "cuda", 1, split)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = launch_counts()
+        comm = {k: dict(v) for k, v in mesh_lib.COMM.items()}
+        mesh = mesh_lib.resolve_mesh(shape, device="cuda")
+        got = _whole_params(wf)
+        with np.load(os.path.join(directory, f"{mode}.base.npz")) as z:
+            base = {k: z[k] for k in z.files}
+        if sorted(got) != sorted(base):
+            raise AssertionError(f"{mode}: params {sorted(got)}")
+        worst = 0.0
+        for k, v in base.items():
+            np.testing.assert_allclose(got[k], v, rtol=MESH_WEIGHT_TOL[0],
+                                       atol=MESH_WEIGHT_TOL[1],
+                                       err_msg=f"{mode} rank {rank} {k}")
+            worst = max(worst, float(np.abs(got[k] - v).max()))
+        timing = wf.epoch_timings[0] if wf.epoch_timings else {}
+        result = {"rank": rank, "backend": mesh.backend,
+                  "device": str(mesh.device), "world": world,
+                  "data_index": mesh.data_index,
+                  "model_index": mesh.model_index,
+                  "cards": torch.cuda.device_count(),
+                  "metrics": wf.decision.epoch_metrics[0],
+                  "weights_max_abs_err": worst, "digest": _digest(got),
+                  "launches": launches, "comm": comm, "run_s": wall,
+                  "step_ms": timing.get("train_step_time_ms"),
+                  "batch": wf.loader.max_minibatch_size,
+                  "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        with open(os.path.join(directory, f"{mode}.rank{rank}.json"),
+                  "w") as fh:
+            json.dump(result, fh)
+    finally:
+        distributed.shutdown()
+    return 0
+
+
+def phase_mesh(torch, mode: str, directory: str) -> dict:
+    """A mesh path: the single-process card run of the same model, split
+    and seed first (its epoch-0 metrics and final weights kept), then the
+    dp·tp ranks, each holding its final weights to it at
+    ``MESH_WEIGHT_TOL``; here every rank's epoch-0 metrics, the ranks'
+    weights bit-equal to each other (the replicas of a data index and the
+    gathered shares), and each rank's launches equal to the model's
+    ``PATHS`` multiplicities times the steps of the epoch (a rank runs
+    every step on its share)."""
+    import gc
+
+    import numpy as np
+    from znicz_tpu_torch.config import root
+    model, split, shape = MESH_PATHS[mode]
+    world = shape[0] * shape[1]
+    root.common.mesh_shape = None
+    t0 = time.monotonic()
+    base_wf = _run(model, "cuda", 1, split)
+    base_s = time.monotonic() - t0
+    base = base_wf.decision.epoch_metrics[0]
+    batch = base_wf.loader.max_minibatch_size
+    base_step = base_wf.epoch_timings[0]["train_step_time_ms"]
+    np.savez(os.path.join(directory, f"{mode}.base.npz"),
+             **_whole_params(base_wf))
+    del base_wf
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    ranks = _spawn_ranks(mode, world, directory)
+    fleet_s = time.monotonic() - t0
+    want = expected_launches(model, split, batch, 1)
+    digests = {r["digest"] for r in ranks}
+    if len(digests) != 1:
+        raise AssertionError(f"{mode}: the ranks' weights differ")
+    out = {"phase": mode, "model": model, "split": split,
+           "mesh": list(shape), "world": world, "batch": batch,
+           "rank_batch": batch // shape[0],
+           "single_s": base_s, "single_step_ms": base_step,
+           "fleet_s": fleet_s, "ranks": []}
+    steps = expected_steps(split, batch, 1)[0]
+    for r in ranks:
+        got = {k: v for k, v in r["launches"].items() if v}
+        need = {k: v for k, v in want.items() if v}
+        if got != need:
+            raise AssertionError(f"{mode} rank {r['rank']}: launches "
+                                 f"{got} != {need}")
+        if r["backend"] != "gloo" or r["cards"] != 1:
+            raise AssertionError(f"{mode}: backend {r['backend']} on "
+                                 f"{r['cards']} card(s)")
+        diffs = _hold_metrics(f"{mode} rank {r['rank']}", r["metrics"],
+                              base)
+        comm = r["comm"]
+        per_step = {k: {"calls": v["calls"] / steps["train"],
+                        "bytes": v["bytes"] / steps["train"],
+                        "ms": 1e3 * v["seconds"] / steps["train"]}
+                    for k, v in comm.items()}
+        out["ranks"].append({
+            "rank": r["rank"], "backend": r["backend"],
+            "device": r["device"], "cards": r["cards"],
+            "data_index": r["data_index"], "model_index": r["model_index"],
+            "step_ms": r["step_ms"], "run_s": r["run_s"],
+            "peak_gb": r["peak_gb"],
+            "allreduce": comm, "allreduce_per_train_step": per_step,
+            "weights_max_abs_err": r["weights_max_abs_err"],
+            "metric_diffs": diffs, "launches": got})
+    out["train_steps"], out["eval_steps"] = steps["train"], steps["eval"]
+    out["metrics"] = ranks[0]["metrics"]
+    out["single_metrics"] = base
+    emit(out)
+    return {f"{mode}_rank{r['rank']}": r["launches"] for r in ranks}
+
+
+def _elastic_train(torch, mesh, directory: str, crash_marker=None,
+                   rank: int = 0):
+    """MNIST (``ELASTIC_SPLIT``) from SEED for ``ELASTIC_EPOCHS`` epochs on
+    ``mesh`` (None: this process alone), each epoch's train rows in a
+    seeded order, checkpointed after every epoch and resumed from the
+    newest verified checkpoint; with ``crash_marker`` rank 1 exits 17 at
+    the start of epoch 1 the first time.  Returns the whole weights."""
+    import numpy as np
+    from znicz_tpu_torch import prng
+    from znicz_tpu_torch.config import root
+    from znicz_tpu_torch.models import mnist
+    from znicz_tpu_torch.parallel import checkpoint
+    from znicz_tpu_torch.parallel.fused import FusedTrainer
+    root.mnist.synthetic.update(ELASTIC_SPLIT)
+    prng.seed_all(SEED)
+    wf = mnist.MnistWorkflow()
+    wf.initialize(device="cuda")
+    tr = FusedTrainer(spec=wf.spec, params=wf.spec_rows(wf.params),
+                      vels=wf.spec_rows(wf.vels), device="cuda", mesh=mesh)
+    n_test, n_valid, n_train = wf.loader.class_lengths
+    rows = np.arange(n_test + n_valid, n_test + n_valid + n_train)
+    ck = checkpoint.TrainerCheckpointer(directory, mesh=mesh)
+    start = 0
+    if ck.latest_verified_step() is not None:
+        start = ck.restore(tr) + 1
+    try:
+        for epoch in range(start, ELASTIC_EPOCHS):
+            if (crash_marker is not None and rank == 1 and epoch == 1
+                    and not os.path.exists(crash_marker)):
+                with open(crash_marker, "w") as fh:
+                    fh.write("lost after the epoch-0 checkpoint\n")
+                os._exit(17)
+            order = np.random.default_rng(SEED + epoch).permutation(rows)
+            tr.train_epoch(wf.loader.original_data,
+                           wf.loader.original_labels, order, ELASTIC_BATCH,
+                           epoch=epoch)
+            ck.save(tr, epoch)
+    finally:
+        ck.close()
+    params, _ = tr.gather_params()
+    return {f"p{i}{part}": t.detach().cpu().numpy()
+            for i, pair in enumerate(params)
+            for part, t in zip("wb", pair) if t is not None}
+
+
+def _elastic_rank(torch, rank: int, directory: str) -> int:
+    import numpy as np
+    from znicz_tpu_torch.parallel import distributed
+    mesh = distributed.global_mesh(device="cuda")
+    w = _elastic_train(torch, mesh, os.path.join(directory, "ck"),
+                       os.path.join(directory, "crashed"), rank)
+    if rank == 0:
+        np.savez(os.path.join(directory, "elastic_final.npz"), **w)
+    return 0
+
+
+def phase_elastic(torch, directory: str) -> dict:
+    """The ``ElasticRunner`` drill: two rank processes of MNIST at dp = 2
+    over gloo on this card; rank 1 exits after the epoch-0 checkpoint, the
+    fleet restarts once on a fresh port and resumes from the newest
+    verified checkpoint, and its final weights equal an uninterrupted
+    single-process run's within ``ELASTIC_TOL`` (tests/test_elastic.py)."""
+    import numpy as np
+    from znicz_tpu_torch.parallel.elastic import ElasticRunner
+    t0 = time.monotonic()
+    want = _elastic_train(torch, None, os.path.join(directory, "ck_single"))
+    single_s = time.monotonic() - t0
+    script = os.path.abspath(__file__)
+
+    def make_argv(coord, pid, nproc):
+        return [sys.executable, script, "--mesh-rank", "elastic", pid,
+                nproc, coord.rsplit(":", 1)[1], directory]
+
+    runner = ElasticRunner(make_argv, 2, max_restarts=2,
+                           round_timeout=RANK_TIMEOUT, backoff_base_s=0.5,
+                           log_dir=os.path.join(directory, "logs"))
+    t0 = time.monotonic()
+    restarts = runner.run()
+    fleet_s = time.monotonic() - t0
+    if restarts != 1 or not os.path.exists(os.path.join(directory,
+                                                        "crashed")):
+        raise AssertionError(f"elastic: {restarts} restarts, "
+                             f"{runner.status()}")
+    codes = {w["process"]: w["returncode"]
+             for w in runner.last_failure["workers"]}
+    if codes.get(1) != 17:
+        raise AssertionError(f"elastic: the lost rank's code {codes}")
+    with np.load(os.path.join(directory, "elastic_final.npz")) as z:
+        got = {k: z[k] for k in z.files}
+    worst = 0.0
+    for k, v in want.items():
+        np.testing.assert_allclose(got[k], v, rtol=ELASTIC_TOL[0],
+                                   atol=ELASTIC_TOL[1],
+                                   err_msg=f"elastic {k}")
+        worst = max(worst, float(np.abs(got[k] - v).max()))
+    out = {"phase": "elastic", "split": ELASTIC_SPLIT,
+           "epochs": ELASTIC_EPOCHS, "mesh": [2, 1], "restarts": restarts,
+           "lost_rank_codes": codes, "single_s": single_s,
+           "fleet_s": fleet_s, "weights_max_abs_err": worst,
+           "status": {k: runner.status()[k] for k in ("state", "restarts",
+                                                      "failure_count")}}
+    emit(out)
+    return out
+
+
+def phase_parallel(torch) -> dict:
+    """The mesh paths (``MESH_PATHS``) and the elastic drill, each in a
+    directory of its own; returns the ranks' launches by path."""
+    from znicz_tpu_torch.config import root
+    launches = {}
+    try:
+        for mode in MESH_PATHS:
+            with tempfile.TemporaryDirectory(prefix=f"znicz_{mode}_") as d:
+                launches.update(phase_mesh(torch, mode, d))
+        with tempfile.TemporaryDirectory(prefix="znicz_elastic_") as d:
+            phase_elastic(torch, d)
+    finally:
+        root.common.mesh_shape = None
+    return launches
+
+
 def kernels_line(kern: dict, launches: dict) -> dict:
     """One entry per kernel: its numbers at the main path's shape (the
     first case), the launches of the main-path runs, and every case."""
@@ -6384,6 +6825,8 @@ def kernels_line(kern: dict, launches: dict) -> dict:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        return mesh_rank(sys.argv[2:])
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -6517,6 +6960,7 @@ def run_phases(torch, info: dict, exports: dict, serve_dir: str) -> int:
     serve = phase_serve(torch, exports, serve_dir)
     serve_http = phase_serve_http(torch, exports, info)
     san_serve = phase_san_serve(torch, exports, serve_http, serve_dir)
+    meshes = phase_parallel(torch)
     emit(kernels_line(kern, {"mnist": mnist["launches"],
                              "cifar": cifar["launches"],
                              "alexnet": alexnet["launches"],
@@ -6542,7 +6986,7 @@ def run_phases(torch, info: dict, exports: dict, serve_dir: str) -> int:
                              "san_serve": san_serve["launches"],
                              **plane,
                              **{f"routing_{r}": routing[r]["launches"]
-                                for r in ROUTINGS}, **narrow}))
+                                for r in ROUTINGS}, **narrow, **meshes}))
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],
                                  "count": torch.cuda.device_count()}})
     return 0

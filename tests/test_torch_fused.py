@@ -209,17 +209,19 @@ def test_narrow_storage_through_float32_kernels_raises(kind):
         fused.ModelSpec((layer,), "mse", storage_dtype="float8")
 
 
-@pytest.mark.parametrize("kwargs", [{"mesh": object()},
+@pytest.mark.parametrize("kwargs", [{"mesh": (2, 1)},
                                     {"augment": object()}])
 def test_trainer_options_outside_the_slice_raise(kwargs):
-    """A mesh is not ported yet; an augment policy is, but one without a
-    device_apply (the device crop) is refused."""
+    """A mesh needs a process group of dp·tp ranks (without one the
+    trainer raises ``resolve_mesh``'s error, naming how to start them); an
+    augment policy without a device_apply (the device crop) is
+    refused."""
     spec, params, vels, _, _ = _hand_built("mse", False)
     pspec, pparams, pvels = convert.from_reference(
         [dataclasses.asdict(la) for la in spec.layers], spec.loss, params,
         vels, device="cpu")
     error, match = ((TypeError, "device_apply") if "augment" in kwargs
-                    else (NotImplementedError, "ROADMAP.md"))
+                    else (ValueError, "no process group is up.*torchrun"))
     with pytest.raises(error, match=match):
         fused.FusedTrainer(spec=pspec, params=pparams, vels=pvels,
                            device="cpu", **kwargs)

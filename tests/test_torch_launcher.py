@@ -211,12 +211,42 @@ def test_tick_path_warns_for_fused_only_options(small_mnist, config_file,
     assert not os.path.exists(str(tmp_path / "ck"))
 
 
+@pytest.fixture
+def _mesh_config():
+    """The launcher writes ``--mesh`` into the global config tree."""
+    saved = root.common.get("mesh_shape")
+    yield
+    root.common.mesh_shape = saved
+
+
 @pytest.mark.parametrize("args", [
-    ["--mesh", "2"], ["--mesh", "1,2"], ["--coordinator", "h:1234"],
+    ["--mesh", "2"], ["--mesh", "1,2"], ["--coordinator", "127.0.0.1:{port}"],
     ["--num-processes", "2"], ["--process-id", "1"]])
-def test_distributed_options_raise(args):
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        main(["znicz_tpu_torch.models.mnist", "--device", "cpu", *args])
+def test_distributed_options_raise(args, small_mnist, config_file,
+                                   _mesh_config, capsys):
+    """The multi-process options bootstrap: a coordinator brings up a
+    one-process group and trains in it; a mesh without a process group
+    raises ``resolve_mesh``'s error, and a process count or id without a
+    rendezvous raises too, both naming how to start the ranks."""
+    from znicz_tpu_torch.parallel import distributed, elastic
+    args = [a.format(port=elastic.free_port()) for a in args]
+    argv = ["znicz_tpu_torch.models.mnist", config_file, "--device", "cpu",
+            "--epochs", "1", *args]
+    if args[0] == "--coordinator":
+        try:
+            assert main(argv) == 0
+            assert distributed.process_count() == 1
+        finally:
+            distributed.shutdown()
+        assert "'epoch': 0" in capsys.readouterr().out
+        return
+    match = "no process group" if args[0] == "--mesh" else "rendezvous"
+    with pytest.raises(ValueError, match=match) as e:
+        main(argv)
+    assert "--coordinator" in str(e.value) and "torchrun" in str(e.value)
+    if args[0] == "--mesh":
+        assert tuple(root.common.mesh_shape) == tuple(
+            int(v) for v in (args[1] + ",1").split(",")[:2])
 
 
 def test_compile_cache_option_raises():
@@ -226,7 +256,7 @@ def test_compile_cache_option_raises():
 
 
 def test_single_device_mesh_is_the_fused_path(small_mnist, config_file,
-                                              capsys):
+                                              _mesh_config, capsys):
     assert main(["znicz_tpu_torch.models.mnist", config_file, "--device",
                  "cpu", "--epochs", "1", "--mesh", "1,1"]) == 0
     captured = capsys.readouterr()

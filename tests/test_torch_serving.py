@@ -48,6 +48,7 @@ from znicz_tpu.resilience import breaker as ref_breaker
 from znicz_tpu.resilience import faults as ref_faults
 from znicz_tpu.resilience import retry as ref_retry
 from znicz_tpu.serving import engine as ref_engine
+from znicz_tpu.telemetry import flightrecorder as ref_flightrecorder
 from znicz_tpu.telemetry import registry as ref_registry
 from znicz_tpu_torch import cuda_build, export
 from znicz_tpu_torch.ops import activations
@@ -206,7 +207,24 @@ def test_engine_matches_the_reference_engine(name, tmp_path):
     np.testing.assert_array_equal(port.predict(x)[:3], port.predict(x[:3]))
 
 
-def test_reload_outcomes_and_generations_match_the_reference(tmp_path):
+@pytest.fixture
+def fresh_census(monkeypatch):
+    """Empty flight recorders for both packages.  A successful reload warms
+    the shapes its package's process-wide recorder saw served; served
+    requests of earlier tests in the same process fill the two recorders
+    differently, and the reference also takes a cache slot for a recorded
+    shape its model refuses where the port drops it first, so a census
+    left over from elsewhere changes the cache counts the test compares.
+    Returns the (port, reference) recorders."""
+    recorders = (flightrecorder.FlightRecorder(),
+                 ref_flightrecorder.FlightRecorder())
+    monkeypatch.setattr(flightrecorder, "RECORDER", recorders[0])
+    monkeypatch.setattr(ref_flightrecorder, "RECORDER", recorders[1])
+    return recorders
+
+
+def test_reload_outcomes_and_generations_match_the_reference(tmp_path,
+                                                             fresh_census):
     path, shape = write_chain(tmp_path / "mlp.znn", "mlp")
     second, _ = write_chain(tmp_path / "mlp2.znn", "mlp", seed=1)
     corrupt, _ = write_chain(tmp_path / "bad.znn", "mlp", seed=2)
@@ -235,6 +253,26 @@ def test_reload_outcomes_and_generations_match_the_reference(tmp_path):
                                    rtol=RTOL, atol=ATOL)
     np.testing.assert_array_equal(port.predict(x), before)
     ref.predict(x)
+    _same(port, ref)
+
+
+def test_reload_warms_the_census_as_the_reference(tmp_path, fresh_census):
+    """Both engines warm the bucket ladder of a served shape that both
+    recorders hold on a successful reload, with the same cache counts."""
+    path, shape = write_chain(tmp_path / "mlp.znn", "mlp")
+    second, _ = write_chain(tmp_path / "mlp2.znn", "mlp", seed=1)
+    for rec in fresh_census:
+        for _ in range(3):
+            rec.record("request", duration_ms=1.0, shape=list(shape))
+    port = ServingEngine(path, backend="cpu", buckets=(1, 8))
+    ref = ref_engine.ServingEngine(path, backend="jax", buckets=(1, 8))
+    got, want = port.reload(second), ref.reload(second)
+    assert (got["outcome"], got["generation"]) == \
+        (want["outcome"], want["generation"]) == ("ok", 2)
+    assert port.metrics()["cached_executables"] == len(port.buckets)
+    x = _x(shape, 8)
+    np.testing.assert_allclose(port.predict(x), ref.predict(x), rtol=RTOL,
+                               atol=ATOL)
     _same(port, ref)
 
 

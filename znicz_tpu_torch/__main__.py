@@ -20,10 +20,19 @@ Order, as in the reference launcher: the config file first (its values
 beat the module's ``setdefaults``), then the module import, then ``--set``
 overrides last, then ``prng.seed_all``.  Without ``--fused`` the sample
 trains on the unit graph (the reference's default).  Each finished
-epoch's metrics print on one line.  ``--coordinator``,
-``--num-processes``, ``--process-id``, ``--mesh`` and
-``--compile-cache-dir`` parse as the reference's do; any value but the
-single-process default raises (ROADMAP.md queue 1 items 9 and 10).
+epoch's metrics print on one line.  ``--coordinator HOST:PORT
+--num-processes N --process-id I`` bring up the process group of a
+multi-process run (or torch's ``MASTER_ADDR``/``MASTER_PORT``/``RANK``/
+``WORLD_SIZE``, as ``torchrun`` sets them), and ``--mesh DP[,TP]`` lays the
+fused step over its ranks (implying ``--fused``)::
+
+    torchrun --nproc-per-node 2 -m znicz_tpu_torch \
+        znicz_tpu_torch.models.mnist --mesh 2 --device cpu
+    python -m znicz_tpu_torch.parallel.elastic -n 2 -- \
+        -m znicz_tpu_torch znicz_tpu_torch.models.mnist --mesh 2
+
+``--compile-cache-dir`` parses as the reference's does and raises
+(ROADMAP.md queue 1 item 10).
 
 ``python -m znicz_tpu_torch lint [--format json] [--changed] ...`` runs
 zlint over the port (:func:`znicz_tpu_torch.analysis.cli.main`; exit 0
@@ -73,13 +82,14 @@ def make_parser() -> argparse.ArgumentParser:
                         "wall/device/host time split (also: "
                         "$ZNICZ_TIMELINE_JSONL)")
     p.add_argument("--coordinator", default=None,
-                   help="host:port of process 0 (multi-process; not "
-                        "ported: raises)")
+                   help="host:port of process 0 (multi-process: with "
+                        "--num-processes and --process-id)")
     p.add_argument("--num-processes", type=int, default=1)
     p.add_argument("--process-id", type=int, default=0)
     p.add_argument("--mesh", default=None, metavar="DP[,TP]",
-                   help="device mesh of the fused step; only 1 or 1,1 "
-                        "(one device) is ported, implying --fused")
+                   help="(data, model) layout of the fused step over the "
+                        "run's ranks, implying --fused; 1 or 1,1 is one "
+                        "device")
     p.add_argument("--compile-cache-dir", default=None, metavar="DIR",
                    help="persistent compile cache (not ported: raises)")
     return p

@@ -1,5 +1,5 @@
 """Launcher: the two-file workflow + config entry point (port of
-``znicz_tpu/launcher.py``, less its distributed bootstrap).
+``znicz_tpu/launcher.py``).
 
 ``Launcher(workflow, config, ...).run()`` runs the config file against
 ``root`` (its values beat the module's ``setdefaults``), imports the
@@ -10,10 +10,14 @@ initializes the module's workflow, loads the snapshot
 the run in a ``torch.profiler`` trace, ``timeline_jsonl`` points the fused
 loop's per-epoch timeline at a file for this run only.
 
-The reference's multi-process options (``coordinator``,
-``num_processes``, ``process_id``, ``mesh``) and its compile cache are
-taken so the same command lines parse; any value other than the
-single-process default raises (ROADMAP.md queue 1 items 9 and 10)."""
+Multi-process runs: ``coordinator`` (``host:port`` of process 0),
+``num_processes`` and ``process_id`` bring up the process group first
+(``parallel.distributed.initialize``; torch's ``MASTER_ADDR``/
+``MASTER_PORT``/``RANK``/``WORLD_SIZE`` as ``torchrun`` sets them do too),
+and ``mesh`` (``"dp[,tp]"``) lands in ``root.common.mesh_shape``, where the
+fused path's mesh adoption reads it.  The reference's compile cache is
+taken so the same command lines parse, and raises (ROADMAP.md queue 1
+item 10)."""
 
 from __future__ import annotations
 
@@ -26,9 +30,8 @@ import runpy
 
 from . import backends, prng
 from .config import apply_overrides, root
+from .parallel.mesh import parse_mesh_arg
 from .telemetry import profiler
-
-_PARALLEL = "ROADMAP.md queue 1 item 9, parallelism"
 
 
 def load_workflow_module(spec: str):
@@ -49,14 +52,6 @@ def exec_config_file(path: str) -> None:
     runpy.run_path(path, init_globals={"root": root})
 
 
-def parse_mesh_arg(value: str) -> tuple[int, int]:
-    """``"DP"`` or ``"DP,TP"`` → (dp, tp)."""
-    parts = [int(p) for p in str(value).split(",") if p.strip()]
-    if not 1 <= len(parts) <= 2 or min(parts) < 1:
-        raise ValueError(f"--mesh {value!r}: want DP or DP,TP, each >= 1")
-    return parts[0], parts[1] if len(parts) == 2 else 1
-
-
 class Launcher:
     """Builds and runs one workflow according to CLI-ish options."""
 
@@ -69,16 +64,8 @@ class Launcher:
                  timeline_jsonl: str | None = None,
                  mesh: str | None = None,
                  compile_cache_dir: str | None = None):
-        if coordinator is not None or num_processes != 1 \
-                or process_id != 0:
-            raise NotImplementedError(
-                f"multi-process training (coordinator={coordinator!r}, "
-                f"num_processes={num_processes}, process_id={process_id}) "
-                f"is not ported yet ({_PARALLEL})")
-        if mesh is not None and parse_mesh_arg(mesh) != (1, 1):
-            raise NotImplementedError(
-                f"--mesh {mesh}: mesh-sharded training is not ported yet "
-                f"({_PARALLEL})")
+        if mesh is not None:
+            parse_mesh_arg(mesh)          # junk fails before any work
         if compile_cache_dir is not None:
             raise NotImplementedError(
                 "--compile-cache-dir: the persistent build cache is not "
@@ -94,6 +81,10 @@ class Launcher:
         self.overrides = list(overrides)
         self.profile = profile
         self.timeline_jsonl = timeline_jsonl
+        self.coordinator = coordinator
+        self.num_processes = num_processes
+        self.process_id = process_id
+        self.mesh = mesh
         self.workflow = None
         self.module = None
 
@@ -123,15 +114,35 @@ class Launcher:
         numpy device)."""
         return profiler.trace(self.profile, device.torch_device)
 
+    def init_distributed(self) -> None:
+        """The process group of a multi-process run (a no-op for one
+        process without a rendezvous), on the run's device."""
+        from .parallel import distributed
+        asked = (self.coordinator is not None or self.num_processes != 1
+                 or self.process_id != 0)
+        if not asked and not distributed.env_rendezvous():
+            return
+        device = backends.get(self.device)
+        distributed.initialize(
+            self.coordinator, self.num_processes if asked else None,
+            self.process_id if asked else None,
+            device=device.torch_device if device.is_torch else "cpu")
+
     def build(self):
-        """Config file, module import, ``--set`` overrides, seed; returns
-        the module.  Overrides come last: they must win over both, and
-        deep paths resolve only once the module's defaults exist."""
+        """Process group, config file, module import, ``--set`` overrides,
+        ``--mesh``, seed; returns the module.  Overrides come last: they
+        must win over both, and deep paths resolve only once the module's
+        defaults exist."""
+        self.init_distributed()
         if self.config_path:
             exec_config_file(self.config_path)
         module = load_workflow_module(self.workflow_spec)
         self.module = module
         apply_overrides(self.overrides)
+        if self.mesh is not None:
+            # --mesh lands in the config tree, where run_fused's mesh
+            # adoption defaults from; it wins over config files as --set
+            root.common.mesh_shape = parse_mesh_arg(self.mesh)
         prng.seed_all(self.seed if self.seed is not None
                       else root.common.get("seed", 1234))
         if not hasattr(module, "run"):

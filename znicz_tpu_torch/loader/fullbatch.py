@@ -82,6 +82,31 @@ class FullBatchLoader(Loader):
         self._gather(self.minibatch_data, self.original_data, indices)
         self._gather(self.minibatch_labels, self.original_labels, indices)
 
+    # -- Distributable protocol (consumed by parallel.distributed.
+    # distribute) ------------------------------------------------------------
+    def _shard_vectors(self) -> tuple[str, ...]:
+        """Names of the tensors split over the processes in a distributed
+        run; everything else the loader owns is replicated."""
+        return ("original_data", "original_labels")
+
+    def generate_data_for_slave(self, slave=None):
+        """This process's contiguous rows of every per-shard tensor, with
+        the global row count."""
+        from ..parallel import distributed
+        sl = distributed.process_shard(self.total_samples)
+        out = {}
+        for name in self._shard_vectors():
+            t = getattr(self, name, None)
+            if t is not None:
+                out[name] = (t[sl], self.total_samples)
+        return out or None
+
+    def apply_data_from_master(self, data) -> None:
+        """Install the row shards (``distributed.RowShard``); a fused
+        trainer under a mesh gathers the whole dataset from them."""
+        for name, shard in data.items():
+            setattr(self, name, shard)
+
 
 class FullBatchLoaderMSE(FullBatchLoader):
     """Adds a regression target tensor and its ``minibatch_targets``
@@ -105,6 +130,9 @@ class FullBatchLoaderMSE(FullBatchLoader):
             (self.max_minibatch_size, *self.original_targets.shape[1:]),
             numpy_dtype(self.original_targets.dtype))
         self.minibatch_targets.initialize(self.device)
+
+    def _shard_vectors(self) -> tuple[str, ...]:
+        return super()._shard_vectors() + ("original_targets",)
 
     def fill_minibatch(self, indices: np.ndarray, klass: int) -> None:
         super().fill_minibatch(indices, klass)

@@ -75,25 +75,45 @@ def fold_t(seed: int, *counters) -> int | torch.Tensor:
     return key
 
 
-def uniform01(key, n: int, device="cpu") -> torch.Tensor:
+def flat_index(n: int, index=None, device="cpu") -> torch.Tensor:
+    """The flat indices (int64, mod 2³²) of ``n`` local elements in the
+    tensor they are a shard of: i itself for ``index`` None, else with
+    ``index = (base, width, row, col)`` base + (i // width)·row + col +
+    i % width — a shard of ``width`` columns at column ``col`` of rows
+    ``row`` wide, its first row ``base`` elements into the whole (the
+    rows of a data shard, the channels of a model shard)."""
+    i = torch.arange(n, dtype=torch.int64, device=device)
+    if index is None:
+        return i
+    base, width, row, col = (int(v) for v in index)
+    if width == row and col == 0:
+        return (i + base) & MASK32
+    return (base + (i // width) * row + col + i % width) & MASK32
+
+
+def uniform01(key, n: int, device="cpu", index=None) -> torch.Tensor:
     """n float32 values in [0, 1): fmix32(i·C2 ^ key) ≫ 8 / 2²⁴ for the
-    flat index i; ``key`` a Python int or a one-element int64 tensor of
-    ``fold_t`` (on ``device``)."""
-    idx = torch.arange(n, dtype=torch.int64, device=device)
+    flat index i (:func:`flat_index` of ``index``: a shard's draws are the
+    whole tensor's at its elements); ``key`` a Python int or a one-element
+    int64 tensor of ``fold_t`` (on ``device``)."""
+    idx = flat_index(n, index, device)
     if not isinstance(key, torch.Tensor):
         key = int(key) & MASK32
     h = _mix_t(_mul32(idx, C2) ^ key)
     return (h >> 8).to(torch.float32) * (1.0 / (1 << 24))
 
 
-def uniforms(seed: int, counters, shape, device="cpu") -> torch.Tensor:
+def uniforms(seed: int, counters, shape, device="cpu", index=None
+             ) -> torch.Tensor:
     """``shape``-shaped uniforms at (seed, counters): ``uniform01`` of the
-    folded key.  Counters may be device tensors (a captured step's epoch
-    and counter), and then the draw is made on their device."""
+    folded key (at ``index``'s elements of a whole, see
+    :func:`flat_index`).  Counters may be device tensors (a captured
+    step's epoch and counter), and then the draw is made on their
+    device."""
     key = fold_t(seed, *counters)
     if isinstance(key, torch.Tensor):
         device = key.device
     n = 1
     for d in shape:
         n *= int(d)
-    return uniform01(key, n, device).reshape(tuple(shape))
+    return uniform01(key, n, device, index).reshape(tuple(shape))

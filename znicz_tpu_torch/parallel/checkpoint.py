@@ -21,8 +21,15 @@ place: the CUDA graphs of ``parallel/capture.py`` captured their
 addresses, and a replay after a restore that rebound them would go on
 training the old tensors.
 
-Multi-process saving (sharded state, process 0 owning the manifests) is
-ROADMAP.md queue 1 item 9."""
+Under a mesh (``TrainerCheckpointer(mesh=...)``) the ranks save together
+and synchronously: the ranks of data index 0 each write the shares they
+own into ``state.m<k>.npz`` (k their model index; the whole tensors go to
+rank 0's file, a share with its ``index/<key>`` positions along the split
+dim), process 0 writes ``meta.json`` with the layout, and after a barrier
+renames the step into place and commits its manifest; it alone
+quarantines.  A step restores at any layout, as the reference's Orbax
+checkpoints do: the shares are put together whole and each restoring rank
+takes its own, bit for bit."""
 
 from __future__ import annotations
 
@@ -43,6 +50,10 @@ _log = logging.getLogger("TrainerCheckpointer")
 
 STATE_FILE = "state.npz"
 META_FILE = "meta.json"
+
+
+def _shard_file(m: int) -> str:
+    return f"state.m{m}.npz"
 
 
 def _spec_fingerprint(spec) -> str:
@@ -77,10 +88,12 @@ class TrainerCheckpointer:
     thread; its exceptions are logged, never raised."""
 
     def __init__(self, directory: str, max_to_keep: int | None = 3,
-                 on_blessed=None):
+                 on_blessed=None, mesh=None):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
         self.on_blessed = on_blessed
+        #: the ranks saving together (None: this process alone)
+        self.mesh = mesh
         os.makedirs(self.directory, exist_ok=True)
         self._writer = concurrent.futures.ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="checkpoint-writer")
@@ -106,6 +119,9 @@ class TrainerCheckpointer:
         faults.inject("checkpoint.save")
         self._reap()
         _check_accumulators_zero(trainer)
+        if self.mesh is not None:
+            self._save_ranks(trainer, int(step))
+            return
         state = self._copy_off(trainer)
         meta = {"step": int(step), "spec": _spec_fingerprint(trainer.spec)}
         self._inflight.append(self._writer.submit(self._write, int(step),
@@ -169,6 +185,69 @@ class TrainerCheckpointer:
             for old in self._steps()[:-self.max_to_keep]:
                 shutil.rmtree(self._step_dir(old), ignore_errors=True)
 
+    def _save_ranks(self, trainer, step: int) -> None:
+        """The mesh's save, on every rank, synchronous (its barriers are
+        collectives of the calling thread)."""
+        mesh = self.mesh
+        final = self._step_dir(step)
+        tmp = os.path.join(self.directory, f".{step}.tmp")
+        if mesh.rank == 0:
+            shutil.rmtree(tmp, ignore_errors=True)
+            os.makedirs(tmp)
+        mesh.barrier()
+        shard = getattr(trainer, "shard", None)
+        split, shapes = {}, {}
+        whole = getattr(trainer, "_whole", None)
+        if mesh.data_index == 0:
+            arrays = {}
+            for key, t in _entries(trainer):
+                if t is None:
+                    continue
+                group, row, part = key.split("/")
+                sel = (shard.select[int(row)] if shard is not None
+                       and part == "w" else None)
+                if sel is not None:
+                    arrays[key] = t.detach().cpu().numpy()
+                    arrays["index/" + key] = sel[1].numpy()
+                elif mesh.model_index == 0:
+                    arrays[key] = t.detach().cpu().numpy()
+            with open(os.path.join(tmp, _shard_file(mesh.model_index)),
+                      "wb") as fh:
+                np.savez(fh, **arrays)
+        for key, t in _entries(trainer):
+            if t is None:
+                continue
+            group, row, part = key.split("/")
+            row = int(row)
+            if shard is not None and part == "w" \
+                    and shard.select[row] is not None:
+                split[key] = int(shard.select[row][0])
+            shapes[key] = list(whole[row][0 if part == "w" else 1]
+                               if whole is not None else t.shape)
+        mesh.barrier()
+        if mesh.rank == 0:
+            meta = {"step": step, "spec": _spec_fingerprint(trainer.spec),
+                    "layout": {"dp": mesh.dp, "tp": mesh.tp,
+                               "files": [_shard_file(m)
+                                         for m in range(mesh.tp)],
+                               "split": split, "shapes": shapes}}
+            with open(os.path.join(tmp, META_FILE), "w") as fh:
+                json.dump(meta, fh)
+            if os.path.exists(final):
+                shutil.rmtree(final)
+            os.replace(tmp, final)
+            durability.write_manifest(final, kind="checkpoint")
+            if self.on_blessed is not None:
+                try:
+                    self.on_blessed(step, final)
+                except Exception:
+                    _log.exception("on_blessed callback failed for step "
+                                   "%d", step)
+            if self.max_to_keep is not None:
+                for old in self._steps()[:-self.max_to_keep]:
+                    shutil.rmtree(self._step_dir(old), ignore_errors=True)
+        mesh.barrier()
+
     def _reap(self) -> None:
         """Drop finished writes, raising the first one's error."""
         done = [f for f in self._inflight if f.done()]
@@ -197,9 +276,16 @@ class TrainerCheckpointer:
     def latest_verified_step(self) -> int | None:
         """Newest step whose directory passes :func:`durability.verify`;
         corrupt steps are quarantined (renamed ``<step>.corrupt``) and the
-        scan falls back to the next newest."""
+        scan falls back to the next newest.  Under a mesh process 0 scans
+        (and quarantines) first; the other ranks then scan read-only."""
+        owner = self.mesh is None or self.mesh.rank == 0
+        if self.mesh is not None and not owner:
+            self.mesh.barrier()
         found = durability.newest_verified(
-            self._step_dir(s) for s in reversed(self._steps()))
+            (self._step_dir(s) for s in reversed(self._steps())),
+            on_corrupt="quarantine" if owner else "skip", heal=owner)
+        if self.mesh is not None and owner:
+            self.mesh.barrier()
         return int(os.path.basename(found)) if found is not None else None
 
     def restore(self, trainer, step: int | None = None) -> int:
@@ -208,7 +294,8 @@ class TrainerCheckpointer:
         step; an explicit step is verified first and raises
         :class:`durability.ArtifactCorrupt` when it fails.  The spec's
         fingerprint and every shape are checked before any tensor
-        changes."""
+        changes.  A step saved at any layout restores at the trainer's
+        (its shares put together whole, the trainer's own taken)."""
         faults.inject("checkpoint.load")
         self.wait()
         if step is None:
@@ -217,7 +304,9 @@ class TrainerCheckpointer:
                 raise FileNotFoundError(
                     f"no verifiable checkpoints under {self.directory}")
         else:
-            durability.verify_or_heal(self._step_dir(step))
+            durability.verify_or_heal(
+                self._step_dir(step),
+                heal=self.mesh is None or self.mesh.rank == 0)
         d = self._step_dir(step)
         with open(os.path.join(d, META_FILE)) as fh:
             meta = json.load(fh)
@@ -225,8 +314,7 @@ class TrainerCheckpointer:
             raise ValueError(
                 "checkpoint spec mismatch: the saved model differs from "
                 "the trainer restoring it (layer kinds/dtypes/hypers)")
-        with np.load(os.path.join(d, STATE_FILE), allow_pickle=False) as z:
-            arrays = {k: z[k] for k in z.files}
+        arrays = _take(trainer, _whole_arrays(d, meta))
         targets = list(_entries(trainer))
         want = {k for k, t in targets if t is not None}
         if set(arrays) != want:
@@ -246,6 +334,47 @@ class TrainerCheckpointer:
                     if a is not None:
                         a.zero_()
         return int(step)
+
+
+def _whole_arrays(step_dir: str, meta: dict) -> dict:
+    """The saved state by key, each tensor whole: one ``state.npz``, or a
+    mesh's shares put together along their split dims."""
+    layout = meta.get("layout")
+    if layout is None:
+        with np.load(os.path.join(step_dir, STATE_FILE),
+                     allow_pickle=False) as z:
+            return {k: z[k] for k in z.files}
+    out = {}
+    for name in layout["files"]:
+        with np.load(os.path.join(step_dir, name), allow_pickle=False) as z:
+            for k in z.files:
+                if k.startswith("index/"):
+                    continue
+                dim = layout["split"].get(k)
+                if dim is None:
+                    out[k] = z[k]
+                    continue
+                if k not in out:
+                    out[k] = np.zeros(layout["shapes"][k], z[k].dtype)
+                idx = [slice(None)] * out[k].ndim
+                idx[dim] = z["index/" + k]
+                out[k][tuple(idx)] = z[k]
+    return out
+
+
+def _take(trainer, arrays: dict) -> dict:
+    """``arrays`` (whole) cut to the trainer's shares under its mesh."""
+    shard = getattr(trainer, "shard", None)
+    if shard is None:
+        return arrays
+    out = dict(arrays)
+    for k, a in arrays.items():
+        group, row, part = k.split("/")
+        if part == "w" and shard.select[int(row)] is not None:
+            dim, index = shard.select[int(row)]
+            out[k] = np.ascontiguousarray(np.take(a, index.numpy(),
+                                                  axis=dim))
+    return out
 
 
 def save_trainer(trainer, directory: str, step: int = 0,

@@ -29,7 +29,19 @@ reference's bit for bit.  Dropout's key is folded on the host and handed
 to the kernel; a stochastic pool folds its key from the epoch and counter
 where they live: Python ints on an uncaptured step, the plan row's device
 words on a captured one (``rngbits.fold_t``), so a replayed graph draws
-each step's own bits."""
+each step's own bits.
+
+Under a mesh (``parallel/mesh.py``: a ``torch.distributed`` process group of
+dp·tp ranks) each rank runs ``forward``/``backward`` on its share with a
+:class:`StepShard`: its rows of the global minibatch (the loss and error
+normalized by the global mask sum), and with tp > 1 the Megatron layout of
+``mesh.plan_tp_sharding`` — a split-output layer leaves its output sharded
+on the last axis, a split-input layer all-reduces its partial output over
+the model row, cross-channel layers (LRN, the LRN→pool pair, the loss head)
+gather the channels first, and the backward mirrors each of these.
+Dropout and the stochastic pools draw a shard's bits at its elements of
+the global tensor (``rngbits.flat_index``), as the reference's mesh step
+draws them over the global batch."""
 
 from __future__ import annotations
 
@@ -48,6 +60,7 @@ from ..ops import rngbits
 from ..ops import softmax as softmax_ops
 from ..ops import tuning
 from ..ops import update as update_ops
+from . import mesh as mesh_lib
 
 #: Layer kinds with trainable parameters.
 PARAM_KINDS = ("fc", "conv", "deconv")
@@ -259,7 +272,7 @@ def dropout_key(cfg: dict, epoch: int, ctr: int) -> int:
 
 
 def forward(spec: ModelSpec, params, x, *, want_caches: bool,
-            train: bool = False, epoch=0, ctr=0):
+            train: bool = False, epoch=0, ctr=0, shard=None):
     """(net output before the loss, caches).  For softmax loss the last
     layer's output is the *logits*; ``caches[i]`` = (layer input, aux),
     aux being the pool winner offsets of a max, stochastic or merged
@@ -270,7 +283,11 @@ def forward(spec: ModelSpec, params, x, *, want_caches: bool,
     ``epoch``/``ctr`` key the dropout masks and the stochastic pools'
     draws when ``train`` (ints, or for the pools one-element integer
     tensors on the device); eval is dropout-free and pools
-    deterministically."""
+    deterministically.  ``shard`` (a :class:`StepShard`) runs a mesh
+    rank's part: x its rows, params its slices, the collectives of the
+    layout in place, the output whole; each cache then also holds the
+    layer's own output (``y``), which the next layer may see gathered or
+    sliced."""
     cdt = torch_dtype(spec.compute_dtype)
     sdt = torch_dtype(spec.storage_dtype)
     h = x
@@ -280,6 +297,8 @@ def forward(spec: ModelSpec, params, x, *, want_caches: bool,
     auxes, in_shapes = [], []
     n = len(spec.layers)
     for i, (layer, (w, b)) in enumerate(zip(spec.layers, params)):
+        if shard is not None:
+            h = shard.before(i, h)
         x_in, aux = h, None
         if isinstance(h, tuple):   # a split-out conv's halves: the logical
             b_, h_, we, c_ = h[0].shape            # shape for the ties
@@ -290,6 +309,8 @@ def forward(spec: ModelSpec, params, x, *, want_caches: bool,
         is_last = i == n - 1
         if layer.kind == "fc":
             pre = _mm(h.reshape(h.shape[0], -1), w, cdt)
+            if shard is not None:
+                pre, b = shard.partial(i, pre), shard.bias(i, b)
             if b is not None:
                 pre = pre + b
             if is_last and spec.loss == "softmax":
@@ -300,12 +321,16 @@ def forward(spec: ModelSpec, params, x, *, want_caches: bool,
             # the fused2 routing: the conv emits the pair's halves
             halves = conv_ops.conv2d_split(_rnd(h, cdt), _rnd(w, cdt),
                                            cfg["stride"], cfg["padding"])
+            if shard is not None:
+                halves, b = shard.partial(i, halves), shard.bias(i, b)
             h = tuple(activations.apply_fwd(
                 spec.act(i), half if b is None else half + b)
                 for half in halves)
         elif layer.kind == "conv":
             pre = conv_ops.conv2d(_rnd(h, cdt), _rnd(w, cdt), cfg["stride"],
                                   cfg["padding"])
+            if shard is not None:
+                pre, b = shard.partial(i, pre), shard.bias(i, b)
             if b is not None:
                 pre = pre + b
             h = activations.apply_fwd(spec.act(i), pre)
@@ -333,11 +358,12 @@ def forward(spec: ModelSpec, params, x, *, want_caches: bool,
         elif layer.kind in STOCHASTIC_KINDS:
             u = None
             if train:
+                shape = pool_ops.pool_out_shape(h.shape, cfg["ksize"],
+                                                cfg["stride"], cfg["padding"])
                 u = pool_ops.stochastic_uniform(
-                    cfg["seed"], (cfg["unit_id"], epoch, ctr),
-                    pool_ops.pool_out_shape(h.shape, cfg["ksize"],
-                                            cfg["stride"], cfg["padding"]),
-                    h.device)
+                    cfg["seed"], (cfg["unit_id"], epoch, ctr), shape,
+                    h.device, None if shard is None
+                    else shard.index(i, shape))
             h, aux = pool_ops.stochastic_pooling(
                 h, cfg["ksize"], cfg["stride"], cfg["padding"], u,
                 use_abs=layer.kind == "stochastic_abs_pool",
@@ -356,7 +382,8 @@ def forward(spec: ModelSpec, params, x, *, want_caches: bool,
         elif layer.kind == "dropout":
             if train:
                 h = drop_ops.dropout(h, dropout_key(cfg, epoch, ctr),
-                                     cfg["ratio"])
+                                     cfg["ratio"], None if shard is None
+                                     else shard.index(i, h.shape))
         elif layer.kind == "activation":
             h = activations.apply_fwd(spec.act(i), h)
         else:   # ModelSpec refuses unported kinds
@@ -369,15 +396,21 @@ def forward(spec: ModelSpec, params, x, *, want_caches: bool,
                  else h.to(sdt))
         auxes.append(aux)
         if want_caches:
-            caches.append((x_in, aux))
+            caches.append((x_in, aux) if shard is None else (x_in, aux, h))
+    if shard is not None:
+        h = shard.after_last(h)
     return h, caches
 
 
-def _loss_and_err(spec: ModelSpec, out, target, mask):
+def _loss_and_err(spec: ModelSpec, out, target, mask, bs=None):
     """(mean loss, err w.r.t. last pre-activation, n_err); ``mask`` is a
     per-row 0/1 vector zeroing the wrap-padded tail of a short final
-    minibatch, so metrics and gradients count each sample once."""
-    bs = torch.clamp(torch.sum(mask), min=1.0)
+    minibatch, so metrics and gradients count each sample once.  ``bs``
+    (a mesh rank's rows of a global minibatch): the global mask sum the
+    means divide by, so the ranks' losses and gradients sum to the
+    whole's."""
+    if bs is None:
+        bs = torch.clamp(torch.sum(mask), min=1.0)
     if spec.loss == "softmax":
         probs, loss, err = softmax_ops.softmax_ce_from_logits(out, target)
         n_err = torch.sum((torch.argmax(probs, dim=1) != target) * mask)
@@ -393,18 +426,25 @@ def _loss_and_err(spec: ModelSpec, out, target, mask):
                                         device=out.device)
 
 
-def backward(spec: ModelSpec, params, caches, out, err, epoch=0, ctr=0):
+def backward(spec: ModelSpec, params, caches, out, err, epoch=0, ctr=0,
+             shard=None):
     """Hand-written gradient chain (same math as the GD* units).  ``err``
     on entry: w.r.t. the last layer's pre-activation.  ``epoch``/``ctr``
-    regenerate the training forward's dropout masks."""
+    regenerate the training forward's dropout masks.  ``shard``: the
+    mesh rank's part (:func:`forward`); a split-output layer's bias
+    gradient comes back whole with zeros outside the rank's slice."""
     cdt = torch_dtype(spec.compute_dtype)
     grads = [None] * len(spec.layers)
     n = len(spec.layers)
     for i in reversed(range(n)):
         layer = spec.layers[i]
         w, b = params[i]
-        x_in, aux = caches[i]
-        y_i = caches[i + 1][0] if i < n - 1 else out
+        x_in, aux = caches[i][:2]
+        if shard is None:
+            y_i = caches[i + 1][0] if i < n - 1 else out
+        else:
+            y_i = caches[i][2]
+            err = shard.back_after(i, err, y_i)
         cfg = layer.cfg
         if layer.kind in PARAM_KINDS:
             # act_folded: the merged lrn_pool above applied this
@@ -483,12 +523,16 @@ def backward(spec: ModelSpec, params, caches, out, err, epoch=0, ctr=0):
                 cfg["padding"], cfg.get("fold_act"))
         elif layer.kind == "dropout":
             err = drop_ops.dropout(err.reshape(x_in.shape).contiguous(),
-                                   dropout_key(cfg, epoch, ctr), cfg["ratio"])
+                                   dropout_key(cfg, epoch, ctr), cfg["ratio"],
+                                   None if shard is None
+                                   else shard.index(i, x_in.shape))
         elif layer.kind == "activation":
             err = activations.apply_bwd(spec.act(i), err.reshape(y_i.shape),
                                         y_i, x_in)
         else:   # ModelSpec refuses unported kinds
             raise NotImplementedError(layer.kind)
+        if shard is not None and grads[i] is not None:
+            grads[i], err = shard.back_param(i, grads[i], err)
     return grads
 
 
@@ -545,19 +589,22 @@ def _ones(x):
 
 
 def grad_minibatch(spec: ModelSpec, params, x, target, mask=None,
-                   epoch=0, ctr=0):
+                   epoch=0, ctr=0, shard=None, bs=None):
     """(grads, metrics) of one minibatch — train_minibatch without the
-    update, the building block gradient accumulation composes."""
+    update, the building block gradient accumulation composes.  With
+    ``shard`` (and ``bs``, the global mask sum) a mesh rank's share: its
+    gradients and metrics are its part of the sums over the ranks."""
     if mask is None:
         mask = _ones(x)
     out, caches = forward(spec, params, x, want_caches=True, train=True,
-                          epoch=epoch, ctr=ctr)
-    loss, err, n_err = _loss_and_err(spec, out, target, mask)
+                          epoch=epoch, ctr=ctr, shard=shard)
+    loss, err, n_err = _loss_and_err(spec, out, target, mask, bs)
     last = len(spec.layers) - 1
     if spec.loss == "mse" and spec.layers[last].kind in PARAM_KINDS:
         # backward() expects pre-activation err at a param layer
         err = activations.apply_bwd(spec.act(last), err, out)
-    grads = backward(spec, params, caches, out, err, epoch=epoch, ctr=ctr)
+    grads = backward(spec, params, caches, out, err, epoch=epoch, ctr=ctr,
+                     shard=shard)
     return grads, {"loss": loss, "n_err": n_err}
 
 
@@ -587,12 +634,244 @@ def train_minibatch(spec: ModelSpec, params, vels, x, target, mask=None,
     return params, vels, metrics
 
 
-def eval_minibatch(spec: ModelSpec, params, x, target, mask=None):
+def eval_minibatch(spec: ModelSpec, params, x, target, mask=None,
+                   shard=None, bs=None):
     if mask is None:
         mask = _ones(x)
-    out, _ = forward(spec, params, x, want_caches=False)
-    loss, _, n_err = _loss_and_err(spec, out, target, mask)
+    out, _ = forward(spec, params, x, want_caches=False, shard=shard)
+    loss, _, n_err = _loss_and_err(spec, out, target, mask, bs)
     return {"loss": loss, "n_err": n_err}
+
+
+def _gather_last(mesh, t, size: int):
+    """The whole last axis (``size``) from each model index's contiguous
+    share: the share written into zeros, summed over the model row (exact:
+    one writer a slot; float32 on the wire, back to t's dtype)."""
+    if isinstance(t, tuple):
+        return tuple(_gather_last(mesh, u, size) for u in t)
+    n = t.shape[-1]
+    full = torch.zeros(t.shape[:-1] + (size,), dtype=torch.float32,
+                       device=t.device)
+    full[..., mesh.model_index * n:(mesh.model_index + 1) * n] = t
+    return mesh.all_reduce(full, mesh.model_group).to(t.dtype)
+
+
+def _slice_last(mesh, t, size: int):
+    """This model index's contiguous share of a last axis of ``size``."""
+    if isinstance(t, tuple):
+        return tuple(_slice_last(mesh, u, size) for u in t)
+    sl = mesh_lib.shard_index(size, mesh.tp, mesh.model_index)
+    return t[..., sl].contiguous()
+
+
+def _tp_dims(spec: ModelSpec, params, tp: int) -> list:
+    """Each row's weight split dim under ``tp`` (``mesh.plan_tp_sharding``
+    over the parameterized rows in order; a tied deconv takes its
+    encoder's): the reference's layout."""
+    dims, pidx = [None] * len(spec.layers), 0
+    for i, (w, _) in enumerate(params):
+        if w is not None:
+            dims[i], pidx = mesh_lib.plan_tp_sharding(tp, pidx,
+                                                      tuple(w.shape))
+    for i, layer in enumerate(spec.layers):
+        if layer.kind == "deconv" and "tie" in layer.cfg:
+            dims[i] = dims[layer.cfg["tie"]]
+    return dims
+
+
+class StepShard:
+    """One mesh rank's part of a train or eval step: which rows of the
+    global minibatch it holds, and under tp > 1 the role of each layer in
+    the Megatron layout and the conversions between layers.
+
+    ``roles[i]``: ``"col"`` (weights split on the last dim: the output
+    leaves sharded on its last axis), ``"row"`` (split on dim −2: the
+    input comes sharded, the partial output is all-reduced over the model
+    row) or None (replicated, or no weights).  ``pre[i]``: what happens to
+    layer i's input first — ``"gather"`` (the whole last axis, for a
+    col/replicated layer or a cross-channel one: LRN, the LRN→pool pair),
+    ``"slice"`` (a row conv's channel share of a whole input) or
+    ``"flat"`` (a row fc's share of a whole input's flattened features).
+    ``state[i]``: the whole size of layer i's sharded last axis at its
+    input, None when whole.  A row fc after a channel-sharded image takes
+    the rows of its weights that those channels feed (NHWC flattening puts
+    each pixel's channels together), so no gather is needed there.
+
+    Built by :meth:`FusedTrainer` from the spec and the whole weights; the
+    same object serves every step of the trainer."""
+
+    def __init__(self, mesh, spec: ModelSpec, params):
+        self.mesh = mesh
+        tp, m = mesh.tp, mesh.model_index
+        n = len(spec.layers)
+        dims = _tp_dims(spec, params, tp)
+        self.roles, self.pre = [None] * n, [None] * n
+        self.state = [None] * n
+        #: the whole last-axis size a "gather" before row i restores
+        self.gathered = [None] * n
+        #: (dim, index tensor) of each row's weight share (None: whole)
+        self.select = [None] * n
+        state, image = None, False        # the activation's shard, 4-D
+        for i, layer in enumerate(spec.layers):
+            kind, w = layer.kind, params[i][0]
+            if tp > 1 and kind in ("deconv", "depooling"):
+                raise NotImplementedError(
+                    f"row {i}: a {kind} layer under tensor parallelism is "
+                    "not ported (ROADMAP.md queue 1 item 9's remainder); "
+                    "train it with tp = 1")
+            dim = dims[i] if kind in ("fc", "conv") else None
+            if dim == -1:
+                if state is not None:
+                    self.pre[i], self.gathered[i] = "gather", state
+                    state = None
+                self.roles[i] = "col"
+                self.select[i] = (w.dim() - 1, self._range(w.shape[-1]))
+                self.state[i] = state
+                state, image = int(w.shape[-1]), kind == "conv"
+                continue
+            if dim == -2:
+                rows = int(w.shape[-2])
+                if kind == "conv":
+                    if state is None:
+                        self.pre[i] = "slice"
+                    elif state != rows:
+                        raise ValueError(f"row {i}: {state} channels in, "
+                                         f"{rows} expected")
+                    index = self._range(rows)
+                elif state is not None and image:
+                    # the pixel-major flattening of a channel share
+                    k, px = state // tp, rows // state
+                    index = (torch.arange(px)[:, None] * state + m * k
+                             + torch.arange(k)[None, :]).reshape(-1)
+                else:
+                    if state is None:
+                        self.pre[i] = "flat"
+                    index = self._range(rows)
+                self.roles[i], self.select[i] = "row", (w.dim() - 2, index)
+                self.state[i], state = state, None
+                continue
+            if state is not None and (kind in ("fc", "conv", "lrn",
+                                               "lrn_pool")):
+                self.pre[i], self.gathered[i] = "gather", state
+                state = None
+            self.state[i] = state
+        #: the last layer's output comes sharded: gather it for the loss
+        self.final = state
+        self._sizes = [None] * n    # whole last-axis sizes seen at runtime
+
+    def _range(self, size: int) -> torch.Tensor:
+        sl = mesh_lib.shard_index(size, self.mesh.tp, self.mesh.model_index)
+        return torch.arange(sl.start, sl.stop)
+
+    def take(self, i: int, t):
+        """This rank's share of row i's weight (or velocity) ``t``."""
+        if t is None or self.select[i] is None:
+            return t
+        dim, index = self.select[i]
+        return t.index_select(dim, index.to(t.device)).contiguous()
+
+    def give(self, i: int, t, whole_shape):
+        """The whole weight from each rank's share ``t`` (every rank of the
+        model row calls it)."""
+        if t is None or self.select[i] is None:
+            return t
+        dim, index = self.select[i]
+        full = torch.zeros(tuple(whole_shape), dtype=t.dtype,
+                           device=t.device)
+        full.index_copy_(dim, index.to(t.device), t)
+        return self.mesh.all_reduce(full, self.mesh.model_group)
+
+    # -- forward ------------------------------------------------------------
+    def before(self, i: int, h):
+        op, mesh = self.pre[i], self.mesh
+        if op is None:
+            return h
+        if op == "gather":
+            return _gather_last(mesh, h, self.gathered[i])
+        size = (h[0] if isinstance(h, tuple) else h).shape[-1]
+        if op == "slice":
+            self._sizes[i] = size
+            return _slice_last(mesh, h, size)
+        flat = h.reshape(h.shape[0], -1)        # "flat"
+        self._sizes[i] = tuple(h.shape)
+        return _slice_last(mesh, flat, flat.shape[1])
+
+    def partial(self, i: int, t):
+        """A row layer's partial output summed over the model row."""
+        if self.roles[i] != "row":
+            return t
+        if isinstance(t, tuple):
+            return tuple(self.mesh.all_reduce(u, self.mesh.model_group)
+                         for u in t)
+        return self.mesh.all_reduce(t, self.mesh.model_group)
+
+    def bias(self, i: int, b):
+        """A col layer's share of its (whole, replicated) bias."""
+        if b is None or self.roles[i] != "col":
+            return b
+        return b[self.select[i][1].to(b.device)]
+
+    def index(self, i: int, shape) -> tuple:
+        """``rngbits.flat_index``'s (base, width, row, col) of a tensor of
+        ``shape`` at row i's input or output (dropout, the stochastic
+        pools): the rank's rows of the global batch, its channels of the
+        whole last axis."""
+        mesh, b = self.mesh, int(shape[0])
+        if self.state[i] is None:
+            feat = int(np.prod(shape[1:]))
+            return (mesh.data_index * b * feat, feat, feat, 0)
+        size, k = self.state[i], int(shape[-1])
+        feat = int(np.prod(shape[1:-1])) * size
+        return (mesh.data_index * b * feat, k, size, mesh.model_index * k)
+
+    def after_last(self, h):
+        if self.final is None:
+            return h
+        return _gather_last(self.mesh, h, self.final)
+
+    # -- backward -----------------------------------------------------------
+    def back_after(self, i: int, err, y):
+        """err w.r.t. row i's own output from err w.r.t. what the next row
+        (or the loss) saw: the adjoint of the conversion in between."""
+        mesh = self.mesh
+        last = i == len(self.pre) - 1
+        op = ("gather" if self.final is not None else None) if last \
+            else self.pre[i + 1]
+        if op is None:
+            return err
+        if op == "gather":
+            size = self.final if last else self.gathered[i + 1]
+            if isinstance(err, tuple):
+                return _slice_last(mesh, err, size)
+            ref = y[0] if isinstance(y, tuple) else y
+            return _slice_last(mesh, err.reshape(ref.shape[:-1] + (size,)),
+                               size)
+        if op == "slice":
+            return _gather_last(mesh, err, self._sizes[i + 1])
+        shape = self._sizes[i + 1]                          # "flat"
+        flat = err.reshape(err.shape[0], -1)
+        return _gather_last(mesh, flat, int(np.prod(shape[1:]))
+                            ).reshape(shape)
+
+    def back_param(self, i: int, grad, err):
+        """A col layer's bias gradient whole (zeros outside its share) and
+        its partial input error summed over the model row."""
+        if self.roles[i] != "col":
+            return grad, err
+        gw, gb = grad
+        if gb is not None:
+            full = torch.zeros(gb.shape[0] * self.mesh.tp, dtype=gb.dtype,
+                               device=gb.device)
+            full[self.select[i][1].to(gb.device)] = gb
+            gb = full
+        if err is not None:
+            err = self.partial_sum(err)
+        return (gw, gb), err
+
+    def partial_sum(self, t):
+        if isinstance(t, tuple):
+            return tuple(self.partial_sum(u) for u in t)
+        return self.mesh.all_reduce(t.contiguous(), self.mesh.model_group)
 
 
 def to_host(*results: dict) -> list[dict]:
@@ -643,16 +922,26 @@ class FusedTrainer:
     from a resident dataset kept at decode size, keyed by (epoch, global
     row) as the streaming loaders' host crops are, and center-crops eval
     minibatches.  A captured step reads its rows and epoch from its plan
-    row, so each replay crops afresh."""
+    row, so each replay crops afresh.
+
+    ``mesh`` (a ``mesh.Mesh``, or a (dp, tp) shape for
+    ``mesh.resolve_mesh``; (1, 1) is the meshless path): the trainer runs
+    on the rank's device and holds the resident dataset whole, as the
+    reference replicates it (a ``distributed.RowShard`` is gathered once).
+    Each step takes the rank's rows [d·b/dp, (d+1)·b/dp) of the global
+    minibatch (b must divide by dp), normalizes by the global mask sum,
+    and all-reduces its gradients over the data column in one flat bucket
+    (a split-output layer's whole-bias gradients, zero outside each
+    share, in a second one over every rank) before the update, which every
+    replica applies alike.  The metrics are summed over the data column
+    once a call.  Under tp > 1 each rank holds its share of the weights
+    (:class:`StepShard`); ``gather_params`` rebuilds them whole.  Mesh
+    steps run uncaptured."""
 
     def __init__(self, workflow=None, spec: ModelSpec | None = None,
                  params=None, vels=None, device=None, mesh=None,
                  accum_steps: int = 1, augment=None,
                  capture: bool | None = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh-sharded training is not ported yet (ROADMAP.md "
-                "queue 1 item 9, parallelism)")
         if augment is not None and not hasattr(augment, "device_apply"):
             raise TypeError(f"augment needs a policy with device_apply (a "
                             f"loader.augment.RandomCropFlip), got "
@@ -664,9 +953,13 @@ class FusedTrainer:
         if device is None:
             from ..backends import resolve
             device = resolve(None)
+        if mesh is not None:
+            mesh = mesh_lib.resolve_mesh(mesh, site="train", device=device)
+        #: the rank's mesh (None: one device)
+        self.mesh = mesh
         self.spec = spec
         self.workflow = workflow
-        self.device = torch.device(device)
+        self.device = torch.device(device) if mesh is None else mesh.device
         self.accum_steps = accum_steps
         #: the device crop of each minibatch (None: the rows as gathered)
         self.augment = augment
@@ -680,6 +973,18 @@ class FusedTrainer:
                           for t in pair) for pair in pairs]
         self.params = put(params)
         self.vels = put(vels)
+        #: the rank's part of each step (None without a mesh)
+        self.shard = None
+        if mesh is not None:
+            self.shard = StepShard(mesh, spec, self.params)
+            self._whole = [tuple(None if t is None else tuple(t.shape)
+                                 for t in pair) for pair in self.params]
+            self.params = [(self.shard.take(i, w), b)
+                           for i, (w, b) in enumerate(self.params)]
+            self.vels = [(self.shard.take(i, w), b)
+                         for i, (w, b) in enumerate(self.vels)]
+        #: _place memo: id(source) -> (source, the whole dataset)
+        self._placed: dict = {}
         #: why the steps run uncaptured (None: they replay CUDA graphs)
         self.uncaptured_reason = self._uncaptured(capture)
         if capture and self.uncaptured_reason is not None:
@@ -695,6 +1000,11 @@ class FusedTrainer:
     def _uncaptured(self, capture) -> str | None:
         if capture is False:
             return "capture=False"
+        if self.mesh is not None:
+            return (f"a mesh step's collectives run from the host "
+                    f"({self.mesh.backend}; gloo stages a CUDA tensor "
+                    f"through host memory): capturing NCCL collectives in "
+                    f"CUDA graphs is a ROADMAP.md follow-up")
         if self.device.type != "cuda":
             return f"the {self.device.type} runs the step functions directly"
         if any(la.kind == "dropout" for la in self.spec.layers):
@@ -744,27 +1054,61 @@ class FusedTrainer:
                 or s + 1 == n_steps)
 
     def _train_step(self, x, t, mask, s_w, s_b, epoch, ctr,
-                    apply: bool) -> dict:
+                    apply: bool, bs=None) -> dict:
         """One train step on the trainer's buffers (in place): with
         ``accum_steps`` 1 ``train_minibatch``, else the gradients added to
-        the sums, which ``apply`` applies at (s_w, s_b) and zeroes."""
+        the sums, which ``apply`` applies at (s_w, s_b) and zeroes.  Under
+        a mesh the gradients (or sums) are all-reduced before the update;
+        ``bs`` is the global minibatch's mask sum."""
         spec = self.spec
-        if self.accum_steps == 1:
+        if self.accum_steps == 1 and self.shard is None:
             return train_minibatch(spec, self.params, self.vels, x, t, mask,
                                    epoch=epoch, ctr=ctr, lr_scale=s_w,
                                    lr_scale_bias=s_b)[2]
         grads, metrics = grad_minibatch(spec, self.params, x, t, mask,
-                                        epoch=epoch, ctr=ctr)
+                                        epoch=epoch, ctr=ctr,
+                                        shard=self.shard, bs=bs)
+        if self.accum_steps == 1:
+            self._reduce(grads)
+            apply_updates(spec, self.params, self.vels, grads, s_w, s_b)
+            return metrics
         accs = [a for pair in self._acc if pair for a in pair
                 if a is not None]
         if accs:
             torch._foreach_add_(accs, [g for pair in grads if pair
                                        for g in pair if g is not None])
         if apply:
+            if self.shard is not None:
+                self._reduce(self._acc)
             apply_updates(spec, self.params, self.vels, self._acc, s_w, s_b)
             if accs:
                 torch._foreach_zero_(accs)
         return metrics
+
+    def _reduce(self, grads) -> None:
+        """Sum a mesh step's gradients over the ranks, in place: one flat
+        bucket over the data column (weight shares, and gradients that are
+        alike across the model row), and the col layers' whole-bias
+        gradients (zero outside each share) over every rank."""
+        mesh, roles = self.mesh, self.shard.roles
+        column, every = [], []
+        for i, g in enumerate(grads):
+            if g is None:
+                continue
+            gw, gb = g
+            column.append(gw)
+            if gb is not None:
+                (every if roles[i] == "col" else column).append(gb)
+        world = torch.distributed.group.WORLD if mesh.tp > 1 else None
+        for group, ts in ((mesh.data_group, column), (world, every)):
+            if group is None or not ts:
+                continue
+            bucket = torch.cat([t.reshape(-1) for t in ts])
+            mesh.all_reduce(bucket, group, "grad")
+            pos = 0
+            for t in ts:
+                t.copy_(bucket[pos:pos + t.numel()].view(t.shape))
+                pos += t.numel()
 
     def _plan(self, kind: str, data, target, batch: int, n_steps: int):
         """The StepPlan of ``kind`` ("train" or "eval") at ``batch`` over
@@ -863,10 +1207,46 @@ class FusedTrainer:
                 feed.after(s)
         return plan.take(n)
 
+    def _share(self, idx, mask, aug_rows=None):
+        """A mesh rank's columns [d·b/dp, (d+1)·b/dp) of each step's rows
+        and mask (and of ``aug_rows``), with each step's global mask sum
+        (None without a mesh, and the arrays as given)."""
+        if self.mesh is None:
+            return idx, mask, aug_rows, None
+        dp, d = self.mesh.dp, self.mesh.data_index
+        b = idx.shape[1]
+        if b % dp:
+            raise ValueError(f"minibatch {b} does not split over the mesh's "
+                             f"{dp} data indices")
+        cols = slice(d * (b // dp), (d + 1) * (b // dp))
+        bs = np.maximum(mask.sum(axis=1), 1.0).astype(np.float32)
+        return (np.ascontiguousarray(idx[:, cols]),
+                np.ascontiguousarray(mask[:, cols]),
+                None if aug_rows is None
+                else np.ascontiguousarray(np.asarray(aug_rows)[:, cols]), bs)
+
+    def _place(self, a):
+        """The whole dataset on this rank: a ``distributed.RowShard`` is
+        gathered from every process once (memoized on the source, which the
+        memo holds so an id() cannot alias another); anything else as
+        given."""
+        from .distributed import RowShard, gather_rows
+        if not isinstance(a, RowShard):
+            return a
+        hit = self._placed.get(id(a))
+        if hit is not None and hit[0] is a:
+            return hit[1]
+        placed = gather_rows(a, self.mesh)
+        while len(self._placed) >= 8:
+            self._placed.pop(next(iter(self._placed)))
+        self._placed[id(a)] = (a, placed)
+        return placed
+
     def _run_eager(self, kind: str, data, target, idx, mask, scales=None,
                    scales_b=None, epoch: int = 0, ctrs=None, aug_rows=None,
-                   feed=None) -> dict:
-        """The same steps run one by one (a spec with dropout, the CPU)."""
+                   feed=None, bs=None) -> dict:
+        """The same steps run one by one (a mesh, a spec with dropout, the
+        CPU); ``bs``: a mesh rank's global mask sums a step."""
         n = idx.shape[0]
         idx_t = torch.from_numpy(idx).to(self.device, torch.int64)
         rows_t = idx_t if aug_rows is None else torch.from_numpy(
@@ -881,17 +1261,24 @@ class FusedTrainer:
                 feed.before(s)
             x, t = self._inputs(data, target, idx_t[s], rows_t[s],
                                 int(epoch), kind != "eval")
+            b_s = None if bs is None else float(bs[s])
             if kind == "eval":
-                m = eval_minibatch(self.spec, self.params, x, t, mask_t[s])
+                m = eval_minibatch(self.spec, self.params, x, t, mask_t[s],
+                                   shard=self.shard, bs=b_s)
             else:
                 m = self._train_step(x, t, mask_t[s], sc[s, 0:1],
                                      sc[s, 1:2], int(epoch), int(ctrs[s]),
-                                     self._applies(s, n))
+                                     self._applies(s, n), bs=b_s)
             if feed is not None:
                 feed.after(s)
             losses.append(m["loss"])
             n_errs.append(m["n_err"])
-        return {"loss": torch.stack(losses), "n_err": torch.stack(n_errs)}
+        ms = {"loss": torch.stack(losses), "n_err": torch.stack(n_errs)}
+        if self.mesh is not None:
+            # each rank's share of the sums; the model row computes alike
+            for v in ms.values():
+                self.mesh.all_reduce(v, self.mesh.data_group, "metrics")
+        return ms
 
     @torch.no_grad()
     def train_epoch(self, data, target, indices, batch: int,
@@ -914,18 +1301,45 @@ class FusedTrainer:
                                            ctr_base)
         scales, scales_b = self._step_scales(lr_scale, lr_scale_bias,
                                              idx.shape[0])
-        run = self._run_captured if self.captured else self._run_eager
-        ms = run("train", data, target, idx, mask, scales, scales_b, epoch,
-                 ctrs)
+        if self.mesh is not None:
+            idx, mask, _, bs = self._share(idx, mask)
+            ms = self._run_eager("train", self._place(data),
+                                 self._place(target), idx, mask, scales,
+                                 scales_b, epoch, ctrs, bs=bs)
+        else:
+            run = self._run_captured if self.captured else self._run_eager
+            ms = run("train", data, target, idx, mask, scales, scales_b,
+                     epoch, ctrs)
         return to_host(ms)[0] if sync else ms
 
     @torch.no_grad()
     def eval_epoch(self, data, target, indices, batch: int,
                    sync: bool = True) -> dict:
         idx, mask, _ = self._idx_matrix(np.asarray(indices), batch)
-        run = self._run_captured if self.captured else self._run_eager
-        ms = run("eval", data, target, idx, mask)
+        if self.mesh is not None:
+            idx, mask, _, bs = self._share(idx, mask)
+            ms = self._run_eager("eval", self._place(data),
+                                 self._place(target), idx, mask, bs=bs)
+        else:
+            run = self._run_captured if self.captured else self._run_eager
+            ms = run("eval", data, target, idx, mask)
         return to_host(ms)[0] if sync else ms
+
+    @torch.no_grad()
+    def gather_params(self) -> tuple[list, list]:
+        """(params, vels) whole, on the trainer's device: the trainer's own
+        tensors without a model axis, else each rank's shares gathered
+        over its model row (every rank of the row calls it)."""
+        if self.shard is None or self.mesh.tp == 1:
+            return self.params, self.vels
+        shard = self.shard
+
+        def whole(pairs):
+            return [tuple(shard.give(i, t, shape) if k == 0 else t
+                          for k, (t, shape) in enumerate(zip(pair,
+                                                             self._whole[i])))
+                    for i, pair in enumerate(pairs)]
+        return whole(self.params), whole(self.vels)
 
     def write_back(self) -> None:
         """Install copies of the trained params and velocities into the
@@ -936,9 +1350,10 @@ class FusedTrainer:
         if self.workflow is None:
             return
         umap = self.spec.unit_index or tuple(range(len(self.params)))
+        params, vels = self.gather_params()
 
         def copies(pair):
             return tuple(None if t is None else t.clone() for t in pair)
         for row, u in enumerate(umap):
-            self.workflow.params[u] = copies(self.params[row])
-            self.workflow.vels[u] = copies(self.vels[row])
+            self.workflow.params[u] = copies(params[row])
+            self.workflow.vels[u] = copies(vels[row])

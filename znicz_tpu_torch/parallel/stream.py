@@ -18,7 +18,13 @@ and the next copy into the slot waits for the event recorded after step
 *s*, so copies overlap the steps before them and the host never waits for
 the card.  With ``device_augment`` the slots hold decode-size rows and the
 step crops them (``RandomCropFlip.device_apply``, the same pixels as the
-loader's host crops)."""
+loader's host crops).
+
+Under a mesh each rank streams its share of every global minibatch — the
+rows [d·b/dp, (d+1)·b/dp) of it, the rows the resident trainer's rank
+takes — into a ring of its own at the share's size, and runs the resident
+trainer's mesh steps on them (uncaptured, as there); the pinned ring and
+its side stream are as without a mesh."""
 
 from __future__ import annotations
 
@@ -131,6 +137,9 @@ class StreamTrainer(FusedTrainer):
         n = idx.shape[0]
         if scales is not None:
             scales, scales_b = self._step_scales(scales, scales_b, n)
+        # a mesh rank streams its share of each global minibatch
+        idx, mask, _, bs = self._share(idx, mask)
+        batch = idx.shape[1]
         ring = self._ring(batch)
         data = ring.x.view(ring.slots * batch, *ring.x.shape[2:])
         target = data if ring.t is None else ring.t.view(
@@ -149,11 +158,12 @@ class StreamTrainer(FusedTrainer):
         slot_rows = ((np.arange(n) % ring.slots)[:, None] * batch
                      + np.arange(batch)).astype(np.int32)
         run = self._run_captured if self.captured else self._run_eager
+        extra = {} if bs is None else {"bs": bs}
         try:
             ms = run(kind, data, target, slot_rows, mask, scales, scales_b,
                      epoch if kind == "train" else 0,
                      ctrs if kind == "train" else None, aug_rows=idx,
-                     feed=feed)
+                     feed=feed, **extra)
             feed.finish()
         finally:
             feed.close()

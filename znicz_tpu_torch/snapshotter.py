@@ -139,16 +139,20 @@ class SnapshotterBase(Unit):
         self.last_path: str | None = None
         self.best_path: str | None = None
 
-    def epoch_end(self, improved: bool, before_save=None) -> None:
+    def epoch_end(self, improved: bool, before_save=None,
+                  write: bool = True) -> None:
         """One epoch's snapshot cadence, shared by the unit graph's tick
         (:meth:`SnapshotterToFile.run`) and the fused epoch loop: save
         "current" every ``interval`` epochs and on improvement, plus
         "best" on improvement.  ``before_save`` runs only when a save will
-        happen (the fused path syncs its weights there)."""
+        happen (the fused path syncs its weights there); ``write=False``
+        runs it without saving (a mesh rank other than process 0)."""
         self._epochs_seen += 1
         if self._epochs_seen % self.interval == 0 or improved:
             if before_save is not None:
                 before_save()
+            if not write:
+                return
             self.last_path = self.save("current")
             if improved and self.keep_best:
                 self.best_path = self.save("best")

@@ -685,19 +685,24 @@ class StandardWorkflow(AcceleratedWorkflow):
         ``$ZNICZ_PROFILE_DIR``/``$ZNICZ_PROFILE_EVERY`` and the timeline
         from ``$ZNICZ_TIMELINE_JSONL``.  The tick loop computes in float32,
         as the reference's does, and warns that the timeline and the
-        device checkpoints are the fused path's (its snapshotter saves)."""
+        device checkpoints are the fused path's (its snapshotter saves).
+
+        ``mesh`` (a ``parallel.mesh.Mesh``) or ``mesh_shape`` ((dp, tp) or
+        ``"dp,tp"``, default ``root.common.mesh_shape``, where the CLI's
+        ``--mesh`` lands) lays the fused step over the ranks of the live
+        process group (``parallel.mesh.resolve_mesh``); (1, 1) or unset is
+        the single-device path.  The tick loop warns and runs on one
+        device, as the reference's does."""
         from .config import root
-        if mesh is not None or mesh_shape is not None \
-                or root.common.get("mesh_shape") is not None:
-            raise NotImplementedError(
-                "mesh-sharded training is not ported yet (ROADMAP.md "
-                "queue 1 item 9, parallelism)")
         if timeline_jsonl is None:
             timeline_jsonl = _flightrecorder.timeline_path_from_env()
         if not fused:
             if self.unit_graph_missing is not None:
                 raise NotImplementedError(
                     "train(fused=False): " + self.unit_graph_missing)
+            if mesh is not None or mesh_shape is not None:
+                self.warning("mesh-sharded execution is a fused-path "
+                             "feature; the tick loop runs single-device")
             if timeline_jsonl is not None:
                 self.warning("the per-step timeline (timeline_jsonl) is a "
                              "fused-path feature; the tick loop records "
@@ -718,7 +723,8 @@ class StandardWorkflow(AcceleratedWorkflow):
             profile_dir = _profiler.dir_from_env()
         if profile_every is None:
             profile_every = _profiler.every_from_env()
-        return self.run_fused(max_epochs=max_epochs,
+        return self.run_fused(mesh=mesh, mesh_shape=mesh_shape,
+                              max_epochs=max_epochs,
                               compute_dtype=compute_dtype,
                               storage_dtype=storage_dtype,
                               profile_dir=profile_dir,
@@ -728,7 +734,8 @@ class StandardWorkflow(AcceleratedWorkflow):
                               checkpointer=checkpointer,
                               timeline_jsonl=timeline_jsonl)
 
-    def run_fused(self, max_epochs: int | None = None,
+    def run_fused(self, mesh=None, mesh_shape=None,
+                  max_epochs: int | None = None,
                   compute_dtype: str | None = None,
                   storage_dtype: str | None = None,
                   profile_dir: str | None = None,
@@ -761,7 +768,14 @@ class StandardWorkflow(AcceleratedWorkflow):
         regresses ``mse_target`` (default: a float label block if the
         loader has one, else the input), a loader's augment policy with a
         ``device_apply`` crops on the device, and ``step_callback(epoch,
-        step)`` runs after each streamed train step."""
+        step)`` runs after each streamed train step.
+
+        ``mesh``/``mesh_shape`` (default ``root.common.mesh_shape``): the
+        (dp, tp) layout over the live process group
+        (``parallel.mesh.resolve_mesh``; (1, 1) or unset: one device).
+        Under a mesh every rank trains its share and process 0 alone
+        writes the snapshots and the timeline; checkpoints are written by
+        every rank (``parallel.checkpoint``)."""
         if not self.initialized:
             raise RuntimeError("initialize() first")
         if not self.device.is_torch:
@@ -770,6 +784,13 @@ class StandardWorkflow(AcceleratedWorkflow):
                              "graph (train(fused=False))")
         if self.spec is None:
             raise NotImplementedError(self.fused_missing)
+        if mesh is None:
+            from .config import root
+            from .parallel import mesh as mesh_lib
+            mesh = mesh_lib.resolve_mesh(
+                mesh_shape if mesh_shape is not None
+                else root.common.get("mesh_shape"), site="train",
+                device=self.device.torch_device)
         dev = self.device.torch_device
         hook = None
         ctx = contextlib.nullcontext()
@@ -784,7 +805,7 @@ class StandardWorkflow(AcceleratedWorkflow):
                 return self._run_fused_body(
                     max_epochs, compute_dtype, storage_dtype, hook,
                     checkpoint_dir, checkpoint_every, checkpointer,
-                    timeline_jsonl, mse_target, step_callback)
+                    timeline_jsonl, mse_target, step_callback, mesh)
         finally:
             if hook is not None:
                 hook.close()
@@ -792,7 +813,7 @@ class StandardWorkflow(AcceleratedWorkflow):
     def _run_fused_body(self, max_epochs, compute_dtype, storage_dtype,
                         profile_hook, checkpoint_dir, checkpoint_every,
                         checkpointer, timeline_jsonl, mse_target=None,
-                        step_callback=None) -> FusedTrainer:
+                        step_callback=None, mesh=None) -> FusedTrainer:
         from .config import root
         spec = self.spec
         if compute_dtype is not None:
@@ -804,7 +825,7 @@ class StandardWorkflow(AcceleratedWorkflow):
         kwargs = dict(workflow=self, spec=spec,
                       params=self.spec_rows(self.params),
                       vels=self.spec_rows(self.vels),
-                      device=self.device.torch_device,
+                      device=self.device.torch_device, mesh=mesh,
                       accum_steps=int(root.common.get("accum_steps") or 1))
         loader = self.loader
         if isinstance(loader, StreamingLoader):
@@ -823,12 +844,15 @@ class StandardWorkflow(AcceleratedWorkflow):
                                        "device_apply"), **kwargs)
         else:
             trainer = FusedTrainer(**kwargs)
+        # process 0 alone writes what the reference gives to process 0
+        owner = mesh is None or mesh.rank == 0
         timeline = (_flightrecorder.TimelineWriter(timeline_jsonl)
-                    if timeline_jsonl else None)
+                    if timeline_jsonl and owner else None)
         ckpt, own_ckpt = checkpointer, False
         if ckpt is None and checkpoint_dir is not None:
             from .parallel.checkpoint import TrainerCheckpointer
-            ckpt, own_ckpt = TrainerCheckpointer(checkpoint_dir), True
+            ckpt, own_ckpt = TrainerCheckpointer(checkpoint_dir,
+                                                 mesh=mesh), True
         try:
             self._epochs(trainer, max_epochs, profile_hook, timeline, ckpt,
                          max(1, int(checkpoint_every or 1)))
@@ -984,8 +1008,13 @@ class StandardWorkflow(AcceleratedWorkflow):
                     self._params_to_units()
 
             if self.snapshotter is not None:
+                # under a mesh every rank gathers the weights, process 0
+                # writes
+                mesh_kw = ({} if trainer.mesh is None
+                           else {"write": trainer.mesh.rank == 0})
                 self.snapshotter.epoch_end(improved,
-                                           before_save=sync_weights)
+                                           before_save=sync_weights,
+                                           **mesh_kw)
             if ckpt is not None and ((epoch + 1) % ckpt_every == 0
                                      or is_final):
                 sync_weights()

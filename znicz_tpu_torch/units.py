@@ -3,18 +3,19 @@
 
 ``Unit`` with ``link_from`` control edges, ``gate_block`` / ``gate_skip``
 predicates, ``link_attrs`` live attribute forwarding and per-unit
-wall-clock accumulation in ``run_timed``.  The reference's
-``Distributable`` hooks wait for ROADMAP.md queue 1 item 9."""
+wall-clock accumulation in ``run_timed``; every unit carries the
+``Distributable`` hooks (``distributable.py``)."""
 
 from __future__ import annotations
 
 import time
 
+from .distributable import Distributable
 from .logger import Logger
 from .mutable import Bool
 
 
-class Unit(Logger):
+class Unit(Logger, Distributable):
     """A dataflow node.
 
     Control edges (``link_from``) say *when* a unit runs; attribute links
