@@ -301,6 +301,23 @@ exits nonzero without the final ``ok`` line:
    kernels; the same server and traffic without the sanitizer first
    (``unsanitized``), whose requests/s print beside the sanitized
    run's and serve_http's;
+20a'. online_loop — the live-data loop as users run it, three processes
+   on the card over the MNIST slice's export: ``serve --capture-dir
+   --compile-cache-dir`` (an empty cache), a client process sending
+   ONLINE_REQUESTS binary rows of the MNIST stand-in (answers against the
+   CPU at rtol 1e-4 / atol 1e-5), ``online-train --rounds 3`` on the ring
+   (a round blessed, 2 CUDA graphs at every round, its launches at exit
+   equal to ``PATHS["mnist"]`` times its train and eval steps, each
+   blessed candidate within rtol 1e-4 / atol 1e-5 of the same rounds
+   replayed on the CPU), ``promote --once`` into the server (promoted,
+   the generation moved, answers as the candidate's CPU forward), the
+   rollback drill in this process (a ``ServingServer`` on the card, an
+   ``EngineTarget`` controller: a promotion moves ``promotion_generation``
+   on its /metrics, a second candidate under latency injected at
+   ``engine.forward`` is rolled back, the old generation answers the same
+   bytes, ``slo_breaches_total`` counts it), then a second ``serve``
+   start on the filled cache with 0 nvcc and 0 g++ runs; no 5xx and no
+   fallback anywhere (``phase_online_loop``);
 20b. mesh_dp, mesh_tp, mesh_2x2 — the parallelism paths (``MESH_PATHS``),
    each a fleet of dp·tp rank processes of this script (``--mesh-rank``)
    on a loopback rendezvous, over gloo on the one card (the ranks share
@@ -325,7 +342,7 @@ exits nonzero without the final ``ok`` line:
    the newest verified checkpoint, and the final weights equal an
    uninterrupted single-process run's within rtol 1e-5 / atol 1e-6;
 21. the ``kernels`` line (with the resume, serve, serve_http, san_serve,
-   data-plane and each mesh rank's launches), then ``{"ok":
+   data-plane, online-loop and each mesh rank's launches), then ``{"ok":
    true, "device": {...}}`` last.
 
 The kernel phase also holds the forms of the twenty-third slice
@@ -6795,6 +6812,571 @@ def phase_parallel(torch) -> dict:
     return launches
 
 
+#: the live-data loop (phase 20d): rounds of the online trainer, its round
+#: size and hold-back, the requests the client sends (enough for
+#: ONLINE_ROUNDS full rounds and half a round more), the seeds
+ONLINE_ROUNDS = 3
+ONLINE_ROUND_SAMPLES = 128
+ONLINE_HOLDBACK = 8
+ONLINE_REQUESTS = ONLINE_ROUND_SAMPLES * ONLINE_ROUNDS + 64
+ONLINE_SEED = 26
+ONLINE_TOKEN = "chip-smoke-online"
+#: a blessed round's parameters against the same rounds replayed on the
+#: CPU, and the served answers against the CPU forward: the MNIST rows'
+#: 784-term products summed in cuBLAS's order at one row against the
+#: CPU's drift to 6.6e-5 of a softmax output on an H100, past
+#: serve_http's 1e-5 on uniform rows
+ONLINE_TOL = (1e-4, 1e-5)
+#: the promotion watch: the happy candidate's policy, and the latency
+#: injected at engine.forward under the second one
+ONLINE_POLICY = {"window_s": 2.0, "probe_interval_s": 0.25,
+                 "max_p99_ms": 250.0, "max_error_rate": 0.5,
+                 "min_samples": 3}
+ONLINE_LATENCY_S = 0.4
+#: the kernels each process of the loop must launch
+ONLINE_SERVE_KERNELS = ("softmax", "act_fwd")
+ONLINE_TRAIN_KERNELS = ("softmax_ce", "act_fwd", "act_bwd", "sgd_update")
+
+
+def online_client(argv: list) -> int:
+    """``chip_smoke.py --online-client PORT ROWS.npy OUT.npz``: the loop's
+    client, a process of its own: every row of ROWS as one binary-wire
+    ``/predict``, in order; OUT gets the answers, each status code and
+    wall ms, and the seconds it took."""
+    import numpy as np
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from znicz_tpu_torch.serving import wire
+    port, rows, out = int(argv[0]), np.load(argv[1]), argv[2]
+    headers = {"Content-Type": wire.CONTENT_TYPE,
+               "Accept": wire.CONTENT_TYPE}
+    ys, codes, walls = [], [], []
+    t0 = time.perf_counter()
+    for i in range(len(rows)):
+        t = time.perf_counter()
+        code, _h, raw = _http(port, "POST", "/predict",
+                              wire.encode_tensor(rows[i:i + 1]), headers)
+        walls.append((time.perf_counter() - t) * 1e3)
+        codes.append(code)
+        ys.append(np.array(wire.decode_tensor(raw)) if code == 200
+                  else np.full((1, 10), np.nan, np.float32))
+    np.savez(out, y=np.concatenate(ys), codes=np.asarray(codes),
+             walls=np.asarray(walls), seconds=time.perf_counter() - t0)
+    return 0
+
+
+class _OnlineServer:
+    """``python -m znicz_tpu_torch serve`` of one model in a subprocess
+    on the card, its kernels built in (and loaded from) a cache
+    directory, its launches written at exit; ``start_s``: launch to its
+    first answered request."""
+
+    def __init__(self, model: str, cache: str, directory: str, tag: str,
+                 capture_dir: str | None = None):
+        import threading
+        self.counts = os.path.join(directory, f"{tag}_launches.json")
+        self.err = open(os.path.join(directory, f"{tag}.stderr"), "w")
+        argv = [sys.executable, "-m", "znicz_tpu_torch", "serve",
+                "--model", model, "--admin-token", ONLINE_TOKEN,
+                "--port", "0", "--max-wait-ms", "1",
+                "--compile-cache-dir", cache]
+        if capture_dir is not None:
+            argv += ["--capture-dir", capture_dir]
+        env = dict(os.environ, ZNICZ_LAUNCH_COUNTS=self.counts)
+        env.pop("ZNICZ_COMPILE_CACHE", None)
+        t0 = time.perf_counter()
+        self.p = subprocess.Popen(
+            argv, cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+            text=True, stdout=subprocess.PIPE, stderr=self.err)
+        self.killer = threading.Timer(600.0, self.p.kill)
+        self.killer.start()
+        self.lines = []
+        while True:
+            line = self.p.stdout.readline()
+            if not line:
+                self.stop(check=False)
+                raise AssertionError(f"online_loop: {tag} did not start: "
+                                     f"{''.join(self.lines)}")
+            self.lines.append(line)
+            if " at http://127.0.0.1:" in line:
+                break
+        if "[cuda]" not in line:
+            raise AssertionError(f"online_loop: {tag} is not on the card: "
+                                 f"{line!r}")
+        self.port = int(line.split(" at http://127.0.0.1:")[1]
+                        .split("/")[0])
+        self.url = f"http://127.0.0.1:{self.port}/"
+        import numpy as np
+        x = np.zeros((1, 784), np.float32)
+        from znicz_tpu_torch.serving import wire
+        code, _h, _raw = _http(self.port, "POST", "/predict",
+                               wire.encode_tensor(x),
+                               {"Content-Type": wire.CONTENT_TYPE})
+        if code != 200:
+            raise AssertionError(f"online_loop: {tag} first answer {code}")
+        self.start_s = time.perf_counter() - t0
+
+    def metrics(self) -> dict:
+        code, _h, raw = _http(self.port, "GET", "/metrics")
+        if code != 200:
+            raise AssertionError(f"online_loop: /metrics {code}")
+        return json.loads(raw)
+
+    def stop(self, check: bool = True) -> dict:
+        """SIGTERM, drain; the exit line's compiler runs and the
+        process's launches."""
+        import signal
+        try:
+            if self.p.poll() is None:
+                self.p.send_signal(signal.SIGTERM)
+            out, _ = self.p.communicate(timeout=120)
+        finally:
+            self.killer.cancel()
+            if self.p.poll() is None:
+                self.p.kill()
+                self.p.communicate()
+            self.err.close()
+        out = "".join(self.lines) + (out or "")
+        if not check:
+            return {}
+        if self.p.returncode != 0 or "drain complete" not in out:
+            raise AssertionError(f"online_loop: serve exit "
+                                 f"{self.p.returncode}: {out[-800:]}")
+        line = [ln for ln in out.splitlines()
+                if ln.startswith("kernel builds: ")][-1]
+        builds = json.loads(line[len("kernel builds: "):].split(" (")[0])
+        with open(self.counts) as fh:
+            counts = json.load(fh)
+        return {"builds": builds,
+                "launches": {k: counts.get(f"{m}.{a}", 0)
+                             for k, (_, _, m, a) in KERNELS.items()}}
+
+
+def _online_rows(n: int):
+    """``n`` 784-wide rows of the MNIST slice's synthetic stand-in (its
+    own seed, normalized as the loader does)."""
+    import numpy as np
+    from znicz_tpu_torch import prng
+    from znicz_tpu_torch.models import mnist
+    prng.seed_all(SEED + ONLINE_SEED)
+    ld = mnist.MnistLoader(synthetic_sizes={"n_train": n, "n_valid": 0,
+                                            "n_test": 0},
+                           minibatch_size=100)
+    ld.initialize(device="cpu")
+    return np.ascontiguousarray(ld.original_data.numpy(), np.float32)
+
+
+def _ledger_walls(path: str) -> list:
+    """Each concluded attempt of a promotion ledger: its outcome and the
+    wall from its canary reload to its outcome."""
+    with open(path) as fh:
+        entries = [json.loads(line) for line in fh if line.strip()]
+    out, canary = [], None
+    for e in entries:
+        if e["event"] == "state" and e.get("state") == "canarying":
+            canary = e["ts"]
+        elif e["event"] == "outcome":
+            out.append({"outcome": e["outcome"],
+                        "candidate": e.get("candidate"),
+                        "deployed": e.get("deployed"),
+                        "generation": e.get("generation"),
+                        "reload_to_outcome_ms": None if canary is None
+                        else (e["ts"] - canary) * 1e3})
+            canary = None
+    return out
+
+
+def _prom_value(text: str, name: str, **labels) -> float:
+    """One series of a Prometheus text scrape (0 when absent)."""
+    from znicz_tpu_torch.promotion.slo import parse_prometheus
+    for n, lab, value in parse_prometheus(text):
+        if n == name and all(lab.get(k) == v for k, v in labels.items()):
+            return value
+    return 0.0
+
+
+def _online_cpu_replay(model: str, capdir: str, directory: str,
+                       rounds: int):
+    """The card's rounds replayed on the CPU through the plain versions:
+    the same ring, seed and flags; (round outputs, candidates dir)."""
+    from znicz_tpu_torch.online.trainer import OnlineTrainer
+    cands = os.path.join(directory, "cpu_candidates")
+    tr = OnlineTrainer(model, capdir, candidates_dir=cands,
+                       round_samples=ONLINE_ROUND_SAMPLES,
+                       holdback_every=ONLINE_HOLDBACK, poll_timeout_s=5.0,
+                       seed=ONLINE_SEED, device="cpu")
+    outs = []
+    try:
+        while len(outs) < rounds:
+            out = tr.run_round()
+            if out["outcome"] == "starved":
+                raise AssertionError("online_loop: the CPU replay starved")
+            outs.append(out)
+    finally:
+        tr.close()
+    return outs, cands
+
+
+def _hold_candidates(card_dir: str, cpu_dir: str, steps: list) -> float:
+    """Each blessed step's candidate of the card against the CPU replay's
+    at ONLINE_TOL; the largest gap."""
+    import numpy as np
+    from znicz_tpu_torch.export import read_znn
+    err = 0.0
+    for step in steps:
+        name = f"online-{step:06d}.znn"
+        got = read_znn(os.path.join(card_dir, name))
+        want = read_znn(os.path.join(cpu_dir, name))
+        for g, w in zip(got, want):
+            for a, b in ((g.w, w.w), (g.b, w.b)):
+                if a is None and b is None:
+                    continue
+                np.testing.assert_allclose(
+                    a, b, rtol=ONLINE_TOL[0], atol=ONLINE_TOL[1],
+                    err_msg=f"online_loop: blessed step {step} card vs CPU")
+                err = max(err, float(np.max(np.abs(a - b))))
+    return err
+
+
+def _online_rollback(deployed: str, second: str, rows,
+                     directory: str) -> dict:
+    """The rollback drill in this process, as tests/test_promotion.py's
+    acceptance runs it: a ``ServingServer`` on the card over the promoted
+    generation, traffic from a thread, a ``PromotionController`` with an
+    ``EngineTarget``: a blessed candidate promotes (promotion_generation
+    moves on this server's /metrics), then a second one under latency
+    injected at ``engine.forward`` during its watch is rolled back, and
+    the old generation answers byte-identical outputs in the same bucket
+    (1 row); slo_breaches_total counts the breach on /metrics."""
+    import shutil
+    import threading
+    from znicz_tpu_torch import promotion
+    from znicz_tpu_torch.resilience import faults
+    from znicz_tpu_torch.serving import ServingEngine, ServingServer, wire
+    eng = ServingEngine(deployed, buckets=(1, 8))
+    server = ServingServer(eng, max_wait_ms=1.0).start()
+    port = server.server.server_address[1]
+    cands = os.path.join(directory, "rollback_candidates")
+    os.makedirs(cands)
+    headers = {"Content-Type": wire.CONTENT_TYPE,
+               "Accept": wire.CONTENT_TYPE}
+    stop, pause = threading.Event(), threading.Event()
+    codes = collections.Counter()
+
+    def predict(x):
+        code, _h, raw = _http(port, "POST", "/predict",
+                              wire.encode_tensor(x), headers)
+        codes[code] += 1
+        return raw if code == 200 else None
+
+    def traffic():
+        i = 0
+        while not stop.is_set():
+            if not pause.is_set():
+                predict(rows[i % len(rows)][None])
+                i += 1
+            stop.wait(0.005)
+
+    def quiesced(x):
+        pause.set()
+        deadline = time.monotonic() + 5.0
+        while server.batcher.queue_depth() > 0 \
+                and time.monotonic() < deadline:
+            time.sleep(0.01)
+        time.sleep(0.05)
+        try:
+            return predict(x)
+        finally:
+            pause.clear()
+
+    def prom():
+        code, _h, raw = _http(port, "GET", "/metrics?format=prometheus")
+        if code != 200:
+            raise AssertionError(f"online_loop: /metrics {code}")
+        return raw.decode()
+
+    thread = threading.Thread(target=traffic, daemon=True)
+    try:
+        thread.start()
+        deadline = time.monotonic() + 60.0
+        while sum(codes.values()) < 20 and time.monotonic() < deadline:
+            time.sleep(0.05)
+        ctl = promotion.PromotionController(
+            promotion.DirectorySource(cands),
+            promotion.EngineTarget(server=server),
+            deploy_dir=os.path.join(directory, "rollback_deploy"),
+            policy=promotion.SLOPolicy(**ONLINE_POLICY))
+        gen0 = _prom_value(prom(), "promotion_generation")
+        shutil.copyfile(deployed, os.path.join(cands, "blessed.znn"))
+        if ctl.run_once() != "promoted":
+            raise AssertionError(f"online_loop: {ctl.status()}")
+        text = prom()
+        gen1 = _prom_value(text, "promotion_generation")
+        if gen1 != eng.generation or gen1 <= gen0:
+            raise AssertionError(f"online_loop: promotion_generation "
+                                 f"{gen0} -> {gen1}, serving "
+                                 f"{eng.generation}")
+        breaches0 = _prom_value(text, "slo_breaches_total",
+                                slo="p99_latency_ms")
+        x = rows[:1]
+        blessed = quiesced(x)
+        shutil.copyfile(second, os.path.join(cands, "second.znn"))
+        plan = faults.FaultPlan([faults.FaultSpec(
+            "engine.forward", kind="latency", latency_s=ONLINE_LATENCY_S,
+            message="chip_smoke: regressed candidate")], seed=7)
+        with plan:
+            outcome = ctl.run_once()
+        if outcome != "rolled_back":
+            raise AssertionError(f"online_loop: the second candidate "
+                                 f"{outcome}, not rolled back")
+        after = quiesced(x)
+        if after is None or after != blessed:
+            raise AssertionError("online_loop: the rolled-back generation "
+                                 "answers other bytes")
+        text = prom()
+        breaches = _prom_value(text, "slo_breaches_total",
+                               slo="p99_latency_ms") - breaches0
+        if breaches != 1:
+            raise AssertionError(f"online_loop: slo_breaches_total moved "
+                                 f"{breaches}")
+        health = json.loads(_http(port, "GET", "/healthz")[2])
+        if health["promotion"]["state"] != "rolled_back":
+            raise AssertionError(f"online_loop: /healthz {health}")
+        fallback = server.engine_metrics().get("fallback_calls", 0)
+    finally:
+        stop.set()
+        thread.join(10)
+        server.stop()
+        eng.close()
+    return {"promotion_generation": [gen0, gen1],
+            "generation_after": health.get("model_generation"),
+            "slo_breaches": breaches, "plan": plan.snapshot(),
+            "attempts": _ledger_walls(ctl.ledger.path),
+            "codes": dict(codes), "fallback_calls": fallback,
+            "bytes_identical": True}
+
+
+def phase_online_loop(torch, exports: dict, info: dict) -> dict:
+    """The live-data loop as users run it, three processes on the card
+    (docs/online.md), over the MNIST slice's export (784→100 tanh→10):
+
+    1. ``serve --capture-dir D --compile-cache-dir K`` (K empty: the
+       serve path's kernels build into it);
+    2. a client process sends ONLINE_REQUESTS seeded binary-wire
+       ``/predict`` rows of the MNIST stand-in, each answer checked
+       against the CPU forward; the server's tap commits each one;
+    3. ``online-train --rounds 3`` on D: at least one round blessed, 2
+       CUDA graphs at every round (one train, one eval), its launches
+       (counted at its exit) equal to the MNIST step's multiplicities
+       times the train and eval steps it reports, and each blessed round's
+       candidate within ONLINE_TOL of the same rounds replayed on the CPU
+       through the plain versions;
+    4. ``promote --once`` drives the newest candidate into the server over
+       ``POST /admin/reload``: promoted, the server's generation moves, and
+       its answers equal the candidate's CPU forward;
+    5. the rollback drill in this process (:func:`_online_rollback`);
+    6. the server stopped (its compiler runs and launches read at exit),
+       a second ``serve`` start on the same K: no nvcc and no g++ run.
+    No /predict of the loop may answer a 5xx, no engine may fall back.
+    Printed: records captured and dropped, each round's wall and train
+    step ms, the promotion's and the rollback's walls from the canary
+    reload to the outcome, requests/s, both starts' seconds."""
+    import shutil
+    import numpy as np
+    from znicz_tpu_torch.serving import ServingEngine, wire
+    t_loop = time.perf_counter()
+    model = exports["mnist"]
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = {"card": info["nvidia_smi"]}
+    with tempfile.TemporaryDirectory(prefix="znicz_online_") as d:
+        capdir, cands = os.path.join(d, "capture"), os.path.join(d, "cands")
+        ckpts, cache = os.path.join(d, "checkpoints"), os.path.join(d, "k")
+        rows = _online_rows(ONLINE_REQUESTS)
+        want = ServingEngine(model, backend="cpu").predict(rows)
+        server = _OnlineServer(model, cache, d, "serve", capdir)
+        codes = collections.Counter()
+        try:
+            # 2. traffic from a client process
+            np.save(os.path.join(d, "rows.npy"), rows)
+            client = subprocess.run(
+                [sys.executable, os.path.abspath(__file__),
+                 "--online-client", str(server.port),
+                 os.path.join(d, "rows.npy"), os.path.join(d, "client.npz")],
+                cwd=root, capture_output=True, text=True, timeout=300)
+            if client.returncode != 0:
+                raise AssertionError(f"online_loop: client "
+                                     f"{client.stderr[-800:]}")
+            got = np.load(os.path.join(d, "client.npz"))
+            codes.update(int(c) for c in got["codes"])
+            np.testing.assert_allclose(got["y"], want, rtol=ONLINE_TOL[0],
+                                       atol=ONLINE_TOL[1],
+                                       err_msg="online_loop: served rows")
+            deadline = time.monotonic() + 30.0
+            while True:
+                cap = server.metrics()["capture"]
+                if cap["records"] >= ONLINE_REQUESTS + 1 \
+                        and not cap["queued"]:
+                    break
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"online_loop: capture {cap}")
+                time.sleep(0.1)
+            out["traffic"] = {
+                "requests": int(len(got["codes"])),
+                "requests_per_s": len(got["codes"]) / float(got["seconds"]),
+                "p50_wall_ms": float(np.percentile(got["walls"], 50)),
+                "p99_wall_ms": float(np.percentile(got["walls"], 99))}
+            out["capture"] = {k: cap[k] for k in (
+                "records", "dropped_sampled", "dropped_backlog",
+                "dropped_error", "dropped_closed", "bytes", "segments")}
+            # 3. online-train on the card
+            counts = os.path.join(d, "train_launches.json")
+            t0 = time.perf_counter()
+            train = subprocess.run(
+                [sys.executable, "-m", "znicz_tpu_torch", "online-train",
+                 "--model", model, "--capture-dir", capdir,
+                 "--candidates", cands, "--checkpoints", ckpts,
+                 "--round-samples", str(ONLINE_ROUND_SAMPLES),
+                 "--holdback-every", str(ONLINE_HOLDBACK),
+                 "--poll-timeout-s", "5", "--seed", str(ONLINE_SEED),
+                 "--rounds", str(ONLINE_ROUNDS)],
+                cwd=root, capture_output=True, text=True, timeout=600,
+                env=dict(os.environ, ZNICZ_LAUNCH_COUNTS=counts))
+            train_s = time.perf_counter() - t0
+            if train.returncode != 0:
+                raise AssertionError(f"online_loop: online-train exit "
+                                     f"{train.returncode}: "
+                                     f"{train.stderr[-1500:]}")
+            lines = [json.loads(ln) for ln in train.stdout.splitlines()
+                     if ln.startswith("{")]
+            rounds = [ln for ln in lines if "outcome" in ln]
+            final = lines[-1]["final"]
+            done = [r for r in rounds if r["outcome"] != "starved"]
+            blessed = [r["step"] for r in done if r["outcome"] == "blessed"]
+            if len(done) < ONLINE_ROUNDS or not blessed:
+                raise AssertionError(f"online_loop: rounds {rounds}")
+            graphs = [r["graphs"] for r in done] + [final["graphs"]]
+            if set(graphs) != {2}:
+                raise AssertionError(f"online_loop: the trainer's graphs "
+                                     f"{graphs}")
+            with open(counts) as fh:
+                raw = json.load(fh)
+            train_launches = {k: raw.get(f"{m}.{a}", 0)
+                              for k, (_, _, m, a) in KERNELS.items()}
+            mult = PATHS["mnist"]
+            expect = {k: (mult[k][0] * final["train_steps"]
+                          + mult[k][1] * final["eval_steps"]
+                          if k in mult else 0) for k in KERNELS}
+            if train_launches != expect or not all(
+                    train_launches[k] for k in ONLINE_TRAIN_KERNELS):
+                raise AssertionError(f"online_loop: online-train launched "
+                                     f"{train_launches}, expected {expect}")
+            cpu_rounds, cpu_cands = _online_cpu_replay(model, capdir, d,
+                                                       len(done))
+            if [r["outcome"] for r in cpu_rounds] \
+                    != [r["outcome"] for r in done]:
+                raise AssertionError(f"online_loop: CPU replay outcomes "
+                                     f"{cpu_rounds} vs {done}")
+            out["online_train"] = {
+                "wall_s": train_s,
+                "rounds": [{k: r.get(k) for k in (
+                    "outcome", "step", "eval_loss", "blessed_loss",
+                    "trained", "wall_ms", "train_ms", "train_steps",
+                    "graphs")} | {"train_step_ms": r["train_ms"]
+                                  / r["train_steps"]} for r in done],
+                "train_steps": final["train_steps"],
+                "eval_steps": final["eval_steps"], "graphs": graphs,
+                "blessed_vs_cpu_max_abs_err": _hold_candidates(
+                    cands, cpu_cands, blessed),
+                "cpu_eval_losses": [r["eval_loss"] for r in cpu_rounds]}
+            # 4. promote --once over the admin surface
+            gen0 = server.metrics()["engine"]["generation"]
+            t0 = time.perf_counter()
+            promote = subprocess.run(
+                [sys.executable, "-m", "znicz_tpu_torch", "promote",
+                 "--candidates", cands, "--url", server.url,
+                 "--admin-token", ONLINE_TOKEN, "--once",
+                 "--window-s", str(ONLINE_POLICY["window_s"]),
+                 "--probe-interval-s",
+                 str(ONLINE_POLICY["probe_interval_s"]),
+                 "--max-p99-ms", str(ONLINE_POLICY["max_p99_ms"])],
+                cwd=root, capture_output=True, text=True, timeout=300)
+            promote_s = time.perf_counter() - t0
+            if promote.returncode != 0 \
+                    or "promote: promoted" not in promote.stdout:
+                raise AssertionError(f"online_loop: promote exit "
+                                     f"{promote.returncode}: "
+                                     f"{promote.stdout[-500:]} "
+                                     f"{promote.stderr[-1500:]}")
+            attempt = _ledger_walls(os.path.join(
+                cands, "_deploy", "promotions.jsonl"))[-1]
+            m = server.metrics()["engine"]
+            if m["generation"] != attempt["generation"] \
+                    or m["generation"] <= gen0:
+                raise AssertionError(f"online_loop: generation {gen0} -> "
+                                     f"{m['generation']}, ledger "
+                                     f"{attempt}")
+            new = ServingEngine(attempt["deployed"], backend="cpu")
+            x8 = rows[:8]
+            code, _h, raw = _http(server.port, "POST", "/predict",
+                                  wire.encode_tensor(x8),
+                                  {"Content-Type": wire.CONTENT_TYPE,
+                                   "Accept": wire.CONTENT_TYPE})
+            codes[code] += 1
+            served, cpu = np.array(wire.decode_tensor(raw)), new.predict(x8)
+            np.testing.assert_allclose(
+                served, cpu, rtol=ONLINE_TOL[0], atol=ONLINE_TOL[1],
+                err_msg="online_loop: the promoted generation")
+            promoted_err = float(np.max(np.abs(served - cpu)))
+            prom_text = _http(server.port, "GET",
+                              "/metrics?format=prometheus")[2].decode()
+            out["promote"] = {
+                **attempt, "cli_wall_s": promote_s,
+                "generation": [gen0, m["generation"]],
+                "server_promotion_generation": _prom_value(
+                    prom_text, "promotion_generation"),
+                "answers_vs_cpu_max_abs_err": promoted_err}
+            # 5. the rollback drill, this process's launches counted apart
+            reset_launch_counts()
+            second = os.path.join(d, "second.znn")
+            shutil.copyfile(model, second)
+            out["rollback"] = _online_rollback(
+                attempt["deployed"], second, rows, d)
+            codes.update(out["rollback"]["codes"])
+            rollback_launches = launch_counts()
+            fallback = m["fallback_calls"] + out["rollback"]["fallback_calls"]
+        finally:
+            first = server.stop()
+        # 6. the second cold start on the filled cache
+        again = _OnlineServer(model, cache, d, "serve2")
+        second_start = again.stop()
+    bad = {c: n for c, n in codes.items() if c >= 500}
+    if bad or fallback:
+        raise AssertionError(f"online_loop: 5xx {bad}, fallback_calls "
+                             f"{fallback}")
+    if not first["builds"]["nvcc"]:
+        raise AssertionError(f"online_loop: the first start built nothing "
+                             f"into the empty cache: {first['builds']}")
+    if second_start["builds"] != {"nvcc": 0, "g++": 0}:
+        raise AssertionError(f"online_loop: the cached start built "
+                             f"{second_start['builds']}")
+    for kernel in ONLINE_SERVE_KERNELS:
+        if not first["launches"][kernel] \
+                or not rollback_launches[kernel]:
+            raise AssertionError(f"online_loop: serving never launched "
+                                 f"{kernel}")
+    out.update(
+        codes=dict(codes), fallback_calls=fallback,
+        cold_start_s={"first": server.start_s, "cached": again.start_s},
+        builds={"first": first["builds"], "cached": second_start["builds"]},
+        requests_per_s_over_loop=sum(codes.values())
+        / (time.perf_counter() - t_loop),
+        wall_s=time.perf_counter() - t_loop,
+        launches={"online_serve": first["launches"],
+                  "online_train": train_launches,
+                  "online_rollback": rollback_launches})
+    emit({"phase": "online_loop", **out})
+    return out["launches"]
+
+
 def kernels_line(kern: dict, launches: dict) -> dict:
     """One entry per kernel: its numbers at the main path's shape (the
     first case), the launches of the main-path runs, and every case."""
@@ -6827,6 +7409,8 @@ def kernels_line(kern: dict, launches: dict) -> dict:
 def main() -> int:
     if sys.argv[1:2] == ["--mesh-rank"]:
         return mesh_rank(sys.argv[2:])
+    if sys.argv[1:2] == ["--online-client"]:
+        return online_client(sys.argv[2:])
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -6960,6 +7544,7 @@ def run_phases(torch, info: dict, exports: dict, serve_dir: str) -> int:
     serve = phase_serve(torch, exports, serve_dir)
     serve_http = phase_serve_http(torch, exports, info)
     san_serve = phase_san_serve(torch, exports, serve_http, serve_dir)
+    online = phase_online_loop(torch, exports, info)
     meshes = phase_parallel(torch)
     emit(kernels_line(kern, {"mnist": mnist["launches"],
                              "cifar": cifar["launches"],
@@ -6984,6 +7569,7 @@ def run_phases(torch, info: dict, exports: dict, serve_dir: str) -> int:
                              "serve": serve["launches"],
                              "serve_http": serve_http["launches"],
                              "san_serve": san_serve["launches"],
+                             **online,
                              **plane,
                              **{f"routing_{r}": routing[r]["launches"]
                                 for r in ROUTINGS}, **narrow, **meshes}))

@@ -219,6 +219,38 @@ def test_run_matches_reference_run_fused(monkeypatch):
         for la in wf.layers_config]
 
 
+class _RecordingWorkflow:
+    """A stand-in for AlexNetWorkflow that records what run() hands it."""
+
+    calls: list = []
+
+    def __init__(self, **kwargs):
+        self.calls.append(("init", kwargs))
+        self.decision = type("D", (), {"max_epochs": None})()
+
+    def initialize(self, device=None):
+        self.calls.append(("initialize", {"device": device}))
+
+    def train(self, **kwargs):
+        self.calls.append(("train", kwargs))
+
+
+def test_run_passes_its_mesh_to_train(monkeypatch):
+    """run(mesh=...) reaches train(mesh=...) as the reference's does; a
+    mesh swallowed into the workflow's kwargs trained on one device."""
+    mesh = object()
+    got = {}
+    for name, module in (("port", alexnet), ("ref", ref_alexnet)):
+        _RecordingWorkflow.calls = []
+        monkeypatch.setattr(module, "AlexNetWorkflow", _RecordingWorkflow)
+        module.run(device="cpu", epochs=1, mesh=mesh)
+        got[name] = [(k, {a: v for a, v in kw.items() if a != "device"})
+                     for k, kw in _RecordingWorkflow.calls]
+    assert got["port"] == got["ref"] == [
+        ("init", {}), ("initialize", {}),
+        ("train", {"fused": True, "mesh": mesh, "max_epochs": 1})]
+
+
 #: (x shape, w shape, stride, padding): AlexNet's conv1 at its full
 #: spatial size, conv2 at its own with narrow channels
 CONV_GEOMS = {"conv1": ((2, 227, 227, 3), (11, 11, 3, 8), 4, 0),

@@ -20,6 +20,8 @@ from znicz_tpu_torch.config import root
 from znicz_tpu_torch.models import mnist
 
 SPLIT = {"n_train": 300, "n_valid": 100, "n_test": 100}
+#: the MNIST sample's default minibatch in both packages
+MINIBATCH = 100
 OPTIONS = {"accumulate": {"accumulate_gradient": True},
            "no_apply": {"apply_gradient": False}}
 
@@ -34,13 +36,18 @@ def _torch_threads():
 
 @pytest.fixture
 def split():
-    saved = (ref_root.mnist.synthetic.to_dict(),
-             root.mnist.synthetic.to_dict())
-    ref_root.mnist.synthetic.update(SPLIT)
-    root.mnist.synthetic.update(SPLIT)
+    """Both trees at SPLIT and the samples' default minibatch: a JAX test
+    of the same worker may leave the reference's minibatch size changed
+    (tests/test_distributable.py sets 64)."""
+    saved = [(t.mnist.synthetic.to_dict(), t.mnist.get("minibatch_size"))
+             for t in (ref_root, root)]
+    for t in (ref_root, root):
+        t.mnist.synthetic.update(SPLIT)
+        t.mnist.minibatch_size = MINIBATCH
     yield
-    ref_root.mnist.synthetic.update(saved[0])
-    root.mnist.synthetic.update(saved[1])
+    for t, (syn, mb) in zip((ref_root, root), saved):
+        t.mnist.synthetic.update(syn)
+        t.mnist.minibatch_size = mb
 
 
 def _layers(tree, option: str) -> list:

@@ -249,10 +249,30 @@ def test_distributed_options_raise(args, small_mnist, config_file,
             int(v) for v in (args[1] + ",1").split(",")[:2])
 
 
-def test_compile_cache_option_raises():
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        main(["znicz_tpu_torch.models.mnist", "--device", "cpu",
-              "--compile-cache-dir", "cache"])
+def test_compile_cache_option_raises(small_mnist, config_file, tmp_path,
+                                     monkeypatch, capsys):
+    """``--compile-cache-dir`` raised until the kernel-build cache was
+    ported; now the launcher points the kernel builds at it before the
+    run (as the reference enables its compile cache), and an unusable
+    directory runs uncached instead of raising."""
+    from znicz_tpu_torch import compilecache, cuda_build
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", cuda_build.BUILD_DIR)
+    monkeypatch.setattr(compilecache, "_active_dir", None)
+    cache = tmp_path / "cache"
+    assert main(["znicz_tpu_torch.models.mnist", config_file, "--device",
+                 "cpu", "--epochs", "1", "--compile-cache-dir",
+                 str(cache)]) == 0
+    assert "'epoch': 0" in capsys.readouterr().out
+    assert cuda_build.BUILD_DIR == cache and cache.is_dir()
+    assert compilecache.active_dir() == str(cache)
+    blocker = tmp_path / "file"
+    blocker.write_text("x")
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", cuda_build.BUILD_DIR)
+    ln = Launcher("znicz_tpu_torch.models.mnist", config=config_file,
+                  device="cpu", epochs=1,
+                  compile_cache_dir=str(blocker / "cache"))
+    ln.run()
+    assert cuda_build.BUILD_DIR == cache
 
 
 def test_single_device_mesh_is_the_fused_path(small_mnist, config_file,

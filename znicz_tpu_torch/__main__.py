@@ -31,17 +31,22 @@ fused step over its ranks (implying ``--fused``)::
     python -m znicz_tpu_torch.parallel.elastic -n 2 -- \
         -m znicz_tpu_torch znicz_tpu_torch.models.mnist --mesh 2
 
-``--compile-cache-dir`` parses as the reference's does and raises
-(ROADMAP.md queue 1 item 10).
+``--compile-cache-dir DIR`` builds and loads the kernels in DIR, so a
+second run sharing it compiles nothing (:mod:`znicz_tpu_torch.compilecache`).
+
+``python -m znicz_tpu_torch promote ...`` runs the promotion controller
+(:func:`znicz_tpu_torch.promotion.cli.main`) and ``python -m
+znicz_tpu_torch online-train ...`` the continual trainer
+(:func:`znicz_tpu_torch.online.cli.main`): with ``serve --capture-dir``
+they close the live-data loop (docs/online.md).
 
 ``python -m znicz_tpu_torch lint [--format json] [--changed] ...`` runs
 zlint over the port (:func:`znicz_tpu_torch.analysis.cli.main`; exit 0
 when nothing new fires).
 
-The reference's other sub-commands (``route``, ``autoscale``, ``chaos``,
-``promote``, ``online-train``) are not ported yet: each raises and
-names the ROADMAP.md queue 1 item that brings it, instead of being read
-as a workflow module."""
+The reference's other sub-commands (``route``, ``autoscale``, ``chaos``)
+are not ported yet: each raises and names the ROADMAP.md queue 1 item
+that brings it, instead of being read as a workflow module."""
 
 from __future__ import annotations
 
@@ -91,7 +96,9 @@ def make_parser() -> argparse.ArgumentParser:
                         "run's ranks, implying --fused; 1 or 1,1 is one "
                         "device")
     p.add_argument("--compile-cache-dir", default=None, metavar="DIR",
-                   help="persistent compile cache (not ported: raises)")
+                   help="persistent kernel-build cache: kernels build "
+                        "into and load from DIR (also: "
+                        "$ZNICZ_COMPILE_CACHE)")
     return p
 
 
@@ -101,8 +108,6 @@ UNPORTED_COMMANDS = {
     "route": "item 11 (the fleet router)",
     "autoscale": "item 11 (the fleet autoscaler)",
     "chaos": "item 10 (resilience/chaos.py)",
-    "promote": "item 10 (the promotion controller)",
-    "online-train": "item 10 (the online loop)",
 }
 
 
@@ -116,6 +121,12 @@ def main(argv=None) -> int:
     if argv and argv[0] == "lint":
         from .analysis.cli import main as lint_main
         return lint_main(argv[1:])
+    if argv and argv[0] == "promote":
+        from .promotion.cli import main as promote_main
+        return promote_main(argv[1:])
+    if argv and argv[0] == "online-train":
+        from .online.cli import main as online_main
+        return online_main(argv[1:])
     if argv and argv[0] in UNPORTED_COMMANDS:
         raise NotImplementedError(
             f"`{argv[0]}` is not ported yet: it comes with ROADMAP.md "

@@ -4,7 +4,10 @@
 Each ``csrc/<name>.cu`` becomes ``build/<name>-<hash>.so`` with a plain C
 interface (no PyTorch headers, so one source compiles in seconds).  The
 hash covers every source and header under ``csrc/`` and the flags, so an
-edit rebuilds and an unchanged tree reuses the library.  A lock file per
+edit rebuilds and an unchanged tree reuses the library.  The libraries live
+in :data:`BUILD_DIR` (the package's ``build/``, or the directory
+``compilecache.enable`` points it at, which later processes share);
+:data:`BUILDS` counts the compiler runs of this process.  A lock file per
 library keeps two processes from racing on one build.  Nothing here runs
 at import time: a library is built at first use, or up front (all sources
 in parallel) with :func:`build_all`.
@@ -33,9 +36,14 @@ BUILD_DIR = PACKAGE_DIR / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
+#: compiler runs of this process, by compiler: a start-up whose kernels
+#: were all built before (the kernel-build cache) counts none
+BUILDS = {"nvcc": 0, "g++": 0}
+
 _loaded: dict[str, ctypes.CDLL] = {}
 _functions: dict = {}
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 
 
 class BuildError(RuntimeError):
@@ -88,8 +96,15 @@ def _start(name: str, out: Path) -> subprocess.Popen:
     if not src.is_file():
         raise BuildError(f"no CUDA source {src}")
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(out), str(src)]
-    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True)
+    _count_build("nvcc")
+    return proc
+
+
+def _count_build(compiler: str) -> None:
+    with _count_lock:        # load() holds _lock while it builds
+        BUILDS[compiler] += 1
 
 
 def build_all(names: list[str] | None = None) -> dict[str, Path]:
@@ -198,6 +213,7 @@ def build_host(name: str, source: Path, headers=(), flags=CXX_FLAGS,
                         capture_output=True, text=True)
                 except OSError as e:
                     raise BuildError(f"{cxx} could not run: {e}") from e
+                _count_build("g++")
                 if proc.returncode != 0:
                     tmp.unlink(missing_ok=True)
                     raise BuildError(f"{cxx} failed on {source} (exit "

@@ -15,9 +15,10 @@ Multi-process runs: ``coordinator`` (``host:port`` of process 0),
 (``parallel.distributed.initialize``; torch's ``MASTER_ADDR``/
 ``MASTER_PORT``/``RANK``/``WORLD_SIZE`` as ``torchrun`` sets them do too),
 and ``mesh`` (``"dp[,tp]"``) lands in ``root.common.mesh_shape``, where the
-fused path's mesh adoption reads it.  The reference's compile cache is
-taken so the same command lines parse, and raises (ROADMAP.md queue 1
-item 10)."""
+fused path's mesh adoption reads it.  ``compile_cache_dir`` (default:
+``$ZNICZ_COMPILE_CACHE``) points the kernel builds at a directory later
+runs share (:mod:`znicz_tpu_torch.compilecache`), before anything
+builds."""
 
 from __future__ import annotations
 
@@ -66,11 +67,6 @@ class Launcher:
                  compile_cache_dir: str | None = None):
         if mesh is not None:
             parse_mesh_arg(mesh)          # junk fails before any work
-        if compile_cache_dir is not None:
-            raise NotImplementedError(
-                "--compile-cache-dir: the persistent build cache is not "
-                "ported yet (ROADMAP.md queue 1 item 10); kernels build "
-                "into znicz_tpu_torch/build/")
         self.workflow_spec = workflow
         self.config_path = config
         self.device = device
@@ -85,6 +81,7 @@ class Launcher:
         self.num_processes = num_processes
         self.process_id = process_id
         self.mesh = mesh
+        self.compile_cache_dir = compile_cache_dir
         self.workflow = None
         self.module = None
 
@@ -134,6 +131,10 @@ class Launcher:
         must win over both, and deep paths resolve only once the module's
         defaults exist."""
         self.init_distributed()
+        # the kernel-build cache must be live before any kernel of the
+        # run builds (env default: $ZNICZ_COMPILE_CACHE)
+        from . import compilecache
+        compilecache.enable(self.compile_cache_dir)
         if self.config_path:
             exec_config_file(self.config_path)
         module = load_workflow_module(self.workflow_spec)

@@ -185,17 +185,19 @@ class AlexNetWorkflow(StandardWorkflow):
 
 
 def run(device=None, epochs: int | None = None, fused: bool = True,
-        **kwargs) -> AlexNetWorkflow:
+        mesh=None, **kwargs) -> AlexNetWorkflow:
     """Build, initialize and train on ``device`` (default: the CUDA card,
     raising without one; pass ``device="cpu"`` for the host, ``"numpy"``
     for the golden unit graph).  ``fused=True`` (the default, as the
     reference's) trains on the fused path, ``fused=False`` on the unit
-    graph.  Returns the finished workflow."""
+    graph; ``mesh`` (a ``parallel.mesh.Mesh`` or a (dp, tp) shape) lays
+    the fused step over the run's ranks.  Returns the finished
+    workflow."""
     wf = AlexNetWorkflow(**kwargs)
     if epochs is not None:
         wf.decision.max_epochs = epochs
     wf.initialize(device=device)
-    wf.train(fused=fused, max_epochs=epochs)
+    wf.train(fused=fused, mesh=mesh, max_epochs=epochs)
     return wf
 
 

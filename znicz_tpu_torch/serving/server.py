@@ -103,10 +103,13 @@ docs/serving.md "Wire protocol"):
   numbers as Prometheus text exposition v0.0.4, including the
   ``predict_latency_ms`` histogram and ``breaker_state``.
 
-Traffic tap: :class:`ServingServer` takes a ``capture`` object whose
-``append(x, y, model=)`` gets every SERVED answer; the reference's
-``--capture-dir`` tap (``online/capture.py``) is not ported yet, so the
-flag raises.  Served 200s also carry an ``X-Model-Generation`` header —
+Traffic tap (``--capture-dir``; docs/online.md): every SERVED
+``/predict`` answer is appended to a bounded, fsync'd segment ring
+(``online.capture.CaptureLog``) that ``python -m znicz_tpu_torch
+online-train`` replays.  The tap is fail-open by construction (it only
+enqueues; a capture failure of ANY kind is a counted drop, never a
+failed or delayed answer) and seeded-sampled (``--capture-sample``).
+Served 200s also carry an ``X-Model-Generation`` header —
 the backend-reported generation a fleet router's response memoization
 keys on.
 
@@ -1737,9 +1740,10 @@ def main(argv=None) -> int:
     """CLI entry for ``python -m znicz_tpu_torch serve``: every flag of the
     reference's ``serve``.  ``--backend auto`` means the CUDA card and
     raises without one; ``cpu`` (torch on the host) and ``native`` (the
-    C++ engine) are chosen explicitly.  ``--tp`` above 1,
-    ``--compile-cache-dir`` and ``--capture-dir`` parse and raise,
-    naming the ROADMAP.md queue 1 item that brings them."""
+    C++ engine) are chosen explicitly.  ``--tp`` above 1 parses and
+    raises, naming the ROADMAP.md queue 1 item that brings it.
+    ``--compile-cache-dir`` points the kernel builds at a directory
+    later starts share; at exit the process prints its compiler runs."""
     import argparse
 
     p = argparse.ArgumentParser(
@@ -1815,8 +1819,10 @@ def main(argv=None) -> int:
                         "every served /predict (input, outputs) pair "
                         "to a bounded fsync'd segment ring in DIR — "
                         "fail-open (a capture failure never fails or "
-                        "delays an answer; not ported yet: raises, "
-                        "ROADMAP.md queue 1 item 10)")
+                        "delays an answer; drops are counted in "
+                        "capture_dropped_total), replayed by `python "
+                        "-m znicz_tpu_torch online-train` "
+                        "(docs/online.md)")
     p.add_argument("--capture-sample", type=float, default=1.0,
                    help="fraction of served answers captured "
                         "(seeded; the rest count as "
@@ -1889,8 +1895,11 @@ def main(argv=None) -> int:
                         "and generation; round-robin dispatch routes "
                         "around a replica whose breaker is open")
     p.add_argument("--compile-cache-dir", default=None, metavar="DIR",
-                   help="persistent on-disk compile cache (not ported: "
-                        "raises, ROADMAP.md queue 1 item 10)")
+                   help="persistent kernel-build cache: the hand-written "
+                        "kernels build into and load from DIR, so a "
+                        "second cold start runs no compiler (also: "
+                        "$ZNICZ_COMPILE_CACHE; an unusable DIR logs and "
+                        "runs uncached)")
     p.add_argument("--slo", action="append", metavar="SPEC",
                    help="declare one SLO judged as rolling multi-"
                         "window burn rates: NAME[,model=M]"
@@ -1940,14 +1949,6 @@ def main(argv=None) -> int:
             f"serve --tp {args.tp}: tensor-parallel serving is not ported "
             f"yet; it comes with the port's parallelism (ROADMAP.md queue "
             f"1 item 9)")
-    if args.compile_cache_dir is not None:
-        raise NotImplementedError(
-            "serve --compile-cache-dir: the persistent compile cache is "
-            "not ported yet (ROADMAP.md queue 1 item 10)")
-    if args.capture_dir is not None:
-        raise NotImplementedError(
-            "serve --capture-dir: the traffic tap (online/capture.py) is "
-            "not ported yet (ROADMAP.md queue 1 item 10)")
     backend = "cuda" if args.backend == "auto" else args.backend
     # -- the model set: --zoo DIR scanned first, --model specs second
     # (a NAME=PATH spec overrides the scanned entry of the same name;
@@ -1990,12 +1991,14 @@ def main(argv=None) -> int:
     if args.fault_plan is not None:
         from ..resilience import faults as _faults
         _faults.install(_faults.parse_plan(args.fault_plan))
-    # the reference registers its promotion families (promotions_total,
-    # promotion_generation, slo_breaches_total) here by importing its
-    # promotion package, which is not ported yet (ROADMAP.md queue 1
-    # item 10).  The SLO families (slo_burn_rate / slo_budget_remaining
-    # / slo_alerts_total) are registered at import, scraped from zero
-    # even on replicas serving without --slo
+    # register the promotion metric families (promotions_total,
+    # promotion_generation, slo_breaches_total) so every serving
+    # process scrapes them from zero — a dashboard must not see the
+    # series appear only once a controller starts driving this replica
+    from .. import promotion as _promotion  # noqa: F401
+    # same contract for the SLO families (slo_burn_rate /
+    # slo_budget_remaining / slo_alerts_total): registered at import,
+    # scraped from zero even on replicas serving without --slo
     from ..telemetry import sloengine
     slo_specs = []
     for raw in args.slo or []:
@@ -2005,6 +2008,11 @@ def main(argv=None) -> int:
             p.error(str(e))
     from ..resilience.breaker import CircuitBreaker
     from ..resilience.retry import RetryPolicy
+    # the kernel-build cache must be live before any engine loads a
+    # kernel (warm-up or the first request): a second cold start then
+    # finds every library built
+    from .. import compilecache, cuda_build
+    compilecache.enable(args.compile_cache_dir)
     buckets = tuple(int(b) for b in args.buckets.split(","))
     # the retry budget is deliberately ONE object shared by every
     # replica's RetryPolicy and the hedge policy: unlike breakers
@@ -2088,6 +2096,7 @@ def main(argv=None) -> int:
     profile_dir = args.profile_dir or profiler.dir_from_env()
     server = None
     slo_engine = None
+    capture = None
     try:
         # the trace starts BEFORE the server exists: the profiler
         # hooks every live Python thread, and hooking a
@@ -2122,6 +2131,20 @@ def main(argv=None) -> int:
         # construct THEN start: if start() unwinds (KeyboardInterrupt),
         # `server` must already be bound so the finally below can stop
         # it — a skipped stop() leaks the registry collector
+        if args.capture_dir:
+            # the traffic tap (docs/online.md): built before the
+            # server so the first served answer can already capture;
+            # closed in the finally below — the ring outlives the
+            # process (a restarted server appends after it)
+            from ..online.capture import CaptureLog
+            capture = CaptureLog(
+                args.capture_dir,
+                max_bytes=int(args.capture_mb * 1e6),
+                sample=args.capture_sample)
+            print(f"capturing served traffic into "
+                  f"{args.capture_dir} (sample "
+                  f"{args.capture_sample:g}, budget "
+                  f"{args.capture_mb:g} MB)", flush=True)
         kwargs = dict(host=args.host, port=args.port,
                       max_batch=args.max_batch,
                       max_wait_ms=args.max_wait_ms,
@@ -2133,6 +2156,7 @@ def main(argv=None) -> int:
                       shed_target_ms=shed_target_ms,
                       memo_entries=args.memoize,
                       memo_mb=args.memoize_mb,
+                      capture=capture,
                       trace_sample=args.trace_sample)
         server = (ServingServer(engine, **kwargs) if zoo is None
                   else ServingServer(zoo=zoo, **kwargs))
@@ -2241,7 +2265,13 @@ def main(argv=None) -> int:
             slo_engine.stop()
         if server is not None:
             server.stop()
+        if capture is not None:
+            # after server.stop(): no new appends, so the drain is
+            # bounded and the tail fsync covers the last answers
+            capture.close()
         closer()      # zoo.close() (every engine) or engine.close()
+        print(f"kernel builds: {json.dumps(cuda_build.BUILDS)} "
+              f"(build dir {cuda_build.BUILD_DIR})", flush=True)
     return 0
 
 

@@ -127,10 +127,13 @@ def statusz_text(server=None, *, recorder=None, extra: dict | None = None
     lines.append(f"rev: {rev or 'unknown'}")
     lines.append(f"uptime_s: {process_uptime_s():.1f} "
                  f"(started at {started_at():.3f})")
-    # where this checkout's hand-written kernels are built (the
-    # reference prints its XLA compile cache here)
-    from .. import cuda_build
-    lines.append(f"kernel_build_dir: {cuda_build.BUILD_DIR}")
+    # where this checkout's hand-written kernels are built and how many
+    # compiler runs this process made (the reference prints its XLA
+    # compile cache here)
+    from .. import compilecache, cuda_build
+    lines.append(f"compile_cache: {compilecache.active_dir() or 'off'}")
+    lines.append(f"kernel_build_dir: {cuda_build.BUILD_DIR} (builds "
+                 f"{_fmt_kv(cuda_build.BUILDS)})")
     if extra:
         lines.append(_fmt_kv(extra))
     if server is not None:
